@@ -69,10 +69,14 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
 
 
 def cache_from_jax(tree: dict, device="cuda") -> dict:
-    """The reference's lock-step cache (numpy leaves) as a port cache."""
+    """The reference's cache (numpy leaves) as a port cache: lock-step
+    (``pos`` a scalar, ``slot_pos (C,)``) or per-slot (``pos (B,)``,
+    ``slot_pos (B, C)``).  K/V are stacked over layers on both sides."""
     device = resolve_device(device)
+    pos = np.asarray(tree["pos"])
     return {
-        "pos": int(np.asarray(tree["pos"])),
+        "pos": (int(pos) if pos.ndim == 0
+                else tensor_from_numpy(pos, device, torch.int32)),
         "k": tensor_from_numpy(tree["k"], device),
         "v": tensor_from_numpy(tree["v"], device),
         "slot_pos": tensor_from_numpy(tree["slot_pos"], device, torch.int32),
@@ -82,8 +86,10 @@ def cache_from_jax(tree: dict, device="cuda") -> dict:
 def cache_to_numpy(cache: dict) -> dict:
     """A port cache as numpy arrays (K/V widened to float32) under the
     reference's keys, for comparison with the reference's cache."""
+    pos = cache["pos"]
     return {
-        "pos": np.int32(cache["pos"]),
+        "pos": (pos.cpu().numpy() if isinstance(pos, torch.Tensor)
+                else np.int32(pos)),
         "k": cache["k"].to(torch.float32).cpu().numpy(),
         "v": cache["v"].to(torch.float32).cpu().numpy(),
         "slot_pos": cache["slot_pos"].cpu().numpy(),

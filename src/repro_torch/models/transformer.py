@@ -1,11 +1,12 @@
-"""Dense decoder of the port: the lock-step serving path.
+"""Dense decoder of the port: lock-step and slot-batched serving.
 
 Counterpart of ``src/repro/models/transformer.py``, cut to what greedy
 serving of a dense decoder runs: ``init_params``, ``init_cache``,
-``prefill`` and ``decode_step`` over the dense / GQA / SWA / qk-norm /
-GeGLU layer.  MoE, RWKV, hybrid-SSM, enc-dec and VLM families, the
-per-slot cache, the int8 cache and ``forward_train`` are still to be
-ported (ROADMAP.md, Queue 1) and raise ``NotImplementedError``.
+``prefill`` and ``decode_step`` (lock-step), ``decode_slots``,
+``chunk_prefill`` and the slot cache operations (continuous batching), over
+the dense / GQA / SWA / qk-norm / GeGLU layer.  MoE, RWKV, hybrid-SSM,
+enc-dec and VLM families, the int8 cache and ``forward_train`` are still
+to be ported (ROADMAP.md, Queue 1) and raise ``NotImplementedError``.
 
 What differs from the reference, by design:
 
@@ -14,11 +15,17 @@ What differs from the reference, by design:
   decoder is a Python loop over layers.  ``convert.params_from_jax``
   unstacks a reference pytree into this layout.
 * The cache is **updated in place**, the counterpart of the reference
-  donating it to the compiled step: ``prefill`` and ``decode_step`` write
-  into the tensors of the cache they are given and return that same
-  dictionary.  ``cache["pos"]`` is a Python int (one position for the
-  whole lock-step batch), so a decode step reads nothing back from the
-  card.
+  donating it to the compiled step: ``prefill``, ``decode_step``,
+  ``decode_slots``, ``chunk_prefill``, ``cache_insert_slot`` and
+  ``cache_evict_slot`` write into the tensors of the cache they are given
+  and return that same dictionary (``cache_extract_slot`` returns a
+  copy).  In the lock-step cache ``cache["pos"]`` is a Python int (one
+  position for the whole batch), so a decode step reads nothing back from
+  the card; in the per-slot cache it is an int32 tensor (B,) on the device.
+* On CUDA tensors the attention of one new token against the cache (both
+  decode steps) is the hand-written ``kernels/decode_attention`` kernel;
+  on CPU tensors, and for chunks of more than one token, it is
+  ``layers.gqa_attention`` with an additive mask, as in the reference.
 * There is no ``mesh`` argument: the port runs on one GPU.
 """
 
@@ -29,6 +36,7 @@ from typing import Any, Optional
 
 import torch
 
+from repro_torch.kernels.decode_attention.ops import decode_attn
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnSpec, apply_rope, attn_mask_bias,
                                        chunked_gqa_attention, gqa_attention,
@@ -181,17 +189,16 @@ class CacheSpec:
     capacity: int                  # KV slots per layer (ring buffer)
     batch: int
     kv_dtype: Any = torch.bfloat16
-    per_slot: bool = False         # per-request slots: not ported yet
+    per_slot: bool = False         # independent per-request slots
+                                   # (pos: (B,), slot_pos: (B, C))
 
 
 def init_cache(cfg: ModelConfig, spec: CacheSpec, device="cuda") -> dict:
-    """Ring KV cache ``(L, B, Hkv, C, hd)`` with ``slot_pos (C,)`` tags
-    (``POS_SENTINEL`` = unwritten) and ``pos`` (Python int)."""
+    """Ring KV cache ``(L, B, Hkv, C, hd)`` with ``slot_pos`` tags
+    (``POS_SENTINEL`` = unwritten).  Lock-step: ``slot_pos (C,)`` and
+    ``pos`` a Python int; per-slot: ``slot_pos (B, C)`` and ``pos`` an
+    int32 tensor (B,), both on the device."""
     _require_dense(cfg)
-    if spec.per_slot:
-        raise NotImplementedError(
-            "per-slot caches not ported yet (ROADMAP.md, Queue 1, "
-            "'Slot path + continuous batching')")
     if spec.kv_dtype == torch.int8:
         raise NotImplementedError(
             "int8 KV cache not ported yet (ROADMAP.md, Queue 1, "
@@ -199,12 +206,15 @@ def init_cache(cfg: ModelConfig, spec: CacheSpec, device="cuda") -> dict:
     device = resolve_device(device)
     kv_shape = (cfg.num_layers, spec.batch, cfg.num_kv_heads, spec.capacity,
                 cfg.resolved_head_dim)
+    tags = ((spec.batch, spec.capacity) if spec.per_slot
+            else (spec.capacity,))
     return {
-        "pos": 0,
+        "pos": (torch.zeros((spec.batch,), dtype=torch.int32, device=device)
+                if spec.per_slot else 0),
         "k": torch.zeros(kv_shape, dtype=spec.kv_dtype, device=device),
         "v": torch.zeros(kv_shape, dtype=spec.kv_dtype, device=device),
-        "slot_pos": torch.full((spec.capacity,), POS_SENTINEL,
-                               dtype=torch.int32, device=device),
+        "slot_pos": torch.full(tags, POS_SENTINEL, dtype=torch.int32,
+                               device=device),
     }
 
 
@@ -247,8 +257,10 @@ def _self_attention_decode(x, p, cfg: ModelConfig, spec: AttnSpec,
                            k_cache, v_cache, ctx: dict):
     """x: (B,1,d), one token at absolute position ``ctx["pos"]`` against
     the ring cache (B,Hkv,C,hd).  The new K/V row is written **in place**
-    at slot ``pos % C`` before attention.  The rope tables and the mask
-    are the same for every layer and come ready in ``ctx``."""
+    at slot ``pos % C`` before attention.  The rope tables (and, on the
+    CPU, the mask) are the same for every layer and come ready in ``ctx``.
+    On the card attention is the ``decode_attention`` kernel with the
+    Pallas kernel's own signature (``slot_pos (C,)``, scalar position)."""
     b, s, _ = x.shape
     c = k_cache.shape[2]
     q, k_new, v_new = _project_qkv(x, p, cfg)          # (B,H,1,hd)
@@ -257,10 +269,59 @@ def _self_attention_decode(x, p, cfg: ModelConfig, spec: AttnSpec,
     slot = ctx["pos"] % c
     k_cache[:, :, slot:slot + 1, :] = k_new.to(k_cache.dtype)
     v_cache[:, :, slot:slot + 1, :] = v_new.to(v_cache.dtype)
+    if q.is_cuda:
+        out = decode_attn(q.reshape(b, spec.num_heads, spec.head_dim),
+                          k_cache, v_cache, ctx["slot_pos"], ctx["pos"],
+                          window=spec.sliding_window, scale=spec.scale)
+        return linear(out.reshape(b, s, -1), p["w_o"])
     out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
                         ctx["bias"], spec)
     out = out.transpose(1, 2).reshape(b, s, -1)
     return linear(out, p["w_o"])
+
+
+def _self_attention_slots(x, p, cfg: ModelConfig, spec: AttnSpec,
+                          k_cache, v_cache, ctx: dict):
+    """Per-slot cached attention: every batch row sits at its own absolute
+    position.  x: (B,T,d), ``ctx["positions"]`` (B,T) per-row token
+    positions, ``ctx["slot_pos"]`` (B,C) per-row ring tags (already
+    updated for this step's writes), caches (B,Hkv,C,hd).  Serves both the
+    continuous-batching decode step (T=1, B=slots) and chunked prefill
+    (B=1, T=chunk).  The T new K/V rows are written **in place** into each
+    row's ring slots.  At T=1 on the card attention is the
+    ``decode_attention`` kernel with per-row positions; otherwise
+    ``gqa_attention`` with the per-row mask, as the reference."""
+    b, t, _ = x.shape
+    c = k_cache.shape[2]
+    positions = ctx["positions"]
+    q, k_new, v_new = _project_qkv(x, p, cfg)          # (B,H,T,hd)
+    q = apply_rope(q, ctx["sin"], ctx["cos"])
+    k_new = apply_rope(k_new, ctx["sin"], ctx["cos"])
+    rows = torch.arange(b, device=x.device)[:, None]   # (B,1)
+    slots = (positions % c).long()                     # (B,T), distinct (T<=C)
+    k_cache[rows, :, slots, :] = k_new.to(k_cache.dtype).transpose(1, 2)
+    v_cache[rows, :, slots, :] = v_new.to(v_cache.dtype).transpose(1, 2)
+    if t == 1 and q.is_cuda:
+        out = decode_attn(q.reshape(b, spec.num_heads, spec.head_dim),
+                          k_cache, v_cache, ctx["slot_pos"], ctx["q_pos"],
+                          window=spec.sliding_window, scale=spec.scale)
+        return linear(out.reshape(b, t, -1), p["w_o"])
+    out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
+                        ctx["bias"], spec)
+    out = out.transpose(1, 2).reshape(b, t, -1)
+    return linear(out, p["w_o"])
+
+
+def _slots_bias(spec: AttnSpec, slot_pos: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Per-row additive mask (B,1,1,T,C) from the ring tags: 0 where
+    attendable, -inf where masked (sentinel slots mask out)."""
+    ok = slot_pos[:, None, :] <= positions[:, :, None]
+    if spec.sliding_window:
+        ok &= slot_pos[:, None, :] > positions[:, :, None] - spec.sliding_window
+    bias = torch.zeros(ok.shape, dtype=torch.float32, device=ok.device)
+    bias.masked_fill_(~ok, float("-inf"))
+    return bias[:, None, None, :, :]
 
 
 def _fill_ring(buf: torch.Tensor, val: torch.Tensor, total_seq: int) -> None:
@@ -285,6 +346,9 @@ def _decoder_layer(x, p, cfg: ModelConfig, spec: AttnSpec, ctx: dict,
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if ctx["mode"] == "decode":
         attn_out = _self_attention_decode(
+            h, p["attn"], cfg, spec, layer_cache["k"], layer_cache["v"], ctx)
+    elif ctx["mode"] == "slots":
+        attn_out = _self_attention_slots(
             h, p["attn"], cfg, spec, layer_cache["k"], layer_cache["v"], ctx)
     else:
         attn_out, k, v = _self_attention_full(
@@ -365,7 +429,104 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     sin, cos = rope_tables(pos_t, cfg.resolved_head_dim, cfg.rope_theta)
     ctx = {"mode": "decode", "pos": pos, "sin": sin, "cos": cos,
-           "bias": attn_mask_bias(attn_spec(cfg), pos_t, cache["slot_pos"])}
+           "slot_pos": cache["slot_pos"]}
+    if not x.is_cuda:       # the kernel masks by the tags itself
+        ctx["bias"] = attn_mask_bias(attn_spec(cfg), pos_t, cache["slot_pos"])
     x = _run_decoder(params, cfg, x, ctx, cache)
     cache["pos"] = pos + 1
     return _logits(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# slot-addressable serving (continuous batching)
+# ---------------------------------------------------------------------------
+
+def _tag_slots(slot_pos: torch.Tensor, positions: torch.Tensor) -> None:
+    """Tag each row's ring slots with this step's absolute positions, in
+    place.  slot_pos: (B,C), positions: (B,T); T <= C keeps the slots
+    distinct."""
+    c = slot_pos.shape[1]
+    slot_pos.scatter_(1, (positions % c).long(), positions)
+
+
+def _slots_ctx(cfg: ModelConfig, cache: dict,
+               positions: torch.Tensor) -> dict:
+    """Tag the ring (in place) and build what every layer shares: rope
+    tables, the tags and the query positions, and the mask where
+    ``gqa_attention`` needs one (chunks, or the CPU)."""
+    _tag_slots(cache["slot_pos"], positions)
+    sin, cos = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    ctx = {"mode": "slots", "positions": positions, "sin": sin, "cos": cos,
+           "slot_pos": cache["slot_pos"], "q_pos": positions[:, 0]}
+    if positions.shape[1] > 1 or not positions.is_cuda:
+        ctx["bias"] = _slots_bias(attn_spec(cfg), cache["slot_pos"],
+                                  positions)
+    return ctx
+
+
+def decode_slots(params, cfg: ModelConfig, token: torch.Tensor,
+                 cache: dict) -> tuple[torch.Tensor, dict]:
+    """One continuous-batching step: token (B,) against a per-slot cache
+    (``CacheSpec(per_slot=True)``: pos (B,), slot_pos (B,C)).  Every slot
+    advances by one token at its *own* position -> (logits (B,1,V), the
+    same cache, advanced in place)."""
+    _require_dense(cfg)
+    x = _embed(params, cfg, token[:, None])
+    positions = cache["pos"][:, None] + 0               # (B,1), a copy
+    ctx = _slots_ctx(cfg, cache, positions)
+    x = _run_decoder(params, cfg, x, ctx, cache)
+    cache["pos"] += 1
+    return _logits(params, cfg, x), cache
+
+
+def chunk_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  cache: dict) -> tuple[torch.Tensor, dict]:
+    """Advance a per-slot cache by a chunk of T prompt tokens, in place.
+
+    tokens: (B,T) starting at each row's ``cache["pos"]``.  Attention runs
+    against the ring cache (earlier chunks' K/V plus this chunk's, tagged
+    by absolute position), so while the prompt fits the ring any chunking
+    gives the same result as a single pass.  Returns (last-token logits
+    (B,1,V), the same cache)."""
+    _require_dense(cfg)
+    b, t = tokens.shape
+    if t > cache["slot_pos"].shape[1]:
+        raise ValueError(f"chunk of {t} tokens exceeds cache capacity "
+                         f"{cache['slot_pos'].shape[1]}")
+    x = _embed(params, cfg, tokens)
+    positions = cache["pos"][:, None] + torch.arange(
+        t, dtype=torch.int32, device=x.device)[None, :]
+    ctx = _slots_ctx(cfg, cache, positions)
+    x = _run_decoder(params, cfg, x, ctx, cache)
+    cache["pos"] += t
+    return _logits(params, cfg, x[:, -1:, :]), cache
+
+
+def _slot_batch_axis(key: str) -> int:
+    """Axis of the request/slot dim in a cache leaf."""
+    return 0 if key in ("pos", "slot_pos") else 1
+
+
+def cache_insert_slot(cache: dict, slot: int, req_cache: dict) -> dict:
+    """Insert a prefilled single-request cache (batch 1) into ``slot`` of a
+    per-slot batch cache, in place.  Shapes must agree except the
+    slot/batch dim."""
+    for key, buf in cache.items():
+        buf.narrow(_slot_batch_axis(key), slot, 1).copy_(req_cache[key])
+    return cache
+
+
+def cache_extract_slot(cache: dict, slot: int) -> dict:
+    """Inverse of ``cache_insert_slot``: one request's batch-1 cache (KV
+    ring plus ``pos``/``slot_pos``), as a **copy**: the slot cache is
+    mutated in place afterwards."""
+    return {key: buf.narrow(_slot_batch_axis(key), slot, 1).clone()
+            for key, buf in cache.items()}
+
+
+def cache_evict_slot(cache: dict, slot: int) -> dict:
+    """Free a slot in place: reset its position and mask every ring tag so
+    the stale K/V is unreachable.  The K/V buffers are left as they are."""
+    cache["pos"][slot] = 0
+    cache["slot_pos"][slot] = POS_SENTINEL
+    return cache

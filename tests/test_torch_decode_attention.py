@@ -1,0 +1,255 @@
+"""Decode attention of the port against the JAX reference, on the CPU.
+
+The CUDA kernel (``csrc/decode_attention.cu``) runs only on the card and is
+held to ``decode_attention_ref`` there by ``chip_smoke.py``.  Here the same
+numpy inputs go through the port's ``decode_attention_ref`` and through the
+reference's oracle, its Pallas kernel in interpret mode, and the model's
+masked ``gqa_attention`` (what ``_self_attention_slots`` computes at one
+token), so that the oracle the card compares against is pinned to the TPU
+kernel it replaces and to the model path it stands in for.
+
+Tolerances: against the Pallas kernel and the JAX oracle the kernel tests'
+``TOL`` (fp32 2e-4, bf16 6e-2, times max|ref| + 1); against the model's
+attention in fp32 1e-5 * (max|ref| + 1) (same arithmetic, another order).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.decode_attention.kernel import \
+    decode_attention as pallas_decode_attention
+from repro.kernels.decode_attention.ref import \
+    decode_attention_ref as jax_decode_attention_ref
+from repro.models import layers as jl
+from repro_torch.kernels.decode_attention.kernel import (
+    decode_attention_kernel, plan_splits)
+from repro_torch.kernels.decode_attention.ops import decode_attn
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.models import layers as tl
+
+TOL = {"float32": 2e-4, "bfloat16": 6e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+SENTINEL = 2 ** 30
+
+# (B, Hq, Hkv, C, D, window, pos): the cases of the reference's kernel test
+CASES = [
+    (2, 8, 2, 128, 32, 0, 100),        # partial cache
+    (1, 4, 4, 256, 16, 64, 300),       # ring buffer + window
+    (2, 2, 1, 64, 64, 0, 64),          # exactly full cache
+]
+
+
+def _ring_tags(c: int, pos: int) -> np.ndarray:
+    """slot_pos of a lock-step ring after ``pos`` tokens."""
+    idx = np.arange(c)
+    if pos <= c:
+        return np.where(idx < pos, idx, SENTINEL).astype(np.int32)
+    start = pos - c
+    return (start + (idx - start) % c).astype(np.int32)
+
+
+def _inputs(case, dtype: str, seed: int = 0):
+    b, hq, hkv, c, d, _, _ = case
+    rng = np.random.default_rng(seed)
+    arrays = [rng.normal(size=(b, hq, d)), rng.normal(size=(b, hkv, c, d)),
+              rng.normal(size=(b, hkv, c, d))]
+    arrays = [a.astype(np.float32) for a in arrays]
+    jax_side = [jnp.asarray(a, JDT[dtype]) for a in arrays]
+    torch_side = [torch.from_numpy(a).to(TDT[dtype]) for a in arrays]
+    return jax_side, torch_side
+
+
+def _err(out: torch.Tensor, ref) -> tuple[float, float]:
+    ref = np.asarray(jnp.asarray(ref, jnp.float32))
+    got = out.to(torch.float32).numpy()
+    assert got.shape == ref.shape
+    return float(np.max(np.abs(got - ref))), float(np.max(np.abs(ref))) + 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+def test_ref_matches_jax_oracle(case, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(case, dtype)
+    win, pos = case[5], case[6]
+    tags = _ring_tags(case[3], pos)
+    ref = jax_decode_attention_ref(jq, jk, jv, jnp.asarray(tags), pos,
+                                   window=win)
+    out = decode_attention_ref(tq, tk, tv, torch.from_numpy(tags), pos,
+                               window=win)
+    assert out.dtype == TDT[dtype]
+    err, scale = _err(out, ref)
+    assert err <= TOL[dtype] * scale, (case, dtype, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+def test_ref_matches_pallas_kernel(case, dtype):
+    """The oracle the CUDA kernel is held to agrees with the TPU kernel
+    (interpret mode) that the CUDA kernel replaces."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(case, dtype, seed=1)
+    win, pos = case[5], case[6]
+    tags = _ring_tags(case[3], pos)
+    ref = pallas_decode_attention(jq, jk, jv, jnp.asarray(tags), pos,
+                                  window=win, bk=64, interpret=True)
+    out = decode_attention_ref(tq, tk, tv, torch.from_numpy(tags), pos,
+                               window=win)
+    err, scale = _err(out, ref)
+    assert err <= TOL[dtype] * scale, (case, dtype, err)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+def test_per_row_form_matches_slot_attention(window):
+    """Per-row ``slot_pos (B, C)`` and ``q_pos (B,)``: what the reference's
+    ``_self_attention_slots`` computes at one token (its per-row mask
+    through ``gqa_attention``), one row with no live slot included."""
+    b, hq, hkv, c, d = 4, 10, 2, 48, 32
+    rng = np.random.default_rng(7)
+    q = rng.normal(size=(b, hq, d)).astype(np.float32)
+    k = rng.normal(size=(b, hkv, c, d)).astype(np.float32)
+    v = rng.normal(size=(b, hkv, c, d)).astype(np.float32)
+    q_pos = np.array([5, 47, 90, 0], np.int32)
+    tags = np.stack([_ring_tags(c, int(p) + 1) for p in q_pos])
+    tags[3] = SENTINEL                       # an evicted slot: nothing live
+    spec = jl.AttnSpec(hq, hkv, d, sliding_window=window)
+    ok = tags[:, None, :] <= q_pos[:, None, None]
+    if window:
+        ok &= tags[:, None, :] > q_pos[:, None, None] - window
+    bias = jnp.where(jnp.asarray(ok), 0.0, -jnp.inf).astype(jnp.float32)
+    ref = jl.gqa_attention(jnp.asarray(q)[:, :, None], jnp.asarray(k),
+                           jnp.asarray(v), bias[:, None, None], spec)[:, :, 0]
+    out = decode_attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), torch.from_numpy(tags),
+                               torch.from_numpy(q_pos), window=window)
+    err, scale = _err(out, ref)
+    assert err <= 1e-5 * scale, err
+    assert not out[3].any()
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_ref_matches_model_attention(case):
+    """On the lock-step cache the oracle computes what the CPU model runs
+    (``attn_mask_bias`` + ``gqa_attention`` of the port), so the kernel
+    that replaces the one on the card stands in for the other."""
+    _, (tq, tk, tv) = _inputs(case, "float32", seed=2)
+    b, hq, hkv, c, d, win, pos = case
+    tags = torch.from_numpy(_ring_tags(c, pos))
+    spec = tl.AttnSpec(hq, hkv, d, sliding_window=win)
+    bias = tl.attn_mask_bias(spec, torch.tensor([pos - 1]), tags)
+    model = tl.gqa_attention(tq[:, :, None], tk, tv, bias, spec)[:, :, 0]
+    out = decode_attention_ref(tq, tk, tv, tags, pos - 1, window=win)
+    err = float((out - model).abs().max())
+    assert err <= 1e-5 * (float(model.abs().max()) + 1.0), err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fully_masked_rows_give_zeros(dtype):
+    """A row with no attendable slot contributes exactly 0 (the Pallas
+    kernel's -1e30 fill would give the mean of V instead)."""
+    case = (2, 4, 2, 64, 16, 0, 10)
+    _, (tq, tk, tv) = _inputs(case, dtype, seed=3)
+    dead = torch.full((64,), SENTINEL, dtype=torch.int32)
+    out = decode_attention_ref(tq, tk, tv, dead, 10)
+    assert out.dtype == TDT[dtype] and not out.any()
+    # a window that has moved past every written slot
+    tags = torch.arange(64, dtype=torch.int32)
+    assert not decode_attention_ref(tq, tk, tv, tags, 500, window=8).any()
+
+
+def test_scale_argument():
+    case = CASES[0]
+    (jq, jk, jv), (tq, tk, tv) = _inputs(case, "float32", seed=4)
+    tags = _ring_tags(case[3], case[6])
+    ref = jax_decode_attention_ref(jq, jk, jv, jnp.asarray(tags), case[6],
+                                   scale=0.3)
+    out = decode_attention_ref(tq, tk, tv, torch.from_numpy(tags), case[6],
+                               scale=0.3)
+    err, scale = _err(out, ref)
+    assert err <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_decode_attn_on_cpu_takes_plain_path(case):
+    """A CPU tensor never reaches the kernel wrapper: same bits as
+    ``decode_attention_ref``, and the launch count stays."""
+    _, (tq, tk, tv) = _inputs(case, "float32")
+    tags = torch.from_numpy(_ring_tags(case[3], case[6]))
+    before = decode_attention_kernel.launches
+    out = decode_attn(tq, tk, tv, tags, case[6], window=case[5])
+    assert torch.equal(out, decode_attention_ref(tq, tk, tv, tags, case[6],
+                                                 window=case[5]))
+    assert decode_attention_kernel.launches == before
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    _, (tq, tk, tv) = _inputs(CASES[0], "float32")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        decode_attention_kernel(tq, tk, tv, torch.zeros(128, dtype=torch.int32),
+                                5)
+
+
+@pytest.mark.parametrize("breakage, error, says", [
+    ("dtype", TypeError, "float32 or bfloat16"),
+    ("kv_mixed", TypeError, "v_cache is torch.float32"),
+    ("k_shape", ValueError, "k_cache has shape"),
+    ("v_shape", ValueError, "v_cache has shape"),
+    ("head_ratio", ValueError, "not a multiple of Hkv"),
+    ("head_dim", ValueError, "multiples of 8"),
+    ("strided", ValueError, "k_cache is not contiguous"),
+    ("slot_pos_dtype", TypeError, "slot_pos is torch.int64"),
+    ("slot_pos_shape", ValueError, "slot_pos has shape"),
+    ("q_pos_shape", ValueError, "q_pos has shape"),
+])
+def test_kernel_wrapper_rejects(breakage, error, says):
+    """Checks run before anything touches the card; ``meta`` tensors stand
+    in for CUDA tensors so the checks are reachable here."""
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta"
+                           ).as_subclass(OnCard)
+
+    q, k, v = t(2, 8, 32), t(2, 2, 64, 32), t(2, 2, 64, 32)
+    slot_pos, q_pos = t(64, dtype=torch.int32), 10
+    if breakage == "dtype":
+        q = t(2, 8, 32, dtype=torch.float16)
+    elif breakage == "kv_mixed":
+        v = t(2, 2, 64, 32, dtype=torch.float32)
+    elif breakage == "k_shape":
+        k = t(2, 2, 64, 16)
+    elif breakage == "v_shape":
+        v = t(2, 2, 32, 32)
+    elif breakage == "head_ratio":
+        q = t(2, 7, 32)
+    elif breakage == "head_dim":
+        q, k, v = t(2, 8, 20), t(2, 2, 64, 20), t(2, 2, 64, 20)
+    elif breakage == "strided":
+        k = t(2, 2, 32, 64).transpose(2, 3)
+    elif breakage == "slot_pos_dtype":
+        slot_pos = t(64, dtype=torch.int64)
+    elif breakage == "slot_pos_shape":
+        slot_pos = t(3, 64, dtype=torch.int32)
+    elif breakage == "q_pos_shape":
+        q_pos = t(3, dtype=torch.int32)
+    with pytest.raises(error, match=says):
+        decode_attention_kernel(q, k, v, slot_pos, q_pos)
+
+
+def test_plan_splits_covers_every_tile():
+    for rows, c, bk, slots in [(64, 1024, 64, 396), (64, 2048, 64, 264),
+                               (8, 64, 64, 396), (1, 100000, 16, 528),
+                               (4096, 2048, 64, 396), (2, 257, 32, 396)]:
+        per_split, splits = plan_splits(rows, c, bk, slots)
+        tiles = -(-c // bk)
+        assert 1 <= splits <= 128 and per_split >= 1
+        assert (splits - 1) * per_split < tiles <= splits * per_split
+        # one wave: never more blocks than the card holds, unless the rows
+        # alone are more
+        assert rows * splits <= max(slots, rows)
+    # the serving shapes at three blocks an SM on 132 SMs
+    assert plan_splits(64, 1024, 64, 396) == (3, 6)
+    assert plan_splits(64, 2048, 64, 396) == (6, 6)
+    assert plan_splits(4096, 2048, 64, 396) == (32, 1)

@@ -28,7 +28,10 @@ print(json.dumps(bad))
 @pytest.mark.parametrize("module", [
     "repro_torch", "repro_torch.serve.engine", "repro_torch.launch.serve",
     "repro_torch.convert", "repro_torch.kernels.fused_mlp.kernel",
-    "repro_torch.kernels._build", "chip_smoke",
+    "repro_torch.kernels._build", "repro_torch.serve.batcher",
+    "repro_torch.kernels.decode_attention.kernel",
+    "repro_torch.kernels.decode_attention.ops",
+    "repro_torch.kernels.decode_attention.ref", "chip_smoke",
 ])
 def test_import_leaves_jax_and_reference_out(module):
     env = dict(os.environ)

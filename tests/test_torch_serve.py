@@ -268,8 +268,11 @@ def test_argmax_breaks_ties_to_first_index():
 
 def test_unported_parts_raise_and_name_the_roadmap():
     tcfg = get_smoke_config("qwen3_14b")
+    eng = ServeEngine(tcfg, tfm.init_params(torch.Generator().manual_seed(0),
+                                            tcfg, "cpu"),
+                      ServeConfig(1, 8), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.init_cache(tcfg, tfm.CacheSpec(8, 1, per_slot=True), "cpu")
+        eng.offload_slot(0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfm.init_cache(tcfg, tfm.CacheSpec(8, 1, kv_dtype=torch.int8), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
