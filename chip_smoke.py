@@ -13,41 +13,53 @@ exit code and no result line:
 2. build    compiles every ``src/repro_torch/kernels/csrc/*.cu`` with
             ``nvcc`` for sm_90a into ``build/`` (one process per source,
             all started together).
-3. kernels  holds each hand-written kernel (fused MLP, decode attention)
-            against its plain PyTorch version on the card, at the
-            reference's sweep shapes and at the shapes the serving paths
-            give it, and times kernel, plain version and a library
+3. kernels  holds each hand-written kernel (fused MLP, decode attention,
+            flash attention) against its plain PyTorch version on the card,
+            at the reference's sweep shapes and at the shapes the serving
+            paths give it, and times kernel, plain version and a library
             yardstick with CUDA events.
 4. parity   the smoke config in fp32 on the same seeded weights, on the CPU
-            (plain path) and on the card (kernel path): ``ServeEngine``'s
-            lock-step ``generate`` and ``ContinuousBatcher.run`` over a
-            mixed trace give equal greedy tokens; last logits close.
-5. serve    lock-step: full-width qwen3-14b (bf16, random weights from
-            seed 0), batch 8, prompts of 512 tokens, 16 greedy steps
-            through ``ServeEngine.generate``.
-6. serve-trace  continuous batching: the same model and weights, 8 slots of
-            2048, 16 mixed requests (prompts 128-1024, 16-64 new tokens)
-            through ``ContinuousBatcher.run``.
+            (plain path) and on the card (kernel path), with resident
+            weights (``gspmd``) and streamed ones (``elk_stream``):
+            ``ServeEngine``'s lock-step ``generate`` and
+            ``ContinuousBatcher.run`` over a mixed trace give equal greedy
+            tokens; last logits close.
+5. serve    lock-step, resident weights: full-width qwen3-14b (bf16,
+            random weights from seed 0), batch 8, prompts of 512 tokens,
+            16 greedy steps through ``ServeEngine.generate``.
+6. serve-trace  continuous batching, resident weights: the same model and
+            weights, 8 slots of 2048, 16 mixed requests (prompts 128-1024,
+            16-64 new tokens) through ``ContinuousBatcher.run``.
+7. stream-serve  the launcher's default path: the same model and weights
+            under ``elk_stream``, knobs from ``elk_serve_config`` on
+            ``h100_host()``, the layer weights in pinned host memory and
+            streamed through the planner's window; lock-step as in 5 and a
+            short continuous trace (4 of the requests of 6), with the
+            host-to-card copy rate, the copy time of all layers alone and a
+            decode step at a window of 1 beside the planner's.
 
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails if a kernel of the path was not
-launched as often as its layers and steps say.  Then one JSON line about
-the kernels, the card's name and power limit, and as the last line
+launched as often as its layers, steps and chunks say.  Then one JSON line
+about the kernels, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 
 Bounds use datasheet constants of the H100 SXM: 3.35 TB/s of device
 memory, 989 TFLOP/s dense bf16 on the tensor cores, 67 TFLOP/s fp32.
 ``--layers N`` cuts the depth of the lock-step serve phase (never the
-width, never the continuous path).  ``--profile`` adds a ``torch.profiler``
+width, never the continuous paths).  ``--profile`` adds a ``torch.profiler``
 trace of three lock-step decode steps, one prefill and three slot-batched
-steps: the device's busy time and idle share and the kernels that take the
-most device time, printed and written to ``build/profile/``.
+steps, and of one streamed decode step: the device's busy time and idle
+share, the kernels that take the most device time, and for the streamed
+step how much of the weight copies' time compute hides; printed and
+written to ``build/profile/``.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import importlib.metadata
 import json
 import subprocess
@@ -61,6 +73,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.chip.h100 import h100_host  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import \
@@ -68,6 +81,11 @@ from repro_torch.kernels.decode_attention.kernel import \
 from repro_torch.kernels.decode_attention.ops import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, live_mask)
+from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import \
+    flash_attention_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attn, flash_attn_pos)
 from repro_torch.kernels.fused_mlp.kernel import fused_mlp_kernel  # noqa: E402
 from repro_torch.kernels.fused_mlp.ops import fused_mlp  # noqa: E402
 from repro_torch.kernels.fused_mlp.ref import composed_ref  # noqa: E402
@@ -75,7 +93,9 @@ from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.serve.batcher import (ContinuousBatcher,  # noqa: E402
                                        _chunk_len, make_trace, summarize)
-from repro_torch.serve.engine import ServeConfig, ServeEngine  # noqa: E402
+from repro_torch.serve.engine import (ServeConfig, ServeEngine,  # noqa: E402
+                                     elk_serve_config)
+from repro_torch.serve.stream import init_streamed_params  # noqa: E402
 
 # datasheet, H100 SXM
 HBM_BYTES_PER_S = 3.35e12
@@ -115,6 +135,16 @@ ATTN_SWEEP = [
     (1, 4, 4, 256, 16, 64, 300),       # ring buffer + window
     (2, 2, 1, 64, 64, 0, 64),          # exactly full cache
 ]
+
+# (B, Hq, Hkv, S, D, causal, window): the reference's flash-attention sweep
+FLASH_SWEEP = [
+    (2, 4, 2, 128, 32, True, 0),       # GQA causal
+    (1, 4, 4, 128, 16, True, 48),      # MHA sliding window
+    (1, 2, 1, 64, 32, False, 0),       # bidirectional MQA
+    (1, 8, 8, 256, 64, True, 0),       # MHA causal, bigger head
+]
+# the streamed trace: the first requests of the resident one
+STREAM_TRACE_N = 4
 
 
 def fail(msg: str) -> None:
@@ -448,6 +478,227 @@ def attention_phase(cfg) -> dict:
     }
 
 
+def check_flash(q, k, v, q_pos=None, k_pos=None, *, causal=True, window=0,
+                dead=None) -> tuple[float, float]:
+    """(max abs error, error over tolerance) of the kernel against
+    ``mha_ref`` (no positions) or ``mha_pos_ref`` on these inputs; fails the
+    run beyond tolerance, or if a query marked in ``dead`` (B, Sq) is not
+    exactly zero in every head."""
+    if q_pos is None:
+        out = flash_attn(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = flash_ref.mha_ref(q, k, v, causal=causal, window=window)
+    else:
+        out = flash_attn_pos(q, k, v, q_pos, k_pos, causal=causal,
+                             window=window)
+        torch.cuda.synchronize()
+        ref = flash_ref.mha_pos_ref(q, k, v, q_pos, k_pos, causal=causal,
+                                    window=window)
+    where = (f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}/{k.dtype} "
+             f"causal={causal} window={window} positions="
+             f"{'no' if q_pos is None else tuple(k_pos.shape)}")
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        fail(f"flash_attention gave {tuple(out.shape)} {out.dtype}, plain "
+             f"version {tuple(ref.shape)} {ref.dtype} at {where}")
+    if not torch.isfinite(out.to(torch.float32)).all():
+        fail(f"flash_attention output not finite at {where}")
+    if dead is not None and out.transpose(1, 2)[dead].any():
+        fail(f"flash_attention: a query with no live key is not zero at "
+             f"{where}")
+    ref32 = ref.to(torch.float32)
+    err = float((out.to(torch.float32) - ref32).abs().max())
+    tol = ATTN_TOL[q.dtype] * float(ref32.abs().max())
+    if err > tol:
+        fail(f"flash_attention disagrees with the plain version at {where}: "
+             f"max abs err {err:.3e} > tol {tol:.3e}")
+    return err, err / tol if tol else 0.0
+
+
+def flash_bound_ms(q, k, q_pos, k_pos, causal, window
+                   ) -> tuple[float, str]:
+    """Least time for the function on these inputs: q read and the output
+    written once, K and V of the keys some query attends to, the
+    positions; the two products over the (query, key) pairs the mask
+    lets through."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    ok = flash_ref.live_mask(q_pos, k_pos, causal=causal, window=window)
+    keys = int(ok.any(dim=1).sum())              # (row, key) pairs read
+    pairs = int(ok.sum())
+    size = k.element_size()
+    t_bytes = (2 * q.numel() * q.element_size() + 2 * keys * hkv * d * size
+               + (q_pos.numel() + k_pos.numel()) * 4) / HBM_BYTES_PER_S
+    t_ops = 4 * pairs * hq * d / PEAK_FLOPS[k.dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def flash_phase(cfg, chunk: int) -> dict:
+    """The flash-attention sweep against ``mha_ref`` / ``mha_pos_ref`` and
+    the serving shapes timed: lock-step prefill, and against a ring of 2048
+    the chunks the batcher cuts: ``chunk`` tokens (the streamed path's, cut
+    from the planner's budget) and a tail of half that, and 256 (the
+    resident path's)."""
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    cases = 0
+
+    def normal(*shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    def qkv(b, hq, hkv, sq, sk, d, dtype, kv_dtype=None):
+        kv_dtype = kv_dtype or dtype
+        return (normal(b, hq, sq, d, dtype=dtype),
+                normal(b, hkv, sk, d, dtype=kv_dtype),
+                normal(b, hkv, sk, d, dtype=kv_dtype))
+
+    def case(q, *args, **kw):
+        nonlocal cases
+        err, over = check_flash(q, *args, **kw)
+        key = str(q.dtype).split(".")[1]
+        worst[key] = max(worst[key], (over, err))
+        cases += 1
+        return err
+
+    def chunk_positions(b, t, c, starts):
+        """(q_pos (B, T), ring tags (B, C)) of chunks of ``t`` tokens at
+        ``starts``, their own tokens already tagged in the ring."""
+        q_pos = torch.stack([torch.arange(p, p + t, device="cuda")
+                             for p in starts]).to(torch.int32)
+        tags = torch.stack([ring_tags(c, p + t) for p in starts])
+        return q_pos, tags
+
+    for dtype in (torch.float32, torch.bfloat16):
+        # the reference's sweep and its model-attention shape
+        for b, hq, hkv, s, d, causal, win in FLASH_SWEEP + [
+                (1, 4, 2, 64, 32, True, 0)]:
+            case(*qkv(b, hq, hkv, s, s, d, dtype), causal=causal, window=win)
+        # ragged S; groups of 1, 5 and 8; head dims 16-256; a window
+        # shorter than a tile
+        for b, hq, hkv, s, d, causal, win in (
+                (1, 4, 2, 100, 64, True, 0), (2, 4, 2, 257, 64, False, 0),
+                (1, 4, 4, 130, 128, True, 0), (1, 5, 1, 150, 64, True, 0),
+                (1, 8, 1, 257, 128, True, 0), (2, 2, 1, 150, 256, True, 0),
+                (1, 4, 2, 90, 80, True, 0), (1, 2, 2, 70, 16, True, 0),
+                (1, 4, 2, 200, 64, True, 20)):
+            case(*qkv(b, hq, hkv, s, s, d, dtype), causal=causal, window=win)
+        # per-row positions against a ring of 256: row 0 part-filled, row 1
+        # wrapped, row 2 evicted (every tag the sentinel: zeros)
+        t, c = 40, 256
+        q_pos, tags = chunk_positions(3, t, c, (100, 600, 0))
+        tags[2] = SENTINEL
+        dead = torch.zeros((3, t), dtype=torch.bool, device="cuda")
+        dead[2] = True
+        for win in (0, 64):
+            case(*qkv(3, 8, 2, t, c, 64, dtype), q_pos, tags, window=win,
+                 dead=dead)
+        # every row masked
+        q, k, v = qkv(2, 4, 2, t, c, 64, dtype)
+        case(q, k, v, q_pos[:2].contiguous(),
+             torch.full((2, c), SENTINEL, dtype=torch.int32, device="cuda"),
+             dead=torch.ones((2, t), dtype=torch.bool, device="cuda"))
+        # one position row for every batch row; a ring of more tiles than
+        # the kernel lists (it then reads every tile)
+        q_pos1, tags1 = chunk_positions(1, 24, 70000, (69000,))
+        case(*qkv(2, 4, 1, 24, 70000, 16, dtype), q_pos1, tags1)
+    # fp32 query against a bf16 ring (fp32 weights, default bf16 KV)
+    q_pos, tags = chunk_positions(2, 33, 128, (10, 200))
+    case(*qkv(2, 8, 2, 33, 128, 32, torch.float32, torch.bfloat16), q_pos,
+         tags)
+    say(f"[kernels] flash_attention: {cases} sweep cases inside tolerance "
+        f"(worst err/tol and its err: {json.dumps(worst)})")
+
+    # the shapes the serving paths give it, full width, bf16
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    dtype = torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    shapes = []
+    serving = [("lock-step prefill", BATCH, PROMPT_LEN, PROMPT_LEN, None)]
+    for t, starts in ((chunk, (0, 700, 1900)), (chunk // 2, (1900,)),
+                      (PREFILL_CHUNK, (0, 700, 1900))):
+        for start in starts:
+            serving.append((f"chunk T={t} at {start}", 1, t, SLOT_CACHE,
+                            start))
+    for label, b, t, c, start in serving:
+        q, k, v = qkv(b, hq, hkv, t, c, d, dtype)
+        if start is None:
+            pos = torch.arange(t, dtype=torch.int32, device="cuda")
+            q_pos = k_pos = pos[None].expand(b, t).contiguous()
+            err = case(q, k, v)
+
+            def kernel():
+                return flash_attn(q, k, v)
+
+            def plain():
+                return flash_ref.mha_ref(q, k, v)
+
+            def library():
+                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            q_pos, k_pos = chunk_positions(b, t, c, (start,))
+            err = case(q, k, v, q_pos, k_pos)
+            mask = flash_ref.live_mask(q_pos, k_pos, causal=True,
+                                       window=0)[:, None]   # (B,1,T,C)
+
+            def kernel():
+                return flash_attn_pos(q, k, v, q_pos, k_pos)
+
+            def plain():
+                return flash_ref.mha_pos_ref(q, k, v, q_pos, k_pos)
+
+            def library():
+                return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+        bound, bound_by = flash_bound_ms(q, k, q_pos, k_pos, True, 0)
+        shapes.append({
+            "shape": label, "b": b, "hq": hq, "hkv": hkv, "sq": t, "sk": c,
+            "d": d, "dtype": "bfloat16", "max_abs_err": err,
+            "ms": time_ms(kernel, 20),
+            "plain_ms": time_ms(plain, 3, warmup=1),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": time_ms(library, 20),
+        })
+        say(f"[kernels] flash_attention {label}: " + json.dumps(shapes[-1]))
+    main = shapes[0]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:32",
+        "launches": 0,
+        # the scalar keys are the lock-step prefill's shape; "shapes" holds
+        # the chunk shapes too
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "cases": cases, "max_err_over_tol": max(w for w, _ in worst.values()),
+        "worst_by_dtype": worst, "shapes": shapes,
+    }
+
+
+def matmul_bounds(cfg) -> None:
+    """The bounds of the products ``layers.linear`` gives the one TPU kernel
+    still to port (``elk_matmul``) on the serving paths, bf16: the
+    projections of a layer and the LM head at decode (8 rows), a chunk of
+    32 and a lock-step prefill (4096 rows; the LM head takes the last
+    token only)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    shapes = {"q, o": (d, cfg.num_heads * hd), "k, v": (d, cfg.num_kv_heads * hd),
+              "lm_head": (d, cfg.vocab_size)}
+    rows = []
+    for m in (BATCH, 32, BATCH * PROMPT_LEN):
+        for name, (k, n) in shapes.items():
+            if name == "lm_head" and m > 32:
+                continue
+            t_bytes = 2 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
+            t_ops = 2 * m * k * n / PEAK_FLOPS[torch.bfloat16]
+            rows.append({"m": m, "product": name, "k": k, "n": n,
+                         "bound_ms": max(t_bytes, t_ops) * 1e3,
+                         "bound_by": "bytes" if t_bytes >= t_ops
+                         else "operations"})
+    say("[kernels] elk_matmul (still to port) bounds: " + json.dumps(rows))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: CPU (plain path) against the card (kernel path)
 # ---------------------------------------------------------------------------
@@ -461,68 +712,125 @@ def parity_phase() -> None:
                for dev in ("cpu", "cuda")}
     prompts = torch.randint(0, cfg.vocab_size, (2, 12),
                             generator=torch.Generator().manual_seed(1))
-    before = fused_mlp_kernel.launches
-    toks = {dev: eng.generate(prompts, steps=8).cpu()
-            for dev, eng in engines.items()}
-    if fused_mlp_kernel.launches - before != cfg.num_layers * 8:
-        fail("the card's engine did not go through the fused_mlp kernel")
-    if not torch.equal(toks["cpu"], toks["cuda"]):
-        fail(f"greedy tokens differ between CPU and card:\n{toks['cpu']}\n"
-             f"{toks['cuda']}")
-    # last-step logits, both fed the CPU run's tokens
+    # resident (gspmd) and streamed (elk_stream, a window of 2 of the 2
+    # layers) weights, on the CPU and on the card
+    for mode in ("elk_stream",):
+        smode = dataclasses.replace(scfg, mode=mode, prefetch_depth=2)
+        engines.update({(dev, mode): ServeEngine(cfg, params, smode, device=dev)
+                        for dev in ("cpu", "cuda")})
+    before = read_launches()
+    toks = {key: eng.generate(prompts, steps=8).cpu()
+            for key, eng in engines.items()}
+    launched = {k: n - before[k] for k, n in read_launches().items()}
+    if launched != {"fused_mlp": 2 * cfg.num_layers * 8,
+                    "decode_attention": 2 * cfg.num_layers * 7,
+                    "flash_attention": 2 * cfg.num_layers}:
+        fail(f"the card's engines did not go through the kernels as often "
+             f"as their passes say: {launched}")
+    for key, got in toks.items():
+        if not torch.equal(toks["cpu"], got):
+            fail(f"greedy tokens differ between the CPU (gspmd) and {key}:"
+                 f"\n{toks['cpu']}\n{got}")
+    # last-step logits, all fed the CPU run's tokens
     last = {}
-    for dev, eng in engines.items():
+    for key, eng in engines.items():
         logits, cache = eng.prefill(prompts)
         for step in range(7):
             logits, cache = eng.decode(toks["cpu"][:, 12 + step], cache)
-        last[dev] = logits.to(torch.float32).cpu()
-    err = float((last["cpu"] - last["cuda"]).abs().max())
+        last[key] = logits.to(torch.float32).cpu()
+    err = max(float((last["cpu"] - got).abs().max()) for got in last.values())
     tol = 2e-4 * (float(last["cpu"].abs().max()) + 1.0)
     if err > tol:
         fail(f"last-step logits differ: {err:.3e} > {tol:.3e}")
+    if not torch.equal(last["cuda"], last[("cuda", "elk_stream")]):
+        fail("on the card elk_stream and gspmd logits are not identical")
     # ties go to the first index on the card as on the CPU
     rows = torch.zeros(3, 300)
     rows[0, [7, 200]] = 3.0
     rows[2, [150, 151]] = 2.0
     if torch.argmax(rows.cuda(), dim=-1).tolist() != [7, 0, 150]:
         fail("torch.argmax on the card does not pick the first maximum")
-    say(f"[parity] smoke qwen3 fp32: tokens equal on CPU and card, "
-        f"last-step logits max abs diff {err:.3e} (tol {tol:.3e})")
+    say(f"[parity] smoke qwen3 fp32: tokens equal on CPU and card, gspmd and "
+        f"elk_stream, last-step logits max abs diff {err:.3e} (tol "
+        f"{tol:.3e}); on the card elk_stream equals gspmd bit for bit")
 
-    # continuous batching: the same trace through both engines' batchers
+    # continuous batching: the same trace through every engine's batcher
     scfg = ServeConfig(batch=2, cache_capacity=32, prefill_chunk=8,
                        kv_dtype="float32")
-    engines = {dev: ServeEngine(cfg, params, scfg, device=dev)
-               for dev in ("cpu", "cuda")}
+    engines = {(dev, mode): ServeEngine(
+        cfg, params, dataclasses.replace(scfg, mode=mode), device=dev)
+        for dev in ("cpu", "cuda") for mode in ("gspmd", "elk_stream")}
     done = {}
-    for dev, eng in engines.items():
-        before = decode_attention_kernel.launches
+    for (dev, mode), eng in engines.items():
+        before = read_launches()
         comps = ContinuousBatcher(eng).run(make_trace(
             6, vocab_size=cfg.vocab_size))
-        done[dev] = {c.rid: c.tokens for c in comps}
-        launched = decode_attention_kernel.launches - before
-        if (dev == "cuda") != (launched > 0):
-            fail(f"the {dev} batcher launched decode_attention {launched} "
-                 "times")
-    if sorted(done["cpu"]) != list(range(6)) or any(
-            not np.array_equal(done["cpu"][r], done["cuda"][r])
-            for r in done["cpu"]):
-        fail(f"continuous-batching tokens differ between CPU and card:\n"
-             f"{done['cpu']}\n{done['cuda']}")
+        done[dev, mode] = {c.rid: c.tokens for c in comps}
+        launched = {k: n - before[k] for k, n in read_launches().items()}
+        if (dev == "cuda") != (min(launched.values()) > 0):
+            fail(f"the {dev} {mode} batcher launched the kernels "
+                 f"{launched} times")
+    ref = done["cpu", "gspmd"]
+    for key, got in done.items():
+        if sorted(got) != list(range(6)) or any(
+                not np.array_equal(ref[r], got[r]) for r in ref):
+            fail(f"continuous-batching tokens differ between the CPU "
+                 f"(gspmd) and {key}:\n{ref}\n{got}")
     say("[parity] smoke qwen3 fp32: ContinuousBatcher tokens equal on CPU "
-        "and card for 6 mixed requests")
+        "and card, gspmd and elk_stream, for 6 mixed requests")
 
 
 # ---------------------------------------------------------------------------
 # phase 5: full-width serving
 # ---------------------------------------------------------------------------
 
-def record_launches(rows: list[dict], path: str, mlp: int, attn: int
-                    ) -> None:
-    """Add one path's launch counts to the kernels' rows."""
-    for row, n in zip(rows, (mlp, attn)):
+COUNTERS = {"fused_mlp": fused_mlp_kernel,
+            "decode_attention": decode_attention_kernel,
+            "flash_attention": flash_attention_kernel}
+
+
+def zero_launches() -> None:
+    for counter in COUNTERS.values():
+        counter.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: counter.launches for name, counter in COUNTERS.items()}
+
+
+def record_launches(rows: list[dict], path: str, counts: dict,
+                    expected: dict) -> None:
+    """Add one path's launch counts to the kernels' rows; fail if a kernel
+    was not launched as often as the path's layers, steps and chunks say."""
+    for row in rows:
+        n = counts[row["name"]]
         row.setdefault("launches_by_path", {})[path] = n
         row["launches"] += n
+        if n != expected[row["name"]]:
+            fail(f"{row['name']} launched {n} times on the {path} path, "
+                 f"expected {expected[row['name']]}")
+
+
+def chunk_lengths(trace, budget: int) -> list[int]:
+    """The prefill chunks the batcher cuts the trace's prompts into."""
+    out = []
+    for r in trace:
+        off = 0
+        while off < len(r.prompt):
+            out.append(_chunk_len(len(r.prompt) - off, budget))
+            off += out[-1]
+    return out
+
+
+def trace_expected(layers: int, decode_ticks: int, chunks: list[int]
+                   ) -> dict:
+    """Launches of a continuous trace: the MLP in every pass; decode
+    attention in every decode tick and every one-token chunk; flash
+    attention in every longer chunk."""
+    ones = sum(t == 1 for t in chunks)
+    return {"fused_mlp": layers * (decode_ticks + len(chunks)),
+            "decode_attention": layers * (decode_ticks + ones),
+            "flash_attention": layers * (len(chunks) - ones)}
 
 
 def draw_params(cfg) -> dict:
@@ -536,8 +844,17 @@ def draw_params(cfg) -> dict:
     return params
 
 
+def lockstep_expected(layers: int) -> dict:
+    """Launches of one ``generate`` of STEPS tokens: one prefill (flash
+    attention) and STEPS - 1 decode steps (decode attention); the MLP in
+    every pass."""
+    return {"fused_mlp": layers * STEPS,
+            "decode_attention": layers * (STEPS - 1),
+            "flash_attention": layers}
+
+
 def serve_phase(cfg, params: dict, kernel_rows: list[dict],
-                profile: bool) -> None:
+                profile: bool) -> torch.Tensor:
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(cfg, params, ServeConfig(batch=BATCH, cache_capacity=CACHE))
@@ -547,25 +864,17 @@ def serve_phase(cfg, params: dict, kernel_rows: list[dict],
     torch.cuda.synchronize()
 
     # the lock-step path, with the kernels' counts at 0 before and read after
-    fused_mlp_kernel.launches = 0
-    decode_attention_kernel.launches = 0
+    zero_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     out = eng.generate(prompts, steps=STEPS)
     end.record()
     torch.cuda.synchronize()
-    launches = fused_mlp_kernel.launches
-    attn_launches = decode_attention_kernel.launches
+    counts = read_launches()
     gen_ms = start.elapsed_time(end)
-    record_launches(kernel_rows, "lock-step", launches, attn_launches)
-    if launches != cfg.num_layers * STEPS:
-        fail(f"fused_mlp launched {launches} times on the serving path, "
-             f"expected {cfg.num_layers} layers x {STEPS} passes")
-    if attn_launches != cfg.num_layers * (STEPS - 1):
-        fail(f"decode_attention launched {attn_launches} times on the "
-             f"serving path, expected {cfg.num_layers} layers x "
-             f"{STEPS - 1} decode steps")
+    record_launches(kernel_rows, "lock-step", counts,
+                    lockstep_expected(cfg.num_layers))
     if tuple(out.shape) != (BATCH, PROMPT_LEN + STEPS):
         fail(f"generate gave shape {tuple(out.shape)}")
     if not torch.equal(out[:, :PROMPT_LEN], prompts):
@@ -614,17 +923,33 @@ def serve_phase(cfg, params: dict, kernel_rows: list[dict],
         "tokens_per_s": BATCH * STEPS / (gen_ms * 1e-3),
         "decode_tokens_per_s": BATCH / (decode_ms * 1e-3),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "fused_mlp_launches": launches,
-        "decode_attention_launches": attn_launches,
-        "sample": out[0, PROMPT_LEN:].tolist()}))
+        "launches": counts, "sample": out[0, PROMPT_LEN:].tolist()}))
     if profile:
         profile_phase(eng, prompts,
                       {"prefill": prefill_ms, "decode": decode_ms})
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 6: continuous batching at full width
 # ---------------------------------------------------------------------------
+
+def check_completions(trace, comps, vocab: int) -> None:
+    """Every request completed, with its prompt kept and as many tokens as
+    it asked for, all inside the vocabulary."""
+    if sorted(c.rid for c in comps) != sorted(r.rid for r in trace):
+        fail(f"{len(comps)} of {len(trace)} requests completed")
+    by_rid = {r.rid: r for r in trace}
+    for c in comps:
+        r = by_rid[c.rid]
+        if c.tokens.shape != (len(r.prompt) + r.max_new_tokens,):
+            fail(f"request {c.rid} has {c.tokens.shape[0]} tokens, expected "
+                 f"{len(r.prompt)} + {r.max_new_tokens}")
+        if not np.array_equal(c.tokens[:len(r.prompt)], r.prompt):
+            fail(f"request {c.rid} did not keep its prompt")
+        if c.tokens.min() < 0 or c.tokens.max() >= vocab:
+            fail(f"request {c.rid} has a token outside the vocabulary")
+
 
 def trace_phase(cfg, params: dict, kernel_rows: list[dict],
                 profile: bool) -> None:
@@ -662,43 +987,18 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict],
     eng.step, eng.evict_slot = timed_step, kept_evict
     trace = make_trace(TRACE_N, vocab_size=vocab, **TRACE)
     bat = ContinuousBatcher(eng)
-    fused_mlp_kernel.launches = 0
-    decode_attention_kernel.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     comps = bat.run(trace)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    mlp_n, attn_n = fused_mlp_kernel.launches, decode_attention_kernel.launches
-    eng.step, eng.evict_slot = step, evict
-    record_launches(kernel_rows, "continuous", mlp_n, attn_n)
-
-    chunks = 0
-    for r in trace:
-        off = 0
-        while off < len(r.prompt):
-            off += _chunk_len(len(r.prompt) - off, bat.chunk_budget)
-            chunks += 1
+    counts = read_launches()
+    del eng.step, eng.evict_slot    # the class's methods again, no cycle
+    chunks = chunk_lengths(trace, bat.chunk_budget)
     layers = cfg.num_layers
-    if attn_n != layers * bat.decode_ticks:
-        fail(f"decode_attention launched {attn_n} times in the trace, "
-             f"expected {layers} layers x {bat.decode_ticks} decode ticks")
-    if mlp_n != layers * (bat.decode_ticks + chunks):
-        fail(f"fused_mlp launched {mlp_n} times in the trace, expected "
-             f"{layers} layers x ({bat.decode_ticks} decode ticks + "
-             f"{chunks} prefill chunks)")
-    if len(comps) != TRACE_N or sorted(c.rid for c in comps) != list(
-            range(TRACE_N)):
-        fail(f"{len(comps)} of {TRACE_N} requests completed")
-    by_rid = {r.rid: r for r in trace}
-    for c in comps:
-        r = by_rid[c.rid]
-        if c.tokens.shape != (len(r.prompt) + r.max_new_tokens,):
-            fail(f"request {c.rid} has {c.tokens.shape[0]} tokens, expected "
-                 f"{len(r.prompt)} + {r.max_new_tokens}")
-        if not np.array_equal(c.tokens[:len(r.prompt)], r.prompt):
-            fail(f"request {c.rid} did not keep its prompt")
-        if c.tokens.min() < 0 or c.tokens.max() >= vocab:
-            fail(f"request {c.rid} has a token outside the vocabulary")
+    record_launches(kernel_rows, "continuous", counts,
+                    trace_expected(layers, bat.decode_ticks, chunks))
+    check_completions(trace, comps, vocab)
     if eng.slot_cache is not cache or ptrs != {
             k: cache[k].data_ptr() for k in ptrs}:
         fail("the slot cache was not updated in place")
@@ -726,15 +1026,257 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict],
         "model": cfg.name, "layers": layers, "slots": SLOTS,
         "cache": SLOT_CACHE, "prefill_chunk": PREFILL_CHUNK,
         "ticks": bat.ticks, "decode_ticks": bat.decode_ticks,
-        "prefill_chunks": chunks,
+        "prefill_chunks": len(chunks),
         "decode_ms_per_tick": sum(step_ms) / len(step_ms),
         "decode_ms_per_tick_min": min(step_ms),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "fused_mlp_launches": mlp_n, "decode_attention_launches": attn_n,
-        "finish_order": [c.rid for c in comps]})
+        "launches": counts, "finish_order": [c.rid for c in comps]})
     say("[serve-trace] " + json.dumps(stats))
     if profile:
         profile_steps(eng, last_tags)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the launcher's default path, weights streamed from the host
+# ---------------------------------------------------------------------------
+
+def copy_rates(ls) -> dict:
+    """The host-to-card copies of the layer stream alone, on its copy
+    stream with no compute: one layer (best of 3), then every layer once
+    through the window."""
+    stream = ls.copy_stream
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    one = []
+    for _ in range(3):
+        with torch.cuda.stream(stream):
+            ev[0].record(stream)
+            ls.buffers[0].copy_(ls.host[0], non_blocking=True)
+            ev[1].record(stream)
+        torch.cuda.synchronize()
+        one.append(ev[0].elapsed_time(ev[1]))
+    with torch.cuda.stream(stream):
+        ev[0].record(stream)
+        for li in range(ls.n):
+            ls.buffers[li % ls.depth].copy_(ls.host[li], non_blocking=True)
+        ev[1].record(stream)
+    torch.cuda.synchronize()
+    best = min(one)
+    return {"layer_bytes": ls.layer_bytes, "layer_copy_ms": best,
+            "host_to_device_GBps": ls.layer_bytes / (best * 1e-3) / 1e9,
+            "all_layers_copy_ms": ev[0].elapsed_time(ev[1])}
+
+
+def stream_phase(cfg, kernel_rows: list[dict], resident_out,
+                 profile: bool) -> None:
+    """Full-width qwen3-14b under ``elk_stream`` with the planner's knobs,
+    as the launcher serves it: the weights are drawn from the serve phase's
+    seed one layer at a time, each moved to pinned host memory before the
+    next is drawn (the card never holds the decoder, start-up included),
+    then lock-step serving as in the serve phase and a short continuous
+    trace.  ``resident_out`` is the serve phase's ``generate`` on the same
+    weights and prompts (None when its depth was cut): the streamed run
+    must give the same tokens."""
+    t0 = time.perf_counter()
+    lock_scfg = elk_serve_config(cfg, batch=BATCH, cache_capacity=CACHE,
+                                 pod=h100_host())
+    slot_scfg = elk_serve_config(cfg, batch=SLOTS, cache_capacity=SLOT_CACHE,
+                                 pod=h100_host())
+    say(f"[stream] ELK scheduler (h100_host): lock-step prefetch_depth="
+        f"{lock_scfg.prefetch_depth} prefill_chunk={lock_scfg.prefill_chunk}"
+        f"; continuous prefetch_depth={slot_scfg.prefetch_depth} "
+        f"prefill_chunk={slot_scfg.prefill_chunk}; planned in "
+        f"{time.perf_counter() - t0:.1f}s")
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    if base > 2 ** 30:
+        fail(f"{base} bytes still allocated on the card before the stream "
+             "phase: the resident phases' weights are held")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    depth = max(lock_scfg.prefetch_depth, slot_scfg.prefetch_depth)
+    eng = ServeEngine(cfg, init_streamed_params(
+        torch.Generator(device=dev).manual_seed(0), cfg, dev, depth),
+        dataclasses.replace(lock_scfg, prefetch_depth=depth))
+    eng.scfg.prefetch_depth = lock_scfg.prefetch_depth
+    ls = eng.params["layers"]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    startup_peak = torch.cuda.max_memory_allocated() - base
+    outside = sum(t.numel() * t.element_size()
+                  for k, t in eng.params.items() if k != "layers")
+    window = ls.depth * ls.layer_bytes
+    if held > outside + window + 2 ** 30:
+        fail(f"{held} bytes allocated on the card after the layers went to "
+             f"the host (weights outside the layers {outside}, window "
+             f"{window})")
+    if startup_peak > outside + window + 2 * ls.layer_bytes + 2 ** 30:
+        fail(f"drawing the streamed weights took {startup_peak} bytes of the "
+             f"card (outside the layers {outside}, window {window}, a layer "
+             f"{ls.layer_bytes}): more than a layer of the decoder was held")
+    say(f"[stream] {ls.n} layers of {ls.layer_bytes} bytes drawn one at a "
+        f"time into pinned host memory in {time.perf_counter() - t0:.1f}s; "
+        f"window of {ls.depth} layer buffers on the card; {held} bytes "
+        f"allocated, start-up peak {startup_peak}")
+
+    torch.cuda.reset_peak_memory_stats()
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    eng.generate(prompts, steps=2)          # warm-up
+    torch.cuda.synchronize()
+    zero_launches()
+    copies0 = ls.copies
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = eng.generate(prompts, steps=STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    counts = read_launches()
+    gen_ms = start.elapsed_time(end)
+    record_launches(kernel_rows, "stream lock-step", counts,
+                    lockstep_expected(cfg.num_layers))
+    if ls.copies - copies0 != cfg.num_layers * STEPS:
+        fail(f"{ls.copies - copies0} layer copies in a generate of {STEPS} "
+             f"passes of {cfg.num_layers} layers")
+    if tuple(out.shape) != (BATCH, PROMPT_LEN + STEPS) or not torch.equal(
+            out[:, :PROMPT_LEN], prompts):
+        fail(f"streamed generate gave shape {tuple(out.shape)} or lost the "
+             "prompts")
+    if resident_out is not None and not torch.equal(out, resident_out):
+        fail("streamed and resident weights gave different tokens")
+    peak = torch.cuda.max_memory_allocated()
+
+    logits, cache = eng.prefill(prompts)
+    prefill_ms = time_ms(lambda: eng.prefill(prompts, cache), 1, warmup=0)
+    logits, cache = eng.prefill(prompts, cache)
+    if not torch.isfinite(logits).all():
+        fail("streamed prefill logits not finite")
+    tok = torch.argmax(logits[:, -1, :], dim=-1)
+    decode_ms = {}
+    for p in sorted({lock_scfg.prefetch_depth, 1}, reverse=True):
+        eng.scfg.prefetch_depth = p
+        steps = STEPS - 1 if p == lock_scfg.prefetch_depth else 4
+        start.record()
+        for _ in range(steps):
+            logits, cache = eng.decode(tok, cache)
+        end.record()
+        torch.cuda.synchronize()
+        decode_ms[p] = start.elapsed_time(end) / steps
+    eng.scfg.prefetch_depth = lock_scfg.prefetch_depth
+    if not torch.isfinite(logits).all():
+        fail("streamed decode logits not finite")
+    rates = copy_rates(ls)
+    say("[stream] " + json.dumps({
+        "model": cfg.name, "layers": cfg.num_layers, "batch": BATCH,
+        "prompt_len": PROMPT_LEN, "steps": STEPS, "cache": CACHE,
+        "prefetch_depth": lock_scfg.prefetch_depth,
+        "prefill_chunk": lock_scfg.prefill_chunk,
+        "prefill_ms": prefill_ms,
+        "decode_ms_per_token": decode_ms[lock_scfg.prefetch_depth],
+        "decode_ms_per_token_p1": decode_ms[1], "generate_ms": gen_ms,
+        "tokens_per_s": BATCH * STEPS / (gen_ms * 1e-3),
+        "max_memory_allocated_bytes": peak,
+        "startup_peak_bytes": startup_peak, **rates,
+        "equal_to_resident": resident_out is not None,
+        "launches": counts, "sample": out[0, PROMPT_LEN:].tolist()}))
+    if profile:
+        profile_stream_step(eng, prompts)
+    del cache, logits
+
+    # a short continuous trace through the same host weights
+    torch.cuda.reset_peak_memory_stats()
+    seng = ServeEngine(cfg, dict(eng.params), slot_scfg)
+    vocab = cfg.vocab_size
+    ContinuousBatcher(seng).run(make_trace(        # warm-up
+        2, vocab_size=vocab, prompt_lens=(16, 48), max_new=(2, 3), seed=1))
+    trace = make_trace(STREAM_TRACE_N, vocab_size=vocab, **TRACE)
+    bat = ContinuousBatcher(seng)
+    zero_launches()
+    t0 = time.perf_counter()
+    comps = bat.run(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    chunks = chunk_lengths(trace, bat.chunk_budget)
+    record_launches(kernel_rows, "stream continuous", counts,
+                    trace_expected(cfg.num_layers, bat.decode_ticks, chunks))
+    check_completions(trace, comps, vocab)
+    stats = summarize(comps, wall)
+    stats.update({
+        "model": cfg.name, "layers": cfg.num_layers, "slots": SLOTS,
+        "cache": SLOT_CACHE, "prefetch_depth": slot_scfg.prefetch_depth,
+        "prefill_chunk": slot_scfg.prefill_chunk,
+        "chunk_budget": bat.chunk_budget, "ticks": bat.ticks,
+        "decode_ticks": bat.decode_ticks, "prefill_chunks": len(chunks),
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": counts, "finish_order": [c.rid for c in comps]})
+    say("[stream-trace] " + json.dumps(stats))
+
+
+def intervals_ms(events: list) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(events):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total
+
+
+def profile_stream_step(eng: ServeEngine, prompts: torch.Tensor) -> None:
+    """One streamed decode step under ``torch.profiler``: the device's busy
+    and idle share within that step (its wall time is the span of a
+    ``record_function`` around the step and a synchronize, in the same
+    trace), and how much of the weight copies' time compute hides (kernel
+    time on the compute stream that falls inside copy time)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    out_dir = ROOT / "build" / "profile"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    logits, cache = eng.prefill(prompts)
+    tok = torch.argmax(logits[:, -1, :], dim=-1)
+    eng.decode(tok, cache)
+    torch.cuda.synchronize()
+    label = "stream decode step"
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(label):
+            eng.decode(tok, cache)
+            torch.cuda.synchronize()
+    path = out_dir / "trace_stream_decode.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels, copies, step = [], [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        span = (e["ts"] * 1e-3, (e["ts"] + e.get("dur", 0)) * 1e-3)
+        if e.get("cat") == "kernel":
+            kernels.append(span)
+        elif e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
+            copies.append(span)
+        elif e.get("cat") == "user_annotation" and e.get("name") == label:
+            step.append(span)
+    if not kernels or not copies or len(step) != 1:
+        fail(f"the streamed step's trace has {len(kernels)} kernels, "
+             f"{len(copies)} host-to-card copies and {len(step)} step spans")
+    wall_ms = step[0][1] - step[0][0]
+    compute_ms, copy_ms = intervals_ms(kernels), intervals_ms(copies)
+    busy_ms = intervals_ms(kernels + copies)
+    overlap_ms = compute_ms + copy_ms - busy_ms
+    say("[profile] " + json.dumps({
+        "pass": "stream decode", "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "compute_ms": compute_ms, "copy_ms": copy_ms,
+        "overlap_ms": overlap_ms,
+        "compute_hidden_under_copies": overlap_ms / compute_ms,
+        "copies_overlapped_by_compute": overlap_ms / copy_ms,
+        "host_to_device_copies": len(copies), "device_kernels": len(kernels)}))
 
 
 def profile_steps(eng: ServeEngine, last_tags: dict) -> None:
@@ -812,8 +1354,8 @@ def profile_phase(eng: ServeEngine, prompts: torch.Tensor,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=0,
-                    help="depth of the lock-step serve phase (0 = the "
-                    "model's own); the continuous phase keeps full depth")
+                    help="depth of the resident lock-step serve phase (0 = "
+                    "the model's own); the other phases keep full depth")
     ap.add_argument("--profile", action="store_true",
                     help="also trace decode steps, a prefill and slot steps")
     args = ap.parse_args()
@@ -850,14 +1392,24 @@ def main() -> None:
         lock_cfg = dataclasses.replace(cfg, num_layers=args.layers)
     say(f"[serve] lock-step depth {lock_cfg.num_layers} of {cfg.num_layers}; "
         f"continuous depth {cfg.num_layers}")
+    # the chunk the batcher cuts from the planner's budget on the stream path
+    chunk = _chunk_len(SLOT_CACHE, elk_serve_config(
+        cfg, batch=SLOTS, cache_capacity=SLOT_CACHE,
+        pod=h100_host()).prefill_chunk)
     with torch.inference_mode():
-        rows = [kernels_phase(cfg), attention_phase(cfg)]
+        rows = [kernels_phase(cfg), attention_phase(cfg),
+                flash_phase(cfg, chunk)]
+        matmul_bounds(cfg)
         parity_phase()
         params = draw_params(cfg)
-        serve_phase(lock_cfg, {**params,
-                               "layers": params["layers"][:lock_cfg.num_layers]},
-                    rows, args.profile)
+        out = serve_phase(lock_cfg, {
+            **params, "layers": params["layers"][:lock_cfg.num_layers]},
+            rows, args.profile)
         trace_phase(cfg, params, rows, args.profile)
+        del params                    # the stream phase draws its own
+        stream_phase(cfg, rows,
+                     out if lock_cfg.num_layers == cfg.num_layers else None,
+                     args.profile)
 
     for row in rows:
         for path, n in row["launches_by_path"].items():

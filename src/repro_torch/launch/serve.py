@@ -1,9 +1,16 @@
 """Serving launcher of the port, greedy.
 
-Lock-step batch:
+Lock-step batch, by default in the reference launcher's default mode
+``elk_stream`` with the knobs chosen by the ELK planner on one H100
+(``chip/h100.h100_host()``; prints ``ELK scheduler: prefetch_depth=N
+prefill_chunk=M``): the layer weights live in pinned host memory and stream
+onto the card through a window of N layers:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
       --batch 8 --prompt-len 512 --steps 16 --cache 1024
+
+``--mode gspmd`` keeps the weights resident; ``--prefetch-depth N`` (N > 0)
+sets the window by hand instead of asking the planner.
 
 Continuous batching over a mixed-length request trace (tok/s + request
 latency percentiles, optionally against the static-batching baseline):
@@ -12,11 +19,13 @@ latency percentiles, optionally against the static-batching baseline):
       --batch 8 --trace 16 --cache 2048 --prefill-chunk 256
 
 Runs on the GPU unless ``--device cpu`` is given (``--smoke`` makes that
-bearable).  Weights are random, drawn on the device from seed 0; prompts
-from seed 1, traces from ``--trace-seed``.  The reference launcher's
-``--mode elk_stream``, ``--prefetch-depth 0`` (planner-derived knobs),
-``--kv-dtype int8``, ``--oversub``, ``--prefix-cache-mb``, ``--stacked-gb``,
-``--fleet`` and ``--pipeline-pod`` are not ported yet (ROADMAP.md, Queue 1).
+bearable).  Weights are random, drawn on the device from seed 0 (under
+``elk_stream`` one layer at a time, each moved to the host before the
+next); prompts from seed 1, traces from ``--trace-seed``.  On the GPU the
+process's peak device memory, start-up included, is printed.  The reference launcher's
+``--kv-dtype int8``, ``--oversub``, ``--prefix-cache-mb``, ``--fleet`` are
+not ported yet; ``--pipeline-pod`` and ``--stacked-gb`` raise
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -27,9 +36,11 @@ import time
 
 import torch
 
+from repro_torch.chip.h100 import h100_host
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import transformer as tfm
-from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve import stream
+from repro_torch.serve.engine import ServeConfig, ServeEngine, elk_serve_config
 
 
 def _run_trace(eng: ServeEngine, args, vocab: int) -> dict:
@@ -70,6 +81,15 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", required=True,
                     help=f"one of {ARCH_IDS} (dashed aliases ok)")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--mode", default="elk_stream",
+                    choices=["gspmd", "elk_stream"])
+    ap.add_argument("--prefetch-depth", type=int, default=0,
+                    help="0 = ask the ELK scheduler (core.integration) on "
+                    "one H100 (chip.h100.h100_host)")
+    ap.add_argument("--pipeline-pod", type=int, default=0, metavar="GROUPS",
+                    help="not ported yet (ROADMAP.md, Queue 1, item 13)")
+    ap.add_argument("--stacked-gb", type=float, default=0.0,
+                    help="not ported yet (ROADMAP.md, Queue 1, item 13)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=16)
@@ -86,20 +106,44 @@ def main(argv=None) -> None:
     ap.add_argument("--sys-prompt-len", type=int, default=0,
                     help="length of a shared system prompt")
     ap.add_argument("--sys-prompt-frac", type=float, default=0.0)
-    ap.add_argument("--prefill-chunk", type=int, default=32,
-                    help="most prompt tokens a scheduler tick prefills")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="most prompt tokens a scheduler tick prefills (0 = "
+                    "the planner's under elk_stream with --prefetch-depth 0, "
+                    "else 32)")
     ap.add_argument("--compare-static", action="store_true",
                     help="also run the trace through the static baseline")
     ap.add_argument("--json-out", default="",
                     help="write the trace statistics to this file")
     args = ap.parse_args(argv)
 
+    for flag, value in (("--pipeline-pod", args.pipeline_pod),
+                        ("--stacked-gb", args.stacked_gb)):
+        if value:
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP.md, Queue 1, item 13)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = tfm.resolve_device(args.device)
-    scfg = ServeConfig(batch=args.batch, cache_capacity=args.cache,
-                       prefill_chunk=args.prefill_chunk)
-    params = tfm.init_params(
-        torch.Generator(device=device).manual_seed(0), cfg, device)
+    if args.mode == "elk_stream" and args.prefetch_depth <= 0:
+        # plan against the config actually served, on one H100
+        scfg = elk_serve_config(cfg, batch=args.batch,
+                                cache_capacity=args.cache, pod=h100_host())
+        print(f"ELK scheduler: prefetch_depth={scfg.prefetch_depth} "
+              f"prefill_chunk={scfg.prefill_chunk}")
+        if args.prefill_chunk:
+            scfg.prefill_chunk = args.prefill_chunk
+    else:
+        scfg = ServeConfig(batch=args.batch, cache_capacity=args.cache,
+                           mode=args.mode,
+                           prefetch_depth=max(args.prefetch_depth, 1),
+                           prefill_chunk=args.prefill_chunk or 32)
+    gen = torch.Generator(device=device).manual_seed(0)
+    if scfg.mode == "elk_stream":
+        # each layer goes to pinned host memory as it is drawn: the card
+        # never holds the decoder, so a model larger than the card serves
+        params = stream.init_streamed_params(gen, cfg, device,
+                                             scfg.prefetch_depth)
+    else:
+        params = tfm.init_params(gen, cfg, device)
     eng = ServeEngine(cfg, params, scfg, device)
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
@@ -107,6 +151,9 @@ def main(argv=None) -> None:
     if args.trace > 0:
         stats = _run_trace(eng, args, cfg.vocab_size)
         stats["device"] = name
+        if device.type == "cuda":
+            stats["max_memory_allocated_bytes"] = (
+                torch.cuda.max_memory_allocated(device))
         if args.json_out:
             with open(args.json_out, "w") as f:
                 json.dump(stats, f, indent=1)
@@ -125,9 +172,11 @@ def main(argv=None) -> None:
     out = eng.generate(prompts, steps=args.steps)
     sync()
     dt = time.perf_counter() - t0
+    peak = (f"; peak device memory {torch.cuda.max_memory_allocated(device)}"
+            " bytes" if device.type == "cuda" else "")
     print(f"[{name}] generated {args.steps} tokens x {args.batch} requests "
           f"in {dt:.2f}s ({args.steps * args.batch / dt:.1f} tok/s, first "
-          f"call: kernel build and warm-up included); "
+          f"call: kernel build and warm-up included){peak}; "
           f"sample: {out[0, -args.steps:].tolist()}")
 
 

@@ -22,10 +22,16 @@ What differs from the reference, by design:
   copy).  In the lock-step cache ``cache["pos"]`` is a Python int (one
   position for the whole batch), so a decode step reads nothing back from
   the card; in the per-slot cache it is an int32 tensor (B,) on the device.
-* On CUDA tensors the attention of one new token against the cache (both
-  decode steps) is the hand-written ``kernels/decode_attention`` kernel;
-  on CPU tensors, and for chunks of more than one token, it is
-  ``layers.gqa_attention`` with an additive mask, as in the reference.
+* Attention goes through the kernel ops on both devices: one new token
+  against the cache (both decode steps) through ``kernels/decode_attention``,
+  a prefill and a chunk of a prompt through ``kernels/flash_attention``
+  (the reference's promise at its ``transformer.py:274``).  The ops launch
+  the hand-written kernels on CUDA tensors and run their plain versions on
+  CPU tensors, so the model itself never branches on the device.
+* The layer loop is a parameter: ``prefill``, ``decode_step``,
+  ``decode_slots`` and ``chunk_prefill`` take ``decoder=`` in place of
+  ``_run_decoder``, which is how ``serve/stream.py`` streams the layer
+  weights through every pass.
 * There is no ``mesh`` argument: the port runs on one GPU.
 """
 
@@ -37,11 +43,10 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attn
+from repro_torch.kernels.flash_attention.ops import flash_attn, flash_attn_pos
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (AttnSpec, apply_rope, attn_mask_bias,
-                                       chunked_gqa_attention, gqa_attention,
-                                       linear, mlp, qk_head_norm, rms_norm,
-                                       rope_tables)
+from repro_torch.models.layers import (AttnSpec, apply_rope, linear, mlp,
+                                       qk_head_norm, rms_norm, rope_tables)
 
 POS_SENTINEL = 2 ** 30   # tag of cache slots not yet written
 
@@ -162,11 +167,15 @@ def resolve_device(device) -> torch.device:
 
 
 def init_params(generator: torch.Generator, cfg: ModelConfig,
-                device="cuda") -> dict:
+                device="cuda", *, collect_layers=list) -> dict:
     """Random parameters with the reference's scales (``d**-0.5`` for
     projections and embeddings, zeros for norm scales and biases), each
     tensor drawn on ``device`` in ``cfg.param_dtype``: nothing is staged
-    on the host.  ``generator`` must live on ``device``."""
+    on the host.  ``generator`` must live on ``device``.
+    ``collect_layers`` takes the layers as an iterator that draws each
+    when asked, and its result becomes ``params["layers"]``
+    (``serve/stream.init_streamed_params`` moves each to the host before
+    the next is drawn)."""
     _require_dense(cfg)
     device = resolve_device(device)
     init = _Init(generator, device, getattr(torch, cfg.param_dtype))
@@ -175,8 +184,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
                     "final_norm": init.zeros((d,))}
     if not cfg.tie_embeddings:
         params["lm_head"] = init.normal((d, v), d ** -0.5)
-    params["layers"] = [decoder_layer_params(init, cfg)
-                        for _ in range(cfg.num_layers)]
+    params["layers"] = collect_layers(decoder_layer_params(init, cfg)
+                                      for _ in range(cfg.num_layers))
     return params
 
 
@@ -239,16 +248,17 @@ def _project_qkv(x, p, cfg: ModelConfig):
     return q, k, v
 
 
-def _self_attention_full(x, p, cfg: ModelConfig, spec: AttnSpec,
-                         sin, cos, positions):
-    """Prefill attention over the whole sequence (q-chunked so the live
-    score tile stays bounded).  Returns (out, k, v)."""
+def _self_attention_full(x, p, cfg: ModelConfig, spec: AttnSpec, sin, cos):
+    """Prefill attention over the whole sequence at positions 0..S-1,
+    through ``flash_attn`` (causal, the spec's window and scale).
+    Returns (out, k, v)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
     q = apply_rope(q, sin, cos)
-    k = apply_rope(k, sin, cos)
-    out = chunked_gqa_attention(q, k, v, spec, positions, positions,
-                                chunk=cfg.attn_chunk)
+    k = apply_rope(k, sin, cos).contiguous()
+    v = v.contiguous()
+    out = flash_attn(q.contiguous(), k, v, causal=spec.causal,
+                     window=spec.sliding_window, scale=spec.scale)
     out = out.transpose(1, 2).reshape(b, s, -1)
     return linear(out, p["w_o"]), k, v
 
@@ -257,10 +267,10 @@ def _self_attention_decode(x, p, cfg: ModelConfig, spec: AttnSpec,
                            k_cache, v_cache, ctx: dict):
     """x: (B,1,d), one token at absolute position ``ctx["pos"]`` against
     the ring cache (B,Hkv,C,hd).  The new K/V row is written **in place**
-    at slot ``pos % C`` before attention.  The rope tables (and, on the
-    CPU, the mask) are the same for every layer and come ready in ``ctx``.
-    On the card attention is the ``decode_attention`` kernel with the
-    Pallas kernel's own signature (``slot_pos (C,)``, scalar position)."""
+    at slot ``pos % C`` before attention.  The rope tables are the same
+    for every layer and come ready in ``ctx``.  Attention is ``decode_attn``
+    with the Pallas kernel's own signature (``slot_pos (C,)``, scalar
+    position)."""
     b, s, _ = x.shape
     c = k_cache.shape[2]
     q, k_new, v_new = _project_qkv(x, p, cfg)          # (B,H,1,hd)
@@ -269,15 +279,10 @@ def _self_attention_decode(x, p, cfg: ModelConfig, spec: AttnSpec,
     slot = ctx["pos"] % c
     k_cache[:, :, slot:slot + 1, :] = k_new.to(k_cache.dtype)
     v_cache[:, :, slot:slot + 1, :] = v_new.to(v_cache.dtype)
-    if q.is_cuda:
-        out = decode_attn(q.reshape(b, spec.num_heads, spec.head_dim),
-                          k_cache, v_cache, ctx["slot_pos"], ctx["pos"],
-                          window=spec.sliding_window, scale=spec.scale)
-        return linear(out.reshape(b, s, -1), p["w_o"])
-    out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-                        ctx["bias"], spec)
-    out = out.transpose(1, 2).reshape(b, s, -1)
-    return linear(out, p["w_o"])
+    out = decode_attn(q.reshape(b, spec.num_heads, spec.head_dim),
+                      k_cache, v_cache, ctx["slot_pos"], ctx["pos"],
+                      window=spec.sliding_window, scale=spec.scale)
+    return linear(out.reshape(b, s, -1), p["w_o"])
 
 
 def _self_attention_slots(x, p, cfg: ModelConfig, spec: AttnSpec,
@@ -288,9 +293,10 @@ def _self_attention_slots(x, p, cfg: ModelConfig, spec: AttnSpec,
     updated for this step's writes), caches (B,Hkv,C,hd).  Serves both the
     continuous-batching decode step (T=1, B=slots) and chunked prefill
     (B=1, T=chunk).  The T new K/V rows are written **in place** into each
-    row's ring slots.  At T=1 on the card attention is the
-    ``decode_attention`` kernel with per-row positions; otherwise
-    ``gqa_attention`` with the per-row mask, as the reference."""
+    row's ring slots.  At T=1 attention is ``decode_attn`` with per-row
+    positions; at T>1 ``flash_attn_pos`` with the chunk's positions
+    against the ring's tags, on the ring as it is stored (no widened
+    copy)."""
     b, t, _ = x.shape
     c = k_cache.shape[2]
     positions = ctx["positions"]
@@ -301,27 +307,16 @@ def _self_attention_slots(x, p, cfg: ModelConfig, spec: AttnSpec,
     slots = (positions % c).long()                     # (B,T), distinct (T<=C)
     k_cache[rows, :, slots, :] = k_new.to(k_cache.dtype).transpose(1, 2)
     v_cache[rows, :, slots, :] = v_new.to(v_cache.dtype).transpose(1, 2)
-    if t == 1 and q.is_cuda:
+    if t == 1:
         out = decode_attn(q.reshape(b, spec.num_heads, spec.head_dim),
                           k_cache, v_cache, ctx["slot_pos"], ctx["q_pos"],
                           window=spec.sliding_window, scale=spec.scale)
         return linear(out.reshape(b, t, -1), p["w_o"])
-    out = gqa_attention(q, k_cache.to(q.dtype), v_cache.to(q.dtype),
-                        ctx["bias"], spec)
+    out = flash_attn_pos(q.contiguous(), k_cache, v_cache, positions,
+                         ctx["slot_pos"], causal=spec.causal,
+                         window=spec.sliding_window, scale=spec.scale)
     out = out.transpose(1, 2).reshape(b, t, -1)
     return linear(out, p["w_o"])
-
-
-def _slots_bias(spec: AttnSpec, slot_pos: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """Per-row additive mask (B,1,1,T,C) from the ring tags: 0 where
-    attendable, -inf where masked (sentinel slots mask out)."""
-    ok = slot_pos[:, None, :] <= positions[:, :, None]
-    if spec.sliding_window:
-        ok &= slot_pos[:, None, :] > positions[:, :, None] - spec.sliding_window
-    bias = torch.zeros(ok.shape, dtype=torch.float32, device=ok.device)
-    bias.masked_fill_(~ok, float("-inf"))
-    return bias[:, None, None, :, :]
 
 
 def _fill_ring(buf: torch.Tensor, val: torch.Tensor, total_seq: int) -> None:
@@ -352,8 +347,7 @@ def _decoder_layer(x, p, cfg: ModelConfig, spec: AttnSpec, ctx: dict,
             h, p["attn"], cfg, spec, layer_cache["k"], layer_cache["v"], ctx)
     else:
         attn_out, k, v = _self_attention_full(
-            h, p["attn"], cfg, spec, ctx["sin"], ctx["cos"],
-            ctx["positions"])
+            h, p["attn"], cfg, spec, ctx["sin"], ctx["cos"])
         if layer_cache is not None:   # prefill: write the cache
             c = layer_cache["k"].shape[2]
             s = k.shape[2]
@@ -395,16 +389,17 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: dict) -> tuple[torch.Tensor, dict]:
+            cache: dict, *, decoder=None) -> tuple[torch.Tensor, dict]:
     """Process the prompt (B, S), fill ``cache`` in place, return the
-    last token's logits (B, 1, V) and the same cache."""
+    last token's logits (B, 1, V) and the same cache.  ``decoder`` runs
+    the layers (default ``_run_decoder``)."""
     _require_dense(cfg)
     x = _embed(params, cfg, tokens)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     sin, cos = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    ctx = {"mode": "prefill", "sin": sin, "cos": cos, "positions": positions}
-    x = _run_decoder(params, cfg, x, ctx, cache)
+    ctx = {"mode": "prefill", "sin": sin, "cos": cos}
+    x = (decoder or _run_decoder)(params, cfg, x, ctx, cache)
     cap = cache["slot_pos"].shape[0]
     idx = torch.arange(cap, device=x.device)
     if s <= cap:
@@ -418,9 +413,9 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
-                cache: dict) -> tuple[torch.Tensor, dict]:
+                cache: dict, *, decoder=None) -> tuple[torch.Tensor, dict]:
     """One serving step: token (B,) -> (logits (B,1,V), the same cache,
-    advanced in place by one position)."""
+    advanced in place by one position).  ``decoder`` runs the layers."""
     _require_dense(cfg)
     x = _embed(params, cfg, token[:, None])
     pos = cache["pos"]
@@ -430,9 +425,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     sin, cos = rope_tables(pos_t, cfg.resolved_head_dim, cfg.rope_theta)
     ctx = {"mode": "decode", "pos": pos, "sin": sin, "cos": cos,
            "slot_pos": cache["slot_pos"]}
-    if not x.is_cuda:       # the kernel masks by the tags itself
-        ctx["bias"] = attn_mask_bias(attn_spec(cfg), pos_t, cache["slot_pos"])
-    x = _run_decoder(params, cfg, x, ctx, cache)
+    x = (decoder or _run_decoder)(params, cfg, x, ctx, cache)
     cache["pos"] = pos + 1
     return _logits(params, cfg, x), cache
 
@@ -452,42 +445,38 @@ def _tag_slots(slot_pos: torch.Tensor, positions: torch.Tensor) -> None:
 def _slots_ctx(cfg: ModelConfig, cache: dict,
                positions: torch.Tensor) -> dict:
     """Tag the ring (in place) and build what every layer shares: rope
-    tables, the tags and the query positions, and the mask where
-    ``gqa_attention`` needs one (chunks, or the CPU)."""
+    tables, the tags and the query positions (the attention ops mask by
+    the tags themselves)."""
     _tag_slots(cache["slot_pos"], positions)
     sin, cos = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
-    ctx = {"mode": "slots", "positions": positions, "sin": sin, "cos": cos,
-           "slot_pos": cache["slot_pos"], "q_pos": positions[:, 0]}
-    if positions.shape[1] > 1 or not positions.is_cuda:
-        ctx["bias"] = _slots_bias(attn_spec(cfg), cache["slot_pos"],
-                                  positions)
-    return ctx
+    return {"mode": "slots", "positions": positions, "sin": sin, "cos": cos,
+            "slot_pos": cache["slot_pos"], "q_pos": positions[:, 0]}
 
 
 def decode_slots(params, cfg: ModelConfig, token: torch.Tensor,
-                 cache: dict) -> tuple[torch.Tensor, dict]:
+                 cache: dict, *, decoder=None) -> tuple[torch.Tensor, dict]:
     """One continuous-batching step: token (B,) against a per-slot cache
     (``CacheSpec(per_slot=True)``: pos (B,), slot_pos (B,C)).  Every slot
     advances by one token at its *own* position -> (logits (B,1,V), the
-    same cache, advanced in place)."""
+    same cache, advanced in place).  ``decoder`` runs the layers."""
     _require_dense(cfg)
     x = _embed(params, cfg, token[:, None])
     positions = cache["pos"][:, None] + 0               # (B,1), a copy
     ctx = _slots_ctx(cfg, cache, positions)
-    x = _run_decoder(params, cfg, x, ctx, cache)
+    x = (decoder or _run_decoder)(params, cfg, x, ctx, cache)
     cache["pos"] += 1
     return _logits(params, cfg, x), cache
 
 
 def chunk_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-                  cache: dict) -> tuple[torch.Tensor, dict]:
+                  cache: dict, *, decoder=None) -> tuple[torch.Tensor, dict]:
     """Advance a per-slot cache by a chunk of T prompt tokens, in place.
 
     tokens: (B,T) starting at each row's ``cache["pos"]``.  Attention runs
     against the ring cache (earlier chunks' K/V plus this chunk's, tagged
     by absolute position), so while the prompt fits the ring any chunking
     gives the same result as a single pass.  Returns (last-token logits
-    (B,1,V), the same cache)."""
+    (B,1,V), the same cache).  ``decoder`` runs the layers."""
     _require_dense(cfg)
     b, t = tokens.shape
     if t > cache["slot_pos"].shape[1]:
@@ -497,7 +486,7 @@ def chunk_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     positions = cache["pos"][:, None] + torch.arange(
         t, dtype=torch.int32, device=x.device)[None, :]
     ctx = _slots_ctx(cfg, cache, positions)
-    x = _run_decoder(params, cfg, x, ctx, cache)
+    x = (decoder or _run_decoder)(params, cfg, x, ctx, cache)
     cache["pos"] += t
     return _logits(params, cfg, x[:, -1:, :]), cache
 

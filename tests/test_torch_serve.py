@@ -276,7 +276,7 @@ def test_unported_parts_raise_and_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfm.init_cache(tcfg, tfm.CacheSpec(8, 1, kv_dtype=torch.int8), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(tcfg, {}, ServeConfig(1, 8, mode="elk_stream"), "cpu")
+        eng.refill_slot(0, {})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_smoke_config("rwkv6-7b")
     with pytest.raises(KeyError):
