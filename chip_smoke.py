@@ -14,10 +14,13 @@ exit code and no result line:
             ``nvcc`` for sm_90a into ``build/`` (one process per source,
             all started together).
 3. kernels  holds each hand-written kernel (fused MLP, decode attention,
-            flash attention) against its plain PyTorch version on the card,
-            at the reference's sweep shapes and at the shapes the serving
+            flash attention, the ELK-blocked matmul of every projection and
+            the LM head) against its plain PyTorch version on the card, at
+            the reference's sweep shapes and at the shapes the serving
             paths give it, and times kernel, plain version and a library
-            yardstick with CUDA events.
+            yardstick with CUDA events; the matmul also at the block shapes
+            ``smem_plan`` chose, which it prints, and its host time a call
+            beside ``torch.matmul``'s.
 4. parity   the smoke config in fp32 on the same seeded weights, on the CPU
             (plain path) and on the card (kernel path), with resident
             weights (``gspmd``) and streamed ones (``elk_stream``):
@@ -30,7 +33,13 @@ exit code and no result line:
 6. serve-trace  continuous batching, resident weights: the same model and
             weights, 8 slots of 2048, 16 mixed requests (prompts 128-1024,
             16-64 new tokens) through ``ContinuousBatcher.run``.
-7. stream-serve  the launcher's default path: the same model and weights
+7. oversub  continuous batching oversubscribed, resident weights: the same
+            slots serve 24 requests (the trace of 6, a shared system prompt
+            of 512 tokens on about half) with K = 2 (rings parked in host
+            memory, LRU swaps) and a prefix store, then at K = 1 with no
+            store; equal tokens, at least one swap and one prefix hit, and
+            the offload, refill and snapshot copy rates.
+8. stream-serve  the launcher's default path: the same model and weights
             under ``elk_stream``, knobs from ``elk_serve_config`` on
             ``h100_host()``, the layer weights in pinned host memory and
             streamed through the planner's window; lock-step as in 5 and a
@@ -62,6 +71,8 @@ import dataclasses
 import gc
 import importlib.metadata
 import json
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -81,6 +92,10 @@ from repro_torch.kernels.decode_attention.kernel import \
 from repro_torch.kernels.decode_attention.ops import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, live_mask)
+from repro_torch.kernels.elk_matmul.kernel import (  # noqa: E402
+    elk_matmul_kernel, plan_for)
+from repro_torch.kernels.elk_matmul.ops import matmul  # noqa: E402
+from repro_torch.kernels.elk_matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import \
     flash_attention_kernel  # noqa: E402
@@ -95,6 +110,7 @@ from repro_torch.serve.batcher import (ContinuousBatcher,  # noqa: E402
                                        _chunk_len, make_trace, summarize)
 from repro_torch.serve.engine import (ServeConfig, ServeEngine,  # noqa: E402
                                      elk_serve_config)
+from repro_torch.serve.prefix import PrefixStore, host_copy  # noqa: E402
 from repro_torch.serve.stream import init_streamed_params  # noqa: E402
 
 # datasheet, H100 SXM
@@ -145,6 +161,14 @@ FLASH_SWEEP = [
 ]
 # the streamed trace: the first requests of the resident one
 STREAM_TRACE_N = 4
+# the oversubscribed phase: the trace's lengths, a shared system prompt on
+# about half of 24 requests, K = 2 over the 8 slots, a prefix store of 8 GiB
+# in host memory (24 ring snapshots of 335 MB at full width)
+OVERSUB_N, OVERSUB, SYS_PROMPT_LEN = 24, 2.0, 512
+PREFIX_STORE_BYTES = 8 << 30
+# (M, N, K): the reference's elk_matmul sweep
+MATMUL_SWEEP = [(128, 128, 128), (256, 64, 512), (100, 60, 70),
+                (33, 129, 257)]
 
 
 def fail(msg: str) -> None:
@@ -183,6 +207,25 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 200, repeats: int = 5) -> float:
+    """Median host time of one ``fn()`` call in microseconds, over
+    ``repeats`` runs of ``calls`` calls queued behind about 30 ms of device
+    work: what the host spends to launch, never waiting for the device."""
+    fn()
+    busy = torch.zeros(8192, 8192, device="cuda", dtype=torch.bfloat16)
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        for _ in range(20):
+            torch.matmul(busy, busy)
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
 
 
 # ---------------------------------------------------------------------------
@@ -676,27 +719,149 @@ def flash_phase(cfg, chunk: int) -> dict:
     }
 
 
-def matmul_bounds(cfg) -> None:
-    """The bounds of the products ``layers.linear`` gives the one TPU kernel
-    still to port (``elk_matmul``) on the serving paths, bf16: the
-    projections of a layer and the LM head at decode (8 rows), a chunk of
-    32 and a lock-step prefill (4096 rows; the LM head takes the last
-    token only)."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    shapes = {"q, o": (d, cfg.num_heads * hd), "k, v": (d, cfg.num_kv_heads * hd),
-              "lm_head": (d, cfg.vocab_size)}
-    rows = []
-    for m in (BATCH, 32, BATCH * PROMPT_LEN):
-        for name, (k, n) in shapes.items():
+def check_matmul(x, y, **blocks) -> tuple[float, float]:
+    """(max abs error, largest error over its limit) of the kernel against
+    ``matmul_ref`` on these inputs; fails the run beyond the limit.
+
+    Both sides take the same inputs and sum their products in fp32 (the
+    products of two bf16 values are exact), in other orders.  Each sum is
+    within K ulp-sized steps of the exact one, so per output the two differ
+    by at most ``2 K 2**-23 (|x| @ |y|)`` (an ulp, not half of one, for
+    the tensor cores' adder); in bf16 the output is rounded once on each
+    side, which adds at most one bf16 unit, ``2**-7 |ref|``.  The limit is
+    that sum, and never more than the reference's kernel-test bound
+    ``TOL * (max|ref| + 1)``."""
+    out = matmul(x, y, **blocks)
+    torch.cuda.synchronize()
+    ref = matmul_ref(x, y)
+    where = (f"x{tuple(x.shape)} stride {x.stride()} y{tuple(y.shape)} "
+             f"stride {y.stride()} {x.dtype} blocks {blocks or 'planned'}")
+    if out.shape != ref.shape or out.dtype != ref.dtype:
+        fail(f"elk_matmul gave {tuple(out.shape)} {out.dtype}, plain version "
+             f"{tuple(ref.shape)} {ref.dtype} at {where}")
+    if not torch.isfinite(out.to(torch.float32)).all():
+        fail(f"elk_matmul output not finite at {where}")
+    ref32 = ref.to(torch.float32)
+    diff = (out.to(torch.float32) - ref32).abs()
+    k = x.shape[1]
+    limit = 2 * k * 2.0 ** -23 * torch.matmul(x.to(torch.float32).abs(),
+                                              y.to(torch.float32).abs())
+    if x.dtype == torch.bfloat16:
+        limit += 2.0 ** -7 * ref32.abs()
+    cap = TOL[x.dtype] * (float(ref32.abs().max()) + 1.0)
+    limit = limit.clamp(max=cap)
+    over = float((diff / limit.clamp(min=1e-30)).max())
+    err = float(diff.max())
+    if over > 1.0:
+        fail(f"elk_matmul disagrees with matmul_ref at {where}: max abs err "
+             f"{err:.3e}, {over:.3f} x its limit")
+    return err, over
+
+
+def matmul_bound_ms(m, n, k, dtype) -> tuple[float, str]:
+    """Least time for the product: x and y read once, the output written
+    once, at the memory rate; its 2 m n k operations at the peak rate."""
+    size = torch.empty((), dtype=dtype).element_size()
+    t_bytes = (m * k + k * n + m * n) * size / HBM_BYTES_PER_S
+    t_ops = 2 * m * n * k / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def elk_matmul_phase(cfg) -> dict:
+    """The reference's matmul sweep against ``matmul_ref``, at the
+    reference test's blocks (64) and at ``smem_plan``'s, with a transposed
+    ``y`` and a strided ``x``; then the products ``layers.linear`` gives
+    the kernel on the serving paths, full width, bf16, timed: q/o, k/v at
+    8, 32, 256 and 4096 rows, the LM head at 8 and 32."""
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+
+    def normal(*shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda",
+                            dtype=torch.float32) * scale).to(dtype)
+
+    worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    cases = 0
+
+    def case(x, y, **blocks):
+        nonlocal cases
+        err, over = check_matmul(x, y, **blocks)
+        key = str(x.dtype).split(".")[1]
+        worst[key] = max(worst[key], (over, err))
+        cases += 1
+        return err
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for m, n, k in MATMUL_SWEEP:
+            x, y = normal(m, k, dtype=dtype), normal(k, n, dtype=dtype)
+            case(x, y, bm=64, bn=64, bk=64)
+            case(x, y)
+            # y as the transpose of an (n, k) tensor (a tied embedding)
+            case(x, y.t().contiguous().t(), bm=64, bn=64, bk=64)
+            case(x, y.t().contiguous().t())
+        # x with a row stride (the last token of a prefill), rows 8-aligned
+        # and not
+        for k in (64, 70):
+            xs = normal(3, 5, k, dtype=dtype)[:, -1, :]
+            case(xs, normal(k, 100, dtype=dtype))
+            case(xs, normal(100, k, dtype=dtype).t())
+    say(f"[kernels] elk_matmul: {cases} sweep cases inside their limits "
+        f"(worst err/limit and its err: {json.dumps(worst)})")
+
+    d, dtype = cfg.d_model, torch.bfloat16
+    products = {"q, o": cfg.num_heads * cfg.resolved_head_dim,
+                "k, v": cfg.num_kv_heads * cfg.resolved_head_dim,
+                "lm_head": cfg.vocab_size}
+    weights = {name: normal(d, n, dtype=dtype, scale=d ** -0.5)
+               for name, n in products.items()}
+    x_all = normal(BATCH * PROMPT_LEN, d, dtype=dtype)
+    shapes = []
+    for m in (BATCH, 32, PREFILL_CHUNK, BATCH * PROMPT_LEN):
+        for name, w in weights.items():
             if name == "lm_head" and m > 32:
                 continue
-            t_bytes = 2 * (m * k + k * n + m * n) / HBM_BYTES_PER_S
-            t_ops = 2 * m * k * n / PEAK_FLOPS[torch.bfloat16]
-            rows.append({"m": m, "product": name, "k": k, "n": n,
-                         "bound_ms": max(t_bytes, t_ops) * 1e3,
-                         "bound_by": "bytes" if t_bytes >= t_ops
-                         else "operations"})
-    say("[kernels] elk_matmul (still to port) bounds: " + json.dumps(rows))
+            x = x_all[:m]
+            n = w.shape[1]
+            err = case(x, w)
+            plan = plan_for(m, n, d, dtype)
+            bound, bound_by = matmul_bound_ms(m, n, d, dtype)
+            iters = 5 if m * n > 2 ** 24 else 20
+            shapes.append({
+                "shape": f"{name} m={m}", "m": m, "n": n, "k": d,
+                "dtype": "bfloat16", "tiles": [plan.bm, plan.bn, plan.bk],
+                "blocks": plan.tiles, "smem_bytes": plan.smem_bytes,
+                "max_abs_err": err,
+                "ms": time_ms(lambda: matmul(x, w), iters),
+                "plain_ms": time_ms(lambda: matmul_ref(x, w), 3, warmup=1),
+                "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": time_ms(lambda: torch.matmul(x, w), iters),
+            })
+            say(f"[kernels] elk_matmul {name} m={m}: "
+                + json.dumps(shapes[-1]))
+    # host cost of a call at the decode step's q/o product (161 calls a
+    # step): checks, plan lookup, allocation and the ctypes launch, against
+    # torch.matmul's
+    x, w = x_all[:BATCH], weights["q, o"]
+    host = {"elk_matmul": host_us(lambda: matmul(x, w)),
+            "torch.matmul": host_us(lambda: torch.matmul(x, w))}
+    say(f"[kernels] elk_matmul host us a call, q, o m={BATCH}: "
+        + json.dumps(host))
+    del weights, x_all, x, w
+    main = shapes[0]                   # q, o at a decode step
+    return {
+        "name": "elk_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/elk_matmul.cu",
+        "replaces": "src/repro/kernels/elk_matmul/kernel.py:31",
+        "launches": 0,
+        # the scalar keys are the decode step's q/o product (the most
+        # launches on the paths); "shapes" holds the others
+        "max_abs_err": main["max_abs_err"], "ms": main["ms"],
+        "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "cases": cases, "max_err_over_tol": max(w for w, _ in worst.values()),
+        "worst_by_dtype": worst, "shapes": shapes,
+        "host_us_per_call": host,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -724,7 +889,8 @@ def parity_phase() -> None:
     launched = {k: n - before[k] for k, n in read_launches().items()}
     if launched != {"fused_mlp": 2 * cfg.num_layers * 8,
                     "decode_attention": 2 * cfg.num_layers * 7,
-                    "flash_attention": 2 * cfg.num_layers}:
+                    "flash_attention": 2 * cfg.num_layers,
+                    "elk_matmul": 2 * (4 * cfg.num_layers + 1) * 8}:
         fail(f"the card's engines did not go through the kernels as often "
              f"as their passes say: {launched}")
     for key, got in toks.items():
@@ -786,7 +952,8 @@ def parity_phase() -> None:
 
 COUNTERS = {"fused_mlp": fused_mlp_kernel,
             "decode_attention": decode_attention_kernel,
-            "flash_attention": flash_attention_kernel}
+            "flash_attention": flash_attention_kernel,
+            "elk_matmul": elk_matmul_kernel}
 
 
 def zero_launches() -> None:
@@ -824,13 +991,16 @@ def chunk_lengths(trace, budget: int) -> list[int]:
 
 def trace_expected(layers: int, decode_ticks: int, chunks: list[int]
                    ) -> dict:
-    """Launches of a continuous trace: the MLP in every pass; decode
+    """Launches of a continuous trace: the MLP and the four projections in
+    every layer of every pass, and the LM head once a pass; decode
     attention in every decode tick and every one-token chunk; flash
     attention in every longer chunk."""
     ones = sum(t == 1 for t in chunks)
-    return {"fused_mlp": layers * (decode_ticks + len(chunks)),
+    passes = decode_ticks + len(chunks)
+    return {"fused_mlp": layers * passes,
             "decode_attention": layers * (decode_ticks + ones),
-            "flash_attention": layers * (len(chunks) - ones)}
+            "flash_attention": layers * (len(chunks) - ones),
+            "elk_matmul": (4 * layers + 1) * passes}
 
 
 def draw_params(cfg) -> dict:
@@ -846,11 +1016,13 @@ def draw_params(cfg) -> dict:
 
 def lockstep_expected(layers: int) -> dict:
     """Launches of one ``generate`` of STEPS tokens: one prefill (flash
-    attention) and STEPS - 1 decode steps (decode attention); the MLP in
-    every pass."""
+    attention) and STEPS - 1 decode steps (decode attention); the MLP and
+    the four projections in every layer of every pass, the LM head once a
+    pass."""
     return {"fused_mlp": layers * STEPS,
             "decode_attention": layers * (STEPS - 1),
-            "flash_attention": layers}
+            "flash_attention": layers,
+            "elk_matmul": (4 * layers + 1) * STEPS}
 
 
 def serve_phase(cfg, params: dict, kernel_rows: list[dict],
@@ -1037,7 +1209,133 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict],
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the launcher's default path, weights streamed from the host
+# phase 7: oversubscribed continuous batching, KV offload and prefix reuse
+# ---------------------------------------------------------------------------
+
+def copy_gbps(eng: ServeEngine, slot: int, state: dict) -> dict:
+    """One slot's state moved alone, best of 3: card to host
+    (``offload_slot``), host to card (``refill_slot``), and a prefix
+    snapshot of a request cache (``host_copy``)."""
+    def best(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return min(times)
+
+    nbytes = eng.slot_state_bytes()
+    eng.refill_slot(slot, state)
+    offload_s = best(lambda: eng.offload_slot(slot))
+    refill_s = best(lambda: eng.refill_slot(slot, state))
+    rc = eng.new_request_cache()
+    snapshot_s = best(lambda: host_copy(rc))
+    eng.evict_slot(slot, keep=False)
+    return {"slot_state_bytes": nbytes,
+            "offload_ms": offload_s * 1e3,
+            "offload_GBps": nbytes / offload_s / 1e9,
+            "refill_ms": refill_s * 1e3,
+            "refill_GBps": nbytes / refill_s / 1e9,
+            "snapshot_ms": snapshot_s * 1e3,
+            "snapshot_GBps": nbytes / snapshot_s / 1e9}
+
+
+def oversub_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
+    """The resident model and weights of the continuous phase, 8 slots of
+    2048, serving 24 requests of which about half share a system prompt of
+    512 tokens: first oversubscribed (K = 2: prefill ahead, parked rings in
+    host memory, LRU swaps) with a prefix store of PREFIX_STORE_BYTES, then
+    at K = 1 with no store.  Every request must get the same tokens both
+    times; the first run must have swapped at least once and hit the store
+    at least once."""
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    scfg = ServeConfig(batch=SLOTS, cache_capacity=SLOT_CACHE,
+                       prefill_chunk=PREFILL_CHUNK)
+    eng = ServeEngine(cfg, params, scfg)
+    vocab = cfg.vocab_size
+    trace = make_trace(OVERSUB_N, vocab_size=vocab, **TRACE,
+                       sys_prompt_len=SYS_PROMPT_LEN, sys_prompt_frac=0.5)
+    chunks, swaps = [], []
+    prefill_chunk, offload = eng.prefill_chunk, eng.offload_slot
+
+    def counted_chunk(cache, tokens):
+        chunks.append(tokens.shape[1])
+        return prefill_chunk(cache, tokens)
+
+    def counted_offload(slot):
+        swaps.append(slot)
+        return offload(slot)
+
+    eng.prefill_chunk, eng.offload_slot = counted_chunk, counted_offload
+    runs = {}
+    for label, kw in (("oversub", dict(oversub=OVERSUB, prefix_store=
+                                       PrefixStore(PREFIX_STORE_BYTES))),
+                      ("capped", dict())):
+        chunks.clear()
+        swaps.clear()
+        bat = ContinuousBatcher(eng, **kw)
+        zero_launches()
+        t0 = time.perf_counter()
+        comps = bat.run(trace)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_launches()
+        if label == "oversub":
+            record_launches(kernel_rows, "oversub continuous", counts,
+                            trace_expected(cfg.num_layers, bat.decode_ticks,
+                                           chunks))
+        elif counts != trace_expected(cfg.num_layers, bat.decode_ticks,
+                                      chunks):
+            fail(f"the K = 1 run launched {counts}")
+        check_completions(trace, comps, vocab)
+        stats = summarize(comps, wall)
+        kinds = [k for k, _ in bat.spill_events]
+        stats.update({
+            "oversub": bat.oversub, "virtual_slots": bat.virtual_slots,
+            "ticks": bat.ticks, "decode_ticks": bat.decode_ticks,
+            "prefill_chunks": len(chunks),
+            "prefill_tokens": sum(chunks),
+            "spill_events": len(bat.spill_events),
+            "spills": kinds.count("spill"), "refills": kinds.count("refill"),
+            "swaps": len(swaps),
+            "bytes_moved": sum(nb for _, nb in bat.spill_events),
+            "planned_spill_s": bat.planned_spill_s,
+            "launches": counts, "finish_order": [c.rid for c in comps]})
+        if bat.prefix is not None:
+            stats.update({
+                "prefix_hits": bat.prefix_hits,
+                "prefix_tokens_saved": bat.prefix_tokens_saved,
+                "prefix_store_bytes": bat.prefix.bytes,
+                "prefix_store_budget": bat.prefix.capacity_bytes,
+                "prefix_snapshots_stored": len(bat.prefix)})
+        runs[label] = ({c.rid: c.tokens for c in comps}, stats, bat)
+        say(f"[oversub] {label}: " + json.dumps(stats))
+    del eng.prefill_chunk, eng.offload_slot  # the class's methods again
+    got, stats, bat = runs["oversub"]
+    want = runs["capped"][0]
+    for rid, toks in want.items():
+        if not np.array_equal(got[rid], toks):
+            fail(f"request {rid}: oversubscribed tokens differ from the K = 1 "
+                 f"run's:\n{got[rid]}\n{toks}")
+    if stats["swaps"] < 1 or stats["prefix_hits"] < 1:
+        fail(f"the oversubscribed run swapped {stats['swaps']} times and hit "
+             f"the prefix store {stats['prefix_hits']} times")
+    state = eng.offload_slot(0)
+    rates = copy_gbps(eng, 0, state)
+    say("[oversub] " + json.dumps({
+        "model": cfg.name, "layers": cfg.num_layers, "slots": SLOTS,
+        "cache": SLOT_CACHE, "prefill_chunk": PREFILL_CHUNK,
+        "requests": OVERSUB_N, "sys_prompt_len": SYS_PROMPT_LEN,
+        "tokens_equal_to_capped": True, **rates,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}))
+    del runs, bat, state
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the launcher's default path, weights streamed from the host
 # ---------------------------------------------------------------------------
 
 def copy_rates(ls) -> dict:
@@ -1378,9 +1676,18 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = _build.build_all(verbose=True)
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "error" in line.lower():
-                say(f"[build] {name}: {line.strip()}")
+        lines = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "error" in ln.lower()]
+        if len(lines) > 8:      # many template instances: a summary
+            regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+            spills = [int(b) for b in
+                      re.findall(r"(\d+) bytes spill stores", log)]
+            lines = [f"{len(regs)} functions, registers {min(regs or [0])}-"
+                     f"{max(regs or [0])}, spill stores up to "
+                     f"{max(spills or [0])} bytes"] + [
+                         ln for ln in lines if "error" in ln.lower()]
+        for line in lines:
+            say(f"[build] {name}: {line}")
     say(f"[build] {len(logs)} source(s) {sorted(logs)} built with nvcc for "
         f"sm_90a in {time.perf_counter() - t0:.1f}s")
 
@@ -1398,14 +1705,14 @@ def main() -> None:
         pod=h100_host()).prefill_chunk)
     with torch.inference_mode():
         rows = [kernels_phase(cfg), attention_phase(cfg),
-                flash_phase(cfg, chunk)]
-        matmul_bounds(cfg)
+                flash_phase(cfg, chunk), elk_matmul_phase(cfg)]
         parity_phase()
         params = draw_params(cfg)
         out = serve_phase(lock_cfg, {
             **params, "layers": params["layers"][:lock_cfg.num_layers]},
             rows, args.profile)
         trace_phase(cfg, params, rows, args.profile)
+        oversub_phase(cfg, params, rows)
         del params                    # the stream phase draws its own
         stream_phase(cfg, rows,
                      out if lock_cfg.num_layers == cfg.num_layers else None,

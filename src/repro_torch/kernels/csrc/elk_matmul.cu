@@ -1,0 +1,427 @@
+// ELK-blocked matrix product for Hopper (sm_90a): out = x @ y.
+//
+//   x (M, K), row stride lda;  y (K, N) row-major, or given as its transpose
+//   (N, K) row-major (the view embed.t() of a tied embedding);  out (M, N)
+//   contiguous, in x's type, from an fp32 sum.
+//
+// Replaces the TPU kernel src/repro/kernels/elk_matmul/kernel.py
+// (_matmul_kernel / elk_matmul).  Same function: (bm, bn) output tiles, the
+// K loop innermost with the fp32 accumulator held across it, each output
+// tile written once (the ELK "execute state"), ragged shapes exact.  What
+// differs: the Pallas grid pads x and y to block multiples in HBM; here the
+// loads past M, N and K are zero-filled in shared memory and the stores
+// past M and N skipped, so no operand is copied.
+//
+// What bounds it on an H100 (datasheet: 3.35 TB/s, 989 TFLOP/s dense bf16)
+// at the serving shapes of qwen3-14b, bf16: with m <= 32 rows (decode steps,
+// short chunks, the LM head) reading the weight once is the bound, q/o
+// (5120 x 5120) 0.0157 ms, k/v (5120 x 1024) 0.0032 ms, the LM head
+// (5120 x 151936) 0.465 ms; at m = 4096 (a lock-step prefill) the
+// operations are, q/o 0.217 ms, k/v 0.043 ms on the tensor cores.
+//
+// Design.  One block owns one (bm, bn) output tile and walks K inside the
+// block; blocks share nothing, so a row's output depends on its own x row
+// alone and the K order is fixed: no atomics, the same bits whatever the
+// other rows hold and however many there are.  (bm, bn, bk) come from
+// chip/h100.smem_plan, the ELK allocation on the SM's shared memory:
+//   * the operand tiles go through a ring of kStages shared-memory buffers
+//     filled by cp.async (16 bytes a thread, zero-filled past the edges):
+//     one tile in use (the execution space), the next ones in flight (the
+//     preload space).  Rows are padded by 16 bytes against bank conflicts.
+//     Where an operand's rows do not start on 16 bytes (K or N not a
+//     multiple of 8 bf16 / 4 fp32 elements, or a row stride that is not),
+//     the same tiles are filled element by element with plain loads;
+//   * bf16: mma.sync m16n8k16 on the tensor cores, fp32 accumulators in
+//     registers; 4 warps (8 at bm = 128), each a (bm / WM) x (bn / WN)
+//     warp tile; A fragments by 32-bit shared loads, B by 32-bit loads for
+//     y given as (N, K) and by ldmatrix.trans for y as (K, N);
+//   * fp32: FMA, each thread a strided micro-tile of outputs, one product a
+//     K step in order (TF32 would miss the fp32 tolerance).
+// At m <= 32 the plan takes 16- or 32-row tiles (rows 9-16 of a decode step
+// are the MMA's padding, not 120 rows of it), narrows bn until the tiles
+// cover the SMs, and deepens bk so that more of the weight is in flight.
+// A split of K across blocks (for k/v at m = 8: 32 blocks on 132 SMs),
+// wgmma and TMA are left for later.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kPadBytes = 16;
+constexpr int kStages = 3;  // the ring's buffers; chip/h100.py STAGES
+int g_smem_optin = 0;       // set by elk_matmul_prepare
+
+struct Args {
+  const void* x;
+  const void* y;
+  void* out;
+  int m, n, k;
+  int lda, ldy;    // row strides of x and of y as stored, in elements
+  int bk;
+  int x_vec, y_vec;  // rows start on 16 bytes and hold whole 16-byte pieces
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool inside) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(inside ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The tile in use has arrived once all but the newest kStages - 2 groups
+// have.
+__device__ __forceinline__ void wait_for_tile() { cp_async_wait<kStages - 2>(); }
+
+__device__ __forceinline__ float zero_of(float) { return 0.0f; }
+__device__ __forceinline__ bf16 zero_of(bf16) { return __float2bfloat16(0.0f); }
+
+// Rows [r0, r0 + rows) x columns [c0, c0 + cols) of the row-major (R, C)
+// matrix g (row stride ld) into shared memory rows of lds elements; what lies
+// outside (R, C) is zero.  With vec every 16-byte piece is wholly inside or
+// outside and moves by cp.async; else element by element.
+template <typename T>
+__device__ __forceinline__ void load_tile(T* s, int lds, const T* g, int ld, int R, int C, int r0,
+                                          int c0, int rows, int cols, bool vec) {
+  if (vec) {
+    constexpr int V = 16 / sizeof(T);
+    const int per_row = cols / V;
+    for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
+      const int r = e / per_row, c = (e - r * per_row) * V;
+      const int gr = r0 + r, gc = c0 + c;
+      const bool inside = gr < R && gc < C;
+      cp_async16(s + r * lds + c, inside ? g + (size_t)gr * ld + gc : g, inside);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+      const int r = e / cols, c = e - r * cols;
+      const int gr = r0 + r, gc = c0 + c;
+      s[r * lds + c] = (gr < R && gc < C) ? g[(size_t)gr * ld + gc] : zero_of(T());
+    }
+  }
+}
+
+// Shared-memory elements of one stage: x (BM, bk) and y (bk, BN) or (BN, bk),
+// rows padded.
+template <typename T>
+__host__ __device__ __forceinline__ int stage_elems(int bm, int bn, int bk, bool yt) {
+  const int pad = kPadBytes / (int)sizeof(T);
+  return bm * (bk + pad) + (yt ? bn * (bk + pad) : bk * (bn + pad));
+}
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores through mma.sync m16n8k16
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// B fragment of a k16 x n8 block stored k-major (rows k, n contiguous):
+// matrix 0 = k 0-7 (b0), matrix 1 = k 8-15 (b1), transposed on the way.
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(smem_addr(p)));
+}
+
+template <int BM, int BN>
+struct MmaShape {
+  static constexpr int kThreads = BM >= 128 ? 256 : 128;
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kWM = BM == 16 ? 1 : (BM >= 128 ? 4 : 2);  // warps along M
+  static constexpr int kWN = kWarps / kWM;                        // and along N
+  static constexpr int kWTM = BM / kWM;                           // a warp's tile
+  static constexpr int kWTN = BN / kWN;
+  static constexpr int kMI = kWTM / 16;  // m16 fragments of a warp
+  static constexpr int kNI = kWTN / 8;   // n8 fragments of a warp
+  static_assert(kWTM % 16 == 0 && kWTN % 8 == 0 && kWM * kWN == kWarps, "warp tiling");
+};
+
+template <int BM, int BN, bool YT>
+__global__ void __launch_bounds__(MmaShape<BM, BN>::kThreads) elk_matmul_mma_kernel(Args a) {
+  using S = MmaShape<BM, BN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
+  const int bk = a.bk;
+  const int ldx = bk + 8, ldy = YT ? bk + 8 : BN + 8;
+  const int x_elems = BM * ldx;
+  const int stage = stage_elems<bf16>(BM, BN, bk, YT);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const bf16* xg = reinterpret_cast<const bf16*>(a.x);
+  const bf16* yg = reinterpret_cast<const bf16*>(a.y);
+  const int nk = (a.k + bk - 1) / bk;
+
+  auto load = [&](int kt) {
+    if (kt < nk) {
+      bf16* xs = ring + (kt % kStages) * stage;
+      bf16* ys = xs + x_elems;
+      const int k0 = kt * bk;
+      load_tile(xs, ldx, xg, a.lda, a.m, a.k, m0, k0, BM, bk, a.x_vec != 0);
+      if (YT)
+        load_tile(ys, ldy, yg, a.ldy, a.n, a.k, n0, k0, BN, bk, a.y_vec != 0);
+      else
+        load_tile(ys, ldy, yg, a.ldy, a.k, a.n, k0, n0, bk, BN, a.y_vec != 0);
+    }
+    cp_async_commit();  // one group a step, empty past the last tile
+  };
+  for (int s = 0; s < kStages - 1; ++s) load(s);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp / S::kWN, wn = warp % S::kWN;
+  const int gid = lane >> 2, tig = lane & 3;  // row group, thread in group
+  float c[S::kMI][S::kNI][4];
+#pragma unroll
+  for (int i = 0; i < S::kMI; ++i)
+#pragma unroll
+    for (int j = 0; j < S::kNI; ++j) c[i][j][0] = c[i][j][1] = c[i][j][2] = c[i][j][3] = 0.0f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    wait_for_tile();
+    __syncthreads();  // tile kt visible to all; tile kt - 1 no longer read
+    load(kt + kStages - 1);  // into the stage tile kt - 1 used
+    const bf16* xs = ring + (kt % kStages) * stage;
+    const bf16* ys = xs + x_elems;
+    for (int kk = 0; kk < bk; kk += 16) {
+      uint32_t af[S::kMI][4];
+#pragma unroll
+      for (int mi = 0; mi < S::kMI; ++mi) {
+        const bf16* p = xs + (wm * S::kWTM + mi * 16 + gid) * ldx + kk + 2 * tig;
+        af[mi][0] = ld32(p);
+        af[mi][1] = ld32(p + 8 * ldx);
+        af[mi][2] = ld32(p + 8);
+        af[mi][3] = ld32(p + 8 * ldx + 8);
+      }
+#pragma unroll
+      for (int ni = 0; ni < S::kNI; ++ni) {
+        const int nn = wn * S::kWTN + ni * 8;
+        uint32_t b0, b1;
+        if (YT) {
+          const bf16* p = ys + (nn + gid) * ldy + kk + 2 * tig;
+          b0 = ld32(p);
+          b1 = ld32(p + 8);
+        } else {
+          ldmatrix_x2_trans(b0, b1, ys + (kk + (lane & 15)) * ldy + nn);
+        }
+#pragma unroll
+        for (int mi = 0; mi < S::kMI; ++mi) mma16816(c[mi][ni], af[mi], b0, b1);
+      }
+    }
+  }
+
+  bf16* og = reinterpret_cast<bf16*>(a.out);
+#pragma unroll
+  for (int mi = 0; mi < S::kMI; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < S::kNI; ++ni) {
+      const int col = n0 + wn * S::kWTN + ni * 8 + 2 * tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = m0 + wm * S::kWTM + mi * 16 + gid + 8 * h;
+        if (row >= a.m) continue;
+        bf16* o = og + (size_t)row * a.n;
+        if (col < a.n) o[col] = __float2bfloat16(c[mi][ni][2 * h]);
+        if (col + 1 < a.n) o[col + 1] = __float2bfloat16(c[mi][ni][2 * h + 1]);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: FMA
+// ---------------------------------------------------------------------------
+
+template <int BM, int BN>
+struct FmaShape {
+  static constexpr int kThreads = BM >= 128 ? 256 : 128;
+  static constexpr int kPer = BM * BN / kThreads;  // outputs a thread
+  static constexpr int kTN = kPer < 8 ? kPer : 8;
+  static constexpr int kTM = kPer / kTN;
+  static constexpr int kCols = BN / kTN;  // threads along N
+  static constexpr int kRows = BM / kTM;  // and along M
+  static_assert(kCols * kRows == kThreads && kTM * kTN == kPer, "thread tiling");
+};
+
+template <int BM, int BN, bool YT>
+__global__ void __launch_bounds__(FmaShape<BM, BN>::kThreads) elk_matmul_fma_kernel(Args a) {
+  using S = FmaShape<BM, BN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  const int bk = a.bk;
+  const int ldx = bk + 4, ldy = YT ? bk + 4 : BN + 4;
+  const int x_elems = BM * ldx;
+  const int stage = stage_elems<float>(BM, BN, bk, YT);
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const float* xg = reinterpret_cast<const float*>(a.x);
+  const float* yg = reinterpret_cast<const float*>(a.y);
+  const int nk = (a.k + bk - 1) / bk;
+
+  auto load = [&](int kt) {
+    if (kt < nk) {
+      float* xs = ring + (kt % kStages) * stage;
+      float* ys = xs + x_elems;
+      const int k0 = kt * bk;
+      load_tile(xs, ldx, xg, a.lda, a.m, a.k, m0, k0, BM, bk, a.x_vec != 0);
+      if (YT)
+        load_tile(ys, ldy, yg, a.ldy, a.n, a.k, n0, k0, BN, bk, a.y_vec != 0);
+      else
+        load_tile(ys, ldy, yg, a.ldy, a.k, a.n, k0, n0, bk, BN, a.y_vec != 0);
+    }
+    cp_async_commit();
+  };
+  for (int s = 0; s < kStages - 1; ++s) load(s);
+
+  // this thread's outputs: rows ty + i kRows, columns tx + j kCols
+  const int tx = threadIdx.x % S::kCols, ty = threadIdx.x / S::kCols;
+  float acc[S::kTM][S::kTN];
+#pragma unroll
+  for (int i = 0; i < S::kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < S::kTN; ++j) acc[i][j] = 0.0f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    wait_for_tile();
+    __syncthreads();
+    load(kt + kStages - 1);
+    const float* xs = ring + (kt % kStages) * stage;
+    const float* ys = xs + x_elems;
+#pragma unroll 4
+    for (int kk = 0; kk < bk; ++kk) {
+      float av[S::kTM], bv[S::kTN];
+#pragma unroll
+      for (int i = 0; i < S::kTM; ++i) av[i] = xs[(ty + i * S::kRows) * ldx + kk];
+#pragma unroll
+      for (int j = 0; j < S::kTN; ++j)
+        bv[j] = YT ? ys[(tx + j * S::kCols) * ldy + kk] : ys[kk * ldy + tx + j * S::kCols];
+#pragma unroll
+      for (int i = 0; i < S::kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < S::kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+
+  float* og = reinterpret_cast<float*>(a.out);
+#pragma unroll
+  for (int i = 0; i < S::kTM; ++i) {
+    const int row = m0 + ty + i * S::kRows;
+    if (row >= a.m) continue;
+#pragma unroll
+    for (int j = 0; j < S::kTN; ++j) {
+      const int col = n0 + tx + j * S::kCols;
+      if (col < a.n) og[(size_t)row * a.n + col] = acc[i][j];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <typename K>
+cudaError_t allow_smem(K kernel, int optin) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin - (int)attr.sharedSizeBytes);
+  return err;
+}
+
+template <typename T, int BM, int BN, bool YT>
+int launch_tile(const Args& a, cudaStream_t stream) {
+  const size_t smem = (size_t)kStages * stage_elems<T>(BM, BN, a.bk, YT) * sizeof(T);
+  if (g_smem_optin <= 0 || smem > (size_t)g_smem_optin) return -1;
+  const dim3 grid((a.n + BN - 1) / BN, (a.m + BM - 1) / BM);
+  if (grid.y > 65535) return -1;
+  if constexpr (sizeof(T) == 2)
+    elk_matmul_mma_kernel<BM, BN, YT>
+        <<<grid, MmaShape<BM, BN>::kThreads, smem, stream>>>(a);
+  else
+    elk_matmul_fma_kernel<BM, BN, YT>
+        <<<grid, FmaShape<BM, BN>::kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// the (bm, bn) instances; chip/h100.py TILE_M x TILE_N lists the same
+#define ELK_MATMUL_TILES(F) \
+  F(16, 32) F(16, 64) F(16, 128) F(32, 32) F(32, 64) F(32, 128) \
+  F(64, 32) F(64, 64) F(64, 128) F(128, 32) F(128, 64) F(128, 128)
+
+template <typename T, bool YT>
+int launch(const Args& a, int bm, int bn, cudaStream_t stream) {
+#define ELK_CASE(BM, BN) \
+  if (bm == BM && bn == BN) return launch_tile<T, BM, BN, YT>(a, stream);
+  ELK_MATMUL_TILES(ELK_CASE)
+#undef ELK_CASE
+  return -1;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Sets every instance's dynamic shared-memory limit on the current device to
+// what a block may opt in to, and remembers that limit.  Call once a device
+// before launching.  Returns 0 or a CUDA error.
+int elk_matmul_prepare(void) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+#define ELK_ALLOW(BM, BN)                                                                    \
+  if (err == cudaSuccess) err = allow_smem(elk_matmul_mma_kernel<BM, BN, false>, optin);     \
+  if (err == cudaSuccess) err = allow_smem(elk_matmul_mma_kernel<BM, BN, true>, optin);      \
+  if (err == cudaSuccess) err = allow_smem(elk_matmul_fma_kernel<BM, BN, false>, optin);     \
+  if (err == cudaSuccess) err = allow_smem(elk_matmul_fma_kernel<BM, BN, true>, optin);
+  ELK_MATMUL_TILES(ELK_ALLOW)
+#undef ELK_ALLOW
+  if (err == cudaSuccess) g_smem_optin = optin;
+  return (int)err;
+}
+
+// Launches out = x @ y on `stream`; returns cudaGetLastError() (0 = launched)
+// or -1 for arguments it does not take.  dtype 1: bf16 (tensor cores), 0:
+// fp32 (FMA); x, y and out of that type.  x (m, k) with row stride lda >= k;
+// y_trans 0: y (k, n) with row stride ldy >= n; y_trans 1: y stored as
+// (n, k) with row stride ldy >= k.  out (m, n) contiguous.  (bm, bn) one of
+// the compiled tiles, bk a positive multiple of 16, and the ring within the
+// opt-in shared memory (elk_matmul_prepare first).
+int elk_matmul_launch(const void* x, const void* y, void* out, int m, int n, int k, int lda,
+                      int ldy, int y_trans, int dtype, int bm, int bn, int bk, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || bk < 16 || bk % 16 != 0) return -1;
+  if (lda < k || ldy < (y_trans ? k : n) || (dtype != 0 && dtype != 1)) return -1;
+  const int v = dtype == 1 ? 8 : 4;  // elements of 16 bytes
+  const bool x_aligned = (uintptr_t)x % 16 == 0, y_aligned = (uintptr_t)y % 16 == 0;
+  Args a;
+  a.x = x; a.y = y; a.out = out;
+  a.m = m; a.n = n; a.k = k; a.lda = lda; a.ldy = ldy;
+  a.bk = bk;
+  a.x_vec = x_aligned && lda % v == 0 && k % v == 0;
+  a.y_vec = y_aligned && ldy % v == 0 && (y_trans ? k : n) % v == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 1)
+    return y_trans ? launch<bf16, true>(a, bm, bn, s) : launch<bf16, false>(a, bm, bn, s);
+  return y_trans ? launch<float, true>(a, bm, bn, s) : launch<float, false>(a, bm, bn, s);
+}
+
+}  // extern "C"

@@ -1,9 +1,11 @@
 """Plain PyTorch oracle for the ELK-blocked matmul.
 
-Counterpart of ``src/repro/kernels/elk_matmul/ref.py``.  Only the oracle
-is here (``fused_mlp``'s ``composed_ref`` is built from it); the Hopper
-kernel for ``elk_matmul`` itself is still to be ported (ROADMAP.md,
-Queue 2).
+Counterpart of ``src/repro/kernels/elk_matmul/ref.py``.  The Hopper kernel
+is ``csrc/elk_matmul.cu`` (wrapper ``kernel.py``, routed by ``ops.matmul``,
+which ``models/layers.linear`` calls for every projection and the LM head);
+this is its plain version, what ``ops.matmul`` runs on CPU tensors and
+what ``chip_smoke.py`` holds the kernel to.  ``fused_mlp``'s
+``composed_ref`` is built from it too.
 """
 
 from __future__ import annotations

@@ -18,14 +18,22 @@ latency percentiles, optionally against the static-batching baseline):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
       --batch 8 --trace 16 --cache 2048 --prefill-chunk 256
 
+Oversubscribed, with KV offload to host memory and prefix reuse: up to K x
+the slots in flight, a prefix store of M MB for a shared system prompt
+(on one H100 the planner's K is 1, host memory being an unbounded tier, so
+K is given):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+      --batch 8 --trace 24 --cache 2048 --prefill-chunk 256 --oversub 2 \
+      --prefix-cache-mb 4096 --sys-prompt-len 512 --sys-prompt-frac 0.5
+
 Runs on the GPU unless ``--device cpu`` is given (``--smoke`` makes that
 bearable).  Weights are random, drawn on the device from seed 0 (under
 ``elk_stream`` one layer at a time, each moved to the host before the
 next); prompts from seed 1, traces from ``--trace-seed``.  On the GPU the
 process's peak device memory, start-up included, is printed.  The reference launcher's
-``--kv-dtype int8``, ``--oversub``, ``--prefix-cache-mb``, ``--fleet`` are
-not ported yet; ``--pipeline-pod`` and ``--stacked-gb`` raise
-(ROADMAP.md, Queue 1).
+``--kv-dtype int8`` and ``--fleet`` are not ported yet; ``--pipeline-pod``
+and ``--stacked-gb`` raise (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -58,12 +66,24 @@ def _run_trace(eng: ServeEngine, args, vocab: int) -> dict:
                       seed=args.trace_seed + 1)
     ContinuousBatcher(eng).run(warm)
 
-    bat = ContinuousBatcher(eng)
+    prefix_store = None
+    if args.prefix_cache_mb > 0:
+        from repro_torch.serve.prefix import PrefixStore
+        prefix_store = PrefixStore(args.prefix_cache_mb << 20)
+    oversub = args.oversub if args.oversub > 0 else None
+    bat = ContinuousBatcher(eng, oversub=oversub, prefix_store=prefix_store)
     t0 = time.perf_counter()
     completions = bat.run(trace)
     stats = {"continuous": summarize(completions, time.perf_counter() - t0)}
-    stats["continuous"]["ticks"] = bat.ticks
-    stats["continuous"]["decode_ticks"] = bat.decode_ticks
+    cont = stats["continuous"]
+    cont["ticks"] = bat.ticks
+    cont["decode_ticks"] = bat.decode_ticks
+    cont["oversub"] = round(bat.oversub, 3)
+    cont["spill_events"] = len(bat.spill_events)
+    cont["planned_spill_s"] = round(bat.planned_spill_s, 6)
+    if bat.prefix is not None:
+        cont["prefix_hits"] = bat.prefix_hits
+        cont["prefix_tokens_saved"] = bat.prefix_tokens_saved
     order = [c.rid for c in completions]
     print(f"continuous: {stats['continuous']}  finish order: {order}")
 
@@ -106,6 +126,13 @@ def main(argv=None) -> None:
     ap.add_argument("--sys-prompt-len", type=int, default=0,
                     help="length of a shared system prompt")
     ap.add_argument("--sys-prompt-frac", type=float, default=0.0)
+    ap.add_argument("--oversub", type=float, default=0.0,
+                    help="admission multiplier K over the physical slots, "
+                    "requests beyond them parked in host memory (0 = the "
+                    "plan's K, which is 1 on one H100)")
+    ap.add_argument("--prefix-cache-mb", type=int, default=0,
+                    help="prefix-KV store budget in MB, in host memory "
+                    "(0 = the plan's, none on one H100)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
                     help="most prompt tokens a scheduler tick prefills (0 = "
                     "the planner's under elk_stream with --prefetch-depth 0, "

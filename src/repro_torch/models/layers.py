@@ -7,11 +7,16 @@ attention keeps ``(batch, heads, seq, head_dim)``.  The reference's
 ``mesh`` arguments and sharding constraints are dropped: the port runs on
 one GPU.
 
-These are plain PyTorch ops (``torch.matmul``), as the reference leaves
-them to XLA; only ``mlp`` reaches a hand-written kernel
-(``kernels/fused_mlp``).  ``softmax_xent`` and ``mlp_params`` belong to
-the training side and the initialiser respectively
-(``transformer.init_params`` draws the MLP weights).
+Norms, rope and the masked reference attention are plain PyTorch ops, as
+the reference leaves them to XLA.  Two primitives reach hand-written
+kernels on the card: ``linear`` (every q/k/v/o projection, and through
+``transformer._logits`` the LM head) goes through ``kernels/elk_matmul``,
+block shapes from ``chip/h100.smem_plan``, and ``mlp`` through
+``kernels/fused_mlp``; on CPU tensors both take their plain versions.
+(The model's attention reaches ``kernels/decode_attention`` and
+``kernels/flash_attention`` from ``transformer.py``.)  ``softmax_xent``
+and ``mlp_params`` belong to the training side and the initialiser
+respectively (``transformer.init_params`` draws the MLP weights).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.elk_matmul.ops import matmul
 from repro_torch.kernels.fused_mlp.ops import fused_mlp
 from repro_torch.kernels.fused_mlp.ref import act_fn as _act  # noqa: F401  (the reference's name, kept on this module)
 from repro_torch.models.config import ModelConfig
@@ -178,7 +184,12 @@ def qk_head_norm(x: torch.Tensor, scale: torch.Tensor,
 
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    out = torch.matmul(x, w)
+    """x (..., d) @ w (d, f) [+ b] through ``kernels/elk_matmul``: the
+    leading dimensions are flattened into the product's rows and the bias
+    added after, as the reference's einsum does.  ``w`` may be the
+    transposed view of an (f, d) tensor (a tied embedding)."""
+    lead = x.shape[:-1]
+    out = matmul(x.reshape(-1, x.shape[-1]), w).reshape(*lead, w.shape[-1])
     if b is not None:
         out = out + b.to(out.dtype)
     return out

@@ -27,7 +27,10 @@ What differs from the reference, by design:
   a prefill and a chunk of a prompt through ``kernels/flash_attention``
   (the reference's promise at its ``transformer.py:274``).  The ops launch
   the hand-written kernels on CUDA tensors and run their plain versions on
-  CPU tensors, so the model itself never branches on the device.
+  CPU tensors, so the model itself never branches on the device.  So do
+  the q/k/v/o projections and the LM head (``_logits``): ``layers.linear``
+  runs them through ``kernels/elk_matmul``, where the reference has
+  einsums and leaves its Pallas matmul without a caller.
 * The layer loop is a parameter: ``prefill``, ``decode_step``,
   ``decode_slots`` and ``chunk_prefill`` take ``decoder=`` in place of
   ``_run_decoder``, which is how ``serve/stream.py`` streams the layer
@@ -384,8 +387,8 @@ def _embed(params, cfg: ModelConfig, tokens):
 def _logits(params, cfg: ModelConfig, x):
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
-        return torch.matmul(x, params["embed"].t())
-    return torch.matmul(x, params["lm_head"])
+        return linear(x, params["embed"].t())
+    return linear(x, params["lm_head"])
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,

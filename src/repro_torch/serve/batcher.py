@@ -14,14 +14,27 @@ request finishes.  This module schedules at request granularity instead:
 * a finished request **leaves its slot immediately** -- the next queued
   request takes it over while the others keep decoding.
 
+With a backing tier (``ServeConfig.oversub`` = K > 1, or ``oversub=``
+given) the batcher **oversubscribes**: up to K x the physical slot count
+may be in flight.  Requests admitted while every slot is busy prefill
+*ahead* into a slotless cache and park offloaded (a host copy: host memory
+is the backing tier); a refill-ahead hook moves the longest-waiting
+spilled request into each slot the moment it frees, and an LRU policy over
+decode recency (residency-age tiebreak) swaps a long-running resident out
+for a starving waiter.  Each move is priced at ``ServeConfig.slot_spill_s``
+and recorded in ``spill_events`` so that ``chip.simulator.
+simulate_kv_traffic`` can re-price the same traffic.  Offload and refill
+copy the slot state exactly, so oversubscribed greedy output equals
+running each request alone.  A ``PrefixStore`` (``serve/prefix.py``)
+given, or funded by the plan, snapshots the request cache at every chunk
+boundary of a prefill and restores the longest stored prefix of a new
+prompt at admission.
+
 The decode hot loop is one ``engine.step`` per tick regardless of how
 requests come and go.  Greedy outputs equal running each request alone.
-
-Ported with oversubscription K = 1 (the slot-capped scheduler): K > 1
-(prefill ahead, spill and LRU swap), the prefix store and the fleet's
-``handoff``/``adopt`` migration raise ``NotImplementedError`` naming
-ROADMAP.md, Queue 1, items 10 and 11.  ``make_trace`` and ``summarize``
-are numpy-only and give what the reference's give for equal arguments.
+The fleet's ``handoff``/``adopt`` migration raises ``NotImplementedError``
+naming ROADMAP.md, Queue 1, item 11.  ``make_trace`` and ``summarize`` are
+numpy-only and give what the reference's give for equal arguments.
 """
 
 from __future__ import annotations
@@ -35,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve.prefix import PrefixStore, host_copy
 
 
 @dataclasses.dataclass
@@ -84,7 +98,8 @@ class _Prefill:
     req: Request
     cache: dict
     off: int                      # prompt tokens already processed
-    slot: int                     # reserved destination slot
+    slot: int                     # reserved destination slot (-1: prefill
+    #                               ahead, will park offloaded)
 
 
 @dataclasses.dataclass
@@ -92,6 +107,21 @@ class _Active:
     req: Request
     generated: list
     first_s: float = -1.0         # first-token time (from trace start)
+    last_step: int = 0            # tick of the slot's last decode step
+    since: int = 0                # tick the request became resident
+
+
+@dataclasses.dataclass
+class _Spilled:
+    """A request whose KV ring lives on the backing tier: either prefilled
+    ahead of any free slot or swapped out mid-decode by the LRU policy."""
+    req: Request
+    generated: list
+    pending: int                  # next token to feed after refill
+    state: dict                   # host-resident slot state (real copies)
+    first_s: float
+    spilled_at: int               # tick it left (or never entered) a slot
+    last_step: int                # decode recency carried across the spill
 
 
 def _chunk_len(remaining: int, budget: int) -> int:
@@ -119,30 +149,43 @@ class ContinuousBatcher:
     def __init__(self, engine: ServeEngine,
                  clock: Callable[[], float] = time.perf_counter, *,
                  oversub: Optional[float] = None,
-                 prefix_store=None, handoff: Optional[Callable] = None):
+                 prefix_store: Optional[PrefixStore] = None,
+                 swap_after: int = 4, handoff: Optional[Callable] = None):
         self.engine = engine
         self.slots = engine.scfg.slots
         # a chunk larger than the cache capacity would wrap a request's
         # own ring mid-chunk; clamp whatever the config asked for
         self.chunk_budget = max(1, min(engine.scfg.prefill_chunk,
                                        engine.scfg.cache_capacity))
+        # oversubscription: K from the plan unless the caller pins it; K=1
+        # is the slot-capped scheduler exactly
         self.oversub = engine.scfg.oversub if oversub is None else oversub
-        if self.oversub > 1.0:
-            raise _unported("oversubscription (K > 1: spill, refill, LRU "
-                            "swap)", "item 10")
-        if prefix_store is not None:
-            raise _unported("the prefix store", "item 10")
+        self.virtual_slots = max(self.slots,
+                                 int(round(self.slots * self.oversub)))
+        self.swap_after = max(1, swap_after)
+        # the plan-funded store rides along with oversubscription; a K=1
+        # batcher has none unless the caller hands it one
+        if prefix_store is None and self.oversub > 1.0 \
+                and engine.scfg.prefix_cache_bytes > 0:
+            prefix_store = PrefixStore(engine.scfg.prefix_cache_bytes)
+        self.prefix = prefix_store
         if handoff is not None:
             raise _unported("fleet handoff", "item 11")
         self.clock = clock
         self.queue: deque[Request] = deque()
         self.prefilling: Optional[_Prefill] = None
         self.active: dict[int, _Active] = {}
+        self.spilled: dict[int, _Spilled] = {}      # rid -> parked state
         self.free = list(range(self.slots))[::-1]   # pop() -> lowest slot
         self.tokens = np.zeros((self.slots,), np.int32)
         self.completed: list[Completion] = []
         self.ticks = 0
         self.decode_ticks = 0
+        self.spill_events: list[tuple[str, int]] = []   # (kind, nbytes)
+        self.planned_spill_s = 0.0
+        self.prefix_hits = 0
+        self.prefix_tokens_saved = 0
+        self._ring_bytes = 0
         self._admitted: dict[int, float] = {}   # rid -> admission time
         self.t0 = self.clock()
 
@@ -155,7 +198,8 @@ class ContinuousBatcher:
 
     @property
     def busy(self) -> bool:
-        return bool(self.queue or self.prefilling or self.active)
+        return bool(self.queue or self.prefilling or self.active
+                    or self.spilled)
 
     def _now(self) -> float:
         return self.clock() - self.t0
@@ -170,19 +214,46 @@ class ContinuousBatcher:
             finish_order=len(self.completed), first_token_s=first_s,
             admitted_s=self._admitted.pop(req.rid, -1.0)))
 
+    def _charge(self, kind: str) -> None:
+        """Record one ring move across the tier boundary, accumulating the
+        plan-priced cost (the simulator re-prices the same event list)."""
+        if not self._ring_bytes:
+            self._ring_bytes = self.engine.slot_state_bytes()
+        self.spill_events.append((kind, self._ring_bytes))
+        self.planned_spill_s += self.engine.scfg.slot_spill_s
+
     def _admit(self) -> None:
         while self.queue and self.queue[0].max_new_tokens <= 0:
             req = self.queue.popleft()
             self._admitted[req.rid] = self._now()
             self._finish(req, [])
-        if self.prefilling is not None or not self.queue or not self.free:
+        if self.prefilling is not None or not self.queue:
             return
-        slot = self.free.pop()
+        inflight = len(self.active) + len(self.spilled)
+        if self.free:
+            slot = self.free.pop()
+        elif self.oversub > 1.0 and inflight < self.virtual_slots:
+            slot = -1       # prefill ahead; the finished ring parks spilled
+        else:
+            return
         req = self.queue.popleft()
         self._admitted[req.rid] = self._now()
-        self.prefilling = _Prefill(req=req,
-                                   cache=self.engine.new_request_cache(),
-                                   off=0, slot=slot)
+        cache, off = None, 0
+        if self.prefix is not None:
+            hit = self.prefix.lookup(
+                req.prompt, max_len=min(len(req.prompt) - 1,
+                                        self.engine.scfg.cache_capacity))
+            if hit is not None:
+                off, state = hit
+                # restore = one refill off the backing tier, into a fresh
+                # cache: the stored state stays as it is
+                cache = self.engine.load_request_cache(state)
+                self._charge("refill")
+                self.prefix_hits += 1
+                self.prefix_tokens_saved += off
+        if cache is None:
+            cache = self.engine.new_request_cache()
+        self.prefilling = _Prefill(req=req, cache=cache, off=off, slot=slot)
 
     def _prefill_tick(self) -> None:
         ps = self.prefilling
@@ -194,18 +265,81 @@ class ContinuousBatcher:
         tok, ps.cache = self.engine.prefill_chunk(ps.cache, chunk)
         ps.off += t
         if ps.off < len(ps.req.prompt):
+            # snapshot at the chunk boundary: a strict in-capacity prefix
+            # whose ring has never wrapped, the prefix store's unit of reuse
+            if (self.prefix is not None
+                    and ps.off <= self.engine.scfg.cache_capacity):
+                self.prefix.put(ps.req.prompt[:ps.off], host_copy(ps.cache))
             return
         first = int(tok[0])
         now = self._now()
         if ps.req.max_new_tokens == 1:      # no decode needed
             self._finish(ps.req, [first], first_s=now)
-            self.free.append(ps.slot)
-        else:
+            if ps.slot >= 0:
+                self.free.append(ps.slot)
+        elif ps.slot >= 0:
             self.engine.insert_slot(ps.slot, ps.cache)
-            self.active[ps.slot] = _Active(req=ps.req, generated=[first],
-                                           first_s=now)
+            self.active[ps.slot] = _Active(
+                req=ps.req, generated=[first], first_s=now,
+                last_step=self.ticks, since=self.ticks)
             self.tokens[ps.slot] = first
+        else:
+            # prefilled ahead of any free slot: park on the backing tier
+            self.spilled[ps.req.rid] = _Spilled(
+                req=ps.req, generated=[first], pending=first,
+                state=host_copy(ps.cache), first_s=now,
+                spilled_at=self.ticks, last_step=self.ticks)
+            self._charge("spill")
         self.prefilling = None
+
+    def _lru_waiter(self) -> int:
+        """rid of the spilled request to refill next: least-recently
+        decoded, then longest parked."""
+        return min(self.spilled,
+                   key=lambda r: (self.spilled[r].last_step,
+                                  self.spilled[r].spilled_at, r))
+
+    def _maybe_swap(self) -> None:
+        """LRU eviction over decode recency: when a spilled request has
+        waited >= ``swap_after`` ticks and no slot is free, offload the
+        least-recently-stepped resident (ties: longest resident) so the
+        waiter gets its turn -- time-slicing K virtual streams over the
+        physical slots without starving any of them."""
+        if self.free or not self.spilled or not self.active:
+            return
+        sp = self.spilled[self._lru_waiter()]
+        if self.ticks - sp.spilled_at < self.swap_after:
+            return
+        victim = min(self.active,
+                     key=lambda s: (self.active[s].last_step,
+                                    self.active[s].since, s))
+        va = self.active[victim]
+        if self.ticks - va.since < self.swap_after:
+            return          # every resident is fresher than one timeslice
+        state = self.engine.offload_slot(victim)
+        self._charge("spill")
+        self.spilled[va.req.rid] = _Spilled(
+            req=va.req, generated=va.generated,
+            pending=int(self.tokens[victim]), state=state,
+            first_s=va.first_s, spilled_at=self.ticks,
+            last_step=va.last_step)
+        del self.active[victim]
+        self.free.append(victim)
+
+    def _refill_tick(self) -> None:
+        """Refill-ahead: spilled requests take freed slots before any new
+        admission -- a refill resumes decode this very tick, while a fresh
+        admission still has its whole prefill in front of it."""
+        self._maybe_swap()
+        while self.free and self.spilled:
+            sp = self.spilled.pop(self._lru_waiter())
+            slot = self.free.pop()
+            self.engine.refill_slot(slot, sp.state)
+            self._charge("refill")
+            self.active[slot] = _Active(
+                req=sp.req, generated=sp.generated, first_s=sp.first_s,
+                last_step=self.ticks, since=self.ticks)
+            self.tokens[slot] = sp.pending
 
     def _decode_tick(self) -> None:
         if not self.active:
@@ -216,6 +350,7 @@ class ContinuousBatcher:
         self.tokens = nxt.copy()
         for slot in sorted(self.active):
             st = self.active[slot]
+            st.last_step = self.ticks
             st.generated.append(int(nxt[slot]))
             if len(st.generated) >= st.req.max_new_tokens:
                 self._finish(st.req, st.generated, first_s=st.first_s)
@@ -224,7 +359,9 @@ class ContinuousBatcher:
                 self.free.append(slot)
 
     def tick(self) -> None:
-        """One scheduler step: admit, advance one prefill chunk, decode."""
+        """One scheduler step: refill spilled work into freed slots, admit,
+        advance one prefill chunk, decode."""
+        self._refill_tick()
         self._admit()
         self._prefill_tick()
         self._decode_tick()

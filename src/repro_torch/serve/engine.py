@@ -23,8 +23,12 @@ Two batching disciplines:
   granularity.  ``serve/batcher.py`` drives this as a continuous-batching
   scheduler.
 
-The spill half of the slot API (``offload_slot`` / ``refill_slot`` /
-``slot_state_bytes``) is still to be ported (ROADMAP.md, Queue 1).
+The spill half of the slot API moves one request's slot state (KV ring
+and ``pos``/``slot_pos``) between the card and host memory, the backing
+tier of the oversubscribed batcher: ``offload_slot`` hands back a host
+copy, ``refill_slot`` copies one back into a slot, ``slot_state_bytes``
+is what either moves; ``load_request_cache`` restores a prefix snapshot
+(``serve/prefix.py``) into a fresh request cache.
 
 There is no ``mesh`` argument (one GPU).  The reference donates the cache
 to each compiled step; here every step **updates the cache in place**, so
@@ -50,8 +54,8 @@ from repro_torch.serve import stream
 class ServeConfig:
     """Same fields as the reference's ``ServeConfig``.  Read here:
     ``batch``, ``cache_capacity``, ``mode``, ``prefetch_depth``,
-    ``kv_dtype``, ``max_slots`` and (by the batcher) ``prefill_chunk``;
-    ``oversub`` must stay 1."""
+    ``kv_dtype``, ``max_slots``, and by the batcher ``prefill_chunk``,
+    ``oversub``, ``slot_spill_s`` and ``prefix_cache_bytes``."""
     batch: int
     cache_capacity: int
     mode: str = "gspmd"               # gspmd (= resident) | elk_stream
@@ -332,20 +336,44 @@ class ServeEngine:
         tfm.cache_evict_slot(self.slot_cache, slot)
         return state
 
+    @torch.inference_mode()
     def offload_slot(self, slot: int) -> dict:
-        raise NotImplementedError(
-            "offload_slot (KV offload to the host) not ported yet "
-            "(ROADMAP.md, Queue 1, item 10)")
+        """Spill ``slot`` to the backing tier: a **host copy** of its state
+        (never a view: the slot cache is updated in place afterwards), then
+        the slot is evicted.  The planned cost of this move is
+        ``ServeConfig.slot_spill_s``."""
+        self._ensure_slots()
+        state = {key: buf.narrow(tfm._slot_batch_axis(key), slot, 1)
+                 .to("cpu", copy=True)
+                 for key, buf in self.slot_cache.items()}
+        tfm.cache_evict_slot(self.slot_cache, slot)
+        return state
 
+    @torch.inference_mode()
     def refill_slot(self, slot: int, state: dict) -> None:
-        raise NotImplementedError(
-            "refill_slot (KV refill from the host) not ported yet "
-            "(ROADMAP.md, Queue 1, item 10)")
+        """Refill ``slot`` from an offloaded state (host or device): its
+        tensors are copied into the slot cache, so a stored state (a prefix
+        snapshot, a parked request) is never aliased into it."""
+        self.insert_slot(slot, state)
 
     def slot_state_bytes(self) -> int:
-        raise NotImplementedError(
-            "slot_state_bytes (spill accounting) not ported yet "
-            "(ROADMAP.md, Queue 1, item 10)")
+        """Bytes one ``offload_slot``/``refill_slot`` moves across the tier
+        boundary: one slot's share of every tensor of the slot cache (KV
+        ring and metadata)."""
+        self._ensure_slots()
+        return int(sum(buf.narrow(tfm._slot_batch_axis(key), 0, 1).numel()
+                       * buf.element_size()
+                       for key, buf in self.slot_cache.items()))
+
+    @torch.inference_mode()
+    def load_request_cache(self, state: dict) -> dict:
+        """A fresh single-request cache on the device holding a copy of
+        ``state`` (a prefix snapshot): chunked prefill then goes on from
+        ``state["pos"]`` without touching the stored tensors."""
+        cache = self.new_request_cache()
+        for key, buf in cache.items():
+            buf.copy_(state[key])
+        return cache
 
     @torch.inference_mode()
     def step(self, tokens: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,225 @@
+"""The port's ELK-blocked matmul on the CPU, and its place on the model's
+path.
+
+``ops.matmul`` takes the plain version on CPU tensors (the Hopper kernel
+``csrc/elk_matmul.cu`` has no CPU mode; ``chip_smoke.py`` holds it to the
+same plain version on the card).  Here: ``ops.matmul`` against the JAX
+``elk_matmul`` in interpret mode (block 64) and against its oracle on the
+reference's sweep, from the same numpy inputs; the layouts the kernel
+takes (a transposed ``y``, a strided ``x``) give the contiguous result;
+``linear`` and ``_logits`` against the JAX functions; one ``ops.matmul``
+call for each projection and the LM head on every pass; the block plan
+cached per shape; the planner's tile list, ring depth, row padding and
+threads a block read from the CUDA source.
+
+Tolerances: the reference's kernel-test bound ``TOL * (max|ref| + 1)``
+with ``TOL = {fp32: 2e-4, bf16: 6e-2}`` (both sides sum in fp32, in other
+orders; bf16 rounds the output once on both sides).
+"""
+
+import dataclasses
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.kernels.elk_matmul.kernel import elk_matmul as jax_elk_matmul
+from repro.kernels.elk_matmul.ref import matmul_ref as jax_matmul_ref
+from repro.models import layers as jlayers
+from repro.models import transformer as jtfm
+from repro_torch.chip import h100
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import params_from_jax
+from repro_torch.kernels.elk_matmul import kernel as mk
+from repro_torch.kernels.elk_matmul.kernel import elk_matmul_kernel, layout
+from repro_torch.kernels.elk_matmul.ops import matmul
+from repro_torch.models import layers, transformer as tfm
+
+TOL = {"float32": 2e-4, "bfloat16": 6e-2}
+SWEEP = [(128, 128, 128), (256, 64, 512), (100, 60, 70), (33, 129, 257)]
+
+
+def _f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _pair(shape, dtype: str, seed: int):
+    """The same values as a torch and a jax array (bf16 rounded once)."""
+    a = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    t = torch.from_numpy(a).to(getattr(torch, dtype))
+    return t, jnp.asarray(_f32(t), getattr(jnp, dtype))
+
+
+def _check(got, ref, dtype: str) -> None:
+    ref = _f32(ref)
+    err = float(np.max(np.abs(_f32(got) - ref)))
+    assert err <= TOL[dtype] * (float(np.max(np.abs(ref))) + 1.0), err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mnk", SWEEP)
+def test_matmul_matches_jax_kernel_and_oracle(mnk, dtype):
+    m, n, k = mnk
+    tx, jx = _pair((m, k), dtype, 0)
+    ty, jy = _pair((k, n), dtype, 1)
+    out = matmul(tx, ty, bm=64, bn=64, bk=64)
+    assert out.shape == (m, n) and out.dtype == tx.dtype
+    _check(out, jax_elk_matmul(jx, jy, bm=64, bn=64, bk=64, interpret=True),
+           dtype)
+    _check(out, jax_matmul_ref(jx, jy), dtype)
+    # the block shape does not change the plain version
+    assert torch.equal(out, matmul(tx, ty))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_transposed_y_and_strided_x_equal_the_contiguous_result(dtype):
+    """The two layouts the kernel takes without a copy: y as the transpose
+    of an (n, k) tensor (a tied embedding) and x with a row stride of its
+    own (the last token of a prefill)."""
+    tx, _ = _pair((3, 5, 70), dtype, 2)
+    ty, _ = _pair((70, 33), dtype, 3)
+    want = matmul(tx[:, -1, :].contiguous(), ty)
+    yt = ty.t().contiguous().t()
+    assert not yt.is_contiguous()
+    xs = tx[:, -1, :]
+    assert not xs.is_contiguous() and xs.stride(1) == 1
+    for x, y in ((xs, ty), (tx[:, -1, :].contiguous(), yt), (xs, yt)):
+        assert torch.equal(matmul(x, y), want)
+
+
+def test_layout_is_what_the_kernel_takes():
+    x = torch.zeros(6, 10)
+    y = torch.zeros(10, 4)
+    assert layout(x, y) == (6, 4, 10, 10, 4, 0)
+    assert layout(x, torch.zeros(4, 10).t()) == (6, 4, 10, 10, 10, 1)
+    assert layout(torch.zeros(6, 3, 10)[:, 1, :], y) == (6, 4, 10, 30, 4, 0)
+    assert layout(x[:1], y)[3] == 10
+    with pytest.raises(ValueError, match="rows are not contiguous"):
+        layout(torch.zeros(10, 6).t(), y)
+    with pytest.raises(ValueError, match="neither"):
+        layout(x, torch.zeros(10, 8)[:, ::2])
+    with pytest.raises(ValueError, match="do not chain"):
+        layout(x, torch.zeros(9, 4))
+    with pytest.raises(ValueError, match="must be"):
+        layout(torch.zeros(2, 6, 10), y)
+
+
+def test_kernel_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        elk_matmul_kernel(torch.zeros(4, 8), torch.zeros(8, 4))
+
+
+def test_plan_is_cached_per_shape_and_type(monkeypatch):
+    calls = []
+    real = mk.smem_plan
+
+    def counting(*args, **kw):
+        calls.append(args)
+        return real(*args, **kw)
+
+    monkeypatch.setattr(mk, "smem_plan", counting)
+    mk.plan_for.cache_clear()
+    try:
+        a = mk.plan_for(8, 5120, 5120, torch.bfloat16)
+        for _ in range(160):
+            assert mk.plan_for(8, 5120, 5120, torch.bfloat16) is a
+        b = mk.plan_for(8, 5120, 5120, torch.float32)
+        assert len(calls) == 2
+        assert (a.bm, a.bn, a.bk) == (16, 32, 256)
+        assert b.bk < a.bk        # fp32 tiles take twice the bytes
+    finally:
+        mk.plan_for.cache_clear()
+
+
+def test_planner_constants_are_what_the_kernel_compiles():
+    """``chip/h100.py`` plans for the kernel: its tile list, ring depth,
+    row padding and threads a block must be those of the CUDA source."""
+    src = (Path(mk.__file__).parents[1] / "csrc" / "elk_matmul.cu").read_text()
+    macro = re.search(r"#define ELK_MATMUL_TILES\(F\)((?:.*\\\n)*.*)", src)
+    tiles = {(int(a), int(b))
+             for a, b in re.findall(r"F\((\d+), (\d+)\)", macro.group(1))}
+    assert tiles == {(bm, bn) for bm in h100.TILE_M for bn in h100.TILE_N}
+    assert int(re.search(r"constexpr int kStages = (\d+);", src).group(1)) \
+        == h100.STAGES
+    assert int(re.search(r"constexpr int kPadBytes = (\d+);", src).group(1)) \
+        == h100.ROW_PAD_BYTES
+    rules = re.findall(r"kThreads = BM >= (\d+) \? (\d+) : (\d+);", src)
+    assert len(rules) == 2          # the bf16 and the fp32 kernel
+    for edge, big, small in rules:
+        for bm in h100.TILE_M:
+            assert h100.block_threads(bm) == int(
+                big if bm >= int(edge) else small)
+    mma = f"m{h100.MMA_M}n{h100.MMA_N}k{h100.MMA_K}"
+    assert f"mma.sync.aligned.{mma}.row.col.f32.bf16" in src
+
+
+def _both(arch: str, dtype: str = "float32"):
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype=dtype,
+                               param_dtype=dtype)
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype,
+                               param_dtype=dtype)
+    jparams = jtfm.init_params(jax.random.PRNGKey(0), jcfg)
+    return jcfg, jparams, tcfg, params_from_jax(
+        jax.tree.map(np.asarray, jparams), tcfg, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_linear_with_bias_matches_jax(dtype):
+    tx, jx = _pair((2, 7, 48), dtype, 4)
+    tw, jw = _pair((48, 24), dtype, 5)
+    tb, jb = _pair((24,), dtype, 6)
+    _check(layers.linear(tx, tw, tb), jlayers.linear(jx, jw, jb), dtype)
+    _check(layers.linear(tx, tw), jlayers.linear(jx, jw), dtype)
+
+
+@pytest.mark.parametrize("arch", ["gemma_7b", "qwen3_14b"])
+def test_logits_tied_and_untied_match_jax(arch):
+    """gemma-7b ties its embeddings (the LM head is ``embed.t()``, a
+    transposed view); qwen3-14b has its own head."""
+    jcfg, jparams, tcfg, tparams = _both(arch)
+    assert tcfg.tie_embeddings == (arch == "gemma_7b")
+    tx, jx = _pair((2, 3, tcfg.d_model), "float32", 7)
+    _check(tfm._logits(tparams, tcfg, tx), jtfm._logits(jparams, jcfg, jx),
+           "float32")
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "gemma_7b"])
+def test_every_projection_and_the_head_go_through_ops_matmul(arch,
+                                                               monkeypatch):
+    """One ``ops.matmul`` call for each of q, k, v, o in every layer and one
+    for the LM head, on each of the four passes."""
+    cfg = get_smoke_config(arch)
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    calls = []
+
+    def counting(x, y, **kw):
+        calls.append(tuple(y.shape))
+        return matmul(x, y, **kw)
+
+    monkeypatch.setattr(layers, "matmul", counting)
+    per_pass = 4 * cfg.num_layers + 1
+    with torch.inference_mode():
+        cache = tfm.init_cache(cfg, tfm.CacheSpec(16, 2), "cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (2, 5),
+                               generator=torch.Generator().manual_seed(1))
+        counts = []
+        logits, cache = tfm.prefill(params, cfg, tokens, cache)
+        counts.append(len(calls))
+        tfm.decode_step(params, cfg, tokens[:, 0], cache)
+        counts.append(len(calls))
+        slots = tfm.init_cache(cfg, tfm.CacheSpec(16, 2, per_slot=True),
+                               "cpu")
+        tfm.chunk_prefill(params, cfg, tokens[:, :3], slots)
+        counts.append(len(calls))
+        tfm.decode_slots(params, cfg, tokens[:, 3], slots)
+        counts.append(len(calls))
+    assert counts == [per_pass * i for i in range(1, 5)]
+    head = (cfg.d_model, cfg.vocab_size)
+    assert calls.count(head) == 4

@@ -37,6 +37,9 @@ print(json.dumps(bad))
     "repro_torch.kernels.flash_attention.ref", "repro_torch.serve.stream",
     "repro_torch.core.integration", "repro_torch.core.pipeline_pod",
     "repro_torch.chip", "repro_torch.chip.h100",
+    "repro_torch.serve.prefix", "repro_torch.chip.simulator",
+    "repro_torch.kernels.elk_matmul.ops",
+    "repro_torch.kernels.elk_matmul.kernel",
 ])
 def test_import_leaves_jax_and_reference_out(module):
     env = dict(os.environ)

@@ -1,4 +1,5 @@
-"""The port's copy of the ELK planner against the reference's, on the CPU.
+"""The port's copy of the ELK planner against the reference's, on the CPU,
+and the port's own SM-level plan for its matmul kernel.
 
 ``repro_torch.core`` and ``repro_torch.chip.{config,topology}`` are copies of
 the reference's modules with their imports renamed; the port imports nothing
@@ -7,8 +8,12 @@ equal results, so that the copies cannot drift unnoticed: block shapes
 (``vmem_plan``), whole-model plan totals (the full-config references of the
 verify skill), pod-level knobs, and the serving knobs of
 ``elk_serve_config`` on the default pod, on an SRAM-only pod with stacked
-DRAM, and on one H100 read as a pod (``chip.h100.h100_host``).  Smoke
-configs keep the compiles short; repeated compiles hit the plan caches.
+DRAM, and on one H100 read as a pod (``chip.h100.h100_host``), and the
+event simulator (``chip/simulator.py``).  Smoke configs keep the compiles
+short; repeated compiles hit the plan caches.  ``smem_plan`` on
+``h100_sxm`` has no reference twin; its budget, alignment and pinned
+serving plans are checked here as ``vmem_plan``'s are in
+``tests/test_kernels.py`` and ``tests/test_properties.py``.
 """
 
 import dataclasses
@@ -22,9 +27,13 @@ from repro.core import integration as rint
 from repro.core.elk import compile_model as ref_compile
 from repro.serve import engine as reng
 from repro_torch.chip import config as tchip
-from repro_torch.chip.h100 import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES,
-                                   HBM_BYTES_PER_S, PCIE_BYTES_PER_S,
-                                   h100_host)
+from repro.chip import simulator as rsim
+from repro_torch.chip import simulator as tsim
+from repro_torch.chip.h100 import (ACC_BYTES_MAX, BF16_FLOPS, FP32_FLOPS,
+                                   HBM_BYTES, HBM_BYTES_PER_S, MMA_K, MMA_M,
+                                   MMA_N, PCIE_BYTES_PER_S, SMEM_PER_BLOCK,
+                                   SMS, TILE_K, TILE_M, TILE_N, h100_host,
+                                   h100_sxm, smem_plan)
 from repro_torch.configs import get_config as port_config
 from repro_torch.configs import get_smoke_config as port_smoke
 from repro_torch.core import integration as tint
@@ -190,3 +199,143 @@ def test_full_qwen3_14b_knobs_on_h100():
                                 **kw)
     assert _fields(got) == _fields(ref)
     assert (got.prefetch_depth, got.prefill_chunk) == (3, 48)
+
+
+# ---------------------------------------------------------------------------
+# the event simulator's copy
+# ---------------------------------------------------------------------------
+
+def test_simulate_kv_traffic_equal():
+    events = [("spill", 1 << 20), ("refill", 3 << 19, 0.001),
+              ("spill", 1 << 21), ("refill", 1 << 20, 0.5)]
+    for tpod, rpod in _pods()[1:]:
+        got = tsim.simulate_kv_traffic(tpod, events)
+        ref = rsim.simulate_kv_traffic(rpod, events)
+        assert _fields(got) == _fields(ref)
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "opt_30b"])
+def test_simulate_equal(arch):
+    """The simulator re-times a compiled plan the same way in both copies."""
+    kw = dict(batch=4, seq=256, phase="decode", design="ELK-Full")
+    tplan = port_compile(port_smoke(arch), tchip.ipu_pod4_hbm(), **kw)
+    rplan = ref_compile(ref_smoke(arch), rchip.ipu_pod4_hbm(), **kw)
+    got = tsim.simulate(tplan, tchip.ipu_pod4_hbm())
+    ref = rsim.simulate(rplan, rchip.ipu_pod4_hbm())
+    assert got.total_time == ref.total_time > 0
+    assert _fields(got) == _fields(ref)
+
+
+# ---------------------------------------------------------------------------
+# smem_plan on h100_sxm
+# ---------------------------------------------------------------------------
+
+def test_h100_sxm_is_the_datasheet_card():
+    h = h100_sxm()
+    assert (h.num_cores, h.sram_per_core, h.hbm_bw) == (
+        SMS, SMEM_PER_BLOCK, HBM_BYTES_PER_S)
+    assert (SMS, SMEM_PER_BLOCK) == (132, 232_448)
+    assert h.total_flops == pytest.approx(BF16_FLOPS)
+    assert h.mem_tiers[-1].unbounded
+
+
+def _sxm_with(budget):
+    """``h100_sxm`` with another shared-memory budget a block."""
+    return dataclasses.replace(h100_sxm(), sram_per_core=budget)
+
+
+def _check_fits(p, budget=SMEM_PER_BLOCK):
+    assert p.smem_bytes <= budget
+    assert p.acc_bytes == p.bm * p.bn * 4 <= ACC_BYTES_MAX
+    assert p.bm % MMA_M == 0 and p.bn % MMA_N == 0 and p.bk % MMA_K == 0
+    assert p.bm in TILE_M and p.bn in TILE_N and p.bk in TILE_K
+
+
+def test_smem_plan_within_budget():
+    plan = smem_plan(8192, 8192, 8192)
+    _check_fits(plan)
+    # a bigger budget must never increase HBM traffic
+    small = smem_plan(8192, 8192, 8192, chip=_sxm_with(48 * 1024))
+    _check_fits(small, 48 * 1024)
+    assert plan.hbm_traffic <= small.hbm_traffic
+    assert (plan.bm, plan.bn) == (128, 128)
+
+
+def test_smem_plan_always_fits():
+    """Twin of ``test_vmem_plan_always_fits`` (``tests/test_properties.py``),
+    a hypothesis property over shapes, types and budgets."""
+    hyp = pytest.importorskip("hypothesis",
+                              reason="dev dependency (requirements-dev.txt)")
+    st = hyp.strategies
+
+    @hyp.settings(max_examples=60, deadline=None)
+    @hyp.given(m=st.integers(1, 70000), n=st.integers(1, 200000),
+               k=st.integers(1, 20000), dtype_bytes=st.sampled_from([2, 4]),
+               budget=st.integers(40_000, SMEM_PER_BLOCK))
+    def prop(m, n, k, dtype_bytes, budget):
+        _plan_fits(m, n, k, dtype_bytes, budget)
+
+    prop()
+
+
+def _plan_fits(m, n, k, dtype_bytes, budget):
+    p = smem_plan(m, n, k, dtype_bytes=dtype_bytes)
+    _check_fits(p)
+    q = smem_plan(m, n, k, dtype_bytes=dtype_bytes, chip=_sxm_with(budget))
+    _check_fits(q, budget)
+    assert p.hbm_traffic <= q.hbm_traffic
+    assert p.tiles == -(-m // p.bm) * -(-n // p.bn)
+
+
+# qwen3-14b's serving products, bf16: (m, n, k) -> (bm, bn, bk, tiles)
+SERVING_PLANS = {
+    (8, 5120, 5120): (16, 32, 256, 160),        # decode: q, o
+    (8, 1024, 5120): (16, 32, 256, 32),         # decode: k, v
+    (8, 151936, 5120): (16, 128, 32, 1187),     # the LM head
+    (32, 5120, 5120): (32, 32, 256, 160),
+    (32, 1024, 5120): (16, 32, 256, 64),
+    (32, 151936, 5120): (32, 128, 32, 1187),
+    (256, 5120, 5120): (128, 64, 64, 160),      # a chunk of 256
+    (256, 1024, 5120): (32, 32, 256, 256),
+    (4096, 5120, 5120): (128, 128, 64, 1280),   # a lock-step prefill
+    (4096, 1024, 5120): (128, 128, 64, 256),
+}
+
+
+@pytest.mark.parametrize("mnk", sorted(SERVING_PLANS))
+def test_smem_plan_serving_shapes_pinned(mnk):
+    p = smem_plan(*mnk)
+    _check_fits(p)
+    assert (p.bm, p.bn, p.bk, p.tiles) == SERVING_PLANS[mnk]
+    if p.tiles >= SMS:
+        assert p.blocks_per_sm * p.smem_bytes <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("m", [1, 8, 16])
+def test_smem_plan_does_not_pad_a_decode_step_to_128_rows(m):
+    for n, k in ((5120, 5120), (1024, 5120), (151936, 5120)):
+        assert smem_plan(m, n, k).bm == 16
+
+
+def test_smem_plan_covers_the_sms_at_small_m():
+    """The greedy alone would take bn = 128 at m = 8 (40 blocks for q/o);
+    the plan narrows it until every SM has a block."""
+    p = smem_plan(8, 5120, 5120)
+    assert p.tiles >= SMS and p.bn == 32
+
+
+def test_smem_plan_reads_no_field_no_datasheet_gives():
+    shapes = list(SERVING_PLANS) + [(128, 128, 128), (33, 129, 257)]
+    base = [smem_plan(*s, chip=h100_sxm()) for s in shapes]
+    for kw in (dict(link_bw=1e12), dict(sram_bw_per_core=1e15),
+               dict(link_bw=1.0, sram_bw_per_core=1.0),
+               dict(link_latency=1.0, hbm_latency=1.0)):
+        chip = dataclasses.replace(h100_sxm(), **kw)
+        assert [smem_plan(*s, chip=chip) for s in shapes] == base
+
+
+def test_smem_plan_checks_the_starting_tile():
+    with pytest.raises(ValueError, match="smallest tile"):
+        smem_plan(8, 5120, 5120, chip=_sxm_with(1024))
+    with pytest.raises(ValueError, match="empty"):
+        smem_plan(0, 5120, 5120)
