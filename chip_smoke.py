@@ -16,11 +16,15 @@ exit code and no result line:
 3. kernels  holds each hand-written kernel (fused MLP, decode attention,
             flash attention, the ELK-blocked matmul of every projection and
             the LM head) against its plain PyTorch version on the card, at
-            the reference's sweep shapes and at the shapes the serving
-            paths give it, and times kernel, plain version and a library
-            yardstick with CUDA events; the matmul also at the block shapes
-            ``smem_plan`` chose, which it prints, and its host time a call
-            beside ``torch.matmul``'s.
+            the reference's sweep shapes, at the edges of every route of
+            the matmul and the MLP, and at the shapes the serving paths
+            give it, and times kernel, plain version and a library
+            yardstick with CUDA events; the matmul and the MLP also launch
+            every sweep product twice and must give equal bits, print the
+            route each timed shape took, and the matmul its plan (tiles,
+            stages, splits) and its host time a call beside
+            ``torch.matmul``'s; the MLP is timed on both routes at the rows
+            around its crossover R.
 4. parity   the smoke config in fp32 on the same seeded weights, on the CPU
             (plain path) and on the card (kernel path), with resident
             weights (``gspmd``) and streamed ones (``elk_stream``):
@@ -49,7 +53,8 @@ exit code and no result line:
 
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails if a kernel of the path was not
-launched as often as its layers, steps and chunks say.  Then one JSON line
+launched as often as its layers, steps and chunks say, or the MLP and the
+matmul not through the routes their rows say.  Then one JSON line
 about the kernels, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -61,7 +66,9 @@ trace of three lock-step decode steps, one prefill and three slot-batched
 steps, and of one streamed decode step: the device's busy time and idle
 share, the kernels that take the most device time, and for the streamed
 step how much of the weight copies' time compute hides; printed and
-written to ``build/profile/``.
+written to ``build/profile/``.  ``--kernels-only`` stops after the build
+and the matmul and MLP kernel phases (no result line): the loop for
+working on those two kernels.
 """
 
 from __future__ import annotations
@@ -84,7 +91,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.chip.h100 import h100_host  # noqa: E402
+from repro_torch.chip.h100 import WGMMA_MIN_M, h100_host  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import \
@@ -93,7 +100,9 @@ from repro_torch.kernels.decode_attention.ops import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, live_mask)
 from repro_torch.kernels.elk_matmul.kernel import (  # noqa: E402
-    elk_matmul_kernel, plan_for)
+    ROUTES as MATMUL_ROUTES, elk_matmul_kernel, plan_for, tma_legal)
+from repro_torch.kernels.elk_matmul.kernel import \
+    route_of as matmul_route_of  # noqa: E402
 from repro_torch.kernels.elk_matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.elk_matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
@@ -101,7 +110,10 @@ from repro_torch.kernels.flash_attention.kernel import \
     flash_attention_kernel  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attn, flash_attn_pos)
-from repro_torch.kernels.fused_mlp.kernel import fused_mlp_kernel  # noqa: E402
+from repro_torch.kernels.fused_mlp.kernel import (  # noqa: E402
+    ROUTES as MLP_ROUTES, SPLIT_FF_MAX_M, fused_mlp_kernel)
+from repro_torch.kernels.fused_mlp.kernel import \
+    route_of as mlp_route_of  # noqa: E402
 from repro_torch.kernels.fused_mlp.ops import fused_mlp  # noqa: E402
 from repro_torch.kernels.fused_mlp.ref import composed_ref  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -169,6 +181,14 @@ PREFIX_STORE_BYTES = 8 << 30
 # (M, N, K): the reference's elk_matmul sweep
 MATMUL_SWEEP = [(128, 128, 128), (256, 64, 512), (100, 60, 70),
                 (33, 129, 257)]
+# rows at the edges of the routes of both products (1, a decode step, the
+# 16-row tiling, the 64 rows of a wgmma, a chunk); with n and K ragged
+# against the tiles and n != K, so that a transposed operand shows
+MATMUL_EDGE_M = (1, 8, 16, 17, 63, 64, 65, 256)
+MATMUL_EDGE_NK = (200, 328)
+MLP_EDGE_M = (1, 8, 16, 17, 63, 64, 65, 256)
+# fused_mlp rows timed on both routes to find the crossover R
+CROSSOVER_M = (8, 16, 32, 64, 128, 256)
 
 
 def fail(msg: str) -> None:
@@ -263,36 +283,66 @@ def mlp_bound_ms(m, d, ff, dout, gated, bias, dtype) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_mlp(x, w_up, w_down, kw, act) -> tuple[float, float]:
+def check_mlp(x, w_up, w_down, kw, act, route=None) -> tuple[float, float]:
     """(max abs error, error over tolerance) of the kernel against
-    ``composed_ref`` on these inputs; fails the run beyond tolerance."""
-    out = fused_mlp(x, w_up, w_down, act=act, **kw)
+    ``composed_ref`` on these inputs; fails the run beyond tolerance.  The
+    product is launched twice and must give the same bits both times."""
+    def run():
+        if route is None:
+            return fused_mlp(x, w_up, w_down, act=act, **kw)
+        return fused_mlp_kernel(x, w_up, w_down, kw.get("w_gate"),
+                                kw.get("b_up"), kw.get("b_down"), act=act,
+                                route=route)
+
+    out = run()
+    again = run()
     torch.cuda.synchronize()
+    variant = "glu" if "w_gate" in kw else "bias" if kw else "plain"
+    taken = route or mlp_route_of(x, w_up, w_down, kw.get("w_gate"))
+    where = (f"x{tuple(x.shape)} ff={w_up.shape[1]} {x.dtype} act={act} "
+             f"variant={variant} route={taken}")
+    if not torch.equal(out, again):
+        fail(f"fused_mlp gave other bits the second time: {where}")
     ref = composed_ref(x, w_up, w_down, act=act, **kw)
     if out.shape != ref.shape or out.dtype != ref.dtype:
         fail(f"fused_mlp gave {tuple(out.shape)} {out.dtype}, plain version "
              f"{tuple(ref.shape)} {ref.dtype}")
     if not torch.isfinite(out.to(torch.float32)).all():
-        fail(f"fused_mlp output not finite at x{tuple(x.shape)}")
+        fail(f"fused_mlp output not finite at {where}")
     ref32 = ref.to(torch.float32)
     err = float((out.to(torch.float32) - ref32).abs().max()) if out.numel() else 0.0
     tol = TOL[x.dtype] * (float(ref32.abs().max()) + 1.0 if out.numel() else 1.0)
     if err > tol:
-        fail(f"fused_mlp disagrees with composed_ref: x{tuple(x.shape)} "
-             f"ff={w_up.shape[1]} {x.dtype} act={act} "
-             f"variant={'glu' if 'w_gate' in kw else 'bias' if kw else 'plain'}: "
-             f"max abs err {err:.3e} > tol {tol:.3e}")
+        fail(f"fused_mlp disagrees with composed_ref: {where}: max abs err "
+             f"{err:.3e} > tol {tol:.3e}")
     return err, err / tol
 
 
 def kernels_phase(cfg) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1234)
     worst, cases = 0.0, 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for m, d, ff, gated, bias, act in SWEEP:
-            x, w_up, w_down, kw = mlp_inputs(gen, (m,), d, ff, gated, bias, dtype)
-            worst = max(worst, check_mlp(x, w_up, w_down, kw, act)[1])
+    reached = dict.fromkeys(MLP_ROUTES, 0)
+
+    def case(m, d, ff, gated, bias, act, dtype, routes=(None,)):
+        nonlocal worst, cases
+        x, w_up, w_down, kw = mlp_inputs(gen, (m,), d, ff, gated, bias, dtype)
+        for route in routes:
+            worst = max(worst, check_mlp(x, w_up, w_down, kw, act, route)[1])
+            route = route or mlp_route_of(x, w_up, w_down, kw.get("w_gate"))
+            reached[route] += 1
             cases += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for sweep_case in SWEEP:
+            case(*sweep_case, dtype)
+    # bf16 at the rows around each route's edges, d and ff ragged against the
+    # tiles (64 of K, 128 of ff, 64-256 of d_out), every variant, on both
+    # routes (both take these inputs at any m)
+    for m in MLP_EDGE_M:
+        for gated, bias, act in (True, False, "silu"), (False, True, "relu"), \
+                (False, False, "gelu"):
+            case(m, 136, 328, gated, bias, act, torch.bfloat16,
+                 ("split_ff", "two_pass"))
     # leading dims are flattened
     x, w_up, w_down, kw = mlp_inputs(gen, (2, 40), 64, 160, True, False,
                                      torch.float32)
@@ -303,22 +353,24 @@ def kernels_phase(cfg) -> dict:
     if tuple(empty.shape) != (2, 0, 64) or fused_mlp_kernel.launches != before:
         fail(f"fused_mlp on m == 0 gave {tuple(empty.shape)}")
     cases += 2
-    say(f"[kernels] fused_mlp: {cases} sweep cases inside tolerance "
-        f"(worst err/tol {worst:.3f})")
+    if min(reached.values()) < 1:
+        fail(f"the fused_mlp sweep did not reach every route: {reached}")
+    say(f"[kernels] fused_mlp: {cases} sweep cases inside tolerance, each "
+        f"launched twice with equal bits (worst err/tol {worst:.3f}; by "
+        f"route {json.dumps(reached)})")
 
-    # the two shapes the serving path gives it, full width, bf16
+    # the shapes the serving paths give it, full width, bf16; and the rows
+    # around the crossover R on both routes
     if cfg.mlp_act != "silu" or not cfg.gated_mlp:
         fail("the library yardstick is written for the silu GLU")
     d, ff, dtype = cfg.d_model, cfg.d_ff, torch.bfloat16
     x_all, w_up, w_down, kw = mlp_inputs(gen, (BATCH * PROMPT_LEN,), d, ff,
                                          cfg.gated_mlp, False, dtype)
-    shapes = []
-    for label, m, iters in (("decode", BATCH, 20),
-                            ("prefill", BATCH * PROMPT_LEN, 5)):
+    shapes, crossover = [], []
+    serving = (("decode", BATCH), ("chunk", 32), ("chunk", PREFILL_CHUNK),
+               ("prefill", BATCH * PROMPT_LEN))
+    for label, m in serving + tuple(("crossover", m) for m in CROSSOVER_M):
         x = x_all[:m].contiguous()
-        err, over = check_mlp(x, w_up, w_down, kw, cfg.mlp_act)
-        worst = max(worst, over)
-        cases += 1
         act = torch.nn.functional.silu
 
         def library():
@@ -326,17 +378,27 @@ def kernels_phase(cfg) -> dict:
                                 * torch.matmul(x, w_up), w_down)
 
         bound, bound_by = mlp_bound_ms(m, d, ff, d, True, False, dtype)
-        shapes.append({
-            "shape": label, "m": m, "d": d, "ff": ff, "dtype": "bfloat16",
-            "max_abs_err": err,
-            "ms": time_ms(lambda: fused_mlp(x, w_up, w_down, act=cfg.mlp_act,
-                                            **kw), iters),
-            "plain_ms": time_ms(lambda: composed_ref(
-                x, w_up, w_down, act=cfg.mlp_act, **kw), 3, warmup=1),
-            "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": time_ms(library, iters),
-        })
-        say(f"[kernels] fused_mlp {label} m={m}: " + json.dumps(shapes[-1]))
+        iters = 5 if m >= 1024 else 20
+        routes = (None,) if label != "crossover" else ("split_ff", "two_pass")
+        for route in routes:
+            err, over = check_mlp(x, w_up, w_down, kw, cfg.mlp_act, route)
+            worst = max(worst, over)
+            cases += 1
+            row = {
+                "shape": f"{label} m={m}", "m": m, "d": d, "ff": ff,
+                "dtype": "bfloat16",
+                "route": route or mlp_route_of(x, w_up, w_down, kw["w_gate"]),
+                "max_abs_err": err,
+                "ms": time_ms(lambda: fused_mlp_kernel(
+                    x, w_up, w_down, kw["w_gate"], act=cfg.mlp_act,
+                    route=route), iters),
+                "bound_ms": bound, "bound_by": bound_by}
+            if label != "crossover":
+                row["plain_ms"] = time_ms(lambda: composed_ref(
+                    x, w_up, w_down, act=cfg.mlp_act, **kw), 3, warmup=1)
+                row["library_ms"] = time_ms(library, iters)
+            (shapes if label != "crossover" else crossover).append(row)
+            say(f"[kernels] fused_mlp {row['shape']}: " + json.dumps(row))
     decode = shapes[0]
     return {
         "name": "fused_mlp", "route": "cuda",
@@ -344,12 +406,14 @@ def kernels_phase(cfg) -> dict:
         "replaces": "src/repro/kernels/fused_mlp/kernel.py:38",
         "launches": 0,
         # the scalar keys are the decode shape's (most launches on the
-        # path); "shapes" holds both
+        # path); "shapes" holds the others, "crossover" both routes at the
+        # rows around R
         "max_abs_err": decode["max_abs_err"], "ms": decode["ms"],
         "plain_ms": decode["plain_ms"], "bound_ms": decode["bound_ms"],
         "bound_by": decode["bound_by"], "library_ms": decode["library_ms"],
-        "kernel_ms": decode["ms"],
-        "cases": cases, "max_err_over_tol": worst, "shapes": shapes,
+        "kernel_ms": decode["ms"], "split_ff_max_m": SPLIT_FF_MAX_M,
+        "cases": cases, "max_err_over_tol": worst, "sweep_routes": reached,
+        "shapes": shapes, "crossover": crossover,
     }
 
 
@@ -721,7 +785,8 @@ def flash_phase(cfg, chunk: int) -> dict:
 
 def check_matmul(x, y, **blocks) -> tuple[float, float]:
     """(max abs error, largest error over its limit) of the kernel against
-    ``matmul_ref`` on these inputs; fails the run beyond the limit.
+    ``matmul_ref`` on these inputs; fails the run beyond the limit.  The
+    product is launched twice and must give the same bits both times.
 
     Both sides take the same inputs and sum their products in fp32 (the
     products of two bf16 values are exact), in other orders.  Each sum is
@@ -732,10 +797,15 @@ def check_matmul(x, y, **blocks) -> tuple[float, float]:
     that sum, and never more than the reference's kernel-test bound
     ``TOL * (max|ref| + 1)``."""
     out = matmul(x, y, **blocks)
+    again = matmul(x, y, **blocks)
     torch.cuda.synchronize()
-    ref = matmul_ref(x, y)
+    route = "mma_sync" if blocks else matmul_route_of(x, y)
     where = (f"x{tuple(x.shape)} stride {x.stride()} y{tuple(y.shape)} "
-             f"stride {y.stride()} {x.dtype} blocks {blocks or 'planned'}")
+             f"stride {y.stride()} {x.dtype} blocks {blocks or 'planned'} "
+             f"route {route}")
+    if not torch.equal(out, again):
+        fail(f"elk_matmul gave other bits the second time at {where}")
+    ref = matmul_ref(x, y)
     if out.shape != ref.shape or out.dtype != ref.dtype:
         fail(f"elk_matmul gave {tuple(out.shape)} {out.dtype}, plain version "
              f"{tuple(ref.shape)} {ref.dtype} at {where}")
@@ -769,10 +839,13 @@ def matmul_bound_ms(m, n, k, dtype) -> tuple[float, str]:
 
 def elk_matmul_phase(cfg) -> dict:
     """The reference's matmul sweep against ``matmul_ref``, at the
-    reference test's blocks (64) and at ``smem_plan``'s, with a transposed
-    ``y`` and a strided ``x``; then the products ``layers.linear`` gives
-    the kernel on the serving paths, full width, bf16, timed: q/o, k/v at
-    8, 32, 256 and 4096 rows, the LM head at 8 and 32."""
+    reference test's blocks (64, the mma_sync kernel) and on the planned
+    route, with a transposed ``y`` and a strided ``x``; the rows at the
+    edges of every route with n and K ragged, both layouts of ``y``, a
+    strided ``x`` TMA takes and one it does not; then the products
+    ``layers.linear`` gives the kernel on the serving paths, full width,
+    bf16, timed: q/o, k/v at 8, 32, 256 and 4096 rows, the LM head at 8 and
+    32."""
     gen = torch.Generator(device="cuda").manual_seed(1357)
 
     def normal(*shape, dtype, scale=1.0):
@@ -780,6 +853,7 @@ def elk_matmul_phase(cfg) -> dict:
                             dtype=torch.float32) * scale).to(dtype)
 
     worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    reached = dict.fromkeys(MATMUL_ROUTES, 0)
     cases = 0
 
     def case(x, y, **blocks):
@@ -787,6 +861,7 @@ def elk_matmul_phase(cfg) -> dict:
         err, over = check_matmul(x, y, **blocks)
         key = str(x.dtype).split(".")[1]
         worst[key] = max(worst[key], (over, err))
+        reached["mma_sync" if blocks else matmul_route_of(x, y)] += 1
         cases += 1
         return err
 
@@ -804,8 +879,29 @@ def elk_matmul_phase(cfg) -> dict:
             xs = normal(3, 5, k, dtype=dtype)[:, -1, :]
             case(xs, normal(k, 100, dtype=dtype))
             case(xs, normal(100, k, dtype=dtype).t())
-    say(f"[kernels] elk_matmul: {cases} sweep cases inside their limits "
-        f"(worst err/limit and its err: {json.dumps(worst)})")
+    # bf16 at the edges of the routes: splitk below 64 rows, wgmma from 64;
+    # n and K ragged against every tile and n != K; both layouts of y; x
+    # strided with a stride TMA takes (3 K) and one it does not (a base 2
+    # bytes off 16)
+    n, k = MATMUL_EDGE_NK
+    for m in MATMUL_EDGE_M:
+        x = normal(m, k, dtype=torch.bfloat16)
+        y = normal(k, n, dtype=torch.bfloat16)
+        case(x, y)
+        case(x, y.t().contiguous().t())
+        case(normal(m, 3, k, dtype=torch.bfloat16)[:, 1, :], y)
+        case(normal(m, k + 1, dtype=torch.bfloat16)[:, 1:], y)
+    # 128-row tiles 128 and 256 wide, n ragged against them, an even and an
+    # odd number of row tiles
+    for m in (1024, 1152):
+        for wide in (11 * n, 22 * n):
+            case(normal(m, k, dtype=torch.bfloat16),
+                 normal(k, wide, dtype=torch.bfloat16))
+    if min(reached.values()) < 1:
+        fail(f"the elk_matmul sweep did not reach every route: {reached}")
+    say(f"[kernels] elk_matmul: {cases} sweep cases inside their limits, each "
+        f"launched twice with equal bits (by route {json.dumps(reached)}; "
+        f"worst err/limit and its err: {json.dumps(worst)})")
 
     d, dtype = cfg.d_model, torch.bfloat16
     products = {"q, o": cfg.num_heads * cfg.resolved_head_dim,
@@ -822,14 +918,15 @@ def elk_matmul_phase(cfg) -> dict:
             x = x_all[:m]
             n = w.shape[1]
             err = case(x, w)
-            plan = plan_for(m, n, d, dtype)
+            plan = plan_for(m, n, d, dtype, tma_legal(x, w, d, n))
             bound, bound_by = matmul_bound_ms(m, n, d, dtype)
             iters = 5 if m * n > 2 ** 24 else 20
             shapes.append({
                 "shape": f"{name} m={m}", "m": m, "n": n, "k": d,
-                "dtype": "bfloat16", "tiles": [plan.bm, plan.bn, plan.bk],
-                "blocks": plan.tiles, "smem_bytes": plan.smem_bytes,
-                "max_abs_err": err,
+                "dtype": "bfloat16", "route": plan.route,
+                "tiles": [plan.bm, plan.bn, plan.bk], "stages": plan.stages,
+                "splits": plan.splits, "blocks": plan.blocks,
+                "smem_bytes": plan.smem_bytes, "max_abs_err": err,
                 "ms": time_ms(lambda: matmul(x, w), iters),
                 "plain_ms": time_ms(lambda: matmul_ref(x, w), 3, warmup=1),
                 "bound_ms": bound, "bound_by": bound_by,
@@ -859,7 +956,7 @@ def elk_matmul_phase(cfg) -> dict:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "cases": cases, "max_err_over_tol": max(w for w, _ in worst.values()),
-        "worst_by_dtype": worst, "shapes": shapes,
+        "worst_by_dtype": worst, "sweep_routes": reached, "shapes": shapes,
         "host_us_per_call": host,
     }
 
@@ -959,16 +1056,25 @@ COUNTERS = {"fused_mlp": fused_mlp_kernel,
 def zero_launches() -> None:
     for counter in COUNTERS.values():
         counter.launches = 0
+        if hasattr(counter, "by_route"):
+            counter.by_route = dict.fromkeys(counter.by_route, 0)
 
 
 def read_launches() -> dict:
     return {name: counter.launches for name, counter in COUNTERS.items()}
 
 
+def read_routes() -> dict:
+    """Launches by route of the two kernels that have routes."""
+    return {name: dict(COUNTERS[name].by_route)
+            for name in ("fused_mlp", "elk_matmul")}
+
+
 def record_launches(rows: list[dict], path: str, counts: dict,
-                    expected: dict) -> None:
+                    expected: dict, routes: dict) -> None:
     """Add one path's launch counts to the kernels' rows; fail if a kernel
-    was not launched as often as the path's layers, steps and chunks say."""
+    was not launched as often as the path's layers, steps and chunks say,
+    or not through the routes their rows say (``expected["routes"]``)."""
     for row in rows:
         n = counts[row["name"]]
         row.setdefault("launches_by_path", {})[path] = n
@@ -976,6 +1082,14 @@ def record_launches(rows: list[dict], path: str, counts: dict,
         if n != expected[row["name"]]:
             fail(f"{row['name']} launched {n} times on the {path} path, "
                  f"expected {expected[row['name']]}")
+        if row["name"] in routes:
+            got = {r: c for r, c in routes[row["name"]].items() if c}
+            want = {r: c for r, c in expected["routes"][row["name"]].items()
+                    if c}
+            row.setdefault("launches_by_route", {})[path] = got
+            if got != want:
+                fail(f"{row['name']} went through the routes {got} on the "
+                     f"{path} path, expected {want}")
 
 
 def chunk_lengths(trace, budget: int) -> list[int]:
@@ -989,18 +1103,36 @@ def chunk_lengths(trace, budget: int) -> list[int]:
     return out
 
 
+def routes_expected(layers: int, passes: list[tuple[int, int]]) -> dict:
+    """Launches by route of bf16 passes at full width, each (rows of the
+    layers, rows of the LM head): the MLP on "two_pass" above
+    SPLIT_FF_MAX_M rows and "split_ff" at or below; the four projections
+    on "wgmma" from WGMMA_MIN_M rows and "splitk" below, as the head."""
+    mlp = dict.fromkeys(MLP_ROUTES, 0)
+    mm = dict.fromkeys(MATMUL_ROUTES, 0)
+    for rows, head in passes:
+        mlp["two_pass" if rows > SPLIT_FF_MAX_M else "split_ff"] += layers
+        mm["wgmma" if rows >= WGMMA_MIN_M else "splitk"] += 4 * layers
+        mm["wgmma" if head >= WGMMA_MIN_M else "splitk"] += 1
+    return {"fused_mlp": mlp, "elk_matmul": mm}
+
+
 def trace_expected(layers: int, decode_ticks: int, chunks: list[int]
                    ) -> dict:
     """Launches of a continuous trace: the MLP and the four projections in
     every layer of every pass, and the LM head once a pass; decode
     attention in every decode tick and every one-token chunk; flash
-    attention in every longer chunk."""
+    attention in every longer chunk.  By route: a tick has SLOTS rows, a
+    chunk its tokens, the head of a chunk one row."""
     ones = sum(t == 1 for t in chunks)
     passes = decode_ticks + len(chunks)
     return {"fused_mlp": layers * passes,
             "decode_attention": layers * (decode_ticks + ones),
             "flash_attention": layers * (len(chunks) - ones),
-            "elk_matmul": (4 * layers + 1) * passes}
+            "elk_matmul": (4 * layers + 1) * passes,
+            "routes": routes_expected(
+                layers, [(SLOTS, SLOTS)] * decode_ticks
+                + [(t, 1) for t in chunks])}
 
 
 def draw_params(cfg) -> dict:
@@ -1018,11 +1150,16 @@ def lockstep_expected(layers: int) -> dict:
     """Launches of one ``generate`` of STEPS tokens: one prefill (flash
     attention) and STEPS - 1 decode steps (decode attention); the MLP and
     the four projections in every layer of every pass, the LM head once a
-    pass."""
+    pass.  By route: the prefill has BATCH x PROMPT_LEN rows (its MLP on
+    "two_pass", its projections on "wgmma"), a decode step BATCH; the head
+    BATCH rows every pass."""
     return {"fused_mlp": layers * STEPS,
             "decode_attention": layers * (STEPS - 1),
             "flash_attention": layers,
-            "elk_matmul": (4 * layers + 1) * STEPS}
+            "elk_matmul": (4 * layers + 1) * STEPS,
+            "routes": routes_expected(
+                layers, [(BATCH * PROMPT_LEN, BATCH)]
+                + [(BATCH, BATCH)] * (STEPS - 1))}
 
 
 def serve_phase(cfg, params: dict, kernel_rows: list[dict],
@@ -1043,10 +1180,10 @@ def serve_phase(cfg, params: dict, kernel_rows: list[dict],
     out = eng.generate(prompts, steps=STEPS)
     end.record()
     torch.cuda.synchronize()
-    counts = read_launches()
+    counts, routes = read_launches(), read_routes()
     gen_ms = start.elapsed_time(end)
     record_launches(kernel_rows, "lock-step", counts,
-                    lockstep_expected(cfg.num_layers))
+                    lockstep_expected(cfg.num_layers), routes)
     if tuple(out.shape) != (BATCH, PROMPT_LEN + STEPS):
         fail(f"generate gave shape {tuple(out.shape)}")
     if not torch.equal(out[:, :PROMPT_LEN], prompts):
@@ -1095,7 +1232,8 @@ def serve_phase(cfg, params: dict, kernel_rows: list[dict],
         "tokens_per_s": BATCH * STEPS / (gen_ms * 1e-3),
         "decode_tokens_per_s": BATCH / (decode_ms * 1e-3),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "launches": counts, "sample": out[0, PROMPT_LEN:].tolist()}))
+        "launches": counts, "launches_by_route": routes,
+        "sample": out[0, PROMPT_LEN:].tolist()}))
     if profile:
         profile_phase(eng, prompts,
                       {"prefill": prefill_ms, "decode": decode_ms})
@@ -1164,12 +1302,12 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict],
     comps = bat.run(trace)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_launches()
+    counts, routes = read_launches(), read_routes()
     del eng.step, eng.evict_slot    # the class's methods again, no cycle
     chunks = chunk_lengths(trace, bat.chunk_budget)
     layers = cfg.num_layers
     record_launches(kernel_rows, "continuous", counts,
-                    trace_expected(layers, bat.decode_ticks, chunks))
+                    trace_expected(layers, bat.decode_ticks, chunks), routes)
     check_completions(trace, comps, vocab)
     if eng.slot_cache is not cache or ptrs != {
             k: cache[k].data_ptr() for k in ptrs}:
@@ -1202,7 +1340,8 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict],
         "decode_ms_per_tick": sum(step_ms) / len(step_ms),
         "decode_ms_per_tick_min": min(step_ms),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "launches": counts, "finish_order": [c.rid for c in comps]})
+        "launches": counts, "launches_by_route": routes,
+        "finish_order": [c.rid for c in comps]})
     say("[serve-trace] " + json.dumps(stats))
     if profile:
         profile_steps(eng, last_tags)
@@ -1282,14 +1421,13 @@ def oversub_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
         comps = bat.run(trace)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = read_launches()
+        counts, routes = read_launches(), read_routes()
+        want = trace_expected(cfg.num_layers, bat.decode_ticks, chunks)
         if label == "oversub":
-            record_launches(kernel_rows, "oversub continuous", counts,
-                            trace_expected(cfg.num_layers, bat.decode_ticks,
-                                           chunks))
-        elif counts != trace_expected(cfg.num_layers, bat.decode_ticks,
-                                      chunks):
-            fail(f"the K = 1 run launched {counts}")
+            record_launches(kernel_rows, "oversub continuous", counts, want,
+                            routes)
+        elif {**counts, "routes": routes} != want:
+            fail(f"the K = 1 run launched {counts}, by route {routes}")
         check_completions(trace, comps, vocab)
         stats = summarize(comps, wall)
         kinds = [k for k, _ in bat.spill_events]
@@ -1303,7 +1441,8 @@ def oversub_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
             "swaps": len(swaps),
             "bytes_moved": sum(nb for _, nb in bat.spill_events),
             "planned_spill_s": bat.planned_spill_s,
-            "launches": counts, "finish_order": [c.rid for c in comps]})
+            "launches": counts, "launches_by_route": routes,
+        "finish_order": [c.rid for c in comps]})
         if bat.prefix is not None:
             stats.update({
                 "prefix_hits": bat.prefix_hits,
@@ -1433,10 +1572,10 @@ def stream_phase(cfg, kernel_rows: list[dict], resident_out,
     out = eng.generate(prompts, steps=STEPS)
     end.record()
     torch.cuda.synchronize()
-    counts = read_launches()
+    counts, routes = read_launches(), read_routes()
     gen_ms = start.elapsed_time(end)
     record_launches(kernel_rows, "stream lock-step", counts,
-                    lockstep_expected(cfg.num_layers))
+                    lockstep_expected(cfg.num_layers), routes)
     if ls.copies - copies0 != cfg.num_layers * STEPS:
         fail(f"{ls.copies - copies0} layer copies in a generate of {STEPS} "
              f"passes of {cfg.num_layers} layers")
@@ -1480,7 +1619,8 @@ def stream_phase(cfg, kernel_rows: list[dict], resident_out,
         "max_memory_allocated_bytes": peak,
         "startup_peak_bytes": startup_peak, **rates,
         "equal_to_resident": resident_out is not None,
-        "launches": counts, "sample": out[0, PROMPT_LEN:].tolist()}))
+        "launches": counts, "launches_by_route": routes,
+        "sample": out[0, PROMPT_LEN:].tolist()}))
     if profile:
         profile_stream_step(eng, prompts)
     del cache, logits
@@ -1498,10 +1638,11 @@ def stream_phase(cfg, kernel_rows: list[dict], resident_out,
     comps = bat.run(trace)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_launches()
+    counts, routes = read_launches(), read_routes()
     chunks = chunk_lengths(trace, bat.chunk_budget)
     record_launches(kernel_rows, "stream continuous", counts,
-                    trace_expected(cfg.num_layers, bat.decode_ticks, chunks))
+                    trace_expected(cfg.num_layers, bat.decode_ticks, chunks),
+                    routes)
     check_completions(trace, comps, vocab)
     stats = summarize(comps, wall)
     stats.update({
@@ -1511,7 +1652,8 @@ def stream_phase(cfg, kernel_rows: list[dict], resident_out,
         "chunk_budget": bat.chunk_budget, "ticks": bat.ticks,
         "decode_ticks": bat.decode_ticks, "prefill_chunks": len(chunks),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "launches": counts, "finish_order": [c.rid for c in comps]})
+        "launches": counts, "launches_by_route": routes,
+        "finish_order": [c.rid for c in comps]})
     say("[stream-trace] " + json.dumps(stats))
 
 
@@ -1656,6 +1798,10 @@ def main() -> None:
                     "the model's own); the other phases keep full depth")
     ap.add_argument("--profile", action="store_true",
                     help="also trace decode steps, a prefill and slot steps")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernel phases (fused_mlp and "
+                    "elk_matmul only, to iterate on them); prints no result "
+                    "line")
     args = ap.parse_args()
 
     # phase 1: device
@@ -1704,6 +1850,12 @@ def main() -> None:
         cfg, batch=SLOTS, cache_capacity=SLOT_CACHE,
         pod=h100_host()).prefill_chunk)
     with torch.inference_mode():
+        if args.kernels_only:
+            for row in (elk_matmul_phase(cfg), kernels_phase(cfg)):
+                say(json.dumps({k: row[k] for k in ("name", "ms", "bound_ms",
+                                                     "library_ms")}))
+            say("[kernels-only] stopped after the kernel phases")
+            return
         rows = [kernels_phase(cfg), attention_phase(cfg),
                 flash_phase(cfg, chunk), elk_matmul_phase(cfg)]
         parity_phase()

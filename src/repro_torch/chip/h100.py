@@ -123,6 +123,26 @@ ROW_PAD_BYTES = 16          # the kernel pads every shared-memory row by this
 # the fp32 accumulators of one block may take a quarter of an SM's registers
 ACC_BYTES_MAX = REGISTERS_PER_SM * 4 // 4
 
+# The TMA + wgmma mainloop (csrc/hopper_gemm.cuh), routes "wgmma" (m >= 64)
+# and "splitk" (m < 64) of bf16 products whose operands meet TMA's rules.
+# A block has one or two consumer warpgroups of 64 rows (bm 64 or 128);
+# WG_BK, WG_SMEM_RESERVE, WG_MAX_STAGES and wg_stages are kBK,
+# kSmemReserve, kMaxStages and stages_for of the header.
+WGMMA_M = 64                # rows of a wgmma, and of a consumer warpgroup
+WG_TILE_M = (64, 128)       # one or two consumer warpgroups
+WG_TILE_N = (64, 128, 256)  # the wgmma widths the kernels compile
+WG_BK = 64                  # K depth of a stage: a 128-byte swizzled row
+WG_SMEM_RESERVE = 2048      # alignment slack and the mbarriers
+WG_MAX_STAGES = 8
+WGMMA_MIN_M = 64            # fewer rows split K instead (route "splitk")
+# fp32 accumulator registers a consumer thread holds: of the 232 that
+# setmaxnreg gives it with two warpgroups; 64 with one, two blocks an SM
+WGMMA_ACC_REGS = {128: 128, 64: 64}
+SMEM_BLOCK_RESERVE = 1024   # shared memory the system keeps for each block
+# splits of K at most: one cluster a tile, of the size every card takes
+# (kMaxSplits of the header)
+MAX_SPLITS = 8
+
 
 @dataclasses.dataclass(frozen=True)
 class SmemPlan:
@@ -136,6 +156,15 @@ class SmemPlan:
     tiles: int            # output tiles = blocks launched
     acc_bytes: int        # the fp32 accumulator, held in registers
     blocks_per_sm: int    # blocks bk was sized to keep resident together
+    route: str = "mma_sync"   # "mma_sync", "wgmma" or "splitk"
+    stages: int = STAGES      # the ring's depth
+    splits: int = 1           # splits of K (route "splitk"), each its blocks
+    k_per_split: int = 0      # K tiles of one split
+
+    @property
+    def blocks(self) -> int:
+        """Blocks launched: output tiles x splits of K."""
+        return self.tiles * self.splits
 
 
 def smem_bytes(bm: int, bn: int, bk: int, *, dtype_bytes: int) -> int:
@@ -162,9 +191,150 @@ def _step(sizes: tuple, v: int, by: int) -> Optional[int]:
     return sizes[i] if 0 <= i < len(sizes) else None
 
 
+def wg_stages(bm: int, bn: int, nb: int = 1, *,
+              budget: int = SMEM_PER_BLOCK) -> tuple[int, int]:
+    """(stages, blocks an SM) of the TMA ring for a (bm, bn) tile with
+    ``nb`` b operands: ``stages_for`` of ``csrc/hopper_gemm.cuh`` on this
+    budget.  One consumer warpgroup (bm 64) runs two blocks an SM, each on
+    half the shared memory less the system's share; two run one.  Where two
+    blocks leave fewer than two stages, one block takes it all (a budget
+    below the card's; at the card's the header's numbers hold)."""
+    stage = (bm + nb * bn) * WG_BK * 2
+    if bm == WGMMA_M:
+        s = (budget // 2 - SMEM_BLOCK_RESERVE - WG_SMEM_RESERVE) // stage
+        if s >= 2:
+            return min(s, WG_MAX_STAGES), 2
+    s = (budget - WG_SMEM_RESERVE) // stage
+    return min(s, WG_MAX_STAGES), 1
+
+
+def wg_smem_bytes(bm: int, bn: int, stages: int, nb: int = 1) -> int:
+    """Shared memory of a TMA block: the ring and the reserve."""
+    return stages * (bm + nb * bn) * WG_BK * 2 + WG_SMEM_RESERVE
+
+
+def wg_acc_fits(bm: int, bn: int, nb: int = 1) -> bool:
+    """The accumulators of a consumer thread (bn / 2 fp32 a b operand) fit
+    the registers it has (``WGMMA_ACC_REGS``)."""
+    return nb * bn // 2 <= WGMMA_ACC_REGS[bm]
+
+
+def _split(k_tiles: int, tiles: int, sms: int) -> tuple[int, int]:
+    """(splits, K tiles a split): the fewest splits of ``k_tiles``, at most
+    ``MAX_SPLITS``, that give every SM a block, each split the same whole
+    number of K tiles but the last; the most the cap allows when none does.
+    The splits cover K exactly: (splits - 1) * per < k_tiles <= splits *
+    per."""
+    best = (1, k_tiles)
+    for s in range(1, min(k_tiles, MAX_SPLITS) + 1):
+        per = -(-k_tiles // s)
+        used = -(-k_tiles // per)
+        if tiles * used >= sms:
+            return used, per
+        best = max(best, (used, per))
+    return best
+
+
+def _tma_plan(m: int, n: int, k: int, chip: ChipConfig
+              ) -> Optional[SmemPlan]:
+    """The plan of a bf16 product on the TMA + wgmma mainloop, or None when
+    no tile of it fits ``chip``'s shared memory.  The same three steps as
+    the mma_sync plan: cost = HBM traffic, then cover the SMs, then the
+    preload depth (stages) from what shared memory is left."""
+    budget, sms = chip.sram_per_core, chip.num_cores
+    k_tiles = -(-k // WG_BK)
+
+    def fits(bm, bn):
+        return wg_acc_fits(bm, bn) and wg_stages(bm, bn, budget=budget)[0] >= 2
+
+    def plan(bm, bn, route, splits=1, per=k_tiles, traffic=0):
+        stages, per_sm = wg_stages(bm, bn, budget=budget)
+        return SmemPlan(bm=bm, bn=bn, bk=WG_BK,
+                        smem_bytes=wg_smem_bytes(bm, bn, stages),
+                        hbm_traffic=traffic, tiles=tiles(bm, bn),
+                        acc_bytes=bm * bn * 4, blocks_per_sm=per_sm,
+                        route=route, stages=stages, splits=splits,
+                        k_per_split=per)
+
+    def traffic(bm, bn):
+        # a split's sums meet in the cluster's shared memory: no bytes here
+        return (m * k * math.ceil(n / bn) + k * n * math.ceil(m / bm)
+                + m * n) * 2
+
+    def tiles(bm, bn):
+        return math.ceil(m / bm) * math.ceil(n / bn)
+
+    if m < WGMMA_MIN_M:
+        # "splitk": one row tile of 64; of the widths that fit, split K so
+        # that every SM has a block (as far as MAX_SPLITS allows), and of
+        # those that leave the fewest SMs idle take the least traffic (x
+        # is read again for every column tile)
+        cands = []
+        for bn in WG_TILE_N:
+            if not fits(WGMMA_M, bn):
+                continue
+            splits, per = _split(k_tiles, tiles(WGMMA_M, bn), sms)
+            idle = max(0, sms - tiles(WGMMA_M, bn) * splits)
+            cands.append((idle, traffic(WGMMA_M, bn), -bn, splits, per))
+        if not cands:
+            return None
+        _, cost, neg_bn, splits, per = min(cands)
+        return plan(WGMMA_M, -neg_bn, "splitk", splits, per, cost)
+    # "wgmma": the greedy over the tiles that fit, from the smallest
+    bm, bn = WG_TILE_M[0], WG_TILE_N[0]
+    if not fits(bm, bn):
+        return None
+
+    def footprint(a, b):
+        return wg_smem_bytes(a, b, 2)
+
+    while True:
+        cands = []
+        for nb in ((_step(WG_TILE_M, bm, 1), bn),
+                   (bm, _step(WG_TILE_N, bn, 1))):
+            if None in nb or not fits(*nb):
+                continue
+            if nb[0] > _round_up(m, WGMMA_M) or nb[1] > _round_up(n, 64):
+                continue
+            saved = traffic(bm, bn) - traffic(*nb)
+            spent = footprint(*nb) - footprint(bm, bn)
+            cands.append((saved / max(spent, 1), nb))
+        if not cands:
+            break
+        gain, nb = max(cands, key=lambda c: c[0])
+        if gain <= 0:
+            break
+        bm, bn = nb
+    smaller = [(a, b) for a in WG_TILE_M if a <= bm for b in WG_TILE_N
+               if b <= bn and fits(a, b)]
+    covering = [t for t in smaller if tiles(*t) >= sms]
+    if covering:
+        bm, bn = min(covering, key=lambda t: (traffic(*t), -t[0]))
+        return plan(bm, bn, "wgmma", traffic=traffic(bm, bn))
+    # even the smallest tile leaves SMs idle (k/v of a chunk of 256: 64
+    # tiles): split K over them as "splitk" does
+    bm, bn = smaller[0]
+    splits, per = _split(k_tiles, tiles(bm, bn), sms)
+    return plan(bm, bn, "wgmma", splits, per, traffic(bm, bn))
+
+
 def smem_plan(m: int, n: int, k: int, *, dtype_bytes: int = 2,
-              chip: Optional[ChipConfig] = None) -> SmemPlan:
-    """Choose (bm, bn, bk) for ``elk_matmul`` on one H100 (``h100_sxm``).
+              chip: Optional[ChipConfig] = None, tma: bool = True
+              ) -> SmemPlan:
+    """Choose the route and the block plan of ``elk_matmul`` on one H100
+    (``h100_sxm``).
+
+    A bf16 product whose operands meet TMA's rules (``tma``: 16-byte
+    aligned bases, row strides of whole 16 bytes) runs on the TMA + wgmma
+    mainloop (``_tma_plan``): route "wgmma" from ``WGMMA_MIN_M`` rows on,
+    tiles (bm, bn) of ``WG_TILE_M`` x ``WG_TILE_N`` and the ring's stages
+    (K split too when even the smallest tile leaves SMs idle); route
+    "splitk" below, one 64-row tile, a width of ``WG_TILE_N`` and
+    the split of K that gives every SM a block (``splits`` <= MAX_SPLITS,
+    ``k_per_split``; the splits of a tile run as one cluster and are summed
+    in rank order).  Anything else (fp32, a
+    stride TMA does not take, a budget no TMA tile fits) takes the route
+    "mma_sync", (bm, bn, bk) as follows.
 
     The shared-memory twin of ``vmem_plan``, with Hopper's model: shared
     memory holds a ring of ``STAGES`` operand tiles (the execution space
@@ -198,6 +368,10 @@ def smem_plan(m: int, n: int, k: int, *, dtype_bytes: int = 2,
     if min(m, n, k) < 1:
         raise ValueError(f"empty product: m={m}, n={n}, k={k}")
     chip = chip or h100_sxm()
+    if dtype_bytes == 2 and tma:
+        plan = _tma_plan(m, n, k, chip)
+        if plan is not None:
+            return plan
     budget = chip.sram_per_core
     sms = chip.num_cores
 
@@ -258,4 +432,4 @@ def smem_plan(m: int, n: int, k: int, *, dtype_bytes: int = 2,
     return SmemPlan(bm=bm, bn=bn, bk=bk, smem_bytes=footprint(bm, bn, bk),
                     hbm_traffic=traffic(bm, bn), tiles=tiles(bm, bn),
                     acc_bytes=bm * bn * 4,
-                    blocks_per_sm=resident)
+                    blocks_per_sm=resident, k_per_split=-(-k // bk))

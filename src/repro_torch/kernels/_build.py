@@ -89,9 +89,12 @@ def build_all(verbose: bool = False) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The shared library of ``csrc/<name>.cu``, built if need be."""
+    """The shared library of ``csrc/<name>.cu``, built if need be.  Loaded
+    as a ``PyDLL``: its functions enqueue work and return within
+    microseconds, so a call keeps the GIL instead of giving it up and
+    taking it back around every launch."""
     if name not in _loaded:
         if not _lib_path(name).exists():
             _Build(name, []).finish()
-        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+        _loaded[name] = ctypes.PyDLL(str(_lib_path(name)))
     return _loaded[name]

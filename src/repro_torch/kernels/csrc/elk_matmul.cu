@@ -4,48 +4,65 @@
 //   (N, K) row-major (the view embed.t() of a tied embedding);  out (M, N)
 //   contiguous, in x's type, from an fp32 sum.
 //
-// Replaces the TPU kernel src/repro/kernels/elk_matmul/kernel.py
-// (_matmul_kernel / elk_matmul).  Same function: (bm, bn) output tiles, the
-// K loop innermost with the fp32 accumulator held across it, each output
-// tile written once (the ELK "execute state"), ragged shapes exact.  What
-// differs: the Pallas grid pads x and y to block multiples in HBM; here the
-// loads past M, N and K are zero-filled in shared memory and the stores
-// past M and N skipped, so no operand is copied.
+// Replaces the TPU kernel src/repro/kernels/elk_matmul/kernel.py:31
+// (_matmul_kernel, called by elk_matmul at :45).  Same function: output
+// tiles, the K loop innermost with the fp32 accumulator held across it,
+// each output element's K sum in a fixed order, ragged shapes exact.  What
+// differs: the Pallas grid pads x and y to block multiples in HBM; here
+// nothing is copied, the loads past M, N and K arrive as zeros and the
+// stores past M and N are skipped.
 //
-// What bounds it on an H100 (datasheet: 3.35 TB/s, 989 TFLOP/s dense bf16)
-// at the serving shapes of qwen3-14b, bf16: with m <= 32 rows (decode steps,
-// short chunks, the LM head) reading the weight once is the bound, q/o
-// (5120 x 5120) 0.0157 ms, k/v (5120 x 1024) 0.0032 ms, the LM head
-// (5120 x 151936) 0.465 ms; at m = 4096 (a lock-step prefill) the
-// operations are, q/o 0.217 ms, k/v 0.043 ms on the tensor cores.
+// What bounds it on an H100 SXM (datasheet: 3.35 TB/s, 989 TFLOP/s dense
+// bf16) at the serving shapes of qwen3-14b, bf16: with m <= 32 rows (decode
+// steps, short chunks, the LM head) reading the weight once, q/o (5120 x
+// 5120) 0.0157 ms, k/v (5120 x 1024) 0.0032 ms, the LM head (5120 x 151936)
+// 0.465 ms; at m = 4096 (a lock-step prefill) the operations, q/o 0.217 ms,
+// k/v 0.043 ms.
 //
-// Design.  One block owns one (bm, bn) output tile and walks K inside the
-// block; blocks share nothing, so a row's output depends on its own x row
-// alone and the K order is fixed: no atomics, the same bits whatever the
-// other rows hold and however many there are.  (bm, bn, bk) come from
-// chip/h100.smem_plan, the ELK allocation on the SM's shared memory:
-//   * the operand tiles go through a ring of kStages shared-memory buffers
-//     filled by cp.async (16 bytes a thread, zero-filled past the edges):
-//     one tile in use (the execution space), the next ones in flight (the
-//     preload space).  Rows are padded by 16 bytes against bank conflicts.
-//     Where an operand's rows do not start on 16 bytes (K or N not a
-//     multiple of 8 bf16 / 4 fp32 elements, or a row stride that is not),
-//     the same tiles are filled element by element with plain loads;
-//   * bf16: mma.sync m16n8k16 on the tensor cores, fp32 accumulators in
-//     registers; 4 warps (8 at bm = 128), each a (bm / WM) x (bn / WN)
-//     warp tile; A fragments by 32-bit shared loads, B by 32-bit loads for
-//     y given as (N, K) and by ldmatrix.trans for y as (K, N);
-//   * fp32: FMA, each thread a strided micro-tile of outputs, one product a
-//     K step in order (TF32 would miss the fp32 tolerance).
-// At m <= 32 the plan takes 16- or 32-row tiles (rows 9-16 of a decode step
-// are the MMA's padding, not 120 rows of it), narrows bn until the tiles
-// cover the SMs, and deepens bk so that more of the weight is in flight.
-// A split of K across blocks (for k/v at m = 8: 32 blocks on 132 SMs),
-// wgmma and TMA are left for later.
+// Three routes, chosen by the wrapper from dtype, m and strides before the
+// launch (chip/h100.smem_plan says which, and its tiles); a refused launch
+// raises there, no route stands in for another:
+//   * "wgmma" (bf16, m >= 64, operands TMA takes: 16-byte aligned bases and
+//     row strides of whole 16 bytes): the mainloop of hopper_gemm.cuh, TMA
+//     into a ring of stages under mbarriers, a producer warp and one or two
+//     consumer warpgroups on wgmma m64nNk16, (bm, bn) in {64, 128} x {64,
+//     128, 256} from the plan, y MN-major as (K, N) and K-major as the
+//     transpose of (N, K).  The mma_sync kernel below loads every fragment
+//     by 32-bit shared loads and pays a block barrier and a ring step per K
+//     step; its time tracked its K steps, not its bytes (PERF.md).
+//   * "splitk" (bf16, m < 64, TMA's rules): the same mainloop on one 64-row
+//     tile (TMA zero-fills the rows past m; the tensor cores have time to
+//     spare at these shapes) with K split over s <= 8 blocks, one cluster a
+//     tile, so that the SMs stream weight (k/v at m = 8: 16 column tiles x
+//     8 splits, where the mma_sync plan runs 32 blocks on 132 SMs), rows of
+//     y read in pieces of 128 bytes or more, the splits summed in rank order
+//     over the cluster's shared memory.  The LM head has 1187 tiles and
+//     takes s = 1.
+//   * "mma_sync" (what TMA cannot take, and fp32): the kernel below.
+//     One block owns one (bm, bn) output tile and walks K inside the block;
+//     blocks share nothing.  The operand tiles go through a ring of kStages
+//     shared-memory buffers filled by cp.async (16 bytes a thread, zero-
+//     filled past the edges; element by element where a row does not start
+//     on 16 bytes), rows padded by 16 bytes.  bf16: mma.sync m16n8k16, A
+//     fragments by 32-bit shared loads, B by 32-bit loads for y given as
+//     (N, K) and by ldmatrix.trans for y as (K, N); 4 warps (8 at bm =
+//     128).  fp32: FMA, one product a K step in order (TF32 would miss the
+//     fp32 tolerance).
+// Every route sums each output element's K steps in a fixed order and uses
+// no atomics: the same inputs give the same bits on every run.
+//
+// Where it stands (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W; the
+// mma_sync kernel's times in brackets): decode q/o 0.0253 ms (0.0420), k/v
+// 0.0110 (0.0363), the LM head 0.523 (0.658), against bounds of 0.0157,
+// 0.0032 and 0.465; a chunk of 256 q/o 0.0476 (0.151); prefill q/o 0.391
+// (1.030) against 0.217.  torch.matmul is faster still at every shape, by
+// 1.06x (the LM head) to 1.59x (PERF.md has every shape).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
@@ -376,9 +393,51 @@ int launch(const Args& a, int bm, int bn, cudaStream_t stream) {
   return -1;
 }
 
+// the TMA instances: (consumer warpgroups, bn); chip/h100.py WG_TILE_M x
+// WG_TILE_N less the widths one warpgroup cannot hold (wg_acc_fits)
+#define ELK_TMA_TILES(F) F(1, 64) F(1, 128) F(2, 64) F(2, 128) F(2, 256)
+
+template <int WG, int BN>
+int launch_tma(hg::GemmParams& p, bool y_kmajor, int m, int n, int k, int k_per_split,
+               cudaStream_t stream) {
+  if (y_kmajor)
+    return hg::launch_gemm<hg::GemmCfg<WG, BN, 1, true>>(p, m, n, k, k_per_split, stream);
+  return hg::launch_gemm<hg::GemmCfg<WG, BN, 1, false>>(p, m, n, k, k_per_split, stream);
+}
+
 }  // namespace
 
 extern "C" {
+
+// Launches out = x @ y on the TMA + wgmma mainloop (routes "wgmma" and
+// "splitk") on `stream`; returns cudaGetLastError() (0 = launched) or -1
+// for arguments it does not take.  bf16 only.  x (m, k) row stride lda; y
+// (k, n) row stride ldy (y_trans 0, MN-major) or stored (n, k) row stride
+// ldy (y_trans 1, K-major); every base 16-byte aligned and every stride a
+// multiple of 8 elements.  wg consumer warpgroups (64 wg rows a tile), bn
+// columns, K cut in splits of k_per_split tiles of 64 (at most 8 splits,
+// each tile's a cluster).
+int elk_matmul_tma_launch(const void* x, const void* y, void* out, int m, int n, int k, int lda,
+                          int ldy, int y_trans, int wg, int bn, int k_per_split, void* stream) {
+  if (m < 1 || n < 1 || k < 1 || k_per_split < 1) return -1;
+  if (lda < k || ldy < (y_trans ? k : n)) return -1;
+  if (!hg::tma_ok(x, lda) || !hg::tma_ok(y, ldy)) return -1;
+  hg::GemmParams p{};
+  p.epi.out = out;
+  p.epi.bias = nullptr;
+  p.epi.ldo = n;
+  p.epi.mode = hg::kEpiStore;
+  p.epi.act = 0;
+  if (hg::map_a(&p.a, x, m, k, lda, 64 * wg) != 0) return -1;
+  if (hg::map_b(&p.b0, y, n, k, ldy, y_trans != 0, bn) != 0) return -1;
+  p.b1 = p.b0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define ELK_TMA_CASE(WG, BN) \
+  if (wg == WG && bn == BN) return launch_tma<WG, BN>(p, y_trans != 0, m, n, k, k_per_split, s);
+  ELK_TMA_TILES(ELK_TMA_CASE)
+#undef ELK_TMA_CASE
+  return -1;
+}
 
 // Sets every instance's dynamic shared-memory limit on the current device to
 // what a block may opt in to, and remembers that limit.  Call once a device
@@ -422,6 +481,11 @@ int elk_matmul_launch(const void* x, const void* y, void* out, int m, int n, int
   if (dtype == 1)
     return y_trans ? launch<bf16, true>(a, bm, bn, s) : launch<bf16, false>(a, bm, bn, s);
   return y_trans ? launch<float, true>(a, bm, bn, s) : launch<float, false>(a, bm, bn, s);
+}
+
+// The name of a CUDA error a launch function returned.
+const char* elk_matmul_error_name(int err) {
+  return err < 0 ? "refused by the launcher" : cudaGetErrorName((cudaError_t)err);
 }
 
 }  // extern "C"

@@ -1,51 +1,66 @@
 // Fused MLP for Hopper (sm_90a): out = act(x @ w_up [+ b_up]) @ w_down [+ b_down]
 // or, gated, out = (act(x @ w_gate) * (x @ w_up)) @ w_down.
 //
-// Replaces the TPU kernel src/repro/kernels/fused_mlp/kernel.py
-// (_make_kernel / fused_mlp_kernel).  Same function: three variants (plain,
-// plain with both biases, GLU), silu / tanh-gelu / relu, fp32 or bf16 inputs,
-// fp32 accumulation, the intermediate cast to the input type before the down
-// product, ragged m / d / ff / d_out masked here (no host padding), and the
-// intermediate never written to device memory.
+// Replaces the TPU kernel src/repro/kernels/fused_mlp/kernel.py:38
+// (_make_kernel, called by fused_mlp_kernel at :79).  Same function: three
+// variants (plain, plain with both biases, GLU), silu / tanh-gelu / relu,
+// fp32 or bf16 inputs, fp32 accumulation, the intermediate h rounded to the
+// input type before the down product (where the reference's composed_ref
+// rounds it), ragged m / d / ff / d_out exact with no host padding.
 //
-// What bounds it on an H100 (datasheet: 3.35 TB/s, 989 TFLOP/s dense bf16,
-// 227 KB shared memory a block, 132 SMs), at the serving shapes d = d_out =
-// 5120, ff = 17408, bf16, gated: at decode (m = 8) the 535 MB of weights,
-// 0.16 ms of memory time; at prefill (m = 4096) the 2.19 TFLOP, 2.2 ms of
-// tensor-core time.
+// What bounds it on an H100 SXM (datasheet: 3.35 TB/s, 989 TFLOP/s dense
+// bf16, 227 KB shared memory a block, 132 SMs), at the serving shapes d =
+// d_out = 5120, ff = 17408, bf16, gated: at decode (m = 8) the 535 MB of
+// weights, 0.160 ms of memory time; at prefill (m = 4096) the 2.19 TFLOP,
+// 2.215 ms of tensor-core time.
 //
-// Design.  The TPU kernel walks ff sequentially and carries a (bm, d_out)
-// fp32 sum on chip.  Here blocks run in no order and bm x 5120 fp32 fits
-// neither registers nor shared memory, so the work is cut differently:
-//   * a block owns one tile of BM rows and one range of ff ("split").  For
-//     each BF-wide chunk of its range it forms the slab h (BM x BF) in shared
-//     memory once (products over d, accumulators in registers), then walks
-//     d_out in BN-wide tiles, each a product h @ w_down[chunk, tile] summed in
-//     registers and added to the block's own fp32 partial in device memory.
-//     The slab is never recomputed for a d_out tile, and each weight is read
-//     once for each tile of rows.
-//   * the partials (splits x m x d_out, fp32) are summed in a fixed order by
-//     a second small kernel that adds b_down and casts.  Nothing is summed
-//     across blocks in an order that could vary: the result is the same
-//     every run.
-//   * at decode one tile of rows covers the batch, so the splits of ff are
-//     what fill the 132 SMs; at prefill the row tiles do and few splits keep
-//     the partials small.
-// bf16 products run on the tensor cores through nvcuda::wmma (16x16x16,
-// fp32 accumulate); fp32 products run as FMA loops with the same tiling,
-// because TF32 would not hold the fp32 tolerance.  Loads are 16 bytes a
-// thread where the row stride and the base allow it, element by element
-// otherwise (d = 80, ff = 257, ...).  The 16-byte loads are cp.async copies
-// into a ring of stages in shared memory, so the tiles of the next steps
-// travel while this step's products run, with one barrier a step.
+// Three routes, chosen by the wrapper from dtype, m and strides before the
+// launch (kernel.py, route_of); a refused launch raises there:
+//   * "two_pass" (bf16, m > R, every operand what TMA takes): two products
+//     on the mainloop of hopper_gemm.cuh (TMA ring, producer warp, wgmma
+//     consumer warpgroups).  Pass 1 loads one x tile and a w_gate and a
+//     w_up tile a stage (48 KB, 4 stages), keeps two 128 x 128 fp32
+//     accumulators, and writes h = act(g) * u (or act(u + b_up)) in x's
+//     type to scratch the wrapper allocates.  Pass 2 is the elk_matmul
+//     product h @ w_down on the plan smem_plan gives it (128 x 256 tiles at
+//     m = 4096), b_down added as it stores.  The trade: a 128 x 5120 fp32
+//     output tile fits neither registers nor shared memory, so the
+//     single-pass kernel below sums every ff chunk into fp32 partials in
+//     device memory, about 68 x 4096 x 5120 x 4 B = 5.7 GB of adds at
+//     m = 4096; h crossing device memory instead costs 2 m ff 2 B = 285 MB
+//     there, 0.085 ms at 3.35 TB/s, about 4 % of the 2.215 ms bound.
+//     R is measured (PERF.md): below it keeping h on chip would pay.  It
+//     came out below 8 rows, so a decode step takes this route too; there
+//     pass 1 runs 64-row tiles and pass 2 splits K as elk_matmul's splitk
+//     route does, summing the splits in shared memory (the single-pass
+//     kernel's 272 splits write 44.6 MB of fp32 partials and read them
+//     back).
+//   * "split_ff" (bf16 otherwise): the single-pass kernel below.  A block
+//     owns one tile of rows and one range of ff chunks; for each chunk it
+//     forms the slab h (BM x BF) in shared memory (phase 1), then walks
+//     d_out in BN-wide tiles adding h @ w_down[chunk, tile] to the block's
+//     own fp32 partial (phase 2); a second kernel sums the partials in
+//     split order and adds b_down.  Phase 1 and phase 2 of every chunk are
+//     one flat loop over one ring, so that w_down's first tiles are in
+//     flight during phase 1's last steps (a ring for each phase ran dry between
+//     them).  The splits are as many as can be resident (272 of one chunk
+//     at m = 8): the fewest that cover the SMs (136 of two chunks) wrote
+//     half the partials but measured 0.430 ms against 0.260, since each
+//     block's chain of steps doubled while the SMs held half the blocks.
+//   * "fma" (fp32): the same single-pass kernel with FMA loops in place of
+//     the tensor cores (TF32 would not hold the fp32 tolerance).
+// bf16 products of the single-pass kernel run through nvcuda::wmma
+// (16x16x16, fp32 accumulate); its loads are 16-byte cp.async copies into
+// a ring of stages where the row stride and the base allow it, element by
+// element otherwise (d = 80, ff = 257, ...).  No route sums across blocks
+// in an order that could vary: the same inputs give the same bits every
+// run.
 //
-// Where it stands (H100 80GB HBM3 at 700 W, chip_smoke.py): decode about 60 %
-// of its bound, prefill about a ninth of its.  At prefill, switching parts off
-// showed the products, the fills, the adds into the partials and the barrier
-// and epilogue overhead adding up rather than overlapping, and with a 2 x 2
-// warp tile for gate and up each wmma product needs a 512-byte fragment load
-// from shared memory.  wgmma, TMA, warp specialisation and clusters are not
-// used; they are what a faster version would be built from.
+// Where it stands (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W; the
+// former single-pass tilings' times in brackets): two_pass at m = 8 0.205
+// ms (0.260) against a bound of 0.160, at m = 4096 3.38 ms (19.11) against
+// 2.21; split_ff at m = 8 0.294.  Three library products with silu take
+// 0.194 and 2.95 ms (PERF.md has every shape and the crossover).
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -53,21 +68,14 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper_gemm.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
-enum : int { kActSilu = 0, kActGelu = 1, kActRelu = 2 };
-
-__device__ __forceinline__ float apply_act(float v, int act) {
-  if (act == kActSilu) return v / (1.0f + expf(-v));
-  if (act == kActGelu) {
-    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
-    return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
-  }
-  return fmaxf(v, 0.0f);
-}
+using hg::apply_act;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
@@ -256,48 +264,66 @@ fused_mlp_partial_kernel(const T* __restrict__ x, const T* __restrict__ w_up,
   const int col_w = warp_n * TN * 16;  // the warp's first column in a BN tile
   float* my_partial = partial + (size_t)split * m * dout;
 
-  // Both phases walk their product steps in one flat loop over a ring of
-  // STAGES tiles: while the products of step s run, the tiles of the next
-  // STAGES - 1 steps are on their way.  One barrier a step: after it, step s
-  // has arrived for everyone and everyone is done with the stage of step
-  // s - 1, which is then refilled.  A group is committed every step, empty or
-  // not, so that "all but the newest STAGES - 2 groups" always means step s.
+  // Phase 1 (the slab h = act(...), BM x BF, BN columns at a time) and
+  // phase 2 (partial += h @ w_down[f0 : f0 + BF, :], BN columns of d_out at
+  // a time) of every chunk of the split are one flat loop of product steps
+  // over one ring of STAGES tiles: while the products of step s run, the
+  // tiles of the next STAGES - 1 steps are on their way, across the border
+  // between the phases and between the chunks.  One barrier a step: after
+  // it, step s has arrived for everyone and everyone is done with the stage
+  // of step s - 1, which is then refilled; it also orders the slab's writes
+  // (at the end of a phase-1 column) before phase 2 reads them, and phase
+  // 2's reads before the next chunk's phase 1 writes it again.  A group is
+  // committed every step, empty or not, so that "all but the newest
+  // STAGES - 2 groups" always means step s.
   const int ksteps = (d + BK - 1) / BK;
   const int steps1 = (BF / BN) * ksteps;
   constexpr int KSTEPS2 = BF / BK;
   const int steps2 = ((dout + BN - 1) / BN) * KSTEPS2;
+  const int per_chunk = steps1 + steps2;
+  const int steps = (chunk1 - chunk0) * per_chunk;
 
-  for (int chunk = chunk0; chunk < chunk1; ++chunk) {
-    const int f0 = chunk * BF;
-
-    // Phase 1: the slab h = act(...) (BM x BF), BN columns at a time.
-    auto fill1 = [&](int s) {
-      if (s < steps1) {
-        const int st = s % STAGES;
-        const int nt = (s / ksteps) * BN;
-        const int k0 = (s % ksteps) * BK;
+  auto fill = [&](int s) {
+    if (s < steps) {
+      const int st = s % STAGES;
+      const int f0 = (chunk0 + s / per_chunk) * BF;
+      const int r = s % per_chunk;
+      if (r < steps1) {
+        const int nt = (r / ksteps) * BN;
+        const int k0 = (r % ksteps) * BK;
         fill_tile<T, BM, BK, LDX, NT>(xs(st), x, m, d, m0, k0, vec_x);
         fill_tile<T, BK, BN, LDW, NT>(wus(st), w_up, d, ff, k0, f0 + nt, vec_w);
         if (gated) fill_tile<T, BK, BN, LDW, NT>(wgs(st), w_gate, d, ff, k0, f0 + nt, vec_w);
+      } else {
+        const int r2 = r - steps1;
+        fill_tile<T, BK, BN, LDW, NT>(wus(st), w_down, ff, dout, f0 + (r2 % KSTEPS2) * BK,
+                                      (r2 / KSTEPS2) * BN, vec_wd);
       }
-      __pipeline_commit();
-    };
-    WarpAcc<T, TM, TN> acc_u, acc_g;
-    __syncthreads();  // the ring is free: the phase before has read its last tile
-    for (int s = 0; s < STAGES - 1; ++s) fill1(s);
-    for (int s = 0; s < steps1; ++s) {
-      __pipeline_wait_prior(STAGES - 2);
-      __syncthreads();
-      fill1(s + STAGES - 1);
-      const T* xs_s = xs(s % STAGES);
-      if (s % ksteps == 0) {
+    }
+    __pipeline_commit();
+  };
+
+  // acc_u is phase 1's up (or only) product and phase 2's sum
+  WarpAcc<T, TM, TN> acc_u, acc_g;
+  for (int s = 0; s < STAGES - 1; ++s) fill(s);
+  for (int s = 0; s < steps; ++s) {
+    __pipeline_wait_prior(STAGES - 2);
+    __syncthreads();
+    fill(s + STAGES - 1);
+    const int st = s % STAGES;
+    const int chunk = chunk0 + s / per_chunk;
+    const int f0 = chunk * BF;
+    const int r = s % per_chunk;
+    if (r < steps1) {
+      const T* xs_s = xs(st);
+      if (r % ksteps == 0) {
         acc_u.zero();
         acc_g.zero();
       }
-      acc_u.mma(xs_s + row_w * LDX, LDX, wus(s % STAGES) + col_w, LDW, BK);
-      if (gated) acc_g.mma(xs_s + row_w * LDX, LDX, wgs(s % STAGES) + col_w, LDW, BK);
-      if (s % ksteps != ksteps - 1) continue;
-      const int nt = (s / ksteps) * BN;
+      acc_u.mma(xs_s + row_w * LDX, LDX, wus(st) + col_w, LDW, BK);
+      if (gated) acc_g.mma(xs_s + row_w * LDX, LDX, wgs(st) + col_w, LDW, BK);
+      if (r % ksteps != ksteps - 1) continue;
+      const int nt = (r / ksteps) * BN;
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
 #pragma unroll
@@ -308,7 +334,7 @@ fused_mlp_partial_kernel(const T* __restrict__ x, const T* __restrict__ w_up,
 #pragma unroll
           for (int it = 0; it < 8; ++it) {
             const int idx = it * 32 + lane;
-            const int r = idx >> 4, c = idx & 15;
+            const int rr = idx >> 4, c = idx & 15;
             const int hc = nt + col_w + j * 16 + c;  // column in the slab
             float v = stage_u[idx];
             if (gated) {
@@ -318,60 +344,43 @@ fused_mlp_partial_kernel(const T* __restrict__ x, const T* __restrict__ w_up,
               v = apply_act(v, act);
             }
             // columns past ff hold act(0) = 0 and meet zero rows of w_down
-            hs[(row_w + i * 16 + r) * LDH + hc] = from_f32<T>(v);
+            hs[(row_w + i * 16 + rr) * LDH + hc] = from_f32<T>(v);
           }
           __syncwarp();
         }
       }
+      continue;
     }
-
-    // Phase 2: partial (BM x d_out) += h @ w_down[f0 : f0 + BF, :], BN columns
-    // at a time.  The barrier that frees the ring also makes the slab whole.
-    auto fill2 = [&](int s) {
-      if (s < steps2)
-        fill_tile<T, BK, BN, LDW, NT>(wus(s % STAGES), w_down, ff, dout,
-                                      f0 + (s % KSTEPS2) * BK, (s / KSTEPS2) * BN, vec_wd);
-      __pipeline_commit();
-    };
-    WarpAcc<T, TM, TN> acc;
-    __syncthreads();
-    for (int s = 0; s < STAGES - 1; ++s) fill2(s);
-    for (int s = 0; s < steps2; ++s) {
-      __pipeline_wait_prior(STAGES - 2);
-      __syncthreads();
-      fill2(s + STAGES - 1);
-      if (s % KSTEPS2 == 0) acc.zero();
-      acc.mma(hs + row_w * LDH + (s % KSTEPS2) * BK, LDH, wus(s % STAGES) + col_w, LDW, BK);
-      if (s % KSTEPS2 != KSTEPS2 - 1) continue;
-      const int n0 = (s / KSTEPS2) * BN;
+    const int r2 = r - steps1;
+    if (r2 % KSTEPS2 == 0) acc_u.zero();
+    acc_u.mma(hs + row_w * LDH + (r2 % KSTEPS2) * BK, LDH, wus(st) + col_w, LDW, BK);
+    if (r2 % KSTEPS2 != KSTEPS2 - 1) continue;
+    const int n0 = (r2 / KSTEPS2) * BN;
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
+    for (int i = 0; i < TM; ++i) {
 #pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          acc.store(i, j, stage_u);
-          __syncwarp();
+      for (int j = 0; j < TN; ++j) {
+        acc_u.store(i, j, stage_u);
+        __syncwarp();
 #pragma unroll
-          for (int it = 0; it < 8; ++it) {
-            const int idx = it * 32 + lane;
-            const int r = m0 + row_w + i * 16 + (idx >> 4);
-            const int c = n0 + col_w + j * 16 + (idx & 15);
-            if (r < m && c < dout) {
-              // No other thread touches this address, and one thread's accesses
-              // to one address keep their order, so the sum is the same every
-              // run.  The add goes out as a reduction that the thread does not
-              // wait for; reading, adding and storing here would cost a trip
-              // to device memory for every tile of every chunk.
-              float* p = my_partial + (size_t)r * dout + c;
-              if (chunk == chunk0) *p = stage_u[idx];
-              else atomicAdd(p, stage_u[idx]);
-            }
+        for (int it = 0; it < 8; ++it) {
+          const int idx = it * 32 + lane;
+          const int rr = m0 + row_w + i * 16 + (idx >> 4);
+          const int c = n0 + col_w + j * 16 + (idx & 15);
+          if (rr < m && c < dout) {
+            // No other thread touches this address, and one thread's accesses
+            // to one address keep their order, so the sum is the same every
+            // run.  The add goes out as a reduction that the thread does not
+            // wait for; reading, adding and storing here would cost a trip
+            // to device memory for every tile of every chunk.
+            float* p = my_partial + (size_t)rr * dout + c;
+            if (chunk == chunk0) *p = stage_u[idx];
+            else atomicAdd(p, stage_u[idx]);
           }
-          __syncwarp();
         }
+        __syncwarp();
       }
     }
-    // The next chunk writes hs only after the barrier that opens its phase 1,
-    // which every warp reaches after its last read of hs here.
   }
 }
 
@@ -425,9 +434,95 @@ using TilesF32 = Tiles<float, 32, 64, 64, 32, 2, 4, 3>;
 using TilesBf16Rows16 = Tiles<bf16, 16, 64, 64, 64, 1, 4, 3>;      // decode: m <= 16
 using TilesBf16Rows128 = Tiles<bf16, 128, 256, 64, 64, 4, 2, 2>;  // prefill
 
+// Two-pass route.  Pass 1: h (m x ff, bf16) = act(x @ w_gate) * (x @ w_up),
+// or act(x @ w_up + b_up), on 128 x 128 tiles; pass 2: out = h @ w_down
+// [+ b_down] on (64 wg2) x bn2 tiles, K cut in splits of k_per_split2 tiles
+// (b_down added as the tile is stored, after the splits are summed).
+using Pass1Gated = hg::GemmCfg<2, 128, 2, false>;
+// at most kPass1Rows64MaxM rows: 64-row tiles, one consumer warpgroup, two
+// blocks an SM, 64 columns of each weight.  qwen3-14b at m <= 128: 272 or
+// 544 small tiles on 264 block slots, where 128 x 128 tiles give 136 for
+// 132 SMs, a second wave of 4 big ones
+using Pass1GatedRows64 = hg::GemmCfg<1, 64, 2, false>;
+using Pass1PlainRows64 = hg::GemmCfg<1, 128, 1, false>;
+constexpr int kPass1Rows64MaxM = 256;
+// pass 1 is never split: its epilogue is not linear
+inline int k_tiles1(int d) { return (d + hg::kBK - 1) / hg::kBK; }
+using Pass1Plain = hg::GemmCfg<2, 128, 1, false>;
+
+// pass 2's (consumer warpgroups, bn): elk_matmul.cu's ELK_TMA_TILES
+#define FUSED_MLP_PASS2_TILES(F) F(1, 64) F(1, 128) F(2, 64) F(2, 128) F(2, 256)
+
 }  // namespace
 
 extern "C" {
+
+// The two-pass route, one function a pass; each returns cudaGetLastError()
+// (0 = launched) or -1 for arguments it does not take.  bf16 only; every
+// matrix row-major and contiguous with its base 16-byte aligned, d, ff and
+// dout multiples of 8 (what TMA takes).
+//
+// Pass 1: h (m, ff) = act(x @ w_gate) * (x @ w_up) with w_gate, or
+// act(x @ w_up [+ b_up]) without (b_up may be null).
+int fused_mlp_pass1_launch(const void* x, const void* w_up, const void* w_gate,
+                           const void* b_up, void* h, int m, int d, int ff, int act,
+                           void* stream) {
+  if (m < 1 || d < 1 || ff < 1) return -1;
+  if (!hg::tma_ok(x, d) || !hg::tma_ok(w_up, ff) || !hg::tma_ok(h, ff) ||
+      (w_gate != nullptr && !hg::tma_ok(w_gate, ff)))
+    return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  hg::GemmParams p{};
+  p.epi.out = h;
+  p.epi.ldo = ff;
+  p.epi.act = act;
+  const bool rows64 = m <= kPass1Rows64MaxM;
+  if (hg::map_a(&p.a, x, m, d, d, rows64 ? 64 : 128) != 0) return -1;
+  if (w_gate != nullptr) {
+    p.epi.mode = hg::kEpiGated;
+    const int bn = rows64 ? Pass1GatedRows64::BN : Pass1Gated::BN;
+    if (hg::map_b(&p.b0, w_gate, ff, d, ff, false, bn) != 0 ||
+        hg::map_b(&p.b1, w_up, ff, d, ff, false, bn) != 0)
+      return -1;
+    return rows64 ? hg::launch_gemm<Pass1GatedRows64>(p, m, ff, d, k_tiles1(d), s)
+                  : hg::launch_gemm<Pass1Gated>(p, m, ff, d, k_tiles1(d), s);
+  }
+  p.epi.mode = hg::kEpiAct;
+  p.epi.bias = reinterpret_cast<const bf16*>(b_up);
+  if (hg::map_b(&p.b0, w_up, ff, d, ff, false, 128) != 0) return -1;
+  p.b1 = p.b0;
+  return rows64 ? hg::launch_gemm<Pass1PlainRows64>(p, m, ff, d, k_tiles1(d), s)
+                : hg::launch_gemm<Pass1Plain>(p, m, ff, d, k_tiles1(d), s);
+}
+
+// Pass 2: out (m, dout) = h @ w_down [+ b_down] (b_down may be null) on
+// (64 wg2) x bn2 tiles, K cut in splits of k_per_split2 tiles (at most 8).
+int fused_mlp_pass2_launch(const void* h, const void* w_down, const void* b_down, void* out,
+                           int m, int ff, int dout, int wg2, int bn2, int k_per_split2,
+                           void* stream) {
+  if (m < 1 || ff < 1 || dout < 1 || k_per_split2 < 1) return -1;
+  if (!hg::tma_ok(h, ff) || !hg::tma_ok(w_down, dout)) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  hg::GemmParams p{};
+  p.epi.out = out;
+  p.epi.bias = reinterpret_cast<const bf16*>(b_down);
+  p.epi.ldo = dout;
+  p.epi.mode = hg::kEpiStore;
+  if (hg::map_a(&p.a, h, m, ff, ff, 64 * wg2) != 0) return -1;
+  if (hg::map_b(&p.b0, w_down, dout, ff, dout, false, bn2) != 0) return -1;
+  p.b1 = p.b0;
+#define FUSED_MLP_PASS2_CASE(WG, BN)                                                       \
+  if (wg2 == WG && bn2 == BN)                                                               \
+    return hg::launch_gemm<hg::GemmCfg<WG, BN, 1, false>>(p, m, dout, ff, k_per_split2, s);
+  FUSED_MLP_PASS2_TILES(FUSED_MLP_PASS2_CASE)
+#undef FUSED_MLP_PASS2_CASE
+  return -1;
+}
+
+// The name of a CUDA error a launch function returned.
+const char* fused_mlp_error_name(int err) {
+  return err < 0 ? "refused by the launcher" : cudaGetErrorName((cudaError_t)err);
+}
 
 // dtype: 0 fp32, 1 bf16.  config: 0 the only fp32 tiling; for bf16, 0 is the
 // 16-row tiling and 1 the 128-row tiling.  Gives BM and BF of that tiling and

@@ -1,0 +1,707 @@
+// The Hopper (sm_90a) matrix-product mainloop shared by elk_matmul.cu and
+// fused_mlp.cu: TMA loads into a ring of shared-memory stages under
+// mbarriers, one producer warp, one or two consumer warpgroups on wgmma, and
+// an epilogue chosen at run time (a bf16 store, an activation, a gated
+// product, or fp32 partial sums of a split of K).
+//
+//   out (m, n) = epilogue( a (m, K) @ b_j (K, n) ),  j < NB (1, or 2 for a
+//   gate and an up product that share the a tile)
+//
+// a is x, row-major with a row stride of its own.  b is taken as stored:
+// MN-major, a (K, n) row-major weight (every weight of the models here), or
+// K-major, the transpose of an (n, K) row-major tensor (embed.t() of a tied
+// LM head).  The wgmma descriptor's transpose bit says which; get it wrong
+// and the product is that of the transposed operand, with the same shape
+// whenever n == K, which is why the sweeps in chip_smoke.py are not square.
+//
+// It replaces the inner loops of the TPU kernels
+// src/repro/kernels/elk_matmul/kernel.py:31 (_matmul_kernel) and
+// src/repro/kernels/fused_mlp/kernel.py:38 (_make_kernel): there the
+// sequential grid walks K and the MXU reads VMEM tiles; here a block walks
+// its K range itself and the tensor cores read shared memory.
+//
+// What bounds it on an H100 SXM (datasheet: 989 TFLOP/s dense bf16,
+// 3.35 TB/s, 227 KB of shared memory a block, 132 SMs): the products of a
+// prefill (m = 4096) are bound by operations, those of a decode step
+// (m <= 32) by reading the weight once.  What held the kernels it replaces
+// back (PERF.md): mma.sync and wmma need every operand fragment
+// loaded from shared memory into registers, by 32-bit loads or 512-byte
+// fragments, and a cp.async ring filled by all threads needs a block-wide
+// barrier every K step, so loads, products and barriers add up instead of
+// overlapping.  Here:
+//   * one thread of the producer warpgroup issues a TMA copy per operand
+//     tile (one per 64 columns of an MN-major b) into stage s and tells
+//     full[s] how many bytes to expect; TMA computes the addresses, applies
+//     the 128-byte swizzle that wgmma reads without bank conflicts, and
+//     zero-fills what lies past the tensor's edge, so ragged m, n and K
+//     need no masked loads (only the stores are masked);
+//   * each consumer warpgroup (64 rows of the tile) waits on full[s],
+//     issues BK / 16 wgmma m64nNk16 per operand straight from shared memory,
+//     commits them as one group, and releases stage s - 1 on empty[s - 1]
+//     once wgmma.wait_group 1 says the group that read it has retired: the
+//     products of one stage run while the next stages are in flight, and no
+//     barrier spans the block after the start;
+//   * with two consumer warpgroups (384 threads) setmaxnreg hands the
+//     producer's registers to the consumers (40 and 232 a thread, from the
+//     168 that __launch_bounds__(384, 1) gives): a 128 x 256 fp32
+//     accumulator, or two of 128 x 128, is 128 registers a consumer thread.
+//     One consumer warpgroup (256 threads) runs two blocks an SM and needs
+//     no rebalancing;
+//   * the output tiles are visited in groups of group_m row tiles, so that
+//     a wave of blocks shares its weight tiles and its x tiles in the 50 MB
+//     L2;
+//   * a split of K (decode products: too few output tiles for 132 SMs)
+//     runs as one thread-block cluster a tile, one block a split (at most
+//     8, the portable cluster size): each block leaves its fp32 sums in its
+//     own shared memory, and after a cluster barrier every block adds up
+//     its share of the tile over the cluster's distributed shared memory,
+//     rank by rank, and stores it.  One launch, no partials in device
+//     memory.  (A separate reduce kernel over partials in device memory
+//     cost a second launch a product; summing them in the last block of a
+//     tile, picked by an integer ticket, ran that block's loads one split
+//     after another and made the products 2-3x slower.)
+//   * determinism: a block owns its output tile and its K range, and sums
+//     its K steps in order; the splits of a tile are added in rank order.
+//     No atomics: the same inputs give the same bits on every run,
+//     whatever m is.
+// The tensor maps are encoded on the host by cuTensorMapEncodeTiled, whose
+// entry point cudaGetDriverEntryPoint returns at run time, so the library
+// is not linked against libcuda (no -lcuda in _build.NVCC_FLAGS).  They are
+// passed as __grid_constant__ kernel parameters and cached by (pointer,
+// shape, stride, box): a weight's data_ptr() is the same every step (under
+// elk_stream it cycles over the window's buffers).
+//
+// TMA's rules decide which products the mainloop takes: bf16, every base
+// 16-byte aligned and every row stride a multiple of 16 bytes.  The callers
+// check them before the launch and route what breaks them to their older
+// kernels; the launch functions here check them again and refuse (-1).
+//
+// Where it stands (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): the
+// products at m = 4096 run at 55-66 % of the tensor cores' dense peak
+// (q/o 0.391 ms against a bound of 0.217), where torch.matmul runs at
+// 75-80 %; one tile a block, so a tile's prologue and epilogue do not
+// overlap another's products.  Pairs of blocks sharing their b tiles by
+// TMA multicast were measured and were slower (PERF.md).  The products of
+// a decode step reach 29 % (k/v, 0.0110 ms) to 89 % (the LM head) of what
+// reading the weight once at the memory rate takes.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#include <mutex>
+#include <unordered_map>
+
+// Everything here has internal linkage: two libraries of the process include
+// this header, and the statics of inline and template functions (the
+// tensor-map cache, the devices a kernel's shared-memory limit is set on)
+// would otherwise be one object shared by both.
+namespace hg {
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBK = 64;                // K depth of a stage: one 128-byte swizzled row of bf16
+constexpr int kSmemBudget = 232448;    // shared memory a block may opt in to (227 KB)
+constexpr int kSmemReserve = 2048;     // alignment slack and the mbarriers
+constexpr int kMaxStages = 8;          // the ring never grows past this
+// the plan in chip/h100.py repeats these four constants and stages_for
+// (tests/test_torch_elk_matmul.py reads them from here)
+
+// Stages of the ring: what the block's share of shared memory holds, with
+// two blocks an SM at one consumer warpgroup and one at two.
+constexpr int stages_for(int wg, int bn, int nb) {
+  const int stage = 64 * wg * kBK * 2 + nb * bn * kBK * 2;
+  const int budget = wg == 1 ? kSmemBudget / 2 - 1024 : kSmemBudget;
+  const int s = (budget - kSmemReserve) / stage;
+  return s > kMaxStages ? kMaxStages : s;
+}
+
+enum : int { kActSilu = 0, kActGelu = 1, kActRelu = 2 };
+enum : int { kEpiStore = 0, kEpiAct = 1, kEpiGated = 2 };
+
+__device__ __forceinline__ float apply_act(float v, int act) {
+  if (act == kActSilu) return v / (1.0f + expf(-v));
+  if (act == kActGelu) {
+    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+    return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
+  }
+  return fmaxf(v, 0.0f);
+}
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Returns once the phase of `bar` with this parity has completed.  A wait
+// that never ends (a count of arrivals or bytes that cannot be met) traps
+// after 2^26 tries, seconds of waiting, so that the launch fails with an
+// error the wrapper raises instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  for (uint32_t tries = 0; !done; ++tries) {
+    if (tries == (1u << 26)) asm volatile("trap;\n");
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// The box of `map` at (c0 inner, c1 outer) into shared memory at dst; its
+// bytes complete on `bar`.  Elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accesses to the accumulators across the
+// asynchronous products.
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A wgmma shared-memory descriptor for a tile stored with the 128-byte
+// swizzle (rows of 128 bytes in atoms of 8 rows, 1024-byte aligned).
+//   K-major (a, and a K-major b): rows are M or N, 64 K elements a row;
+//     sbo = 1024 (the next 8 rows), lbo unused; a K step of 16 moves the
+//     start by 32 bytes inside the atom.
+//   MN-major b: rows are K, 64 N elements a row, one 64-column block after
+//     the other; lbo = the next 64 columns, sbo = 1024 (the next 8 K rows);
+//     a K step of 16 moves the start by 16 rows, 2048 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)((sbo >> 4) & 0x3FFF) << 32;
+  d |= (uint64_t)1 << 62;  // layout type 1: 128-byte swizzle
+  return d;
+}
+
+// d (64 x 64, fp32, the accumulator layout of wgmma) += A (64 x 16) B (16 x 64),
+// both bf16 in shared memory, by descriptor; TRANS_B 1 takes B MN-major.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 128, fp32, the accumulator layout of wgmma) += A (64 x 16) B (16 x 128),
+// both bf16 in shared memory, by descriptor; TRANS_B 1 takes B MN-major.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 256, fp32, the accumulator layout of wgmma) += A (64 x 16) B (16 x 256),
+// both bf16 in shared memory, by descriptor; TRANS_B 1 takes B MN-major.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+}
+
+template <int BN, int TRANS_B>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b) {
+  if constexpr (BN == 64) wgmma_m64n64<TRANS_B>(d, desc_a, desc_b);
+  else if constexpr (BN == 128) wgmma_m64n128<TRANS_B>(d, desc_a, desc_b);
+  else wgmma_m64n256<TRANS_B>(d, desc_a, desc_b);
+}
+
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+// WG consumer warpgroups (BM = 64 WG rows), BN columns, NB b operands, b
+// K-major or MN-major.
+template <int WG_, int BN_, int NB_, bool B_KMAJOR_>
+struct GemmCfg {
+  static constexpr int WG = WG_, BM = 64 * WG_, BN = BN_, NB = NB_;
+  static constexpr bool B_KMAJOR = B_KMAJOR_;
+  static constexpr int THREADS = 128 * (WG + 1);
+  static constexpr int MIN_BLOCKS = WG == 1 ? 2 : 1;
+  static constexpr int A_BYTES = BM * kBK * 2;
+  static constexpr int B_BYTES = BN * kBK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + NB * B_BYTES;
+  static constexpr int STAGES = stages_for(WG, BN, NB);
+  static constexpr int SMEM = STAGES * STAGE_BYTES + kSmemReserve;
+  static_assert(WG == 1 || WG == 2, "one or two consumer warpgroups");
+  static_assert(BN == 64 || BN == 128 || BN == 256, "wgmma widths compiled here");
+  static_assert(NB * BN <= (WG == 1 ? 128 : 256), "accumulators a consumer thread can hold");
+  static_assert(STAGES >= 2, "a stage is filled while another is read");
+  static_assert(SMEM <= kSmemBudget, "a block has 227 KB of shared memory");
+};
+
+struct EpiArgs {
+  void* out;            // (m, n) in bf16, row stride ldo elements
+  const bf16* bias;     // (n,), added before the activation or the store; may be null
+  int ldo;
+  int mode;             // kEpiStore: a [+ bias]; kEpiAct: act(a [+ bias]); kEpiGated: act(a) * a2
+  int act;
+};
+
+struct GemmParams {
+  CUtensorMap a, b0, b1;  // b1 only with two b operands
+  int m, n;
+  int k_tiles;          // ceil(K / kBK)
+  int k_per_split;      // K tiles of one split (blockIdx.y, its rank in the cluster)
+  int splits;           // blocks of a cluster; 1: no cluster
+  int m_tiles, n_tiles, group_m;
+  EpiArgs epi;
+};
+
+// Stores the pair (row, col), (row, col + 1) of the output: a0, a1 [+ bias],
+// through the activation or the gate (g0, g1 the second operand's sums).
+__device__ __forceinline__ void store_pair(const GemmParams& p, int row, int col, float a0,
+                                           float a1, float g0, float g1) {
+  if (row >= p.m || col >= p.n) return;
+  const bool two = col + 1 < p.n;
+  const EpiArgs& e = p.epi;
+  float v0 = a0, v1 = a1;
+  if (e.bias != nullptr) {
+    v0 += __bfloat162float(e.bias[col]);
+    if (two) v1 += __bfloat162float(e.bias[col + 1]);
+  }
+  if (e.mode == kEpiAct) {
+    v0 = apply_act(v0, e.act);
+    v1 = apply_act(v1, e.act);
+  } else if (e.mode == kEpiGated) {
+    v0 = apply_act(a0, e.act) * g0;
+    v1 = apply_act(a1, e.act) * g1;
+  }
+  bf16* o = reinterpret_cast<bf16*>(e.out) + (size_t)row * e.ldo + col;
+  if (two && (e.ldo & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    o[0] = __float2bfloat16(v0);
+    if (two) o[1] = __float2bfloat16(v1);
+  }
+}
+
+// The fp32 at the same shared-memory offset in block `rank` of the cluster.
+__device__ __forceinline__ float ld_cluster(const float* local, uint32_t rank) {
+  uint32_t remote;
+  float v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_u32(local)), "r"(rank));
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+// Every thread of every block of the cluster: what each wrote to its shared
+// memory before is seen by all after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+    gemm_kernel(const __grid_constant__ GemmParams p) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle atoms must start on 1024 bytes
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE_BYTES);
+  uint64_t* empty = full + C::STAGES;
+
+  // the output tile, in groups of group_m row tiles
+  const int tile = blockIdx.x;
+  const int per_group = p.group_m * p.n_tiles;
+  const int first_m = (tile / per_group) * p.group_m;
+  const int gm = min(p.group_m, p.m_tiles - first_m);
+  const int in_group = tile % per_group;
+  const int m0 = (first_m + in_group % gm) * C::BM;
+  const int n0 = (in_group / gm) * C::BN;
+  const int split = blockIdx.y;
+  const int kt0 = split * p.k_per_split;
+  const int nk = min(p.k_per_split, p.k_tiles - kt0);
+
+  if (threadIdx.x == 0) {
+#pragma unroll 1
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * C::WG);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread issues every copy
+    if constexpr (C::WG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+#pragma unroll 1
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % C::STAGES;
+        mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
+        unsigned char* st = smem + s * C::STAGE_BYTES;
+        mbar_expect_tx(&full[s], C::STAGE_BYTES);
+        const int k0 = (kt0 + i) * kBK;
+        tma_load_2d(st, &p.a, &full[s], k0, m0);
+#pragma unroll
+        for (int j = 0; j < C::NB; ++j) {
+          const CUtensorMap* map = j == 0 ? &p.b0 : &p.b1;
+          unsigned char* dst = st + C::A_BYTES + j * C::B_BYTES;
+          if constexpr (C::B_KMAJOR) {
+            tma_load_2d(dst, map, &full[s], k0, n0);
+          } else {
+#pragma unroll
+            for (int c = 0; c < C::BN / 64; ++c)
+              tma_load_2d(dst + c * 64 * 128, map, &full[s], n0 + 64 * c, k0);
+          }
+        }
+      }
+    }
+  } else {
+    if constexpr (C::WG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;  // this consumer's 64 rows of the tile
+    const int t = threadIdx.x % 128;
+    const int warp = t / 32, lane = t % 32;
+    float acc[C::NB][C::BN / 2];
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+#pragma unroll
+      for (int e = 0; e < C::BN / 2; ++e) acc[j][e] = 0.0f;
+
+#pragma unroll 1
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % C::STAGES;
+      mbar_wait(&full[s], (i / C::STAGES) & 1);
+      const uint32_t a_base = smem_u32(smem + s * C::STAGE_BYTES) + cw * 64 * 128;
+      const uint32_t b_base = smem_u32(smem + s * C::STAGE_BYTES + C::A_BYTES);
+#pragma unroll
+      for (int j = 0; j < C::NB; ++j) fence_acc(acc[j]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t da = desc_sw128(a_base + kk * 32, 16, 1024);
+#pragma unroll
+        for (int j = 0; j < C::NB; ++j) {
+          const uint32_t bb = b_base + j * C::B_BYTES;
+          const uint64_t db = C::B_KMAJOR ? desc_sw128(bb + kk * 32, 16, 1024)
+                                          : desc_sw128(bb + kk * 16 * 128, 64 * 128, 1024);
+          wgmma_tile<C::BN, C::B_KMAJOR ? 0 : 1>(acc[j], da, db);
+        }
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < C::NB; ++j) fence_acc(acc[j]);
+      wgmma_wait<1>();  // the products of step i - 1 have retired
+      if (i > 0 && lane == 0) mbar_arrive(&empty[(i - 1) % C::STAGES]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j) fence_acc(acc[j]);
+
+    // accumulator layout: register 4 c + 2 h + e holds row 16 warp + lane / 4
+    // + 8 h, column 8 c + 2 (lane % 4) + e of this warpgroup's 64 x BN
+    const int row0 = m0 + cw * 64 + warp * 16 + lane / 4;
+    const int col0 = n0 + 2 * (lane % 4);
+    if (p.splits == 1) {
+#pragma unroll
+      for (int c = 0; c < C::BN / 8; ++c) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 4 * c + 2 * h;
+          const float g0 = C::NB == 2 ? acc[C::NB - 1][r] : 0.0f;
+          const float g1 = C::NB == 2 ? acc[C::NB - 1][r + 1] : 0.0f;
+          store_pair(p, row0 + 8 * h, col0 + 8 * c, acc[0][r], acc[0][r + 1], g0, g1);
+        }
+      }
+    } else {
+      // a split of K: this block's sums stay in its shared memory, over the
+      // ring, which both warpgroups have finished reading
+      if constexpr (C::WG > 1) asm volatile("bar.sync 1, %0;\n" ::"n"(128 * C::WG) : "memory");
+      float* red = reinterpret_cast<float*>(smem);
+      const int r0 = cw * 64 + warp * 16 + lane / 4;
+#pragma unroll
+      for (int c = 0; c < C::BN / 8; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float* dst = red + (r0 + 8 * h) * C::BN + 8 * c + 2 * (lane % 4);
+          dst[0] = acc[0][4 * c + 2 * h];
+          dst[1] = acc[0][4 * c + 2 * h + 1];
+        }
+    }
+  }
+  if (p.splits > 1) {
+    cluster_sync();  // every split's sums are in its block's shared memory
+    if (wg > 0) {
+      // this block's share of the tile's live elements, each summed over
+      // the cluster's blocks in rank order, stored once
+      const float* red = reinterpret_cast<const float*>(smem);
+      const int rows = min(C::BM, p.m - m0), cols = min(C::BN, p.n - n0);
+      const int step = 128 * C::WG * p.splits;
+      for (int e = split * 128 * C::WG + threadIdx.x - 128; e < rows * cols; e += step) {
+        const int r = e / cols, c = e % cols;
+        float v = 0.0f;
+        for (int q = 0; q < p.splits; ++q) v += ld_cluster(red + r * C::BN + c, q);
+        if (p.epi.bias != nullptr) v += __bfloat162float(p.epi.bias[n0 + c]);
+        reinterpret_cast<bf16*>(p.epi.out)[(size_t)(m0 + r) * p.epi.ldo + n0 + c] =
+            __float2bfloat16(v);
+      }
+    }
+    cluster_sync();  // no block leaves while another reads its shared memory
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_fn() {
+  static EncodeTiledFn fn = nullptr;
+  static std::once_flag once;
+  std::call_once(once, [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  });
+  return fn;
+}
+
+// What TMA takes: a 16-byte aligned base and a row stride of a multiple of
+// 16 bytes (bf16: of 8 elements).
+inline bool tma_ok(const void* ptr, long long ld_elems) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && (ld_elems * 2) % 16 == 0;
+}
+
+struct MapKey {
+  const void* ptr;
+  unsigned long long inner, outer, stride;
+  unsigned box_inner, box_outer;
+  bool operator==(const MapKey& o) const {
+    return ptr == o.ptr && inner == o.inner && outer == o.outer && stride == o.stride &&
+           box_inner == o.box_inner && box_outer == o.box_outer;
+  }
+};
+
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    size_t h = reinterpret_cast<uintptr_t>(k.ptr);
+    for (unsigned long long v : {k.inner, k.outer, k.stride,
+                                 (unsigned long long)k.box_inner << 32 | k.box_outer})
+      h = h * 0x9E3779B97F4A7C15ull ^ (size_t)v;
+    return h;
+  }
+};
+
+// The tensor map of a row-major bf16 matrix (outer rows of inner elements,
+// row stride stride_elems) read in boxes of box_inner x box_outer with the
+// 128-byte swizzle; from the cache when this (pointer, shape, stride, box)
+// was seen before.  Returns 0, or -1 if the encoding was refused.
+inline int tensor_map(CUtensorMap* out, const void* ptr, long long inner, long long outer,
+                      long long stride_elems, int box_inner, int box_outer) {
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  static std::mutex mu;
+  const MapKey key{ptr, (unsigned long long)inner, (unsigned long long)outer,
+                   (unsigned long long)stride_elems, (unsigned)box_inner, (unsigned)box_outer};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return 0;
+  }
+  EncodeTiledFn encode = encode_fn();
+  if (encode == nullptr) return -1;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride_elems * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  CUtensorMap map;
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
+             box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return -1;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, map);
+  *out = map;
+  return 0;
+}
+
+// a: (m, k) row stride lda, boxes of 64 K x BM rows.
+inline int map_a(CUtensorMap* out, const void* a, int m, int k, int lda, int bm) {
+  return tensor_map(out, a, k, m, lda, kBK, bm);
+}
+
+// b MN-major: (k, n) row stride ldb, boxes of 64 columns x 64 K rows;
+// K-major: stored (n, k) row stride ldb, boxes of 64 K x bn rows.
+inline int map_b(CUtensorMap* out, const void* b, int n, int k, int ldb, bool kmajor, int bn) {
+  return kmajor ? tensor_map(out, b, k, n, ldb, kBK, bn) : tensor_map(out, b, n, k, ldb, 64, kBK);
+}
+
+// Row tiles a group of the block order spans.
+constexpr int kGroupM = 8;
+// Splits of K at most: the blocks of a cluster that any card must take
+// (chip/h100.py MAX_SPLITS).
+constexpr int kMaxSplits = 8;
+
+// Launches gemm_kernel<C> over every output tile and `splits` splits of K
+// (k_per_split K tiles each; the last may hold fewer, none is empty), the
+// splits of a tile as one cluster.  p.a, p.b0 (and p.b1) must be set.
+// Returns 0, a CUDA error, or -1 for what it does not take.
+template <class C>
+int launch_gemm(GemmParams& p, int m, int n, int k, int k_per_split, cudaStream_t stream) {
+  static uint64_t configured = 0;  // devices whose shared-memory limit is set
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64 && !(configured >> dev & 1)) {
+    err = cudaFuncSetAttribute(gemm_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    configured |= 1ull << dev;
+  }
+  p.m = m;
+  p.n = n;
+  p.k_tiles = (k + kBK - 1) / kBK;
+  p.k_per_split = k_per_split;
+  p.splits = (p.k_tiles + k_per_split - 1) / k_per_split;
+  p.m_tiles = (m + C::BM - 1) / C::BM;
+  p.n_tiles = (n + C::BN - 1) / C::BN;
+  p.group_m = kGroupM;
+  const long long tiles = (long long)p.m_tiles * p.n_tiles;
+  if (tiles >= (1ll << 31) || p.splits > 65535) return -1;
+  if (p.splits == 1) {
+    gemm_kernel<C><<<dim3((unsigned)tiles, 1), C::THREADS, C::SMEM, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+  // the tile's sums must fit the ring, and only a plain store is linear
+  if (p.splits > kMaxSplits || C::NB != 1 || p.epi.mode != kEpiStore ||
+      C::BM * C::BN * 4 > C::STAGES * C::STAGE_BYTES)
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)tiles, p.splits, 1);
+  cfg.blockDim = dim3(C::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = p.splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, gemm_kernel<C>, p);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace hg

@@ -2,16 +2,21 @@
 
 Counterpart of ``src/repro/kernels/elk_matmul/kernel.py`` (``elk_matmul``).
 The CUDA source says what the kernel computes and how it is cut for the
-card.  This wrapper checks device, types, shapes and strides, takes the
-block shape from ``chip/h100.smem_plan`` (cached per shape and type, so a
-decode step's 161 products do not run the greedy), allocates the output
-with ``torch.empty``, launches on PyTorch's current stream without
-synchronising, and raises if the launch is refused.  It never gives way to
-the plain version: a tensor that is not on a CUDA device is an error here
-(``ops.matmul`` routes CPU tensors to ``ref.matmul_ref``).
+card.  This wrapper checks device, types, shapes and strides, decides the
+route before the launch (``route_of``: "wgmma" for bf16 with m >= 64 and
+operands TMA takes, "splitk" for such products with fewer rows,
+"mma_sync" for the rest) and takes its plan from ``chip/h100.smem_plan``
+(cached per shape, type and route, so a decode step's 161 products do not
+run the greedy), allocates the output with ``torch.empty``, launches on
+PyTorch's current stream without synchronising, and raises if the launch
+is refused.  It never gives way to
+another route or to the plain version: a tensor that is not on a CUDA
+device is an error here (``ops.matmul`` routes CPU tensors to
+``ref.matmul_ref``).
 
 ``elk_matmul_kernel.launches`` counts the launches, one per call that
-reaches the card, so that a run can show it went through the kernel.
+reaches the card, and ``elk_matmul_kernel.by_route`` the same calls by
+route, so that a run can show which kernels it went through.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PREPARED: set = set()    # device indices whose kernel attributes are set
+ROUTES = ("wgmma", "splitk", "mma_sync")
 
 
 def _lib() -> ctypes.CDLL:
@@ -35,6 +41,10 @@ def _lib() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.elk_matmul_launch.argtypes = [ptr] * 3 + [i32] * 10 + [ptr]
         lib.elk_matmul_launch.restype = i32
+        lib.elk_matmul_tma_launch.argtypes = [ptr] * 3 + [i32] * 9 + [ptr]
+        lib.elk_matmul_tma_launch.restype = i32
+        lib.elk_matmul_error_name.argtypes = [i32]
+        lib.elk_matmul_error_name.restype = ctypes.c_char_p
         lib.elk_matmul_prepare.argtypes = []
         lib.elk_matmul_prepare.restype = i32
     return lib
@@ -52,10 +62,26 @@ def _prepare(lib: ctypes.CDLL, device: torch.device) -> None:
 
 
 @functools.lru_cache(maxsize=4096)
-def plan_for(m: int, n: int, k: int, dtype: torch.dtype) -> SmemPlan:
-    """``smem_plan`` on one H100 for this product, once per shape and type."""
+def plan_for(m: int, n: int, k: int, dtype: torch.dtype,
+             tma: bool = True) -> SmemPlan:
+    """``smem_plan`` on one H100 for this product, once per shape, type and
+    TMA legality."""
     return smem_plan(m, n, k, dtype_bytes=torch.empty(
-        (), dtype=dtype).element_size())
+        (), dtype=dtype).element_size(), tma=tma)
+
+
+def tma_legal(x: torch.Tensor, y: torch.Tensor, lda: int, ldy: int) -> bool:
+    """The operands are what TMA takes: bf16, bases on 16 bytes, row
+    strides of whole 16 bytes (8 elements)."""
+    return (x.dtype == torch.bfloat16 and lda % 8 == 0 and ldy % 8 == 0
+            and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
+
+
+def route_of(x: torch.Tensor, y: torch.Tensor) -> str:
+    """The route ``elk_matmul_kernel`` takes for ``x @ y`` with no block
+    shape given: from dtype, m and strides, before any launch."""
+    m, n, k, lda, ldy, _ = layout(x, y)
+    return plan_for(m, n, k, x.dtype, tma_legal(x, y, lda, ldy)).route
 
 
 def layout(x: torch.Tensor, y: torch.Tensor
@@ -65,22 +91,25 @@ def layout(x: torch.Tensor, y: torch.Tensor
     as ``x[:, -1, :]`` of a prefill has); ``y`` (k, n) row-major, or the
     transposed view of an (n, k) row-major tensor (``embed.t()`` of a tied
     embedding, ``y_trans`` 1); no other stride."""
-    if x.dim() != 2 or y.dim() != 2:
+    xs, ys = x.shape, y.shape
+    if len(xs) != 2 or len(ys) != 2:
         raise ValueError(f"x must be (m, k) and y (k, n), got "
-                         f"{tuple(x.shape)} and {tuple(y.shape)}")
-    (m, k), (k2, n) = x.shape, y.shape
+                         f"{tuple(xs)} and {tuple(ys)}")
+    (m, k), (k2, n) = xs, ys
     if k != k2:
-        raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} do not "
-                         "chain")
-    if k > 1 and x.stride(1) != 1:
+        raise ValueError(f"x {tuple(xs)} and y {tuple(ys)} do not chain")
+    (sx0, sx1), (sy0, sy1) = x.stride(), y.stride()
+    if k > 1 and sx1 != 1:
         raise ValueError(f"x's rows are not contiguous (strides "
-                         f"{x.stride()})")
-    lda = x.stride(0) if m > 1 else k
-    if y.is_contiguous():
+                         f"{(sx0, sx1)})")
+    lda = sx0 if m > 1 else k
+    # the stride of a dimension of size 1 does not matter, as for
+    # is_contiguous (a call here costs a view for the transposed case)
+    if (n == 1 or sy1 == 1) and (k == 1 or sy0 == n):
         return m, n, k, lda, n, 0
-    if y.t().is_contiguous():
+    if (k == 1 or sy0 == 1) and (n == 1 or sy1 == k):
         return m, n, k, lda, k, 1
-    raise ValueError(f"y {tuple(y.shape)} with strides {y.stride()} is "
+    raise ValueError(f"y {tuple(ys)} with strides {(sy0, sy1)} is "
                      "neither (k, n) row-major nor the transpose of an "
                      "(n, k) row-major tensor")
 
@@ -91,9 +120,10 @@ def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor, *,
     """(m, k) @ (k, n) -> (m, n) on the card, fp32 sum, output in x's type.
 
     fp32 or bf16, both of one type, on one CUDA device; strides as
-    ``layout`` says.  A block shape not given comes from ``plan_for``;
-    ``bm`` must be in ``TILE_M``, ``bn`` in ``TILE_N``, ``bk`` a multiple
-    of 16."""
+    ``layout`` says.  With no block shape given the route and its plan come
+    from ``plan_for``.  A block shape given, or any part of it, is one of
+    the mma_sync kernel's and runs it (the rest from its plan): ``bm`` in
+    ``TILE_M``, ``bn`` in ``TILE_N``, ``bk`` a multiple of 16."""
     if not x.is_cuda:
         raise ValueError(f"elk_matmul_kernel needs a CUDA tensor, got "
                          f"{x.device}")
@@ -102,41 +132,56 @@ def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor, *,
                         f"{x.dtype}")
     if y.dtype != x.dtype:
         raise TypeError(f"y is {y.dtype}, x is {x.dtype}")
-    if y.device != x.device:
+    dev = x.get_device()
+    if y.get_device() != dev:
         raise ValueError(f"y on {y.device}, x on {x.device}")
     m, n, k, lda, ldy, y_trans = layout(x, y)
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, n), dtype=x.dtype, device=x.device)
     if max(m, n, k, lda, ldy) >= 2 ** 31:
         raise ValueError("a dimension exceeds the kernel's 32-bit indices")
-    if None in (bm, bn, bk):
-        plan = plan_for(m, n, k, x.dtype)
+    forced = not (bm is None and bn is None and bk is None)
+    plan = plan_for(m, n, k, x.dtype,
+                    not forced and tma_legal(x, y, lda, ldy))
+    route = plan.route
+    if forced:
         bm, bn, bk = bm or plan.bm, bn or plan.bn, bk or plan.bk
-    if bm not in TILE_M or bn not in TILE_N or bk < 16 or bk % 16:
-        raise ValueError(f"block ({bm}, {bn}, {bk}) is not one the kernel "
-                         f"compiles: bm in {TILE_M}, bn in {TILE_N}, bk a "
-                         "multiple of 16")
+        if bm not in TILE_M or bn not in TILE_N or bk < 16 or bk % 16:
+            raise ValueError(f"block ({bm}, {bn}, {bk}) is not one the "
+                             f"kernel compiles: bm in {TILE_M}, bn in "
+                             f"{TILE_N}, bk a multiple of 16")
+    else:
+        bm, bn, bk = plan.bm, plan.bn, plan.bk
 
     lib = _lib()
-    _prepare(lib, x.device)
-    out = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, lda, ldy,
-            y_trans, _DTYPES[x.dtype], bm, bn, bk, stream)
+    out = x.new_empty((m, n))
+    stream = torch._C._cuda_getCurrentRawStream(dev)
+    if route == "mma_sync":
+        _prepare(lib, x.device)
+        launch = lib.elk_matmul_launch
+        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, lda, ldy,
+                y_trans, _DTYPES[x.dtype], bm, bn, bk, stream)
+    else:
+        launch = lib.elk_matmul_tma_launch
+        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, lda,
+                ldy, y_trans, bm // 64, bn, plan.k_per_split, stream)
     # the runtime launches on the calling thread's device; enter x's only
     # when it is another
-    if x.device.index == torch.cuda.current_device():
-        err = lib.elk_matmul_launch(*args)
+    if dev == torch.cuda.current_device():
+        err = launch(*args)
     else:
-        with torch.cuda.device(x.device):
-            err = lib.elk_matmul_launch(*args)
+        with torch.cuda.device(dev):
+            err = launch(*args)
     elk_matmul_kernel.launches += 1
+    elk_matmul_kernel.by_route[route] += 1
     if err != 0:
         raise RuntimeError(f"elk_matmul launch failed: CUDA error {err} "
-                           f"(m={m}, n={n}, k={k}, lda={lda}, ldy={ldy}, "
-                           f"y_trans={y_trans}, {x.dtype}, block ({bm}, "
-                           f"{bn}, {bk}))")
+                           f"({lib.elk_matmul_error_name(err).decode()}; "
+                           f"route {route}, m={m}, n={n}, k={k}, lda={lda}, "
+                           f"ldy={ldy}, y_trans={y_trans}, {x.dtype}, block "
+                           f"({bm}, {bn}, {bk}), splits {plan.splits})")
     return out
 
 
 elk_matmul_kernel.launches = 0
+elk_matmul_kernel.by_route = dict.fromkeys(ROUTES, 0)

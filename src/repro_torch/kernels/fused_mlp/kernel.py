@@ -3,14 +3,19 @@
 Counterpart of ``src/repro/kernels/fused_mlp/kernel.py``
 (``fused_mlp_kernel``).  The CUDA source says what the kernel computes and
 how it is cut for the card.  This wrapper checks device, type, shape and
-contiguity, allocates the output and the fp32 partial sums with
-``torch.empty``, launches on PyTorch's current stream without
-synchronising, and raises if the launch is refused.  It never gives way to
-the plain version: a tensor that is not on a CUDA device is an error here
-(``ops.fused_mlp`` routes CPU tensors to ``ref.fused_mlp_ref``).
+contiguity, decides the route before the launch (``route_of``: "two_pass"
+for bf16 with more than ``SPLIT_FF_MAX_M`` rows and operands TMA takes,
+"split_ff" for other bf16, "fma" for fp32), allocates the output, the
+intermediate h of the two-pass route and the single-pass route's fp32
+partial sums with ``torch.empty``, launches on PyTorch's current stream
+without synchronising, and raises if the launch is refused.  It
+never gives way to another route or to the plain version: a tensor that
+is not on a CUDA device is an error here (``ops.fused_mlp`` routes CPU
+tensors to ``ref.fused_mlp_ref``).
 
 ``fused_mlp_kernel.launches`` counts the launches, one per call that
-reaches the card, so that a run can show it went through the kernel.
+reaches the card, and ``fused_mlp_kernel.by_route`` the same calls by
+route, so that a run can show which kernels it went through.
 """
 
 from __future__ import annotations
@@ -22,11 +27,18 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.elk_matmul.kernel import plan_for
 from repro_torch.kernels.fused_mlp.ref import ACTS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SMS = 132          # H100 SXM (datasheet); only steers how ff is split
 _ROWS16_MAX_M = 16  # bf16: at most this many rows take the 16-row tiling
+# R: bf16 products of at most this many rows keep h on chip ("split_ff")
+# even where TMA takes them.  The crossover chip_smoke.py measured (PERF.md:
+# fused_mlp at m = 8, 16, 32, 64, 128 and 256 on both routes, qwen3-14b) is
+# below 8: the two-pass route was the faster at every one of them.
+SPLIT_FF_MAX_M = 0
+ROUTES = ("two_pass", "split_ff", "fma")
 
 
 def _lib() -> ctypes.CDLL:
@@ -37,6 +49,12 @@ def _lib() -> ctypes.CDLL:
         lib.fused_mlp_launch.restype = i32
         lib.fused_mlp_tiles.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
         lib.fused_mlp_tiles.restype = i32
+        lib.fused_mlp_pass1_launch.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        lib.fused_mlp_pass1_launch.restype = i32
+        lib.fused_mlp_pass2_launch.argtypes = [ptr] * 4 + [i32] * 6 + [ptr]
+        lib.fused_mlp_pass2_launch.restype = i32
+        lib.fused_mlp_error_name.argtypes = [i32]
+        lib.fused_mlp_error_name.restype = ctypes.c_char_p
     return lib
 
 
@@ -53,6 +71,26 @@ def plan_splits(m: int, ff: int, bm: int, bf: int, blocks_per_sm: int
     want = max(1, min(chunks, _SMS * blocks_per_sm // m_tiles))
     per_split = -(-chunks // want)
     return per_split, -(-chunks // per_split)
+
+
+def _tma_ok(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 and t.shape[-1] % 8 == 0 for t in ts)
+
+
+def route_of(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+             w_gate: Optional[torch.Tensor] = None) -> str:
+    """The route ``fused_mlp_kernel`` takes, from dtype, rows and strides,
+    before any launch: "fma" for fp32; "two_pass" for bf16 with more than
+    ``SPLIT_FF_MAX_M`` rows whose x, weights and h meet TMA's rules (bases
+    on 16 bytes, d, ff and d_out multiples of 8); "split_ff" for other
+    bf16."""
+    if x.dtype == torch.float32:
+        return "fma"
+    m = math.prod(x.shape[:-1])
+    tensors = (x, w_up, w_down) + (() if w_gate is None else (w_gate,))
+    if m > SPLIT_FF_MAX_M and _tma_ok(*tensors):
+        return "two_pass"
+    return "split_ff"
 
 
 def _check(name: str, t: torch.Tensor, shape: tuple, like: torch.Tensor):
@@ -72,13 +110,16 @@ def fused_mlp_kernel(x: torch.Tensor, w_up: torch.Tensor,
                      w_gate: Optional[torch.Tensor] = None,
                      b_up: Optional[torch.Tensor] = None,
                      b_down: Optional[torch.Tensor] = None, *,
-                     act: str = "silu") -> torch.Tensor:
+                     act: str = "silu",
+                     route: Optional[str] = None) -> torch.Tensor:
     """act(x @ w_up [+ b_up]) [* gate] @ w_down [+ b_down] on the card.
 
     ``x``: (..., d); ``w_up``/``w_gate``: (d, ff); ``w_down``: (ff, d_out);
     fp32 or bf16, all of one type, contiguous, on one CUDA device.  The
     biases come both or not at all, and not with a gate (the three
-    variants of the reference kernel)."""
+    variants of the reference kernel).  ``route`` is ``route_of``'s unless
+    given (to time one route against the other at the same rows); a route
+    that does not take these tensors raises."""
     if not x.is_cuda:
         raise ValueError(f"fused_mlp_kernel needs a CUDA tensor, got "
                          f"{x.device}")
@@ -113,34 +154,60 @@ def fused_mlp_kernel(x: torch.Tensor, w_up: torch.Tensor,
     if max(m, d, ff, dout) >= 2 ** 31:
         raise ValueError("a dimension exceeds the kernel's 32-bit indices")
 
+    if route is None:
+        route = route_of(x, w_up, w_down, w_gate)
+    elif route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; known: {ROUTES}")
     lib = _lib()
     dtype = _DTYPES[x.dtype]
-    config = int(dtype == 1 and m > _ROWS16_MAX_M)
-    bm, bf, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    if lib.fused_mlp_tiles(dtype, config, ctypes.byref(bm), ctypes.byref(bf),
-                           ctypes.byref(per_sm)):
-        raise RuntimeError(f"no tiling for dtype {x.dtype}, config {config}")
-    per_split, splits = plan_splits(m, ff, bm.value, bf.value, per_sm.value)
+    if (route == "fma") != (dtype == 0):
+        raise ValueError(f"route {route} does not take {x.dtype}")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
 
     with torch.cuda.device(x.device):
         out = torch.empty((m, dout), dtype=x.dtype, device=x.device)
-        partial = torch.empty((splits, m, dout), dtype=torch.float32,
-                              device=x.device)
-
-        def ptr(t):
-            return None if t is None else t.data_ptr()
-
-        err = lib.fused_mlp_launch(
-            ptr(x), ptr(w_up), ptr(w_gate), ptr(w_down), ptr(b_up),
-            ptr(b_down), ptr(out), ptr(partial), m, d, ff, dout, dtype,
-            config, ACTS.index(act), per_split,
-            torch.cuda.current_stream().cuda_stream)
+        if route == "two_pass":
+            # pass 2 is elk_matmul's product h @ w_down, on its plan
+            plan = plan_for(m, dout, ff, x.dtype)
+            h = torch.empty((m, ff), dtype=x.dtype, device=x.device)
+            detail = "pass 1"
+            err = lib.fused_mlp_pass1_launch(
+                ptr(x), ptr(w_up), ptr(w_gate), ptr(b_up), ptr(h), m, d, ff,
+                ACTS.index(act), stream)
+            if err == 0:
+                detail = (f"pass 2, ({plan.bm}, {plan.bn}) in {plan.splits} "
+                          "splits")
+                err = lib.fused_mlp_pass2_launch(
+                    ptr(h), ptr(w_down), ptr(b_down), ptr(out), m, ff, dout,
+                    plan.bm // 64, plan.bn, plan.k_per_split, stream)
+        else:
+            config = int(dtype == 1 and m > _ROWS16_MAX_M)
+            bm, bf, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+            if lib.fused_mlp_tiles(dtype, config, ctypes.byref(bm),
+                                   ctypes.byref(bf), ctypes.byref(per_sm)):
+                raise RuntimeError(f"no tiling for dtype {x.dtype}, config "
+                                   f"{config}")
+            per_split, splits = plan_splits(m, ff, bm.value, bf.value,
+                                            per_sm.value)
+            partial = torch.empty((splits, m, dout), dtype=torch.float32,
+                                  device=x.device)
+            detail = f"config {config}, splits {splits}"
+            err = lib.fused_mlp_launch(
+                ptr(x), ptr(w_up), ptr(w_gate), ptr(w_down), ptr(b_up),
+                ptr(b_down), ptr(out), ptr(partial), m, d, ff, dout, dtype,
+                config, ACTS.index(act), per_split, stream)
     fused_mlp_kernel.launches += 1
+    fused_mlp_kernel.by_route[route] += 1
     if err != 0:
         raise RuntimeError(f"fused_mlp launch failed: CUDA error {err} "
-                           f"(m={m}, d={d}, ff={ff}, d_out={dout}, "
-                           f"{x.dtype}, config {config}, splits {splits})")
+                           f"({lib.fused_mlp_error_name(err).decode()}; "
+                           f"route {route}, m={m}, d={d}, ff={ff}, "
+                           f"d_out={dout}, {x.dtype}, {detail})")
     return out.reshape(*lead, dout)
 
 
 fused_mlp_kernel.launches = 0
+fused_mlp_kernel.by_route = dict.fromkeys(ROUTES, 0)

@@ -11,7 +11,7 @@ Norms, rope and the masked reference attention are plain PyTorch ops, as
 the reference leaves them to XLA.  Two primitives reach hand-written
 kernels on the card: ``linear`` (every q/k/v/o projection, and through
 ``transformer._logits`` the LM head) goes through ``kernels/elk_matmul``,
-block shapes from ``chip/h100.smem_plan``, and ``mlp`` through
+route and tiles from ``chip/h100.smem_plan``, and ``mlp`` through
 ``kernels/fused_mlp``; on CPU tensors both take their plain versions.
 (The model's attention reaches ``kernels/decode_attention`` and
 ``kernels/flash_attention`` from ``transformer.py``.)  ``softmax_xent``
@@ -197,9 +197,11 @@ def linear(x: torch.Tensor, w: torch.Tensor,
 
 def mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
     """MLP block through ``kernels/fused_mlp``: on the card the whole
-    up-proj -> activation -> down-proj chain is one hand-written kernel
-    and the intermediate stays in shared memory; on CPU tensors it is the
-    einsum composition of the reference's CPU path."""
+    up-proj -> activation -> down-proj chain is one call of the
+    hand-written kernel (a few rows keep the intermediate in shared memory;
+    many write it once to device memory between two products, the
+    kernel's routes); on CPU tensors it is the einsum composition of the
+    reference's CPU path."""
     if not x.is_contiguous():
         x = x.contiguous()
     if cfg.gated_mlp:

@@ -130,18 +130,29 @@ def test_plan_is_cached_per_shape_and_type(monkeypatch):
         a = mk.plan_for(8, 5120, 5120, torch.bfloat16)
         for _ in range(160):
             assert mk.plan_for(8, 5120, 5120, torch.bfloat16) is a
+        c = mk.plan_for(8, 5120, 5120, torch.bfloat16, False)
         b = mk.plan_for(8, 5120, 5120, torch.float32)
-        assert len(calls) == 2
-        assert (a.bm, a.bn, a.bk) == (16, 32, 256)
-        assert b.bk < a.bk        # fp32 tiles take twice the bytes
+        assert len(calls) == 3
+        assert (a.route, a.bm, a.bn, a.bk, a.splits) == ("splitk", 64, 128,
+                                                         64, 4)
+        assert (c.route, c.bm, c.bn, c.bk) == ("mma_sync", 16, 32, 256)
+        assert b.route == "mma_sync"
+        assert b.bk < c.bk        # fp32 tiles take twice the bytes
     finally:
         mk.plan_for.cache_clear()
 
 
+def _cu(name: str) -> str:
+    return (Path(mk.__file__).parents[1] / "csrc" / name).read_text()
+
+
 def test_planner_constants_are_what_the_kernel_compiles():
-    """``chip/h100.py`` plans for the kernel: its tile list, ring depth,
-    row padding and threads a block must be those of the CUDA source."""
-    src = (Path(mk.__file__).parents[1] / "csrc" / "elk_matmul.cu").read_text()
+    """``chip/h100.py`` plans for the kernels: the mma_sync kernel's tile
+    list, ring depth, row padding and threads a block, and the TMA
+    mainloop's tiles (of ``elk_matmul`` and of the MLP's down product),
+    K depth, reserve, stage limit and budget, must be those of the CUDA
+    sources."""
+    src = _cu("elk_matmul.cu")
     macro = re.search(r"#define ELK_MATMUL_TILES\(F\)((?:.*\\\n)*.*)", src)
     tiles = {(int(a), int(b))
              for a, b in re.findall(r"F\((\d+), (\d+)\)", macro.group(1))}
@@ -158,6 +169,87 @@ def test_planner_constants_are_what_the_kernel_compiles():
                 big if bm >= int(edge) else small)
     mma = f"m{h100.MMA_M}n{h100.MMA_N}k{h100.MMA_K}"
     assert f"mma.sync.aligned.{mma}.row.col.f32.bf16" in src
+
+    # the TMA routes: (consumer warpgroups, bn) instances
+    want = {(bm // h100.WGMMA_M, bn) for bm in h100.WG_TILE_M
+            for bn in h100.WG_TILE_N if h100.wg_acc_fits(bm, bn)}
+    for name, macro in (("elk_matmul.cu", "ELK_TMA_TILES"),
+                        ("fused_mlp.cu", "FUSED_MLP_PASS2_TILES")):
+        line = re.search(rf"#define {macro}\(F\)(.*)", _cu(name)).group(1)
+        assert {(int(a), int(b)) for a, b in
+                re.findall(r"F\((\d+), (\d+)\)", line)} == want, name
+    hdr = _cu("hopper_gemm.cuh")
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", hdr).group(1))
+
+    assert const("kBK") == h100.WG_BK
+    assert const("kSmemBudget") == h100.SMEM_PER_BLOCK
+    assert const("kSmemReserve") == h100.WG_SMEM_RESERVE
+    assert const("kMaxStages") == h100.WG_MAX_STAGES
+    assert const("kMaxSplits") == h100.MAX_SPLITS
+    # stages_for as the header writes it, against the plan's
+    assert "wg == 1 ? kSmemBudget / 2 - 1024 : kSmemBudget" in hdr
+    # every instance, and the MLP's gated pass 1 (two b tiles a stage)
+    for bm, bn, nb in [(64 * wg, bn, 1) for wg, bn in want] + [(128, 128, 2)]:
+        stage = bm * 64 * 2 + nb * bn * 64 * 2
+        budget = (h100.SMEM_PER_BLOCK // 2 - 1024 if bm == 64
+                  else h100.SMEM_PER_BLOCK)
+        header = min((budget - const("kSmemReserve")) // stage,
+                     const("kMaxStages"))
+        assert h100.wg_stages(bm, bn, nb)[0] == header, (bm, bn, nb)
+    for bn in h100.WG_TILE_N:
+        assert f"wgmma.mma_async.sync.aligned.m64n{bn}k16.f32.bf16.bf16" \
+            in hdr
+    assert "setmaxnreg.dec.sync.aligned.u32 40" in hdr
+    assert "setmaxnreg.inc.sync.aligned.u32 232" in hdr
+    assert h100.WGMMA_ACC_REGS == {128: 128, 64: 64}
+
+
+# qwen3-14b's products, bf16: (m, n) with K = 5120 -> route
+SERVING_ROUTES = {(m, n): ("wgmma" if m >= 64 else "splitk")
+                  for m in (8, 32, 256, 4096) for n in (5120, 1024, 151936)
+                  if n != 151936 or m <= 32}
+
+
+@pytest.mark.parametrize("mn", sorted(SERVING_ROUTES))
+def test_route_of_serving_shapes_pinned(mn):
+    m, n = mn
+    x = torch.empty((m, 5120), dtype=torch.bfloat16)
+    y = torch.empty((5120, n), dtype=torch.bfloat16)
+    assert mk.route_of(x, y) == SERVING_ROUTES[mn]
+    # a tied head (the transpose of an (n, K) tensor) takes the same route
+    assert mk.route_of(x, torch.empty((n, 5120), dtype=torch.bfloat16).t()) \
+        == SERVING_ROUTES[mn]
+    assert mk.route_of(x.float(), y.float()) == "mma_sync"
+
+
+@pytest.mark.parametrize("mnk", SWEEP)
+def test_route_of_the_sweep_shapes(mnk):
+    """The reference's sweep: rows of 70 (K) or 129 (n) bf16 elements do
+    not start on 16 bytes, so TMA cannot take them: mma_sync; the others
+    take the TMA routes by their rows."""
+    m, n, k = mnk
+    x = torch.empty((m, k), dtype=torch.bfloat16)
+    y = torch.empty((k, n), dtype=torch.bfloat16)
+    want = ("mma_sync" if k % 8 or n % 8 else
+            "wgmma" if m >= 64 else "splitk")
+    assert mk.route_of(x, y) == want
+    # y as the transpose of an (n, k) tensor: its rows are k long
+    yt = torch.empty((n, k), dtype=torch.bfloat16).t()
+    assert mk.route_of(x, yt) == ("mma_sync" if k % 8 else
+                                  "wgmma" if m >= 64 else "splitk")
+
+
+def test_route_of_strided_x():
+    """A row stride TMA takes (3 K) keeps the TMA route; a base 2 bytes off
+    16 does not."""
+    y = torch.empty((64, 40), dtype=torch.bfloat16)
+    x3 = torch.empty((100, 3, 64), dtype=torch.bfloat16)[:, 1, :]
+    assert mk.route_of(x3, y) == "wgmma"
+    assert mk.route_of(x3[:8], y) == "splitk"
+    off = torch.empty((100, 65), dtype=torch.bfloat16)[:, 1:]
+    assert mk.route_of(off, y) == "mma_sync"
 
 
 def _both(arch: str, dtype: str = "float32"):

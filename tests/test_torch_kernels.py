@@ -5,7 +5,9 @@ The CUDA kernel itself runs only on the card and is held to
 numpy inputs go through the port's plain versions and the reference's
 oracles, and ``composed_ref`` is held to the reference's Pallas kernel in
 interpret mode: so the oracle the card compares against is itself pinned
-to the TPU kernel it replaces.
+to the TPU kernel it replaces.  The two-pass route's function
+(``two_pass_ref``) is ``composed_ref`` bit for bit in fp32 and close to the
+Pallas kernel in bf16; the route each shape takes is pinned.
 
 Tolerances: fp32 1e-5 * (max|ref| + 1) between oracles (same arithmetic,
 different summation order); bf16 6e-2 * (max|ref| + 1) (bf16 rounds at
@@ -24,10 +26,12 @@ from repro.kernels.fused_mlp.ref import composed_ref as jax_composed_ref
 from repro.kernels.fused_mlp.ref import fused_mlp_ref as jax_fused_mlp_ref
 from repro_torch.kernels.dispatch import dispatch
 from repro_torch.kernels.elk_matmul.ref import matmul_ref
-from repro_torch.kernels.fused_mlp.kernel import (fused_mlp_kernel,
-                                                  plan_splits)
+from repro_torch.kernels.fused_mlp.kernel import (SPLIT_FF_MAX_M,
+                                                  fused_mlp_kernel,
+                                                  plan_splits, route_of)
 from repro_torch.kernels.fused_mlp.ops import fused_mlp
-from repro_torch.kernels.fused_mlp.ref import composed_ref, fused_mlp_ref
+from repro_torch.kernels.fused_mlp.ref import (composed_ref, fused_mlp_ref,
+                                               two_pass_ref)
 
 ORACLE_TOL = {"float32": 1e-5, "bfloat16": 6e-2}
 KERNEL_TOL = {"float32": 2e-4, "bfloat16": 6e-2}
@@ -205,3 +209,78 @@ def test_plan_splits_covers_every_chunk():
     # decode: one row tile, the splits fill the card; prefill: few splits
     assert plan_splits(8, 17408, 16, 64, 4) == (1, 272)
     assert plan_splits(4096, 17408, 128, 256, 1) == (17, 4)
+
+
+# qwen3-14b's MLP (d 5120, ff 17408), bf16: rows -> route
+MLP_SERVING_ROUTES = {8: "two_pass", 32: "two_pass", 256: "two_pass",
+                      4096: "two_pass"}
+
+
+@pytest.mark.parametrize("m", sorted(MLP_SERVING_ROUTES))
+def test_route_of_serving_shapes_pinned(m):
+    bf = torch.bfloat16
+    x = torch.empty((m, 5120), dtype=bf)
+    w_up, w_gate = torch.empty((5120, 17408), dtype=bf), torch.empty(
+        (5120, 17408), dtype=bf)
+    w_down = torch.empty((17408, 5120), dtype=bf)
+    assert route_of(x, w_up, w_down, w_gate) == MLP_SERVING_ROUTES[m]
+    assert route_of(x.float(), w_up.float(), w_down.float(),
+                    w_gate.float()) == "fma"
+
+
+def test_route_of_crossover_and_tma_rules():
+    """R (``SPLIT_FF_MAX_M``) is the crossover chip_smoke.py measured; the
+    two-pass route also needs what TMA takes (d, ff, d_out multiples of 8,
+    bases on 16 bytes)."""
+    assert SPLIT_FF_MAX_M == 0
+    bf = torch.bfloat16
+
+    def route(m, d, ff, gated=True, offset=0):
+        x = torch.empty((m * d + offset,), dtype=bf)[offset:].view(m, d)
+        w = torch.empty((d, ff), dtype=bf)
+        return route_of(x, w, torch.empty((ff, d), dtype=bf),
+                        w if gated else None)
+
+    for m in (1, 8, 17, 4096):
+        assert route(m, 64, 128) == "two_pass"
+        assert route(m, 64, 128, gated=False) == "two_pass"
+    for m, d, ff, gated, _, _ in MLP_CASES:
+        want = ("two_pass" if m > SPLIT_FF_MAX_M and d % 8 == 0
+                and ff % 8 == 0 else "split_ff")
+        assert route(m, d, ff, gated) == want, (m, d, ff)
+    assert route(200, 80, 257) == "split_ff"     # rows of 514 bytes
+    assert route(200, 80, 144, offset=1) == "split_ff"   # base off 16 bytes
+
+
+@pytest.mark.parametrize("case", MLP_CASES)
+def test_two_pass_ref_is_composed_ref_in_fp32(case):
+    _, _, tpos, tkw = _mlp_inputs(case, "float32")
+    act = case[-1]
+    assert torch.equal(two_pass_ref(*tpos, act=act, **tkw),
+                       composed_ref(*tpos, act=act, **tkw))
+
+
+@pytest.mark.parametrize("case", MLP_CASES)
+def test_two_pass_ref_vs_pallas_kernel_bf16(case):
+    """h formed in fp32 and rounded once, then the down product: within the
+    kernel tests' bf16 tolerance of the TPU kernel in interpret mode."""
+    jpos, jkw, tpos, tkw = _mlp_inputs(case, "bfloat16")
+    act = case[-1]
+    ref = pallas_kernel(*jpos, act=act, bm=32, bf=128, interpret=True, **jkw)
+    out = two_pass_ref(*tpos, act=act, **tkw)
+    assert out.dtype == torch.bfloat16 and out.shape == tpos[0].shape[:-1] + (
+        tpos[2].shape[1],)
+    err, scale = _err(out, ref)
+    assert err <= KERNEL_TOL["bfloat16"] * scale, (case, err)
+
+
+def test_kernel_wrapper_rejects_an_unknown_route():
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    def t(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta"
+                           ).as_subclass(OnCard)
+
+    with pytest.raises(ValueError, match="unknown route"):
+        fused_mlp_kernel(t(4, 16), t(16, 32), t(32, 16), route="one_pass")

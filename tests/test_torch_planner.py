@@ -30,10 +30,13 @@ from repro_torch.chip import config as tchip
 from repro.chip import simulator as rsim
 from repro_torch.chip import simulator as tsim
 from repro_torch.chip.h100 import (ACC_BYTES_MAX, BF16_FLOPS, FP32_FLOPS,
-                                   HBM_BYTES, HBM_BYTES_PER_S, MMA_K, MMA_M,
-                                   MMA_N, PCIE_BYTES_PER_S, SMEM_PER_BLOCK,
-                                   SMS, TILE_K, TILE_M, TILE_N, h100_host,
-                                   h100_sxm, smem_plan)
+                                   HBM_BYTES, HBM_BYTES_PER_S, MAX_SPLITS,
+                                   MMA_K, MMA_M, MMA_N, PCIE_BYTES_PER_S,
+                                   SMEM_PER_BLOCK, SMS, TILE_K, TILE_M,
+                                   TILE_N, WG_BK, WG_TILE_M, WG_TILE_N,
+                                   WGMMA_ACC_REGS, WGMMA_M, WGMMA_MIN_M,
+                                   h100_host, h100_sxm, smem_plan,
+                                   wg_smem_bytes, wg_stages)
 from repro_torch.configs import get_config as port_config
 from repro_torch.configs import get_smoke_config as port_smoke
 from repro_torch.core import integration as tint
@@ -245,10 +248,37 @@ def _sxm_with(budget):
 
 
 def _check_fits(p, budget=SMEM_PER_BLOCK):
+    """A plan within the shared-memory budget and the register bound of its
+    route's kernel, its tiles ones the kernel compiles, its splits covering
+    K exactly."""
     assert p.smem_bytes <= budget
-    assert p.acc_bytes == p.bm * p.bn * 4 <= ACC_BYTES_MAX
-    assert p.bm % MMA_M == 0 and p.bn % MMA_N == 0 and p.bk % MMA_K == 0
-    assert p.bm in TILE_M and p.bn in TILE_N and p.bk in TILE_K
+    assert p.acc_bytes == p.bm * p.bn * 4
+    assert 1 <= p.splits <= MAX_SPLITS and p.k_per_split >= 1
+    if p.route == "mma_sync":
+        assert p.acc_bytes <= ACC_BYTES_MAX
+        assert p.bm % MMA_M == 0 and p.bn % MMA_N == 0 and p.bk % MMA_K == 0
+        assert p.bm in TILE_M and p.bn in TILE_N and p.bk in TILE_K
+        assert p.splits == 1
+        return
+    assert p.route in ("wgmma", "splitk")
+    assert p.bm in WG_TILE_M and p.bn in WG_TILE_N and p.bk == WG_BK
+    # a consumer thread's accumulators: bn / 2 fp32 registers
+    assert p.bn // 2 <= WGMMA_ACC_REGS[p.bm]
+    assert (p.stages, p.blocks_per_sm) == wg_stages(p.bm, p.bn, budget=budget)
+    assert p.stages >= 2
+    assert p.blocks_per_sm * (p.smem_bytes + 1024) <= budget + 1024
+    assert p.smem_bytes == wg_smem_bytes(p.bm, p.bn, p.stages)
+    if p.splits > 1:    # the tile's fp32 sums are left in the ring
+        assert p.bm * p.bn * 4 <= p.stages * (p.bm + p.bn) * WG_BK * 2
+    if p.route == "splitk":
+        assert p.bm == WGMMA_M
+    elif p.splits > 1:      # wgmma splits K only on its smallest tile
+        assert (p.bm, p.bn) == (WG_TILE_M[0], WG_TILE_N[0])
+
+
+def _covers_k(p, k):
+    k_tiles = -(-k // p.bk)
+    assert (p.splits - 1) * p.k_per_split < k_tiles <= p.splits * p.k_per_split
 
 
 def test_smem_plan_within_budget():
@@ -258,7 +288,14 @@ def test_smem_plan_within_budget():
     small = smem_plan(8192, 8192, 8192, chip=_sxm_with(48 * 1024))
     _check_fits(small, 48 * 1024)
     assert plan.hbm_traffic <= small.hbm_traffic
-    assert (plan.bm, plan.bn) == (128, 128)
+    assert (plan.route, plan.bm, plan.bn) == ("wgmma", 128, 256)
+    # the mma_sync kernel's plan (fp32, or operands TMA does not take)
+    plan = smem_plan(8192, 8192, 8192, tma=False)
+    _check_fits(plan)
+    small = smem_plan(8192, 8192, 8192, chip=_sxm_with(48 * 1024), tma=False)
+    _check_fits(small, 48 * 1024)
+    assert plan.hbm_traffic <= small.hbm_traffic
+    assert (plan.route, plan.bm, plan.bn) == ("mma_sync", 128, 128)
 
 
 def test_smem_plan_always_fits():
@@ -285,19 +322,39 @@ def _plan_fits(m, n, k, dtype_bytes, budget):
     _check_fits(q, budget)
     assert p.hbm_traffic <= q.hbm_traffic
     assert p.tiles == -(-m // p.bm) * -(-n // p.bn)
+    _covers_k(p, k)
+    _covers_k(q, k)
 
 
-# qwen3-14b's serving products, bf16: (m, n, k) -> (bm, bn, bk, tiles)
+# qwen3-14b's serving products, bf16, operands TMA takes: (m, n, k) ->
+# (route, bm, bn, bk, tiles, stages, splits)
 SERVING_PLANS = {
-    (8, 5120, 5120): (16, 32, 256, 160),        # decode: q, o
-    (8, 1024, 5120): (16, 32, 256, 32),         # decode: k, v
-    (8, 151936, 5120): (16, 128, 32, 1187),     # the LM head
+    (8, 5120, 5120): ("splitk", 64, 128, 64, 40, 4, 4),     # decode: q, o
+    (8, 1024, 5120): ("splitk", 64, 64, 64, 16, 6, 8),      # decode: k, v
+    (8, 151936, 5120): ("splitk", 64, 128, 64, 1187, 4, 1),  # the LM head
+    (32, 5120, 5120): ("splitk", 64, 128, 64, 40, 4, 4),
+    (32, 1024, 5120): ("splitk", 64, 64, 64, 16, 6, 8),
+    (32, 151936, 5120): ("splitk", 64, 128, 64, 1187, 4, 1),
+    (256, 5120, 5120): ("wgmma", 128, 64, 64, 160, 8, 1),   # a chunk of 256
+    (256, 1024, 5120): ("wgmma", 64, 64, 64, 64, 6, 3),
+    (4096, 5120, 5120): ("wgmma", 128, 256, 64, 640, 4, 1),  # prefill
+    (4096, 1024, 5120): ("wgmma", 128, 128, 64, 256, 7, 1),
+    # the down product of the MLP's two-pass route (h @ w_down)
+    (256, 5120, 17408): ("wgmma", 128, 64, 64, 160, 8, 1),
+    (4096, 5120, 17408): ("wgmma", 128, 256, 64, 640, 4, 1),
+}
+# the same products on the mma_sync kernel (its plans before the TMA
+# routes): (bm, bn, bk, tiles)
+MMA_SYNC_PLANS = {
+    (8, 5120, 5120): (16, 32, 256, 160),
+    (8, 1024, 5120): (16, 32, 256, 32),
+    (8, 151936, 5120): (16, 128, 32, 1187),
     (32, 5120, 5120): (32, 32, 256, 160),
     (32, 1024, 5120): (16, 32, 256, 64),
     (32, 151936, 5120): (32, 128, 32, 1187),
-    (256, 5120, 5120): (128, 64, 64, 160),      # a chunk of 256
+    (256, 5120, 5120): (128, 64, 64, 160),
     (256, 1024, 5120): (32, 32, 256, 256),
-    (4096, 5120, 5120): (128, 128, 64, 1280),   # a lock-step prefill
+    (4096, 5120, 5120): (128, 128, 64, 1280),
     (4096, 1024, 5120): (128, 128, 64, 256),
 }
 
@@ -306,22 +363,69 @@ SERVING_PLANS = {
 def test_smem_plan_serving_shapes_pinned(mnk):
     p = smem_plan(*mnk)
     _check_fits(p)
-    assert (p.bm, p.bn, p.bk, p.tiles) == SERVING_PLANS[mnk]
-    if p.tiles >= SMS:
-        assert p.blocks_per_sm * p.smem_bytes <= SMEM_PER_BLOCK
+    _covers_k(p, mnk[2])
+    assert (p.route, p.bm, p.bn, p.bk, p.tiles, p.stages,
+            p.splits) == SERVING_PLANS[mnk]
+    assert p.blocks >= min(SMS, p.tiles * MAX_SPLITS)
+    if mnk in MMA_SYNC_PLANS:
+        q = smem_plan(*mnk, tma=False)
+        _check_fits(q)
+        assert (q.bm, q.bn, q.bk, q.tiles) == MMA_SYNC_PLANS[mnk]
+        if q.tiles >= SMS:
+            assert q.blocks_per_sm * q.smem_bytes <= SMEM_PER_BLOCK
 
 
 @pytest.mark.parametrize("m", [1, 8, 16])
 def test_smem_plan_does_not_pad_a_decode_step_to_128_rows(m):
+    """The mma_sync plan takes 16 rows; the TMA plan one wgmma's 64, and
+    splits K instead of adding row tiles."""
     for n, k in ((5120, 5120), (1024, 5120), (151936, 5120)):
-        assert smem_plan(m, n, k).bm == 16
+        assert smem_plan(m, n, k, tma=False).bm == 16
+        p = smem_plan(m, n, k)
+        assert (p.route, p.bm, p.tiles) == ("splitk", WGMMA_M,
+                                            -(-n // p.bn))
 
 
 def test_smem_plan_covers_the_sms_at_small_m():
     """The greedy alone would take bn = 128 at m = 8 (40 blocks for q/o);
-    the plan narrows it until every SM has a block."""
-    p = smem_plan(8, 5120, 5120)
+    the mma_sync plan narrows it until every SM has a block, the TMA plan
+    splits K (q/o 4 splits of 20 K tiles: 160 blocks; k/v as far as a
+    cluster of 8 goes, 16 tiles x 8: 128)."""
+    p = smem_plan(8, 5120, 5120, tma=False)
     assert p.tiles >= SMS and p.bn == 32
+    p = smem_plan(8, 5120, 5120)
+    assert (p.route, p.splits, p.blocks) == ("splitk", 4, 160)
+    _covers_k(p, 5120)
+    p = smem_plan(8, 1024, 5120)
+    assert (p.route, p.bn, p.splits, p.blocks) == ("splitk", 64, MAX_SPLITS,
+                                                   128)
+    _covers_k(p, 5120)
+    assert smem_plan(8, 151936, 5120).splits == 1   # 1187 tiles already
+
+
+def test_wgmma_route_starts_at_64_rows():
+    assert WGMMA_MIN_M == WGMMA_M == 64
+    assert smem_plan(WGMMA_MIN_M - 1, 5120, 5120).route == "splitk"
+    assert smem_plan(WGMMA_MIN_M, 5120, 5120).route == "wgmma"
+    assert smem_plan(4096, 5120, 5120, dtype_bytes=4).route == "mma_sync"
+
+
+def test_wg_stages_fill_the_budget():
+    """Stages are what shared memory holds: at one consumer warpgroup two
+    blocks an SM, each on half of it less the system's share; at two, one
+    block on all of it; never more than the header's limit."""
+    for bm in WG_TILE_M:
+        for bn in WG_TILE_N:
+            if bn // 2 > WGMMA_ACC_REGS[bm]:
+                continue
+            stages, per_sm = wg_stages(bm, bn)
+            stage = (bm + bn) * WG_BK * 2
+            assert per_sm == (2 if bm == 64 else 1)
+            room = SMEM_PER_BLOCK // per_sm - (1024 if per_sm == 2 else 0)
+            assert stages == min(8, (room - 2048) // stage) >= 2
+            assert per_sm * (wg_smem_bytes(bm, bn, stages) + 1024) <= 233472
+    # the gated pass 1 of the MLP: two b tiles a stage, 48 KB, 4 stages
+    assert wg_stages(128, 128, 2) == (4, 1)
 
 
 def test_smem_plan_reads_no_field_no_datasheet_gives():
