@@ -19,9 +19,11 @@ exit code and no result line:
             the reference's sweep shapes, at the edges of every route of
             the matmul and the MLP, and at the shapes the serving paths
             give it, and times kernel, plain version and a library
-            yardstick with CUDA events; the matmul and the MLP also launch
-            every sweep product twice and must give equal bits, print the
-            route each timed shape took, and the matmul its plan (tiles,
+            yardstick with CUDA events; every kernel launches each sweep
+            case twice and must give equal bits; the timed shapes print the
+            route they took (the attention kernels also their splits and
+            blocks, decode attention its FMA route beside),
+            and the matmul its plan (tiles,
             stages, splits) and its host time a call beside
             ``torch.matmul``'s; the MLP is timed on both routes at the rows
             around its crossover R.
@@ -67,8 +69,8 @@ steps, and of one streamed decode step: the device's busy time and idle
 share, the kernels that take the most device time, and for the streamed
 step how much of the weight copies' time compute hides; printed and
 written to ``build/profile/``.  ``--kernels-only`` stops after the build
-and the matmul and MLP kernel phases (no result line): the loop for
-working on those two kernels.
+and the kernel phases (no result line): the loop for working on the
+kernels.
 """
 
 from __future__ import annotations
@@ -94,8 +96,10 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.chip.h100 import WGMMA_MIN_M, h100_host  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
+    ROUTES as DECODE_ROUTES, decode_attention_kernel)
 from repro_torch.kernels.decode_attention.kernel import \
-    decode_attention_kernel  # noqa: E402
+    plan_for as decode_plan_for  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, live_mask)
@@ -106,8 +110,12 @@ from repro_torch.kernels.elk_matmul.kernel import \
 from repro_torch.kernels.elk_matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.elk_matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    ROUTES as FLASH_ROUTES, flash_attention_kernel)
 from repro_torch.kernels.flash_attention.kernel import \
-    flash_attention_kernel  # noqa: E402
+    plan_splits as flash_plan_splits  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import \
+    route_of as flash_route_of  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attn, flash_attn_pos)
 from repro_torch.kernels.fused_mlp.kernel import (  # noqa: E402
@@ -433,16 +441,24 @@ def attn_inputs(gen, b, hq, hkv, c, d, dtype):
     return normal(b, hq, d), normal(b, hkv, c, d), normal(b, hkv, c, d)
 
 
-def check_attn(q, k, v, slot_pos, q_pos, window=0, dead_rows=()
-               ) -> tuple[float, float]:
+def check_attn(q, k, v, slot_pos, q_pos, window=0, dead_rows=(),
+               route=None, splits=None) -> tuple[float, float]:
     """(max abs error, error over tolerance) of the kernel against
     ``decode_attention_ref`` on these inputs; fails the run beyond
-    tolerance, or if a row with no live slot is not exactly zero."""
-    out = decode_attn(q, k, v, slot_pos, q_pos, window=window)
+    tolerance, if a row with no live slot is not exactly zero, or if a
+    second launch gives other bits."""
+    def run():
+        return decode_attention_kernel(q, k, v, slot_pos, q_pos, window=window,
+                                       route=route, splits=splits)
+    out, again = run(), run()
     torch.cuda.synchronize()
     ref = decode_attention_ref(q, k, v, slot_pos, q_pos, window=window)
     where = (f"q{tuple(q.shape)} cache{tuple(k.shape)} {q.dtype}/{k.dtype} "
-             f"slot_pos{tuple(slot_pos.shape)} window={window}")
+             f"slot_pos{tuple(slot_pos.shape)} window={window} route={route} "
+             f"splits={splits}")
+    if not torch.equal(out, again):
+        fail(f"decode_attention gave other bits on a second launch at "
+             f"{where}")
     if out.shape != ref.shape or out.dtype != ref.dtype:
         fail(f"decode_attention gave {tuple(out.shape)} {out.dtype}, plain "
              f"version {tuple(ref.shape)} {ref.dtype} at {where}")
@@ -513,17 +529,33 @@ def attention_phase(cfg) -> dict:
         dead = torch.full((200,), SENTINEL, dtype=torch.int32, device="cuda")
         case(q, k, v, dead, 100, dead_rows=(0, 1, 2, 3))
         # head dims of the configs: 80 (h2o-danube), 256 (gemma), groups of
-        # 1, 5, 16 and 20 (more than one block's rows), C not a multiple of
-        # the tile, and a ring of more tiles than the kernel lists (it then
-        # reads each split's own range of tiles)
-        for b, hq, hkv, c, d, pos in ((2, 32, 8, 300, 80, 250),
-                                      (2, 16, 16, 130, 256, 200),
-                                      (1, 16, 1, 100, 256, 60),
-                                      (2, 40, 8, 1000, 128, 999),
-                                      (1, 40, 2, 77, 128, 40),
-                                      (1, 4, 1, 66000, 16, 70000)):
+        # 1, 5, 8, 16 and 20 (more than one block's rows), C not a multiple
+        # of the tile, a ring of more tiles than the kernel lists (it then
+        # reads each split's own range of tiles); the cluster of 8 splits
+        # (one row), splits whose share of the live tiles is empty (an early
+        # position in a long ring), and one block a row (64 x 8 rows fill
+        # the card without a split)
+        for b, hq, hkv, c, d, pos, win in (
+                (2, 32, 8, 300, 80, 250, 0), (2, 16, 16, 130, 256, 200, 0),
+                (1, 16, 1, 100, 256, 60, 0), (2, 40, 8, 1000, 128, 999, 0),
+                (1, 40, 2, 77, 128, 40, 0), (1, 4, 1, 66000, 16, 70000, 0),
+                (1, 8, 1, 2048, 64, 40, 0), (1, 5, 1, 2048, 128, 3000, 100),
+                (3, 24, 3, 517, 256, 400, 0), (1, 8, 8, 1000, 64, 1000, 33),
+                (64, 40, 8, 300, 128, 299, 0)):
             q, k, v = attn_inputs(gen, b, hq, hkv, c, d, dtype)
-            case(q, k, v, ring_tags(c, pos), pos - 1)
+            case(q, k, v, ring_tags(c, pos), pos - 1, win)
+            if dtype == torch.bfloat16 and c < 60000:
+                # the other route, and the split forced off and to 8
+                case(q, k, v, ring_tags(c, pos), pos - 1, win, route="fma")
+                for splits in (1, 8):
+                    case(q, k, v, ring_tags(c, pos), pos - 1, win,
+                         splits=splits)
+    # bf16 per-row positions with a dead row on route "fma" too
+    q, k, v = attn_inputs(gen, 4, 10, 2, 200, 32, torch.bfloat16)
+    qp = torch.tensor([5, 130, 350, 0], dtype=torch.int32, device="cuda")
+    tags = torch.stack([ring_tags(200, int(p) + 1) for p in qp.tolist()])
+    tags[3] = SENTINEL
+    case(q, k, v, tags, qp, 48, dead_rows=(3,), route="fma")
     # fp32 query against a bf16 cache (fp32 weights, default bf16 KV)
     q, k, v = attn_inputs(gen, 2, 8, 2, 128, 32, torch.float32)
     case(q, k.to(torch.bfloat16), v.to(torch.bfloat16), ring_tags(128, 90),
@@ -531,14 +563,16 @@ def attention_phase(cfg) -> dict:
     say(f"[kernels] decode_attention: {cases} sweep cases inside tolerance "
         f"(worst err/tol and its err: {json.dumps(worst)})")
 
-    # the two shapes the serving paths give it, full width, bf16
-    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    # the two shapes the serving paths give it, full width, bf16, and the
+    # continuous shape at a group of 8; each also on route "fma"
+    hkv, d = cfg.num_kv_heads, cfg.resolved_head_dim
     dtype = torch.bfloat16
     shapes = []
     lock_pos = PROMPT_LEN + STEPS // 2           # a mid-run lock-step step
     slot_pos_now = [p + 20 for p in TRACE["prompt_lens"] * 2]
-    for label, b, c in (("lock-step", BATCH, CACHE),
-                        ("continuous", SLOTS, SLOT_CACHE)):
+    for label, b, c, hq in (("lock-step", BATCH, CACHE, cfg.num_heads),
+                            ("continuous", SLOTS, SLOT_CACHE, cfg.num_heads),
+                            ("continuous G=8", SLOTS, SLOT_CACHE, 8 * hkv)):
         q, k, v = attn_inputs(gen, b, hq, hkv, c, d, dtype)
         if label == "lock-step":
             tags, qp = ring_tags(c, lock_pos + 1), lock_pos
@@ -546,6 +580,7 @@ def attention_phase(cfg) -> dict:
             qp = torch.tensor(slot_pos_now, dtype=torch.int32, device="cuda")
             tags = torch.stack([ring_tags(c, p + 1) for p in slot_pos_now])
         err = case(q, k, v, tags, qp)
+        case(q, k, v, tags, qp, route="fma")
         mask = live_mask(tags, qp, b)[:, None, None, :]     # (B,1,1,C)
         q4 = q[:, :, None, :]
 
@@ -554,12 +589,18 @@ def attention_phase(cfg) -> dict:
                 q4, k, v, attn_mask=mask, enable_gqa=True)
 
         bound, ring_bound, bound_by = attn_bound_ms(q, k, tags, qp, 0)
+        plan = decode_plan_for(q, k)
         shapes.append({
             "shape": label, "b": b, "hq": hq, "hkv": hkv, "c": c, "d": d,
-            "dtype": "bfloat16",
+            "dtype": "bfloat16", "route": plan["route"],
+            "splits": plan["splits"],
+            "blocks": plan["blocks"], "bk": plan["bk"],
+            "stages": plan["stages"],
             "live_slots": int(live_mask(tags, qp, b).sum()),
             "max_abs_err": err,
             "ms": time_ms(lambda: decode_attn(q, k, v, tags, qp), 50),
+            "fma_ms": time_ms(lambda: decode_attention_kernel(
+                q, k, v, tags, qp, route="fma"), 50),
             "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, tags,
                                                              qp), 5,
                                 warmup=1),
@@ -586,27 +627,32 @@ def attention_phase(cfg) -> dict:
 
 
 def check_flash(q, k, v, q_pos=None, k_pos=None, *, causal=True, window=0,
-                dead=None) -> tuple[float, float]:
+                dead=None, route=None, splits=None) -> tuple[float, float]:
     """(max abs error, error over tolerance) of the kernel against
-    ``mha_ref`` (no positions) or ``mha_pos_ref`` on these inputs; fails the
-    run beyond tolerance, or if a query marked in ``dead`` (B, Sq) is not
-    exactly zero in every head."""
+    ``mha_ref`` (no positions) or ``mha_pos_ref`` on these inputs, on the
+    route and splits the wrapper plans unless given; fails the run beyond
+    tolerance, if a query marked in ``dead`` (B, Sq) is not exactly zero in
+    every head, or if a second launch gives other bits."""
+    def run():
+        return flash_attention_kernel(q, k, v, q_pos, k_pos, causal=causal,
+                                      window=window, route=route,
+                                      splits=splits)
+    out, again = run(), run()
+    torch.cuda.synchronize()
     if q_pos is None:
-        out = flash_attn(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
         ref = flash_ref.mha_ref(q, k, v, causal=causal, window=window)
     else:
-        out = flash_attn_pos(q, k, v, q_pos, k_pos, causal=causal,
-                             window=window)
-        torch.cuda.synchronize()
         ref = flash_ref.mha_pos_ref(q, k, v, q_pos, k_pos, causal=causal,
                                     window=window)
-    where = (f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype}/{k.dtype} "
-             f"causal={causal} window={window} positions="
-             f"{'no' if q_pos is None else tuple(k_pos.shape)}")
+    where = (f"q{tuple(q.shape)} strides {q.stride()} k{tuple(k.shape)} "
+             f"{q.dtype}/{k.dtype} causal={causal} window={window} "
+             f"positions={'no' if q_pos is None else tuple(k_pos.shape)} "
+             f"route={route or flash_route_of(q, k)} splits={splits}")
     if out.shape != ref.shape or out.dtype != ref.dtype:
         fail(f"flash_attention gave {tuple(out.shape)} {out.dtype}, plain "
              f"version {tuple(ref.shape)} {ref.dtype} at {where}")
+    if not torch.equal(out, again):
+        fail(f"flash_attention gave other bits on a second launch at {where}")
     if not torch.isfinite(out.to(torch.float32)).all():
         fail(f"flash_attention output not finite at {where}")
     if dead is not None and out.transpose(1, 2)[dead].any():
@@ -709,6 +755,33 @@ def flash_phase(cfg, chunk: int) -> dict:
         # the kernel lists (it then reads every tile)
         q_pos1, tags1 = chunk_positions(1, 24, 70000, (69000,))
         case(*qkv(2, 4, 1, 24, 70000, 16, dtype), q_pos1, tags1)
+        q_pos1, tags1 = chunk_positions(1, 20, 70000, (69000,))
+        case(*qkv(1, 10, 2, 20, 70000, 128, dtype), q_pos1, tags1)
+    # route "wgmma" (bf16, head dims 64, 128, 256): groups of 1, 5 and 8;
+    # chunks of 1-256 tokens against a ring of 512 (part-filled, wrapped,
+    # windowed), with the KV loop split as planned, not split, and split
+    # over a cluster of 8 (a chunk early in the ring leaves most splits with
+    # no live key); prefills with ragged S, windows, bidirectional, batch 2;
+    # q read through the strides of a (B, S, Hq, D) projection
+    bf16 = torch.bfloat16
+    for hq, hkv, d in ((4, 4, 64), (10, 2, 128), (16, 2, 256), (40, 8, 128)):
+        for t, start, win in ((1, 300, 0), (16, 0, 0), (37, 100, 0),
+                              (64, 480, 64), (256, 200, 0)):
+            q_pos, tags = chunk_positions(1, t, 512, (start,))
+            q, k, v = qkv(1, hq, hkv, t, 512, d, bf16)
+            for splits in (None, 1, 8):
+                case(q, k, v, q_pos, tags, window=win, splits=splits)
+        for b, s_len, causal, win in ((2, 333, True, 0), (1, 200, True, 50),
+                                      (1, 130, False, 0), (2, 97, True, 0)):
+            q, k, v = qkv(b, hq, hkv, s_len, s_len, d, bf16)
+            for splits in (None, 1, 3):
+                case(q, k, v, causal=causal, window=win, splits=splits)
+        q_strided = normal(2, 150, hq, d, dtype=bf16).transpose(1, 2)
+        k, v = qkv(2, hq, hkv, 150, 150, d, bf16)[1:]
+        case(q_strided, k, v)
+        q_pos, tags = chunk_positions(2, 150, 512, (40, 400))
+        k, v = qkv(2, hq, hkv, 150, 512, d, bf16)[1:]
+        case(q_strided, k, v, q_pos, tags, splits=4)
     # fp32 query against a bf16 ring (fp32 weights, default bf16 KV)
     q_pos, tags = chunk_positions(2, 33, 128, (10, 200))
     case(*qkv(2, 8, 2, 33, 128, 32, torch.float32, torch.bfloat16), q_pos,
@@ -757,15 +830,39 @@ def flash_phase(cfg, chunk: int) -> dict:
             def library():
                 return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
         bound, bound_by = flash_bound_ms(q, k, q_pos, k_pos, True, 0)
+        row_tiles, splits = flash_plan_splits(b, hkv, t, c, hq // hkv)
         shapes.append({
             "shape": label, "b": b, "hq": hq, "hkv": hkv, "sq": t, "sk": c,
             "d": d, "dtype": "bfloat16", "max_abs_err": err,
+            "route": flash_route_of(q, k), "splits": splits,
+            "blocks": b * hkv * row_tiles * splits,
             "ms": time_ms(kernel, 20),
             "plain_ms": time_ms(plain, 3, warmup=1),
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": time_ms(library, 20),
         })
         say(f"[kernels] flash_attention {label}: " + json.dumps(shapes[-1]))
+    # what encoding the tensor maps of K and V costs on the host: one
+    # prefill-shaped call with the same k and v every time (maps from the
+    # cache) against calls whose k and v start somewhere new each time (16
+    # bytes further into one buffer: two maps encoded a call)
+    b, t = 1, PROMPT_LEN
+    q, k, v = qkv(b, hq, hkv, t, t, d, dtype)
+    n = k.numel()
+    kv_pool = normal(2, n + 8 * 5000, dtype=dtype)
+    views = iter(range(10 ** 9))
+
+    def fresh():
+        i = next(views) % 5000
+        return flash_attn(q, kv_pool[0, 8 * i:8 * i + n].view(k.shape),
+                          kv_pool[1, 8 * i:8 * i + n].view(k.shape))
+
+    cached_us = host_us(lambda: flash_attn(q, k, v))
+    fresh_us = host_us(fresh, calls=800)
+    map_encode = {"cached_call_us": cached_us, "fresh_kv_call_us": fresh_us,
+                  "us_per_map": (fresh_us - cached_us) / 2}
+    say(f"[kernels] flash_attention host time a call, B 1, S {t}: "
+        + json.dumps(map_encode))
     main = shapes[0]
     return {
         "name": "flash_attention", "route": "cuda",
@@ -779,7 +876,7 @@ def flash_phase(cfg, chunk: int) -> dict:
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "cases": cases, "max_err_over_tol": max(w for w, _ in worst.values()),
-        "worst_by_dtype": worst, "shapes": shapes,
+        "worst_by_dtype": worst, "shapes": shapes, "host_map_encode": map_encode,
     }
 
 
@@ -1065,9 +1162,9 @@ def read_launches() -> dict:
 
 
 def read_routes() -> dict:
-    """Launches by route of the two kernels that have routes."""
-    return {name: dict(COUNTERS[name].by_route)
-            for name in ("fused_mlp", "elk_matmul")}
+    """Launches by route of every kernel."""
+    return {name: dict(counter.by_route)
+            for name, counter in COUNTERS.items()}
 
 
 def record_launches(rows: list[dict], path: str, counts: dict,
@@ -1117,6 +1214,17 @@ def routes_expected(layers: int, passes: list[tuple[int, int]]) -> dict:
     return {"fused_mlp": mlp, "elk_matmul": mm}
 
 
+def attention_routes(flash: int, decode: int) -> dict:
+    """Launches by route of the attention kernels at full width (bf16,
+    head dim 128): flash attention on "wgmma", decode attention on
+    "mma"."""
+    fr = dict.fromkeys(FLASH_ROUTES, 0)
+    fr["wgmma"] = flash
+    dr = dict.fromkeys(DECODE_ROUTES, 0)
+    dr["mma"] = decode
+    return {"flash_attention": fr, "decode_attention": dr}
+
+
 def trace_expected(layers: int, decode_ticks: int, chunks: list[int]
                    ) -> dict:
     """Launches of a continuous trace: the MLP and the four projections in
@@ -1130,9 +1238,11 @@ def trace_expected(layers: int, decode_ticks: int, chunks: list[int]
             "decode_attention": layers * (decode_ticks + ones),
             "flash_attention": layers * (len(chunks) - ones),
             "elk_matmul": (4 * layers + 1) * passes,
-            "routes": routes_expected(
+            "routes": {**routes_expected(
                 layers, [(SLOTS, SLOTS)] * decode_ticks
-                + [(t, 1) for t in chunks])}
+                + [(t, 1) for t in chunks]),
+                **attention_routes(layers * (len(chunks) - ones),
+                                   layers * (decode_ticks + ones))}}
 
 
 def draw_params(cfg) -> dict:
@@ -1157,9 +1267,10 @@ def lockstep_expected(layers: int) -> dict:
             "decode_attention": layers * (STEPS - 1),
             "flash_attention": layers,
             "elk_matmul": (4 * layers + 1) * STEPS,
-            "routes": routes_expected(
+            "routes": {**routes_expected(
                 layers, [(BATCH * PROMPT_LEN, BATCH)]
-                + [(BATCH, BATCH)] * (STEPS - 1))}
+                + [(BATCH, BATCH)] * (STEPS - 1)),
+                **attention_routes(layers, layers * (STEPS - 1))}}
 
 
 def serve_phase(cfg, params: dict, kernel_rows: list[dict],
@@ -1799,9 +1910,8 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also trace decode steps, a prefill and slot steps")
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel phases (fused_mlp and "
-                    "elk_matmul only, to iterate on them); prints no result "
-                    "line")
+                    help="stop after the kernel phases (to iterate on the "
+                    "kernels); prints no result line")
     args = ap.parse_args()
 
     # phase 1: device
@@ -1851,7 +1961,8 @@ def main() -> None:
         pod=h100_host()).prefill_chunk)
     with torch.inference_mode():
         if args.kernels_only:
-            for row in (elk_matmul_phase(cfg), kernels_phase(cfg)):
+            for row in (elk_matmul_phase(cfg), kernels_phase(cfg),
+                        attention_phase(cfg), flash_phase(cfg, chunk)):
                 say(json.dumps({k: row[k] for k in ("name", "ms", "bound_ms",
                                                      "library_ms")}))
             say("[kernels-only] stopped after the kernel phases")

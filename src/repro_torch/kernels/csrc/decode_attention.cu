@@ -26,185 +26,255 @@
 //
 // Design.  The TPU grid (B, Hkv, C / bk) carries (m, l, acc) across the
 // sequential steps of C; at B * Hkv = 64 that would fill under half of the
-// 132 SMs.  Here the cache axis is split ("flash-decoding"):
-//   * a block owns (split of C, kv head, batch row, chunk of up to 16 of the G
-//     query rows).  It keeps its query rows in shared memory (fp32, scaled),
-//     streams BK-slot tiles of K and V into shared memory through a ring of
-//     two cp.async stages (the next tile travels while this one is used), and
-//     keeps the online-softmax carry (m, l) in shared memory and acc in fp32
-//     registers, two head elements a thread.
-//   * it writes its (m, l, acc) to fp32 scratch; a second small kernel
-//     combines the splits by log-sum-exp in a fixed order, so the result is
-//     the same every run, floors l and casts.  A split with no live slot has
-//     m = -inf and weighs exactly 0 in the combine.
-//   * the wrapper picks the splits so that the blocks fill the SMs in one
-//     wave, as many to an SM as fit (occupancy asked of the runtime).
-//   * G <= 16 rows against D <= 256 is FMA work beside the memory stream: no
-//     tensor cores.  Score products read K in 16-byte pieces, and a row of a
-//     tile in shared memory is an odd multiple of 16 bytes long, so that the
-//     eight threads of a quarter warp meet eight distinct groups of banks.
-//   * the tiles that hold no live slot are not read at all: every block of a
-//     row scans the row's tags (4 bytes a slot), lists the tiles with a live
-//     slot, and takes its split's share of that list.  A decode step at
-//     position p of a ring of C reads about min(p, C) slots, not C.
-// TMA and warp specialisation are left for later.
+// 132 SMs.  Here the cache axis is split ("flash-decoding"), in one launch:
+//   * a block owns (split, kv head, batch row, chunk of up to 8 of the G query
+//     rows); the `splits` blocks of one (kv head, row, chunk) run as one
+//     thread-block cluster.  Every block of a row scans the row's tags (4
+//     bytes a slot, sixteen loads in flight a thread), lists the tiles that
+//     hold a live slot, and takes its split's share of that list: a decode
+//     step at position p of a ring of C reads about min(p, C) slots, not C,
+//     and no tile that is wholly masked.
+//   * one producer warp keeps the bytes in flight: its first lane issues TMA
+//     copies of the K and V tiles (three dimensional maps over (B Hkv, C, D),
+//     128-byte swizzle) into a ring of stages, all its lanes copy the tiles'
+//     tags (those of the next tile loaded while this one waits for its
+//     stage), and full[s] completes on the bytes and the 32 arrivals.  Eight
+//     consumer warps keep their own (m, l, acc) carries: no block-wide
+//     barrier inside the KV loop, a warp releases a stage on empty[s] when it
+//     is done with it.
+//   * route "mma" (bf16 query and cache, D 16-256 in steps the products
+//     take): the tiles hold 64 slots, two groups of four warps take
+//     alternate tiles (an even number of stages, half each, so a group waits
+//     for its stages' phases in order), each warp 16 slots.  S^T = K Q^T and
+//     O^T += V^T P^T run on mma.sync m16n8k16 with the (up to 8) query rows
+//     as the 8 columns, so a group of 5 wastes 3 columns, not 11 rows: K is
+//     the A operand as stored (ldmatrix), V^T the A operand transposed on
+//     the way in (ldmatrix.trans), Q^T the B operand in registers, P^T
+//     (rounded to bf16, as the flash kernel's P) the B operand by an 8 x 8
+//     transpose of the score fragments (movmatrix).  Measured at G 5 and G 8
+//     against the FMA loops (chip_smoke.py), it wins at both.
+//   * route "fma" (an fp32 query or cache, other head dims): each warp owns
+//     bk / 8 slots of every tile; a slot's score is split over 32 / (slots a
+//     warp) lanes, each reading 16-byte pieces of the slot's K row (the
+//     swizzle puts the rows of eight lanes on eight bank groups) against the
+//     query rows in shared memory (fp32, scaled into base 2); shuffles add
+//     the pieces and give the warp's max and sum; each lane then owns two
+//     head elements (and two more every 64) of every query row for P.V.
+//   * after the loop the eight warps' carries are merged into the block's, in
+//     warp order; one block a row writes the output.  A cluster's blocks
+//     then merge their carries over distributed shared memory, in rank
+//     order, each block its share of the outputs, l floored and cast.  No
+//     partials in device memory, no atomics: the same inputs give the same
+//     bits on every run.
+//   * the wrapper plans tile depth and stages (kernel.py) and the splits:
+//     enough to give every SM a block, at most 8 (the portable cluster
+//     size); a second block on an SM, or a larger cluster, cost more in
+//     prologue and merge than they saved (PERF.md).
 
 #include <cuda_bf16.h>
-#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper_gemm.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using hg::smem_u32;
 
-constexpr int kThreads = 256;
-constexpr int kMaxGroup = 16;    // query rows one block holds
-constexpr int kMaxSplits = 128;  // the combine keeps one weight a split in shared memory
+// kernels/decode_attention/kernel.py repeats these, smem_bytes and maxg_for,
+// and plans the tile depth (16, 32 or 64 slots) and the stages
+// (tests/test_torch_decode_attention.py reads them from here)
+constexpr int kWarps = 8;          // consumer warps; one producer warp beside them
+constexpr int kThreads = 32 * (kWarps + 1);
+constexpr int kMaxGroup = 8;       // query rows one block holds
+constexpr int kMaxSplits = 8;      // blocks of a cluster (chip/h100.py MAX_SPLITS)
+constexpr int kMaxStages = 4;
+constexpr int kMinStages = 2;  // route "mma" takes an even count, "fma" 3 or 4
+constexpr int kMaxListed = 1024;   // rings of up to this many tiles are read live tiles only
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxListed = 1024;  // rings of up to this many tiles are read live tiles only
+// combine scratch a query row: the weight of each warp's carry, of each
+// rank's, 1 / l, pad
+constexpr int kCoef = kWarps + kMaxSplits + 2;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even
-}
-
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-// adds the products of the 16 bytes of k at kp with q (fp32, in shared
-// memory) into two sums, so that two chains of FMAs run side by side
-__device__ __forceinline__ void dot16(const float* kp, const float* qp, float& a0, float& a1) {
-  const float4 k = *reinterpret_cast<const float4*>(kp);
-  const float4 q = *reinterpret_cast<const float4*>(qp);
-  a0 = fmaf(q.x, k.x, a0);
-  a1 = fmaf(q.y, k.y, a1);
-  a0 = fmaf(q.z, k.z, a0);
-  a1 = fmaf(q.w, k.w, a1);
-}
-__device__ __forceinline__ void dot16(const bf16* kp, const float* qp, float& a0, float& a1) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(kp);
-  const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float4 qa = *reinterpret_cast<const float4*>(qp);
-  const float4 qb = *reinterpret_cast<const float4*>(qp + 4);
-  float2 k;
-  k = __bfloat1622float2(k2[0]);
-  a0 = fmaf(qa.x, k.x, a0);
-  a1 = fmaf(qa.y, k.y, a1);
-  k = __bfloat1622float2(k2[1]);
-  a0 = fmaf(qa.z, k.x, a0);
-  a1 = fmaf(qa.w, k.y, a1);
-  k = __bfloat1622float2(k2[2]);
-  a0 = fmaf(qb.x, k.x, a0);
-  a1 = fmaf(qb.y, k.y, a1);
-  k = __bfloat1622float2(k2[3]);
-  a0 = fmaf(qb.z, k.x, a0);
-  a1 = fmaf(qb.w, k.y, a1);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-struct Args {
-  const void* q;          // (B, Hq, D), fp32 or bf16 (q_bf16)
-  const void* k;          // (B, Hkv, C, D), T
-  const void* v;
-  const int* slot_pos;    // (C,) or (B, C)
-  const int* q_pos;       // (B,) or one value (qp_stride 0); null: q_pos_value
-  float* part_acc;        // (splits, B, Hq, D)
-  float* part_ml;         // (splits, B, Hq, 2): running max and sum
+struct Params {
+  CUtensorMap k_map, v_map;  // (B Hkv, C, D) of T, boxes of 128 bytes x bk x 1
+  const void* q;             // (B, Hq, D), fp32 or bf16 (q_bf16)
+  const int* slot_pos;       // (C,) or (B, C)
+  const int* q_pos;          // (B,) or one value (qp_stride 0); null: q_pos_value
+  void* out;                 // (B, Hq, D) in q's type
   int b, hq, hkv, c, d, g;
   int sp_stride, qp_stride, q_pos_value;
   int window;
   float scale;
   int q_bf16;
-  int bk, tiles_per_split, row_bytes;
+  int bk, stages;            // slots of a tile, stages of the ring
+  int tiles_per_split;       // a ring of more than kMaxListed tiles: each split's range
+  int splits;                // blocks of a cluster
 };
 
-// Shared memory: q rows (fp32, MAXG x D), scores (MAXG x BK), m, l and the
-// tile's rescale (MAXG each), two stages of the tile's tags (BK each), the
-// list of live tiles (kMaxListed), then two stages of K and V tiles (BK rows
-// of row_bytes each).  After the loop the stages hold the partial sums of the
-// thread groups that split BK.
-__host__ __device__ inline size_t head_bytes(int maxg, int d, int bk) {
-  const size_t n = sizeof(float) * ((size_t)maxg * d + (size_t)maxg * bk + 3 * (size_t)maxg +
-                                    2 * (size_t)bk + kMaxListed);
-  return (n + 15) / 16 * 16;
+// bytes of a row of a K or V tile in shared memory: 128-byte blocks
+__host__ __device__ inline int row_bytes_for(int d, int elem) { return (d * elem + 127) / 128 * 128; }
+
+__host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
+
+// Shared memory: the ring (stages x (K tile, V tile), each tile row_bytes / 128
+// column blocks of bk rows x 128 bytes), the query rows (fp32, maxg x D), the
+// warps' probabilities (kWarps x bk / kWarps slots x pad4(maxg)), the tiles'
+// tags, the tile list, the combine coefficients, scratch, the mbarriers.
+__host__ __device__ inline size_t smem_bytes(int maxg, int d, int bk, int stages, int elem) {
+  const size_t ring = (size_t)stages * 2 * bk * row_bytes_for(d, elem);
+  const size_t rest = sizeof(float) * ((size_t)maxg * d + (size_t)bk * pad4(maxg) +
+                                       (size_t)stages * bk + kMaxListed + (size_t)maxg * kCoef +
+                                       4) +
+                      2 * (size_t)stages * sizeof(uint64_t);
+  return 1024 + ring + rest;
 }
 
-__host__ __device__ inline int row_bytes_for(int d, int elem) {
-  int rb = d * elem;                   // a multiple of 16 (d % 8 == 0)
-  if ((rb / 16) % 2 == 0) rb += 16;    // odd multiple of 16: no bank conflicts
-  return rb;
+// (acc, m, l) of every warp and of the block, kept in the ring after the loop
+__host__ __device__ inline size_t partial_bytes(int maxg, int d) {
+  return sizeof(float) * (size_t)(kWarps + 1) * maxg * (d + 2);
 }
 
-__host__ __device__ inline size_t smem_bytes(int maxg, int d, int bk, int elem) {
-  const size_t tiles = 4 * (size_t)bk * row_bytes_for(d, elem);
-  const size_t red = sizeof(float) * (size_t)(2 * kThreads) * maxg;  // JG * D <= 2 * kThreads
-  return head_bytes(maxg, d, bk) + (tiles > red ? tiles : red);
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <typename T, int MAXG>
-__global__ void __launch_bounds__(kThreads, 2) decode_attention_split_kernel(Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x;
-  const int D = a.d, BK = a.bk;
-  const int split = blockIdx.x;
+// Four 8 x 8 bf16 matrices from shared memory, lanes 8 i .. 8 i + 7 giving the
+// rows of matrix i; `trans` transposes each.
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* row) {
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(row)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_u32(row)));
+}
+
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t v) {
+  uint32_t out;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(out) : "r"(v));
+  return out;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The address of 16-byte piece c of row `row` of a K or V tile of bk rows
+// (128-byte column blocks, swizzled as TMA writes them).
+__device__ __forceinline__ const unsigned char* piece(const unsigned char* tile, int bk, int row,
+                                                      int c) {
+  return tile + (c >> 3) * (bk * 128) + row * 128 + (((c & 7) ^ (row & 7)) << 4);
+}
+
+// NP: element pairs of every query row a lane owns for P.V on the FMA route,
+// 64 elements apart (D <= 64 NP).  DM > 0: route "mma" at head dim DM.
+template <typename T, int MAXG, int NP, int DM>
+__global__ void __launch_bounds__(kThreads, 2)
+    decode_attention_kernel(const __grid_constant__ Params p) {
+  constexpr int E = 16 / (int)sizeof(T);  // elements of a 16-byte piece
+  constexpr int PST = (MAXG + 3) / 4 * 4;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int D = p.d, BK = p.bk, S = p.stages;
+  const int tile_bytes = BK * row_bytes_for(D, (int)sizeof(T));  // a K or a V tile
+  const int nblk = row_bytes_for(D, (int)sizeof(T)) / 128;
+  float* q_s = reinterpret_cast<float*>(ring + (size_t)S * 2 * tile_bytes);
+  float* p_s = q_s + MAXG * D;
+  int* tags_s = reinterpret_cast<int*>(p_s + BK * PST);
+  int* list_s = tags_s + S * BK;
+  float* coef_s = reinterpret_cast<float*>(list_s + kMaxListed);
+  int* scratch_s = reinterpret_cast<int*>(coef_s + MAXG * kCoef);
+  uint64_t* full = reinterpret_cast<uint64_t*>(scratch_s + 4);
+  uint64_t* empty = full + S;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int split = blockIdx.x;  // rank in the cluster
   const int h = blockIdx.y;
-  const int gchunks = (a.g + kMaxGroup - 1) / kMaxGroup;
+  const int gchunks = (p.g + kMaxGroup - 1) / kMaxGroup;
   const int b = blockIdx.z / gchunks;
   const int g0 = (blockIdx.z % gchunks) * kMaxGroup;
-  const int gn = min(MAXG, a.g - g0);  // query rows of this block
-  const int ldk = a.row_bytes / (int)sizeof(T);
+  const int gn = min(MAXG, p.g - g0);  // query rows of this block
+  const int bh = b * p.hkv + h;
+  const bool cluster = p.splits > 1;
 
-  float* q_s = reinterpret_cast<float*>(smem);
-  float* s_s = q_s + MAXG * D;
-  float* m_s = s_s + MAXG * BK;
-  float* l_s = m_s + MAXG;
-  float* al_s = l_s + MAXG;
-  int* sp_s = reinterpret_cast<int*>(al_s + MAXG);  // two stages of BK tags
-  int* list_s = sp_s + 2 * BK;                       // live tiles of the row
-  __shared__ int nlive_s;
-  unsigned char* tiles = smem + head_bytes(MAXG, D, BK);
-  const size_t stage_bytes = 2 * (size_t)BK * a.row_bytes;
-
-  const int qp = a.q_pos != nullptr ? a.q_pos[(size_t)b * a.qp_stride] : a.q_pos_value;
-  const int* sp = a.slot_pos + (size_t)b * a.sp_stride;
-  const int tiles_total = (a.c + BK - 1) / BK;
+  const int qp = p.q_pos != nullptr ? p.q_pos[(size_t)b * p.qp_stride] : p.q_pos_value;
+  const int* sp = p.slot_pos + (size_t)b * p.sp_stride;
+  const int tiles_total = (p.c + BK - 1) / BK;
   auto live = [&](int spos) {
-    return spos <= qp && (a.window == 0 || spos > qp - a.window);
+    return spos <= qp && (p.window == 0 || spos > qp - p.window);
   };
-  const int warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+#pragma unroll 1
+    for (int s = 0; s < S; ++s) {
+      hg::mbar_init(&full[s], 33);      // the producer's expect_tx and its 32 lanes' tags
+      // one arrival a consumer warp (route "mma": the four warps of a tile)
+      hg::mbar_init(&empty[s], DM > 0 ? kWarps / 2 : kWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
 
   // The tiles this block reads.  A ring of up to kMaxListed tiles: the row's
   // tiles that hold a live slot are listed (every block of the row scans the
-  // tags, 4 bytes a slot) and the splits share them out evenly, so a block
-  // reads no tile that is wholly masked.  A longer ring: the split's own
-  // range of tiles.
+  // tags) and the splits share them out evenly.  A longer ring: the split's
+  // own range of tiles.  The first tags and the query rows are loaded before
+  // anything waits.
   const bool listed = tiles_total <= kMaxListed;
-  int k_end, t0 = 0;
+  constexpr int kLoads = 16;                                // tags in flight a thread
+  constexpr int kQLoads = (MAXG * 256 + kThreads - 1) / kThreads;  // query elements a thread
+  int tag[kLoads];
   if (listed) {
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int c = tid + u * kThreads;
+      tag[u] = c < p.c ? __ldg(sp + c) : INT_MAX;
+    }
+  }
+  float qv[kQLoads];
+#pragma unroll
+  for (int u = 0; u < kQLoads; ++u) {
+    const int i = tid + u * kThreads, g = i / D;
+    qv[u] = 0.0f;
+    if (i < MAXG * D && g < gn) {
+      const size_t qi = ((size_t)b * p.hq + (size_t)h * p.g + g0 + g) * D + i % D;
+      qv[u] = p.q_bf16 ? __bfloat162float(reinterpret_cast<const bf16*>(p.q)[qi])
+                       : reinterpret_cast<const float*>(p.q)[qi];
+    }
+  }
+  if (listed)
     for (int i = tid; i < tiles_total; i += kThreads) list_s[i] = 0;
-    __syncthreads();
-    for (int c = tid; c < a.c; c += kThreads)
-      if (live(sp[c])) list_s[c / BK] = 1;
+  __syncthreads();
+  // the query rows, fp32 and scaled into base 2; rows past gn are zeros
+#pragma unroll
+  for (int u = 0; u < kQLoads; ++u)
+    if (tid + u * kThreads < MAXG * D) q_s[tid + u * kThreads] = qv[u] * p.scale * kLog2e;
+  int nk, k_begin = 0;
+  if (listed) {
+    for (int c0 = 0; c0 < p.c; c0 += kLoads * kThreads) {
+      if (c0 != 0) {
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          const int c = c0 + tid + u * kThreads;
+          tag[u] = c < p.c ? __ldg(sp + c) : INT_MAX;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u)
+        if (live(tag[u])) list_s[(c0 + tid + u * kThreads) / BK] = 1;
+    }
     __syncthreads();
     if (warp == 0) {  // compact in place: entry n <= i is written after i is read
       int n = 0;
@@ -216,215 +286,436 @@ __global__ void __launch_bounds__(kThreads, 2) decode_attention_split_kernel(Arg
         if (lv) list_s[n + __popc(m & ((1u << lane) - 1))] = i;
         n += __popc(m);
       }
-      if (lane == 0) nlive_s = n;
+      if (lane == 0) scratch_s[0] = n;
     }
     __syncthreads();
-    const int per = (nlive_s + gridDim.x - 1) / gridDim.x;
-    t0 = min(split * per, nlive_s);
-    k_end = min(t0 + per, nlive_s) - t0;
+    const int nlive = scratch_s[0];
+    const int per = (nlive + p.splits - 1) / p.splits;
+    k_begin = min(split * per, nlive);
+    nk = min(k_begin + per, nlive) - k_begin;
   } else {
-    t0 = min(split * a.tiles_per_split, tiles_total);
-    k_end = min(t0 + a.tiles_per_split, tiles_total) - t0;
+    k_begin = min(split * p.tiles_per_split, tiles_total);
+    nk = min(k_begin + p.tiles_per_split, tiles_total) - k_begin;
+    __syncthreads();
   }
-  // the k-th tile this block reads
-  auto tile_at = [&](int k) { return listed ? list_s[t0 + k] : t0 + k; };
-  const size_t kv_base = ((size_t)b * a.hkv + h) * a.c * D;
-  const T* kg = reinterpret_cast<const T*>(a.k) + kv_base;
-  const T* vg = reinterpret_cast<const T*>(a.v) + kv_base;
-  const int cpr = D * (int)sizeof(T) / 16;  // 16-byte pieces of a row
+  // the i-th tile this block reads
+  auto tile_at = [&](int i) { return listed ? list_s[k_begin + i] : k_begin + i; };
 
-  auto load_tile = [&](int k, int st) {
-    if (k < k_end) {
-      const int c0 = tile_at(k) * BK;
-      unsigned char* kd = tiles + st * stage_bytes;
-      unsigned char* vd = kd + (size_t)BK * a.row_bytes;
-      for (int e = tid; e < BK; e += kThreads) {
-        const bool inside = c0 + e < a.c;
-        __pipeline_memcpy_async(sp_s + st * BK + e, sp + (inside ? c0 + e : 0), 4,
-                                inside ? 0 : 4);
-      }
-      for (int e = tid; e < BK * cpr; e += kThreads) {
-        const int r = e / cpr, ch = e % cpr;
-        const bool inside = c0 + r < a.c;
-        const size_t off = inside ? (size_t)(c0 + r) * D + ch * (16 / sizeof(T)) : 0;
-        // outside the ring nothing is read: the 16 bytes are zero-filled
-        __pipeline_memcpy_async(kd + r * a.row_bytes + ch * 16, kg + off, 16, inside ? 0 : 16);
-        __pipeline_memcpy_async(vd + r * a.row_bytes + ch * 16, vg + off, 16, inside ? 0 : 16);
-      }
-    }
-    __pipeline_commit();
-  };
-
-  load_tile(0, 0);
-
-  for (int i = tid; i < gn * D; i += kThreads) {
-    const int g = i / D, dd = i % D;
-    const size_t qi = ((size_t)b * a.hq + (size_t)h * a.g + g0 + g) * D + dd;
-    const float qv = a.q_bf16 ? __bfloat162float(reinterpret_cast<const bf16*>(a.q)[qi])
-                              : reinterpret_cast<const float*>(a.q)[qi];
-    q_s[g * D + dd] = qv * a.scale * kLog2e;  // scores in the base-2 domain
-  }
-  if (tid < MAXG) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.0f;
-  }
-
-  // P.V: thread (jg, dp) owns head elements 2 dp, 2 dp + 1 of every query
-  // row, over the slots jg, jg + JG, ... of a tile
-  const int DP = D / 2;
-  const int JG = kThreads / DP;
-  const int dp = tid % DP, jg = tid / DP;
-  const bool pv_on = jg < JG;
-  float acc[MAXG][2];
+  if (warp == kWarps) {
+    // producer: lane 0 issues the copies of K and V, every lane copies tags,
+    // those of the next tile loaded while this one waits for its stage
+    int nxt[2] = {0, 0};
+    auto load_tags = [&](int i) {
+      const int c0 = tile_at(i) * BK;
 #pragma unroll
-  for (int g = 0; g < MAXG; ++g) acc[g][0] = acc[g][1] = 0.0f;
-
-  const int vec = 16 / (int)sizeof(T);
-  for (int k = 0; k < k_end; ++k) {
-    const int st = k & 1;
-    // the other stage was last read in tile k - 1, which ended with a barrier
-    load_tile(k + 1, st ^ 1);
-    __pipeline_wait_prior(1);
-    __syncthreads();
-    const T* ks = reinterpret_cast<const T*>(tiles + st * stage_bytes);
-    const T* vs = reinterpret_cast<const T*>(tiles + st * stage_bytes + (size_t)BK * a.row_bytes);
-    const int c0 = tile_at(k) * BK;
-    const int* tags = sp_s + st * BK;
-
-    // scores; a masked slot (or one past the ring) is -inf
-    for (int p = tid; p < gn * BK; p += kThreads) {
-      const int g = p / BK, j = p % BK;
-      const int cc = c0 + j;
-      float s = -INFINITY;
-      if (cc < a.c) {
-        const int spos = tags[j];
-        if (live(spos)) {
-          const T* kr = ks + j * ldk;
-          const float* qr = q_s + g * D;
-          float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll 4
-          for (int dd = 0; dd < D; dd += vec) dot16(kr + dd, qr + dd, a0, a1);
-          s = a0 + a1;
-        }
+      for (int u = 0; u < 2; ++u) {
+        const int e = lane + 32 * u;
+        nxt[u] = e < BK && c0 + e < p.c ? __ldg(sp + c0 + e) : INT_MAX;
       }
-      s_s[g * BK + j] = s;
-    }
-    __syncthreads();
-
-    // online softmax, one warp a query row: scores become probabilities
-    for (int g = warp; g < gn; g += kThreads / 32) {
-      float* row = s_s + g * BK;
-      float mx = -INFINITY;
-      for (int j = lane; j < BK; j += 32) mx = fmaxf(mx, row[j]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.0f;
-      for (int j = lane; j < BK; j += 32) {
-        const float pj = row[j] == -INFINITY ? 0.0f : exp2f(row[j] - m_new);
-        row[j] = pj;
-        sum += pj;
-      }
-      sum = warp_sum(sum);
+    };
+    if (nk > 0) load_tags(0);
+#pragma unroll 1
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % S;
+      const int cur[2] = {nxt[0], nxt[1]};
+      if (i + 1 < nk) load_tags(i + 1);
+      hg::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
+      const int c0 = tile_at(i) * BK;
       if (lane == 0) {
-        // nothing live yet: keep the (zero) carry as it is
-        const float alpha = m_new == -INFINITY ? 1.0f : exp2f(m_old - m_new);
-        al_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    if (pv_on) {
-#pragma unroll
-      for (int g = 0; g < MAXG; ++g) {
-        if (g < gn) {
-          acc[g][0] *= al_s[g];
-          acc[g][1] *= al_s[g];
+        unsigned char* kd = ring + (size_t)s * 2 * tile_bytes;
+        hg::mbar_expect_tx(&full[s], 2 * tile_bytes);
+        for (int blk = 0; blk < nblk; ++blk) {
+          const int e0 = blk * (128 / (int)sizeof(T));
+          hg::tma_load_3d(kd + blk * BK * 128, &p.k_map, &full[s], e0, c0, bh);
+          hg::tma_load_3d(kd + tile_bytes + blk * BK * 128, &p.v_map, &full[s], e0, c0, bh);
         }
       }
-#pragma unroll 4
-      for (int j = jg; j < BK; j += JG) {
-        const float2 v2 = load2(vs + j * ldk + 2 * dp);
+      // a slot past the ring has a tag that is never live
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        if (lane + 32 * u < BK) tags_s[s * BK + lane + 32 * u] = cur[u];
+      hg::mbar_arrive(&full[s]);
+    }
+  } else if constexpr (DM > 0) {
+    // route "mma" (bf16, D = DM): warps 4 t .. 4 t + 3 take the tiles
+    // i = t mod 2, each its 16 slots; with an even number of stages a stage
+    // always serves the same four warps, so that they wait for its phases in
+    // order.  S^T = K Q^T and O^T += V^T P^T on
+    // mma.sync m16n8k16 with the query rows as the 8 columns: K is the A
+    // operand as stored (ldmatrix), V^T the A operand transposed on the way
+    // in (ldmatrix.trans), Q^T the B operand in registers, and P^T (rounded
+    // to bf16) the B operand by an 8 x 8 transpose of the score fragments
+    // (movmatrix).  Rows past gn are zeros and are never stored.
+    constexpr int KS = DM / 16;
+    const int gid = lane >> 2, tig = lane & 3;
+    const int wg = warp >> 2, slot0 = (warp & 3) * 16;
+    uint32_t qf[KS][2];
+    const bf16* qrow = reinterpret_cast<const bf16*>(p.q) +
+                       ((size_t)b * p.hq + (size_t)h * p.g + g0 + gid) * DM;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      qf[kk][0] = gid < gn ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 2 * tig) : 0u;
+      qf[kk][1] = gid < gn ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 + 2 * tig) : 0u;
+    }
+    const float scale = p.scale * kLog2e;
+    float m_run[2] = {-INFINITY, -INFINITY};  // query rows 2 tig, 2 tig + 1
+    float l_run[2] = {0.0f, 0.0f};
+    float o[KS][4];  // O^T: dims 16 mt + gid (+ 8), rows 2 tig (+ 1)
+#pragma unroll
+    for (int mt = 0; mt < KS; ++mt) o[mt][0] = o[mt][1] = o[mt][2] = o[mt][3] = 0.0f;
+    // this lane's ldmatrix rows: matrix lane / 8, row lane % 8 of it
+    const int mi = lane >> 3, mr = lane & 7;
+
+#pragma unroll 1
+    for (int it = wg; it < nk; it += 2) {
+      const int s = it % S;
+      hg::mbar_wait(&full[s], (it / S) & 1);
+      const unsigned char* kt = ring + (size_t)s * 2 * tile_bytes;
+      const unsigned char* vt = kt + tile_bytes;
+      const int c0 = tile_at(it) * BK;
+
+      // S^T (16 slots x 8 rows): c0, c1 slot gid, c2, c3 slot gid + 8
+      float sc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t a[4];
+        ldmatrix_x4<false>(a, piece(kt, BK, slot0 + (mi & 1) * 8 + mr, 2 * kk + (mi >> 1)));
+        mma16816(sc, a, qf[kk][0], qf[kk][1]);
+      }
+      const int* tg = tags_s + s * BK + slot0;
+      const bool ok0 = c0 + slot0 + gid < p.c && live(tg[gid]);
+      const bool ok1 = c0 + slot0 + gid + 8 < p.c && live(tg[gid + 8]);
+      float alpha[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float s0 = ok0 ? sc[e] * scale : -INFINITY;
+        const float s1 = ok1 ? sc[2 + e] * scale : -INFINITY;
+        float mx = fmaxf(s0, s1);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m_run[e], mx);
+        const float p0 = s0 == -INFINITY ? 0.0f : exp2f(s0 - m_new);
+        const float p1 = s1 == -INFINITY ? 0.0f : exp2f(s1 - m_new);
+        float sum = p0 + p1;
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        // nothing live yet: keep the (zero) carry as it is
+        alpha[e] = m_new == -INFINITY ? 1.0f : exp2f(m_run[e] - m_new);
+        l_run[e] = l_run[e] * alpha[e] + sum;
+        m_run[e] = m_new;
+        sc[e] = p0;
+        sc[2 + e] = p1;
+      }
+#pragma unroll
+      for (int mt = 0; mt < KS; ++mt) {
+        o[mt][0] *= alpha[0];
+        o[mt][1] *= alpha[1];
+        o[mt][2] *= alpha[0];
+        o[mt][3] *= alpha[1];
+      }
+      // P^T as the B operand: (row gid, slots 2 tig, 2 tig + 1) and + 8
+      const uint32_t pb0 = transpose8x8(pack_bf16(sc[0], sc[1]));
+      const uint32_t pb1 = transpose8x8(pack_bf16(sc[2], sc[3]));
+#pragma unroll
+      for (int mt = 0; mt < KS; ++mt) {
+        uint32_t a[4];  // V^T: dims 16 mt .. + 15 x the warp's 16 slots
+        ldmatrix_x4<true>(a, piece(vt, BK, slot0 + (mi >> 1) * 8 + mr, 2 * mt + (mi & 1)));
+        mma16816(o[mt], a, pb0, pb1);
+      }
+      __syncwarp();
+      if (lane == 0) hg::mbar_arrive(&empty[s]);  // this warp is done with stage s
+    }
+
+    // the warp's carry into the ring, once every warp is done with it
+    asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kWarps) : "memory");
+    float* pml = reinterpret_cast<float*>(ring);  // [kWarps][MAXG][2]
+    float* pacc = pml + kWarps * MAXG * 2;        // [kWarps][MAXG][D]
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 2 * tig + e;
+      if (r < MAXG) {
+        if (gid == 0) {
+          pml[(warp * MAXG + r) * 2] = m_run[e];
+          pml[(warp * MAXG + r) * 2 + 1] = l_run[e];
+        }
+#pragma unroll
+        for (int mt = 0; mt < KS; ++mt) {
+          pacc[(warp * MAXG + r) * DM + 16 * mt + gid] = o[mt][e];
+          pacc[(warp * MAXG + r) * DM + 16 * mt + gid + 8] = o[mt][2 + e];
+        }
+      }
+    }
+  } else {
+    // consumer warp: slots [warp spw, warp spw + spw) of every tile; lane
+    // (part, j) reads the 16-byte pieces part, part + parts, ... of slot j
+    const int spw = BK / kWarps;      // 16, 8 or 4
+    const int parts = 32 / spw;
+    const int j = lane % spw, part = lane / spw;
+    const int slot = warp * spw + j;
+    const int nch = D * (int)sizeof(T) / 16;
+    float m_run[MAXG], l_run[MAXG], acc[MAXG][NP][2];
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      m_run[g] = -INFINITY;
+      l_run[g] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < NP; ++i) acc[g][i][0] = acc[g][i][1] = 0.0f;
+    }
+    float* pw = p_s + warp * spw * PST;  // this warp's probabilities, a slot a row
+
+#pragma unroll 1
+    for (int it = 0; it < nk; ++it) {
+      const int s = it % S;
+      hg::mbar_wait(&full[s], (it / S) & 1);
+      const unsigned char* kt = ring + (size_t)s * 2 * tile_bytes;
+      const unsigned char* vt = kt + tile_bytes;
+      const int c0 = tile_at(it) * BK;
+
+      // scores of slot `slot` against every query row (entries past MAXG stay 0)
+      float sc[PST];
+#pragma unroll
+      for (int g = 0; g < PST; ++g) sc[g] = 0.0f;
+      for (int ch = part; ch < nch; ch += parts) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            kt + (ch >> 3) * (BK * 128) + slot * 128 + (((ch & 7) ^ (slot & 7)) << 4));
+        float kf[E];
+        if constexpr (sizeof(T) == 2) {
+          const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const float2 f = __bfloat1622float2(k2[x]);
+            kf[2 * x] = f.x;
+            kf[2 * x + 1] = f.y;
+          }
+        } else {
+          kf[0] = __uint_as_float(raw.x);
+          kf[1] = __uint_as_float(raw.y);
+          kf[2] = __uint_as_float(raw.z);
+          kf[3] = __uint_as_float(raw.w);
+        }
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
-          if (g < gn) {
-            const float pj = s_s[g * BK + j];
-            acc[g][0] = fmaf(pj, v2.x, acc[g][0]);
-            acc[g][1] = fmaf(pj, v2.y, acc[g][1]);
+          const float* qr = q_s + g * D + ch * E;
+          float a = sc[g];
+#pragma unroll
+          for (int x = 0; x < E; x += 4) {
+            const float4 q4 = *reinterpret_cast<const float4*>(qr + x);
+            a = fmaf(q4.x, kf[x], a);
+            a = fmaf(q4.y, kf[x + 1], a);
+            a = fmaf(q4.z, kf[x + 2], a);
+            a = fmaf(q4.w, kf[x + 3], a);
+          }
+          sc[g] = a;
+        }
+      }
+      const bool ok = live(tags_s[s * BK + slot]);
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) {
+        for (int o = spw; o < 32; o <<= 1) sc[g] += __shfl_xor_sync(0xffffffffu, sc[g], o);
+        if (!ok) sc[g] = -INFINITY;
+      }
+
+      // online softmax over the warp's slots: lanes of one slot hold the same
+      // scores, so shuffles over the lanes of one part give the warp's max and sum
+#pragma unroll
+      for (int g = 0; g < MAXG; ++g) {
+        float mx = sc[g];
+        for (int o = 1; o < spw; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m_run[g], mx);
+        const float pj = sc[g] == -INFINITY ? 0.0f : exp2f(sc[g] - m_new);
+        float sum = pj;
+        for (int o = 1; o < spw; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        // nothing live yet: keep the (zero) carry as it is
+        const float alpha = m_new == -INFINITY ? 1.0f : exp2f(m_run[g] - m_new);
+        l_run[g] = l_run[g] * alpha + sum;
+        m_run[g] = m_new;
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          acc[g][i][0] *= alpha;
+          acc[g][i][1] *= alpha;
+        }
+        sc[g] = pj;
+      }
+      if (part == 0) {
+#pragma unroll
+        for (int g = 0; g < PST; g += 4)
+          *reinterpret_cast<float4*>(pw + j * PST + g) =
+              make_float4(sc[g], sc[g + 1], sc[g + 2], sc[g + 3]);
+      }
+      __syncwarp();
+
+      // P.V: lane owns element pairs 2 lane + 64 i of every query row
+      for (int jj = 0; jj < spw; ++jj) {
+        const int row = warp * spw + jj;
+        float pr[PST];
+#pragma unroll
+        for (int g = 0; g < PST; g += 4) {
+          const float4 v4 = *reinterpret_cast<const float4*>(pw + jj * PST + g);
+          pr[g] = v4.x;
+          pr[g + 1] = v4.y;
+          pr[g + 2] = v4.z;
+          pr[g + 3] = v4.w;
+        }
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const int e = 2 * lane + 64 * i;
+          if (e < D) {
+            const int byte = e * (int)sizeof(T);
+            const unsigned char* vp = vt + (byte >> 7) * (BK * 128) + row * 128 +
+                                      ((((byte & 127) >> 4) ^ (row & 7)) << 4) + (byte & 15);
+            float2 v2;
+            if constexpr (sizeof(T) == 2)
+              v2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vp));
+            else
+              v2 = *reinterpret_cast<const float2*>(vp);
+#pragma unroll
+            for (int g = 0; g < MAXG; ++g) {
+              acc[g][i][0] = fmaf(pr[g], v2.x, acc[g][i][0]);
+              acc[g][i][1] = fmaf(pr[g], v2.y, acc[g][i][1]);
+            }
           }
         }
       }
+      __syncwarp();
+      if (lane == 0) hg::mbar_arrive(&empty[s]);  // this warp is done with stage s
     }
-    __syncthreads();  // the stage and the scores are free for the next tile
-  }
 
-  // sum the thread groups' partials (in a fixed order) and write the split's
-  // (m, l, acc); the stages are free now
-  float* red = reinterpret_cast<float*>(tiles);
-  if (pv_on) {
+    // the warp's carry into the ring, once every warp is done with it
+    asm volatile("bar.sync 1, %0;\n" ::"n"(32 * kWarps) : "memory");
+    float* pml = reinterpret_cast<float*>(ring);  // [kWarps][MAXG][2]
+    float* pacc = pml + kWarps * MAXG * 2;        // [kWarps][MAXG][D]
+    if (lane == 0) {
 #pragma unroll
-    for (int g = 0; g < MAXG; ++g) {
-      if (g < gn) {
-        red[(jg * MAXG + g) * D + 2 * dp] = acc[g][0];
-        red[(jg * MAXG + g) * D + 2 * dp + 1] = acc[g][1];
+      for (int g = 0; g < MAXG; ++g) {
+        pml[(warp * MAXG + g) * 2] = m_run[g];
+        pml[(warp * MAXG + g) * 2 + 1] = l_run[g];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      const int e = 2 * lane + 64 * i;
+      if (e < D) {
+#pragma unroll
+        for (int g = 0; g < MAXG; ++g)
+          *reinterpret_cast<float2*>(pacc + (warp * MAXG + g) * D + e) =
+              make_float2(acc[g][i][0], acc[g][i][1]);
       }
     }
   }
   __syncthreads();
-  for (int i = tid; i < gn * D; i += kThreads) {
-    const int g = i / D, dd = i % D;
-    float s = 0.0f;
-    for (int r = 0; r < JG; ++r) s += red[(r * MAXG + g) * D + dd];
-    const size_t row = ((size_t)split * a.b + b) * a.hq + (size_t)h * a.g + g0 + g;
-    a.part_acc[row * D + dd] = s;
-    if (dd == 0) {
-      a.part_ml[row * 2] = m_s[g];
-      a.part_ml[row * 2 + 1] = l_s[g];
-    }
-  }
-}
 
-// out[row, :] = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30), w_s = 2^(m_s - M),
-// summed over the splits in order; a split with m_s = -inf weighs 0.
-template <typename TO>
-__global__ void decode_attention_combine_kernel(const float* __restrict__ part_acc,
-                                                const float* __restrict__ part_ml,
-                                                TO* __restrict__ out, int rows, int d,
-                                                int splits) {
-  __shared__ float w[kMaxSplits];
-  const int row = blockIdx.x;
-  float mx = -INFINITY;
-  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, part_ml[((size_t)s * rows + row) * 2]);
-  for (int s = threadIdx.x; s < splits; s += blockDim.x) {
-    const float m = part_ml[((size_t)s * rows + row) * 2];
-    w[s] = m == -INFINITY ? 0.0f : exp2f(m - mx);
+  // The block's carry: the warps' merged in warp order (weights 2^(m - M),
+  // then the sums).  One block a row: that is the output.  A cluster: each
+  // block's carry stays in its ring, and after a cluster barrier every block
+  // merges its share of the outputs over the ranks, in rank order.
+  const float* pml = reinterpret_cast<const float*>(ring);
+  const float* pacc = pml + kWarps * MAXG * 2;
+  float* bml = reinterpret_cast<float*>(ring) + kWarps * MAXG * (D + 2);  // [MAXG][2]
+  float* bacc = bml + MAXG * 2;                                           // [MAXG][D]
+  const int splits = p.splits;
+  if (tid < gn) {
+    const int g = tid;
+    float mmax = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mmax = fmaxf(mmax, pml[(w * MAXG + g) * 2]);
+    float lsum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float m = pml[(w * MAXG + g) * 2];
+      const float x = m == -INFINITY ? 0.0f : exp2f(m - mmax);
+      coef_s[g * kCoef + w] = x;
+      lsum += x * pml[(w * MAXG + g) * 2 + 1];
+    }
+    bml[2 * g] = mmax;
+    bml[2 * g + 1] = lsum;
+    coef_s[g * kCoef + kWarps + kMaxSplits] = 1.0f / fmaxf(lsum, 1e-30f);
   }
   __syncthreads();
-  float l = 0.0f;
-  for (int s = 0; s < splits; ++s) l += w[s] * part_ml[((size_t)s * rows + row) * 2 + 1];
-  l = fmaxf(l, 1e-30f);
-  for (int dd = threadIdx.x; dd < d; dd += blockDim.x) {
-    float o = 0.0f;
-    for (int s = 0; s < splits; ++s) o += w[s] * part_acc[((size_t)s * rows + row) * d + dd];
-    out[(size_t)row * d + dd] = from_f32<TO>(o / l);
+  for (int e = tid; e < gn * D / 2; e += kThreads) {
+    const int g = 2 * e / D, dd = 2 * e % D;
+    const float* cf = coef_s + g * kCoef;
+    float2 o = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float2 v = *reinterpret_cast<const float2*>(pacc + (w * MAXG + g) * D + dd);
+      o.x += cf[w] * v.x;
+      o.y += cf[w] * v.y;
+    }
+    if (cluster) {
+      *reinterpret_cast<float2*>(bacc + g * D + dd) = o;
+    } else {
+      const float iv = cf[kWarps + kMaxSplits];
+      const size_t oi = ((size_t)b * p.hq + (size_t)h * p.g + g0 + g) * D + dd;
+      if (p.q_bf16)
+        *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(p.out) + oi) =
+            __floats2bfloat162_rn(o.x * iv, o.y * iv);
+      else
+        *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.out) + oi) =
+            make_float2(o.x * iv, o.y * iv);
+    }
   }
+  if (!cluster) return;
+
+  hg::cluster_sync();  // every block's carry is in its shared memory
+  // every row's weight of each rank and 1 / l, the ranks' (m, l) loaded at once
+  if (tid < gn) {
+    const int g = tid;
+    float2 v[kMaxSplits];
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q)
+      if (q < splits)
+        v[q] = *reinterpret_cast<const float2*>(hg::cluster_ptr(bml + 2 * g, q, true));
+    float mmax = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q)
+      if (q < splits) mmax = fmaxf(mmax, v[q].x);
+    float lsum = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q)
+      if (q < splits) {
+        const float x = v[q].x == -INFINITY ? 0.0f : exp2f(v[q].x - mmax);
+        coef_s[g * kCoef + kWarps + q] = x;
+        lsum += x * v[q].y;
+      }
+    coef_s[g * kCoef + kWarps + kMaxSplits] = 1.0f / fmaxf(lsum, 1e-30f);
+  }
+  __syncthreads();
+  // this block's share of the gn x D outputs, two a thread
+  const int pairs = gn * D / 2;
+  const int share = (pairs + splits - 1) / splits;
+  const int e_end = min(pairs, (split + 1) * share);
+  for (int e = split * share + tid; e < e_end; e += kThreads) {
+    const int g = 2 * e / D, dd = 2 * e % D;
+    const float* cf = coef_s + g * kCoef + kWarps;
+    float2 v[kMaxSplits];
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q)
+      if (q < splits)
+        v[q] = *reinterpret_cast<const float2*>(hg::cluster_ptr(bacc + g * D + dd, q, true));
+    float2 o = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int q = 0; q < kMaxSplits; ++q)
+      if (q < splits) {
+        o.x += cf[q] * v[q].x;
+        o.y += cf[q] * v[q].y;
+      }
+    const float iv = cf[kMaxSplits];
+    const size_t oi = ((size_t)b * p.hq + (size_t)h * p.g + g0 + g) * D + dd;
+    if (p.q_bf16)
+      *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(p.out) + oi) =
+          __floats2bfloat162_rn(o.x * iv, o.y * iv);
+    else
+      *reinterpret_cast<float2*>(reinterpret_cast<float*>(p.out) + oi) =
+          make_float2(o.x * iv, o.y * iv);
+  }
+  hg::cluster_sync();  // no block leaves while another reads its shared memory
 }
 
-int maxg_for(int g) {
-  const int c = g < kMaxGroup ? g : kMaxGroup;
-  return c <= 1 ? 1 : c <= 2 ? 2 : c <= 4 ? 4 : c <= 8 ? 8 : 16;
-}
-
-// Sets the split kernel's shared-memory attributes on the current device: the
-// dynamic shared memory it may ask for, as much as a block may opt in to (so
-// that one setting serves every head dim and tile depth, and launches need
-// not set it again), and the largest carveout, so that as many blocks as fit
-// share an SM.  Then gives how many blocks of the (d, bk) tiling an SM holds.
-template <typename T, int MAXG>
-int prepare(int d, int bk, int* blocks_per_sm) {
-  auto kernel = decode_attention_split_kernel<T, MAXG>;
+// Sets the kernel's shared-memory attributes on the current device: as much
+// dynamic shared memory as a block may opt in to, the largest carveout.
+template <typename T, int MAXG, int NP, int DM>
+int prepare() {
+  auto kernel = decode_attention_kernel<T, MAXG, NP, DM>;
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
   cudaError_t err = cudaGetDevice(&dev);
@@ -437,106 +728,145 @@ int prepare(int d, int bk, int* blocks_per_sm) {
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, kernel, kThreads, smem_bytes(MAXG, d, bk, (int)sizeof(T)));
   return (int)err;
 }
 
-template <typename T>
-int prepare_t(int g, int d, int bk, int* blocks_per_sm) {
-  switch (maxg_for(g)) {
-    case 1: return prepare<T, 1>(d, bk, blocks_per_sm);
-    case 2: return prepare<T, 2>(d, bk, blocks_per_sm);
-    case 4: return prepare<T, 4>(d, bk, blocks_per_sm);
-    case 8: return prepare<T, 8>(d, bk, blocks_per_sm);
-    default: return prepare<T, 16>(d, bk, blocks_per_sm);
+template <typename T, int MAXG, int NP, int DM>
+int launch(const Params& p, cudaStream_t stream) {
+  const int gchunks = (p.g + kMaxGroup - 1) / kMaxGroup;
+  const dim3 grid(p.splits, p.hkv, p.b * gchunks);
+  const size_t smem = smem_bytes(MAXG, p.d, p.bk, p.stages, (int)sizeof(T));
+  if (p.splits == 1) {
+    decode_attention_kernel<T, MAXG, NP, DM><<<grid, kThreads, smem, stream>>>(p);
+    return (int)cudaGetLastError();
   }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, decode_attention_kernel<T, MAXG, NP, DM>, p);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <typename T, int MAXG>
-int launch_split(const Args& a, int splits, cudaStream_t stream) {
-  const int gchunks = (a.g + kMaxGroup - 1) / kMaxGroup;
-  dim3 grid(splits, a.hkv, a.b * gchunks);
-  decode_attention_split_kernel<T, MAXG>
-      <<<grid, kThreads, smem_bytes(MAXG, a.d, a.bk, (int)sizeof(T)), stream>>>(a);
-  return (int)cudaGetLastError();
+// The kernel instance of (T, query rows g, head dim d): MAXG rows (1, 4, 5 or
+// 8) and NP element pairs a lane (1, 2 or 4).
+int maxg_for(int g) {
+  const int c = g < kMaxGroup ? g : kMaxGroup;
+  return c <= 1 ? 1 : c <= 4 ? 4 : c == 5 ? 5 : 8;
+}
+
+#define DECODE_INSTANCE(F, T, g, d, ...)                                   \
+  do {                                                                     \
+    const int np_ = (d) <= 64 ? 1 : (d) <= 128 ? 2 : 4;                    \
+    switch (maxg_for(g) * 8 + np_) {                                       \
+      case 9: return F<T, 1, 1, 0>(__VA_ARGS__);                           \
+      case 10: return F<T, 1, 2, 0>(__VA_ARGS__);                          \
+      case 12: return F<T, 1, 4, 0>(__VA_ARGS__);                          \
+      case 33: return F<T, 4, 1, 0>(__VA_ARGS__);                          \
+      case 34: return F<T, 4, 2, 0>(__VA_ARGS__);                          \
+      case 36: return F<T, 4, 4, 0>(__VA_ARGS__);                          \
+      case 41: return F<T, 5, 1, 0>(__VA_ARGS__);                          \
+      case 42: return F<T, 5, 2, 0>(__VA_ARGS__);                          \
+      case 44: return F<T, 5, 4, 0>(__VA_ARGS__);                          \
+      case 65: return F<T, 8, 1, 0>(__VA_ARGS__);                          \
+      case 66: return F<T, 8, 2, 0>(__VA_ARGS__);                          \
+      default: return F<T, 8, 4, 0>(__VA_ARGS__);                          \
+    }                                                                      \
+  } while (0)
+
+// Route "mma" (bf16 q and cache): eight query rows a block, D one of 16, 32,
+// 64, 80, 96, 128, 256.
+#define DECODE_MMA_INSTANCE(F, d, ...)                                     \
+  do {                                                                     \
+    switch (d) {                                                           \
+      case 16: return F<bf16, 8, 1, 16>(__VA_ARGS__);                      \
+      case 32: return F<bf16, 8, 1, 32>(__VA_ARGS__);                      \
+      case 64: return F<bf16, 8, 1, 64>(__VA_ARGS__);                      \
+      case 80: return F<bf16, 8, 1, 80>(__VA_ARGS__);                      \
+      case 96: return F<bf16, 8, 1, 96>(__VA_ARGS__);                      \
+      case 128: return F<bf16, 8, 1, 128>(__VA_ARGS__);                    \
+      case 256: return F<bf16, 8, 1, 256>(__VA_ARGS__);                    \
+      default: return -1;                                                  \
+    }                                                                      \
+  } while (0)
+
+template <typename T>
+int prepare_t(int g, int d) {
+  DECODE_INSTANCE(prepare, T, g, d);
 }
 
 template <typename T>
-int launch_split_t(const Args& a, int splits, cudaStream_t stream) {
-  switch (maxg_for(a.g)) {
-    case 1: return launch_split<T, 1>(a, splits, stream);
-    case 2: return launch_split<T, 2>(a, splits, stream);
-    case 4: return launch_split<T, 4>(a, splits, stream);
-    case 8: return launch_split<T, 8>(a, splits, stream);
-    default: return launch_split<T, 16>(a, splits, stream);
-  }
+int launch_t(const Params& p, cudaStream_t stream) {
+  DECODE_INSTANCE(launch, T, p.g, p.d, p, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tile depth BK for (kv dtype 0 fp32 / 1 bf16, head dim d, group size g): the
-// deepest of 64, 32, 16 whose shared memory lets two blocks share an SM, else
-// 16; and how many blocks of that tiling an SM holds at once (occupancy on
-// the current device), from which the wrapper sizes the splits.  It also sets
-// the kernel's shared-memory attributes on the current device, which
-// decode_attention_launch needs: call it once for each device, cache type and
-// group size before launching.  Returns 0, a CUDA error, or -1 if d is not a
-// multiple of 8 in (0, 256].
-int decode_attention_tile(int kv_dtype, int d, int g, int* bk, int* blocks_per_sm) {
-  if (d <= 0 || d > 256 || d % 8 != 0 || g < 1) return -1;
-  const int elem = kv_dtype == 1 ? 2 : 4;
-  const int maxg = maxg_for(g);
-  *bk = 16;
-  for (int cand = 64; cand >= 16; cand /= 2) {
-    if (smem_bytes(maxg, d, cand, elem) <= 113 * 1024) {
-      *bk = cand;
-      break;
-    }
+// Sets the shared-memory attributes on the current device of the kernel
+// instance of (route 1 "mma" / 0 "fma", kv dtype 0 fp32 / 1 bf16, head dim d,
+// group size g) with the tiling of bk slots a tile and `stages`
+// (kernels/decode_attention/kernel.py plans them), which
+// decode_attention_launch needs.  Call it once for each device, route, cache
+// type, head dim and group size before launching.  Returns 0, a CUDA error,
+// or -1 for arguments it does not take.
+int decode_attention_prepare(int route, int kv_dtype, int d, int g, int bk, int stages) {
+  if (d <= 0 || d > 256 || d % 8 != 0 || g < 1 || (bk != 16 && bk != 32 && bk != 64) ||
+      stages < kMinStages || stages > kMaxStages)
+    return -1;
+  if (route == 1) {
+    if (kv_dtype != 1 || bk != 64 || stages % 2 != 0) return -1;
+    DECODE_MMA_INSTANCE(prepare, d);
   }
-  return kv_dtype == 1 ? prepare_t<bf16>(g, d, *bk, blocks_per_sm)
-                       : prepare_t<float>(g, d, *bk, blocks_per_sm);
+  return kv_dtype == 1 ? prepare_t<bf16>(g, d) : prepare_t<float>(g, d);
 }
 
-// Launches the split kernel and the combine on `stream`; returns
+// Launches the kernel on `stream`, one launch, no scratch; returns
 // cudaGetLastError() (0 = launched), or -1 for arguments it does not take.
-// part_acc holds splits * b * hq * d floats, part_ml splits * b * hq * 2.
 // slot_pos is (C,) (sp_stride 0) or (B, C) (sp_stride c); q_pos is null (one
 // position q_pos_value), or (B,) (qp_stride 1), or one value (qp_stride 0).
-// q and out are fp32 (q_dtype 0) or bf16 (1), the caches fp32 or bf16
-// (kv_dtype).  All tensors are contiguous.
+// Route 1 "mma": q and the caches bf16, bk 64, D one of 16, 32, 64, 80, 96,
+// 128, 256; route 0 "fma": q and out fp32 (q_dtype 0) or bf16 (1), the caches
+// fp32 or bf16 (kv_dtype), D a multiple of 8 up to 256; with a tiling
+// decode_attention_prepare was called for.  All tensors are contiguous, the
+// caches 16-byte aligned; `splits` (1 to 8) blocks of a cluster share each
+// row's live tiles (a ring of more than 1024 tiles: tiles_per_split tiles
+// each).
 int decode_attention_launch(const void* q, const void* k, const void* v, const int* slot_pos,
-                            const int* q_pos, void* part_acc, void* part_ml, void* out, int b,
-                            int hq, int hkv, int c, int d, int sp_stride, int qp_stride,
-                            int q_pos_value, int window, float scale, int q_dtype,
-                            int kv_dtype, int bk, int tiles_per_split, int splits,
-                            void* stream) {
+                            const int* q_pos, void* out, int b, int hq, int hkv, int c, int d,
+                            int sp_stride, int qp_stride, int q_pos_value, int window, float scale,
+                            int q_dtype, int kv_dtype, int route, int bk, int stages,
+                            int tiles_per_split, int splits, void* stream) {
   if (hkv < 1 || hq % hkv != 0 || d <= 0 || d > 256 || d % 8 != 0 || splits < 1 ||
-      splits > kMaxSplits || b < 1 || c < 1 || bk < 16 || bk % 16 != 0)
+      splits > kMaxSplits || b < 1 || c < 1 || (bk != 16 && bk != 32 && bk != 64) ||
+      stages < kMinStages || stages > kMaxStages || tiles_per_split < 1)
     return -1;
-  Args a;
-  a.q = q; a.k = k; a.v = v; a.slot_pos = slot_pos; a.q_pos = q_pos;
-  a.part_acc = (float*)part_acc; a.part_ml = (float*)part_ml;
-  a.b = b; a.hq = hq; a.hkv = hkv; a.c = c; a.d = d; a.g = hq / hkv;
-  a.sp_stride = sp_stride; a.qp_stride = qp_stride; a.q_pos_value = q_pos_value;
-  a.window = window; a.scale = scale; a.q_bf16 = q_dtype == 1;
-  a.bk = bk; a.tiles_per_split = tiles_per_split;
-  a.row_bytes = row_bytes_for(d, kv_dtype == 1 ? 2 : 4);
+  if (route == 1 && (q_dtype != 1 || kv_dtype != 1 || bk != 64 || stages % 2 != 0)) return -1;
+  const int elem = kv_dtype == 1 ? 2 : 4;
+  const int maxg = route == 1 ? kMaxGroup : maxg_for(hq / hkv);
+  if (partial_bytes(maxg, d) > (size_t)stages * 2 * bk * row_bytes_for(d, elem)) return -1;
+  Params p;
+  const long long bh = (long long)b * hkv;
+  if (hg::tensor_map_3d(&p.k_map, k, elem, d, c, bh, bk) != 0 ||
+      hg::tensor_map_3d(&p.v_map, v, elem, d, c, bh, bk) != 0)
+    return -1;
+  p.q = q; p.slot_pos = slot_pos; p.q_pos = q_pos; p.out = out;
+  p.b = b; p.hq = hq; p.hkv = hkv; p.c = c; p.d = d; p.g = hq / hkv;
+  p.sp_stride = sp_stride; p.qp_stride = qp_stride; p.q_pos_value = q_pos_value;
+  p.window = window; p.scale = scale; p.q_bf16 = q_dtype == 1;
+  p.bk = bk; p.stages = stages; p.tiles_per_split = tiles_per_split; p.splits = splits;
   cudaStream_t s = (cudaStream_t)stream;
-  int err = kv_dtype == 1 ? launch_split_t<bf16>(a, splits, s) : launch_split_t<float>(a, splits, s);
-  if (err != 0) return err;
-  const int rows = b * hq;
-  const int threads = d < 128 ? d : 128;
-  if (q_dtype == 1)
-    decode_attention_combine_kernel<bf16><<<rows, threads, 0, s>>>(
-        (const float*)part_acc, (const float*)part_ml, (bf16*)out, rows, d, splits);
-  else
-    decode_attention_combine_kernel<float><<<rows, threads, 0, s>>>(
-        (const float*)part_acc, (const float*)part_ml, (float*)out, rows, d, splits);
-  return (int)cudaGetLastError();
+  if (route == 1) DECODE_MMA_INSTANCE(launch, d, p, s);
+  return kv_dtype == 1 ? launch_t<bf16>(p, s) : launch_t<float>(p, s);
 }
 
 }  // extern "C"

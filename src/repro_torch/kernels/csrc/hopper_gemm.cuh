@@ -2,7 +2,9 @@
 // fused_mlp.cu: TMA loads into a ring of shared-memory stages under
 // mbarriers, one producer warp, one or two consumer warpgroups on wgmma, and
 // an epilogue chosen at run time (a bf16 store, an activation, a gated
-// product, or fp32 partial sums of a split of K).
+// product, or fp32 partial sums of a split of K).  flash_attention.cu and
+// decode_attention.cu take its PTX wrappers (mbarriers, TMA, wgmma, the
+// swizzle descriptors, cluster loads and barriers) and its tensor maps.
 //
 //   out (m, n) = epilogue( a (m, K) @ b_j (K, n) ),  j < NB (1, or 2 for a
 //   gate and an up product that share the a tile)
@@ -185,6 +187,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The box of a 3D `map` at (c0 inner, c1, c2 outer) into shared memory at dst;
+// its bytes complete on `bar`.  Elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -393,6 +406,18 @@ __device__ __forceinline__ float ld_cluster(const float* local, uint32_t rank) {
                : "r"(smem_u32(local)), "r"(rank));
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
   return v;
+}
+
+// The generic address of `local`'s counterpart in the shared memory of block
+// `rank` of the cluster, or `local` itself outside a cluster.  Plain loads
+// through it reach the other block's shared memory and, unlike ld_cluster,
+// may be issued together.
+template <typename T>
+__device__ __forceinline__ const T* cluster_ptr(const T* local, int rank, bool cluster) {
+  if (!cluster) return local;
+  uint64_t out;
+  asm("mapa.u64 %0, %1, %2;\n" : "=l"(out) : "l"(reinterpret_cast<uint64_t>(local)), "r"(rank));
+  return reinterpret_cast<const T*>(out);
 }
 
 // Every thread of every block of the cluster: what each wrote to its shared
@@ -627,6 +652,44 @@ inline int tensor_map(CUtensorMap* out, const void* ptr, long long inner, long l
   CUtensorMap map;
   if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides,
              box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return -1;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, map);
+  *out = map;
+  return 0;
+}
+
+// The tensor map of a contiguous (outer, mid, inner) tensor of elements of
+// elem bytes (2: bf16, 4: fp32) read in boxes of 128 bytes x box_mid x 1
+// with the 128-byte swizzle (the attention kernels' K and V tiles: inner the
+// head dim, mid the keys, outer batch x heads); from the cache when this
+// (pointer, shape, box) was seen before.  Returns 0, or -1 if the encoding
+// was refused.
+inline int tensor_map_3d(CUtensorMap* out, const void* ptr, int elem, long long inner,
+                         long long mid, long long outer, int box_mid) {
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
+  static std::mutex mu;
+  const MapKey key{ptr, (unsigned long long)inner, (unsigned long long)mid,
+                   (unsigned long long)outer, (unsigned)elem, (unsigned)box_mid};
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = cache.find(key);
+  if (it != cache.end()) {
+    *out = it->second;
+    return 0;
+  }
+  EncodeTiledFn encode = encode_fn();
+  if (encode == nullptr || (elem != 2 && elem != 4)) return -1;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)mid, (cuuint64_t)outer};
+  const cuuint64_t strides[2] = {(cuuint64_t)(inner * elem), (cuuint64_t)(inner * mid * elem)};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_mid, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  CUtensorMap map;
+  if (encode(&map,
+             elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+             const_cast<void*>(ptr), dims, strides, box, elem_strides,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return -1;

@@ -3,32 +3,103 @@
 Counterpart of ``src/repro/kernels/decode_attention/kernel.py``
 (``decode_attention``).  The CUDA source says what the kernel computes and
 how it is cut for the card.  This wrapper checks device, types, shapes,
-contiguity and the head ratio, picks the tile depth and the splits of the
-cache, allocates the output and the fp32 per-split scratch with
-``torch.empty``, launches on PyTorch's current stream without
-synchronising, and raises if the launch is refused.  It never gives way to
-the plain version: a tensor that is not on a CUDA device is an error here
-(``ops.decode_attn`` routes CPU tensors to ``ref.decode_attention_ref``).
+contiguity and the head ratio, picks the tile depth, the ring's stages and
+the splits of the cache (``plan_splits``: blocks of one cluster, at most
+``chip/h100.MAX_SPLITS``), allocates the output with ``torch.empty`` (and
+nothing else: the splits are combined inside the one launch), launches on
+PyTorch's current stream without synchronising, and raises if the launch is
+refused.  It never gives way to the plain version: a tensor that is not on
+a CUDA device is an error here (``ops.decode_attn`` routes CPU tensors to
+``ref.decode_attention_ref``).
 
 ``decode_attention_kernel.launches`` counts the launches, one per call that
-reaches the card, so that a run can show it went through the kernel.
+reaches the card, and ``decode_attention_kernel.by_route`` the same calls by
+route ("mma": bf16, the products on mma.sync; "fma": FMA loops), so that a
+run can show which kernels it went through.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Union
 
 import torch
 
+from repro_torch.chip.h100 import MAX_SPLITS, SMS
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SPLITS = 128    # the combine kernel's limit
-_MAX_GROUP = 16      # query rows one block holds
-# (device index, kv dtype, head dim, group) -> (tile depth, blocks the card
-# holds at once)
-_TILINGS: dict = {}
+ROUTES = ("mma", "fma")
+_ROUTE_IDS = {"fma": 0, "mma": 1}
+MMA_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)   # head dims of route "mma"
+# kWarps, kMaxGroup, kMaxSplits, kMinStages, kMaxStages, kMaxListed, kCoef
+# of the source: eight consumer warps (and one producer warp) a block, up to
+# 8 query rows a block, a ring of 2 to 4 stages of TILE_SLOTS slots
+WARPS = 8
+THREADS = 32 * (WARPS + 1)
+MAX_GROUP = 8
+MIN_STAGES, MAX_STAGES = 2, 4  # route "fma" plans 3 or 4, "mma" 2 or 4
+MAX_LISTED = 1024
+COEF = WARPS + MAX_SPLITS + 2
+TILE_SLOTS = (64, 32, 16)      # tile depths, the deepest that fits first
+BLOCKS_PER_SM = 2              # the tiling is sized for two blocks an SM
+SM_BYTES = 233_472             # shared memory of an SM
+BLOCK_RESERVE = 1024           # of it the system keeps for each block
+_PREPARED: set = set()    # (device index, route, kv dtype, head dim, group)
+
+
+def maxg_for(g: int) -> int:
+    """Query rows a block's kernel instance holds for a group of ``g``."""
+    c = min(g, MAX_GROUP)
+    return 1 if c <= 1 else 4 if c <= 4 else 5 if c == 5 else 8
+
+
+def smem_bytes(maxg: int, d: int, bk: int, stages: int, elem: int) -> int:
+    """Shared memory of a block (``smem_bytes`` of the source): the ring
+    of K and V tiles, rows padded to 128-byte blocks, and the rest."""
+    row = -(-d * elem // 128) * 128
+    rest = 4 * (maxg * d + bk * (-(-maxg // 4) * 4) + stages * bk
+                + MAX_LISTED + maxg * COEF + 4) + 2 * stages * 8
+    return 1024 + stages * 2 * bk * row + rest
+
+
+def route_of(q: torch.Tensor, k_cache: torch.Tensor) -> str:
+    """The route a call with this query and cache takes: "mma" (bf16 query
+    and cache, head dim in MMA_HEAD_DIMS: mma.sync products, eight query
+    rows a block), "fma" (the rest: FMA products)."""
+    if (q.dtype == torch.bfloat16 and k_cache.dtype == torch.bfloat16
+            and q.shape[-1] in MMA_HEAD_DIMS):
+        return "mma"
+    return "fma"
+
+
+@functools.lru_cache(maxsize=None)
+def tiling(g: int, d: int, elem: int, route: str = "fma") -> tuple[int, int]:
+    """(tile depth, stages).  Route "fma": the deepest tile whose ring of
+    three stages lets BLOCKS_PER_SM blocks share an SM, then as many stages,
+    up to MAX_STAGES, as fit beside it.  Route "mma": tiles of 64 slots
+    (four warps of 16) and eight query rows; its two groups of four warps
+    take alternate tiles, so the stages come in pairs, one group's each; as
+    many as fit with BLOCKS_PER_SM blocks an SM, else with one."""
+    if route == "mma":
+        for budget in (SM_BYTES // BLOCKS_PER_SM - BLOCK_RESERVE,
+                       SM_BYTES - BLOCK_RESERVE):
+            for stages in range(MAX_STAGES, MIN_STAGES - 1, -2):
+                if smem_bytes(MAX_GROUP, d, TILE_SLOTS[0], stages,
+                              elem) <= budget:
+                    return TILE_SLOTS[0], stages
+        raise ValueError(f"no tiling of route mma at head dim {d}")
+    budget = SM_BYTES // BLOCKS_PER_SM - BLOCK_RESERVE
+    maxg = maxg_for(g)
+    bk = next((t for t in TILE_SLOTS
+               if smem_bytes(maxg, d, t, MIN_STAGES + 1, elem) <= budget),
+              TILE_SLOTS[-1])
+    stages = MIN_STAGES + 1
+    while stages < MAX_STAGES and smem_bytes(maxg, d, bk, stages + 1,
+                                             elem) <= budget:
+        stages += 1
+    return bk, stages
 
 
 def _lib() -> ctypes.CDLL:
@@ -36,44 +107,65 @@ def _lib() -> ctypes.CDLL:
     if lib.decode_attention_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_launch.argtypes = (
-            [ptr] * 8 + [i32] * 9 + [ctypes.c_float] + [i32] * 5 + [ptr])
+            [ptr] * 6 + [i32] * 9 + [ctypes.c_float] + [i32] * 7 + [ptr])
         lib.decode_attention_launch.restype = i32
-        lib.decode_attention_tile.argtypes = [i32, i32, i32,
-                                              ctypes.POINTER(i32),
-                                              ctypes.POINTER(i32)]
-        lib.decode_attention_tile.restype = i32
+        lib.decode_attention_prepare.argtypes = [i32] * 6
+        lib.decode_attention_prepare.restype = i32
     return lib
 
 
-def plan_splits(rows: int, c: int, bk: int, slots: int) -> tuple[int, int]:
+def plan_splits(rows: int, c: int, bk: int, sms: int = SMS
+                ) -> tuple[int, int]:
     """(tiles_per_split, splits): how the ``ceil(c / bk)`` tiles of the
     cache are shared out among the blocks of ``rows`` (batch x kv heads x
-    query-row chunks).  ``slots`` is how many blocks the card holds at once
-    (SMs x blocks an SM): the splits fill them in one wave, and every split
-    keeps at least one tile."""
+    query-row chunks).  The splits of a row run as one cluster and give the
+    ``sms`` SMs a block each as far as MAX_SPLITS (the blocks of one
+    cluster) allows, never more blocks than SMs unless the rows alone are
+    more: a second block on an SM, or a bigger cluster, costs more in its
+    prologue and in the merge than it saves (PERF.md), and every
+    split keeps at least one tile of the ring.  The kernel divides a row's
+    live tiles among the ``splits`` evenly; ``tiles_per_split`` is each
+    split's range of a ring too long to list.  From the shapes and the card
+    alone, so the same inputs are summed in the same order on every run."""
     tiles = -(-c // bk)
-    want = max(1, min(tiles, _MAX_SPLITS, slots // rows))
+    want = max(1, min(tiles, MAX_SPLITS, sms // rows))
     per_split = -(-tiles // want)
     return per_split, -(-tiles // per_split)
 
 
-def _tiling(lib: ctypes.CDLL, device: torch.device, kv_dtype: int, d: int,
-            g: int) -> tuple[int, int]:
-    """(tile depth, blocks the card holds at once) for this cache type, head
-    dim and group on ``device``.  Asked of the library once a key, which
-    also sets the kernel's shared-memory attributes on that device."""
-    key = (device.index, kv_dtype, d, g)
-    if key not in _TILINGS:
-        bk, per_sm = ctypes.c_int(), ctypes.c_int()
+def _prepare(lib: ctypes.CDLL, device: torch.device, route: str,
+             kv_dtype: int, d: int, g: int, bk: int, stages: int) -> None:
+    """Set the kernel instance's shared-memory attributes on ``device``,
+    once a key."""
+    key = (device.index, route, kv_dtype, d, g)
+    if key not in _PREPARED:
         with torch.cuda.device(device):
-            err = lib.decode_attention_tile(kv_dtype, d, g, ctypes.byref(bk),
-                                            ctypes.byref(per_sm))
+            err = lib.decode_attention_prepare(_ROUTE_IDS[route], kv_dtype, d,
+                                               g, bk, stages)
         if err:
             raise RuntimeError(f"no tiling for D={d}, G={g}, kv dtype "
-                               f"{kv_dtype} (error {err})")
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        _TILINGS[key] = (bk.value, sms * per_sm.value)
-    return _TILINGS[key]
+                               f"{kv_dtype}, route {route}, bk {bk}, stages "
+                               f"{stages} (error {err})")
+        _PREPARED.add(key)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(q: torch.Tensor, k_cache: torch.Tensor) -> dict:
+    """The launch plan of a call with this query and cache on its device:
+    ``route``, tile depth ``bk``, ``stages``, ``splits``,
+    ``tiles_per_split`` and the ``blocks`` launched."""
+    b, hkv, c, d = k_cache.shape
+    g = q.shape[1] // hkv
+    route = route_of(q, k_cache)
+    bk, stages = tiling(g, d, k_cache.element_size(), route)
+    rows = b * hkv * -(-g // MAX_GROUP)
+    per_split, splits = plan_splits(rows, c, bk, _sms(k_cache.device.index))
+    return {"route": route, "bk": bk, "stages": stages, "splits": splits,
+            "tiles_per_split": per_split, "blocks": rows * splits}
 
 
 def _positions(slot_pos: torch.Tensor, q_pos, b: int, c: int, device
@@ -110,9 +202,12 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, slot_pos: torch.Tensor,
                             q_pos: Union[int, torch.Tensor], *,
                             window: int = 0,
-                            scale: Optional[float] = None) -> torch.Tensor:
+                            scale: Optional[float] = None,
+                            splits: Optional[int] = None,
+                            route: Optional[str] = None) -> torch.Tensor:
     """Attention of one query token a row against the ring cache, on the
-    card.
+    card.  ``splits`` (1 to MAX_SPLITS) and ``route`` override
+    ``plan_splits`` and ``route_of``.
 
     ``q``: (B, Hq, D); ``k_cache``/``v_cache``: (B, Hkv, C, D), one type;
     ``q`` fp32 or bf16, the caches fp32 or bf16, all contiguous on one CUDA
@@ -161,29 +256,43 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     lib = _lib()
     kv_dtype = _DTYPES[k_cache.dtype]
     g = hq // hkv
-    bk, slots = _tiling(lib, q.device, kv_dtype, d, g)
-    rows = b * hkv * -(-g // _MAX_GROUP)
-    per_split, splits = plan_splits(rows, c, bk, slots)
+    if route is None:
+        route = route_of(q, k_cache)
+    elif route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; known: {ROUTES}")
+    if route == "mma" and route_of(q, k_cache) != "mma":
+        raise ValueError(f"route mma takes a bf16 query and cache at head "
+                         f"dims {MMA_HEAD_DIMS}")
+    bk, stages = tiling(g, d, k_cache.element_size(), route)
+    _prepare(lib, q.device, route, kv_dtype, d, g, bk, stages)
+    rows = b * hkv * -(-g // MAX_GROUP)
+    if splits is None:
+        per_split, splits = plan_splits(rows, c, bk, _sms(q.device.index))
+    elif 1 <= splits <= MAX_SPLITS:
+        per_split = -(-(-(-c // bk)) // splits)
+        splits = -(-(-(-c // bk)) // per_split)
+    else:
+        raise ValueError(f"splits {splits}: 1 to {MAX_SPLITS}")
 
     with torch.cuda.device(q.device):
         out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
-        # per-split acc (splits, B, Hq, D), then (m, l) (splits, B, Hq, 2)
-        scratch = torch.empty(splits * b * hq * (d + 2), dtype=torch.float32,
-                              device=q.device)
-        part_acc = scratch.data_ptr()
         err = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             slot_pos.data_ptr(), None if qp_t is None else qp_t.data_ptr(),
-            part_acc, part_acc + splits * b * hq * d * 4, out.data_ptr(),
-            b, hq, hkv, c, d, sp_stride, qp_stride, qp_value, int(window),
-            scale, _DTYPES[q.dtype], kv_dtype, bk, per_split, splits,
+            out.data_ptr(), b, hq, hkv, c, d, sp_stride, qp_stride, qp_value,
+            int(window), scale, _DTYPES[q.dtype], kv_dtype, _ROUTE_IDS[route],
+            bk, stages, per_split, splits,
             torch.cuda.current_stream().cuda_stream)
     decode_attention_kernel.launches += 1
+    decode_attention_kernel.by_route[route] += 1
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err} "
                            f"(B={b}, Hq={hq}, Hkv={hkv}, C={c}, D={d}, "
-                           f"{k_cache.dtype}, bk {bk}, splits {splits})")
+                           f"{k_cache.dtype}, route {route}, bk {bk}, "
+                           f"stages {stages}, "
+                           f"splits {splits})")
     return out
 
 
 decode_attention_kernel.launches = 0
+decode_attention_kernel.by_route = dict.fromkeys(ROUTES, 0)

@@ -3,37 +3,82 @@
 Counterpart of ``src/repro/kernels/flash_attention/kernel.py``
 (``flash_attention``).  The CUDA source says what the kernel computes and
 how it is cut for the card.  This wrapper checks device, types, shapes,
-contiguity, alignment and the head ratio, allocates the output with
-``torch.empty``, launches on PyTorch's current stream without
-synchronising, and raises if the launch is refused.  It never gives way to
-the plain version: a tensor that is not on a CUDA device is an error here
-(``ops.flash_attn`` / ``ops.flash_attn_pos`` route CPU tensors to
-``ref.mha_ref`` / ``ref.mha_pos_ref``).
+strides, alignment and the head ratio, decides the route before the launch
+(``route_of``: "wgmma" for bf16 with head dim 64, 128 or 256, "mma_sync" for
+the other bf16 head dims, "fma" for an fp32 query) and, on "wgmma", the
+split of the KV loop over a cluster (``plan_splits``, from the shapes and
+the card alone), allocates the output in (B, Sq, Hq, D) storage with
+``torch.empty`` and returns it as the (B, Hq, Sq, D) view, launches on
+PyTorch's current stream without synchronising, and raises if the launch is
+refused.  It never gives way to another route or to the plain version: a
+tensor that is not on a CUDA device is an error here (``ops.flash_attn`` /
+``ops.flash_attn_pos`` route CPU tensors to ``ref.mha_ref`` /
+``ref.mha_pos_ref``).
 
 ``flash_attention_kernel.launches`` counts the launches, one per call that
-reaches the card, so that a run can show it went through the kernel.
+reaches the card, and ``flash_attention_kernel.by_route`` the same calls by
+route, so that a run can show which kernels it went through.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
+from repro_torch.chip.h100 import MAX_SPLITS, SMS
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MMA_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)   # head dims of the bf16 kernel
+ROUTES = ("wgmma", "mma_sync", "fma")
+_ROUTE_IDS = {"fma": 0, "mma_sync": 1, "wgmma": 2}
+MMA_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)   # head dims of the bf16 routes
+WGMMA_HEAD_DIMS = (64, 128, 256)                  # route "wgmma"; "mma_sync" the rest
+# route "wgmma": kWgRows, kWgBK, kWgThreads of the source.  A block owns 64
+# rows, a row being a (query position, head of the kv head's group) pair,
+# and walks K and V tiles of 64 keys; one consumer warpgroup and one
+# producer warp
+WG_ROWS = 64
+WG_BK = 64
+WG_THREADS = 160
+WG_STAGES = {64: 4, 128: 2, 256: 2}   # the ring's stages by head dim
 _PREPARED: set = set()    # device indices whose kernel attributes are set
+
+
+def route_of(q: torch.Tensor, k: torch.Tensor) -> str:
+    """The route a call with this query and cache takes: "wgmma" (bf16,
+    head dim 64, 128 or 256), "mma_sync" (bf16, the other head dims),
+    "fma" (fp32 query)."""
+    if q.dtype == torch.float32:
+        return "fma"
+    return "wgmma" if q.shape[-1] in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def plan_splits(b: int, hkv: int, sq: int, sk: int, g: int,
+                sms: int = SMS) -> tuple[int, int]:
+    """(row tiles, splits) of route "wgmma": a block owns (b, kv head, row
+    tile of WG_ROWS rows of Sq x G); when those blocks do not cover the
+    ``sms`` SMs, the live KV tiles of each are divided among ``splits``
+    blocks of one cluster, enough to cover them, at most MAX_SPLITS (the
+    portable cluster size) and at most the tiles of Sk.  From the shapes
+    and the card alone, never from the data, so that the same chunk is
+    summed in the same order, to the same bits, on every run."""
+    row_tiles = -(-sq * g // WG_ROWS)
+    base = b * hkv * row_tiles
+    if base >= sms:
+        return row_tiles, 1
+    return row_tiles, max(1, min(MAX_SPLITS, -(-sk // WG_BK), -(-sms // base)))
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     if lib.flash_attention_launch.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_launch.argtypes = (
-            [ptr] * 6 + [i32] * 10 + [ctypes.c_float] + [i32] * 2 + [ptr])
+            [ptr] * 6 + [i32] * 6 + [i64] * 6 + [i32] * 4 + [ctypes.c_float]
+            + [i32] * 4 + [ptr])
         lib.flash_attention_launch.restype = i32
         lib.flash_attention_prepare.argtypes = []
         lib.flash_attention_prepare.restype = i32
@@ -70,16 +115,22 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            q_pos: Optional[torch.Tensor] = None,
                            k_pos: Optional[torch.Tensor] = None, *,
                            causal: bool = True, window: int = 0,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           route: Optional[str] = None,
+                           splits: Optional[int] = None) -> torch.Tensor:
     """Causal / bidirectional, GQA, sliding-window attention on the card.
 
-    ``q``: (B, Hq, Sq, D); ``k``/``v``: (B, Hkv, Sk, D), one type;
-    contiguous, 16-byte aligned, on one CUDA device; ``Hq`` a multiple of
-    ``Hkv``.  bf16 ``q`` with a bf16 cache and ``D`` in ``MMA_HEAD_DIMS``
-    (tensor cores), or fp32 ``q`` with an fp32 or bf16 cache and ``D`` a
-    multiple of 8 up to 256.  Without positions, ``Sq == Sk`` at positions
-    0..S-1; with them, ``q_pos`` (B, Sq) and ``k_pos`` (B, Sk) int32 on the
-    card.  Returns (B, Hq, Sq, D) in ``q``'s type."""
+    ``q``: (B, Hq, Sq, D) with any strides whose last is 1 (on the bf16
+    routes multiples of 8 elements, 16-byte aligned); ``k``/``v``:
+    (B, Hkv, Sk, D), one type, contiguous, 16-byte aligned; on one CUDA
+    device; ``Hq`` a multiple of ``Hkv``.  bf16 ``q`` with a bf16 cache and
+    ``D`` in ``MMA_HEAD_DIMS`` (tensor cores), or fp32 ``q`` with an fp32 or
+    bf16 cache and ``D`` a multiple of 8 up to 256.  Without positions,
+    ``Sq == Sk`` at positions 0..S-1; with them, ``q_pos`` (B, Sq) and
+    ``k_pos`` (B, Sk) int32 on the card.  Returns (B, Hq, Sq, D) in ``q``'s
+    type, the transposed view of (B, Sq, Hq, D) storage.  ``route`` and
+    ``splits`` (route "wgmma", 1 to MAX_SPLITS) override ``route_of`` and
+    ``plan_splits``."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention_kernel needs a CUDA tensor, got "
                          f"{q.device}")
@@ -89,7 +140,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             f"bfloat16, {name} is {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
+        if t is not q and not t.is_contiguous():
             raise ValueError(f"{name} is not contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
@@ -107,13 +158,18 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hkv < 1 or hq % hkv:
         raise ValueError(f"Hq = {hq} is not a multiple of Hkv = {hkv}")
     if q.dtype == torch.bfloat16 and d not in MMA_HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the bf16 kernel takes "
+        raise ValueError(f"head dim {d}: the bf16 kernels take "
                          f"{MMA_HEAD_DIMS}")
     if d % 8 or not 0 < d <= 256:
         raise ValueError(f"head dim {d}: the kernel takes multiples of 8 "
                          "up to 256")
     if min(b, hq, sq, sk) < 1:
         raise ValueError(f"empty input: B={b}, Hq={hq}, Sq={sq}, Sk={sk}")
+    q_sb, q_sh, q_ss, q_sd = q.stride()
+    if q_sd != 1 or (q.dtype == torch.bfloat16
+                     and (q_sb % 8 or q_sh % 8 or q_ss % 8)):
+        raise ValueError(f"q's strides {q.stride()}: the last must be 1, on "
+                         "the bf16 routes the others multiples of 8")
     if (q_pos is None) != (k_pos is None):
         raise ValueError("q_pos and k_pos come both or not at all")
     if q_pos is None:
@@ -125,25 +181,54 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         qp_stride = _positions("q_pos", q_pos, b, sq, q.device)
         kp_stride = _positions("k_pos", k_pos, b, sk, q.device)
     scale = float(scale) if scale is not None else d ** -0.5
+    if route is None:
+        route = route_of(q, k)
+    elif route not in ROUTES:
+        raise ValueError(f"unknown route {route!r}; known: {ROUTES}")
+    if (route == "fma") != (q.dtype == torch.float32) or (
+            route != "fma" and (route == "wgmma") != (d in WGMMA_HEAD_DIMS)):
+        raise ValueError(f"route {route} does not take {q.dtype} at head "
+                         f"dim {d}")
+    if route != "wgmma":
+        splits = 1
+    elif splits is None:
+        splits = plan_splits(b, hkv, sq, sk, hq // hkv,
+                             _sms(q.device))[1]
+    elif not 1 <= splits <= MAX_SPLITS:
+        raise ValueError(f"splits {splits}: 1 to {MAX_SPLITS}")
 
     lib = _lib()
     _prepare(lib, q.device)
     with torch.cuda.device(q.device):
-        out = torch.empty_like(q)
+        out = torch.empty((b, sq, hq, d), dtype=q.dtype,
+                          device=q.device).transpose(1, 2)
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if q_pos is None else q_pos.data_ptr(),
             None if k_pos is None else k_pos.data_ptr(), out.data_ptr(),
-            b, hq, hkv, sq, sk, d, qp_stride, kp_stride, int(causal),
-            int(window), scale, _DTYPES[q.dtype], _DTYPES[k.dtype],
+            b, hq, hkv, sq, sk, d, q_sb, q_sh, q_ss, *out.stride()[:3],
+            qp_stride, kp_stride, int(causal), int(window), scale,
+            _DTYPES[q.dtype], _DTYPES[k.dtype], _ROUTE_IDS[route], splits,
             torch.cuda.current_stream().cuda_stream)
     flash_attention_kernel.launches += 1
+    flash_attention_kernel.by_route[route] += 1
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
-                           f"(B={b}, Hq={hq}, Hkv={hkv}, Sq={sq}, Sk={sk}, "
-                           f"D={d}, {q.dtype}/{k.dtype}, positions "
+                           f"(route {route}, splits {splits}, B={b}, "
+                           f"Hq={hq}, Hkv={hkv}, Sq={sq}, Sk={sk}, D={d}, "
+                           f"{q.dtype}/{k.dtype}, positions "
                            f"{q_pos is not None})")
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sms_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _sms(device: torch.device) -> int:
+    return _sms_of(device.index)
+
+
 flash_attention_kernel.launches = 0
+flash_attention_kernel.by_route = dict.fromkeys(ROUTES, 0)

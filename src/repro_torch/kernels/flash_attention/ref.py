@@ -6,7 +6,10 @@ per row, which is what a chunk of a prompt against the ring cache needs
 (``transformer.chunk_prefill``); the Pallas signature is its special case.
 They are what the CUDA kernel (``csrc/flash_attention.cu``) is held to on
 the card and what ``ops.flash_attn``/``ops.flash_attn_pos`` run on CPU
-tensors.
+tensors.  ``mha_pos_split_ref`` is the plain version of how the kernel's
+"wgmma" route cuts the work (GQA rows packed, the KV loop split over a
+cluster and merged in rank order, ``live_tiles``, ``carry``,
+``merge_carries``); the CPU tests hold it to the oracles.
 """
 
 from __future__ import annotations
@@ -67,3 +70,92 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     pos = pos[None, :].expand(b, s)
     return mha_pos_ref(q, k, v, pos, pos, causal=causal, window=window,
                        scale=scale)
+
+
+def live_tiles(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
+               window: int, bk: int) -> list[int]:
+    """The KV tiles (of ``bk`` keys) a block of queries at positions
+    ``q_pos`` (R,) reads against keys at ``k_pos`` (Sk,): those holding a
+    key live for some position between the least and the greatest of
+    ``q_pos``, as the kernel lists them."""
+    qmin, qmax = int(q_pos.min()), int(q_pos.max())
+    ok = torch.ones_like(k_pos, dtype=torch.bool)
+    if causal:
+        ok &= k_pos <= qmax
+    if window:
+        ok &= k_pos > qmin - window
+    tiles = -(-k_pos.shape[0] // bk)
+    return [t for t in range(tiles) if bool(ok[t * bk:(t + 1) * bk].any())]
+
+
+def merge_carries(carries: list) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """One (m, l, acc) of partial softmax carries, merged in list order:
+    weights exp(m_i - M) (0 where m_i is -inf), l and acc their weighted
+    sums.  m (R,), l (R,), acc (R, D)."""
+    m = torch.stack([c[0] for c in carries])                  # (n, R)
+    big = m.max(dim=0).values
+    w = torch.where(torch.isinf(m) & (m < 0), torch.zeros_like(m),
+                    torch.exp(m - torch.where(torch.isinf(big), 0.0, big)))
+    l = sum(w[i] * c[1] for i, c in enumerate(carries))
+    acc = sum(w[i][:, None] * c[2] for i, c in enumerate(carries))
+    return big, l, acc
+
+
+def carry(s: torch.Tensor, v: torch.Tensor) -> tuple:
+    """(m, l, acc) of masked scores ``s`` (R, n; -inf where masked)
+    against values ``v`` (n, D); no key at all, or none live: (-inf, 0,
+    0)."""
+    if s.shape[1] == 0:
+        r = s.shape[0]
+        return (torch.full((r,), float("-inf")), torch.zeros(r),
+                torch.zeros(r, v.shape[1]))
+    m = s.max(dim=1).values
+    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[:, None])
+    p = torch.where(torch.isinf(s), torch.zeros_like(p), p)
+    return m, p.sum(dim=1), p @ v
+
+
+def mha_pos_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_pos: torch.Tensor, k_pos: torch.Tensor, *,
+                      splits: int, rows: int = 64, bk: int = 64,
+                      causal: bool = True, window: int = 0,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """What route "wgmma" of the CUDA kernel computes, in plain PyTorch (fp32
+    on the CPU): rows (query position t, head g of a kv head's group) in
+    tiles of ``rows``, row = t G + g; for each (b, kv head, row tile) the
+    tiles of ``bk`` keys that ``live_tiles`` lists, cut into ``splits``
+    ranges of ceil(n / splits) tiles (a range may be empty); each split's
+    (m, l, acc) over its keys, masked per query; the splits merged in rank
+    order, l floored at 1e-30.  Same arguments and result as
+    ``mha_pos_ref``."""
+    b, hq, sq, d = q.shape
+    hkv = k.shape[1]
+    g = hq // hkv
+    sc = scale if scale is not None else d ** -0.5
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.zeros(b, hq, sq, d)
+    for bi in range(b):
+        kp = k_pos[min(bi, k_pos.shape[0] - 1)]
+        for h in range(hkv):
+            for r0 in range(0, sq * g, rows):
+                r = torch.arange(r0, min(r0 + rows, sq * g))
+                t, gg = r // g, r % g
+                qp = q_pos[min(bi, q_pos.shape[0] - 1)][t]
+                ok = live_mask(qp[None], kp[None], causal=causal,
+                               window=window)[0]               # (R, Sk)
+                tiles = live_tiles(qp, kp, causal=causal, window=window,
+                                   bk=bk)
+                per = -(-len(tiles) // splits)
+                carries = []
+                for s in range(splits):
+                    keys = [j for i in tiles[s * per:(s + 1) * per]
+                            for j in range(i * bk, min((i + 1) * bk,
+                                                       kp.shape[0]))]
+                    keys = torch.tensor(keys, dtype=torch.long)
+                    logits = qf[bi, h * g + gg, t] @ kf[bi, h, keys].T * sc
+                    logits = logits.masked_fill(~ok[:, keys], float("-inf"))
+                    carries.append(carry(logits, vf[bi, h, keys]))
+                _, l, acc = merge_carries(carries)
+                out[bi, h * g + gg, t] = acc / l.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)

@@ -253,14 +253,16 @@ def _project_qkv(x, p, cfg: ModelConfig):
 
 def _self_attention_full(x, p, cfg: ModelConfig, spec: AttnSpec, sin, cos):
     """Prefill attention over the whole sequence at positions 0..S-1,
-    through ``flash_attn`` (causal, the spec's window and scale).
+    through ``flash_attn`` (causal, the spec's window and scale).  On the
+    card the kernel reads q through its strides and writes its output into
+    (B, S, Hq, D) storage, so the reshape for ``w_o`` is a view.
     Returns (out, k, v)."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(x, p, cfg)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos).contiguous()
     v = v.contiguous()
-    out = flash_attn(q.contiguous(), k, v, causal=spec.causal,
+    out = flash_attn(q, k, v, causal=spec.causal,
                      window=spec.sliding_window, scale=spec.scale)
     out = out.transpose(1, 2).reshape(b, s, -1)
     return linear(out, p["w_o"]), k, v
@@ -299,7 +301,7 @@ def _self_attention_slots(x, p, cfg: ModelConfig, spec: AttnSpec,
     row's ring slots.  At T=1 attention is ``decode_attn`` with per-row
     positions; at T>1 ``flash_attn_pos`` with the chunk's positions
     against the ring's tags, on the ring as it is stored (no widened
-    copy)."""
+    copy), its output in (B, T, Hq, D) storage."""
     b, t, _ = x.shape
     c = k_cache.shape[2]
     positions = ctx["positions"]
@@ -315,10 +317,10 @@ def _self_attention_slots(x, p, cfg: ModelConfig, spec: AttnSpec,
                           k_cache, v_cache, ctx["slot_pos"], ctx["q_pos"],
                           window=spec.sliding_window, scale=spec.scale)
         return linear(out.reshape(b, t, -1), p["w_o"])
-    out = flash_attn_pos(q.contiguous(), k_cache, v_cache, positions,
+    out = flash_attn_pos(q, k_cache, v_cache, positions,
                          ctx["slot_pos"], causal=spec.causal,
                          window=spec.sliding_window, scale=spec.scale)
-    out = out.transpose(1, 2).reshape(b, t, -1)
+    out = out.transpose(1, 2).reshape(b, t, -1)     # a view on the card
     return linear(out, p["w_o"])
 
 

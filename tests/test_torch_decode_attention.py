@@ -13,6 +13,9 @@ Tolerances: against the Pallas kernel and the JAX oracle the kernel tests'
 attention in fp32 1e-5 * (max|ref| + 1) (same arithmetic, another order).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,13 +26,17 @@ from repro.kernels.decode_attention.kernel import \
 from repro.kernels.decode_attention.ref import \
     decode_attention_ref as jax_decode_attention_ref
 from repro.models import layers as jl
+from repro_torch.chip import h100
+from repro_torch.kernels.decode_attention import kernel as dk
 from repro_torch.kernels.decode_attention.kernel import (
     decode_attention_kernel, plan_splits)
 from repro_torch.kernels.decode_attention.ops import decode_attn
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.ref import (
+    decode_attention_ref, decode_attention_split_ref)
 from repro_torch.models import layers as tl
 
 TOL = {"float32": 2e-4, "bfloat16": 6e-2}
+CU = Path(dk.__file__).resolve().parents[1] / "csrc" / "decode_attention.cu"
 JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 SENTINEL = 2 ** 30
@@ -239,17 +246,149 @@ def test_kernel_wrapper_rejects(breakage, error, says):
 
 
 def test_plan_splits_covers_every_tile():
-    for rows, c, bk, slots in [(64, 1024, 64, 396), (64, 2048, 64, 264),
-                               (8, 64, 64, 396), (1, 100000, 16, 528),
-                               (4096, 2048, 64, 396), (2, 257, 32, 396)]:
-        per_split, splits = plan_splits(rows, c, bk, slots)
+    """Every tile of the ring is in exactly one split's range, at most
+    MAX_SPLITS splits (the blocks of one cluster), never more blocks than
+    SMs unless the rows alone are more.  The pairs were those of the old
+    128-split limit at three blocks an SM; the plan now gives each of the
+    132 SMs one block."""
+    for rows, c, bk, sms in [(64, 1024, 64, 132), (64, 2048, 64, 132),
+                             (8, 64, 64, 132), (1, 100000, 16, 132),
+                             (4096, 2048, 64, 132), (2, 257, 32, 132)]:
+        per_split, splits = plan_splits(rows, c, bk, sms)
         tiles = -(-c // bk)
-        assert 1 <= splits <= 128 and per_split >= 1
+        assert 1 <= splits <= h100.MAX_SPLITS and per_split >= 1
         assert (splits - 1) * per_split < tiles <= splits * per_split
-        # one wave: never more blocks than the card holds, unless the rows
-        # alone are more
-        assert rows * splits <= max(slots, rows)
-    # the serving shapes at three blocks an SM on 132 SMs
-    assert plan_splits(64, 1024, 64, 396) == (3, 6)
-    assert plan_splits(64, 2048, 64, 396) == (6, 6)
-    assert plan_splits(4096, 2048, 64, 396) == (32, 1)
+        assert rows * splits <= max(sms, rows)
+    # the serving shapes on 132 SMs: 64 rows of (batch, kv head) split in two
+    assert plan_splits(64, 1024, 64, 132) == (8, 2)
+    assert plan_splits(64, 2048, 64, 132) == (16, 2)
+    assert plan_splits(4096, 2048, 64, 132) == (32, 1)
+    assert plan_splits(1, 100000, 16, 132) == (782, 8)
+
+
+# the serving shapes of full qwen3-14b (Hq 40, Hkv 8, D 128, bf16): a lock-step
+# step at position 520 of a ring of 1024, and 8 slots of 2048 at the
+# continuous trace's positions (prompts 128-1024, 20 tokens in)
+SERVING = [("lock-step", 8, 1024, [520] * 8),
+           ("continuous", 8, 2048, [p + 20 for p in (128, 384, 700, 1024)] * 2)]
+
+
+@pytest.mark.parametrize("label, b, c, positions", SERVING)
+def test_plan_at_serving_shapes(label, b, c, positions):
+    """The blocks cover the 132 SMs or every split of every row has at
+    least one live tile; the route is "mma" with tiles of 64 slots."""
+    hkv, g, d = 8, 5, 128
+    q = torch.empty(b, hkv * g, d, dtype=torch.bfloat16)
+    k = torch.empty(b, hkv, c, d, dtype=torch.bfloat16)
+    assert dk.route_of(q, k) == "mma"
+    bk, stages = dk.tiling(g, d, 2, "mma")
+    assert (bk, stages) == (64, 2)
+    rows = b * hkv
+    per_split, splits = plan_splits(rows, c, bk)
+    assert splits <= h100.MAX_SPLITS
+    fewest = min(-(-(p + 1) // bk) for p in positions)     # live tiles
+    assert rows * splits >= h100.SMS or fewest >= splits, (label, fewest)
+
+
+def test_tiling_fits_the_budget():
+    """Route "fma": the deepest tile with three or more stages at two
+    blocks an SM; route "mma": tiles of 64 slots, an even number of stages
+    (each of its two warp groups owns half), two blocks an SM where that
+    leaves two stages, else one."""
+    budget2 = dk.SM_BYTES // 2 - dk.BLOCK_RESERVE
+    for elem in (2, 4):
+        for d in (16, 32, 64, 80, 96, 128, 256):
+            for g in (1, 4, 5, 8):
+                bk, stages = dk.tiling(g, d, elem)
+                assert bk in dk.TILE_SLOTS and 3 <= stages <= dk.MAX_STAGES
+                assert dk.smem_bytes(dk.maxg_for(g), d, bk, stages,
+                                     elem) <= budget2
+    for d in dk.MMA_HEAD_DIMS:
+        bk, stages = dk.tiling(5, d, 2, "mma")
+        assert bk == 64 and stages in (2, 4)
+        need = dk.smem_bytes(dk.MAX_GROUP, d, bk, stages, 2)
+        assert need <= (budget2 if d <= 128 else dk.SM_BYTES
+                        - dk.BLOCK_RESERVE)
+
+
+def test_route_of():
+    def t(dtype, *shape):
+        return torch.empty(shape, dtype=dtype)
+    bf, f32 = torch.bfloat16, torch.float32
+    assert dk.route_of(t(bf, 2, 8, 128), t(bf, 2, 2, 64, 128)) == "mma"
+    assert dk.route_of(t(f32, 2, 8, 128), t(bf, 2, 2, 64, 128)) == "fma"
+    assert dk.route_of(t(bf, 2, 8, 40), t(bf, 2, 2, 64, 40)) == "fma"
+    assert dk.route_of(t(f32, 2, 8, 128), t(f32, 2, 2, 64, 128)) == "fma"
+
+
+SPLIT_CASES = [
+    # (B, Hq, Hkv, C, D, window, pos, splits): groups of 1, 5 and 8; a
+    # position early in a long ring (most splits hold no live slot), a
+    # wrapped ring with a window, C not a multiple of the tile
+    (1, 5, 1, 2048, 32, 0, 40, 8),
+    (2, 10, 2, 300, 32, 0, 250, 2),
+    (1, 16, 2, 517, 16, 100, 1200, 4),
+    (2, 4, 4, 256, 16, 64, 300, 3),
+]
+
+
+@pytest.mark.parametrize("route", ["mma", "fma"])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_ref_matches_oracle(case, route):
+    """The plain split-and-combine version (the warps' and the splits'
+    (m, l, acc) merged in order, empty splits included) is the oracle on
+    the same numpy inputs: fp32, 1e-5 x (max|ref| + 1)."""
+    b, hq, hkv, c, d, win, pos, splits = case
+    _, (tq, tk, tv) = _inputs((b, hq, hkv, c, d, win, pos), "float32",
+                              seed=21)
+    tags = torch.from_numpy(_ring_tags(c, pos))
+    if pos < 64 and splits > 1:
+        assert -(-pos // 64) < splits       # some splits hold no live slot
+    got = decode_attention_split_ref(tq, tk, tv, tags, pos - 1,
+                                     splits=splits, route=route, window=win)
+    ref = decode_attention_ref(tq, tk, tv, tags, pos - 1, window=win)
+    err = float((got - ref).abs().max())
+    assert err <= 1e-5 * (float(ref.abs().max()) + 1.0), err
+
+
+@pytest.mark.parametrize("splits", [1, 2, 8])
+@pytest.mark.parametrize("case", CASES)
+def test_split_ref_matches_pallas_kernel(case, splits):
+    """The split-and-combine version against the Pallas kernel in
+    interpret mode, the kernel tests' ``TOL``."""
+    (jq, jk, jv), (tq, tk, tv) = _inputs(case, "float32", seed=22)
+    win, pos = case[5], case[6]
+    tags = _ring_tags(case[3], pos)
+    ref = pallas_decode_attention(jq, jk, jv, jnp.asarray(tags), pos,
+                                  window=win, bk=64, interpret=True)
+    got = decode_attention_split_ref(tq, tk, tv, torch.from_numpy(tags), pos,
+                                     splits=splits, window=win)
+    err, scale = _err(got, ref)
+    assert err <= TOL["float32"] * scale, (case, splits, err)
+
+
+def test_planner_constants_are_what_the_kernel_compiles():
+    """Warps, query rows a block, cluster limit, stages, listed tiles and
+    the combine scratch of the plan against the CUDA source, and the tile
+    depths and routes it takes."""
+    src = CU.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kWarps") == dk.WARPS
+    assert dk.THREADS == 32 * (dk.WARPS + 1)
+    assert const("kMaxGroup") == dk.MAX_GROUP
+    assert const("kMaxSplits") == h100.MAX_SPLITS
+    assert const("kMinStages") == dk.MIN_STAGES
+    assert const("kMaxStages") == dk.MAX_STAGES
+    assert const("kMaxListed") == dk.MAX_LISTED
+    assert re.search(r"constexpr int kCoef = kWarps \+ kMaxSplits \+ 2;", src)
+    assert dk.COEF == dk.WARPS + h100.MAX_SPLITS + 2
+    assert "(bk != 16 && bk != 32 && bk != 64)" in src
+    assert set(dk.TILE_SLOTS) == {16, 32, 64}
+    for d in dk.MMA_HEAD_DIMS:
+        assert f"case {d}: return F<bf16, 8, 1, {d}>" in src
+    for g in range(1, 9):
+        assert f"F<T, {dk.maxg_for(g)}, " in src
+    assert "decode_attention_combine_kernel" not in src

@@ -16,6 +16,8 @@ model logits as in ``test_torch_serve.py``.
 """
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -31,9 +33,13 @@ from repro.models import layers as jl
 from repro.models import transformer as jtfm
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import cache_from_jax, params_from_jax
+from repro_torch.chip import h100
+from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attn, flash_attn_pos
-from repro_torch.kernels.flash_attention.ref import mha_pos_ref, mha_ref
+from repro_torch.kernels.flash_attention.ref import (live_tiles, mha_pos_ref,
+                                                     mha_pos_split_ref,
+                                                     mha_ref)
 from repro_torch.models import transformer as tfm
 
 TOL = {"float32": 2e-4, "bfloat16": 6e-2}
@@ -220,3 +226,195 @@ def test_wired_model_matches_reference(arch, dtype):
             off += t
     np.testing.assert_array_equal(tcache["slot_pos"].numpy(),
                                   np.asarray(jcache["slot_pos"]))
+
+
+# ---------------------------------------------------------------------------
+# route "wgmma": the split plan, its plain split-and-combine version, and the
+# constants the CUDA source compiles
+# ---------------------------------------------------------------------------
+
+CU = Path(fk.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
+
+# the shapes the serving paths of full qwen3-14b (Hq 40, Hkv 8, D 128) give
+# the kernel: lock-step prefill, and chunks against a ring of 2048
+SERVING = [("lock-step prefill", 8, 512, 512, None),
+           ("chunk T=32 at 1900", 1, 32, 2048, 1900),
+           ("tail T=16 at 1900", 1, 16, 2048, 1900),
+           ("chunk T=256 at 1900", 1, 256, 2048, 1900)]
+
+
+@pytest.mark.parametrize("label, b, t, c, start", SERVING)
+def test_plan_splits_at_serving_shapes(label, b, t, c, start):
+    """At every serving shape the blocks cover the 132 SMs or every split
+    has at least one live tile; never more than MAX_SPLITS splits."""
+    hkv, g = 8, 5
+    row_tiles, splits = fk.plan_splits(b, hkv, t, c, g)
+    assert row_tiles == -(-t * g // fk.WG_ROWS)
+    assert 1 <= splits <= h100.MAX_SPLITS
+    blocks = b * hkv * row_tiles * splits
+    if start is None:
+        pos = torch.arange(t, dtype=torch.int32)
+        tags = pos
+    else:
+        pos = torch.arange(start, start + t, dtype=torch.int32)
+        tags = torch.from_numpy(_ring(c, start, t)[1])
+    # the fewest live tiles of any row tile
+    fewest = min(len(live_tiles(pos[r0 // g:(r0 + fk.WG_ROWS - 1) // g + 1],
+                                tags, causal=True, window=0, bk=fk.WG_BK))
+                 for r0 in range(0, t * g, fk.WG_ROWS))
+    assert blocks >= h100.SMS or fewest >= splits, (label, blocks, fewest)
+
+
+def test_plan_splits_depends_on_shapes_only():
+    """The plan is a function of (B, Hkv, Sq, Sk, G, SMs): splits only when
+    the blocks do not cover the SMs, bounded by MAX_SPLITS and by the tiles
+    of Sk, and the same every call."""
+    for args in [(8, 8, 512, 512, 5), (1, 8, 32, 2048, 5),
+                 (1, 8, 16, 2048, 5), (1, 8, 256, 2048, 5), (1, 1, 1, 10, 1),
+                 (1, 2, 64, 100, 8), (2, 4, 200, 70000, 1)]:
+        plan = fk.plan_splits(*args)
+        assert plan == fk.plan_splits(*args)
+        b, hkv, sq, sk, g = args
+        row_tiles, splits = plan
+        base = b * hkv * row_tiles
+        assert 1 <= splits <= min(h100.MAX_SPLITS, -(-sk // fk.WG_BK))
+        if base >= h100.SMS:
+            assert splits == 1
+        else:
+            assert base * splits >= min(h100.SMS, base * h100.MAX_SPLITS,
+                                        base * -(-sk // fk.WG_BK))
+    assert fk.plan_splits(1, 8, 32, 2048, 5) == (3, 6)
+    assert fk.plan_splits(1, 8, 16, 2048, 5) == (2, 8)
+    assert fk.plan_splits(8, 8, 512, 512, 5) == (40, 1)
+    assert fk.plan_splits(1, 8, 32, 2048, 5, sms=16) == (3, 1)
+
+
+def test_route_of():
+    def t(dtype, d):
+        return torch.empty(1, 4, 8, d, dtype=dtype)
+    assert fk.route_of(t(torch.bfloat16, 128), t(torch.bfloat16, 128)) \
+        == "wgmma"
+    assert fk.route_of(t(torch.bfloat16, 80), t(torch.bfloat16, 80)) \
+        == "mma_sync"
+    assert fk.route_of(t(torch.float32, 128), t(torch.bfloat16, 128)) \
+        == "fma"
+    assert set(fk.WGMMA_HEAD_DIMS) <= set(fk.MMA_HEAD_DIMS)
+
+
+SPLIT_CASES = [
+    # (B, Hq, Hkv, T, C, D, start, window, splits): groups of 1, 5 and 8;
+    # a chunk early in the ring (most splits hold no live key), a wrapped
+    # ring, a window, ragged C
+    (1, 10, 2, 32, 512, 32, 0, 0, 8),
+    (1, 10, 2, 37, 512, 32, 300, 0, 3),
+    (2, 16, 2, 20, 200, 16, 190, 48, 4),
+    (1, 4, 4, 64, 256, 16, 100, 0, 8),
+    (1, 8, 1, 16, 130, 16, 400, 0, 1),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_ref_matches_oracle(case):
+    """The plain split-and-combine version (per-split (m, l, acc) over the
+    plan's tile ranges, merged in rank order, empty splits included) is the
+    positioned oracle, on the same numpy inputs: fp32, 1e-5 x (max|ref| +
+    1) (the same sums in another order)."""
+    b, hq, hkv, t, c, d, start, win, splits = case
+    _, (q, k, v) = _inputs(b, hq, hkv, t, c, d, "float32", seed=11)
+    rows = [_ring(c, start + 7 * i, t) for i in range(b)]
+    q_pos = torch.from_numpy(np.stack([r[0] for r in rows]))
+    tags = torch.from_numpy(np.stack([r[1] for r in rows]))
+    tiles = live_tiles(q_pos[0][:fk.WG_ROWS // (hq // hkv)], tags[0],
+                       causal=True, window=win, bk=fk.WG_BK)
+    if case[0:2] == (1, 10) and start == 0:
+        assert len(tiles) < splits          # some splits hold no live key
+    got = mha_pos_split_ref(q, k, v, q_pos, tags, splits=splits, window=win)
+    ref = mha_pos_ref(q, k, v, q_pos, tags, window=win)
+    err = float((got - ref).abs().max())
+    assert err <= 1e-5 * (float(ref.abs().max()) + 1.0), err
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("case", CASES)
+def test_split_ref_matches_pallas_kernel(case, splits):
+    """The split-and-combine version against the Pallas kernel in
+    interpret mode (contiguous positions), the kernel tests' ``TOL``."""
+    b, hq, hkv, s, d, causal, win = case
+    (jq, jk, jv), (tq, tk, tv) = _inputs(b, hq, hkv, s, s, d, "float32", 12)
+    pos = torch.arange(s, dtype=torch.int32)[None].expand(b, s)
+    got = mha_pos_split_ref(tq, tk, tv, pos, pos, splits=splits,
+                            causal=causal, window=win)
+    ref = pallas_flash_attention(jq, jk, jv, causal=causal, window=win,
+                                 bq=32, bk=32, interpret=True)
+    err, scale = _err(got, ref)
+    assert err <= TOL["float32"] * scale, (case, splits, err)
+
+
+def test_planner_constants_are_what_the_kernel_compiles():
+    """Rows of a block, keys of a tile, threads, cluster limit and stages
+    by head dim of route "wgmma": the Python plan against the CUDA
+    source."""
+    src = CU.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("kWgRows") == fk.WG_ROWS
+    assert const("kWgBK") == fk.WG_BK
+    assert const("kWgThreads") == fk.WG_THREADS
+    assert const("kMaxSplits") == h100.MAX_SPLITS
+    stages = re.search(r"STAGES = D == 64 \? (\d+) : (\d+);", src)
+    assert {64: int(stages.group(1)), 128: int(stages.group(2)),
+            256: int(stages.group(2))} == fk.WG_STAGES
+    for d in fk.WGMMA_HEAD_DIMS:
+        assert f"flash_attention_wgmma_kernel<{d}>" in src
+        assert f"case {d}: return launch_wgmma<{d}>" in src
+
+
+@pytest.mark.parametrize("breakage, error, says", [
+    ("q_last_stride", ValueError, "the last must be 1"),
+    ("q_stride_8", ValueError, "multiples of 8"),
+    ("route", ValueError, "unknown route"),
+    ("route_dtype", ValueError, "does not take"),
+    ("route_dim", ValueError, "does not take"),
+    ("splits", ValueError, "splits 9"),
+])
+def test_kernel_wrapper_rejects(breakage, error, says):
+    """Checks on strides, routes and splits run before anything touches
+    the card; ``meta`` tensors stand in for CUDA tensors."""
+    class OnCard(torch.Tensor):
+        is_cuda = True
+
+    def t(*shape, dtype=torch.bfloat16):
+        return torch.empty(shape, dtype=dtype, device="meta"
+                           ).as_subclass(OnCard)
+
+    q, k, v = t(1, 4, 16, 128), t(1, 2, 16, 128), t(1, 2, 16, 128)
+    kw = {}
+    if breakage == "q_last_stride":
+        q = t(1, 4, 128, 16).transpose(2, 3)
+    elif breakage == "q_stride_8":
+        q = t(1, 4, 16, 132)[..., :128]
+    elif breakage == "route":
+        kw["route"] = "tensor"
+    elif breakage == "route_dtype":
+        kw["route"] = "fma"
+    elif breakage == "route_dim":
+        kw["route"] = "mma_sync"
+    elif breakage == "splits":
+        kw["splits"] = 9
+    with pytest.raises(error, match=says):
+        flash_attention_kernel(q, k, v, **kw)
+
+
+def test_model_reads_projection_layout_without_copies():
+    """``flash_attn`` takes q in any strided (B, Hq, S, D) view and, on
+    the CPU, gives what the oracle gives on a contiguous copy; the model's
+    reshape of a (B, S, Hq, D)-stored output for ``w_o`` is then a view."""
+    _, (q, k, v) = _inputs(2, 8, 2, 24, 24, 16, "float32", seed=13)
+    q_view = q.transpose(1, 2).contiguous().transpose(1, 2)  # (B,S,H,D) storage
+    torch.testing.assert_close(flash_attn(q_view, k, v), mha_ref(q, k, v),
+                               rtol=0, atol=0)
+    out = torch.empty(2, 24, 8, 16).transpose(1, 2)           # the kernel's
+    flat = out.transpose(1, 2).reshape(2, 24, -1)
+    assert flat.data_ptr() == out.data_ptr() and flat.is_contiguous()
