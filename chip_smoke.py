@@ -52,11 +52,31 @@ exit code and no result line:
             short continuous trace (4 of the requests of 6), with the
             host-to-card copy rate, the copy time of all layers alone and a
             decode step at a window of 1 beside the planner's.
+9. models   the paper's Table 2 models and the MoE family at full width,
+            random weights from seed 0, each freed before the next:
+            dit-xl (28 layers, head dim 72) and gemma2-27b (46 layers, tied
+            head of 256000) resident, lock-step as in 5 (dit-xl: prompts of
+            256, cache 512); llama2-70b under ``elk_stream`` with the
+            planner's knobs, first resident against streamed at 16 layers
+            on the same weights (equal tokens), then streamed alone at full
+            depth, or at the depth the host's memory holds (printed, with
+            the host's memory), 4 new tokens, with the copy rate;
+            llama4-maverick and kimi-k2 resident at 2 layers (a dense layer
+            and an MoE layer of 128 / 384 experts), lock-step, and kimi-k2
+            (head dim 112) through the 16-request continuous trace of 6.
+            One ``[models]`` line a config: depth, parameter bytes, peak
+            device memory, prefill ms, decode ms a step, tokens/s; then
+            each kernel product of layer 0 and of the first MoE layer, and
+            the LM head, held to its plain version on the live weights.
 
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails if a kernel of the path was not
 launched as often as its layers, steps and chunks say, or the MLP and the
-matmul not through the routes their rows say.  Then one JSON line
+matmul not through the routes their rows say.  Phase 3 also holds every
+kernel at every shape phase 9 gives it (``MODEL_RUNS``: each config's
+products, MLPs and attention at its decode, prefill and chunk rows, head
+dims 72 and 112 included), each with a timed row, and phase 4 runs the
+smoke configs of phase 9's models too.  Then one JSON line
 about the kernels, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -68,9 +88,11 @@ trace of three lock-step decode steps, one prefill and three slot-batched
 steps, and of one streamed decode step: the device's busy time and idle
 share, the kernels that take the most device time, and for the streamed
 step how much of the weight copies' time compute hides; printed and
-written to ``build/profile/``.  ``--kernels-only`` stops after the build
-and the kernel phases (no result line): the loop for working on the
-kernels.
+written to ``build/profile/``; and of three kimi-k2 decode steps and a
+prefill, with the expert products' share of the device time.
+``--only kernels`` runs the build and the kernel phases, ``--only models``
+the build, the parity and the ``[models]`` phases (neither prints a result
+line): the loops for working on one part.
 """
 
 from __future__ import annotations
@@ -93,7 +115,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.chip.h100 import WGMMA_MIN_M, h100_host  # noqa: E402
+from repro_torch.chip.h100 import h100_host  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
@@ -106,12 +128,15 @@ from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
 from repro_torch.kernels.elk_matmul.kernel import (  # noqa: E402
     ROUTES as MATMUL_ROUTES, elk_matmul_kernel, plan_for, tma_legal)
 from repro_torch.kernels.elk_matmul.kernel import \
+    layout as matmul_layout  # noqa: E402
+from repro_torch.kernels.elk_matmul.kernel import \
     route_of as matmul_route_of  # noqa: E402
 from repro_torch.kernels.elk_matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.elk_matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    ROUTES as FLASH_ROUTES, flash_attention_kernel)
+    ROUTES as FLASH_ROUTES, WGMMA_HEAD_DIMS as FLASH_WGMMA_HEAD_DIMS,
+    flash_attention_kernel)
 from repro_torch.kernels.flash_attention.kernel import \
     plan_splits as flash_plan_splits  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import \
@@ -123,7 +148,8 @@ from repro_torch.kernels.fused_mlp.kernel import (  # noqa: E402
 from repro_torch.kernels.fused_mlp.kernel import \
     route_of as mlp_route_of  # noqa: E402
 from repro_torch.kernels.fused_mlp.ops import fused_mlp  # noqa: E402
-from repro_torch.kernels.fused_mlp.ref import composed_ref  # noqa: E402
+from repro_torch.kernels.fused_mlp.ref import (act_fn,  # noqa: E402
+                                               composed_ref)
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.serve.batcher import (ContinuousBatcher,  # noqa: E402
@@ -157,6 +183,8 @@ SWEEP = [
 ]
 
 BATCH, PROMPT_LEN, STEPS, CACHE = 8, 512, 16, 1024
+# dit-xl in the [models] phase: prompts of 256 latent patches
+DIT_PROMPT_LEN, DIT_CACHE = 256, 512
 
 # the continuous-batching phase
 SLOTS, SLOT_CACHE, PREFILL_CHUNK = 8, 2048, 256
@@ -197,6 +225,79 @@ MATMUL_EDGE_NK = (200, 328)
 MLP_EDGE_M = (1, 8, 16, 17, 63, 64, 65, 256)
 # fused_mlp rows timed on both routes to find the crossover R
 CROSSOVER_M = (8, 16, 32, 64, 128, 256)
+# the [models] phase's lock-step runs at full width: (arch, layers (0: all),
+# prompt length, ring).  llama2-70b runs resident against streamed at
+# STREAM_CHECK_LAYERS, then streamed alone (STREAM_STEPS tokens) at the depth
+# the host holds with HOST_HEADROOM free beside the pinned layers (the
+# process itself takes about 5 GB of it); the MoE models run at MOE_DEPTH
+# layers (a dense and an MoE layer); TRACE_ARCH also serves the continuous
+# trace
+STREAM_CHECK_LAYERS, STREAM_STEPS = 16, 4
+HOST_HEADROOM = 24 << 30
+MOE_DEPTH = 2
+MODEL_RUNS = (("dit_xl", 0, DIT_PROMPT_LEN, DIT_CACHE),
+              ("gemma2_27b", 0, PROMPT_LEN, CACHE),
+              ("llama2_70b", STREAM_CHECK_LAYERS, PROMPT_LEN, CACHE),
+              ("llama4_maverick_400b_a17b", MOE_DEPTH, PROMPT_LEN, CACHE),
+              ("kimi_k2_1t_a32b", MOE_DEPTH, PROMPT_LEN, CACHE))
+TRACE_ARCH = "kimi_k2_1t_a32b"
+
+
+def model_cfg(arch: str, depth: int):
+    full = get_config(arch)
+    return dataclasses.replace(full, num_layers=depth) if depth else full
+
+
+def trace_chunks() -> list[tuple[int, int]]:
+    """(tokens, start) of the prefill chunks the batcher cuts the
+    continuous trace's prompts into: each length once, at its first
+    start."""
+    out = {}
+    for r in make_trace(TRACE_N, vocab_size=2, **TRACE):
+        off = 0
+        while off < len(r.prompt):
+            t = _chunk_len(len(r.prompt) - off, PREFILL_CHUNK)
+            out.setdefault(t, off)
+            off += t
+    return sorted(out.items())
+
+
+def model_rows(arch: str, prompt_len: int) -> tuple[list[int], list[int]]:
+    """Rows the [models] phase gives ``arch``'s layers (a lock-step decode
+    step and prefill; on TRACE_ARCH also each chunk length of the trace,
+    whose decode ticks have SLOTS = BATCH rows) and its LM head (a
+    lock-step pass; on TRACE_ARCH also a chunk's last token)."""
+    layers, head = [BATCH, BATCH * prompt_len], [BATCH]
+    if arch == TRACE_ARCH:
+        layers += [t for t, _ in trace_chunks()]
+        head.append(1)
+    return list(dict.fromkeys(layers)), head
+
+
+def layer_products(cfg) -> list[tuple[str, int, int, int, int]]:
+    """The products ``layers.linear`` gives elk_matmul in a pass of
+    ``cfg``: (name, K, N, row stride of the weight, how many a pass); the
+    LM head last, once a pass (tied: the transposed embedding, row stride
+    K)."""
+    kinds = tfm.layer_kinds(cfg)
+    layers, moe = len(kinds), kinds.count("moe")
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    return [("q", d, q, q, layers), ("k, v", d, kv, kv, 2 * layers),
+            ("o", q, d, d, layers),
+            ("router", d, cfg.moe_experts, cfg.moe_experts, moe),
+            ("lm_head", d, cfg.vocab_size,
+             d if cfg.tie_embeddings else cfg.vocab_size, 1)]
+
+
+def layer_mlps(cfg) -> list[tuple[str, int, int]]:
+    """(name, hidden width, how many a pass) of the MLPs a pass of ``cfg``
+    gives fused_mlp: a dense layer's, an MoE layer's shared expert."""
+    kinds = tfm.layer_kinds(cfg)
+    moe = kinds.count("moe")
+    return [("mlp", cfg.d_ff, len(kinds) - moe),
+            ("shared expert", cfg.moe_shared_d_ff,
+             moe if cfg.moe_shared_d_ff else 0)]
 
 
 def fail(msg: str) -> None:
@@ -367,46 +468,82 @@ def kernels_phase(cfg) -> dict:
         f"launched twice with equal bits (worst err/tol {worst:.3f}; by "
         f"route {json.dumps(reached)})")
 
+    def serving_row(label, x, w_up, w_down, kw, act, route=None,
+                    timed_alone=True):
+        """Hold the kernel to its plain version at these inputs and time
+        it; with ``timed_alone`` also the plain version and the library
+        yardstick."""
+        nonlocal worst, cases
+        m, d = x.shape
+        ff, dout = w_up.shape[1], w_down.shape[1]
+        gated = "w_gate" in kw
+        fn = act_fn(act)
+
+        def library():
+            h = torch.matmul(x, w_up)
+            h = fn(torch.matmul(x, kw["w_gate"])) * h if gated else fn(h)
+            return torch.matmul(h, w_down)
+
+        err, over = check_mlp(x, w_up, w_down, kw, act, route)
+        worst = max(worst, over)
+        cases += 1
+        bound, bound_by = mlp_bound_ms(m, d, ff, dout, gated, False,
+                                       x.dtype)
+        iters = 5 if m >= 1024 else 20
+        row = {
+            "shape": label, "m": m, "d": d, "ff": ff, "act": act,
+            "gated": gated, "dtype": "bfloat16",
+            "route": route or mlp_route_of(x, w_up, w_down, kw.get("w_gate")),
+            "max_abs_err": err,
+            "ms": time_ms(lambda: fused_mlp_kernel(
+                x, w_up, w_down, kw.get("w_gate"), act=act, route=route),
+                iters),
+            "bound_ms": bound, "bound_by": bound_by}
+        if timed_alone:
+            row["plain_ms"] = time_ms(lambda: composed_ref(
+                x, w_up, w_down, act=act, **kw), 3, warmup=1)
+            row["library_ms"] = time_ms(library, iters)
+        say(f"[kernels] fused_mlp {label}: " + json.dumps(row))
+        return row
+
     # the shapes the serving paths give it, full width, bf16; and the rows
     # around the crossover R on both routes
-    if cfg.mlp_act != "silu" or not cfg.gated_mlp:
-        fail("the library yardstick is written for the silu GLU")
     d, ff, dtype = cfg.d_model, cfg.d_ff, torch.bfloat16
     x_all, w_up, w_down, kw = mlp_inputs(gen, (BATCH * PROMPT_LEN,), d, ff,
                                          cfg.gated_mlp, False, dtype)
     shapes, crossover = [], []
     serving = (("decode", BATCH), ("chunk", 32), ("chunk", PREFILL_CHUNK),
                ("prefill", BATCH * PROMPT_LEN))
-    for label, m in serving + tuple(("crossover", m) for m in CROSSOVER_M):
-        x = x_all[:m].contiguous()
-        act = torch.nn.functional.silu
-
-        def library():
-            return torch.matmul(act(torch.matmul(x, kw["w_gate"]))
-                                * torch.matmul(x, w_up), w_down)
-
-        bound, bound_by = mlp_bound_ms(m, d, ff, d, True, False, dtype)
-        iters = 5 if m >= 1024 else 20
-        routes = (None,) if label != "crossover" else ("split_ff", "two_pass")
-        for route in routes:
-            err, over = check_mlp(x, w_up, w_down, kw, cfg.mlp_act, route)
-            worst = max(worst, over)
-            cases += 1
-            row = {
-                "shape": f"{label} m={m}", "m": m, "d": d, "ff": ff,
-                "dtype": "bfloat16",
-                "route": route or mlp_route_of(x, w_up, w_down, kw["w_gate"]),
-                "max_abs_err": err,
-                "ms": time_ms(lambda: fused_mlp_kernel(
-                    x, w_up, w_down, kw["w_gate"], act=cfg.mlp_act,
-                    route=route), iters),
-                "bound_ms": bound, "bound_by": bound_by}
-            if label != "crossover":
-                row["plain_ms"] = time_ms(lambda: composed_ref(
-                    x, w_up, w_down, act=cfg.mlp_act, **kw), 3, warmup=1)
-                row["library_ms"] = time_ms(library, iters)
-            (shapes if label != "crossover" else crossover).append(row)
-            say(f"[kernels] fused_mlp {row['shape']}: " + json.dumps(row))
+    for label, m in serving:
+        shapes.append(serving_row(f"{label} m={m}", x_all[:m].contiguous(),
+                                  w_up, w_down, kw, cfg.mlp_act))
+    for m in CROSSOVER_M:
+        for route in ("split_ff", "two_pass"):
+            crossover.append(serving_row(
+                f"crossover m={m}", x_all[:m].contiguous(), w_up, w_down, kw,
+                cfg.mlp_act, route, timed_alone=False))
+    del x_all, w_up, w_down, kw
+    # every MLP the [models] phase gives the kernel, config by config at
+    # full width, at the rows of its layers: a dense layer's and an MoE
+    # layer's shared expert; a shape two configs share is held once
+    held = set()
+    for arch, depth, prompt_len, _ in MODEL_RUNS:
+        mcfg = model_cfg(arch, depth)
+        d = mcfg.d_model
+        for name, mff, count in layer_mlps(mcfg):
+            key = (d, mff, mcfg.gated_mlp, mcfg.mlp_act)
+            rows = [m for m in model_rows(arch, prompt_len)[0]
+                    if count and (m, key) not in held]
+            if not rows:
+                continue
+            x_all, w_up, w_down, kw = mlp_inputs(
+                gen, (max(rows),), d, mff, mcfg.gated_mlp, False, dtype)
+            for m in rows:
+                held.add((m, key))
+                shapes.append(serving_row(
+                    f"{mcfg.name} {name} {d}/{mff} m={m}",
+                    x_all[:m].contiguous(), w_up, w_down, kw, mcfg.mlp_act))
+            del x_all, w_up, w_down, kw
     decode = shapes[0]
     return {
         "name": "fused_mlp", "route": "cuda",
@@ -541,7 +678,13 @@ def attention_phase(cfg) -> dict:
                 (1, 40, 2, 77, 128, 40, 0), (1, 4, 1, 66000, 16, 70000, 0),
                 (1, 8, 1, 2048, 64, 40, 0), (1, 5, 1, 2048, 128, 3000, 100),
                 (3, 24, 3, 517, 256, 400, 0), (1, 8, 8, 1000, 64, 1000, 33),
-                (64, 40, 8, 300, 128, 299, 0)):
+                (64, 40, 8, 300, 128, 299, 0),
+                # dit-xl's D 72 at G 1 and kimi-k2's D 112 at G 8
+                (2, 16, 16, 300, 72, 250, 0), (1, 16, 16, 517, 72, 900, 64),
+                (2, 64, 8, 1000, 112, 999, 0), (1, 64, 8, 130, 112, 700, 48),
+                (1, 16, 2, 2048, 112, 40, 0),
+                # D 128 at gemma2-27b's G 2 and llama2-70b's G 8
+                (2, 32, 16, 1000, 128, 999, 0), (1, 64, 8, 517, 128, 900, 64)):
             q, k, v = attn_inputs(gen, b, hq, hkv, c, d, dtype)
             case(q, k, v, ring_tags(c, pos), pos - 1, win)
             if dtype == torch.bfloat16 and c < 60000:
@@ -550,12 +693,19 @@ def attention_phase(cfg) -> dict:
                 for splits in (1, 8):
                     case(q, k, v, ring_tags(c, pos), pos - 1, win,
                          splits=splits)
-    # bf16 per-row positions with a dead row on route "fma" too
-    q, k, v = attn_inputs(gen, 4, 10, 2, 200, 32, torch.bfloat16)
+    # bf16 per-row positions with a dead row on route "fma" too, and on
+    # route "mma" at D 72 (G 1) and D 112 (G 8)
     qp = torch.tensor([5, 130, 350, 0], dtype=torch.int32, device="cuda")
     tags = torch.stack([ring_tags(200, int(p) + 1) for p in qp.tolist()])
     tags[3] = SENTINEL
+    q, k, v = attn_inputs(gen, 4, 10, 2, 200, 32, torch.bfloat16)
     case(q, k, v, tags, qp, 48, dead_rows=(3,), route="fma")
+    for hq, hkv, d in ((4, 4, 72), (16, 2, 112)):
+        q, k, v = attn_inputs(gen, 4, hq, hkv, 200, d, torch.bfloat16)
+        for win in (0, 48):
+            case(q, k, v, tags, qp, win, dead_rows=(3,))
+            for splits in (1, 8):
+                case(q, k, v, tags, qp, win, dead_rows=(3,), splits=splits)
     # fp32 query against a bf16 cache (fp32 weights, default bf16 KV)
     q, k, v = attn_inputs(gen, 2, 8, 2, 128, 32, torch.float32)
     case(q, k.to(torch.bfloat16), v.to(torch.bfloat16), ring_tags(128, 90),
@@ -564,17 +714,30 @@ def attention_phase(cfg) -> dict:
         f"(worst err/tol and its err: {json.dumps(worst)})")
 
     # the two shapes the serving paths give it, full width, bf16, and the
-    # continuous shape at a group of 8; each also on route "fma"
+    # continuous shape at a group of 8; each also on route "fma"; then every
+    # shape the [models] phase gives it, config by config at full width: a
+    # mid-run lock-step step, and on TRACE_ARCH the continuous one
     hkv, d = cfg.num_kv_heads, cfg.resolved_head_dim
     dtype = torch.bfloat16
     shapes = []
-    lock_pos = PROMPT_LEN + STEPS // 2           # a mid-run lock-step step
     slot_pos_now = [p + 20 for p in TRACE["prompt_lens"] * 2]
-    for label, b, c, hq in (("lock-step", BATCH, CACHE, cfg.num_heads),
-                            ("continuous", SLOTS, SLOT_CACHE, cfg.num_heads),
-                            ("continuous G=8", SLOTS, SLOT_CACHE, 8 * hkv)):
+    serving = [
+        ("lock-step", BATCH, CACHE, cfg.num_heads, hkv, d,
+         PROMPT_LEN + STEPS // 2),
+        ("continuous", SLOTS, SLOT_CACHE, cfg.num_heads, hkv, d, None),
+        ("continuous G=8", SLOTS, SLOT_CACHE, 8 * hkv, hkv, d, None)]
+    for arch, depth, prompt_len, ring in MODEL_RUNS:
+        mcfg = model_cfg(arch, depth)
+        heads = (mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim)
+        tag = f"D={heads[2]} G={heads[0] // heads[1]}"
+        serving.append((f"{mcfg.name} lock-step {tag}", BATCH, ring, *heads,
+                        prompt_len + STEPS // 2))
+        if arch == TRACE_ARCH:
+            serving.append((f"{mcfg.name} continuous {tag}", SLOTS,
+                            SLOT_CACHE, *heads, None))
+    for label, b, c, hq, hkv, d, lock_pos in serving:
         q, k, v = attn_inputs(gen, b, hq, hkv, c, d, dtype)
-        if label == "lock-step":
+        if lock_pos is not None:
             tags, qp = ring_tags(c, lock_pos + 1), lock_pos
         else:
             qp = torch.tensor(slot_pos_now, dtype=torch.int32, device="cuda")
@@ -757,14 +920,15 @@ def flash_phase(cfg, chunk: int) -> dict:
         case(*qkv(2, 4, 1, 24, 70000, 16, dtype), q_pos1, tags1)
         q_pos1, tags1 = chunk_positions(1, 20, 70000, (69000,))
         case(*qkv(1, 10, 2, 20, 70000, 128, dtype), q_pos1, tags1)
-    # route "wgmma" (bf16, head dims 64, 128, 256): groups of 1, 5 and 8;
+    # route "wgmma" (bf16, head dims 64, 128, 256): groups of 1, 2, 5 and 8;
     # chunks of 1-256 tokens against a ring of 512 (part-filled, wrapped,
     # windowed), with the KV loop split as planned, not split, and split
     # over a cluster of 8 (a chunk early in the ring leaves most splits with
     # no live key); prefills with ragged S, windows, bidirectional, batch 2;
     # q read through the strides of a (B, S, Hq, D) projection
     bf16 = torch.bfloat16
-    for hq, hkv, d in ((4, 4, 64), (10, 2, 128), (16, 2, 256), (40, 8, 128)):
+    for hq, hkv, d in ((4, 4, 64), (10, 2, 128), (16, 2, 256), (40, 8, 128),
+                       (8, 4, 128), (16, 2, 128)):
         for t, start, win in ((1, 300, 0), (16, 0, 0), (37, 100, 0),
                               (64, 480, 64), (256, 200, 0)):
             q_pos, tags = chunk_positions(1, t, 512, (start,))
@@ -782,6 +946,27 @@ def flash_phase(cfg, chunk: int) -> dict:
         q_pos, tags = chunk_positions(2, 150, 512, (40, 400))
         k, v = qkv(2, hq, hkv, 150, 512, d, bf16)[1:]
         case(q_strided, k, v, q_pos, tags, splits=4)
+    # route "mma_sync" at dit-xl's D 72 (G 1) and kimi-k2's D 112 (G 8):
+    # prefills with ragged S, a window, bidirectional; chunks against a ring
+    # of 512 (part-filled, wrapped, windowed, a dead row); q through the
+    # strides of a (B, S, Hq, D) projection
+    for hq, hkv, d in ((16, 16, 72), (64, 8, 112)):
+        for b, s_len, causal, win in ((2, 257, True, 0), (1, 200, True, 50),
+                                      (1, 130, False, 0)):
+            case(*qkv(b, hq, hkv, s_len, s_len, d, bf16), causal=causal,
+                 window=win)
+        for t, start, win in ((1, 300, 0), (37, 100, 0), (64, 480, 64),
+                              (256, 200, 0)):
+            q_pos, tags = chunk_positions(1, t, 512, (start,))
+            case(*qkv(1, hq, hkv, t, 512, d, bf16), q_pos, tags, window=win)
+        q_pos, tags = chunk_positions(3, 40, 512, (100, 600, 0))
+        tags[2] = SENTINEL
+        dead = torch.zeros((3, 40), dtype=torch.bool, device="cuda")
+        dead[2] = True
+        case(*qkv(3, hq, hkv, 40, 512, d, bf16), q_pos, tags, dead=dead)
+        q_strided = normal(2, 150, hq, d, dtype=bf16).transpose(1, 2)
+        k, v = qkv(2, hq, hkv, 150, 150, d, bf16)[1:]
+        case(q_strided, k, v)
     # fp32 query against a bf16 ring (fp32 weights, default bf16 KV)
     q_pos, tags = chunk_positions(2, 33, 128, (10, 200))
     case(*qkv(2, 8, 2, 33, 128, 32, torch.float32, torch.bfloat16), q_pos,
@@ -789,18 +974,31 @@ def flash_phase(cfg, chunk: int) -> dict:
     say(f"[kernels] flash_attention: {cases} sweep cases inside tolerance "
         f"(worst err/tol and its err: {json.dumps(worst)})")
 
-    # the shapes the serving paths give it, full width, bf16
-    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    # the shapes the serving paths give it, full width, bf16; then every
+    # shape the [models] phase gives it, config by config at full width: the
+    # lock-step prefill, and on TRACE_ARCH each chunk length of the trace
+    heads = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
     dtype = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shapes = []
-    serving = [("lock-step prefill", BATCH, PROMPT_LEN, PROMPT_LEN, None)]
+    serving = [("lock-step prefill", BATCH, PROMPT_LEN, PROMPT_LEN, None,
+                heads)]
     for t, starts in ((chunk, (0, 700, 1900)), (chunk // 2, (1900,)),
                       (PREFILL_CHUNK, (0, 700, 1900))):
         for start in starts:
             serving.append((f"chunk T={t} at {start}", 1, t, SLOT_CACHE,
-                            start))
-    for label, b, t, c, start in serving:
+                            start, heads))
+    for arch, depth, prompt_len, _ in MODEL_RUNS:
+        mcfg = model_cfg(arch, depth)
+        mheads = (mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim)
+        tag = f"D={mheads[2]} G={mheads[0] // mheads[1]}"
+        serving.append((f"{mcfg.name} prefill {tag}", BATCH, prompt_len,
+                        prompt_len, None, mheads))
+        if arch == TRACE_ARCH:
+            serving += [(f"{mcfg.name} chunk T={t} at {start} {tag}", 1, t,
+                         SLOT_CACHE, start, mheads)
+                        for t, start in trace_chunks()]
+    for label, b, t, c, start, (hq, hkv, d) in serving:
         q, k, v = qkv(b, hq, hkv, t, c, d, dtype)
         if start is None:
             pos = torch.arange(t, dtype=torch.int32, device="cuda")
@@ -830,12 +1028,16 @@ def flash_phase(cfg, chunk: int) -> dict:
             def library():
                 return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
         bound, bound_by = flash_bound_ms(q, k, q_pos, k_pos, True, 0)
-        row_tiles, splits = flash_plan_splits(b, hkv, t, c, hq // hkv)
+        route = flash_route_of(q, k)
+        if route == "wgmma":
+            row_tiles, splits = flash_plan_splits(b, hkv, t, c, hq // hkv)
+            blocks = b * hkv * row_tiles * splits
+        else:   # a block for 64 queries (kMmaBQ) of a head, the ring unsplit
+            splits, blocks = 1, b * hq * -(-t // 64)
         shapes.append({
             "shape": label, "b": b, "hq": hq, "hkv": hkv, "sq": t, "sk": c,
             "d": d, "dtype": "bfloat16", "max_abs_err": err,
-            "route": flash_route_of(q, k), "splits": splits,
-            "blocks": b * hkv * row_tiles * splits,
+            "route": route, "splits": splits, "blocks": blocks,
             "ms": time_ms(kernel, 20),
             "plain_ms": time_ms(plain, 3, warmup=1),
             "bound_ms": bound, "bound_by": bound_by,
@@ -847,6 +1049,7 @@ def flash_phase(cfg, chunk: int) -> dict:
     # cache) against calls whose k and v start somewhere new each time (16
     # bytes further into one buffer: two maps encoded a call)
     b, t = 1, PROMPT_LEN
+    hq, hkv, d = heads
     q, k, v = qkv(b, hq, hkv, t, t, d, dtype)
     n = k.numel()
     kv_pool = normal(2, n + 8 * 5000, dtype=dtype)
@@ -942,7 +1145,7 @@ def elk_matmul_phase(cfg) -> dict:
     strided ``x`` TMA takes and one it does not; then the products
     ``layers.linear`` gives the kernel on the serving paths, full width,
     bf16, timed: q/o, k/v at 8, 32, 256 and 4096 rows, the LM head at 8 and
-    32."""
+    32; and every product of the [models] phase (``MODEL_RUNS``)."""
     gen = torch.Generator(device="cuda").manual_seed(1357)
 
     def normal(*shape, dtype, scale=1.0):
@@ -994,43 +1197,55 @@ def elk_matmul_phase(cfg) -> dict:
         for wide in (11 * n, 22 * n):
             case(normal(m, k, dtype=torch.bfloat16),
                  normal(k, wide, dtype=torch.bfloat16))
+    # a product 8 wide (dit-xl's LM head, vocab 8: a tile of 64 or more
+    # columns over 8) at the rows of a decode step, of the routes' edges and
+    # of a prefill, on the planned route and on mma_sync
+    for m in (1, 8, 63, 64, 4096):
+        x = normal(m, 1152, dtype=torch.bfloat16)
+        y = normal(1152, 8, dtype=torch.bfloat16)
+        case(x, y)
+        case(x, y, bm=64, bn=64, bk=64)
     if min(reached.values()) < 1:
         fail(f"the elk_matmul sweep did not reach every route: {reached}")
     say(f"[kernels] elk_matmul: {cases} sweep cases inside their limits, each "
         f"launched twice with equal bits (by route {json.dumps(reached)}; "
         f"worst err/limit and its err: {json.dumps(worst)})")
 
-    d, dtype = cfg.d_model, torch.bfloat16
+    dtype = torch.bfloat16
+    shapes = []
+
+    def product_row(label, x, w):
+        """Hold ``x @ w`` to its plain version and time it beside the plain
+        version and the library call."""
+        err = case(x, w)
+        m, n, k, lda, ldy, _ = matmul_layout(x, w)
+        plan = plan_for(m, n, k, dtype, tma_legal(x, w, lda, ldy))
+        bound, bound_by = matmul_bound_ms(m, n, k, dtype)
+        iters = 5 if m * n > 2 ** 24 else 20
+        shapes.append({
+            "shape": label, "m": m, "n": n, "k": k, "dtype": "bfloat16",
+            "route": plan.route, "tiles": [plan.bm, plan.bn, plan.bk],
+            "stages": plan.stages, "splits": plan.splits,
+            "blocks": plan.blocks, "smem_bytes": plan.smem_bytes,
+            "max_abs_err": err,
+            "ms": time_ms(lambda: matmul(x, w), iters),
+            "plain_ms": time_ms(lambda: matmul_ref(x, w), 3, warmup=1),
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": time_ms(lambda: torch.matmul(x, w), iters),
+        })
+        say(f"[kernels] elk_matmul {label}: " + json.dumps(shapes[-1]))
+
+    d = cfg.d_model
     products = {"q, o": cfg.num_heads * cfg.resolved_head_dim,
                 "k, v": cfg.num_kv_heads * cfg.resolved_head_dim,
                 "lm_head": cfg.vocab_size}
     weights = {name: normal(d, n, dtype=dtype, scale=d ** -0.5)
                for name, n in products.items()}
     x_all = normal(BATCH * PROMPT_LEN, d, dtype=dtype)
-    shapes = []
     for m in (BATCH, 32, PREFILL_CHUNK, BATCH * PROMPT_LEN):
         for name, w in weights.items():
-            if name == "lm_head" and m > 32:
-                continue
-            x = x_all[:m]
-            n = w.shape[1]
-            err = case(x, w)
-            plan = plan_for(m, n, d, dtype, tma_legal(x, w, d, n))
-            bound, bound_by = matmul_bound_ms(m, n, d, dtype)
-            iters = 5 if m * n > 2 ** 24 else 20
-            shapes.append({
-                "shape": f"{name} m={m}", "m": m, "n": n, "k": d,
-                "dtype": "bfloat16", "route": plan.route,
-                "tiles": [plan.bm, plan.bn, plan.bk], "stages": plan.stages,
-                "splits": plan.splits, "blocks": plan.blocks,
-                "smem_bytes": plan.smem_bytes, "max_abs_err": err,
-                "ms": time_ms(lambda: matmul(x, w), iters),
-                "plain_ms": time_ms(lambda: matmul_ref(x, w), 3, warmup=1),
-                "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": time_ms(lambda: torch.matmul(x, w), iters),
-            })
-            say(f"[kernels] elk_matmul {name} m={m}: "
-                + json.dumps(shapes[-1]))
+            if name != "lm_head" or m <= 32:
+                product_row(f"{name} m={m}", x_all[:m], w)
     # host cost of a call at the decode step's q/o product (161 calls a
     # step): checks, plan lookup, allocation and the ctypes launch, against
     # torch.matmul's
@@ -1040,6 +1255,33 @@ def elk_matmul_phase(cfg) -> dict:
     say(f"[kernels] elk_matmul host us a call, q, o m={BATCH}: "
         + json.dumps(host))
     del weights, x_all, x, w
+    # every product the [models] phase gives the kernel, config by config at
+    # full width: q, k/v, o and the router at the rows of its layers, the LM
+    # head (tied: the transposed embedding) at the rows of its head; a shape
+    # two products or two configs share is held once
+    held = set()
+    for arch, depth, prompt_len, _ in MODEL_RUNS:
+        mcfg = model_cfg(arch, depth)
+        layer_rows, head_rows = model_rows(arch, prompt_len)
+        by_shape = {}
+        for name, k, n, ldy, count in layer_products(mcfg):
+            if count:
+                by_shape.setdefault((k, n, ldy != n), []).append(name)
+        for (k, n, tied), names in by_shape.items():
+            head = names == ["lm_head"]
+            rows = [m for m in (head_rows if head else layer_rows)
+                    if (m, k, n, tied) not in held]
+            if not rows:
+                continue
+            w = (normal(n, k, dtype=dtype, scale=k ** -0.5).t() if tied
+                 else normal(k, n, dtype=dtype, scale=k ** -0.5))
+            x_all = normal(max(rows), k, dtype=dtype)
+            for m in rows:
+                held.add((m, k, n, tied))
+                product_row(f"{mcfg.name} {', '.join(names)}"
+                            f"{' (tied)' if tied else ''} m={m}",
+                            x_all[:m], w)
+            del w, x_all
     main = shapes[0]                   # q, o at a decode step
     return {
         "name": "elk_matmul", "route": "cuda",
@@ -1062,82 +1304,93 @@ def elk_matmul_phase(cfg) -> dict:
 # phase 4: CPU (plain path) against the card (kernel path)
 # ---------------------------------------------------------------------------
 
+PARITY_ARCHS = ("qwen3_14b", "gemma2_27b", "llama2_70b", "dit_xl",
+                "llama4_maverick_400b_a17b", "kimi_k2_1t_a32b")
+
+
 def parity_phase() -> None:
-    cfg = dataclasses.replace(get_smoke_config("qwen3_14b"), dtype="float32",
-                              param_dtype="float32")
-    params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    scfg = ServeConfig(batch=2, cache_capacity=32, kv_dtype="float32")
-    engines = {dev: ServeEngine(cfg, params, scfg, device=dev)
-               for dev in ("cpu", "cuda")}
-    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
-                            generator=torch.Generator().manual_seed(1))
-    # resident (gspmd) and streamed (elk_stream, a window of 2 of the 2
-    # layers) weights, on the CPU and on the card
-    for mode in ("elk_stream",):
-        smode = dataclasses.replace(scfg, mode=mode, prefetch_depth=2)
-        engines.update({(dev, mode): ServeEngine(cfg, params, smode, device=dev)
-                        for dev in ("cpu", "cuda")})
-    before = read_launches()
-    toks = {key: eng.generate(prompts, steps=8).cpu()
-            for key, eng in engines.items()}
-    launched = {k: n - before[k] for k, n in read_launches().items()}
-    if launched != {"fused_mlp": 2 * cfg.num_layers * 8,
-                    "decode_attention": 2 * cfg.num_layers * 7,
-                    "flash_attention": 2 * cfg.num_layers,
-                    "elk_matmul": 2 * (4 * cfg.num_layers + 1) * 8}:
-        fail(f"the card's engines did not go through the kernels as often "
-             f"as their passes say: {launched}")
-    for key, got in toks.items():
-        if not torch.equal(toks["cpu"], got):
-            fail(f"greedy tokens differ between the CPU (gspmd) and {key}:"
-                 f"\n{toks['cpu']}\n{got}")
-    # last-step logits, all fed the CPU run's tokens
-    last = {}
-    for key, eng in engines.items():
-        logits, cache = eng.prefill(prompts)
-        for step in range(7):
-            logits, cache = eng.decode(toks["cpu"][:, 12 + step], cache)
-        last[key] = logits.to(torch.float32).cpu()
-    err = max(float((last["cpu"] - got).abs().max()) for got in last.values())
-    tol = 2e-4 * (float(last["cpu"].abs().max()) + 1.0)
-    if err > tol:
-        fail(f"last-step logits differ: {err:.3e} > {tol:.3e}")
-    if not torch.equal(last["cuda"], last[("cuda", "elk_stream")]):
-        fail("on the card elk_stream and gspmd logits are not identical")
+    """For each smoke config in fp32, on the same seeded weights: the CPU
+    (plain path) against the card (kernel path), with resident weights
+    (``gspmd``) and, where every layer has one layout, streamed ones
+    (``elk_stream``, a window of 2 of the 2 layers)."""
+    for arch in PARITY_ARCHS:
+        parity_config(dataclasses.replace(
+            get_smoke_config(arch), dtype="float32", param_dtype="float32"))
     # ties go to the first index on the card as on the CPU
     rows = torch.zeros(3, 300)
     rows[0, [7, 200]] = 3.0
     rows[2, [150, 151]] = 2.0
     if torch.argmax(rows.cuda(), dim=-1).tolist() != [7, 0, 150]:
         fail("torch.argmax on the card does not pick the first maximum")
-    say(f"[parity] smoke qwen3 fp32: tokens equal on CPU and card, gspmd and "
-        f"elk_stream, last-step logits max abs diff {err:.3e} (tol "
-        f"{tol:.3e}); on the card elk_stream equals gspmd bit for bit")
 
-    # continuous batching: the same trace through every engine's batcher
-    scfg = ServeConfig(batch=2, cache_capacity=32, prefill_chunk=8,
-                       kv_dtype="float32")
+
+def parity_config(cfg) -> None:
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    modes = ("gspmd", "elk_stream") if len(set(tfm.layer_kinds(cfg))) == 1 \
+        else ("gspmd",)
+    scfg = ServeConfig(batch=2, cache_capacity=32, kv_dtype="float32",
+                       prefetch_depth=2)
     engines = {(dev, mode): ServeEngine(
         cfg, params, dataclasses.replace(scfg, mode=mode), device=dev)
-        for dev in ("cpu", "cuda") for mode in ("gspmd", "elk_stream")}
+        for dev in ("cpu", "cuda") for mode in modes}
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                            generator=torch.Generator().manual_seed(1))
+    before = read_launches()
+    toks = {key: eng.generate(prompts, steps=8).cpu()
+            for key, eng in engines.items()}
+    launched = {k: n - before[k] for k, n in read_launches().items()}
+    want = passes_expected(cfg, [("flash", 24, 2)] + [("decode", 2, 2)] * 7)
+    want = {k: len(modes) * n for k, n in want.items() if k != "routes"}
+    if launched != want:
+        fail(f"{cfg.name}: the card's engines launched the kernels "
+             f"{launched} times, their passes say {want}")
+    ref = toks["cpu", "gspmd"]
+    for key, got in toks.items():
+        if not torch.equal(ref, got):
+            fail(f"{cfg.name}: greedy tokens differ between the CPU (gspmd) "
+                 f"and {key}:\n{ref}\n{got}")
+    # last-step logits, all fed the CPU run's tokens
+    last = {}
+    for key, eng in engines.items():
+        logits, cache = eng.prefill(prompts)
+        for step in range(7):
+            logits, cache = eng.decode(ref[:, 12 + step], cache)
+        last[key] = logits.to(torch.float32).cpu()
+    base = last["cpu", "gspmd"]
+    err = max(float((base - got).abs().max()) for got in last.values())
+    tol = 2e-4 * (float(base.abs().max()) + 1.0)
+    if err > tol:
+        fail(f"{cfg.name}: last-step logits differ: {err:.3e} > {tol:.3e}")
+    if "elk_stream" in modes and not torch.equal(
+            last["cuda", "gspmd"], last["cuda", "elk_stream"]):
+        fail(f"{cfg.name}: on the card elk_stream and gspmd logits are not "
+             "identical")
+    say(f"[parity] smoke {cfg.name} fp32: tokens equal on CPU and card, "
+        f"{' and '.join(modes)}, last-step logits max abs diff {err:.3e} "
+        f"(tol {tol:.3e})" + ("; on the card elk_stream equals gspmd bit for "
+                              "bit" if "elk_stream" in modes else ""))
+
+    # continuous batching: the same trace through every engine's batcher
+    # (chunks of 8 into rings of 32; MoE dropless on the slot path)
     done = {}
     for (dev, mode), eng in engines.items():
+        eng.scfg.prefill_chunk = 8
         before = read_launches()
         comps = ContinuousBatcher(eng).run(make_trace(
             6, vocab_size=cfg.vocab_size))
         done[dev, mode] = {c.rid: c.tokens for c in comps}
         launched = {k: n - before[k] for k, n in read_launches().items()}
         if (dev == "cuda") != (min(launched.values()) > 0):
-            fail(f"the {dev} {mode} batcher launched the kernels "
+            fail(f"{cfg.name}: the {dev} {mode} batcher launched the kernels "
                  f"{launched} times")
     ref = done["cpu", "gspmd"]
     for key, got in done.items():
         if sorted(got) != list(range(6)) or any(
                 not np.array_equal(ref[r], got[r]) for r in ref):
-            fail(f"continuous-batching tokens differ between the CPU "
-                 f"(gspmd) and {key}:\n{ref}\n{got}")
-    say("[parity] smoke qwen3 fp32: ContinuousBatcher tokens equal on CPU "
-        "and card, gspmd and elk_stream, for 6 mixed requests")
+            fail(f"{cfg.name}: continuous-batching tokens differ between the "
+                 f"CPU (gspmd) and {key}:\n{ref}\n{got}")
+    say(f"[parity] smoke {cfg.name} fp32: ContinuousBatcher tokens equal on "
+        f"CPU and card, {' and '.join(modes)}, for 6 mixed requests")
 
 
 # ---------------------------------------------------------------------------
@@ -1200,49 +1453,53 @@ def chunk_lengths(trace, budget: int) -> list[int]:
     return out
 
 
-def routes_expected(layers: int, passes: list[tuple[int, int]]) -> dict:
-    """Launches by route of bf16 passes at full width, each (rows of the
-    layers, rows of the LM head): the MLP on "two_pass" above
-    SPLIT_FF_MAX_M rows and "split_ff" at or below; the four projections
-    on "wgmma" from WGMMA_MIN_M rows and "splitk" below, as the head."""
+def passes_expected(cfg, passes: list[tuple[str, int, int]]) -> dict:
+    """Launches, in all and by route, of bf16 passes of ``cfg`` at full
+    width, each (attention "flash" or "decode", rows of the layers, rows of
+    the LM head).  Every layer launches its attention kernel, the four
+    projections and its MLP; an MoE layer the router (a product) and its
+    shared expert's MLP in place of the MLP; the head one product a pass.
+    By route: the MLP on "two_pass" above SPLIT_FF_MAX_M rows and
+    "split_ff" at or below; each product on the route of its plan
+    (``smem_plan``: TMA takes it when its row strides are whole 16 bytes);
+    flash attention on "wgmma" at the head dims it takes and "mma_sync" at
+    the others; decode attention on "mma"."""
+    layers = cfg.num_layers
+    mlps = sum(count for _, _, count in layer_mlps(cfg))
+    *products, (_, *head, _) = layer_products(cfg)
+    flash_route = ("wgmma" if cfg.resolved_head_dim in FLASH_WGMMA_HEAD_DIMS
+                   else "mma_sync")
     mlp = dict.fromkeys(MLP_ROUTES, 0)
     mm = dict.fromkeys(MATMUL_ROUTES, 0)
-    for rows, head in passes:
-        mlp["two_pass" if rows > SPLIT_FF_MAX_M else "split_ff"] += layers
-        mm["wgmma" if rows >= WGMMA_MIN_M else "splitk"] += 4 * layers
-        mm["wgmma" if head >= WGMMA_MIN_M else "splitk"] += 1
-    return {"fused_mlp": mlp, "elk_matmul": mm}
+    attn = {"flash_attention": dict.fromkeys(FLASH_ROUTES, 0),
+            "decode_attention": dict.fromkeys(DECODE_ROUTES, 0)}
+
+    def route(m, k, n, ldy):
+        return plan_for(m, n, k, torch.bfloat16,
+                        k % 8 == 0 and ldy % 8 == 0).route
+
+    for kind, rows, head_rows in passes:
+        if kind == "flash":
+            attn["flash_attention"][flash_route] += layers
+        else:
+            attn["decode_attention"]["mma"] += layers
+        mlp["two_pass" if rows > SPLIT_FF_MAX_M else "split_ff"] += mlps
+        for _, k, n, ldy, count in products:
+            if count:
+                mm[route(rows, k, n, ldy)] += count
+        mm[route(head_rows, *head)] += 1
+    routes = {"fused_mlp": mlp, "elk_matmul": mm, **attn}
+    return {**{name: sum(by.values()) for name, by in routes.items()},
+            "routes": routes}
 
 
-def attention_routes(flash: int, decode: int) -> dict:
-    """Launches by route of the attention kernels at full width (bf16,
-    head dim 128): flash attention on "wgmma", decode attention on
-    "mma"."""
-    fr = dict.fromkeys(FLASH_ROUTES, 0)
-    fr["wgmma"] = flash
-    dr = dict.fromkeys(DECODE_ROUTES, 0)
-    dr["mma"] = decode
-    return {"flash_attention": fr, "decode_attention": dr}
-
-
-def trace_expected(layers: int, decode_ticks: int, chunks: list[int]
-                   ) -> dict:
-    """Launches of a continuous trace: the MLP and the four projections in
-    every layer of every pass, and the LM head once a pass; decode
-    attention in every decode tick and every one-token chunk; flash
-    attention in every longer chunk.  By route: a tick has SLOTS rows, a
-    chunk its tokens, the head of a chunk one row."""
-    ones = sum(t == 1 for t in chunks)
-    passes = decode_ticks + len(chunks)
-    return {"fused_mlp": layers * passes,
-            "decode_attention": layers * (decode_ticks + ones),
-            "flash_attention": layers * (len(chunks) - ones),
-            "elk_matmul": (4 * layers + 1) * passes,
-            "routes": {**routes_expected(
-                layers, [(SLOTS, SLOTS)] * decode_ticks
-                + [(t, 1) for t in chunks]),
-                **attention_routes(layers * (len(chunks) - ones),
-                                   layers * (decode_ticks + ones))}}
+def trace_expected(cfg, decode_ticks: int, chunks: list[int]) -> dict:
+    """Launches of a continuous trace: every decode tick a pass of SLOTS
+    rows; every chunk a pass of its tokens (decode attention for a chunk
+    of one token, flash attention for a longer one) whose head has one
+    row."""
+    return passes_expected(cfg, [("decode", SLOTS, SLOTS)] * decode_ticks + [
+        ("decode" if t == 1 else "flash", t, 1) for t in chunks])
 
 
 def draw_params(cfg) -> dict:
@@ -1256,78 +1513,84 @@ def draw_params(cfg) -> dict:
     return params
 
 
-def lockstep_expected(layers: int) -> dict:
-    """Launches of one ``generate`` of STEPS tokens: one prefill (flash
-    attention) and STEPS - 1 decode steps (decode attention); the MLP and
-    the four projections in every layer of every pass, the LM head once a
-    pass.  By route: the prefill has BATCH x PROMPT_LEN rows (its MLP on
-    "two_pass", its projections on "wgmma"), a decode step BATCH; the head
-    BATCH rows every pass."""
-    return {"fused_mlp": layers * STEPS,
-            "decode_attention": layers * (STEPS - 1),
-            "flash_attention": layers,
-            "elk_matmul": (4 * layers + 1) * STEPS,
-            "routes": {**routes_expected(
-                layers, [(BATCH * PROMPT_LEN, BATCH)]
-                + [(BATCH, BATCH)] * (STEPS - 1)),
-                **attention_routes(layers, layers * (STEPS - 1))}}
+def lockstep_expected(cfg, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
+                      steps: int = STEPS) -> dict:
+    """Launches of one ``generate`` of ``steps`` tokens: one prefill of
+    batch x prompt_len rows (flash attention) and steps - 1 decode steps
+    of batch rows (decode attention); the head has batch rows every
+    pass."""
+    return passes_expected(cfg, [("flash", batch * prompt_len, batch)] + [
+        ("decode", batch, batch)] * (steps - 1))
 
 
-def serve_phase(cfg, params: dict, kernel_rows: list[dict],
-                profile: bool) -> torch.Tensor:
+def lockstep_run(cfg, eng: ServeEngine, kernel_rows: list[dict], path: str,
+                 prompt_len: int, steps: int, warm_steps: int) -> dict:
+    """``generate`` of ``steps`` tokens for BATCH prompts of ``prompt_len``
+    (seed 1) with the kernels' counts at 0 before and read after, recorded
+    as ``path``; tokens inside the vocabulary, prompts kept.  Then a
+    prefill (timed, on the cache it filled) and ``steps - 1`` decode steps
+    (timed together), their tokens equal to generate's, their logits
+    finite, the cache updated in place."""
     dev = torch.device("cuda")
-    torch.cuda.reset_peak_memory_stats()
-    eng = ServeEngine(cfg, params, ServeConfig(batch=BATCH, cache_capacity=CACHE))
-    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), device=dev,
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, prompt_len),
+                            device=dev,
                             generator=torch.Generator(device=dev).manual_seed(1))
-    eng.generate(prompts, steps=2)          # warm-up
+    eng.generate(prompts, steps=warm_steps)          # warm-up
     torch.cuda.synchronize()
-
-    # the lock-step path, with the kernels' counts at 0 before and read after
     zero_launches()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    out = eng.generate(prompts, steps=STEPS)
+    out = eng.generate(prompts, steps=steps)
     end.record()
     torch.cuda.synchronize()
-    counts, routes = read_launches(), read_routes()
     gen_ms = start.elapsed_time(end)
-    record_launches(kernel_rows, "lock-step", counts,
-                    lockstep_expected(cfg.num_layers), routes)
-    if tuple(out.shape) != (BATCH, PROMPT_LEN + STEPS):
-        fail(f"generate gave shape {tuple(out.shape)}")
-    if not torch.equal(out[:, :PROMPT_LEN], prompts):
-        fail("generate did not keep the prompts")
+    counts, routes = read_launches(), read_routes()
+    record_launches(kernel_rows, path, counts,
+                    lockstep_expected(cfg, BATCH, prompt_len, steps), routes)
+    if tuple(out.shape) != (BATCH, prompt_len + steps) or not torch.equal(
+            out[:, :prompt_len], prompts):
+        fail(f"{path}: generate gave shape {tuple(out.shape)} or lost the "
+             "prompts")
     if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
-        fail("generated token outside the vocabulary")
+        fail(f"{path}: a generated token lies outside the vocabulary")
 
-    # prefill and decode timed apart; logits finite; cache updated in place
     logits, cache = eng.prefill(prompts)
-    prefill_ms = time_ms(lambda: eng.prefill(prompts, cache), 2, warmup=0)
-    logits, cache = eng.prefill(prompts, cache)
+    prefill_ms = time_ms(lambda: eng.prefill(prompts, cache), 1, warmup=0)
     if not torch.isfinite(logits).all():
-        fail("prefill logits not finite")
-    first = torch.argmax(logits[:, -1, :], dim=-1)
-    if not torch.equal(first, out[:, PROMPT_LEN]):
-        fail("prefill's greedy token differs from generate's")
-    ptrs = (cache["k"].data_ptr(), cache["v"].data_ptr(),
-            cache["slot_pos"].data_ptr())
-    tok = first
+        fail(f"{path}: prefill logits not finite")
+    tok = torch.argmax(logits[:, -1, :], dim=-1)
+    if not torch.equal(tok, out[:, prompt_len]):
+        fail(f"{path}: prefill's greedy token differs from generate's")
+    ptrs = [cache[k].data_ptr() for k in ("k", "v", "slot_pos")]
     start.record()
-    for step in range(STEPS - 1):
+    for step in range(steps - 1):
         logits, cache = eng.decode(tok, cache)
         tok = torch.argmax(logits[:, -1, :], dim=-1)
-        if not torch.equal(tok, out[:, PROMPT_LEN + 1 + step]):
-            fail(f"decode step {step} differs from generate's token")
+        if not torch.equal(tok, out[:, prompt_len + 1 + step]):
+            fail(f"{path}: decode step {step} differs from generate's token")
     end.record()
     torch.cuda.synchronize()
-    decode_ms = start.elapsed_time(end) / (STEPS - 1)
     if not torch.isfinite(logits).all():
-        fail("last decode logits not finite")
-    if ptrs != (cache["k"].data_ptr(), cache["v"].data_ptr(),
-                cache["slot_pos"].data_ptr()) or cache["pos"] != PROMPT_LEN + STEPS - 1:
-        fail("the KV cache was not updated in place")
+        fail(f"{path}: decode logits not finite")
+    if ptrs != [cache[k].data_ptr() for k in ("k", "v", "slot_pos")] or \
+            cache["pos"] != prompt_len + steps - 1:
+        fail(f"{path}: the KV cache was not updated in place")
+    return {"out": out, "prompts": prompts, "cache": cache,
+            "generate_ms": gen_ms,
+            "tokens_per_s": BATCH * steps / (gen_ms * 1e-3),
+            "prefill_ms": prefill_ms,
+            "decode_ms_per_token": start.elapsed_time(end) / (steps - 1),
+            "launches": counts, "launches_by_route": routes}
+
+
+def serve_phase(cfg, params: dict, kernel_rows: list[dict],
+                profile: bool) -> torch.Tensor:
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, params, ServeConfig(batch=BATCH, cache_capacity=CACHE))
+    run = lockstep_run(cfg, eng, kernel_rows, "lock-step", PROMPT_LEN, STEPS,
+                       warm_steps=2)
+    prompts, out = run["prompts"], run["out"]
 
     # layer 0's MLP on the live weights and a live activation
     p0 = params["layers"][0]
@@ -1338,16 +1601,18 @@ def serve_phase(cfg, params: dict, kernel_rows: list[dict],
     say("[serve] " + json.dumps({
         "model": cfg.name, "layers": cfg.num_layers, "batch": BATCH,
         "prompt_len": PROMPT_LEN, "steps": STEPS, "cache": CACHE,
-        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
-        "generate_ms": gen_ms,
-        "tokens_per_s": BATCH * STEPS / (gen_ms * 1e-3),
-        "decode_tokens_per_s": BATCH / (decode_ms * 1e-3),
+        "prefill_ms": run["prefill_ms"],
+        "decode_ms_per_token": run["decode_ms_per_token"],
+        "generate_ms": run["generate_ms"],
+        "tokens_per_s": run["tokens_per_s"],
+        "decode_tokens_per_s": BATCH / (run["decode_ms_per_token"] * 1e-3),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-        "launches": counts, "launches_by_route": routes,
+        "launches": run["launches"],
+        "launches_by_route": run["launches_by_route"],
         "sample": out[0, PROMPT_LEN:].tolist()}))
     if profile:
-        profile_phase(eng, prompts,
-                      {"prefill": prefill_ms, "decode": decode_ms})
+        profile_phase(eng, prompts, {"prefill": run["prefill_ms"],
+                                     "decode": run["decode_ms_per_token"]})
     return out
 
 
@@ -1372,8 +1637,12 @@ def check_completions(trace, comps, vocab: int) -> None:
             fail(f"request {c.rid} has a token outside the vocabulary")
 
 
-def trace_phase(cfg, params: dict, kernel_rows: list[dict],
-                profile: bool) -> None:
+def trace_phase(cfg, params: dict, kernel_rows: list[dict], profile: bool,
+                path: str = "continuous", tag: str = "[serve-trace]") -> None:
+    """The TRACE_N-request trace through ``ContinuousBatcher.run`` (SLOTS
+    slots of SLOT_CACHE, chunks of PREFILL_CHUNK), resident weights, its
+    launches recorded as ``path``; then layer 0's attention on the rings
+    the requests left behind."""
     torch.cuda.reset_peak_memory_stats()
     scfg = ServeConfig(batch=SLOTS, cache_capacity=SLOT_CACHE,
                        prefill_chunk=PREFILL_CHUNK)
@@ -1417,8 +1686,8 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict],
     del eng.step, eng.evict_slot    # the class's methods again, no cycle
     chunks = chunk_lengths(trace, bat.chunk_budget)
     layers = cfg.num_layers
-    record_launches(kernel_rows, "continuous", counts,
-                    trace_expected(layers, bat.decode_ticks, chunks), routes)
+    record_launches(kernel_rows, path, counts,
+                    trace_expected(cfg, bat.decode_ticks, chunks), routes)
     check_completions(trace, comps, vocab)
     if eng.slot_cache is not cache or ptrs != {
             k: cache[k].data_ptr() for k in ptrs}:
@@ -1438,8 +1707,8 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict],
                            tfm.attn_spec(cfg).sliding_window,
                            dead_rows=[s for s in range(SLOTS)
                                       if s not in last_tags])
-    say(f"[serve-trace] layer 0 attention on the rings of {len(last_tags)} "
-        f"slots: err {err:.3e}, err/tol {over:.3f}")
+    say(f"{tag} layer 0 attention on the rings of {len(last_tags)} slots: "
+        f"err {err:.3e}, err/tol {over:.3f}")
 
     step_ms = [a.elapsed_time(b) for a, b in events]
     stats = summarize(comps, wall)
@@ -1453,7 +1722,7 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "launches": counts, "launches_by_route": routes,
         "finish_order": [c.rid for c in comps]})
-    say("[serve-trace] " + json.dumps(stats))
+    say(f"{tag} " + json.dumps(stats))
     if profile:
         profile_steps(eng, last_tags)
 
@@ -1533,7 +1802,7 @@ def oversub_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, routes = read_launches(), read_routes()
-        want = trace_expected(cfg.num_layers, bat.decode_ticks, chunks)
+        want = trace_expected(cfg, bat.decode_ticks, chunks)
         if label == "oversub":
             record_launches(kernel_rows, "oversub continuous", counts, want,
                             routes)
@@ -1671,70 +1940,53 @@ def stream_phase(cfg, kernel_rows: list[dict], resident_out,
         f"allocated, start-up peak {startup_peak}")
 
     torch.cuda.reset_peak_memory_stats()
-    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN), device=dev,
-                            generator=torch.Generator(device=dev).manual_seed(1))
-    eng.generate(prompts, steps=2)          # warm-up
-    torch.cuda.synchronize()
-    zero_launches()
     copies0 = ls.copies
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = eng.generate(prompts, steps=STEPS)
-    end.record()
-    torch.cuda.synchronize()
-    counts, routes = read_launches(), read_routes()
-    gen_ms = start.elapsed_time(end)
-    record_launches(kernel_rows, "stream lock-step", counts,
-                    lockstep_expected(cfg.num_layers), routes)
-    if ls.copies - copies0 != cfg.num_layers * STEPS:
-        fail(f"{ls.copies - copies0} layer copies in a generate of {STEPS} "
-             f"passes of {cfg.num_layers} layers")
-    if tuple(out.shape) != (BATCH, PROMPT_LEN + STEPS) or not torch.equal(
-            out[:, :PROMPT_LEN], prompts):
-        fail(f"streamed generate gave shape {tuple(out.shape)} or lost the "
-             "prompts")
+    run = lockstep_run(cfg, eng, kernel_rows, "stream lock-step", PROMPT_LEN,
+                       STEPS, warm_steps=2)
+    # every pass streams every layer: the warm-up, generate, two prefills
+    # and the decode steps
+    passes = 2 + STEPS + 2 + (STEPS - 1)
+    if ls.copies - copies0 != cfg.num_layers * passes:
+        fail(f"{ls.copies - copies0} layer copies in {passes} streamed passes "
+             f"of {cfg.num_layers} layers")
+    out = run["out"]
     if resident_out is not None and not torch.equal(out, resident_out):
         fail("streamed and resident weights gave different tokens")
     peak = torch.cuda.max_memory_allocated()
 
-    logits, cache = eng.prefill(prompts)
-    prefill_ms = time_ms(lambda: eng.prefill(prompts, cache), 1, warmup=0)
-    logits, cache = eng.prefill(prompts, cache)
-    if not torch.isfinite(logits).all():
-        fail("streamed prefill logits not finite")
-    tok = torch.argmax(logits[:, -1, :], dim=-1)
-    decode_ms = {}
-    for p in sorted({lock_scfg.prefetch_depth, 1}, reverse=True):
-        eng.scfg.prefetch_depth = p
-        steps = STEPS - 1 if p == lock_scfg.prefetch_depth else 4
-        start.record()
-        for _ in range(steps):
-            logits, cache = eng.decode(tok, cache)
-        end.record()
-        torch.cuda.synchronize()
-        decode_ms[p] = start.elapsed_time(end) / steps
+    # decode steps at a window of 1 beside the planner's
+    cache, tok = run["cache"], out[:, -1]
+    eng.scfg.prefetch_depth = 1
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(4):
+        logits, cache = eng.decode(tok, cache)
+    end.record()
+    torch.cuda.synchronize()
     eng.scfg.prefetch_depth = lock_scfg.prefetch_depth
     if not torch.isfinite(logits).all():
-        fail("streamed decode logits not finite")
+        fail("streamed decode logits at a window of 1 not finite")
     rates = copy_rates(ls)
     say("[stream] " + json.dumps({
         "model": cfg.name, "layers": cfg.num_layers, "batch": BATCH,
         "prompt_len": PROMPT_LEN, "steps": STEPS, "cache": CACHE,
         "prefetch_depth": lock_scfg.prefetch_depth,
         "prefill_chunk": lock_scfg.prefill_chunk,
-        "prefill_ms": prefill_ms,
-        "decode_ms_per_token": decode_ms[lock_scfg.prefetch_depth],
-        "decode_ms_per_token_p1": decode_ms[1], "generate_ms": gen_ms,
-        "tokens_per_s": BATCH * STEPS / (gen_ms * 1e-3),
+        "prefill_ms": run["prefill_ms"],
+        "decode_ms_per_token": run["decode_ms_per_token"],
+        "decode_ms_per_token_p1": start.elapsed_time(end) / 4,
+        "generate_ms": run["generate_ms"],
+        "tokens_per_s": run["tokens_per_s"],
         "max_memory_allocated_bytes": peak,
         "startup_peak_bytes": startup_peak, **rates,
         "equal_to_resident": resident_out is not None,
-        "launches": counts, "launches_by_route": routes,
+        "launches": run["launches"],
+        "launches_by_route": run["launches_by_route"],
         "sample": out[0, PROMPT_LEN:].tolist()}))
     if profile:
-        profile_stream_step(eng, prompts)
-    del cache, logits
+        profile_stream_step(eng, run["prompts"])
+    del cache, logits, run
 
     # a short continuous trace through the same host weights
     torch.cuda.reset_peak_memory_stats()
@@ -1752,7 +2004,7 @@ def stream_phase(cfg, kernel_rows: list[dict], resident_out,
     counts, routes = read_launches(), read_routes()
     chunks = chunk_lengths(trace, bat.chunk_budget)
     record_launches(kernel_rows, "stream continuous", counts,
-                    trace_expected(cfg.num_layers, bat.decode_ticks, chunks),
+                    trace_expected(cfg, bat.decode_ticks, chunks),
                     routes)
     check_completions(trace, comps, vocab)
     stats = summarize(comps, wall)
@@ -1766,6 +2018,277 @@ def stream_phase(cfg, kernel_rows: list[dict], resident_out,
         "launches": counts, "launches_by_route": routes,
         "finish_order": [c.rid for c in comps]})
     say("[stream-trace] " + json.dumps(stats))
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the paper's Table 2 models and the MoE family
+# ---------------------------------------------------------------------------
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(v) for v in tree)
+    return tree.n * tree.layer_bytes          # a LayerStream's host copy
+
+
+def free_card(what: str) -> None:
+    """Everything of the configs before is freed: fail if more than 1 GiB
+    is still allocated on the card."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    if held > 2 ** 30:
+        fail(f"{held} bytes still allocated on the card before {what}")
+    torch.cuda.reset_peak_memory_stats()
+
+
+def host_memory() -> dict:
+    """The host's memory as /proc/meminfo gives it, and the cgroup's limit
+    and use where one is set; ``usable_bytes`` is the least of what they
+    leave.  Read it before the process takes host memory: on the card's
+    machine MemAvailable does not rise again when the process frees memory,
+    though the memory is there to take again (PERF.md)."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, val = line.split(":", 1)
+            if key in ("MemTotal", "MemAvailable"):
+                info[key] = int(val.split()[0]) * 1024
+    usable = info["MemAvailable"]
+    cgroup = Path("/sys/fs/cgroup")
+    try:
+        limit = (cgroup / "memory.max").read_text().strip()
+        used = int((cgroup / "memory.current").read_text())
+    except (OSError, ValueError):
+        limit = "max"
+    if limit != "max":
+        info["cgroup_limit"], info["cgroup_used"] = int(limit), used
+        usable = min(usable, int(limit) - used)
+    info["usable_bytes"] = usable
+    return info
+
+
+def model_line(cfg, full_layers: int, param_bytes: int, run: dict,
+               **extra) -> None:
+    say("[models] " + json.dumps({
+        "model": cfg.name, "depth": f"{cfg.num_layers} of {full_layers}",
+        "param_bytes": param_bytes,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        **{k: v for k, v in run.items()
+           if k not in ("out", "prompts", "cache")},
+        **extra, "sample": run["out"][0, -8:].tolist()}))
+
+
+def resident_model(arch: str, depth: int, prompt_len: int, cache: int,
+                   kernel_rows: list[dict]):
+    """Draw ``arch`` at full width (``depth`` layers, 0 = all) on the card
+    from seed 0 and serve it lock-step, resident: BATCH x ``prompt_len``,
+    STEPS steps.  Returns (cfg, params, engine, the run)."""
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=depth) if depth else full
+    free_card(cfg.name)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, params, ServeConfig(batch=BATCH,
+                                               cache_capacity=cache))
+    run = lockstep_run(cfg, eng, kernel_rows, f"{cfg.name} lock-step",
+                       prompt_len, STEPS, warm_steps=2)
+    model_line(cfg, full.num_layers, tree_bytes(params), run,
+               batch=BATCH, prompt_len=prompt_len, cache=cache, steps=STEPS,
+               layer_kinds=sorted(set(tfm.layer_kinds(cfg))),
+               drawn_in_s=draw_s, mode="gspmd")
+    live_checks(cfg, params, run["prompts"])
+    return cfg, params, eng, run
+
+
+def live_checks(cfg, params: dict, prompts: torch.Tensor) -> None:
+    """Each kernel product of layer 0 and of the first MoE layer, and the LM
+    head, on the live weights, held to its plain version at the prefill's
+    rows: the embedded prompts after the layer's norms (the o projection
+    takes their first Hq x D columns), the head the last tokens after the
+    final norm."""
+    x = params["embed"][prompts]                        # (B, S, d)
+    kinds = tfm.layer_kinds(cfg)
+    checked = sorted({0, kinds.index("moe") if "moe" in kinds else 0})
+    worst = 0.0
+    for i in checked:
+        p = params["layers"][i]
+        h = rms_norm(x, p["ln1"], cfg.norm_eps).reshape(-1, cfg.d_model)
+        a = p["attn"]
+        for w in (a["w_q"], a["w_k"], a["w_v"]):
+            worst = max(worst, check_matmul(h, w)[1])
+        worst = max(worst, check_matmul(
+            h[:, :a["w_o"].shape[0]].contiguous(), a["w_o"])[1])
+        h = rms_norm(x, p["ln2"], cfg.norm_eps).reshape(-1, cfg.d_model)
+        if "moe" in p:
+            worst = max(worst, check_matmul(h, p["moe"]["router"])[1])
+        for mp in (p.get("mlp"), p.get("shared_mlp")):
+            if mp is not None:
+                kw = {k: mp[k] for k in ("w_gate", "b_up", "b_down")
+                      if k in mp}
+                worst = max(worst, check_mlp(h, mp["w_up"], mp["w_down"], kw,
+                                             cfg.mlp_act)[1])
+    h = rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    head = (params["embed"].t() if cfg.tie_embeddings
+            else params["lm_head"])
+    worst = max(worst, check_matmul(h, head)[1])
+    say(f"[models] {cfg.name}: the kernels on the live weights of layers "
+        f"{checked} and the LM head inside their limits (worst err/limit "
+        f"{worst:.3f})")
+
+
+def llama2_70b_phase(kernel_rows: list[dict], host: dict) -> None:
+    """llama2-70b under ``elk_stream`` with the planner's knobs on
+    ``h100_host()``, full width.  First resident against streamed at
+    STREAM_CHECK_LAYERS layers on the same weights (equal greedy tokens);
+    then streamed alone at full depth if the host (``host``: its memory
+    when the script started) holds the pinned layers with HOST_HEADROOM to
+    spare, else at the depth it holds."""
+    full = get_config("llama2_70b")
+    dev = torch.device("cuda")
+    say(f"[models] host memory now: {json.dumps(host_memory())}")
+
+    # resident and streamed at a depth both hold, on the same weights
+    cfg = dataclasses.replace(full, num_layers=STREAM_CHECK_LAYERS)
+    free_card("the llama2-70b check")
+    params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
+                             dev)
+    res = ServeEngine(cfg, params, ServeConfig(batch=BATCH,
+                                               cache_capacity=CACHE))
+    scfg = elk_serve_config(cfg, batch=BATCH, cache_capacity=CACHE,
+                            pod=h100_host())
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
+                            device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    want = lockstep_expected(cfg, BATCH, PROMPT_LEN, STREAM_STEPS)
+    outs = {}
+    for mode in ("gspmd", "elk_stream"):
+        eng = res if mode == "gspmd" else ServeEngine(cfg, params, scfg)
+        eng.generate(prompts, steps=1)
+        zero_launches()
+        outs[mode] = eng.generate(prompts, steps=STREAM_STEPS)
+        torch.cuda.synchronize()
+        if {**read_launches(), "routes": read_routes()} != want:
+            fail(f"llama2-70b {mode} at {STREAM_CHECK_LAYERS} layers launched "
+                 f"{read_launches()}, by route {read_routes()}")
+    if not torch.equal(outs["gspmd"], outs["elk_stream"]):
+        fail(f"llama2-70b at {STREAM_CHECK_LAYERS} layers: streamed and "
+             f"resident weights gave different tokens:\n{outs}")
+    say(f"[models] llama2-70b at {STREAM_CHECK_LAYERS} layers, full width: "
+        f"resident and streamed (prefetch_depth {scfg.prefetch_depth}) "
+        f"tokens equal, {outs['gspmd'][0, PROMPT_LEN:].tolist()}")
+    live_checks(cfg, params, prompts)
+    del res, eng, params, outs
+
+    # streamed at the depth the host holds
+    free_card("the streamed llama2-70b")
+    layer = tree_bytes(tfm.decoder_layer_params(_MetaInit(), full, "dense"))
+    depth = min(full.num_layers,
+                (host["usable_bytes"] - HOST_HEADROOM) // (layer + 2 ** 20))
+    if depth < 1:
+        fail(f"the host cannot hold one llama2-70b layer of {layer} bytes: "
+             f"{json.dumps(host)}")
+    say(f"[models] llama2-70b streamed: {host['usable_bytes']} bytes of host "
+        f"memory usable at the start, {HOST_HEADROOM} kept free, layers of "
+        f"{layer} bytes: "
+        f"depth {depth} of {full.num_layers}"
+        + ("" if depth == full.num_layers else " (cut; the width is not)"))
+    cfg = dataclasses.replace(full, num_layers=depth)
+    scfg = elk_serve_config(cfg, batch=BATCH, cache_capacity=CACHE,
+                            pod=h100_host())
+    t0 = time.perf_counter()
+    params = init_streamed_params(torch.Generator(device=dev).manual_seed(0),
+                                  cfg, dev, scfg.prefetch_depth)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    eng = ServeEngine(cfg, params, scfg)
+    ls = eng.params["layers"]
+    copies0 = ls.copies
+    run = lockstep_run(cfg, eng, kernel_rows, "llama2-70b stream lock-step",
+                       PROMPT_LEN, STREAM_STEPS, warm_steps=1)
+    # every pass streams every layer: the warm-up, generate, two prefills
+    # and the decode steps
+    passes = 1 + STREAM_STEPS + 2 + (STREAM_STEPS - 1)
+    if ls.copies - copies0 != depth * passes:
+        fail(f"{ls.copies - copies0} layer copies in {passes} streamed passes "
+             f"of {depth} layers")
+    model_line(cfg, full.num_layers, tree_bytes(params), run,
+               batch=BATCH, prompt_len=PROMPT_LEN, cache=CACHE,
+               steps=STREAM_STEPS, mode="elk_stream",
+               prefetch_depth=scfg.prefetch_depth, drawn_in_s=draw_s,
+               pinned_host_bytes=ls.n * ls.layer_bytes, **copy_rates(ls))
+    del eng, params, ls
+
+
+class _MetaInit:
+    """Shapes of the initialiser's draws, nothing allocated."""
+
+    def normal(self, shape, scale):
+        return torch.empty(shape, device="meta", dtype=torch.bfloat16)
+
+    def zeros(self, shape):
+        return torch.empty(shape, device="meta", dtype=torch.bfloat16)
+
+
+def models_phase(kernel_rows: list[dict], host: dict, profile: bool) -> None:
+    """The five configs of this slice at full width, one after another,
+    each freed before the next: dit-xl and gemma2-27b resident at full
+    depth, llama2-70b streamed, llama4-maverick and kimi-k2 resident at
+    MOE_DEPTH layers (a dense and an MoE layer), kimi-k2 also through the
+    continuous batcher."""
+    t_phase = time.perf_counter()
+    for arch, depth, prompt_len, ring in MODEL_RUNS:
+        if arch == "llama2_70b":
+            llama2_70b_phase(kernel_rows, host)
+            continue
+        cfg, params, eng, run = resident_model(arch, depth, prompt_len, ring,
+                                               kernel_rows)
+        if arch == TRACE_ARCH and profile:
+            profile_moe(eng, run)
+        del eng, run
+        if arch == TRACE_ARCH:
+            trace_phase(cfg, params, kernel_rows, False,
+                        path=f"{cfg.name} continuous", tag="[models-trace]")
+        del params
+    free_card("the end of the models phase")
+    say(f"[models] phase took {time.perf_counter() - t_phase:.1f}s")
+
+
+def profile_moe(eng: ServeEngine, run: dict) -> None:
+    """Three kimi-k2 decode steps and a prefill under ``torch.profiler``,
+    with the share of the device time that the expert products take (the
+    library's matrix products: the port's own kernels all lie in anonymous
+    namespaces of its CUDA sources)."""
+    prompts = run["prompts"]
+    logits, cache = eng.prefill(prompts)
+    tok = torch.argmax(logits[:, -1, :], dim=-1)
+
+    def decode3():
+        nonlocal cache
+        for _ in range(3):
+            _, cache = eng.decode(tok, cache)
+
+    for label, passes, fn, wall in (
+            ("kimi-k2 decode", 3, decode3, run["decode_ms_per_token"]),
+            ("kimi-k2 prefill", 1, lambda: eng.prefill(prompts, cache),
+             run["prefill_ms"])):
+        rows = profile_passes(label, passes, fn, wall)
+        total = sum(us for us, _, _ in rows)
+        experts = sum(us for us, _, key in rows
+                      if "anonymous namespace" not in key and any(
+                          w in key.lower() for w in ("gemm", "nvjet", "xmma",
+                                                     "cutlass")))
+        say("[profile] " + json.dumps({
+            "pass": label, "expert_products_ms": experts * 1e-3 / passes,
+            "expert_products_share": experts / total}))
 
 
 def intervals_ms(events: list) -> float:
@@ -1853,10 +2376,11 @@ def profile_steps(eng: ServeEngine, last_tags: dict) -> None:
     profile_passes("step", 3, step3, (time.perf_counter() - t0) * 1e3 / 3)
 
 
-def profile_passes(label: str, passes: int, fn, wall_ms: float) -> None:
+def profile_passes(label: str, passes: int, fn, wall_ms: float) -> list:
     """``fn`` (``passes`` passes) under ``torch.profiler``: summed device
     time of its kernels beside the wall time of one pass measured without
-    the profiler, and the top kernels by name."""
+    the profiler, and the top kernels by name.  Returns (device us, count,
+    name) of every kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1883,8 +2407,9 @@ def profile_passes(label: str, passes: int, fn, wall_ms: float) -> None:
     for us, count, key in rows[:8]:
         say(f"[profile]   {us * 1e-3 / passes:9.3f} ms  "
             f"x{count // passes:<5d} {key[:90]}")
-    (out_dir / f"profile_{label}.txt").write_text(
+    (out_dir / f"profile_{label.replace(' ', '_')}.txt").write_text(
         events.table(sort_by="self_cuda_time_total", row_limit=40))
+    return rows
 
 
 def profile_phase(eng: ServeEngine, prompts: torch.Tensor,
@@ -1909,21 +2434,24 @@ def main() -> None:
                     "the model's own); the other phases keep full depth")
     ap.add_argument("--profile", action="store_true",
                     help="also trace decode steps, a prefill and slot steps")
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the kernel phases (to iterate on the "
-                    "kernels); prints no result line")
+    ap.add_argument("--only", choices=("kernels", "models"),
+                    help="run the kernel phases only, or the parity and "
+                    "[models] phases only (to iterate on one part); prints "
+                    "no result line")
     args = ap.parse_args()
 
     # phase 1: device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs the GPU")
     card = smi_name_and_limit()
+    host = host_memory()
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     try:
         triton = importlib.metadata.version("triton")
     except importlib.metadata.PackageNotFoundError:
         triton = "absent"
+    say(f"[device] host memory at the start: {json.dumps(host)}")
     say(f"[device] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, triton {triton} (unused), "
         f"nvcc: {nvcc.splitlines()[-2]} / {nvcc.splitlines()[-1]}")
@@ -1960,12 +2488,17 @@ def main() -> None:
         cfg, batch=SLOTS, cache_capacity=SLOT_CACHE,
         pod=h100_host()).prefill_chunk)
     with torch.inference_mode():
-        if args.kernels_only:
+        if args.only == "kernels":
             for row in (elk_matmul_phase(cfg), kernels_phase(cfg),
                         attention_phase(cfg), flash_phase(cfg, chunk)):
                 say(json.dumps({k: row[k] for k in ("name", "ms", "bound_ms",
                                                      "library_ms")}))
-            say("[kernels-only] stopped after the kernel phases")
+        elif args.only == "models":
+            parity_phase()
+            models_phase([{"name": name, "launches": 0}
+                          for name in COUNTERS], host, args.profile)
+        if args.only:
+            say(f"[only {args.only}] stopped; no result line")
             return
         rows = [kernels_phase(cfg), attention_phase(cfg),
                 flash_phase(cfg, chunk), elk_matmul_phase(cfg)]
@@ -1980,6 +2513,7 @@ def main() -> None:
         stream_phase(cfg, rows,
                      out if lock_cfg.num_layers == cfg.num_layers else None,
                      args.profile)
+        models_phase(rows, host, args.profile)
 
     for row in rows:
         for path, n in row["launches_by_path"].items():

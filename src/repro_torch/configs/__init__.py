@@ -1,10 +1,10 @@
 """Architecture registry of the port (copy of ``src/repro/configs``).
 
 ``get_config(arch_id)`` returns the full config; ``get_smoke_config``
-a reduced same-family config for CPU tests.  Only the dense decoders are
-ported so far: the other architecture ids of the reference are known
-here, and asking for one raises ``NotImplementedError`` that names the
-ROADMAP item which ports its family.
+a reduced same-family config for CPU tests.  The dense decoders and the
+MoE family are ported: the other architecture ids of the reference are
+known here, and asking for one raises ``NotImplementedError`` that names
+the ROADMAP item which ports its family.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-# dense decoders the port runs today
+# the architectures the port runs today: dense decoders and MoE
 ARCH_IDS = [
     "qwen3_14b",
     "llama2_13b",
@@ -22,23 +22,24 @@ ARCH_IDS = [
     "opt_30b",
     "h2o_danube_1_8b",
     "qwen1_5_32b",
-]
-
-# ids the reference knows whose model family is still to be ported
-UNPORTED_ARCH_IDS = [
-    "internvl2_1b",
-    "llama4_maverick_400b_a17b",
-    "kimi_k2_1t_a32b",
-    "rwkv6_7b",
-    "whisper_tiny",
-    "hymba_1_5b",
     "gemma2_27b",
     "llama2_70b",
     "dit_xl",
+    "llama4_maverick_400b_a17b",
+    "kimi_k2_1t_a32b",
 ]
 
+# ids the reference knows whose model family is still to be ported, each
+# with the ROADMAP item that ports it
+UNPORTED_ARCH_IDS = {
+    "internvl2_1b": "item 9 (vision frontend)",
+    "rwkv6_7b": "item 9 (RWKV)",
+    "whisper_tiny": "item 9 (encoder-decoder, audio frontend)",
+    "hymba_1_5b": "item 9 (hybrid SSM)",
+}
+
 # canonical dashed ids accepted on the CLI
-ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS + UNPORTED_ARCH_IDS}
+ALIASES = {a.replace("_", "-"): a for a in [*ARCH_IDS, *UNPORTED_ARCH_IDS]}
 ALIASES.update({
     "qwen1.5-32b": "qwen1_5_32b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
@@ -46,6 +47,10 @@ ALIASES.update({
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "hymba-1.5b": "hymba_1_5b",
 })
+
+# The paper's own evaluation models (Table 2), all ported
+PAPER_MODEL_IDS = ["llama2_13b", "gemma2_27b", "opt_30b", "llama2_70b", "dit_xl"]
+assert set(PAPER_MODEL_IDS) <= set(ARCH_IDS)
 
 
 def canonical(arch: str) -> str:
@@ -57,7 +62,7 @@ def canonical(arch: str) -> str:
     if a in UNPORTED_ARCH_IDS:
         raise NotImplementedError(
             f"arch {arch!r} is not ported yet: ROADMAP.md, Queue 1, "
-            "'Other model families'")
+            f"{UNPORTED_ARCH_IDS[a]}")
     raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
 
 
@@ -85,6 +90,11 @@ def _shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
     nh = overrides.get("num_heads", base["num_heads"])
     ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
     base["num_kv_heads"] = max(1, nh // min(ratio, nh))
+    if cfg.moe_experts:
+        base.update(moe_experts=4, moe_top_k=min(cfg.moe_top_k, 2),
+                    moe_d_ff=64 if cfg.moe_d_ff else 0,
+                    moe_shared_d_ff=64 if cfg.moe_shared_d_ff else 0,
+                    moe_first_dense=min(cfg.moe_first_dense, 1))
     if cfg.sliding_window:
         base["sliding_window"] = 16
     base.update(overrides)

@@ -43,7 +43,7 @@
 //     barrier inside the KV loop, a warp releases a stage on empty[s] when it
 //     is done with it.
 //   * route "mma" (bf16 query and cache, D 16-256 in steps the products
-//     take): the tiles hold 64 slots, two groups of four warps take
+//     take, 72 and 112 among them): the tiles hold 64 slots, two groups of four warps take
 //     alternate tiles (an even number of stages, half each, so a group waits
 //     for its stages' phases in order), each warp 16 slots.  S^T = K Q^T and
 //     O^T += V^T P^T run on mma.sync m16n8k16 with the (up to 8) query rows
@@ -180,7 +180,11 @@ __device__ __forceinline__ const unsigned char* piece(const unsigned char* tile,
 }
 
 // NP: element pairs of every query row a lane owns for P.V on the FMA route,
-// 64 elements apart (D <= 64 NP).  DM > 0: route "mma" at head dim DM.
+// 64 elements apart (D <= 64 NP).  DM > 0: route "mma" at head dim DM, a
+// multiple of 8: at an odd multiple (72) the last k16 step of S^T = K Q^T
+// reads 8 columns past D, which the TMA copy of the tile zero-fills (its box
+// is 128 bytes wide, the tensor D) and whose query entries are zeros; O^T's
+// last 8 rows are then zeros and are not stored.
 template <typename T, int MAXG, int NP, int DM>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_attention_kernel(const __grid_constant__ Params p) {
@@ -346,7 +350,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     // in (ldmatrix.trans), Q^T the B operand in registers, and P^T (rounded
     // to bf16) the B operand by an 8 x 8 transpose of the score fragments
     // (movmatrix).  Rows past gn are zeros and are never stored.
-    constexpr int KS = DM / 16;
+    static_assert(DM % 8 == 0, "head dims of route mma are multiples of 8");
+    constexpr int KS = (DM + 15) / 16;  // k16 steps over D, and m16 tiles of O^T
     const int gid = lane >> 2, tig = lane & 3;
     const int wg = warp >> 2, slot0 = (warp & 3) * 16;
     uint32_t qf[KS][2];
@@ -355,7 +360,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       qf[kk][0] = gid < gn ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 2 * tig) : 0u;
-      qf[kk][1] = gid < gn ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 + 2 * tig) : 0u;
+      qf[kk][1] = gid < gn && 16 * kk + 8 < DM
+                      ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 + 2 * tig)
+                      : 0u;
     }
     const float scale = p.scale * kLog2e;
     float m_run[2] = {-INFINITY, -INFINITY};  // query rows 2 tig, 2 tig + 1
@@ -441,7 +448,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
         for (int mt = 0; mt < KS; ++mt) {
           pacc[(warp * MAXG + r) * DM + 16 * mt + gid] = o[mt][e];
-          pacc[(warp * MAXG + r) * DM + 16 * mt + gid + 8] = o[mt][2 + e];
+          if (16 * mt + 8 < DM) pacc[(warp * MAXG + r) * DM + 16 * mt + gid + 8] = o[mt][2 + e];
         }
       }
     }
@@ -783,15 +790,17 @@ int maxg_for(int g) {
   } while (0)
 
 // Route "mma" (bf16 q and cache): eight query rows a block, D one of 16, 32,
-// 64, 80, 96, 128, 256.
+// 64, 72, 80, 96, 112, 128, 256.
 #define DECODE_MMA_INSTANCE(F, d, ...)                                     \
   do {                                                                     \
     switch (d) {                                                           \
       case 16: return F<bf16, 8, 1, 16>(__VA_ARGS__);                      \
       case 32: return F<bf16, 8, 1, 32>(__VA_ARGS__);                      \
       case 64: return F<bf16, 8, 1, 64>(__VA_ARGS__);                      \
+      case 72: return F<bf16, 8, 1, 72>(__VA_ARGS__);                      \
       case 80: return F<bf16, 8, 1, 80>(__VA_ARGS__);                      \
       case 96: return F<bf16, 8, 1, 96>(__VA_ARGS__);                      \
+      case 112: return F<bf16, 8, 1, 112>(__VA_ARGS__);                    \
       case 128: return F<bf16, 8, 1, 128>(__VA_ARGS__);                    \
       case 256: return F<bf16, 8, 1, 256>(__VA_ARGS__);                    \
       default: return -1;                                                  \
@@ -834,8 +843,8 @@ int decode_attention_prepare(int route, int kv_dtype, int d, int g, int bk, int 
 // cudaGetLastError() (0 = launched), or -1 for arguments it does not take.
 // slot_pos is (C,) (sp_stride 0) or (B, C) (sp_stride c); q_pos is null (one
 // position q_pos_value), or (B,) (qp_stride 1), or one value (qp_stride 0).
-// Route 1 "mma": q and the caches bf16, bk 64, D one of 16, 32, 64, 80, 96,
-// 128, 256; route 0 "fma": q and out fp32 (q_dtype 0) or bf16 (1), the caches
+// Route 1 "mma": q and the caches bf16, bk 64, D one of 16, 32, 64, 72, 80,
+// 96, 112, 128, 256; route 0 "fma": q and out fp32 (q_dtype 0) or bf16 (1), the caches
 // fp32 or bf16 (kv_dtype), D a multiple of 8 up to 256; with a tiling
 // decode_attention_prepare was called for.  All tensors are contiguous, the
 // caches 16-byte aligned; `splits` (1 to 8) blocks of a cluster share each

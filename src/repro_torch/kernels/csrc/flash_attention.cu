@@ -59,9 +59,10 @@
 //     hopper_gemm.cuh: one launch, no partials in device memory, no atomics,
 //     the same bits every run).  The wrapper picks `splits` from the shapes
 //     and the card alone.
-//   * "mma_sync" (bf16, the other head dims: 16, 32, 80, 96): a block owns
-//     (b, q head, 64 query rows); K and V tiles through two cp.async stages,
-//     both products on mma.sync m16n8k16.
+//   * "mma_sync" (bf16, the other head dims: 16, 32, 72, 80, 96, 112): a
+//     block owns (b, q head, 64 query rows); K and V tiles through two
+//     cp.async stages, both products on mma.sync m16n8k16 (at D 72 the last
+//     k16 step of S = Q K^T takes zeros for the 8 columns past D).
 //   * "fma" (fp32 query, fp32 or bf16 cache): a block owns (b, q head, 16
 //     query rows); scores, softmax and P.V are FMA loops over tiles in shared
 //     memory, since TF32 would miss the fp32 tolerance.
@@ -785,8 +786,12 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 }
 
 template <int D> struct MmaTile {
+  static_assert(D % 8 == 0, "head dims of route mma_sync are multiples of 8");
   static constexpr int BK = D > 128 ? 32 : 64;
-  static constexpr int LD = D + 8;  // row of 2 D + 16 bytes: an odd multiple of 16
+  // a row of an odd number of 16-byte pieces, so that the 32-bit fragment
+  // loads of eight rows fall on distinct banks: D + 8 elements, or D itself
+  // when D / 8 is odd (72)
+  static constexpr int LD = (D / 8) % 2 ? D : D + 8;
   static constexpr size_t kTileBytes = (size_t)BK * LD * sizeof(bf16);
   // q tile, two stages of K and V, two stages of tags, the tile list, scratch
   static constexpr size_t kSmem = (size_t)kMmaBQ * LD * sizeof(bf16) + 4 * kTileBytes +
@@ -798,8 +803,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(Args a
   using Tile = MmaTile<D>;
   constexpr int BK = Tile::BK, LD = Tile::LD;
   constexpr int NT = BK / 8;   // score fragments (n8) a tile
-  constexpr int ND = D / 8;    // output fragments (n8)
-  constexpr int KD = D / 16;   // k16 steps of the score product
+  constexpr int ND = D / 8;          // output fragments (n8)
+  constexpr int KD = (D + 15) / 16;  // k16 steps of the score product
+  // at D 72 the last step's upper 8 columns lie past D: zeros, not loads
+  constexpr bool kHalfStep = D % 16 != 0;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
   bf16* kv_s = q_s + kMmaBQ * LD;  // stage s: K at 2 s, V at 2 s + 1
@@ -864,16 +871,17 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(Args a
     for (int e = 0; e < NT * 4; ++e) s[e] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      const bool half = kHalfStep && kk == KD - 1;
       uint32_t af[4];
       const bf16* qr = q_s + (warp * 16 + gid) * LD + kk * 16 + 2 * tig;
       af[0] = ld32(qr);
       af[1] = ld32(qr + 8 * LD);
-      af[2] = ld32(qr + 8);
-      af[3] = ld32(qr + 8 * LD + 8);
+      af[2] = half ? 0u : ld32(qr + 8);
+      af[3] = half ? 0u : ld32(qr + 8 * LD + 8);
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
         const bf16* kr = ks + (n * 8 + gid) * LD + kk * 16 + 2 * tig;
-        mma16816(s + 4 * n, af, ld32(kr), ld32(kr + 8));
+        mma16816(s + 4 * n, af, ld32(kr), half ? 0u : ld32(kr + 8));
       }
     }
 
@@ -1174,8 +1182,10 @@ int flash_attention_prepare(void) {
   if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<256>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<16>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<32>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<72>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<80>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<96>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<112>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_fma_kernel<float>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_fma_kernel<bf16>, optin);
   return (int)err;
@@ -1186,7 +1196,7 @@ int flash_attention_prepare(void) {
 // q_sh, q_ss, out the same shape in q's type at o_sb, o_sh, o_ss; k, v
 // (B, Hkv, Sk, D) contiguous.  Routes: 2 "wgmma" (bf16 q and cache, D 64, 128
 // or 256, `splits` blocks of a cluster, 1 to 8), 1 "mma_sync" (bf16, D one of
-// 16, 32, 80, 96), 0 "fma" (fp32 q (q_dtype 0) with an fp32
+// 16, 32, 72, 80, 96, 112), 0 "fma" (fp32 q (q_dtype 0) with an fp32
 // (kv_dtype 0) or bf16 (1) cache, D a multiple of 8 up to 256).  q_pos null:
 // contiguous positions (Sq == Sk); else q_pos (B, Sq) and k_pos (B, Sk) int32
 // with batch strides qp_stride / kp_stride.  Pointers 16-byte aligned; on the
@@ -1222,8 +1232,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v, const in
     switch (d) {
       case 16: return launch_mma<16>(a, s);
       case 32: return launch_mma<32>(a, s);
+      case 72: return launch_mma<72>(a, s);
       case 80: return launch_mma<80>(a, s);
       case 96: return launch_mma<96>(a, s);
+      case 112: return launch_mma<112>(a, s);
       default: return -1;
     }
   }

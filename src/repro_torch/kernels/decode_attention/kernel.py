@@ -32,7 +32,7 @@ from repro_torch.kernels import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("mma", "fma")
 _ROUTE_IDS = {"fma": 0, "mma": 1}
-MMA_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)   # head dims of route "mma"
+MMA_HEAD_DIMS = (16, 32, 64, 72, 80, 96, 112, 128, 256)  # route "mma"
 # kWarps, kMaxGroup, kMaxSplits, kMinStages, kMaxStages, kMaxListed, kCoef
 # of the source: eight consumer warps (and one producer warp) a block, up to
 # 8 query rows a block, a ring of 2 to 4 stages of TILE_SLOTS slots

@@ -34,7 +34,7 @@ from repro_torch.kernels import _build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("wgmma", "mma_sync", "fma")
 _ROUTE_IDS = {"fma": 0, "mma_sync": 1, "wgmma": 2}
-MMA_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)   # head dims of the bf16 routes
+MMA_HEAD_DIMS = (16, 32, 64, 72, 80, 96, 112, 128, 256)  # the bf16 routes
 WGMMA_HEAD_DIMS = (64, 128, 256)                  # route "wgmma"; "mma_sync" the rest
 # route "wgmma": kWgRows, kWgBK, kWgThreads of the source.  A block owns 64
 # rows, a row being a (query position, head of the kv head's group) pair,

@@ -10,7 +10,10 @@ onto the card through a window of N layers:
       --batch 8 --prompt-len 512 --steps 16 --cache 1024
 
 ``--mode gspmd`` keeps the weights resident; ``--prefetch-depth N`` (N > 0)
-sets the window by hand instead of asking the planner.
+sets the window by hand instead of asking the planner.  The MoE configs
+(llama4-maverick-400b-a17b, kimi-k2-1t-a32b) run with ``--mode gspmd`` only:
+their dense and MoE layers differ, and streaming them is ROADMAP.md, Queue 1,
+item 17.
 
 Continuous batching over a mixed-length request trace (tok/s + request
 latency percentiles, optionally against the static-batching baseline):
@@ -149,6 +152,9 @@ def main(argv=None) -> None:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md, Queue 1, item 13)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.mode == "elk_stream":
+        stream.check_streamable(cfg, "; --mode gspmd serves it with resident "
+                                "weights")
     device = tfm.resolve_device(args.device)
     if args.mode == "elk_stream" and args.prefetch_depth <= 0:
         # plan against the config actually served, on one H100

@@ -1,12 +1,14 @@
-"""Dense decoder of the port: lock-step and slot-batched serving.
+"""Decoder of the port: lock-step and slot-batched serving.
 
 Counterpart of ``src/repro/models/transformer.py``, cut to what greedy
-serving of a dense decoder runs: ``init_params``, ``init_cache``,
-``prefill`` and ``decode_step`` (lock-step), ``decode_slots``,
-``chunk_prefill`` and the slot cache operations (continuous batching), over
-the dense / GQA / SWA / qk-norm / GeGLU layer.  MoE, RWKV, hybrid-SSM,
-enc-dec and VLM families, the int8 cache and ``forward_train`` are still
-to be ported (ROADMAP.md, Queue 1) and raise ``NotImplementedError``.
+serving of a decoder runs: ``init_params``, ``init_cache``, ``prefill``
+and ``decode_step`` (lock-step), ``decode_slots``, ``chunk_prefill`` and
+the slot cache operations (continuous batching), over the dense / GQA /
+SWA / qk-norm / GeGLU layer and the MoE layer (``models/moe.py``, with a
+shared expert; capacity dropping at prefill, dropless at decode and on the
+slot path, which chunked prefill runs on).  RWKV, hybrid-SSM, enc-dec and
+VLM families, the int8 cache and ``forward_train`` are still to be ported
+(ROADMAP.md, Queue 1, item 9) and raise ``NotImplementedError``.
 
 What differs from the reference, by design:
 
@@ -47,6 +49,7 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attn
 from repro_torch.kernels.flash_attention.ops import flash_attn, flash_attn_pos
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnSpec, apply_rope, linear, mlp,
                                        qk_head_norm, rms_norm, rope_tables)
@@ -58,29 +61,36 @@ POS_SENTINEL = 2 ** 30   # tag of cache slots not yet written
 # structure
 # ---------------------------------------------------------------------------
 
-def _require_dense(cfg: ModelConfig) -> None:
+def _require_ported(cfg: ModelConfig) -> None:
     unported = [name for name, on in (
-        ("MoE", cfg.moe_experts), ("RWKV", cfg.rwkv),
-        ("hybrid SSM", cfg.hybrid_parallel_ssm),
+        ("RWKV", cfg.rwkv), ("hybrid SSM", cfg.hybrid_parallel_ssm),
         ("encoder-decoder", cfg.encoder_layers),
         ("frontend", cfg.frontend != "none")) if on]
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unported)} not ported yet "
-            "(ROADMAP.md, Queue 1, 'Other model families')")
+            "(ROADMAP.md, Queue 1, item 9)")
 
 
 def layer_kinds(cfg: ModelConfig) -> list[str]:
-    _require_dense(cfg)
-    return ["dense"] * cfg.num_layers
+    _require_ported(cfg)
+    return ["moe" if cfg.is_moe_layer(i) else "dense"
+            for i in range(cfg.num_layers)]
 
 
 def block_structure(cfg: ModelConfig) -> tuple[int, int, int]:
-    """(prefix_len, period, n_blocks) of the reference's scan layout; for
-    a dense decoder no prefix and one layer per block.  The port loops
-    over layers and needs this only to unstack reference parameters."""
-    _require_dense(cfg)
-    return 0, 1, cfg.num_layers
+    """(prefix_len, period, n_blocks) of the reference's scan layout:
+    prefix layers unrolled (kimi's dense first layer), then n_blocks of
+    ``period`` layers (llama4's dense / MoE alternation: 2).  The port
+    loops over layers and needs this only to unstack reference
+    parameters."""
+    kinds = layer_kinds(cfg)
+    prefix = cfg.moe_first_dense if cfg.moe_experts else 0
+    period = max(cfg.moe_every, 1) if cfg.moe_experts else 1
+    prefix += (len(kinds) - prefix) % period   # a ragged tail grows it
+    body = kinds[prefix:]
+    assert all(body[i] == body[i % period] for i in range(len(body)))
+    return prefix, period, len(body) // period
 
 
 def attn_spec(cfg: ModelConfig) -> AttnSpec:
@@ -136,8 +146,8 @@ def _attn_params(init: _Init, cfg: ModelConfig) -> dict:
     return p
 
 
-def _mlp_params(init: _Init, cfg: ModelConfig) -> dict:
-    d, ff = cfg.d_model, cfg.d_ff
+def _mlp_params(init: _Init, cfg: ModelConfig, ff: int) -> dict:
+    d = cfg.d_model
     s_in, s_ff = d ** -0.5, ff ** -0.5
     if cfg.gated_mlp:
         return {"w_gate": init.normal((d, ff), s_in),
@@ -151,10 +161,17 @@ def _mlp_params(init: _Init, cfg: ModelConfig) -> dict:
     return p
 
 
-def decoder_layer_params(init: _Init, cfg: ModelConfig) -> dict:
+def decoder_layer_params(init: _Init, cfg: ModelConfig, kind: str) -> dict:
     d = cfg.d_model
-    return {"ln1": init.zeros((d,)), "ln2": init.zeros((d,)),
-            "attn": _attn_params(init, cfg), "mlp": _mlp_params(init, cfg)}
+    p = {"ln1": init.zeros((d,)), "ln2": init.zeros((d,)),
+         "attn": _attn_params(init, cfg)}
+    if kind == "moe":
+        p["moe"] = moe_mod.moe_params(init, cfg)
+        if cfg.moe_shared_d_ff:
+            p["shared_mlp"] = _mlp_params(init, cfg, cfg.moe_shared_d_ff)
+    else:
+        p["mlp"] = _mlp_params(init, cfg, cfg.d_ff)
+    return p
 
 
 def resolve_device(device) -> torch.device:
@@ -179,7 +196,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     when asked, and its result becomes ``params["layers"]``
     (``serve/stream.init_streamed_params`` moves each to the host before
     the next is drawn)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     device = resolve_device(device)
     init = _Init(generator, device, getattr(torch, cfg.param_dtype))
     d, v = cfg.d_model, cfg.vocab_size
@@ -187,8 +204,8 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
                     "final_norm": init.zeros((d,))}
     if not cfg.tie_embeddings:
         params["lm_head"] = init.normal((d, v), d ** -0.5)
-    params["layers"] = collect_layers(decoder_layer_params(init, cfg)
-                                      for _ in range(cfg.num_layers))
+    params["layers"] = collect_layers(decoder_layer_params(init, cfg, kind)
+                                      for kind in layer_kinds(cfg))
     return params
 
 
@@ -210,11 +227,10 @@ def init_cache(cfg: ModelConfig, spec: CacheSpec, device="cuda") -> dict:
     (``POS_SENTINEL`` = unwritten).  Lock-step: ``slot_pos (C,)`` and
     ``pos`` a Python int; per-slot: ``slot_pos (B, C)`` and ``pos`` an
     int32 tensor (B,), both on the device."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     if spec.kv_dtype == torch.int8:
         raise NotImplementedError(
-            "int8 KV cache not ported yet (ROADMAP.md, Queue 1, "
-            "'Other model families')")
+            "int8 KV cache not ported yet (ROADMAP.md, Queue 1, item 9)")
     device = resolve_device(device)
     kv_shape = (cfg.num_layers, spec.batch, cfg.num_kv_heads, spec.capacity,
                 cfg.resolved_head_dim)
@@ -339,10 +355,27 @@ def _fill_ring(buf: torch.Tensor, val: torch.Tensor, total_seq: int) -> None:
     buf.copy_(val)
 
 
+def _ffn(x, p, cfg: ModelConfig, mode: str):
+    """The layer's FFN: the MLP, or (a layer with ``p["moe"]``) the MoE
+    FFN over the flattened tokens plus the shared expert's MLP.  Capacity
+    dropping at prefill; dropless at decode and in ``slots`` mode (the
+    continuous decode step and chunked prefill)."""
+    if "moe" not in p:
+        return mlp(x, p["mlp"], cfg)
+    b, s, d = x.shape
+    out = moe_mod.moe_ffn(x.reshape(b * s, d), p["moe"], cfg,
+                          dropless=mode in ("decode", "slots"))
+    out = out.reshape(b, s, d)
+    if cfg.moe_shared_d_ff:
+        out = out + mlp(x, p["shared_mlp"], cfg)
+    return out
+
+
 def _decoder_layer(x, p, cfg: ModelConfig, spec: AttnSpec, ctx: dict,
                    layer_cache: Optional[dict]):
-    """Apply one dense decoder layer; the layer's cache slices (views of
-    the cache tensors) are written in place."""
+    """Apply one decoder layer (dense or MoE, by its parameters); the
+    layer's cache slices (views of the cache tensors) are written in
+    place."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if ctx["mode"] == "decode":
         attn_out = _self_attention_decode(
@@ -360,7 +393,7 @@ def _decoder_layer(x, p, cfg: ModelConfig, spec: AttnSpec, ctx: dict,
             _fill_ring(layer_cache["v"], v[:, :, -c:, :], s)
     x = x + attn_out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + mlp(h2, p["mlp"], cfg)
+    return x + _ffn(h2, p, cfg, ctx["mode"])
 
 
 def _run_decoder(params, cfg: ModelConfig, x, ctx, cache):
@@ -398,7 +431,7 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     """Process the prompt (B, S), fill ``cache`` in place, return the
     last token's logits (B, 1, V) and the same cache.  ``decoder`` runs
     the layers (default ``_run_decoder``)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = _embed(params, cfg, tokens)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
@@ -421,7 +454,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict, *, decoder=None) -> tuple[torch.Tensor, dict]:
     """One serving step: token (B,) -> (logits (B,1,V), the same cache,
     advanced in place by one position).  ``decoder`` runs the layers."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = _embed(params, cfg, token[:, None])
     pos = cache["pos"]
     # tag the new token's slot *before* attention
@@ -464,7 +497,7 @@ def decode_slots(params, cfg: ModelConfig, token: torch.Tensor,
     (``CacheSpec(per_slot=True)``: pos (B,), slot_pos (B,C)).  Every slot
     advances by one token at its *own* position -> (logits (B,1,V), the
     same cache, advanced in place).  ``decoder`` runs the layers."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     x = _embed(params, cfg, token[:, None])
     positions = cache["pos"][:, None] + 0               # (B,1), a copy
     ctx = _slots_ctx(cfg, cache, positions)
@@ -482,7 +515,7 @@ def chunk_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     by absolute position), so while the prompt fits the ring any chunking
     gives the same result as a single pass.  Returns (last-token logits
     (B,1,V), the same cache).  ``decoder`` runs the layers."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     b, t = tokens.shape
     if t > cache["slot_pos"].shape[1]:
         raise ValueError(f"chunk of {t} tokens exceeds cache capacity "

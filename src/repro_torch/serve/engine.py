@@ -231,6 +231,7 @@ class ServeEngine:
         self.scfg = scfg
         self.device = tfm.resolve_device(device)
         if scfg.mode == "elk_stream":
+            stream.check_streamable(cfg)
             self.params = {k: _to_device(v, self.device)
                            for k, v in params.items() if k != "layers"}
             layers = params["layers"]

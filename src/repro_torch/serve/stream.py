@@ -26,6 +26,12 @@ weights that XLA gathers; here the weights' home is host memory).
 ``streaming_decoder`` is a drop-in for ``transformer._run_decoder``, as the
 reference's docstring says.  On the CPU the same window logic runs with plain
 tensors and no streams.
+
+Every layer of a ``LayerStream`` has one byte layout and is copied whole,
+so an MoE config is not streamed yet: its dense and MoE layers differ in
+layout, and its expert weights are to be streamed as late-bound preloads
+on the router's choice; ``check_streamable`` raises for it, also where
+every layer is MoE (ROADMAP.md, Queue 1, item 17).
 """
 
 from __future__ import annotations
@@ -40,6 +46,19 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
 _ALIGN = 256   # bytes: every weight starts at a multiple (kernels need 16)
+
+
+def check_streamable(cfg: ModelConfig, hint: str = "") -> None:
+    """Raise ``NotImplementedError`` for a config with an MoE layer: one
+    pinned layout holds every layer, padding the dense layers to an MoE
+    layer's size would stream bytes no layer reads, and a whole MoE layer
+    copied every pass would stream the experts the router did not choose.
+    ``hint`` ends the message."""
+    if "moe" in tfm.layer_kinds(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: elk_stream of a model with MoE layers is not "
+            "ported yet (ROADMAP.md, Queue 1, item 17, 'streamed "
+            f"MoE'){hint}")
 
 
 def _leaves(tree: dict, prefix: tuple = ()):
@@ -217,6 +236,7 @@ def init_streamed_params(generator: torch.Generator, cfg: ModelConfig,
     weights, but each layer goes to the host before the next is drawn, so
     the device never holds more of the decoder than a layer and the
     window.  The embedding, final norm and LM head stay on ``device``."""
+    check_streamable(cfg)
     return tfm.init_params(generator, cfg, device, collect_layers=(
         functools.partial(LayerStream, device=device, depth=depth,
                           n=cfg.num_layers)))

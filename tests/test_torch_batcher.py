@@ -35,7 +35,9 @@ from repro_torch.serve.batcher import (ContinuousBatcher, Request, make_trace,
                                        run_static_trace, summarize)
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-DENSE = ["qwen3_14b", "llama2_13b", "gemma_7b", "opt_30b", "h2o_danube_1_8b"]
+ARCHS = ["qwen3_14b", "llama2_13b", "gemma_7b", "opt_30b", "h2o_danube_1_8b",
+         "gemma2_27b", "llama2_70b", "dit_xl", "llama4_maverick_400b_a17b",
+         "kimi_k2_1t_a32b"]
 TOL = {"float32": 2e-4, "bfloat16": 6e-2}
 
 
@@ -231,7 +233,7 @@ class TestContinuousBatching:
             np.testing.assert_array_equal(got, _solo(eng, r.prompt,
                                                      r.max_new_tokens))
 
-    @pytest.mark.parametrize("arch", DENSE)
+    @pytest.mark.parametrize("arch", ARCHS)
     def test_slot_path_parity_across_families(self, arch):
         eng = _engine(arch, prefill_chunk=8)
         prompt = _prompt(eng.cfg, 11, 5)
@@ -338,7 +340,7 @@ class TestAgainstReference:
         kref = _f32(jcache["k"])
         assert np.max(np.abs(got["k"] - kref)) <= _tol(dtype, kref)
 
-    @pytest.mark.parametrize("arch", DENSE)
+    @pytest.mark.parametrize("arch", ARCHS)
     def test_batcher_tokens_equal_reference(self, arch, mesh11):
         """The port's continuous batcher and the reference's, same weights,
         same trace (ring wraparound included: capacity 16 < prompt 20, 32):

@@ -47,6 +47,13 @@ CASES = [
     (1, 4, 4, 256, 16, 64, 300),       # ring buffer + window
     (2, 2, 1, 64, 64, 0, 64),          # exactly full cache
 ]
+# the head dims of dit-xl (72, MHA) and kimi-k2 (112, GQA group 8), on the
+# bf16 route "mma" on the card
+HEAD_DIM_CASES = [
+    (2, 2, 2, 128, 72, 0, 100),        # dit-xl: D 72, G 1, partial cache
+    (1, 16, 2, 192, 112, 0, 150),      # kimi-k2: D 112, G 8
+    (1, 8, 1, 128, 112, 48, 300),      # D 112, G 8, ring buffer + window
+]
 
 
 def _ring_tags(c: int, pos: int) -> np.ndarray:
@@ -77,7 +84,7 @@ def _err(out: torch.Tensor, ref) -> tuple[float, float]:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + HEAD_DIM_CASES)
 def test_ref_matches_jax_oracle(case, dtype):
     (jq, jk, jv), (tq, tk, tv) = _inputs(case, dtype)
     win, pos = case[5], case[6]
@@ -92,7 +99,7 @@ def test_ref_matches_jax_oracle(case, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + HEAD_DIM_CASES)
 def test_ref_matches_pallas_kernel(case, dtype):
     """The oracle the CUDA kernel is held to agrees with the TPU kernel
     (interpret mode) that the CUDA kernel replaces."""
@@ -297,7 +304,7 @@ def test_tiling_fits_the_budget():
     leaves two stages, else one."""
     budget2 = dk.SM_BYTES // 2 - dk.BLOCK_RESERVE
     for elem in (2, 4):
-        for d in (16, 32, 64, 80, 96, 128, 256):
+        for d in (16, 32, 64, 72, 80, 96, 112, 128, 256):
             for g in (1, 4, 5, 8):
                 bk, stages = dk.tiling(g, d, elem)
                 assert bk in dk.TILE_SLOTS and 3 <= stages <= dk.MAX_STAGES
@@ -318,6 +325,8 @@ def test_route_of():
     assert dk.route_of(t(bf, 2, 8, 128), t(bf, 2, 2, 64, 128)) == "mma"
     assert dk.route_of(t(f32, 2, 8, 128), t(bf, 2, 2, 64, 128)) == "fma"
     assert dk.route_of(t(bf, 2, 8, 40), t(bf, 2, 2, 64, 40)) == "fma"
+    assert dk.route_of(t(bf, 1, 16, 72), t(bf, 1, 16, 64, 72)) == "mma"
+    assert dk.route_of(t(bf, 1, 64, 112), t(bf, 1, 8, 64, 112)) == "mma"
     assert dk.route_of(t(f32, 2, 8, 128), t(f32, 2, 2, 64, 128)) == "fma"
 
 
@@ -329,6 +338,8 @@ SPLIT_CASES = [
     (2, 10, 2, 300, 32, 0, 250, 2),
     (1, 16, 2, 517, 16, 100, 1200, 4),
     (2, 4, 4, 256, 16, 64, 300, 3),
+    (1, 16, 2, 700, 112, 0, 600, 8),   # kimi-k2's D 112 at G 8
+    (2, 2, 2, 300, 72, 64, 500, 3),    # dit-xl's D 72 at G 1, a window
 ]
 
 

@@ -54,6 +54,14 @@ CASES = [
     (1, 2, 1, 64, 32, False, 0),       # bidirectional MQA
     (1, 8, 8, 256, 64, True, 0),       # MHA causal, bigger head
 ]
+# the head dims of dit-xl (72, MHA) and kimi-k2 (112, GQA group 8), on the
+# bf16 route "mma_sync" on the card
+HEAD_DIM_CASES = [
+    (1, 4, 4, 96, 72, True, 0),        # dit-xl: D 72, G 1
+    (2, 2, 2, 128, 72, True, 40),      # D 72, window
+    (1, 8, 1, 96, 112, True, 0),       # kimi-k2: D 112, G 8
+    (1, 16, 2, 64, 112, False, 0),     # D 112, G 8, bidirectional
+]
 
 
 def _inputs(b, hq, hkv, sq, sk, d, dtype: str, seed: int = 0):
@@ -87,7 +95,7 @@ def _ring(c: int, start: int, t: int) -> tuple[np.ndarray, np.ndarray]:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + HEAD_DIM_CASES)
 def test_ref_matches_jax_oracle_and_pallas_kernel(case, dtype):
     """``mha_ref`` against the reference's oracle and against the Pallas
     kernel in interpret mode (the TPU kernel the CUDA one replaces)."""
@@ -294,8 +302,9 @@ def test_route_of():
         return torch.empty(1, 4, 8, d, dtype=dtype)
     assert fk.route_of(t(torch.bfloat16, 128), t(torch.bfloat16, 128)) \
         == "wgmma"
-    assert fk.route_of(t(torch.bfloat16, 80), t(torch.bfloat16, 80)) \
-        == "mma_sync"
+    for d in (72, 80, 112):
+        assert fk.route_of(t(torch.bfloat16, d), t(torch.bfloat16, d)) \
+            == "mma_sync"
     assert fk.route_of(t(torch.float32, 128), t(torch.bfloat16, 128)) \
         == "fma"
     assert set(fk.WGMMA_HEAD_DIMS) <= set(fk.MMA_HEAD_DIMS)
@@ -310,6 +319,8 @@ SPLIT_CASES = [
     (2, 16, 2, 20, 200, 16, 190, 48, 4),
     (1, 4, 4, 64, 256, 16, 100, 0, 8),
     (1, 8, 1, 16, 130, 16, 400, 0, 1),
+    (1, 16, 2, 32, 300, 112, 200, 0, 4),   # kimi-k2's D 112 at G 8
+    (1, 4, 4, 37, 200, 72, 100, 0, 3),     # dit-xl's D 72 at G 1
 ]
 
 
@@ -369,6 +380,9 @@ def test_planner_constants_are_what_the_kernel_compiles():
     for d in fk.WGMMA_HEAD_DIMS:
         assert f"flash_attention_wgmma_kernel<{d}>" in src
         assert f"case {d}: return launch_wgmma<{d}>" in src
+    for d in set(fk.MMA_HEAD_DIMS) - set(fk.WGMMA_HEAD_DIMS):
+        assert f"allow_smem(flash_attention_mma_kernel<{d}>, optin)" in src
+        assert f"case {d}: return launch_mma<{d}>" in src
 
 
 @pytest.mark.parametrize("breakage, error, says", [

@@ -359,6 +359,33 @@ MMA_SYNC_PLANS = {
 }
 
 
+# the products new with the paper's Table 2 models and the MoE family, bf16,
+# operands TMA takes: dit-xl's LM head 8 wide (a tile of 64 or 128 columns
+# over 8, the rest zero-filled by TMA and masked at the store), the routers
+# of llama4-maverick (128 experts) and kimi-k2 (384), gemma2-27b's tied head
+NEW_PRODUCT_PLANS = {
+    (8, 8, 1152): ("splitk", 64, 128, 64, 1, 4, 6),
+    (4096, 8, 1152): ("wgmma", 64, 64, 64, 64, 6, 3),
+    (8, 128, 5120): ("splitk", 64, 64, 64, 2, 6, 8),
+    (4096, 128, 5120): ("wgmma", 64, 64, 64, 128, 6, 2),
+    (8, 384, 7168): ("splitk", 64, 64, 64, 6, 6, 8),
+    (4096, 384, 7168): ("wgmma", 128, 64, 64, 192, 8, 1),
+    (8, 256000, 4608): ("splitk", 64, 128, 64, 2000, 4, 1),
+}
+
+
+@pytest.mark.parametrize("mnk", sorted(NEW_PRODUCT_PLANS))
+def test_smem_plan_new_model_products_pinned(mnk):
+    """Every product of the new configs has a TMA route that covers K and
+    fits the card; the plan is the one ``chip_smoke.py`` held against the
+    plain version on the card."""
+    p = smem_plan(*mnk)
+    _check_fits(p)
+    _covers_k(p, mnk[2])
+    assert (p.route, p.bm, p.bn, p.bk, p.tiles, p.stages,
+            p.splits) == NEW_PRODUCT_PLANS[mnk]
+
+
 @pytest.mark.parametrize("mnk", sorted(SERVING_PLANS))
 def test_smem_plan_serving_shapes_pinned(mnk):
     p = smem_plan(*mnk)

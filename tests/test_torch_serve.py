@@ -29,7 +29,9 @@ from repro_torch.convert import (cache_from_jax, cache_to_numpy,
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-DENSE = ["qwen3_14b", "llama2_13b", "gemma_7b", "opt_30b", "h2o_danube_1_8b"]
+ARCHS = ["qwen3_14b", "llama2_13b", "gemma_7b", "opt_30b", "h2o_danube_1_8b",
+         "gemma2_27b", "llama2_70b", "dit_xl", "llama4_maverick_400b_a17b",
+         "kimi_k2_1t_a32b"]
 TOL = {"float32": 2e-4, "bfloat16": 6e-2}
 
 
@@ -84,13 +86,20 @@ def _engines(arch, dtype, mesh, *, batch, capacity, kv_dtype):
     return jcfg, jeng, teng
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_converted_params_match_layout(arch):
     jcfg, jparams, tcfg, tparams = _both(arch, "float32")
     assert len(tparams["layers"]) == tcfg.num_layers
+    prefix, period, _ = tfm.block_structure(tcfg)
     for li, layer in enumerate(tparams["layers"]):
-        ref = jax.tree.map(lambda a: np.asarray(a[li]), jparams["blocks"][0])
-        for group in ("attn", "mlp"):
+        if li < prefix:
+            ref = jax.tree.map(np.asarray, jparams["prefix"][li])
+        else:
+            b, slot = divmod(li - prefix, period)
+            ref = jax.tree.map(lambda a: np.asarray(a[b]),
+                               jparams["blocks"][slot])
+        assert set(layer) == set(ref)
+        for group in set(layer) - {"ln1", "ln2"}:
             assert set(layer[group]) == set(ref[group])
             for name, t in layer[group].items():
                 np.testing.assert_array_equal(t.numpy(), ref[group][name])
@@ -102,7 +111,7 @@ def test_converted_params_match_layout(arch):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_logits(arch, dtype):
     """prefill logits and three decode_step logits, function to function."""
     jcfg, jparams, tcfg, tparams = _both(arch, dtype)
@@ -139,7 +148,7 @@ def test_prefill_and_decode_logits(arch, dtype):
     assert np.max(np.abs(got["k"] - kref)) <= _tol(dtype, kref)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_generate_tokens_equal_reference(arch, mesh11):
     jcfg, jeng, teng = _engines(arch, "float32", mesh11, batch=2,
                                 capacity=32, kv_dtype="float32")
@@ -267,7 +276,8 @@ def test_argmax_breaks_ties_to_first_index():
 
 
 def test_unported_parts_raise_and_name_the_roadmap():
-    """Still to port: the int8 cache and the other families.  The spill
+    """Still to port: the int8 cache and the families of ROADMAP item 9
+    (the MoE family is ported: ``tests/test_torch_moe.py``).  The spill
     API (``offload_slot``/``refill_slot``) is ported and round-trips
     (``tests/test_torch_kv_offload.py`` holds it in full)."""
     tcfg = get_smoke_config("qwen3_14b")
@@ -279,10 +289,11 @@ def test_unported_parts_raise_and_name_the_roadmap():
     assert int(eng.slot_cache["pos"][0]) == 0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfm.init_cache(tcfg, tfm.CacheSpec(8, 1, kv_dtype=torch.int8), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_smoke_config("rwkv6-7b")
+    for arch in ("rwkv6-7b", "whisper-tiny", "hymba-1.5b", "internvl2-1b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+            get_smoke_config(arch)
     with pytest.raises(KeyError):
         get_smoke_config("no-such-model")
-    moe = dataclasses.replace(tcfg, moe_experts=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfm.init_params(torch.Generator().manual_seed(0), moe, "cpu")
+    rwkv = dataclasses.replace(tcfg, rwkv=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        tfm.init_params(torch.Generator().manual_seed(0), rwkv, "cpu")

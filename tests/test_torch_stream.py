@@ -32,7 +32,9 @@ from repro_torch.serve import stream
 from repro_torch.serve.batcher import ContinuousBatcher, make_trace
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-DENSE = ["qwen3_14b", "llama2_13b", "gemma_7b", "opt_30b", "h2o_danube_1_8b"]
+# the dense configs: every layer has one layout (MoE configs raise, below)
+ARCHS = ["qwen3_14b", "llama2_13b", "gemma_7b", "opt_30b", "h2o_danube_1_8b",
+         "gemma2_27b", "llama2_70b", "dit_xl"]
 
 
 def _params(cfg, seed: int = 0) -> dict:
@@ -50,7 +52,7 @@ def _prompts(cfg, batch: int, length: int, seed: int = 0) -> torch.Tensor:
         rng.integers(0, cfg.vocab_size, (batch, length)).astype(np.int64))
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_stream_equals_gspmd(arch):
     cfg = get_smoke_config(arch)
     params = _params(cfg)
@@ -295,3 +297,67 @@ def test_launcher_default_is_planned_elk_stream(capsys):
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
             serve.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
                         flag, "2"])
+
+
+MOE = ["llama4_maverick_400b_a17b", "kimi_k2_1t_a32b"]
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_elk_stream_of_moe_raises(arch):
+    """Dense and MoE layers differ in layout, and one pinned layout holds
+    every streamed layer: ``elk_stream`` of an MoE config raises, naming
+    the ROADMAP item, at every entry point; ``gspmd`` serves it."""
+    cfg = get_smoke_config(arch)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 17"):
+        stream.init_streamed_params(torch.Generator(), cfg, "cpu", 2)
+    params = _params(cfg)
+    with pytest.raises(NotImplementedError, match="streamed MoE"):
+        ServeEngine(cfg, params, ServeConfig(
+            batch=2, cache_capacity=32, mode="elk_stream"), "cpu")
+    eng = ServeEngine(cfg, params, ServeConfig(batch=2, cache_capacity=32),
+                      "cpu")
+    assert eng.generate(_prompts(cfg, 2, 6), steps=3).shape == (2, 9)
+
+
+def test_elk_stream_of_uniform_moe_raises():
+    """A config whose every layer is MoE (no dense prefix, an MoE layer
+    every layer) has one layout too, and still raises: its experts are to
+    be streamed as late-bound preloads on the router's choice, not copied
+    whole every pass."""
+    cfg = dataclasses.replace(get_smoke_config("kimi_k2_1t_a32b"),
+                              moe_first_dense=0, moe_every=1, moe_offset=0)
+    assert set(tfm.layer_kinds(cfg)) == {"moe"}
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 17"):
+        stream.init_streamed_params(torch.Generator(), cfg, "cpu", 2)
+    with pytest.raises(NotImplementedError, match="streamed MoE"):
+        ServeEngine(cfg, _params(cfg), ServeConfig(
+            batch=2, cache_capacity=32, mode="elk_stream"), "cpu")
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_launcher_serves_moe_resident_only(arch, capsys):
+    """The launcher takes the MoE ids: the default ``elk_stream`` raises
+    and says that ``--mode gspmd`` runs it, which serves lock-step and
+    continuous."""
+    from repro_torch.launch import serve
+    dashed = arch.replace("_", "-")
+    with pytest.raises(NotImplementedError, match="--mode gspmd"):
+        serve.main(["--arch", dashed, "--smoke", "--device", "cpu"])
+    serve.main(["--arch", dashed, "--smoke", "--device", "cpu", "--mode",
+                "gspmd", "--batch", "2", "--steps", "3", "--cache", "32"])
+    assert "generated 3 tokens x 2 requests" in capsys.readouterr().out
+    serve.main(["--arch", dashed, "--smoke", "--device", "cpu", "--mode",
+                "gspmd", "--trace", "3", "--cache", "64"])
+    assert "continuous:" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_planner_knobs_for_moe(arch):
+    """``elk_serve_config`` plans an MoE config with the port's copy of
+    the planner (expert weights as late-bound preloads) on one H100."""
+    from repro_torch.chip.h100 import h100_host
+    from repro_torch.serve.engine import elk_serve_config
+    scfg = elk_serve_config(get_smoke_config(arch), batch=2,
+                            cache_capacity=64, pod=h100_host())
+    assert scfg.mode == "elk_stream" and scfg.prefetch_depth >= 1
+    assert 1 <= scfg.prefill_chunk <= 64
