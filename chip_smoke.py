@@ -29,7 +29,8 @@ exit code and no result line:
             around its crossover R.
 4. parity   the smoke config in fp32 on the same seeded weights, on the CPU
             (plain path) and on the card (kernel path), with resident
-            weights (``gspmd``) and streamed ones (``elk_stream``):
+            weights (``gspmd``) and streamed ones (``elk_stream``, MoE
+            configs with their experts fetched after the router):
             ``ServeEngine``'s lock-step ``generate`` and
             ``ContinuousBatcher.run`` over a mixed trace give equal greedy
             tokens; last logits close.
@@ -68,6 +69,19 @@ exit code and no result line:
             device memory, prefill ms, decode ms a step, tokens/s; then
             each kernel product of layer 0 and of the first MoE layer, and
             the LM head, held to its plain version on the live weights.
+            Then both MoE configs under ``elk_stream`` with the planner's
+            knobs: the resident run's weights moved into the layer stream
+            (every product on the same route streamed as resident; equal
+            greedy tokens, 4 new), then streamed alone at the depth the
+            host holds (printed), each MoE layer's experts fetched after
+            its router: one ``[stream-moe]`` line a config with the depth,
+            pinned bytes, window and expert buffer, peak device memory,
+            prefill and decode ms, and three decode steps' bytes copied
+            (window and experts apart, beside the whole layers'), experts
+            fetched and GB/s.  A streamed continuous trace of MoE on the
+            card is optional and not run (a kimi-k2 chunk of 32 tokens
+            touches up to 256 of 384 experts); the parity phase runs the
+            MoE smoke configs streamed through the batcher.
 
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails if a kernel of the path was not
@@ -89,7 +103,9 @@ steps, and of one streamed decode step: the device's busy time and idle
 share, the kernels that take the most device time, and for the streamed
 step how much of the weight copies' time compute hides; printed and
 written to ``build/profile/``; and of three kimi-k2 decode steps and a
-prefill, with the expert products' share of the device time.
+prefill, with the expert products' share of the device time, and of one
+streamed kimi-k2 decode step, its expert copies apart from the window's
+(how long they waited behind window copies).
 ``--only kernels`` runs the build and the kernel phases, ``--only models``
 the build, the parity and the ``[models]`` phases (neither prints a result
 line): the loops for working on one part.
@@ -157,7 +173,8 @@ from repro_torch.serve.batcher import (ContinuousBatcher,  # noqa: E402
 from repro_torch.serve.engine import (ServeConfig, ServeEngine,  # noqa: E402
                                      elk_serve_config)
 from repro_torch.serve.prefix import PrefixStore, host_copy  # noqa: E402
-from repro_torch.serve.stream import init_streamed_params  # noqa: E402
+from repro_torch.serve.stream import (LayerStream, _leaves,  # noqa: E402
+                                      init_streamed_params)
 
 # datasheet, H100 SXM
 HBM_BYTES_PER_S = 3.35e12
@@ -1311,8 +1328,8 @@ PARITY_ARCHS = ("qwen3_14b", "gemma2_27b", "llama2_70b", "dit_xl",
 def parity_phase() -> None:
     """For each smoke config in fp32, on the same seeded weights: the CPU
     (plain path) against the card (kernel path), with resident weights
-    (``gspmd``) and, where every layer has one layout, streamed ones
-    (``elk_stream``, a window of 2 of the 2 layers)."""
+    (``gspmd``) and streamed ones (``elk_stream``, a window of 2 of the 2
+    layers; an MoE layer's experts fetched after its router)."""
     for arch in PARITY_ARCHS:
         parity_config(dataclasses.replace(
             get_smoke_config(arch), dtype="float32", param_dtype="float32"))
@@ -1326,8 +1343,7 @@ def parity_phase() -> None:
 
 def parity_config(cfg) -> None:
     params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
-    modes = ("gspmd", "elk_stream") if len(set(tfm.layer_kinds(cfg))) == 1 \
-        else ("gspmd",)
+    modes = ("gspmd", "elk_stream")
     scfg = ServeConfig(batch=2, cache_capacity=32, kv_dtype="float32",
                        prefetch_depth=2)
     engines = {(dev, mode): ServeEngine(
@@ -1361,14 +1377,12 @@ def parity_config(cfg) -> None:
     tol = 2e-4 * (float(base.abs().max()) + 1.0)
     if err > tol:
         fail(f"{cfg.name}: last-step logits differ: {err:.3e} > {tol:.3e}")
-    if "elk_stream" in modes and not torch.equal(
-            last["cuda", "gspmd"], last["cuda", "elk_stream"]):
+    if not torch.equal(last["cuda", "gspmd"], last["cuda", "elk_stream"]):
         fail(f"{cfg.name}: on the card elk_stream and gspmd logits are not "
              "identical")
     say(f"[parity] smoke {cfg.name} fp32: tokens equal on CPU and card, "
         f"{' and '.join(modes)}, last-step logits max abs diff {err:.3e} "
-        f"(tol {tol:.3e})" + ("; on the card elk_stream equals gspmd bit for "
-                              "bit" if "elk_stream" in modes else ""))
+        f"(tol {tol:.3e}); on the card elk_stream equals gspmd bit for bit")
 
     # continuous batching: the same trace through every engine's batcher
     # (chunks of 8 into rings of 32; MoE dropless on the slot path)
@@ -1859,23 +1873,26 @@ def oversub_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
 
 def copy_rates(ls) -> dict:
     """The host-to-card copies of the layer stream alone, on its copy
-    stream with no compute: one layer (best of 3), then every layer once
-    through the window."""
+    stream with no compute: the largest layer record (best of 3), then
+    every layer's record once through the window."""
     stream = ls.copy_stream
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    big = max(range(ls.n), key=lambda li: ls.host[li].numel())
     torch.cuda.synchronize()
     one = []
     for _ in range(3):
         with torch.cuda.stream(stream):
             ev[0].record(stream)
-            ls.buffers[0].copy_(ls.host[0], non_blocking=True)
+            ls.buffers[0].copy_(ls.host[big], non_blocking=True)
             ev[1].record(stream)
         torch.cuda.synchronize()
         one.append(ev[0].elapsed_time(ev[1]))
     with torch.cuda.stream(stream):
         ev[0].record(stream)
         for li in range(ls.n):
-            ls.buffers[li % ls.depth].copy_(ls.host[li], non_blocking=True)
+            src = ls.host[li]
+            ls.buffers[li % ls.depth][:src.numel()].copy_(src,
+                                                          non_blocking=True)
         ev[1].record(stream)
     torch.cuda.synchronize()
     best = min(one)
@@ -2031,7 +2048,7 @@ def tree_bytes(tree) -> int:
         return sum(tree_bytes(v) for v in tree.values())
     if isinstance(tree, (list, tuple)):
         return sum(tree_bytes(v) for v in tree)
-    return tree.n * tree.layer_bytes          # a LayerStream's host copy
+    return tree.host_bytes                    # a LayerStream's host copy
 
 
 def free_card(what: str) -> None:
@@ -2190,17 +2207,7 @@ def llama2_70b_phase(kernel_rows: list[dict], host: dict) -> None:
 
     # streamed at the depth the host holds
     free_card("the streamed llama2-70b")
-    layer = tree_bytes(tfm.decoder_layer_params(_MetaInit(), full, "dense"))
-    depth = min(full.num_layers,
-                (host["usable_bytes"] - HOST_HEADROOM) // (layer + 2 ** 20))
-    if depth < 1:
-        fail(f"the host cannot hold one llama2-70b layer of {layer} bytes: "
-             f"{json.dumps(host)}")
-    say(f"[models] llama2-70b streamed: {host['usable_bytes']} bytes of host "
-        f"memory usable at the start, {HOST_HEADROOM} kept free, layers of "
-        f"{layer} bytes: "
-        f"depth {depth} of {full.num_layers}"
-        + ("" if depth == full.num_layers else " (cut; the width is not)"))
+    depth = host_depth(full, host, 1)
     cfg = dataclasses.replace(full, num_layers=depth)
     scfg = elk_serve_config(cfg, batch=BATCH, cache_capacity=CACHE,
                             pod=h100_host())
@@ -2224,18 +2231,191 @@ def llama2_70b_phase(kernel_rows: list[dict], host: dict) -> None:
                batch=BATCH, prompt_len=PROMPT_LEN, cache=CACHE,
                steps=STREAM_STEPS, mode="elk_stream",
                prefetch_depth=scfg.prefetch_depth, drawn_in_s=draw_s,
-               pinned_host_bytes=ls.n * ls.layer_bytes, **copy_rates(ls))
+               pinned_host_bytes=ls.host_bytes, **copy_rates(ls))
     del eng, params, ls
 
 
-class _MetaInit:
-    """Shapes of the initialiser's draws, nothing allocated."""
+def host_depth(full, host: dict, least: int) -> int:
+    """The most layers of ``full``, taken from the first, whose pinned
+    host copy the host held at the script's start (``host``) with
+    HOST_HEADROOM kept free (a MiB a layer for alignment); printed, and
+    fails below ``least``."""
+    budget, depth = host["usable_bytes"] - HOST_HEADROOM, 0
+    for layer in tfm.layer_shapes(full):
+        budget -= tree_bytes(layer) + 2 ** 20
+        if budget < 0:
+            break
+        depth += 1
+    if depth < least:
+        fail(f"the host cannot hold {least} {full.name} layers: "
+             f"{json.dumps(host)}")
+    say(f"[models] {full.name} streamed: {host['usable_bytes']} bytes of "
+        f"host memory usable at the start, {HOST_HEADROOM} kept free: depth "
+        f"{depth} of {full.num_layers}"
+        + ("" if depth == full.num_layers else " (cut; the width is not)"))
+    return depth
 
-    def normal(self, shape, scale):
-        return torch.empty(shape, device="meta", dtype=torch.bfloat16)
 
-    def zeros(self, shape):
-        return torch.empty(shape, device="meta", dtype=torch.bfloat16)
+def same_routes(cfg, layers: list, ls) -> int:
+    """Every product and MLP of ``layers`` (resident) takes the route on the
+    stream's buffer views that it takes on the resident tensors, at a
+    decode step's and a prefill's rows, and every weight of the views lies
+    on 256 bytes; fails otherwise.  Returns the checks made."""
+    checks = 0
+    for li, layer in enumerate(layers):
+        ls.issue(li, 0)
+        view = ls.acquire(li, 0)
+        ls.release(0)
+        torch.cuda.synchronize()
+        pairs = [(k, layer["attn"][k], view["attn"][k])
+                 for k in ("w_q", "w_k", "w_v", "w_o")]
+        if "moe" in layer:
+            pairs.append(("router", layer["moe"]["router"],
+                          view["moe"]["router"]))
+        mlps = [(key, layer[key], view[key]) for key in ("mlp", "shared_mlp")
+                if key in layer]
+        for rows in (BATCH, BATCH * PROMPT_LEN):
+            for name, a, b in pairs:
+                x = torch.empty((rows, a.shape[0]), dtype=torch.bfloat16,
+                                device="cuda")
+                checks += 1
+                if matmul_route_of(x, a) != matmul_route_of(x, b):
+                    fail(f"{cfg.name} layer {li} {name}: route "
+                         f"{matmul_route_of(x, b)} streamed, "
+                         f"{matmul_route_of(x, a)} resident")
+            x = torch.empty((rows, cfg.d_model), dtype=torch.bfloat16,
+                            device="cuda")
+            for name, a, b in mlps:
+                checks += 1
+                got, want = (mlp_route_of(x, w["w_up"], w["w_down"],
+                                          w.get("w_gate")) for w in (b, a))
+                if got != want:
+                    fail(f"{cfg.name} layer {li} {name}: route {got} "
+                         f"streamed, {want} resident")
+        for path, t in _leaves(view):
+            if isinstance(t, torch.Tensor) and t.data_ptr() % 256:
+                fail(f"{cfg.name} layer {li} {path} lies off 256 bytes")
+    return checks
+
+
+def moe_stream_phase(arch: str, cfg, params: dict, run: dict,
+                     kernel_rows: list[dict], host: dict,
+                     profile: bool) -> None:
+    """An MoE config under ``elk_stream`` with the planner's knobs on
+    ``h100_host()``, full width.  First the resident run's weights
+    (``params``, ``cfg`` at MOE_DEPTH layers) move into a layer stream,
+    their device copy freed: every product takes the same route on the
+    stream's views, and the streamed engine (its expert buffer sized once
+    the resident layers are gone) gives the resident run's greedy tokens.
+    Then streamed alone at the depth the host holds (the weights drawn one
+    layer at a time into pinned host memory), lock-step,
+    and three decode steps one by one: the ``[stream-moe]`` line with the
+    bytes each copied, window and experts apart, beside what whole-layer
+    copies would have moved; then three at a window of 2 (the stream holds
+    two buffers for them), where the experts' copies queue behind the next
+    layer's window copy."""
+    dev = torch.device("cuda")
+    scfg = elk_serve_config(cfg, batch=BATCH, cache_capacity=CACHE,
+                            pod=h100_host())
+    layers = params.pop("layers")
+    ls = LayerStream(layers, dev, depth=scfg.prefetch_depth)
+    checks = same_routes(cfg, layers, ls)
+    del layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = ServeEngine(cfg, {**params, "layers": ls}, scfg)   # sizes experts
+    if any(t.data_ptr() % 256 for w in ls._expert_views for t in w.values()):
+        fail(f"{cfg.name}: an expert slot lies off 256 bytes")
+    zero_launches()
+    out = eng.generate(run["prompts"], steps=STREAM_STEPS)
+    torch.cuda.synchronize()
+    if {**read_launches(), "routes": read_routes()} != lockstep_expected(
+            cfg, BATCH, PROMPT_LEN, STREAM_STEPS):
+        fail(f"{cfg.name} streamed at {cfg.num_layers} layers launched "
+             f"{read_launches()}, by route {read_routes()}")
+    if not torch.equal(out, run["out"][:, :PROMPT_LEN + STREAM_STEPS]):
+        fail(f"{cfg.name} at {cfg.num_layers} layers: streamed and resident "
+             f"weights gave different tokens:\n{out}\n{run['out']}")
+    say(f"[models] {cfg.name} at {cfg.num_layers} layers, full width: "
+        f"{checks} products and MLPs on the same route streamed as resident; "
+        f"resident and streamed (prefetch_depth {scfg.prefetch_depth}, an "
+        f"expert buffer of {ls.expert_slots} experts) tokens equal, "
+        f"{out[0, PROMPT_LEN:].tolist()}")
+    del eng, ls, out
+    params.clear()
+
+    # streamed alone at the depth the host holds
+    free_card(f"the streamed {cfg.name}")
+    full = get_config(arch)
+    depth = host_depth(full, host, MOE_DEPTH)
+    cfg = dataclasses.replace(full, num_layers=depth)
+    scfg = elk_serve_config(cfg, batch=BATCH, cache_capacity=CACHE,
+                            pod=h100_host())
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, init_streamed_params(     # 2 buffers: see below
+        torch.Generator(device=dev).manual_seed(0), cfg, dev,
+        max(scfg.prefetch_depth, 2)), scfg)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    ls = eng.params["layers"]
+    copies0 = ls.copies
+    run = lockstep_run(cfg, eng, kernel_rows, f"{cfg.name} stream lock-step",
+                       PROMPT_LEN, STREAM_STEPS, warm_steps=1)
+    passes = 1 + STREAM_STEPS + 2 + (STREAM_STEPS - 1)
+    if ls.copies - copies0 != depth * passes:
+        fail(f"{ls.copies - copies0} layer copies in {passes} streamed passes "
+             f"of {depth} layers")
+    # three decode steps at the planner's window, three at a window of 2
+    cache, tok = run["cache"], run["out"][:, -1]
+    steps, planned = {}, scfg.prefetch_depth    # (eng.scfg is scfg)
+    for window in dict.fromkeys((planned, 2)):
+        eng.scfg.prefetch_depth = window
+        steps[window] = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            logits, cache = eng.decode(tok, cache)
+            ev[1].record()
+            torch.cuda.synchronize()
+            tok = torch.argmax(logits[:, -1, :], dim=-1)
+            steps[window].append((ev[0].elapsed_time(ev[1]), dict(ls.bytes)))
+        if not torch.isfinite(logits).all():
+            fail(f"{cfg.name}: streamed decode logits at a window of {window} "
+                 "not finite")
+    eng.scfg.prefetch_depth = planned
+    say("[stream-moe] " + json.dumps({
+        "model": cfg.name, "depth": f"{depth} of {full.num_layers}",
+        "layer_kinds": tfm.layer_kinds(cfg), "batch": BATCH,
+        "prompt_len": PROMPT_LEN, "cache": CACHE, "steps": STREAM_STEPS,
+        "pinned_host_bytes": ls.host_bytes, "drawn_in_s": draw_s,
+        "prefetch_depth": planned,
+        "prefill_chunk": scfg.prefill_chunk, "window_buffers": ls.depth,
+        "window_bytes": ls.depth * ls.layer_bytes,
+        "expert_slots": ls.expert_slots,
+        "expert_buffer_bytes": ls.expert_slots * ls.expert_bytes,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "prefill_ms": run["prefill_ms"],
+        "decode_ms_per_token": run["decode_ms_per_token"],
+        "tokens_per_s": run["tokens_per_s"],
+        "decode_step_ms": [ms for ms, _ in steps[planned]],
+        "window_bytes_per_step": [b["window"] for _, b in steps[planned]],
+        "expert_bytes_per_step": [b["experts"] for _, b in steps[planned]],
+        "experts_per_step": [b["experts"] // ls.expert_bytes
+                             for _, b in steps[planned]],
+        "whole_layer_bytes_per_step": ls.host_bytes,
+        "copied_GBps": [sum(b.values()) / (ms * 1e-3) / 1e9
+                        for ms, b in steps[planned]],
+        "decode_step_ms_p2": [ms for ms, _ in steps[2]],
+        **copy_rates(ls), "launches": run["launches"],
+        "launches_by_route": run["launches_by_route"],
+        "sample": run["out"][0, PROMPT_LEN:].tolist()}))
+    if profile and arch == TRACE_ARCH:
+        for window in steps:
+            eng.scfg.prefetch_depth = window
+            profile_stream_step(eng, run["prompts"],
+                                label=f"stream-moe decode p{window}")
+        eng.scfg.prefetch_depth = planned
+    del eng, ls, run, cache, logits
 
 
 def models_phase(kernel_rows: list[dict], host: dict, profile: bool) -> None:
@@ -2243,7 +2423,7 @@ def models_phase(kernel_rows: list[dict], host: dict, profile: bool) -> None:
     each freed before the next: dit-xl and gemma2-27b resident at full
     depth, llama2-70b streamed, llama4-maverick and kimi-k2 resident at
     MOE_DEPTH layers (a dense and an MoE layer), kimi-k2 also through the
-    continuous batcher."""
+    continuous batcher, then both streamed (``moe_stream_phase``)."""
     t_phase = time.perf_counter()
     for arch, depth, prompt_len, ring in MODEL_RUNS:
         if arch == "llama2_70b":
@@ -2253,11 +2433,14 @@ def models_phase(kernel_rows: list[dict], host: dict, profile: bool) -> None:
                                                kernel_rows)
         if arch == TRACE_ARCH and profile:
             profile_moe(eng, run)
-        del eng, run
+        del eng
         if arch == TRACE_ARCH:
             trace_phase(cfg, params, kernel_rows, False,
                         path=f"{cfg.name} continuous", tag="[models-trace]")
-        del params
+        if "moe" in tfm.layer_kinds(cfg):
+            moe_stream_phase(arch, cfg, params, run, kernel_rows, host,
+                             profile)
+        del params, run
     free_card("the end of the models phase")
     say(f"[models] phase took {time.perf_counter() - t_phase:.1f}s")
 
@@ -2302,40 +2485,49 @@ def intervals_ms(events: list) -> float:
     return total
 
 
-def profile_stream_step(eng: ServeEngine, prompts: torch.Tensor) -> None:
+def profile_stream_step(eng: ServeEngine, prompts: torch.Tensor,
+                        label: str = "stream decode") -> None:
     """One streamed decode step under ``torch.profiler``: the device's busy
     and idle share within that step (its wall time is the span of a
     ``record_function`` around the step and a synchronize, in the same
     trace), and how much of the weight copies' time compute hides (kernel
-    time on the compute stream that falls inside copy time)."""
+    time on the compute stream that falls inside copy time).  The copies
+    of an expert (``expert_bytes`` each) are counted apart from the
+    window's, with the time expert copies waited, issued but not started,
+    while a window copy ran ahead of them on the copy stream."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     out_dir = ROOT / "build" / "profile"
     out_dir.mkdir(parents=True, exist_ok=True)
+    expert_bytes = eng.params["layers"].expert_bytes
     logits, cache = eng.prefill(prompts)
     tok = torch.argmax(logits[:, -1, :], dim=-1)
     eng.decode(tok, cache)
     torch.cuda.synchronize()
-    label = "stream decode step"
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         with record_function(label):
             eng.decode(tok, cache)
             torch.cuda.synchronize()
-    path = out_dir / "trace_stream_decode.json"
+    path = out_dir / f"trace_{label.replace(' ', '_')}.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
-    kernels, copies, step = [], [], []
+    kernels, window, experts, step, issued = [], [], [], [], {}
     for e in events:
         if e.get("ph") != "X":
             continue
         span = (e["ts"] * 1e-3, (e["ts"] + e.get("dur", 0)) * 1e-3)
+        args = e.get("args", {})
         if e.get("cat") == "kernel":
             kernels.append(span)
         elif e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""):
-            copies.append(span)
+            (experts if expert_bytes and args.get("bytes") == expert_bytes
+             else window).append((span, args.get("correlation")))
+        elif e.get("cat") == "cuda_runtime" and "correlation" in args:
+            issued[args["correlation"]] = span[0]
         elif e.get("cat") == "user_annotation" and e.get("name") == label:
             step.append(span)
+    copies = [span for span, _ in window + experts]
     if not kernels or not copies or len(step) != 1:
         fail(f"the streamed step's trace has {len(kernels)} kernels, "
              f"{len(copies)} host-to-card copies and {len(step)} step spans")
@@ -2343,14 +2535,30 @@ def profile_stream_step(eng: ServeEngine, prompts: torch.Tensor) -> None:
     compute_ms, copy_ms = intervals_ms(kernels), intervals_ms(copies)
     busy_ms = intervals_ms(kernels + copies)
     overlap_ms = compute_ms + copy_ms - busy_ms
-    say("[profile] " + json.dumps({
-        "pass": "stream decode", "wall_ms": wall_ms,
-        "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
-        "compute_ms": compute_ms, "copy_ms": copy_ms,
-        "overlap_ms": overlap_ms,
-        "compute_hidden_under_copies": overlap_ms / compute_ms,
-        "copies_overlapped_by_compute": overlap_ms / copy_ms,
-        "host_to_device_copies": len(copies), "device_kernels": len(kernels)}))
+    row = {"pass": label, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "compute_ms": compute_ms, "copy_ms": copy_ms,
+           "overlap_ms": overlap_ms,
+           "compute_hidden_under_copies": overlap_ms / compute_ms,
+           "copies_overlapped_by_compute": overlap_ms / copy_ms,
+           "host_to_device_copies": len(copies),
+           "device_kernels": len(kernels)}
+    if experts:
+        spans = [span for span, _ in experts]
+        waits = [(issued[c], span[0]) for span, c in experts
+                 if c in issued and issued[c] < span[0]]
+        behind = [(max(a, w0), min(b, w1)) for w0, w1 in waits
+                  for (a, b), _ in window if a < w1 and b > w0]
+        expert_ms = intervals_ms(spans)
+        row.update({
+            "expert_copies": len(experts), "expert_copy_ms": expert_ms,
+            "window_copy_ms": intervals_ms([span for span, _ in window]),
+            "expert_copies_overlapped_by_compute": (
+                expert_ms + compute_ms - intervals_ms(spans + kernels))
+            / expert_ms,
+            "expert_copies_waiting_ms": intervals_ms(waits),
+            "expert_copies_waiting_behind_window_ms": intervals_ms(behind)})
+    say("[profile] " + json.dumps(row))
 
 
 def profile_steps(eng: ServeEngine, last_tags: dict) -> None:

@@ -11,9 +11,11 @@ onto the card through a window of N layers:
 
 ``--mode gspmd`` keeps the weights resident; ``--prefetch-depth N`` (N > 0)
 sets the window by hand instead of asking the planner.  The MoE configs
-(llama4-maverick-400b-a17b, kimi-k2-1t-a32b) run with ``--mode gspmd`` only:
-their dense and MoE layers differ, and streaming them is ROADMAP.md, Queue 1,
-item 17.
+(llama4-maverick-400b-a17b, kimi-k2-1t-a32b) stream too: their dense and MoE
+layers share the window, each in its own layout, and an MoE layer's experts
+are copied after its router, only those it picked, into an expert buffer
+sized for the largest pass.  Under ``elk_stream`` the launcher prints the
+window and the expert buffer it allocated.
 
 Continuous batching over a mixed-length request trace (tok/s + request
 latency percentiles, optionally against the static-batching baseline):
@@ -152,9 +154,6 @@ def main(argv=None) -> None:
             raise NotImplementedError(
                 f"{flag} is not ported yet (ROADMAP.md, Queue 1, item 13)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    if args.mode == "elk_stream":
-        stream.check_streamable(cfg, "; --mode gspmd serves it with resident "
-                                "weights")
     device = tfm.resolve_device(args.device)
     if args.mode == "elk_stream" and args.prefetch_depth <= 0:
         # plan against the config actually served, on one H100
@@ -178,6 +177,12 @@ def main(argv=None) -> None:
     else:
         params = tfm.init_params(gen, cfg, device)
     eng = ServeEngine(cfg, params, scfg, device)
+    if scfg.mode == "elk_stream":
+        ls = eng.params["layers"]
+        print(f"elk_stream: prefetch_depth={scfg.prefetch_depth}; window of "
+              f"{ls.depth} buffers of {ls.layer_bytes} bytes; expert buffer "
+              f"of {ls.expert_slots} experts of {ls.expert_bytes} bytes; "
+              f"{ls.host_bytes} bytes of host memory")
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
 

@@ -26,7 +26,12 @@ What differs from the reference, by design:
   descending sort does what ``lax.top_k`` does.
 * No ``mesh`` argument: one GPU, so no expert-parallel placement.
 * Grouping the rows reads their count per expert back to the host once a
-  layer (the number of products to run).
+  layer (the number of products to run).  Right after that read-back the
+  experts with rows are known, and ``moe_ffn`` asks the layer's experts
+  for exactly those: ``p["experts"]``, where the layer streams
+  (``serve/stream.LayerExperts``, which fetches them into the device's
+  expert buffer, the paper's §7 late-bound preload), or
+  ``ResidentExperts`` over ``p``'s own (E, ...) tensors.
 """
 
 from __future__ import annotations
@@ -72,24 +77,39 @@ def expert_slots(flat_e: torch.Tensor, experts: int
     return order, slot, counts
 
 
-def _expert(x: torch.Tensor, p: dict, e: int, cfg: ModelConfig
-            ) -> torch.Tensor:
-    """Expert ``e``'s FFN on its rows, in the products' type."""
+class ResidentExperts:
+    """The experts of a layer whose (E, d, ff) / (E, ff, d) tensors lie in
+    ``p``: one round of every expert asked for, expert ``e``'s weights the
+    ``e``-th slices."""
+
+    def __init__(self, p: dict):
+        self.p = p
+
+    def rounds(self, experts: list[int]):
+        yield experts
+
+    def weights(self, e: int) -> dict:
+        return {k: self.p[k][e] for k in ("w_gate", "w_up", "w_down")
+                if k in self.p}
+
+
+def _expert(x: torch.Tensor, w: dict, cfg: ModelConfig) -> torch.Tensor:
+    """An expert's FFN (weights ``w``) on its rows, in the products' type."""
     act = act_fn(cfg.mlp_act)
     if cfg.gated_mlp:
-        h = act(torch.matmul(x, p["w_gate"][e])) * torch.matmul(x,
-                                                                p["w_up"][e])
+        h = act(torch.matmul(x, w["w_gate"])) * torch.matmul(x, w["w_up"])
     else:
-        h = act(torch.matmul(x, p["w_up"][e]))
-    return torch.matmul(h, p["w_down"][e])
+        h = act(torch.matmul(x, w["w_up"]))
+    return torch.matmul(h, w["w_down"])
 
 
 def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig,
             capacity_factor: float | None = None,
             dropless: bool = False) -> torch.Tensor:
-    """x: (T, d) token-major.  p: router (d,E), w_gate/w_up (E,d,ff),
-    w_down (E,ff,d).  ``dropless`` sizes capacity so no assignment is ever
-    dropped (decode and the slot path: C = T k)."""
+    """x: (T, d) token-major.  p: router (d,E), and w_gate/w_up (E,d,ff),
+    w_down (E,ff,d) or ``experts``, the accessor of a streamed layer's.
+    ``dropless`` sizes capacity so no assignment is ever dropped (decode and
+    the slot path: C = T k)."""
     t, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_top_k
     cf = capacity_factor or cfg.moe_capacity_factor
@@ -100,11 +120,13 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig,
     order, slot, counts = expert_slots(idx.reshape(t * k), e)
     order = order[slot < c]            # an assignment past capacity drops
     rows_of = torch.clamp(counts, max=c).tolist()
+    experts = p["experts"] if "experts" in p else ResidentExperts(p)
     xs = x[order // k]                 # the kept rows, grouped by expert
     outs, off = [], 0
-    for ex, n in enumerate(rows_of):
-        if n:
-            outs.append(_expert(xs[off:off + n], p, ex, cfg))
+    for group in experts.rounds([ex for ex, n in enumerate(rows_of) if n]):
+        for ex in group:
+            n = rows_of[ex]
+            outs.append(_expert(xs[off:off + n], experts.weights(ex), cfg))
             off += n
     rows = x.new_zeros((t * k, d))
     rows[order] = torch.cat(outs)

@@ -174,6 +174,23 @@ def decoder_layer_params(init: _Init, cfg: ModelConfig, kind: str) -> dict:
     return p
 
 
+class _MetaInit(_Init):
+    """The shapes and types of ``_Init``'s draws, nothing allocated."""
+
+    def __init__(self, dtype: torch.dtype):
+        super().__init__(None, torch.device("meta"), dtype)
+
+    def normal(self, shape: tuple, scale: float) -> torch.Tensor:
+        return torch.empty(shape, device=self.device, dtype=self.dtype)
+
+
+def layer_shapes(cfg: ModelConfig) -> list[dict]:
+    """Every layer's parameters as ``init_params`` draws them, as meta
+    tensors: their structure, shapes and types, nothing allocated."""
+    init = _MetaInit(getattr(torch, cfg.param_dtype))
+    return [decoder_layer_params(init, cfg, kind) for kind in layer_kinds(cfg)]
+
+
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on.  ``"cuda"`` is the default of
     every entry point and raises when no card is there: the CPU is never

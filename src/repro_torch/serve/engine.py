@@ -8,10 +8,12 @@ Counterpart of ``src/repro/serve/engine.py``.  Two execution modes:
 * ``elk_stream`` -- the decoder's layer weights live in pinned host memory
   (preload state) and are copied onto the card through a window of
   ``prefetch_depth`` layer buffers (execute state) while the layers before
-  them compute (``serve/stream.py``).  Every pass streams: prefill, decode,
-  prefill chunks and slot steps.  ``elk_serve_config`` chooses
-  ``prefetch_depth`` and ``prefill_chunk`` with the ELK planner
-  (``core/integration.pod_plan``), for the port on ``chip/h100.h100_host()``.
+  them compute (``serve/stream.py``); an MoE layer's experts are copied
+  after its router, only those it picked, into one expert buffer.  Every
+  pass streams: prefill, decode, prefill chunks and slot steps.
+  ``elk_serve_config`` chooses ``prefetch_depth`` and ``prefill_chunk``
+  with the ELK planner (``core/integration.pod_plan``), for the port on
+  ``chip/h100.h100_host()``.
 
 Two batching disciplines:
 
@@ -214,30 +216,42 @@ def elk_serve_config(cfg: ModelConfig, *, batch: int, cache_capacity: int,
                        prefix_cache_bytes=prefix_bytes)
 
 
+def largest_pass_experts(cfg: ModelConfig, scfg: ServeConfig) -> int:
+    """Experts the largest pass of an engine can touch in one MoE layer,
+    ``min(E, rows k)`` as ``core/graph.py`` counts them, where the largest
+    pass is a prefill of prompts that fill the ring on every row (a chunk
+    and a slot step have fewer rows); 0 for a dense config."""
+    rows = max(scfg.batch, scfg.slots) * scfg.cache_capacity
+    return min(cfg.moe_experts, rows * cfg.moe_top_k)
+
+
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params: dict, scfg: ServeConfig,
                  device="cuda"):
         """``params`` may lie anywhere; under ``elk_stream`` the layers are
-        copied into pinned host memory (``stream.LayerStream``) and the
-        caller's own tensors are not kept, so a caller that drops them
-        frees their device memory.  ``params["layers"]`` may also be a
-        ``LayerStream`` already: one that ``stream.init_streamed_params``
-        drew without ever holding the decoder on the device, or another
-        engine's, and both then stream from one host copy (through at most
-        that stream's ``depth`` buffers)."""
+        copied into pinned host memory (``stream.LayerStream``: dense and
+        MoE layers each in its own layout, an MoE layer's experts in a bank
+        of their own, fetched after its router) and the caller's own
+        tensors are not kept, so a caller that drops them frees their
+        device memory.  ``params["layers"]`` may also be a ``LayerStream``
+        already: one that ``stream.init_streamed_params`` drew without ever
+        holding the decoder on the device, or another engine's, and both
+        then stream from one host copy (through at most that stream's
+        ``depth`` buffers).  The engine sizes the stream's expert buffer for
+        its largest pass (``largest_pass_experts``)."""
         if scfg.mode not in ("gspmd", "resident", "elk_stream"):
             raise ValueError(f"unknown serve mode {scfg.mode!r}")
         self.cfg = cfg
         self.scfg = scfg
         self.device = tfm.resolve_device(device)
         if scfg.mode == "elk_stream":
-            stream.check_streamable(cfg)
             self.params = {k: _to_device(v, self.device)
                            for k, v in params.items() if k != "layers"}
             layers = params["layers"]
             if not isinstance(layers, stream.LayerStream):
                 layers = stream.LayerStream(layers, self.device,
                                             depth=scfg.prefetch_depth)
+            layers.reserve_experts(largest_pass_experts(cfg, scfg))
             self.params["layers"] = layers
         else:
             self.params = _to_device(params, self.device)

@@ -8,7 +8,7 @@ H100 "sharded over the data axis" has no meaning, and the split maps onto
 the card so:
 
 * **preload state** -- each layer's weights live in pinned host memory, one
-  buffer a layer (slices of one pinned allocation), laid out as one block of
+  record a layer (slices of one pinned allocation), laid out as one block of
   bytes; ``init_streamed_params`` draws them there one layer at a time;
 * **execute state** -- a window of ``p`` layer buffers on the card.  The copy
   of layer ``i + p`` is issued on a side CUDA stream as soon as layer ``i``
@@ -27,18 +27,25 @@ weights that XLA gathers; here the weights' home is host memory).
 reference's docstring says.  On the CPU the same window logic runs with plain
 tensors and no streams.
 
-Every layer of a ``LayerStream`` has one byte layout and is copied whole,
-so an MoE config is not streamed yet: its dense and MoE layers differ in
-layout, and its expert weights are to be streamed as late-bound preloads
-on the router's choice; ``check_streamable`` raises for it, also where
-every layer is MoE (ROADMAP.md, Queue 1, item 17).
+Layers of more than one layout (the reference's prefix layers and the slots
+of its period, each streamed as a layout of its own) share the window: each
+layer has its own record of (path, offset, shape, dtype) at its own offset
+of the pinned allocation, the buffers are as large as the largest record, a
+copy moves the layer's own bytes only, and the views of a buffer follow the
+layer in it.  An MoE layer's experts (``w_gate``, ``w_up``, ``w_down``) are
+not in its record.  They form the layer's expert bank on the host, each
+expert's matrices contiguous, and are fetched late, after the layer's router,
+as the paper's §7 preloads (``core/graph.py`` gives the expert fetch the
+router as its ``preload_dep``): ``models/moe.moe_ffn`` reads the rows of
+every expert back to the host, and exactly the experts with rows are copied,
+on the copy stream, into one device expert buffer (``LayerExperts``).  A
+pass that touches more experts than the buffer holds runs them in rounds.
 """
 
 from __future__ import annotations
 
 import functools
 import weakref
-from typing import Optional
 
 import torch
 
@@ -46,19 +53,7 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
 _ALIGN = 256   # bytes: every weight starts at a multiple (kernels need 16)
-
-
-def check_streamable(cfg: ModelConfig, hint: str = "") -> None:
-    """Raise ``NotImplementedError`` for a config with an MoE layer: one
-    pinned layout holds every layer, padding the dense layers to an MoE
-    layer's size would stream bytes no layer reads, and a whole MoE layer
-    copied every pass would stream the experts the router did not choose.
-    ``hint`` ends the message."""
-    if "moe" in tfm.layer_kinds(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: elk_stream of a model with MoE layers is not "
-            "ported yet (ROADMAP.md, Queue 1, item 17, 'streamed "
-            f"MoE'){hint}")
+_EXPERT_KEYS = ("w_gate", "w_up", "w_down")   # (E, ...) leaves of p["moe"]
 
 
 def _leaves(tree: dict, prefix: tuple = ()):
@@ -70,12 +65,43 @@ def _leaves(tree: dict, prefix: tuple = ()):
             yield prefix + (key,), val
 
 
+def _split(layer: dict) -> tuple[list, list]:
+    """A layer's (path, tensor) leaves: those of its record, and its
+    experts' (E, ...) ones (none for a dense layer)."""
+    rest, experts = [], []
+    for path, t in _leaves(layer):
+        expert = path[:1] == ("moe",) and path[-1] in _EXPERT_KEYS
+        (experts if expert else rest).append((path, t))
+    return rest, experts
+
+
+def _layout(leaves) -> tuple[list, int]:
+    """(path, byte offset, shape, dtype) of each (path, tensor), every
+    tensor starting on a multiple of ``_ALIGN`` bytes, and the bytes of the
+    whole record."""
+    out, off = [], 0
+    for path, t in leaves:
+        out.append((path, off, tuple(t.shape), t.dtype))
+        off += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
+    return out, off
+
+
 def _view(buf: torch.Tensor, offset: int, shape: tuple,
           dtype: torch.dtype) -> torch.Tensor:
     n = torch.empty((), dtype=dtype).element_size()
     for s in shape:
         n *= s
     return buf[offset:offset + n].view(dtype).view(shape)
+
+
+def _unflatten(buf: torch.Tensor, layout: list) -> dict:
+    out: dict = {}
+    for path, o, shape, dtype in layout:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = _view(buf, o, shape, dtype)
+    return out
 
 
 def _pinned(nbytes: int) -> torch.Tensor:
@@ -95,30 +121,51 @@ def _unpin(host: torch.Tensor) -> None:
     torch.cuda.cudart().cudaHostUnregister(host.data_ptr())
 
 
+def _expert_cap(device: torch.device, expert_bytes: int) -> int:
+    """Most experts the device buffer may take: half of the device memory
+    free now (the caching allocator's idle blocks included), so that the
+    passes keep the other half for the KV cache and their activations.
+    Unbounded on the CPU."""
+    if device.type != "cuda":
+        return 1 << 62
+    free = (torch.cuda.mem_get_info(device)[0]
+            + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+    return max(1, free // 2 // expert_bytes)
+
+
 class LayerStream:
     """The decoder's layer weights in preload state (host) and the window
-    of ``depth`` layer buffers in execute state (``device``).
+    of ``depth`` layer buffers and the expert buffer in execute state
+    (``device``).
 
     ``layers`` is the per-layer parameter list of ``transformer``, or any
-    iterable of ``n`` such layers: each is copied to the host as it comes
-    and not kept, so an iterator that draws the layers on the card one at
-    a time (``init_streamed_params``) never has the decoder there.  Every
-    layer must have the same structure, shapes and types.  On a CUDA
-    device the host copy is pinned, and a failed pinning raises: nothing
-    falls back to resident weights.  ``copies`` counts the layer copies
-    issued; ``log`` holds the last pass's ``("copy" | "compute", layer,
-    buffer)`` events in the order they were issued."""
+    iterable of such layers: each is copied to the host as it comes and not
+    kept, so an iterator that draws the layers on the card one at a time
+    (``init_streamed_params``) never has the decoder there.  ``like`` gives
+    each layer's structure, shapes and types before it comes (meta tensors
+    do: ``transformer.layer_shapes``); it defaults to ``layers``, which must
+    then be a sequence.  A layer that differs from its ``like`` raises.  On
+    a CUDA device the host copy is pinned, and a failed pinning raises:
+    nothing falls back to resident weights.
 
-    def __init__(self, layers, device, depth: int, n: Optional[int] = None):
+    ``copies`` counts the layer copies issued and ``expert_copies`` the
+    expert copies; ``log`` holds the last pass's ``("copy" | "compute",
+    layer, buffer)`` and ``("expert", layer, expert)`` events in the order
+    they were issued, and ``bytes`` its bytes copied, ``"window"`` and
+    ``"experts"`` apart.  The expert buffer holds no expert until
+    ``reserve_experts`` sizes it (``ServeEngine`` does)."""
+
+    def __init__(self, layers, device, depth: int, like=None):
         self.device = torch.device(device)
-        self.n = len(layers) if n is None else n
+        like = layers if like is None else like
+        self.n = len(like)
         if self.n == 0:
             raise ValueError("no layers to stream")
+        self._alloc_host(like)
         got = 0                     # (enumerate would hold the last layer)
         for layer in layers:
-            if got == 0:
-                self._alloc_host(layer)
-            elif got >= self.n:
+            if got >= self.n:
                 raise ValueError(f"more than {self.n} layers")
             self._store(got, layer)
             got += 1
@@ -132,75 +179,203 @@ class LayerStream:
                              device=self.device)
         self.buffers = [window[i * off:(i + 1) * off]
                         for i in range(self.depth)]
-        self.views = [self._unflatten(buf) for buf in self.buffers]
+        self._views: dict = {}      # (buffer, layout) -> views
         self.copy_stream = torch.cuda.Stream(self.device) if cuda else None
         self.copied = [torch.cuda.Event() for _ in self.buffers] if cuda else None
         self.freed = [torch.cuda.Event() for _ in self.buffers] if cuda else None
-        self.copies = 0
+        self.expert_slots, self.expert_buffer, self._expert_views = 0, None, []
+        self.experts_copied = torch.cuda.Event() if cuda else None
+        self.experts_freed = torch.cuda.Event() if cuda else None
+        self.copies = self.expert_copies = 0
         self.log: list[tuple[str, int, int]] = []
+        self.bytes = {"window": 0, "experts": 0}
 
-    def _alloc_host(self, layer: dict) -> None:
-        """The byte layout of a layer (from layer 0) and the host copy of
-        all ``n`` layers."""
-        self.layout = []               # (path, byte offset, shape, dtype)
-        off = 0
-        for path, t in _leaves(layer):
-            self.layout.append((path, off, tuple(t.shape), t.dtype))
-            off += -(-t.numel() * t.element_size() // _ALIGN) * _ALIGN
-        self.layer_bytes = off
+    def _alloc_host(self, like: list) -> None:
+        """Each layer's record layout and expert bank, and the host copy of
+        them all: layer after layer, each record followed by its bank."""
+        self.layouts, spans, off = [], [], 0
+        self.expert_layout, self.expert_bytes, self.num_experts = None, 0, 0
+        for li, layer in enumerate(like):
+            rest, experts = _split(layer)
+            layout, size = _layout(rest)
+            self.layouts.append(layout)
+            bank = 0
+            if experts:
+                one, eb = _layout([(path[-1:], t[0]) for path, t in experts])
+                if self.expert_layout is None:
+                    self.expert_layout, self.expert_bytes = one, eb
+                    self.num_experts = experts[0][1].shape[0]
+                if one != self.expert_layout or any(
+                        t.shape[0] != self.num_experts for _, t in experts):
+                    raise ValueError(f"layer {li}'s experts differ from the "
+                                     "first MoE layer's")
+                bank = self.num_experts * eb
+            spans.append((off, size, bank))
+            off += size + bank
+        self.host_bytes = off
+        self.layer_bytes = max(size for _, size, _ in spans)
         if self.device.type == "cuda":
-            host = _pinned(self.n * off)
+            host = _pinned(off)
             weakref.finalize(self, _unpin, host).atexit = False
         else:
-            host = torch.empty(self.n * off, dtype=torch.uint8)
-        self.host = [host[i * off:(i + 1) * off] for i in range(self.n)]
+            host = torch.empty(off, dtype=torch.uint8)
+        self.host = [host[o:o + size] for o, size, _ in spans]
+        self.banks = [host[o + size:o + size + bank] if bank else None
+                      for o, size, bank in spans]
 
     def _store(self, li: int, layer: dict) -> None:
-        got = list(_leaves(layer))
-        if [p for p, _ in got] != [p for p, *_ in self.layout]:
-            raise ValueError(f"layer {li} differs in structure from layer 0")
-        for (path, o, shape, dtype), (_, t) in zip(self.layout, got):
-            if tuple(t.shape) != shape or t.dtype != dtype:
-                raise ValueError(f"layer {li} {'/'.join(path)} is "
-                                 f"{tuple(t.shape)} {t.dtype}, layer 0 "
-                                 f"{shape} {dtype}")
+        rest, experts = _split(layer)
+        layout = self.layouts[li]
+        names = [p[-1:] for p, _ in experts]
+        if ([p for p, _ in rest] != [p for p, *_ in layout] or names != (
+                [p for p, *_ in self.expert_layout]
+                if self.banks[li] is not None else [])):
+            raise ValueError(f"layer {li} differs in structure from its "
+                             "layout")
+        for (path, o, shape, dtype), (_, t) in zip(layout, rest):
+            self._check(li, path, t, shape, dtype)
             _view(self.host[li], o, shape, dtype).copy_(t)
+        eb = self.expert_bytes
+        for (name, o, shape, dtype), (path, t) in zip(self.expert_layout or (),
+                                                      experts):
+            self._check(li, path, t, (self.num_experts,) + shape, dtype)
+            for e in range(self.num_experts):
+                _view(self.banks[li][e * eb:(e + 1) * eb], o, shape,
+                      dtype).copy_(t[e])
 
-    def _unflatten(self, buf: torch.Tensor) -> dict:
-        out: dict = {}
-        for path, o, shape, dtype in self.layout:
-            node = out
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = _view(buf, o, shape, dtype)
-        return out
+    @staticmethod
+    def _check(li, path, t, shape, dtype) -> None:
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"layer {li} {'/'.join(path)} is "
+                             f"{tuple(t.shape)} {t.dtype}, its layout "
+                             f"{shape} {dtype}")
 
     def issue(self, layer: int, slot: int) -> None:
-        """Start the copy of ``layer`` into buffer ``slot``, after the last
-        compute that read that buffer."""
+        """Start the copy of ``layer``'s record into buffer ``slot``, after
+        the last compute that read that buffer."""
+        src = self.host[layer]
+        dst = self.buffers[slot][:src.numel()]
         self.copies += 1
+        self.bytes["window"] += src.numel()
         self.log.append(("copy", layer, slot))
         if self.copy_stream is None:
-            self.buffers[slot].copy_(self.host[layer])
+            dst.copy_(src)
             return
         with torch.cuda.stream(self.copy_stream):
             self.copy_stream.wait_event(self.freed[slot])
-            self.buffers[slot].copy_(self.host[layer], non_blocking=True)
+            dst.copy_(src, non_blocking=True)
             self.copied[slot].record(self.copy_stream)
 
     def acquire(self, layer: int, slot: int) -> dict:
         """The weights of ``layer`` in buffer ``slot``, for work enqueued on
-        the current stream after this call."""
+        the current stream after this call; an MoE layer's ``moe`` holds
+        its router and ``experts``, the ``LayerExperts`` that fetch its
+        experts."""
         self.log.append(("compute", layer, slot))
         if self.copy_stream is not None:
             torch.cuda.current_stream(self.device).wait_event(
                 self.copied[slot])
-        return self.views[slot]
+        layout = self.layouts[layer]
+        key = (slot, tuple(layout))
+        if key not in self._views:
+            self._views[key] = _unflatten(self.buffers[slot], layout)
+        views = self._views[key]
+        if self.banks[layer] is None:
+            return views
+        return {**views, "moe": {**views["moe"],
+                                 "experts": LayerExperts(self, layer)}}
 
     def release(self, slot: int) -> None:
         """The work enqueued so far is the last that reads buffer ``slot``."""
         if self.copy_stream is not None:
             self.freed[slot].record(torch.cuda.current_stream(self.device))
+
+    def reserve_experts(self, experts: int) -> None:
+        """Size the expert buffer for a pass that touches ``experts``
+        experts: at most the bank's, at most what ``_expert_cap`` leaves on
+        the device; a buffer never shrinks.  A pass that touches more runs
+        them in rounds."""
+        if not self.expert_bytes:
+            return
+        n = min(experts, self.num_experts,
+                _expert_cap(self.device, self.expert_bytes))
+        if n <= self.expert_slots:
+            return
+        if self.copy_stream is not None:
+            torch.cuda.synchronize(self.device)    # the old buffer is idle
+        self.expert_buffer = self._expert_views = None
+        eb = self.expert_bytes
+        self.expert_buffer = torch.empty(n * eb, dtype=torch.uint8,
+                                         device=self.device)
+        self._expert_views = [
+            {path[-1]: _view(self.expert_buffer[s * eb:(s + 1) * eb], o,
+                             shape, dtype)
+             for path, o, shape, dtype in self.expert_layout}
+            for s in range(n)]
+        self.expert_slots = n
+
+    def fetch_experts(self, layer: int, experts: list[int]) -> None:
+        """Copy ``layer``'s ``experts`` into the first slots of the expert
+        buffer, after the last compute that read it; work enqueued on the
+        current stream after this call sees them."""
+        if len(experts) > self.expert_slots:
+            raise RuntimeError(f"{len(experts)} experts of layer {layer} "
+                               f"fetched into a buffer of "
+                               f"{self.expert_slots}")
+        eb, bank = self.expert_bytes, self.banks[layer]
+        self.expert_copies += len(experts)
+        self.bytes["experts"] += len(experts) * eb
+        self.log += [("expert", layer, e) for e in experts]
+        pairs = [(self.expert_buffer[s * eb:(s + 1) * eb],
+                  bank[e * eb:(e + 1) * eb]) for s, e in enumerate(experts)]
+        if self.copy_stream is None:
+            for dst, src in pairs:
+                dst.copy_(src)
+            return
+        with torch.cuda.stream(self.copy_stream):
+            self.copy_stream.wait_event(self.experts_freed)
+            for dst, src in pairs:
+                dst.copy_(src, non_blocking=True)
+            self.experts_copied.record(self.copy_stream)
+        torch.cuda.current_stream(self.device).wait_event(self.experts_copied)
+
+    def release_experts(self) -> None:
+        """The work enqueued so far is the last that reads the expert
+        buffer."""
+        if self.copy_stream is not None:
+            self.experts_freed.record(torch.cuda.current_stream(self.device))
+
+
+class LayerExperts:
+    """The experts of MoE layer ``layer`` of a ``LayerStream``, fetched
+    late: ``models/moe.moe_ffn``'s accessor.  ``rounds(experts)`` fetches
+    the experts with rows, as many at a time as the expert buffer holds,
+    and yields each group once its copy is ordered before the work that
+    follows; ``weights(e)`` is expert ``e``'s slot of the buffer and raises
+    for an expert that is not there."""
+
+    def __init__(self, ls: LayerStream, layer: int):
+        self.ls, self.layer = ls, layer
+        self._slot: dict[int, int] = {}
+
+    def rounds(self, experts: list[int]):
+        step = self.ls.expert_slots
+        if not step:
+            raise RuntimeError("the expert buffer holds no expert: size it "
+                               "with LayerStream.reserve_experts")
+        for i in range(0, len(experts), step):
+            group = experts[i:i + step]
+            self.ls.fetch_experts(self.layer, group)
+            self._slot = {e: s for s, e in enumerate(group)}
+            yield group
+            self._slot = {}
+            self.ls.release_experts()
+
+    def weights(self, e: int) -> dict:
+        if e not in self._slot:
+            raise RuntimeError(f"expert {e} of layer {self.layer} is not in "
+                               "the expert buffer")
+        return self.ls._expert_views[self._slot[e]]
 
 
 def streaming_decoder(params, cfg: ModelConfig, x, ctx, cache,
@@ -210,11 +385,12 @@ def streaming_decoder(params, cfg: ModelConfig, x, ctx, cache,
     window of ``prefetch`` buffers (at most the stream's ``depth``): layers
     0..p-1 are copied up front (the paper's initial pipeline fill), then
     the copy of layer ``i + p`` is issued into layer ``i``'s buffer right
-    after layer ``i`` is enqueued.  Same contract as ``_run_decoder``."""
+    after layer ``i`` is enqueued; an MoE layer's experts are fetched
+    inside it, after its router.  Same contract as ``_run_decoder``."""
     ls: LayerStream = params["layers"]
     spec = tfm.attn_spec(cfg)
     p = max(1, min(prefetch, ls.depth))
-    ls.log = []
+    ls.log, ls.bytes = [], {"window": 0, "experts": 0}
     for li in range(p):
         ls.issue(li, li)
     for li in range(ls.n):
@@ -236,10 +412,9 @@ def init_streamed_params(generator: torch.Generator, cfg: ModelConfig,
     weights, but each layer goes to the host before the next is drawn, so
     the device never holds more of the decoder than a layer and the
     window.  The embedding, final norm and LM head stay on ``device``."""
-    check_streamable(cfg)
     return tfm.init_params(generator, cfg, device, collect_layers=(
         functools.partial(LayerStream, device=device, depth=depth,
-                          n=cfg.num_layers)))
+                          like=tfm.layer_shapes(cfg))))
 
 
 def streaming_decode_step(params, cfg: ModelConfig, token, cache,

@@ -167,6 +167,33 @@ def test_moe_ffn_dropped_rows_get_zero():
     np.testing.assert_allclose(out, ref, atol=2e-4 * (np.abs(ref).max() + 1))
 
 
+@pytest.mark.parametrize("slots", [1, 3, 4])
+@pytest.mark.parametrize("dropless", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_on_streamed_experts(slots, dropless, dtype):
+    """``moe_ffn`` on a streamed layer's experts (``p["experts"]``, fetched
+    after the router into an expert buffer of ``slots``, in rounds when the
+    rows touch more) gives the resident layer's output bit for bit: the
+    same products on the same rows, in the same order."""
+    from repro_torch.serve import stream
+    cfg = dataclasses.replace(get_smoke_config("kimi_k2_1t_a32b"),
+                              param_dtype=str(dtype).split(".")[-1])
+    layer = tfm.init_params(torch.Generator().manual_seed(3), cfg,
+                            "cpu")["layers"][1]
+    ls = stream.LayerStream([layer], "cpu", depth=1)
+    ls.reserve_experts(slots)
+    ls.issue(0, 0)
+    p = ls.acquire(0, 0)["moe"]
+    assert set(p) == {"router", "experts"}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (16, cfg.d_model)).astype(np.float32)).to(dtype)
+    want = tmoe.moe_ffn(x, layer["moe"], cfg, dropless=dropless)
+    assert torch.equal(tmoe.moe_ffn(x, p, cfg, dropless=dropless), want)
+    fetched = [e for what, _, e in ls.log if what == "expert"]
+    assert fetched == sorted(set(fetched)) and len(fetched) > slots // 2
+    assert ls.expert_copies == len(fetched)
+
+
 @pytest.mark.parametrize("arch", MOE)
 def test_moe_params_through_params_from_jax(arch):
     """The reference's MoE layers come over with ``router``, ``w_gate`` /

@@ -5,7 +5,11 @@ Twins of the reference's ``TestServe.test_stream_equals_gspmd``,
 ``test_wraparound_stream_equals_gspmd`` (``tests/test_serve_batcher.py``),
 the port's ``elk_stream`` tokens against the JAX ``elk_stream`` engine on
 converted weights, the window's copies (how many, in which order, into
-which buffer), and the launcher's default path.  On the CPU the window
+which buffer), and the launcher's default path.  The MoE configs stream
+with their dense and MoE layers in layouts of their own and each MoE
+layer's experts fetched after its router: tokens against ``gspmd`` and the
+reference, the experts a decode step copies, the views of mixed layouts,
+the expert buffer in rounds, and the launcher.  On the CPU the window
 logic is the same as on the card, with plain tensors and no streams; the
 card runs it in ``chip_smoke.py``.  Tokens must be equal (fp32).
 """
@@ -32,7 +36,7 @@ from repro_torch.serve import stream
 from repro_torch.serve.batcher import ContinuousBatcher, make_trace
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
-# the dense configs: every layer has one layout (MoE configs raise, below)
+# the dense configs (the MoE configs' tests are below)
 ARCHS = ["qwen3_14b", "llama2_13b", "gemma_7b", "opt_30b", "h2o_danube_1_8b",
          "gemma2_27b", "llama2_70b", "dit_xl"]
 
@@ -95,10 +99,15 @@ def test_wraparound_stream_equals_gspmd():
     assert torch.equal(outs["gspmd"], outs["elk_stream"])
 
 
-@pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_1_8b"])
+MOE = ["llama4_maverick_400b_a17b", "kimi_k2_1t_a32b"]
+
+
+@pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_1_8b", *MOE])
 def test_stream_tokens_equal_reference(arch, mesh11):
     """The port's ``elk_stream`` engine against the reference's, on the same
-    converted weights, lock-step and through the continuous batcher."""
+    converted weights, lock-step and through the continuous batcher; on the
+    MoE configs the port fetches each MoE layer's picked experts after its
+    router, the reference gathers whole blocks."""
     jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32",
                                param_dtype="float32")
     tcfg = _fp32(arch)
@@ -161,7 +170,7 @@ def test_stream_weights_are_the_layers():
     cfg = get_smoke_config("opt_30b")          # biases: more leaves
     params = _params(cfg)
     ls = stream.LayerStream(params["layers"], "cpu", depth=2)
-    assert ls.layer_bytes % 256 == 0
+    assert ls.layer_bytes % 256 == 0 and ls.expert_bytes == 0
     for li in (0, 1):
         ls.issue(li, 0)
         got = ls.acquire(li, 0)
@@ -175,7 +184,7 @@ def test_stream_weights_are_the_layers():
                 assert torch.equal(got[group], ref[group])
     bad = [params["layers"][0], {**params["layers"][1], "ln1": torch.zeros(3)}]
     with pytest.raises(ValueError, match="layer 1"):
-        stream.LayerStream(bad, "cpu", depth=1)
+        stream.LayerStream(bad, "cpu", depth=1, like=params["layers"])
 
 
 def test_streamed_init_draws_the_same_weights():
@@ -192,7 +201,7 @@ def test_streamed_init_draws_the_same_weights():
         assert torch.equal(sparams[key], params[key])
     for li, layer in enumerate(params["layers"]):
         for (path, off, shape, dtype), (_, t) in zip(
-                ls.layout, stream._leaves(layer)):
+                ls.layouts[li], stream._leaves(layer)):
             assert torch.equal(stream._view(ls.host[li], off, shape, dtype),
                                t), (li, path)
     prompts = _prompts(cfg, 2, 8)
@@ -222,13 +231,13 @@ def test_stream_holds_one_drawn_layer_at_a_time():
             yield layer
             del layer
 
-    ls = stream.LayerStream(draw(4), "cpu", depth=2, n=4)
+    ls = stream.LayerStream(draw(4), "cpu", depth=2, like=layers)
     ls.issue(3, 0)
     assert torch.equal(ls.acquire(3, 0)["attn"]["w_q"],
                        layers[3]["attn"]["w_q"])
     for n in (3, 5):
         with pytest.raises(ValueError, match="layers"):
-            stream.LayerStream(draw(n), "cpu", depth=2, n=4)
+            stream.LayerStream(draw(n), "cpu", depth=2, like=layers)
 
 
 @pytest.mark.parametrize("which", ["decode_step", "decode_slots"])
@@ -299,55 +308,239 @@ def test_launcher_default_is_planned_elk_stream(capsys):
                         flag, "2"])
 
 
-MOE = ["llama4_maverick_400b_a17b", "kimi_k2_1t_a32b"]
+UNIFORM = dict(moe_first_dense=0, moe_every=1, moe_offset=0)
+
+
+def _moe_cfg(arch: str, depth: int = 0, uniform: bool = False, fp32=False):
+    cfg = _fp32(arch) if fp32 else get_smoke_config(arch)
+    return dataclasses.replace(cfg, num_layers=depth or cfg.num_layers,
+                               **(UNIFORM if uniform else {}))
+
+
+def _serve(cfg, params, prompts, mode: str, p: int = 2, steps: int = 4):
+    eng = ServeEngine(cfg, params, ServeConfig(
+        batch=prompts.shape[0], cache_capacity=32, mode=mode,
+        prefetch_depth=p, prefill_chunk=8), "cpu")
+    return eng, eng.generate(prompts, steps=steps)
 
 
 @pytest.mark.parametrize("arch", MOE)
-def test_elk_stream_of_moe_raises(arch):
-    """Dense and MoE layers differ in layout, and one pinned layout holds
-    every streamed layer: ``elk_stream`` of an MoE config raises, naming
-    the ROADMAP item, at every entry point; ``gspmd`` serves it."""
+def test_elk_stream_of_moe_serves(arch):
+    """``elk_stream`` of an MoE config serves at every entry point: the
+    layers drawn into the stream by ``init_streamed_params`` are the ones
+    ``init_params`` draws (records and expert banks), and engines on them
+    and on resident layers handed over give ``gspmd``'s tokens, with the
+    expert buffer sized ``min(E, rows k)`` for the largest pass."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 17"):
-        stream.init_streamed_params(torch.Generator(), cfg, "cpu", 2)
     params = _params(cfg)
-    with pytest.raises(NotImplementedError, match="streamed MoE"):
-        ServeEngine(cfg, params, ServeConfig(
-            batch=2, cache_capacity=32, mode="elk_stream"), "cpu")
-    eng = ServeEngine(cfg, params, ServeConfig(batch=2, cache_capacity=32),
-                      "cpu")
-    assert eng.generate(_prompts(cfg, 2, 6), steps=3).shape == (2, 9)
+    sparams = stream.init_streamed_params(torch.Generator().manual_seed(0),
+                                          cfg, "cpu", 2)
+    ls = sparams["layers"]
+    for li, layer in enumerate(params["layers"]):
+        ls.issue(li, 0)
+        got = ls.acquire(li, 0)
+        assert torch.equal(got["attn"]["w_q"], layer["attn"]["w_q"])
+        if "moe" in layer:
+            e = cfg.moe_experts - 1
+            bank = ls.banks[li][e * ls.expert_bytes:(e + 1) * ls.expert_bytes]
+            for path, off, shape, dtype in ls.expert_layout:
+                assert torch.equal(stream._view(bank, off, shape, dtype),
+                                   layer["moe"][path[-1]][e])
+    prompts = _prompts(cfg, 2, 6)
+    eng, ref = _serve(cfg, params, prompts, "gspmd")
+    assert ref.shape == (2, 10)
+    for p in (sparams, params):
+        eng, out = _serve(cfg, p, prompts, "elk_stream")
+        assert torch.equal(out, ref)
+        assert eng.params["layers"].expert_slots == min(
+            cfg.moe_experts, 2 * 32 * cfg.moe_top_k)
 
 
-def test_elk_stream_of_uniform_moe_raises():
+def test_elk_stream_of_uniform_moe_serves():
     """A config whose every layer is MoE (no dense prefix, an MoE layer
-    every layer) has one layout too, and still raises: its experts are to
-    be streamed as late-bound preloads on the router's choice, not copied
-    whole every pass."""
-    cfg = dataclasses.replace(get_smoke_config("kimi_k2_1t_a32b"),
-                              moe_first_dense=0, moe_every=1, moe_offset=0)
+    every layer) streams too: one layout, every layer's experts fetched
+    after its router; tokens equal ``gspmd``'s."""
+    cfg = _moe_cfg("kimi_k2_1t_a32b", uniform=True)
     assert set(tfm.layer_kinds(cfg)) == {"moe"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 17"):
-        stream.init_streamed_params(torch.Generator(), cfg, "cpu", 2)
-    with pytest.raises(NotImplementedError, match="streamed MoE"):
-        ServeEngine(cfg, _params(cfg), ServeConfig(
-            batch=2, cache_capacity=32, mode="elk_stream"), "cpu")
+    params = _params(cfg)
+    sparams = stream.init_streamed_params(torch.Generator().manual_seed(0),
+                                          cfg, "cpu", 2)
+    assert all(bank is not None for bank in sparams["layers"].banks)
+    prompts = _prompts(cfg, 2, 6)
+    _, ref = _serve(cfg, params, prompts, "gspmd")
+    eng, out = _serve(cfg, sparams, prompts, "elk_stream")
+    assert torch.equal(out, ref)
+    assert eng.params["layers"].expert_copies > 0
+
+
+@pytest.mark.parametrize("arch,depth,uniform", [
+    ("llama4_maverick_400b_a17b", 2, False),
+    ("llama4_maverick_400b_a17b", 3, False),
+    ("llama4_maverick_400b_a17b", 4, False),
+    ("llama4_maverick_400b_a17b", 6, False),
+    ("kimi_k2_1t_a32b", 3, False),
+    ("kimi_k2_1t_a32b", 5, False),
+    ("kimi_k2_1t_a32b", 2, True),
+    ("kimi_k2_1t_a32b", 4, True),
+    ("kimi_k2_1t_a32b", 6, True)])
+def test_moe_stream_equals_gspmd_at_depths(arch, depth, uniform):
+    """Streamed MoE against resident at depths the reference's
+    ``block_structure`` takes, through windows of 1-3 layers: equal tokens
+    (the batcher's are held by the reference and rounds tests)."""
+    cfg = _moe_cfg(arch, depth, uniform)
+    tfm.block_structure(cfg)
+    params = _params(cfg)
+    prompts = _prompts(cfg, 2, 7, seed=depth)
+    _, ref = _serve(cfg, params, prompts, "gspmd", steps=5)
+    for p in (1, 2, 3):
+        _, out = _serve(cfg, params, prompts, "elk_stream", p, steps=5)
+        assert torch.equal(out, ref), p
+
+
+@pytest.mark.parametrize("arch,uniform", [(a, False) for a in MOE] + [
+    ("kimi_k2_1t_a32b", True)])
+def test_decode_copies_exactly_the_picked_experts(arch, uniform, monkeypatch):
+    """A streamed decode step copies, in every MoE layer and after its
+    router, exactly the experts the router picked for the step's rows,
+    once each and in order; no unpicked expert, and none in a dense layer.
+    The bytes of the pass are the layers' records and the fetched experts,
+    against the host copy a whole-layer stream would move."""
+    from repro_torch.models import moe as moe_mod
+    cfg = _moe_cfg(arch, 4, uniform)
+    eng = ServeEngine(cfg, _params(cfg), ServeConfig(
+        batch=1, cache_capacity=16, mode="elk_stream", prefetch_depth=2),
+        "cpu")
+    ls = eng.params["layers"]
+    logits, cache = eng.prefill(_prompts(cfg, 1, 6))
+    route = moe_mod.router_weights
+    picked = {}
+
+    def traced(logits, top_k):
+        gates, idx = route(logits, top_k)
+        layer = [ev for ev in ls.log if ev[0] == "compute"][-1][1]
+        picked[layer] = sorted(set(idx.flatten().tolist()))
+        ls.log.append(("router", layer, -1))
+        return gates, idx
+
+    monkeypatch.setattr(moe_mod, "router_weights", traced)
+    eng.decode(torch.argmax(logits[:, -1], dim=-1), cache)
+    kinds = tfm.layer_kinds(cfg)
+    assert sorted(picked) == [i for i, k in enumerate(kinds) if k == "moe"]
+    fetched = 0
+    for li in range(cfg.num_layers):
+        at = ls.log.index(("compute", li, li % 2))
+        got = [e for what, layer, e in ls.log if what == "expert"
+               and layer == li]
+        if kinds[li] == "dense":
+            assert got == [] and ("router", li, -1) not in ls.log
+            continue
+        first = ls.log.index(("expert", li, got[0]))
+        assert at < ls.log.index(("router", li, -1)) < first
+        assert ls.log[first:first + len(got)] == [
+            ("expert", li, e) for e in got]
+        assert got == picked[li]
+        fetched += len(got)
+    assert ls.bytes == {"window": sum(h.numel() for h in ls.host),
+                        "experts": fetched * ls.expert_bytes}
+    assert sum(ls.bytes.values()) < ls.host_bytes
 
 
 @pytest.mark.parametrize("arch", MOE)
-def test_launcher_serves_moe_resident_only(arch, capsys):
-    """The launcher takes the MoE ids: the default ``elk_stream`` raises
-    and says that ``--mode gspmd`` runs it, which serves lock-step and
-    continuous."""
+def test_mixed_layouts_keep_each_layers_views(arch):
+    """Dense and MoE layers through one buffer: each copy moves the layer's
+    own record, the views follow the layer in the buffer and hold its
+    weights, each weight on 256 bytes; the experts come from the expert
+    buffer, one round or several, and an expert that was not fetched
+    raises."""
+    cfg = _moe_cfg(arch, 3)
+    layers = _params(cfg)["layers"]
+    ls = stream.LayerStream(layers, "cpu", depth=1)
+    sizes = [h.numel() for h in ls.host]
+    assert len(set(sizes)) == 2 and ls.layer_bytes == max(sizes)
+    buf = ls.buffers[0]
+    for li, layer in enumerate(layers):
+        ls.bytes["window"] = 0
+        ls.issue(li, 0)
+        assert ls.bytes["window"] == sizes[li]
+        w = ls.acquire(li, 0)
+        for path, t in stream._split(layer)[0]:
+            got = w
+            for key in path:
+                got = got[key]
+            assert got.dtype == t.dtype and torch.equal(got, t), (li, path)
+            assert (got.data_ptr() - buf.data_ptr()) % 256 == 0
+        if "moe" not in layer:
+            assert "moe" not in w
+            continue
+        experts = w["moe"]["experts"]
+        with pytest.raises(RuntimeError, match="reserve_experts"):
+            next(experts.rounds([0]))
+        for slots in (1, 3, cfg.moe_experts):
+            ls.reserve_experts(slots)
+            assert ls.expert_slots == slots
+            want = list(range(cfg.moe_experts))
+            for group in experts.rounds(want):
+                assert len(group) <= slots
+                for e in group:
+                    for name, t in experts.weights(e).items():
+                        assert torch.equal(t, layer["moe"][name][e])
+                        assert (t.data_ptr()
+                                - ls.expert_buffer.data_ptr()) % 256 == 0
+                with pytest.raises(RuntimeError, match="not in the expert"):
+                    experts.weights(want[-1] + 1)
+        ls.expert_slots, ls.expert_buffer = 0, None
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_expert_rounds_give_the_same_tokens(arch, monkeypatch):
+    """An expert buffer smaller than a pass's touched experts (what a card
+    too small for a prefill's bank gets) runs them in rounds: the same
+    tokens, lock-step and continuous, and every round's experts fetched
+    after the last product of the round before."""
+    cfg = _fp32(arch)
+    params = _params(cfg)
+    monkeypatch.setattr(stream, "_expert_cap", lambda device, nbytes: 1)
+    prompts = _prompts(cfg, 2, 8)
+    _, ref = _serve(cfg, params, prompts, "gspmd", steps=5)
+    eng, out = _serve(cfg, params, prompts, "elk_stream", steps=5)
+    assert eng.params["layers"].expert_slots == 1
+    assert torch.equal(out, ref)
+    trace = make_trace(3, vocab_size=cfg.vocab_size, seed=2)
+    want = {c.rid: c.tokens for c in ContinuousBatcher(ServeEngine(
+        cfg, params, ServeConfig(batch=2, cache_capacity=32,
+                                 prefill_chunk=8), "cpu")).run(trace)}
+    got = {c.rid: c.tokens for c in ContinuousBatcher(eng).run(trace)}
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_launcher_serves_moe_in_every_mode(arch, capsys):
+    """The launcher serves the MoE ids in its default ``elk_stream`` mode,
+    with the planner's window and with a fixed one, lock-step and
+    continuous, printing the window and the expert buffer it allocated;
+    ``--mode gspmd`` serves them lock-step and continuous too."""
     from repro_torch.launch import serve
     dashed = arch.replace("_", "-")
-    with pytest.raises(NotImplementedError, match="--mode gspmd"):
-        serve.main(["--arch", dashed, "--smoke", "--device", "cpu"])
-    serve.main(["--arch", dashed, "--smoke", "--device", "cpu", "--mode",
-                "gspmd", "--batch", "2", "--steps", "3", "--cache", "32"])
-    assert "generated 3 tokens x 2 requests" in capsys.readouterr().out
-    serve.main(["--arch", dashed, "--smoke", "--device", "cpu", "--mode",
-                "gspmd", "--trace", "3", "--cache", "64"])
+    base = ["--arch", dashed, "--smoke", "--device", "cpu"]
+    serve.main(base + ["--batch", "2", "--steps", "3", "--cache", "32"])
+    out = capsys.readouterr().out
+    assert "ELK scheduler: prefetch_depth=" in out
+    assert "expert buffer of 4 experts" in out
+    assert "generated 3 tokens x 2 requests" in out
+    serve.main(base + ["--batch", "2", "--steps", "3", "--cache", "32",
+                       "--prefetch-depth", "2"])
+    out = capsys.readouterr().out
+    assert "ELK scheduler" not in out
+    assert "prefetch_depth=2; window of 2" in out
+    serve.main(base + ["--trace", "3", "--cache", "64"])
+    out = capsys.readouterr().out
+    assert "elk_stream:" in out and "continuous:" in out
+    serve.main(base + ["--mode", "gspmd", "--batch", "2", "--steps", "3",
+                       "--cache", "32"])
+    out = capsys.readouterr().out
+    assert "generated 3 tokens x 2 requests" in out and "elk_stream" not in out
+    serve.main(base + ["--mode", "gspmd", "--trace", "3", "--cache", "64"])
     assert "continuous:" in capsys.readouterr().out
 
 
