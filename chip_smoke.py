@@ -82,15 +82,36 @@ exit code and no result line:
             card is optional and not run (a kimi-k2 chunk of 32 tokens
             touches up to 256 of 384 experts); the parity phase runs the
             MoE smoke configs streamed through the batcher.
+10. families  the four remaining families at full width and full depth,
+            random weights from seed 0, each freed before the next
+            (``FAMILY_RUNS``): rwkv6-7b (RWKV6, a recurrent state and no KV
+            ring) resident lock-step as in 5, then the first 8 requests of
+            6's trace through the continuous batcher, then under
+            ``elk_stream`` with the planner's knobs (the resident weights
+            moved into the layer stream), 4 new tokens equal to the resident
+            run's; hymba-1.5b (attention with window 1024 in a ring of 2048
+            and a parallel SSM branch) lock-step, then 6's 16-request trace;
+            internvl2-1b (256 stub patch embeddings ahead of the prompts,
+            ring 1024, G 7) lock-step, then streamed, 4 tokens equal;
+            whisper-tiny (1500 stub frames through the encoder, prompts of
+            64, ring 512) lock-step, then under ``elk_stream``, which keeps
+            an encoder-decoder model resident as the reference does.  One
+            ``[families]`` line a config: depth, parameter bytes, peak
+            device memory, prefill ms, decode ms a step, tokens/s, and from
+            ``torch.profiler`` a prefill's and a decode step's device time
+            split between the port's kernels and PyTorch's own (for rwkv:
+            the products against the recurrence, its launches counted).
 
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails if a kernel of the path was not
 launched as often as its layers, steps and chunks say, or the MLP and the
 matmul not through the routes their rows say.  Phase 3 also holds every
-kernel at every shape phase 9 gives it (``MODEL_RUNS``: each config's
-products, MLPs and attention at its decode, prefill and chunk rows, head
-dims 72 and 112 included), each with a timed row, and phase 4 runs the
-smoke configs of phase 9's models too.  Then one JSON line
+kernel at every shape phases 9 and 10 give it (``MODEL_RUNS`` and
+``FAMILY_RUNS``: each config's products, MLPs and attention at its decode,
+prefill and chunk rows, head dims 72 and 112, GQA groups of 7, whisper's
+bidirectional encoder and cross-attention with Sq != Sk, fp32 products and
+odd vocabularies included), each with a timed row, and phase 4 runs the
+smoke configs of phases 9 and 10 too.  Then one JSON line
 about the kernels, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.
 
@@ -107,8 +128,8 @@ prefill, with the expert products' share of the device time, and of one
 streamed kimi-k2 decode step, its expert copies apart from the window's
 (how long they waited behind window copies).
 ``--only kernels`` runs the build and the kernel phases, ``--only models``
-the build, the parity and the ``[models]`` phases (neither prints a result
-line): the loops for working on one part.
+the build, the parity, the ``[models]`` and the ``[families]`` phases
+(neither prints a result line): the loops for working on one part.
 """
 
 from __future__ import annotations
@@ -166,7 +187,9 @@ from repro_torch.kernels.fused_mlp.kernel import \
 from repro_torch.kernels.fused_mlp.ops import fused_mlp  # noqa: E402
 from repro_torch.kernels.fused_mlp.ref import (act_fn,  # noqa: E402
                                                composed_ref)
+from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
+from repro_torch.models.frontends import frontend_embeddings  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.serve.batcher import (ContinuousBatcher,  # noqa: E402
                                        _chunk_len, make_trace, summarize)
@@ -174,7 +197,7 @@ from repro_torch.serve.engine import (ServeConfig, ServeEngine,  # noqa: E402
                                      elk_serve_config)
 from repro_torch.serve.prefix import PrefixStore, host_copy  # noqa: E402
 from repro_torch.serve.stream import (LayerStream, _leaves,  # noqa: E402
-                                      init_streamed_params)
+                                      init_streamed_params, streams)
 
 # datasheet, H100 SXM
 HBM_BYTES_PER_S = 3.35e12
@@ -258,11 +281,36 @@ MODEL_RUNS = (("dit_xl", 0, DIT_PROMPT_LEN, DIT_CACHE),
               ("llama4_maverick_400b_a17b", MOE_DEPTH, PROMPT_LEN, CACHE),
               ("kimi_k2_1t_a32b", MOE_DEPTH, PROMPT_LEN, CACHE))
 TRACE_ARCH = "kimi_k2_1t_a32b"
+# the [families] phase: the four remaining families at full width and depth,
+# (arch, layers (0: all), prompt length, ring) as MODEL_RUNS; whisper's
+# prompts of 64 tokens against 1500 frames
+WHISPER_PROMPT_LEN, WHISPER_CACHE = 64, 512
+FAMILY_RUNS = (("rwkv6_7b", 0, PROMPT_LEN, CACHE),
+               ("hymba_1_5b", 0, PROMPT_LEN, SLOT_CACHE),
+               ("internvl2_1b", 0, PROMPT_LEN, CACHE),
+               ("whisper_tiny", 0, WHISPER_PROMPT_LEN, WHISPER_CACHE))
+# the families that serve requests of phase 6's trace (how many), and those
+# streamed against their resident run
+FAMILY_TRACE_N = {"rwkv6_7b": 8, "hymba_1_5b": TRACE_N}
+FAMILY_STREAMED = ("rwkv6_7b", "internvl2_1b")
+RUNS = MODEL_RUNS + FAMILY_RUNS
+TRACE_ARCHS = (TRACE_ARCH, *FAMILY_TRACE_N)
+# products that run in fp32 on a bf16 model (hymba's w_dt and w_bc)
+FP32_PRODUCTS = ("ssm dt", "ssm bc")
+# the SSM weights ``models/ssm.ssm_branch`` casts to fp32 on every pass
+SSM_FP32_CASTS = ("w_dt", "dt_bias", "w_bc", "a_log", "d_skip")
 
 
 def model_cfg(arch: str, depth: int):
     full = get_config(arch)
     return dataclasses.replace(full, num_layers=depth) if depth else full
+
+
+def seq_len(cfg, prompt_len: int) -> int:
+    """Positions a prefill of ``prompt_len`` tokens fills: a VLM's patches
+    go ahead of the prompt."""
+    return prompt_len + (cfg.vision_patches
+                         if cfg.frontend == "vision_stub" else 0)
 
 
 def trace_chunks() -> list[tuple[int, int]]:
@@ -279,42 +327,78 @@ def trace_chunks() -> list[tuple[int, int]]:
     return sorted(out.items())
 
 
-def model_rows(arch: str, prompt_len: int) -> tuple[list[int], list[int]]:
-    """Rows the [models] phase gives ``arch``'s layers (a lock-step decode
-    step and prefill; on TRACE_ARCH also each chunk length of the trace,
-    whose decode ticks have SLOTS = BATCH rows) and its LM head (a
-    lock-step pass; on TRACE_ARCH also a chunk's last token)."""
-    layers, head = [BATCH, BATCH * prompt_len], [BATCH]
-    if arch == TRACE_ARCH:
+def model_rows(arch: str, prompt_len: int) -> dict:
+    """Rows the [models] and [families] phases give ``arch``: its layers
+    (a lock-step decode step and prefill, a VLM's patches included; on
+    the trace archs also each chunk length of the trace, whose decode
+    ticks have SLOTS = BATCH rows), its LM head (a lock-step pass; on the
+    trace archs also a chunk's last token) and an enc-dec model's encoder
+    (a lock-step prefill's frames)."""
+    cfg = get_config(arch)
+    layers, head = [BATCH, BATCH * seq_len(cfg, prompt_len)], [BATCH]
+    if arch in TRACE_ARCHS:
         layers += [t for t, _ in trace_chunks()]
         head.append(1)
-    return list(dict.fromkeys(layers)), head
+    return {"layer": list(dict.fromkeys(layers)), "head": head,
+            "encoder": [BATCH * cfg.encoder_seq] if cfg.encoder_layers
+            else []}
 
 
-def layer_products(cfg) -> list[tuple[str, int, int, int, int]]:
+def layer_products(cfg) -> list[tuple[str, int, int, int, int, str]]:
     """The products ``layers.linear`` gives elk_matmul in a pass of
-    ``cfg``: (name, K, N, row stride of the weight, how many a pass); the
-    LM head last, once a pass (tied: the transposed embedding, row stride
-    K)."""
+    ``cfg``: (name, K, N, row stride of the weight, how many a pass, whose
+    rows: "layer" the pass's, "encoder" a prefill's frames, "head" the LM
+    head's); an RWKV layer's six d x d products of its time mix and the
+    two of its channel mix; a hybrid layer's SSM branch (``FP32_PRODUCTS``
+    in fp32); an enc-dec model's cross-attention (q, o at the pass's rows;
+    k, v of the frames at prefill) and encoder layers; the LM head last,
+    once a pass (tied: the transposed embedding, row stride K)."""
     kinds = tfm.layer_kinds(cfg)
     layers, moe = len(kinds), kinds.count("moe")
-    d, hd = cfg.d_model, cfg.resolved_head_dim
+    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
-    return [("q", d, q, q, layers), ("k, v", d, kv, kv, 2 * layers),
-            ("o", q, d, d, layers),
-            ("router", d, cfg.moe_experts, cfg.moe_experts, moe),
-            ("lm_head", d, cfg.vocab_size,
-             d if cfg.tie_embeddings else cfg.vocab_size, 1)]
+    head = [("lm_head", d, cfg.vocab_size,
+             d if cfg.tie_embeddings else cfg.vocab_size, 1, "head")]
+    if cfg.rwkv:
+        return [("r, k, v, g, decay, o", d, d, d, 6 * layers, "layer"),
+                ("channel mix in", d, ff, ff, layers, "layer"),
+                ("channel mix out", ff, d, d, layers, "layer")] + head
+    out = [("q", d, q, q, layers, "layer"),
+           ("k, v", d, kv, kv, 2 * layers, "layer"),
+           ("o", q, d, d, layers, "layer"),
+           ("router", d, cfg.moe_experts, cfg.moe_experts, moe, "layer")]
+    if cfg.hybrid_parallel_ssm:
+        n2 = 2 * cfg.ssm_state
+        out += [("ssm in", d, 2 * d, 2 * d, layers, "layer"),
+                ("ssm dt", d, d, d, layers, "layer"),
+                ("ssm bc", d, n2, n2, layers, "layer"),
+                ("ssm out", d, d, d, layers, "layer")]
+    if cfg.encoder_layers:
+        enc = cfg.encoder_layers
+        out += [("cross q", d, q, q, layers, "layer"),
+                ("cross o", q, d, d, layers, "layer"),
+                ("cross k, v", d, kv, kv, 2 * layers, "encoder"),
+                ("encoder q", d, q, q, enc, "encoder"),
+                ("encoder k, v", d, kv, kv, 2 * enc, "encoder"),
+                ("encoder o", q, d, d, enc, "encoder")]
+    return out + head
 
 
-def layer_mlps(cfg) -> list[tuple[str, int, int]]:
-    """(name, hidden width, how many a pass) of the MLPs a pass of ``cfg``
-    gives fused_mlp: a dense layer's, an MoE layer's shared expert."""
+def product_dtype(name: str) -> torch.dtype:
+    return torch.float32 if name in FP32_PRODUCTS else torch.bfloat16
+
+
+def layer_mlps(cfg) -> list[tuple[str, int, int, str]]:
+    """(name, hidden width, how many a pass, whose rows) of the MLPs a pass
+    of ``cfg`` gives fused_mlp: a dense layer's, an MoE layer's shared
+    expert, an encoder layer's (a prefill's frames); none for RWKV, whose
+    channel mix is two products."""
     kinds = tfm.layer_kinds(cfg)
-    moe = kinds.count("moe")
-    return [("mlp", cfg.d_ff, len(kinds) - moe),
+    moe, dense = kinds.count("moe"), kinds.count("dense")
+    return [("mlp", cfg.d_ff, dense, "layer"),
             ("shared expert", cfg.moe_shared_d_ff,
-             moe if cfg.moe_shared_d_ff else 0)]
+             moe if cfg.moe_shared_d_ff else 0, "layer"),
+            ("encoder mlp", cfg.d_ff, cfg.encoder_layers, "encoder")]
 
 
 def fail(msg: str) -> None:
@@ -540,16 +624,17 @@ def kernels_phase(cfg) -> dict:
                 f"crossover m={m}", x_all[:m].contiguous(), w_up, w_down, kw,
                 cfg.mlp_act, route, timed_alone=False))
     del x_all, w_up, w_down, kw
-    # every MLP the [models] phase gives the kernel, config by config at
-    # full width, at the rows of its layers: a dense layer's and an MoE
-    # layer's shared expert; a shape two configs share is held once
+    # every MLP the [models] and [families] phases give the kernel, config
+    # by config at full width, at the rows of its layers: a dense layer's,
+    # an MoE layer's shared expert, an encoder layer's at a prefill's frames;
+    # a shape two configs share is held once
     held = set()
-    for arch, depth, prompt_len, _ in MODEL_RUNS:
+    for arch, depth, prompt_len, _ in RUNS:
         mcfg = model_cfg(arch, depth)
         d = mcfg.d_model
-        for name, mff, count in layer_mlps(mcfg):
+        for name, mff, count, where in layer_mlps(mcfg):
             key = (d, mff, mcfg.gated_mlp, mcfg.mlp_act)
-            rows = [m for m in model_rows(arch, prompt_len)[0]
+            rows = [m for m in model_rows(arch, prompt_len)[where]
                     if count and (m, key) not in held]
             if not rows:
                 continue
@@ -701,7 +786,14 @@ def attention_phase(cfg) -> dict:
                 (2, 64, 8, 1000, 112, 999, 0), (1, 64, 8, 130, 112, 700, 48),
                 (1, 16, 2, 2048, 112, 40, 0),
                 # D 128 at gemma2-27b's G 2 and llama2-70b's G 8
-                (2, 32, 16, 1000, 128, 999, 0), (1, 64, 8, 517, 128, 900, 64)):
+                (2, 32, 16, 1000, 128, 999, 0), (1, 64, 8, 517, 128, 900, 64),
+                # D 64 at internvl2-1b's G 7 (a dead column of the mma
+                # route), hymba-1.5b's G 5 with its window of 1024 in a ring
+                # of 2048 (wrapped and not), whisper-tiny's G 1
+                (2, 14, 2, 1024, 64, 780, 0), (3, 14, 2, 517, 64, 900, 0),
+                (2, 25, 5, 2048, 64, 3000, 1024),
+                (1, 25, 5, 2048, 64, 1500, 1024),
+                (2, 6, 6, 512, 64, 72, 0)):
             q, k, v = attn_inputs(gen, b, hq, hkv, c, d, dtype)
             case(q, k, v, ring_tags(c, pos), pos - 1, win)
             if dtype == torch.bfloat16 and c < 60000:
@@ -732,58 +824,63 @@ def attention_phase(cfg) -> dict:
 
     # the two shapes the serving paths give it, full width, bf16, and the
     # continuous shape at a group of 8; each also on route "fma"; then every
-    # shape the [models] phase gives it, config by config at full width: a
-    # mid-run lock-step step, and on TRACE_ARCH the continuous one
+    # shape the [models] and [families] phases give it, config by config at
+    # full width, with its window: a mid-run lock-step step, and on the
+    # trace archs the continuous one
     hkv, d = cfg.num_kv_heads, cfg.resolved_head_dim
     dtype = torch.bfloat16
     shapes = []
     slot_pos_now = [p + 20 for p in TRACE["prompt_lens"] * 2]
     serving = [
         ("lock-step", BATCH, CACHE, cfg.num_heads, hkv, d,
-         PROMPT_LEN + STEPS // 2),
-        ("continuous", SLOTS, SLOT_CACHE, cfg.num_heads, hkv, d, None),
-        ("continuous G=8", SLOTS, SLOT_CACHE, 8 * hkv, hkv, d, None)]
-    for arch, depth, prompt_len, ring in MODEL_RUNS:
+         PROMPT_LEN + STEPS // 2, 0),
+        ("continuous", SLOTS, SLOT_CACHE, cfg.num_heads, hkv, d, None, 0),
+        ("continuous G=8", SLOTS, SLOT_CACHE, 8 * hkv, hkv, d, None, 0)]
+    for arch, depth, prompt_len, ring in RUNS:
         mcfg = model_cfg(arch, depth)
+        if mcfg.rwkv:
+            continue
         heads = (mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim)
-        tag = f"D={heads[2]} G={heads[0] // heads[1]}"
+        win = tfm.attn_spec(mcfg).sliding_window
+        tag = (f"D={heads[2]} G={heads[0] // heads[1]}"
+               + (f" window={win}" if win else ""))
         serving.append((f"{mcfg.name} lock-step {tag}", BATCH, ring, *heads,
-                        prompt_len + STEPS // 2))
-        if arch == TRACE_ARCH:
+                        seq_len(mcfg, prompt_len) + STEPS // 2, win))
+        if arch in TRACE_ARCHS:
             serving.append((f"{mcfg.name} continuous {tag}", SLOTS,
-                            SLOT_CACHE, *heads, None))
-    for label, b, c, hq, hkv, d, lock_pos in serving:
+                            SLOT_CACHE, *heads, None, win))
+    for label, b, c, hq, hkv, d, lock_pos, win in serving:
         q, k, v = attn_inputs(gen, b, hq, hkv, c, d, dtype)
         if lock_pos is not None:
             tags, qp = ring_tags(c, lock_pos + 1), lock_pos
         else:
             qp = torch.tensor(slot_pos_now, dtype=torch.int32, device="cuda")
             tags = torch.stack([ring_tags(c, p + 1) for p in slot_pos_now])
-        err = case(q, k, v, tags, qp)
-        case(q, k, v, tags, qp, route="fma")
-        mask = live_mask(tags, qp, b)[:, None, None, :]     # (B,1,1,C)
+        err = case(q, k, v, tags, qp, win)
+        case(q, k, v, tags, qp, win, route="fma")
+        mask = live_mask(tags, qp, b, win)[:, None, None, :]   # (B,1,1,C)
         q4 = q[:, :, None, :]
 
         def library():
             return torch.nn.functional.scaled_dot_product_attention(
                 q4, k, v, attn_mask=mask, enable_gqa=True)
 
-        bound, ring_bound, bound_by = attn_bound_ms(q, k, tags, qp, 0)
+        bound, ring_bound, bound_by = attn_bound_ms(q, k, tags, qp, win)
         plan = decode_plan_for(q, k)
         shapes.append({
             "shape": label, "b": b, "hq": hq, "hkv": hkv, "c": c, "d": d,
-            "dtype": "bfloat16", "route": plan["route"],
+            "window": win, "dtype": "bfloat16", "route": plan["route"],
             "splits": plan["splits"],
             "blocks": plan["blocks"], "bk": plan["bk"],
             "stages": plan["stages"],
-            "live_slots": int(live_mask(tags, qp, b).sum()),
+            "live_slots": int(live_mask(tags, qp, b, win).sum()),
             "max_abs_err": err,
-            "ms": time_ms(lambda: decode_attn(q, k, v, tags, qp), 50),
+            "ms": time_ms(lambda: decode_attn(q, k, v, tags, qp, window=win),
+                          50),
             "fma_ms": time_ms(lambda: decode_attention_kernel(
-                q, k, v, tags, qp, route="fma"), 50),
-            "plain_ms": time_ms(lambda: decode_attention_ref(q, k, v, tags,
-                                                             qp), 5,
-                                warmup=1),
+                q, k, v, tags, qp, window=win, route="fma"), 50),
+            "plain_ms": time_ms(lambda: decode_attention_ref(
+                q, k, v, tags, qp, window=win), 5, warmup=1),
             "bound_ms": bound, "bound_by": bound_by,
             "ring_bound_ms": ring_bound,
             "library_ms": time_ms(library, 50),
@@ -937,6 +1034,20 @@ def flash_phase(cfg, chunk: int) -> dict:
         case(*qkv(2, 4, 1, 24, 70000, 16, dtype), q_pos1, tags1)
         q_pos1, tags1 = chunk_positions(1, 20, 70000, (69000,))
         case(*qkv(1, 10, 2, 20, 70000, 128, dtype), q_pos1, tags1)
+        # bidirectional with Sq != Sk and no positions (a cross-attention):
+        # whisper-tiny's decode step (Sq 1: a block's single live row) and a
+        # prefill's prompt against its 1500 frames (23 x 64 + 28), ragged
+        # Sq and Sk, GQA, head dims of every route
+        for b, hq, hkv, sq, sk, d in ((2, 6, 6, 1, 1500, 64),
+                                      (2, 6, 6, 64, 1500, 64),
+                                      (1, 4, 2, 37, 300, 128),
+                                      (2, 4, 4, 5, 130, 72),
+                                      (1, 8, 1, 1, 77, 112),
+                                      (1, 14, 2, 70, 30, 64)):
+            case(*qkv(b, hq, hkv, sq, sk, d, dtype), causal=False)
+        # internvl2-1b's G 7, causal and bidirectional
+        for causal in (True, False):
+            case(*qkv(1, 14, 2, 300, 300, 64, dtype), causal=causal)
     # route "wgmma" (bf16, head dims 64, 128, 256): groups of 1, 2, 5 and 8;
     # chunks of 1-256 tokens against a ring of 512 (part-filled, wrapped,
     # windowed), with the KV loop split as planned, not split, and split
@@ -945,7 +1056,7 @@ def flash_phase(cfg, chunk: int) -> dict:
     # q read through the strides of a (B, S, Hq, D) projection
     bf16 = torch.bfloat16
     for hq, hkv, d in ((4, 4, 64), (10, 2, 128), (16, 2, 256), (40, 8, 128),
-                       (8, 4, 128), (16, 2, 128)):
+                       (8, 4, 128), (16, 2, 128), (14, 2, 64)):
         for t, start, win in ((1, 300, 0), (16, 0, 0), (37, 100, 0),
                               (64, 480, 64), (256, 200, 0)):
             q_pos, tags = chunk_positions(1, t, 512, (start,))
@@ -963,6 +1074,12 @@ def flash_phase(cfg, chunk: int) -> dict:
         q_pos, tags = chunk_positions(2, 150, 512, (40, 400))
         k, v = qkv(2, hq, hkv, 150, 512, d, bf16)[1:]
         case(q_strided, k, v, q_pos, tags, splits=4)
+        # a cross-attention: Sq 1 and 64 against 1500 keys, split as planned,
+        # not split and over a cluster of 8
+        for sq in (1, 64):
+            q, k, v = qkv(2, hq, hkv, sq, 1500, d, bf16)
+            for splits in (None, 1, 8):
+                case(q, k, v, causal=False, splits=splits)
     # route "mma_sync" at dit-xl's D 72 (G 1) and kimi-k2's D 112 (G 8):
     # prefills with ragged S, a window, bidirectional; chunks against a ring
     # of 512 (part-filled, wrapped, windowed, a dead row); q through the
@@ -992,59 +1109,82 @@ def flash_phase(cfg, chunk: int) -> dict:
         f"(worst err/tol and its err: {json.dumps(worst)})")
 
     # the shapes the serving paths give it, full width, bf16; then every
-    # shape the [models] phase gives it, config by config at full width: the
-    # lock-step prefill, and on TRACE_ARCH each chunk length of the trace
+    # shape the [models] and [families] phases give it, config by config at
+    # full width with its mask: the lock-step prefill (an enc-dec model's
+    # encoder and its cross-attention at a prefill and a decode step too),
+    # and on the trace archs each chunk length of the trace
     heads = (cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim)
     dtype = torch.bfloat16
     sdpa = torch.nn.functional.scaled_dot_product_attention
     shapes = []
+    # (label, B, Sq, Sk, chunk start (None: no positions), heads, causal,
+    # window)
     serving = [("lock-step prefill", BATCH, PROMPT_LEN, PROMPT_LEN, None,
-                heads)]
+                heads, True, 0)]
     for t, starts in ((chunk, (0, 700, 1900)), (chunk // 2, (1900,)),
                       (PREFILL_CHUNK, (0, 700, 1900))):
         for start in starts:
             serving.append((f"chunk T={t} at {start}", 1, t, SLOT_CACHE,
-                            start, heads))
-    for arch, depth, prompt_len, _ in MODEL_RUNS:
+                            start, heads, True, 0))
+    for arch, depth, prompt_len, _ in RUNS:
         mcfg = model_cfg(arch, depth)
+        if mcfg.rwkv:
+            continue
         mheads = (mcfg.num_heads, mcfg.num_kv_heads, mcfg.resolved_head_dim)
-        tag = f"D={mheads[2]} G={mheads[0] // mheads[1]}"
-        serving.append((f"{mcfg.name} prefill {tag}", BATCH, prompt_len,
-                        prompt_len, None, mheads))
-        if arch == TRACE_ARCH:
+        win = tfm.attn_spec(mcfg).sliding_window
+        tag = (f"D={mheads[2]} G={mheads[0] // mheads[1]}"
+               + (f" window={win}" if win else ""))
+        seq = seq_len(mcfg, prompt_len)
+        serving.append((f"{mcfg.name} prefill {tag}", BATCH, seq, seq, None,
+                        mheads, True, win))
+        if mcfg.encoder_layers:
+            e = mcfg.encoder_seq
+            serving += [
+                (f"{mcfg.name} encoder {tag}", BATCH, e, e, None, mheads,
+                 False, 0),
+                (f"{mcfg.name} cross-attention prefill {tag}", BATCH, seq, e,
+                 None, mheads, False, 0),
+                (f"{mcfg.name} cross-attention decode {tag}", BATCH, 1, e,
+                 None, mheads, False, 0)]
+        if arch in TRACE_ARCHS:
             serving += [(f"{mcfg.name} chunk T={t} at {start} {tag}", 1, t,
-                         SLOT_CACHE, start, mheads)
+                         SLOT_CACHE, start, mheads, True, win)
                         for t, start in trace_chunks()]
-    for label, b, t, c, start, (hq, hkv, d) in serving:
+    for label, b, t, c, start, (hq, hkv, d), causal, win in serving:
         q, k, v = qkv(b, hq, hkv, t, c, d, dtype)
         if start is None:
-            pos = torch.arange(t, dtype=torch.int32, device="cuda")
-            q_pos = k_pos = pos[None].expand(b, t).contiguous()
-            err = case(q, k, v)
+            q_pos = torch.arange(t, dtype=torch.int32, device="cuda")
+            k_pos = torch.arange(c, dtype=torch.int32, device="cuda")
+            q_pos = q_pos[None].expand(b, t).contiguous()
+            k_pos = k_pos[None].expand(b, c).contiguous()
+            err = case(q, k, v, causal=causal, window=win)
 
             def kernel():
-                return flash_attn(q, k, v)
+                return flash_attn(q, k, v, causal=causal, window=win)
 
             def plain():
-                return flash_ref.mha_ref(q, k, v)
-
-            def library():
-                return sdpa(q, k, v, is_causal=True, enable_gqa=True)
+                return flash_ref.mha_ref(q, k, v, causal=causal, window=win)
         else:
             q_pos, k_pos = chunk_positions(b, t, c, (start,))
-            err = case(q, k, v, q_pos, k_pos)
-            mask = flash_ref.live_mask(q_pos, k_pos, causal=True,
-                                       window=0)[:, None]   # (B,1,T,C)
+            err = case(q, k, v, q_pos, k_pos, causal=causal, window=win)
 
             def kernel():
-                return flash_attn_pos(q, k, v, q_pos, k_pos)
+                return flash_attn_pos(q, k, v, q_pos, k_pos, causal=causal,
+                                      window=win)
 
             def plain():
-                return flash_ref.mha_pos_ref(q, k, v, q_pos, k_pos)
+                return flash_ref.mha_pos_ref(q, k, v, q_pos, k_pos,
+                                             causal=causal, window=win)
+        if start is None and not win:
+            def library():
+                return sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+        else:
+            mask = flash_ref.live_mask(q_pos, k_pos, causal=causal,
+                                       window=win)[:, None]   # (B,1,T,C)
 
             def library():
                 return sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
-        bound, bound_by = flash_bound_ms(q, k, q_pos, k_pos, True, 0)
+        bound, bound_by = flash_bound_ms(q, k, q_pos, k_pos, causal, win)
         route = flash_route_of(q, k)
         if route == "wgmma":
             row_tiles, splits = flash_plan_splits(b, hkv, t, c, hq // hkv)
@@ -1053,7 +1193,8 @@ def flash_phase(cfg, chunk: int) -> dict:
             splits, blocks = 1, b * hq * -(-t // 64)
         shapes.append({
             "shape": label, "b": b, "hq": hq, "hkv": hkv, "sq": t, "sk": c,
-            "d": d, "dtype": "bfloat16", "max_abs_err": err,
+            "d": d, "causal": causal, "window": win, "dtype": "bfloat16",
+            "max_abs_err": err,
             "route": route, "splits": splits, "blocks": blocks,
             "ms": time_ms(kernel, 20),
             "plain_ms": time_ms(plain, 3, warmup=1),
@@ -1222,6 +1363,18 @@ def elk_matmul_phase(cfg) -> dict:
         y = normal(1152, 8, dtype=torch.bfloat16)
         case(x, y)
         case(x, y, bm=64, bn=64, bk=64)
+    # odd N, the odd vocabularies' case: an output row stride of 1001 (the
+    # single-element stores), y untied (row stride 1001: no TMA, mma_sync)
+    # and tied (TMA with an N tail); in fp32 (FMA) N 32 and 1001 as hymba's
+    # w_bc and a vocabulary give it
+    for m in (1, 8, 17, 64, 65, 300):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = normal(m, 136, dtype=dtype)
+            y = normal(136, 1001, dtype=dtype)
+            case(x, y)
+            case(x, y.t().contiguous().t())
+        case(normal(m, 200, dtype=torch.float32),
+             normal(200, 32, dtype=torch.float32))
     if min(reached.values()) < 1:
         fail(f"the elk_matmul sweep did not reach every route: {reached}")
     say(f"[kernels] elk_matmul: {cases} sweep cases inside their limits, each "
@@ -1236,11 +1389,12 @@ def elk_matmul_phase(cfg) -> dict:
         version and the library call."""
         err = case(x, w)
         m, n, k, lda, ldy, _ = matmul_layout(x, w)
-        plan = plan_for(m, n, k, dtype, tma_legal(x, w, lda, ldy))
-        bound, bound_by = matmul_bound_ms(m, n, k, dtype)
+        plan = plan_for(m, n, k, x.dtype, tma_legal(x, w, lda, ldy))
+        bound, bound_by = matmul_bound_ms(m, n, k, x.dtype)
         iters = 5 if m * n > 2 ** 24 else 20
         shapes.append({
-            "shape": label, "m": m, "n": n, "k": k, "dtype": "bfloat16",
+            "shape": label, "m": m, "n": n, "k": k,
+            "dtype": str(x.dtype).split(".")[1],
             "route": plan.route, "tiles": [plan.bm, plan.bn, plan.bk],
             "stages": plan.stages, "splits": plan.splits,
             "blocks": plan.blocks, "smem_bytes": plan.smem_bytes,
@@ -1272,32 +1426,34 @@ def elk_matmul_phase(cfg) -> dict:
     say(f"[kernels] elk_matmul host us a call, q, o m={BATCH}: "
         + json.dumps(host))
     del weights, x_all, x, w
-    # every product the [models] phase gives the kernel, config by config at
-    # full width: q, k/v, o and the router at the rows of its layers, the LM
-    # head (tied: the transposed embedding) at the rows of its head; a shape
-    # two products or two configs share is held once
+    # every product the [models] and [families] phases give the kernel,
+    # config by config at full width: each layer product at the rows of its
+    # layers (an encoder's at a prefill's frames; hymba's w_dt and w_bc in
+    # fp32), the LM head (tied: the transposed embedding) at the rows of its
+    # head; a shape two products or two configs share is held once
     held = set()
-    for arch, depth, prompt_len, _ in MODEL_RUNS:
+    for arch, depth, prompt_len, _ in RUNS:
         mcfg = model_cfg(arch, depth)
-        layer_rows, head_rows = model_rows(arch, prompt_len)
+        rows_of = model_rows(arch, prompt_len)
         by_shape = {}
-        for name, k, n, ldy, count in layer_products(mcfg):
+        for name, k, n, ldy, count, where in layer_products(mcfg):
             if count:
-                by_shape.setdefault((k, n, ldy != n), []).append(name)
-        for (k, n, tied), names in by_shape.items():
-            head = names == ["lm_head"]
-            rows = [m for m in (head_rows if head else layer_rows)
-                    if (m, k, n, tied) not in held]
+                key = (k, n, ldy != n, where, product_dtype(name))
+                by_shape.setdefault(key, []).append(name)
+        for (k, n, tied, where, pdtype), names in by_shape.items():
+            rows = [m for m in rows_of[where]
+                    if (m, k, n, tied, pdtype) not in held]
             if not rows:
                 continue
-            w = (normal(n, k, dtype=dtype, scale=k ** -0.5).t() if tied
-                 else normal(k, n, dtype=dtype, scale=k ** -0.5))
-            x_all = normal(max(rows), k, dtype=dtype)
+            w = (normal(n, k, dtype=pdtype, scale=k ** -0.5).t() if tied
+                 else normal(k, n, dtype=pdtype, scale=k ** -0.5))
+            x_all = normal(max(rows), k, dtype=pdtype)
             for m in rows:
-                held.add((m, k, n, tied))
+                held.add((m, k, n, tied, pdtype))
                 product_row(f"{mcfg.name} {', '.join(names)}"
-                            f"{' (tied)' if tied else ''} m={m}",
-                            x_all[:m], w)
+                            f"{' (tied)' if tied else ''}"
+                            f"{' fp32' if pdtype == torch.float32 else ''}"
+                            f" m={m}", x_all[:m], w)
             del w, x_all
     main = shapes[0]                   # q, o at a decode step
     return {
@@ -1322,14 +1478,16 @@ def elk_matmul_phase(cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 PARITY_ARCHS = ("qwen3_14b", "gemma2_27b", "llama2_70b", "dit_xl",
-                "llama4_maverick_400b_a17b", "kimi_k2_1t_a32b")
+                "llama4_maverick_400b_a17b", "kimi_k2_1t_a32b",
+                *(arch for arch, *_ in FAMILY_RUNS))
 
 
 def parity_phase() -> None:
     """For each smoke config in fp32, on the same seeded weights: the CPU
     (plain path) against the card (kernel path), with resident weights
     (``gspmd``) and streamed ones (``elk_stream``, a window of 2 of the 2
-    layers; an MoE layer's experts fetched after its router)."""
+    layers; an MoE layer's experts fetched after its router; an enc-dec
+    model resident under both, as the reference keeps it)."""
     for arch in PARITY_ARCHS:
         parity_config(dataclasses.replace(
             get_smoke_config(arch), dtype="float32", param_dtype="float32"))
@@ -1351,11 +1509,12 @@ def parity_config(cfg) -> None:
         for dev in ("cpu", "cuda") for mode in modes}
     prompts = torch.randint(0, cfg.vocab_size, (2, 12),
                             generator=torch.Generator().manual_seed(1))
+    fe = frontend_embeddings(cfg, 2, device="cpu")   # what generate draws
     before = read_launches()
     toks = {key: eng.generate(prompts, steps=8).cpu()
             for key, eng in engines.items()}
     launched = {k: n - before[k] for k, n in read_launches().items()}
-    want = passes_expected(cfg, [("flash", 24, 2)] + [("decode", 2, 2)] * 7)
+    want = lockstep_expected(cfg, 2, 12, 8)
     want = {k: len(modes) * n for k, n in want.items() if k != "routes"}
     if launched != want:
         fail(f"{cfg.name}: the card's engines launched the kernels "
@@ -1368,7 +1527,7 @@ def parity_config(cfg) -> None:
     # last-step logits, all fed the CPU run's tokens
     last = {}
     for key, eng in engines.items():
-        logits, cache = eng.prefill(prompts)
+        logits, cache = eng.prefill(prompts, **fe)
         for step in range(7):
             logits, cache = eng.decode(ref[:, 12 + step], cache)
         last[key] = logits.to(torch.float32).cpu()
@@ -1382,10 +1541,19 @@ def parity_config(cfg) -> None:
              "identical")
     say(f"[parity] smoke {cfg.name} fp32: tokens equal on CPU and card, "
         f"{' and '.join(modes)}, last-step logits max abs diff {err:.3e} "
-        f"(tol {tol:.3e}); on the card elk_stream equals gspmd bit for bit")
+        f"(tol {tol:.3e}); on the card elk_stream equals gspmd bit for bit"
+        + ("" if engines["cuda", "elk_stream"].streamed else
+           " (an enc-dec model: resident under elk_stream)"))
+    if cfg.encoder_layers:      # no slot path, as in the reference
+        return
 
     # continuous batching: the same trace through every engine's batcher
-    # (chunks of 8 into rings of 32; MoE dropless on the slot path)
+    # (chunks of 8 into rings of 32; MoE dropless on the slot path); the
+    # card launches the kernels a pass of the config runs (an RWKV config
+    # no attention and no MLP), the CPU none
+    used = {k for k, n in passes_expected(
+        cfg, [("flash", 8, 1), ("decode", 2, 2)]).items()
+        if k != "routes" and n}
     done = {}
     for (dev, mode), eng in engines.items():
         eng.scfg.prefill_chunk = 8
@@ -1394,7 +1562,8 @@ def parity_config(cfg) -> None:
             6, vocab_size=cfg.vocab_size))
         done[dev, mode] = {c.rid: c.tokens for c in comps}
         launched = {k: n - before[k] for k, n in read_launches().items()}
-        if (dev == "cuda") != (min(launched.values()) > 0):
+        if {k for k, n in launched.items() if n} != (
+                used if dev == "cuda" else set()):
             fail(f"{cfg.name}: the {dev} {mode} batcher launched the kernels "
                  f"{launched} times")
     ref = done["cpu", "gspmd"]
@@ -1438,14 +1607,18 @@ def record_launches(rows: list[dict], path: str, counts: dict,
                     expected: dict, routes: dict) -> None:
     """Add one path's launch counts to the kernels' rows; fail if a kernel
     was not launched as often as the path's layers, steps and chunks say,
-    or not through the routes their rows say (``expected["routes"]``)."""
+    or not through the routes their rows say (``expected["routes"]``).  A
+    kernel the path does not run (an RWKV model's attention and MLP) must
+    launch 0 times and is not counted among the path's kernels."""
     for row in rows:
         n = counts[row["name"]]
-        row.setdefault("launches_by_path", {})[path] = n
-        row["launches"] += n
         if n != expected[row["name"]]:
             fail(f"{row['name']} launched {n} times on the {path} path, "
                  f"expected {expected[row['name']]}")
+        if not n:
+            continue
+        row.setdefault("launches_by_path", {})[path] = n
+        row["launches"] += n
         if row["name"] in routes:
             got = {r: c for r, c in routes[row["name"]].items() if c}
             want = {r: c for r, c in expected["routes"][row["name"]].items()
@@ -1470,17 +1643,22 @@ def chunk_lengths(trace, budget: int) -> list[int]:
 def passes_expected(cfg, passes: list[tuple[str, int, int]]) -> dict:
     """Launches, in all and by route, of bf16 passes of ``cfg`` at full
     width, each (attention "flash" or "decode", rows of the layers, rows of
-    the LM head).  Every layer launches its attention kernel, the four
-    projections and its MLP; an MoE layer the router (a product) and its
-    shared expert's MLP in place of the MLP; the head one product a pass.
-    By route: the MLP on "two_pass" above SPLIT_FF_MAX_M rows and
-    "split_ff" at or below; each product on the route of its plan
-    (``smem_plan``: TMA takes it when its row strides are whole 16 bytes);
-    flash attention on "wgmma" at the head dims it takes and "mma_sync" at
-    the others; decode attention on "mma"."""
-    layers = cfg.num_layers
-    mlps = sum(count for _, _, count in layer_mlps(cfg))
-    *products, (_, *head, _) = layer_products(cfg)
+    the LM head).  Every attention layer launches its attention kernel, the
+    four projections and its MLP; an MoE layer the router (a product) and
+    its shared expert's MLP in place of the MLP; a hybrid layer the four
+    products of its SSM branch (two in fp32); an RWKV layer its eight
+    products and no attention and no MLP; an enc-dec model's decoder layer
+    a cross-attention (flash attention at every pass, Sq the pass's tokens,
+    and its q, o products) and, at a flash pass (a prefill, whose head rows
+    are its batch), its cross k, v products and the encoder's layers over
+    the batch's frames; the head one product a pass.  By route: the MLP on
+    "two_pass" above SPLIT_FF_MAX_M rows and "split_ff" at or below; each
+    product on the route of its plan (``smem_plan``: TMA takes it when it
+    is bf16 and its row strides are whole 16 bytes); flash attention on
+    "wgmma" at the head dims it takes and "mma_sync" at the others; decode
+    attention on "mma"."""
+    layers = 0 if cfg.rwkv else cfg.num_layers
+    enc, cross = cfg.encoder_layers, cfg.num_layers if cfg.encoder_layers else 0
     flash_route = ("wgmma" if cfg.resolved_head_dim in FLASH_WGMMA_HEAD_DIMS
                    else "mma_sync")
     mlp = dict.fromkeys(MLP_ROUTES, 0)
@@ -1488,20 +1666,25 @@ def passes_expected(cfg, passes: list[tuple[str, int, int]]) -> dict:
     attn = {"flash_attention": dict.fromkeys(FLASH_ROUTES, 0),
             "decode_attention": dict.fromkeys(DECODE_ROUTES, 0)}
 
-    def route(m, k, n, ldy):
-        return plan_for(m, n, k, torch.bfloat16,
-                        k % 8 == 0 and ldy % 8 == 0).route
+    def route(m, k, n, ldy, dtype):
+        return plan_for(m, n, k, dtype, dtype == torch.bfloat16
+                        and k % 8 == 0 and ldy % 8 == 0).route
 
     for kind, rows, head_rows in passes:
-        if kind == "flash":
-            attn["flash_attention"][flash_route] += layers
-        else:
+        flash = kind == "flash"
+        attn["flash_attention"][flash_route] += cross + (
+            layers + enc if flash else 0)
+        if not flash:
             attn["decode_attention"]["mma"] += layers
-        mlp["two_pass" if rows > SPLIT_FF_MAX_M else "split_ff"] += mlps
-        for _, k, n, ldy, count in products:
-            if count:
-                mm[route(rows, k, n, ldy)] += count
-        mm[route(head_rows, *head)] += 1
+        m_of = {"layer": rows, "head": head_rows,
+                "encoder": head_rows * cfg.encoder_seq if flash else 0}
+        for _, _, count, where in layer_mlps(cfg):
+            if count and m_of[where]:
+                mlp["two_pass" if m_of[where] > SPLIT_FF_MAX_M
+                    else "split_ff"] += count
+        for name, k, n, ldy, count, where in layer_products(cfg):
+            if count and m_of[where]:
+                mm[route(m_of[where], k, n, ldy, product_dtype(name))] += count
     routes = {"fused_mlp": mlp, "elk_matmul": mm, **attn}
     return {**{name: sum(by.values()) for name, by in routes.items()},
             "routes": routes}
@@ -1530,10 +1713,11 @@ def draw_params(cfg) -> dict:
 def lockstep_expected(cfg, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
                       steps: int = STEPS) -> dict:
     """Launches of one ``generate`` of ``steps`` tokens: one prefill of
-    batch x prompt_len rows (flash attention) and steps - 1 decode steps
-    of batch rows (decode attention); the head has batch rows every
-    pass."""
-    return passes_expected(cfg, [("flash", batch * prompt_len, batch)] + [
+    batch x (prompt_len + a VLM's patches) rows (flash attention) and
+    steps - 1 decode steps of batch rows (decode attention); the head has
+    batch rows every pass."""
+    return passes_expected(cfg, [
+        ("flash", batch * seq_len(cfg, prompt_len), batch)] + [
         ("decode", batch, batch)] * (steps - 1))
 
 
@@ -1542,13 +1726,16 @@ def lockstep_run(cfg, eng: ServeEngine, kernel_rows: list[dict], path: str,
     """``generate`` of ``steps`` tokens for BATCH prompts of ``prompt_len``
     (seed 1) with the kernels' counts at 0 before and read after, recorded
     as ``path``; tokens inside the vocabulary, prompts kept.  Then a
-    prefill (timed, on the cache it filled) and ``steps - 1`` decode steps
-    (timed together), their tokens equal to generate's, their logits
-    finite, the cache updated in place."""
+    prefill (timed, on the cache it filled; a cache with a recurrent state
+    is then filled afresh, the timed pass having advanced it) and
+    ``steps - 1`` decode steps (timed together), their tokens equal to
+    generate's, their logits finite, the cache updated in place.  The
+    prefills get the stub frontend embeddings ``generate`` draws."""
     dev = torch.device("cuda")
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, prompt_len),
                             device=dev,
                             generator=torch.Generator(device=dev).manual_seed(1))
+    fe = frontend_embeddings(cfg, BATCH, device=dev)
     eng.generate(prompts, steps=warm_steps)          # warm-up
     torch.cuda.synchronize()
     zero_launches()
@@ -1569,14 +1756,18 @@ def lockstep_run(cfg, eng: ServeEngine, kernel_rows: list[dict], path: str,
     if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
         fail(f"{path}: a generated token lies outside the vocabulary")
 
-    logits, cache = eng.prefill(prompts)
-    prefill_ms = time_ms(lambda: eng.prefill(prompts, cache), 1, warmup=0)
+    logits, cache = eng.prefill(prompts, **fe)
+    prefill_ms = time_ms(lambda: eng.prefill(prompts, cache, **fe), 1,
+                         warmup=0)
+    if "rwkv_state" in cache or "ssm_state" in cache:
+        logits, cache = eng.prefill(prompts, **fe)
     if not torch.isfinite(logits).all():
         fail(f"{path}: prefill logits not finite")
     tok = torch.argmax(logits[:, -1, :], dim=-1)
     if not torch.equal(tok, out[:, prompt_len]):
         fail(f"{path}: prefill's greedy token differs from generate's")
-    ptrs = [cache[k].data_ptr() for k in ("k", "v", "slot_pos")]
+    ptrs = {k: t.data_ptr() for k, t in cache.items()
+            if isinstance(t, torch.Tensor)}
     start.record()
     for step in range(steps - 1):
         logits, cache = eng.decode(tok, cache)
@@ -1587,9 +1778,9 @@ def lockstep_run(cfg, eng: ServeEngine, kernel_rows: list[dict], path: str,
     torch.cuda.synchronize()
     if not torch.isfinite(logits).all():
         fail(f"{path}: decode logits not finite")
-    if ptrs != [cache[k].data_ptr() for k in ("k", "v", "slot_pos")] or \
-            cache["pos"] != prompt_len + steps - 1:
-        fail(f"{path}: the KV cache was not updated in place")
+    if ptrs != {k: cache[k].data_ptr() for k in ptrs} or \
+            cache["pos"] != seq_len(cfg, prompt_len) + steps - 1:
+        fail(f"{path}: the cache was not updated in place")
     return {"out": out, "prompts": prompts, "cache": cache,
             "generate_ms": gen_ms,
             "tokens_per_s": BATCH * steps / (gen_ms * 1e-3),
@@ -1652,11 +1843,13 @@ def check_completions(trace, comps, vocab: int) -> None:
 
 
 def trace_phase(cfg, params: dict, kernel_rows: list[dict], profile: bool,
-                path: str = "continuous", tag: str = "[serve-trace]") -> None:
-    """The TRACE_N-request trace through ``ContinuousBatcher.run`` (SLOTS
-    slots of SLOT_CACHE, chunks of PREFILL_CHUNK), resident weights, its
-    launches recorded as ``path``; then layer 0's attention on the rings
-    the requests left behind."""
+                path: str = "continuous", tag: str = "[serve-trace]",
+                requests: int = TRACE_N) -> None:
+    """The first ``requests`` of the TRACE_N-request trace through
+    ``ContinuousBatcher.run`` (SLOTS slots of SLOT_CACHE, chunks of
+    PREFILL_CHUNK), resident weights, its launches recorded as ``path``;
+    then, where the cache has a ring, layer 0's attention on the rings the
+    requests left behind."""
     torch.cuda.reset_peak_memory_stats()
     scfg = ServeConfig(batch=SLOTS, cache_capacity=SLOT_CACHE,
                        prefill_chunk=PREFILL_CHUNK)
@@ -1666,7 +1859,7 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict], profile: bool,
         4, vocab_size=vocab, prompt_lens=(16, 48), max_new=(2, 5), seed=1))
     torch.cuda.synchronize()
     cache = eng.slot_cache
-    ptrs = {k: cache[k].data_ptr() for k in ("k", "v", "pos", "slot_pos")}
+    ptrs = {k: t.data_ptr() for k, t in cache.items()}
 
     # every decode step timed by CUDA events around it (the batcher reads
     # the tokens back each tick, so the events do not hold it up); the tags
@@ -1684,12 +1877,13 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict], profile: bool,
         return out
 
     def kept_evict(slot, **kw):
-        last_tags[slot] = (cache["slot_pos"][slot].clone(),
-                           int(cache["pos"][slot]))
+        if "slot_pos" in cache:
+            last_tags[slot] = (cache["slot_pos"][slot].clone(),
+                               int(cache["pos"][slot]))
         return evict(slot, **kw)
 
     eng.step, eng.evict_slot = timed_step, kept_evict
-    trace = make_trace(TRACE_N, vocab_size=vocab, **TRACE)
+    trace = make_trace(TRACE_N, vocab_size=vocab, **TRACE)[:requests]
     bat = ContinuousBatcher(eng)
     zero_launches()
     t0 = time.perf_counter()
@@ -1708,27 +1902,30 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict], profile: bool,
         fail("the slot cache was not updated in place")
 
     # layer 0's attention on the rings the requests left behind
-    unused = (torch.full((SLOT_CACHE,), SENTINEL, dtype=torch.int32,
-                         device="cuda"), 0)         # a slot no request took
-    kept = [last_tags.get(s, unused) for s in range(SLOTS)]
-    tags = torch.stack([t for t, _ in kept])
-    q_pos = torch.tensor([p - 1 for _, p in kept], dtype=torch.int32,
-                         device="cuda")
-    q = torch.randn((SLOTS, cfg.num_heads, cfg.resolved_head_dim),
-                    generator=torch.Generator(device="cuda").manual_seed(5),
-                    device="cuda").to(torch.bfloat16)
-    err, over = check_attn(q, cache["k"][0], cache["v"][0], tags, q_pos,
-                           tfm.attn_spec(cfg).sliding_window,
-                           dead_rows=[s for s in range(SLOTS)
-                                      if s not in last_tags])
-    say(f"{tag} layer 0 attention on the rings of {len(last_tags)} slots: "
-        f"err {err:.3e}, err/tol {over:.3f}")
+    if "k" in cache:
+        unused = (torch.full((SLOT_CACHE,), SENTINEL, dtype=torch.int32,
+                             device="cuda"), 0)     # a slot no request took
+        kept = [last_tags.get(s, unused) for s in range(SLOTS)]
+        tags = torch.stack([t for t, _ in kept])
+        q_pos = torch.tensor([p - 1 for _, p in kept], dtype=torch.int32,
+                             device="cuda")
+        q = torch.randn(
+            (SLOTS, cfg.num_heads, cfg.resolved_head_dim),
+            generator=torch.Generator(device="cuda").manual_seed(5),
+            device="cuda").to(torch.bfloat16)
+        err, over = check_attn(q, cache["k"][0], cache["v"][0], tags, q_pos,
+                               tfm.attn_spec(cfg).sliding_window,
+                               dead_rows=[s for s in range(SLOTS)
+                                          if s not in last_tags])
+        say(f"{tag} layer 0 attention on the rings of {len(last_tags)} "
+            f"slots: err {err:.3e}, err/tol {over:.3f}")
 
     step_ms = [a.elapsed_time(b) for a, b in events]
     stats = summarize(comps, wall)
     stats.update({
         "model": cfg.name, "layers": layers, "slots": SLOTS,
         "cache": SLOT_CACHE, "prefill_chunk": PREFILL_CHUNK,
+        "prompt_tokens": sum(len(r.prompt) for r in trace),
         "ticks": bat.ticks, "decode_ticks": bat.decode_ticks,
         "prefill_chunks": len(chunks),
         "decode_ms_per_tick": sum(step_ms) / len(step_ms),
@@ -2445,6 +2642,237 @@ def models_phase(kernel_rows: list[dict], host: dict, profile: bool) -> None:
     say(f"[models] phase took {time.perf_counter() - t_phase:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the four remaining families at full width and full depth
+# ---------------------------------------------------------------------------
+
+# the port's kernels by name: each lies in an anonymous namespace at the top
+# of its CUDA source (``hg::`` for the mainloop of ``hopper_gemm.cuh``)
+PORT_KERNEL = re.compile(r"(void )?(hg::)?\(anonymous namespace\)::"
+                         r"(elk_matmul_|gemm_kernel|fused_mlp_|"
+                         r"decode_attention_kernel|flash_attention_)")
+# device kernels of one counted launch: fused_mlp's two passes (or its
+# partial sums and their reduction); one for every other wrapper
+DEVICE_KERNELS_PER_LAUNCH = {"fused_mlp": 2}
+
+
+def device_split(fn, host_ops: bool = False) -> dict:
+    """One pass ``fn`` (after a warm-up) timed on the host around a
+    synchronize, then under ``torch.profiler``: the device time and launches
+    of the port's kernels (``PORT_KERNEL``) apart from PyTorch's own (norms,
+    activations, casts, a recurrence's steps), the device's idle share of
+    the pass, and the seconds the profiled pass took.  The trace may miss
+    kernels, so the launch counts are read around the profiled pass too:
+    ``trace_complete`` says whether the trace holds the port's kernels
+    they count (``DEVICE_KERNELS_PER_LAUNCH`` each).  With ``host_ops``
+    the host side is traced too, and the five operators with the most host
+    time are listed (a pass of 100k launches is traced on the device
+    only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if host_ops else [])
+    zero_launches()
+    with profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counted = sum(DEVICE_KERNELS_PER_LAUNCH.get(name, 1) * launches
+                  for name, launches in read_launches().items())
+    events = prof.key_averages()
+    us = {"port": 0.0, "other": 0.0}
+    n = {"port": 0, "other": 0}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        key = "port" if PORT_KERNEL.match(e.key) else "other"
+        us[key] += e.self_device_time_total
+        n[key] += e.count
+    if not n["port"]:
+        fail("torch.profiler recorded none of the port's kernels")
+    busy = (us["port"] + us["other"]) * 1e-3
+    out = {"wall_ms": wall, "device_busy_ms": busy,
+           "device_idle_share": 1.0 - busy / wall,
+           "port_kernels_ms": us["port"] * 1e-3, "port_kernels": n["port"],
+           "counted_port_kernels": counted,
+           "trace_complete": n["port"] == counted,
+           "other_kernels_ms": us["other"] * 1e-3,
+           "other_kernels": n["other"]}
+    if host_ops:
+        top = sorted(((e.self_cpu_time_total, e.count, e.key) for e in events
+                      if e.device_type == DeviceType.CPU), reverse=True)[:5]
+        out["top_host_ops"] = [[key[:60], cnt, us_ * 1e-3]
+                               for us_, cnt, key in top]
+    out["profiled_in_s"] = time.perf_counter() - t0
+    return out
+
+
+def recurrence_ms(cfg, prompt_len: int) -> dict:
+    """RWKV's WKV recurrence alone (``models/rwkv.wkv_sequence``, a plain
+    loop over time of PyTorch's kernels, one launch each) at a layer's
+    prefill and decode-step shapes, times the layers: what a pass spends
+    in it, host-bound by design."""
+    h = cfg.num_heads
+    hd = cfg.d_model // h
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def inputs(s):
+        def normal(*shape):
+            return torch.randn(shape, generator=gen, device="cuda")
+        w = torch.rand((BATCH, h, s, hd), generator=gen, device="cuda")
+        return (normal(BATCH, h, s, hd), normal(BATCH, h, s, hd),
+                normal(BATCH, h, s, hd), 0.5 + 0.45 * w, normal(h, hd),
+                torch.zeros((BATCH, h, hd, hd), device="cuda"))
+
+    pre, dec = inputs(prompt_len), inputs(1)
+    layers = cfg.num_layers
+    return {"recurrence_prefill_ms": layers * time_ms(
+                lambda: rwkv_mod.wkv_sequence(*pre), 1, warmup=1),
+            "recurrence_decode_ms": layers * time_ms(
+                lambda: rwkv_mod.wkv_sequence(*dec), 10)}
+
+
+def family_stream(arch: str, cfg, params: dict, run: dict, prompt_len: int,
+                  ring: int, kernel_rows: list[dict]) -> None:
+    """``arch`` under ``elk_stream`` with the planner's knobs on
+    ``h100_host()``, on the resident run's weights and prompts: rwkv6-7b and
+    internvl2-1b move their layers into a layer stream (pinned host memory,
+    a window of the planner's depth) and must give the resident run's
+    STREAM_STEPS tokens; whisper-tiny, an encoder-decoder model, stays
+    resident under ``elk_stream``, as the reference keeps it, with the same
+    tokens.  Launches counted as the path ``<model> stream lock-step``."""
+    streamed = streams(cfg, "elk_stream")
+    if streamed and arch not in FAMILY_STREAMED:
+        return
+    dev = torch.device("cuda")
+    scfg = elk_serve_config(cfg, batch=BATCH, cache_capacity=ring,
+                            pod=h100_host())
+    t0 = time.perf_counter()
+    if not streamed:
+        eng, ls = ServeEngine(cfg, params, scfg), None
+        if eng.streamed:
+            fail(f"{cfg.name}: an encoder-decoder model was streamed")
+    else:
+        ls = LayerStream(params["layers"], dev, depth=scfg.prefetch_depth)
+        eng = ServeEngine(cfg, {**params, "layers": ls}, scfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    eng.generate(run["prompts"], steps=1)            # warm-up
+    copies0 = ls.copies if ls else 0
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = eng.generate(run["prompts"], steps=STREAM_STEPS)
+    torch.cuda.synchronize()
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    path = f"{cfg.name} stream lock-step"
+    record_launches(kernel_rows, path, read_launches(),
+                    lockstep_expected(cfg, BATCH, prompt_len, STREAM_STEPS),
+                    read_routes())
+    if not torch.equal(out, run["out"][:, :prompt_len + STREAM_STEPS]):
+        fail(f"{cfg.name}: elk_stream and resident weights gave different "
+             f"tokens:\n{out}\n{run['out']}")
+    if ls is not None and ls.copies - copies0 != cfg.num_layers * STREAM_STEPS:
+        fail(f"{ls.copies - copies0} layer copies in {STREAM_STEPS} streamed "
+             f"passes of {cfg.num_layers} layers")
+    say("[families] " + json.dumps({
+        "model": cfg.name, "mode": "elk_stream", "streamed": eng.streamed,
+        "prefetch_depth": scfg.prefetch_depth,
+        "prefill_chunk": scfg.prefill_chunk,
+        "window_bytes": ls.depth * ls.layer_bytes if ls else 0,
+        "pinned_host_bytes": ls.host_bytes if ls else 0,
+        "setup_s": setup_s, "steps": STREAM_STEPS, "generate_ms": gen_ms,
+        "tokens_equal_resident": True,
+        **(copy_rates(ls) if ls else {}),
+        "sample": out[0, prompt_len:].tolist()}))
+    del eng, ls
+
+
+def families_phase(kernel_rows: list[dict]) -> None:
+    """The four configs of ``FAMILY_RUNS`` at full width and full depth,
+    one after another, each freed before the next: drawn on the card from
+    seed 0, served lock-step and resident (BATCH x the run's prompt length,
+    STEPS steps, the run's ring; the VLM's patches and the enc-dec model's
+    frames from the stub frontends), one ``[families]`` line each with a
+    profiled prefill and decode step (and RWKV's recurrence alone); then
+    the trace (``FAMILY_TRACE_N``) and ``elk_stream`` (``family_stream``)."""
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    for arch, depth, prompt_len, ring in FAMILY_RUNS:
+        t_cfg = time.perf_counter()
+        full = get_config(arch)
+        cfg = model_cfg(arch, depth)
+        free_card(cfg.name)
+        t0 = time.perf_counter()
+        params = tfm.init_params(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, dev)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        eng = ServeEngine(cfg, params, ServeConfig(batch=BATCH,
+                                                   cache_capacity=ring))
+        run = lockstep_run(cfg, eng, kernel_rows, f"{cfg.name} lock-step",
+                           prompt_len, STEPS, warm_steps=2)
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        fe = frontend_embeddings(cfg, BATCH, device=dev)
+        torch.cuda.synchronize()
+        stub_ms = (time.perf_counter() - t0) * 1e3
+        cache = run["cache"]
+        tok = run["out"][:, -1]
+        split = {"prefill_profile": device_split(
+                     lambda: eng.prefill(run["prompts"], cache, **fe)),
+                 "decode_profile": device_split(
+                     lambda: eng.decode(tok, cache), host_ops=True)}
+        if cfg.rwkv:
+            split.update(recurrence_ms(cfg, prompt_len))
+        if cfg.encoder_layers:    # the encoder alone over the batch's frames
+            split["encoder_ms"] = time_ms(lambda: tfm._encode(
+                eng.params, cfg, fe["enc_embeds"]), 5)
+        if cfg.ssm_state:         # a pass's fp32 casts of the SSM's weights
+            p_ssm = eng.params["layers"][0]["ssm"]
+            split["ssm_casts_ms"] = cfg.num_layers * time_ms(lambda: [
+                p_ssm[k].to(torch.float32) for k in SSM_FP32_CASTS], 10)
+        say("[families] " + json.dumps({
+            "model": cfg.name, "depth": f"{cfg.num_layers} of "
+            f"{full.num_layers}", "layer_kinds": sorted(set(
+                tfm.layer_kinds(cfg))), "mode": "gspmd",
+            "param_bytes": tree_bytes(params), "drawn_in_s": draw_s,
+            "batch": BATCH, "prompt_len": prompt_len,
+            "positions": seq_len(cfg, prompt_len),
+            "frames": cfg.encoder_seq, "cache": ring, "steps": STEPS,
+            "max_memory_allocated_bytes": peak,
+            "prefill_ms": run["prefill_ms"],
+            "decode_ms_per_token": run["decode_ms_per_token"],
+            "generate_ms": run["generate_ms"],
+            "tokens_per_s": run["tokens_per_s"],
+            "stub_draw_ms": stub_ms if fe else 0.0,
+            "prefill_decode_tokens_per_s": BATCH * STEPS / (
+                (run["prefill_ms"] + (STEPS - 1) * run["decode_ms_per_token"])
+                * 1e-3),
+            "decode_tokens_per_s": BATCH / (run["decode_ms_per_token"]
+                                            * 1e-3),
+            **split, "launches": run["launches"],
+            "launches_by_route": run["launches_by_route"],
+            "sample": run["out"][0, prompt_len:].tolist()}))
+        del eng, cache, fe
+        if arch in FAMILY_TRACE_N:
+            trace_phase(cfg, params, kernel_rows, False,
+                        path=f"{cfg.name} continuous", tag="[families-trace]",
+                        requests=FAMILY_TRACE_N[arch])
+        family_stream(arch, cfg, params, run, prompt_len, ring, kernel_rows)
+        del params, run
+        say(f"[families] {cfg.name} took {time.perf_counter() - t_cfg:.1f}s")
+    free_card("the end of the families phase")
+    say(f"[families] phase took {time.perf_counter() - t_phase:.1f}s")
+
+
 def profile_moe(eng: ServeEngine, run: dict) -> None:
     """Three kimi-k2 decode steps and a prefill under ``torch.profiler``,
     with the share of the device time that the expert products take (the
@@ -2643,9 +3071,9 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also trace decode steps, a prefill and slot steps")
     ap.add_argument("--only", choices=("kernels", "models"),
-                    help="run the kernel phases only, or the parity and "
-                    "[models] phases only (to iterate on one part); prints "
-                    "no result line")
+                    help="run the kernel phases only, or the parity, "
+                    "[models] and [families] phases only (to iterate on "
+                    "one part); prints no result line")
     args = ap.parse_args()
 
     # phase 1: device
@@ -2703,8 +3131,9 @@ def main() -> None:
                                                      "library_ms")}))
         elif args.only == "models":
             parity_phase()
-            models_phase([{"name": name, "launches": 0}
-                          for name in COUNTERS], host, args.profile)
+            rows = [{"name": name, "launches": 0} for name in COUNTERS]
+            models_phase(rows, host, args.profile)
+            families_phase(rows)
         if args.only:
             say(f"[only {args.only}] stopped; no result line")
             return
@@ -2722,6 +3151,7 @@ def main() -> None:
                      out if lock_cfg.num_layers == cfg.num_layers else None,
                      args.profile)
         models_phase(rows, host, args.profile)
+        families_phase(rows)
 
     for row in rows:
         for path, n in row["launches_by_path"].items():

@@ -1,10 +1,10 @@
 """Architecture registry of the port (copy of ``src/repro/configs``).
 
 ``get_config(arch_id)`` returns the full config; ``get_smoke_config``
-a reduced same-family config for CPU tests.  The dense decoders and the
-MoE family are ported: the other architecture ids of the reference are
-known here, and asking for one raises ``NotImplementedError`` that names
-the ROADMAP item which ports its family.
+a reduced same-family config for CPU tests.  Every architecture id of the
+reference is here: the dense decoders, the MoE family, RWKV6, the hybrid
+attention + SSM model, the encoder-decoder with its audio stub and the VLM
+with its vision stub, and the paper's Table 2 models.
 """
 
 from __future__ import annotations
@@ -14,7 +14,6 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-# the architectures the port runs today: dense decoders and MoE
 ARCH_IDS = [
     "qwen3_14b",
     "llama2_13b",
@@ -27,19 +26,14 @@ ARCH_IDS = [
     "dit_xl",
     "llama4_maverick_400b_a17b",
     "kimi_k2_1t_a32b",
+    "internvl2_1b",
+    "rwkv6_7b",
+    "whisper_tiny",
+    "hymba_1_5b",
 ]
 
-# ids the reference knows whose model family is still to be ported, each
-# with the ROADMAP item that ports it
-UNPORTED_ARCH_IDS = {
-    "internvl2_1b": "item 9 (vision frontend)",
-    "rwkv6_7b": "item 9 (RWKV)",
-    "whisper_tiny": "item 9 (encoder-decoder, audio frontend)",
-    "hymba_1_5b": "item 9 (hybrid SSM)",
-}
-
 # canonical dashed ids accepted on the CLI
-ALIASES = {a.replace("_", "-"): a for a in [*ARCH_IDS, *UNPORTED_ARCH_IDS]}
+ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 ALIASES.update({
     "qwen1.5-32b": "qwen1_5_32b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
@@ -59,10 +53,6 @@ def canonical(arch: str) -> str:
         a = ALIASES[arch]
     if a in ARCH_IDS:
         return a
-    if a in UNPORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet: ROADMAP.md, Queue 1, "
-            f"{UNPORTED_ARCH_IDS[a]}")
     raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
 
 
@@ -88,8 +78,12 @@ def _shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
         head_dim=16 if cfg.head_dim else 0,
     )
     nh = overrides.get("num_heads", base["num_heads"])
-    ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
-    base["num_kv_heads"] = max(1, nh // min(ratio, nh))
+    if cfg.num_heads:
+        ratio = max(1, cfg.num_heads // max(cfg.num_kv_heads, 1))
+        base["num_kv_heads"] = max(1, nh // min(ratio, nh))
+    else:
+        base["num_heads"] = 0
+        base["num_kv_heads"] = 0
     if cfg.moe_experts:
         base.update(moe_experts=4, moe_top_k=min(cfg.moe_top_k, 2),
                     moe_d_ff=64 if cfg.moe_d_ff else 0,
@@ -97,5 +91,9 @@ def _shrink(cfg: ModelConfig, **overrides) -> ModelConfig:
                     moe_first_dense=min(cfg.moe_first_dense, 1))
     if cfg.sliding_window:
         base["sliding_window"] = 16
+    if cfg.encoder_layers:
+        base.update(encoder_layers=2, encoder_seq=8)
+    if cfg.vision_patches:
+        base["vision_patches"] = 4
     base.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **base)

@@ -46,13 +46,19 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
     """The reference's parameter pytree (numpy leaves) in the port's
     layout: ``params["blocks"][slot]`` is stacked over ``n_blocks`` there
     and comes after ``params["prefix"]``; here every layer is its own
-    dictionary in ``params["layers"]``.  ``dtype`` casts every leaf
-    (default: as stored)."""
+    dictionary in ``params["layers"]``.  An enc-dec config's stacked
+    ``encoder`` becomes a list of layers the same way; ``enc_norm``,
+    ``enc_pos`` and ``dec_pos`` pass as they are.  ``dtype`` casts every
+    leaf (default: as stored)."""
     device = resolve_device(device)
     prefix, period, n_blocks = block_structure(cfg)
 
     def leaf(a):
         return tensor_from_numpy(a, device, dtype)
+
+    def unstack(stacked, n):
+        return [_map(stacked, lambda a, i=i: leaf(np.asarray(a)[i]))
+                for i in range(n)]
 
     layers = [_map(p, leaf) for p in tree["prefix"]]
     if len(layers) != prefix or len(tree["blocks"]) != period:
@@ -63,34 +69,44 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
             layers.append(_map(tree["blocks"][slot],
                                lambda a, b=b: leaf(np.asarray(a)[b])))
     out = {k: leaf(v) for k, v in tree.items()
-           if k not in ("prefix", "blocks")}
+           if k not in ("prefix", "blocks", "encoder")}
     out["layers"] = layers
+    if "encoder" in tree:
+        out["encoder"] = unstack(tree["encoder"], cfg.encoder_layers)
     return out
+
+
+# the reference's cache leaves besides ``pos``, all stacked over layers
+# except ``slot_pos``
+_CACHE_KEYS = ("k", "v", "slot_pos", "rwkv_state", "ssm_state", "cross_k",
+               "cross_v")
 
 
 def cache_from_jax(tree: dict, device="cuda") -> dict:
     """The reference's cache (numpy leaves) as a port cache: lock-step
     (``pos`` a scalar, ``slot_pos (C,)``) or per-slot (``pos (B,)``,
-    ``slot_pos (B, C)``).  K/V are stacked over layers on both sides."""
+    ``slot_pos (B, C)``); the leaves it has of K/V, ``rwkv_state``,
+    ``ssm_state`` and ``cross_k``/``cross_v``, each in its own type."""
     device = resolve_device(device)
     pos = np.asarray(tree["pos"])
-    return {
-        "pos": (int(pos) if pos.ndim == 0
-                else tensor_from_numpy(pos, device, torch.int32)),
-        "k": tensor_from_numpy(tree["k"], device),
-        "v": tensor_from_numpy(tree["v"], device),
-        "slot_pos": tensor_from_numpy(tree["slot_pos"], device, torch.int32),
-    }
+    out = {"pos": (int(pos) if pos.ndim == 0
+                   else tensor_from_numpy(pos, device, torch.int32))}
+    for key in _CACHE_KEYS:
+        if key in tree:
+            out[key] = tensor_from_numpy(tree[key], device)
+    return out
 
 
 def cache_to_numpy(cache: dict) -> dict:
-    """A port cache as numpy arrays (K/V widened to float32) under the
-    reference's keys, for comparison with the reference's cache."""
+    """A port cache as numpy arrays under the reference's keys, for
+    comparison with the reference's cache: K/V and cross K/V widened to
+    float32, tags int32, states as they are (float32)."""
     pos = cache["pos"]
-    return {
-        "pos": (pos.cpu().numpy() if isinstance(pos, torch.Tensor)
-                else np.int32(pos)),
-        "k": cache["k"].to(torch.float32).cpu().numpy(),
-        "v": cache["v"].to(torch.float32).cpu().numpy(),
-        "slot_pos": cache["slot_pos"].cpu().numpy(),
-    }
+    out = {"pos": (pos.cpu().numpy() if isinstance(pos, torch.Tensor)
+                   else np.int32(pos))}
+    for key in _CACHE_KEYS:
+        if key in cache:
+            t = cache[key]
+            out[key] = (t if key == "slot_pos" else t.to(torch.float32)
+                        ).cpu().numpy()
+    return out

@@ -5,7 +5,8 @@
 //
 // with key j live for query i when, by positions, k_pos <= q_pos (causal) and
 // k_pos > q_pos - window (window > 0).  Positions are either contiguous
-// (q_pos = k_pos = arange(S), Sq == Sk: a prefill) or given per row on the
+// (q_pos = arange(Sq), k_pos = arange(Sk): a prefill with Sq == Sk, or a
+// bidirectional cross-attention with any Sq and Sk) or given per row on the
 // device, q_pos (B, Sq) and k_pos (B, Sk) (a chunk of a prompt against the
 // ring cache, k_pos = the ring's tags; the 2**30 tag of an unwritten slot masks
 // itself out under causal).  A query with no live key gives zeros.  q and out
@@ -1198,7 +1199,9 @@ int flash_attention_prepare(void) {
 // or 256, `splits` blocks of a cluster, 1 to 8), 1 "mma_sync" (bf16, D one of
 // 16, 32, 72, 80, 96, 112), 0 "fma" (fp32 q (q_dtype 0) with an fp32
 // (kv_dtype 0) or bf16 (1) cache, D a multiple of 8 up to 256).  q_pos null:
-// contiguous positions (Sq == Sk); else q_pos (B, Sq) and k_pos (B, Sk) int32
+// contiguous positions (Sq == Sk), or with causal 0 and window 0 any Sq
+// against any Sk (a cross-attention: keys past Sk and rows past Sq are masked
+// by index, which is all the mask there is); else q_pos (B, Sq) and k_pos (B, Sk) int32
 // with batch strides qp_stride / kp_stride.  Pointers 16-byte aligned; on the
 // bf16 routes q's strides are multiples of 8 elements.
 int flash_attention_launch(const void* q, const void* k, const void* v, const int* q_pos,
@@ -1209,7 +1212,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, const in
                            int route, int splits, void* stream) {
   if (b < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 1 || d < 8 || d > 256 || d % 8 != 0)
     return -1;
-  if (q_pos == nullptr && sq != sk) return -1;
+  if (q_pos == nullptr && sq != sk && (causal || window > 0)) return -1;
   if ((q_pos == nullptr) != (k_pos == nullptr)) return -1;
   Args a;
   a.q = q; a.k = k; a.v = v; a.q_pos = q_pos; a.k_pos = k_pos; a.out = out;

@@ -126,7 +126,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     device; ``Hq`` a multiple of ``Hkv``.  bf16 ``q`` with a bf16 cache and
     ``D`` in ``MMA_HEAD_DIMS`` (tensor cores), or fp32 ``q`` with an fp32 or
     bf16 cache and ``D`` a multiple of 8 up to 256.  Without positions,
-    ``Sq == Sk`` at positions 0..S-1; with them, ``q_pos`` (B, Sq) and
+    ``Sq == Sk`` at positions 0..S-1, or any Sq against any Sk when
+    ``causal`` is False and there is no window (a cross-attention: keys
+    past Sk and query rows past Sq are masked by index); with them, ``q_pos`` (B, Sq) and
     ``k_pos`` (B, Sk) int32 on the card.  Returns (B, Hq, Sq, D) in ``q``'s
     type, the transposed view of (B, Sq, Hq, D) storage.  ``route`` and
     ``splits`` (route "wgmma", 1 to MAX_SPLITS) override ``route_of`` and
@@ -173,9 +175,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if (q_pos is None) != (k_pos is None):
         raise ValueError("q_pos and k_pos come both or not at all")
     if q_pos is None:
-        if sq != sk:
-            raise ValueError(f"without positions Sq must equal Sk, got "
-                             f"{sq} and {sk}")
+        if sq != sk and (causal or window):
+            raise ValueError(f"without positions Sq must equal Sk unless "
+                             f"causal is False with no window, got {sq} "
+                             f"and {sk}")
         qp_stride = kp_stride = 0
     else:
         qp_stride = _positions("q_pos", q_pos, b, sq, q.device)

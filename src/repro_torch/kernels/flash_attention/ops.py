@@ -14,7 +14,9 @@ from repro_torch.kernels.flash_attention.ref import mha_pos_ref, mha_ref
 def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                causal: bool = True, window: int = 0,
                scale: Optional[float] = None) -> torch.Tensor:
-    """Attention of a whole sequence at positions 0..S-1: (B, Hq, S, D).
+    """Attention of a whole sequence at positions 0..S-1: (B, Hq, S, D);
+    with ``causal=False`` and no window, Sq queries against any Sk keys (a
+    cross-attention).
 
     On a CUDA tensor the hand-written kernel runs (or raises); on a CPU
     tensor ``mha_ref``."""

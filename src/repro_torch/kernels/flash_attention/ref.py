@@ -61,15 +61,20 @@ def mha_pos_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, window: int = 0,
             scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Hq, S, D); k/v: (B, Hkv, S, D) -> (B, Hq, S, D): fp32
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D) -> (B, Hq, Sq, D): fp32
     softmax, GQA via head-group folding, ``window`` > 0 applies
     sliding-window attention of that width; a fully masked row gives
-    zeros."""
-    b, s = q.shape[0], q.shape[2]
-    pos = torch.arange(s, dtype=torch.int32, device=q.device)
-    pos = pos[None, :].expand(b, s)
-    return mha_pos_ref(q, k, v, pos, pos, causal=causal, window=window,
-                       scale=scale)
+    zeros.  Positions 0..Sq-1 and 0..Sk-1; Sq != Sk only bidirectional and
+    with no window (a cross-attention), where positions mask nothing."""
+    b, sq, sk = q.shape[0], q.shape[2], k.shape[2]
+    if sq != sk and (causal or window):
+        raise ValueError(f"Sq {sq} != Sk {sk} takes causal=False and no "
+                         "window")
+    q_pos = torch.arange(sq, dtype=torch.int32, device=q.device)
+    k_pos = torch.arange(sk, dtype=torch.int32, device=q.device)
+    return mha_pos_ref(q, k, v, q_pos[None].expand(b, sq),
+                       k_pos[None].expand(b, sk), causal=causal,
+                       window=window, scale=scale)
 
 
 def live_tiles(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,

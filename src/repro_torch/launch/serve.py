@@ -15,7 +15,15 @@ sets the window by hand instead of asking the planner.  The MoE configs
 layers share the window, each in its own layout, and an MoE layer's experts
 are copied after its router, only those it picked, into an expert buffer
 sized for the largest pass.  Under ``elk_stream`` the launcher prints the
-window and the expert buffer it allocated.
+window and the expert buffer it allocated.  Every architecture id of the
+reference serves in both modes: rwkv6-7b (recurrent state, no KV ring) and
+hymba-1.5b (SSM state beside the ring) stream like the others; internvl2-1b
+and whisper-tiny take stub frontends (256 patch embeddings ahead of the
+prompt; 1500 frame embeddings through the encoder), drawn from seed 0 as
+the reference's ``generate`` draws them; whisper-tiny, an encoder-decoder
+model, is not streamed, as in the reference, and stays resident under
+``elk_stream`` (the engine says so), and the continuous batcher refuses it
+(no per-slot cache, the reference's ``ValueError``).
 
 Continuous batching over a mixed-length request trace (tok/s + request
 latency percentiles, optionally against the static-batching baseline):
@@ -169,7 +177,7 @@ def main(argv=None) -> None:
                            prefetch_depth=max(args.prefetch_depth, 1),
                            prefill_chunk=args.prefill_chunk or 32)
     gen = torch.Generator(device=device).manual_seed(0)
-    if scfg.mode == "elk_stream":
+    if stream.streams(cfg, scfg.mode):
         # each layer goes to pinned host memory as it is drawn: the card
         # never holds the decoder, so a model larger than the card serves
         params = stream.init_streamed_params(gen, cfg, device,
@@ -177,7 +185,7 @@ def main(argv=None) -> None:
     else:
         params = tfm.init_params(gen, cfg, device)
     eng = ServeEngine(cfg, params, scfg, device)
-    if scfg.mode == "elk_stream":
+    if eng.streamed:
         ls = eng.params["layers"]
         print(f"elk_stream: prefetch_depth={scfg.prefetch_depth}; window of "
               f"{ls.depth} buffers of {ls.layer_bytes} bytes; expert buffer "

@@ -1,14 +1,20 @@
 """Decoder of the port: lock-step and slot-batched serving.
 
 Counterpart of ``src/repro/models/transformer.py``, cut to what greedy
-serving of a decoder runs: ``init_params``, ``init_cache``, ``prefill``
-and ``decode_step`` (lock-step), ``decode_slots``, ``chunk_prefill`` and
-the slot cache operations (continuous batching), over the dense / GQA /
-SWA / qk-norm / GeGLU layer and the MoE layer (``models/moe.py``, with a
-shared expert; capacity dropping at prefill, dropless at decode and on the
-slot path, which chunked prefill runs on).  RWKV, hybrid-SSM, enc-dec and
-VLM families, the int8 cache and ``forward_train`` are still to be ported
-(ROADMAP.md, Queue 1, item 9) and raise ``NotImplementedError``.
+serving runs: ``init_params``, ``init_cache``, ``prefill`` and
+``decode_step`` (lock-step), ``decode_slots``, ``chunk_prefill`` and the
+slot cache operations (continuous batching), over every family of the
+reference: the dense / GQA / SWA / qk-norm / GeGLU layer, the MoE layer
+(``models/moe.py``, with a shared expert; capacity dropping at prefill,
+dropless at decode and on the slot path, which chunked prefill runs on),
+the RWKV6 layer (``models/rwkv.py``, its recurrent state in the cache and
+no KV ring), the hybrid layer's parallel SSM branch (``models/ssm.py``,
+its state beside the ring), the encoder-decoder (whisper: ``_encode`` over
+stub frame embeddings, cross-attention K/V filled at prefill) and the VLM
+(stub patch embeddings ahead of the prompt).  The frontends' stubs are
+``models/frontends.py``.  The int8 cache and ``forward_train`` are still
+to be ported (ROADMAP.md, Queue 1) and raise ``NotImplementedError``;
+enc-dec models take no per-slot cache, as in the reference.
 
 What differs from the reference, by design:
 
@@ -50,30 +56,23 @@ import torch
 from repro_torch.kernels.decode_attention.ops import decode_attn
 from repro_torch.kernels.flash_attention.ops import flash_attn, flash_attn_pos
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnSpec, apply_rope, linear, mlp,
                                        qk_head_norm, rms_norm, rope_tables)
 
 POS_SENTINEL = 2 ** 30   # tag of cache slots not yet written
+DEC_POSITIONS = 4096     # rows of an enc-dec model's learned decoder positions
 
 
 # ---------------------------------------------------------------------------
 # structure
 # ---------------------------------------------------------------------------
 
-def _require_ported(cfg: ModelConfig) -> None:
-    unported = [name for name, on in (
-        ("RWKV", cfg.rwkv), ("hybrid SSM", cfg.hybrid_parallel_ssm),
-        ("encoder-decoder", cfg.encoder_layers),
-        ("frontend", cfg.frontend != "none")) if on]
-    if unported:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unported)} not ported yet "
-            "(ROADMAP.md, Queue 1, item 9)")
-
-
 def layer_kinds(cfg: ModelConfig) -> list[str]:
-    _require_ported(cfg)
+    if cfg.rwkv:
+        return ["rwkv"] * cfg.num_layers
     return ["moe" if cfg.is_moe_layer(i) else "dense"
             for i in range(cfg.num_layers)]
 
@@ -124,8 +123,13 @@ class _Init:
     def zeros(self, shape: tuple) -> torch.Tensor:
         return torch.zeros(shape, device=self.device, dtype=self.dtype)
 
+    def full(self, shape: tuple, value: float) -> torch.Tensor:
+        return torch.full(shape, value, device=self.device, dtype=self.dtype)
 
-def _attn_params(init: _Init, cfg: ModelConfig) -> dict:
+
+def _attn_params(init: _Init, cfg: ModelConfig, cross: bool = False) -> dict:
+    """Attention projections; a cross-attention's (``cross``) have no
+    biases, as the reference's."""
     d = cfg.d_model
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
@@ -136,7 +140,7 @@ def _attn_params(init: _Init, cfg: ModelConfig) -> dict:
         "w_v": init.normal((d, nkv * hd), s),
         "w_o": init.normal((nq * hd, d), (nq * hd) ** -0.5),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["b_q"] = init.zeros((nq * hd,))
         p["b_k"] = init.zeros((nkv * hd,))
         p["b_v"] = init.zeros((nkv * hd,))
@@ -162,6 +166,11 @@ def _mlp_params(init: _Init, cfg: ModelConfig, ff: int) -> dict:
 
 
 def decoder_layer_params(init: _Init, cfg: ModelConfig, kind: str) -> dict:
+    """One decoder layer of ``kind`` ("dense", "moe" or "rwkv"): norms,
+    attention and the FFN; a hybrid config's SSM branch (``ssm``); an
+    enc-dec config's cross-attention and its norm (``xattn``, ``ln_x``)."""
+    if kind == "rwkv":
+        return rwkv_mod.rwkv_layer_params(init, cfg)
     d = cfg.d_model
     p = {"ln1": init.zeros((d,)), "ln2": init.zeros((d,)),
          "attn": _attn_params(init, cfg)}
@@ -171,7 +180,19 @@ def decoder_layer_params(init: _Init, cfg: ModelConfig, kind: str) -> dict:
             p["shared_mlp"] = _mlp_params(init, cfg, cfg.moe_shared_d_ff)
     else:
         p["mlp"] = _mlp_params(init, cfg, cfg.d_ff)
+    if cfg.hybrid_parallel_ssm:
+        p["ssm"] = ssm_mod.ssm_params(init, cfg)
+    if cfg.encoder_layers:
+        p["ln_x"] = init.zeros((d,))
+        p["xattn"] = _attn_params(init, cfg, cross=True)
     return p
+
+
+def encoder_layer_params(init: _Init, cfg: ModelConfig) -> dict:
+    d = cfg.d_model
+    return {"ln1": init.zeros((d,)), "ln2": init.zeros((d,)),
+            "attn": _attn_params(init, cfg),
+            "mlp": _mlp_params(init, cfg, cfg.d_ff)}
 
 
 class _MetaInit(_Init):
@@ -206,14 +227,16 @@ def resolve_device(device) -> torch.device:
 def init_params(generator: torch.Generator, cfg: ModelConfig,
                 device="cuda", *, collect_layers=list) -> dict:
     """Random parameters with the reference's scales (``d**-0.5`` for
-    projections and embeddings, zeros for norm scales and biases), each
-    tensor drawn on ``device`` in ``cfg.param_dtype``: nothing is staged
-    on the host.  ``generator`` must live on ``device``.
-    ``collect_layers`` takes the layers as an iterator that draws each
-    when asked, and its result becomes ``params["layers"]``
-    (``serve/stream.init_streamed_params`` moves each to the host before
-    the next is drawn)."""
-    _require_ported(cfg)
+    projections and embeddings, zeros for norm scales and biases, the
+    reference's constants for RWKV's decay and the SSM's), each tensor
+    drawn on ``device`` in ``cfg.param_dtype``: nothing is staged on the
+    host.  ``generator`` must live on ``device``.  ``collect_layers`` takes
+    the layers as an iterator that draws each when asked, and its result
+    becomes ``params["layers"]`` (``serve/stream.init_streamed_params``
+    moves each to the host before the next is drawn).  An enc-dec config
+    also gets ``encoder`` (a list of layers), ``enc_norm``, ``enc_pos``
+    and ``dec_pos``, the learned decoder position table of
+    ``DEC_POSITIONS`` rows."""
     device = resolve_device(device)
     init = _Init(generator, device, getattr(torch, cfg.param_dtype))
     d, v = cfg.d_model, cfg.vocab_size
@@ -223,6 +246,12 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
         params["lm_head"] = init.normal((d, v), d ** -0.5)
     params["layers"] = collect_layers(decoder_layer_params(init, cfg, kind)
                                       for kind in layer_kinds(cfg))
+    if cfg.encoder_layers:
+        params["encoder"] = [encoder_layer_params(init, cfg)
+                             for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = init.zeros((d,))
+        params["enc_pos"] = init.normal((max(cfg.encoder_seq, 1), d), 0.02)
+        params["dec_pos"] = init.normal((DEC_POSITIONS, d), 0.02)
     return params
 
 
@@ -240,44 +269,81 @@ class CacheSpec:
 
 
 def init_cache(cfg: ModelConfig, spec: CacheSpec, device="cuda") -> dict:
-    """Ring KV cache ``(L, B, Hkv, C, hd)`` with ``slot_pos`` tags
-    (``POS_SENTINEL`` = unwritten).  Lock-step: ``slot_pos (C,)`` and
-    ``pos`` a Python int; per-slot: ``slot_pos (B, C)`` and ``pos`` an
-    int32 tensor (B,), both on the device."""
-    _require_ported(cfg)
+    """The reference's serving cache, leaf for leaf.  Attention configs: a
+    ring KV cache ``k``/``v`` ``(L, B, Hkv, C, hd)`` with ``slot_pos`` tags
+    (``POS_SENTINEL`` = unwritten).  RWKV: no ring, ``rwkv_state``
+    ``(L, B, H, d/H, d/H)`` fp32.  Hybrid SSM: ``ssm_state``
+    ``(L, B, d, N)`` fp32 beside the ring.  Enc-dec: ``cross_k``/``cross_v``
+    ``(L, B, Hkv, E, hd)`` bf16 zeros, which ``prefill`` replaces with K/V
+    in the activation type, as the reference's does.  Lock-step:
+    ``slot_pos (C,)`` and ``pos`` a Python int; per-slot: ``slot_pos
+    (B, C)`` and ``pos`` an int32 tensor (B,), both on the device; an
+    enc-dec config takes no per-slot cache (``ValueError``, the
+    reference's)."""
     if spec.kv_dtype == torch.int8:
         raise NotImplementedError(
             "int8 KV cache not ported yet (ROADMAP.md, Queue 1, item 9)")
+    if spec.per_slot and cfg.encoder_layers:
+        raise ValueError("per-slot caches do not support enc-dec models")
     device = resolve_device(device)
-    kv_shape = (cfg.num_layers, spec.batch, cfg.num_kv_heads, spec.capacity,
-                cfg.resolved_head_dim)
-    tags = ((spec.batch, spec.capacity) if spec.per_slot
-            else (spec.capacity,))
-    return {
-        "pos": (torch.zeros((spec.batch,), dtype=torch.int32, device=device)
-                if spec.per_slot else 0),
-        "k": torch.zeros(kv_shape, dtype=spec.kv_dtype, device=device),
-        "v": torch.zeros(kv_shape, dtype=spec.kv_dtype, device=device),
-        "slot_pos": torch.full(tags, POS_SENTINEL, dtype=torch.int32,
-                               device=device),
-    }
+    L, B, C = cfg.num_layers, spec.batch, spec.capacity
+    hd, nkv = cfg.resolved_head_dim, cfg.num_kv_heads
+    f32 = torch.float32
+    cache: dict = {"pos": (torch.zeros((B,), dtype=torch.int32,
+                                       device=device)
+                           if spec.per_slot else 0)}
+    if not cfg.rwkv:
+        kv_shape = (L, B, nkv, C, hd)
+        cache["k"] = torch.zeros(kv_shape, dtype=spec.kv_dtype, device=device)
+        cache["v"] = torch.zeros(kv_shape, dtype=spec.kv_dtype, device=device)
+        cache["slot_pos"] = torch.full((B, C) if spec.per_slot else (C,),
+                                       POS_SENTINEL, dtype=torch.int32,
+                                       device=device)
+    else:
+        h = cfg.num_heads
+        cache["rwkv_state"] = torch.zeros(
+            (L, B, h, cfg.d_model // h, cfg.d_model // h), dtype=f32,
+            device=device)
+    if cfg.hybrid_parallel_ssm:
+        cache["ssm_state"] = torch.zeros((L, B, cfg.d_model, cfg.ssm_state),
+                                         dtype=f32, device=device)
+    if cfg.encoder_layers:
+        cross = (L, B, nkv, cfg.encoder_seq, hd)
+        cache["cross_k"] = torch.zeros(cross, dtype=torch.bfloat16,
+                                       device=device)
+        cache["cross_v"] = torch.zeros(cross, dtype=torch.bfloat16,
+                                       device=device)
+    return cache
+
+
+_LAYER_CACHE_KEYS = ("k", "v", "rwkv_state", "ssm_state", "cross_k",
+                     "cross_v")
+
+
+def layer_slices(cache: Optional[dict], li: int) -> Optional[dict]:
+    """Layer ``li``'s slices of the cache leaves it has (views, written in
+    place by the layer), or None without a cache."""
+    if cache is None:
+        return None
+    return {key: cache[key][li] for key in _LAYER_CACHE_KEYS if key in cache}
 
 
 # ---------------------------------------------------------------------------
 # layer application
 # ---------------------------------------------------------------------------
 
+def _heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n hd) -> (B, n, S, hd), a view."""
+    b, s, _ = t.shape
+    return t.reshape(b, s, n, hd).transpose(1, 2)
+
+
 def _project_qkv(x, p, cfg: ModelConfig):
-    b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-
-    def heads(t, n):
-        return t.reshape(b, s, n, hd).transpose(1, 2)
-
-    q = heads(linear(x, p["w_q"], p.get("b_q")), nq)
-    k = heads(linear(x, p["w_k"], p.get("b_k")), nkv)
-    v = heads(linear(x, p["w_v"], p.get("b_v")), nkv)
+    q = _heads(linear(x, p["w_q"], p.get("b_q")), nq, hd)
+    k = _heads(linear(x, p["w_k"], p.get("b_k")), nkv, hd)
+    v = _heads(linear(x, p["w_v"], p.get("b_v")), nkv, hd)
     if cfg.qk_norm:
         q = qk_head_norm(q, p["q_norm"], cfg.norm_eps)
         k = qk_head_norm(k, p["k_norm"], cfg.norm_eps)
@@ -357,6 +423,43 @@ def _self_attention_slots(x, p, cfg: ModelConfig, spec: AttnSpec,
     return linear(out, p["w_o"])
 
 
+def _cross_attention(x, p, cfg: ModelConfig, ck, cv):
+    """Cross-attention of the decoder tokens x (B, S, d) to the encoder's
+    K/V (B, Hkv, E, hd), bidirectional, through ``flash_attn`` with
+    Sq = S (a prefill's prompt, or 1 at decode) against Sk = E and no
+    positions."""
+    b, s, _ = x.shape
+    q = _heads(linear(x, p["w_q"]), cfg.num_heads, cfg.resolved_head_dim)
+    out = flash_attn(q, ck, cv, causal=False)
+    return linear(out.transpose(1, 2).reshape(b, s, -1), p["w_o"])
+
+
+def _cross_kv(enc_out, p, cfg: ModelConfig, layer_cache: dict):
+    """A layer's cross-attention K/V of ``enc_out`` (B, E, d), written into
+    its cache slices (in place); returns those slices."""
+    nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    ck, cv = layer_cache["cross_k"], layer_cache["cross_v"]
+    ck.copy_(_heads(linear(enc_out, p["w_k"]), nkv, hd))
+    cv.copy_(_heads(linear(enc_out, p["w_v"]), nkv, hd))
+    return ck, cv
+
+
+def _encode(params, cfg: ModelConfig, enc_embeds: torch.Tensor):
+    """Whisper's encoder over precomputed (stub) frame embeddings
+    (B, E, d): learned positions, then bidirectional self-attention
+    (``flash_attn``, no rope) and the MLP a layer, and the final norm."""
+    x = enc_embeds + params["enc_pos"][None, :enc_embeds.shape[1], :]
+    for p in params["encoder"]:
+        b, s, _ = x.shape
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _project_qkv(h, p["attn"], cfg)
+        out = flash_attn(q, k.contiguous(), v.contiguous(), causal=False)
+        x = x + linear(out.transpose(1, 2).reshape(b, s, -1),
+                       p["attn"]["w_o"])
+        x = x + mlp(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg)
+    return rms_norm(x, params["enc_norm"], cfg.norm_eps)
+
+
 def _fill_ring(buf: torch.Tensor, val: torch.Tensor, total_seq: int) -> None:
     """Write a prefill's last-C tokens into the ring ``buf`` (in place)
     with the true ring layout: position ``p`` lands at slot ``p % C``, so
@@ -390,9 +493,16 @@ def _ffn(x, p, cfg: ModelConfig, mode: str):
 
 def _decoder_layer(x, p, cfg: ModelConfig, spec: AttnSpec, ctx: dict,
                    layer_cache: Optional[dict]):
-    """Apply one decoder layer (dense or MoE, by its parameters); the
+    """Apply one decoder layer (RWKV by the config; dense or MoE by its
+    parameters; with the config's SSM branch and cross-attention); the
     layer's cache slices (views of the cache tensors) are written in
     place."""
+    if cfg.rwkv:
+        state = layer_cache["rwkv_state"] if layer_cache else None
+        x, new_state = rwkv_mod.rwkv_block(x, p, cfg, state)
+        if layer_cache is not None:
+            layer_cache["rwkv_state"].copy_(new_state)
+        return x
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if ctx["mode"] == "decode":
         attn_out = _self_attention_decode(
@@ -408,7 +518,20 @@ def _decoder_layer(x, p, cfg: ModelConfig, spec: AttnSpec, ctx: dict,
             s = k.shape[2]
             _fill_ring(layer_cache["k"], k[:, :, -c:, :], s)
             _fill_ring(layer_cache["v"], v[:, :, -c:, :], s)
+    if cfg.hybrid_parallel_ssm:
+        state = layer_cache["ssm_state"] if layer_cache else None
+        ssm_out, new_state = ssm_mod.ssm_branch(h, p["ssm"], cfg, state)
+        attn_out = attn_out + ssm_out
+        if layer_cache is not None:
+            layer_cache["ssm_state"].copy_(new_state)
     x = x + attn_out
+    if cfg.encoder_layers:
+        if ctx.get("enc_out") is not None:     # prefill: fill the cache
+            ck, cv = _cross_kv(ctx["enc_out"], p["xattn"], cfg, layer_cache)
+        else:
+            ck, cv = layer_cache["cross_k"], layer_cache["cross_v"]
+        hx = rms_norm(x, p["ln_x"], cfg.norm_eps)
+        x = x + _cross_attention(hx, p["xattn"], cfg, ck, cv)
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + _ffn(h2, p, cfg, ctx["mode"])
 
@@ -418,9 +541,7 @@ def _run_decoder(params, cfg: ModelConfig, x, ctx, cache):
     stacked blocks); each layer gets views of its cache slices."""
     spec = attn_spec(cfg)
     for li, p in enumerate(params["layers"]):
-        lc = None if cache is None else {"k": cache["k"][li],
-                                         "v": cache["v"][li]}
-        x = _decoder_layer(x, p, cfg, spec, ctx, lc)
+        x = _decoder_layer(x, p, cfg, spec, ctx, layer_slices(cache, li))
     return x
 
 
@@ -428,11 +549,15 @@ def _run_decoder(params, cfg: ModelConfig, x, ctx, cache):
 # full forward passes
 # ---------------------------------------------------------------------------
 
-def _embed(params, cfg: ModelConfig, tokens):
+def _embed(params, cfg: ModelConfig, tokens, embeds=None):
+    """Token embeddings (scaled where the config says), with a VLM's patch
+    embeddings ``embeds`` (B, P, d) ahead of them."""
     x = params["embed"][tokens]
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
                              device=x.device)
+    if embeds is not None and cfg.frontend == "vision_stub":
+        x = torch.cat([embeds.to(device=x.device, dtype=x.dtype), x], dim=1)
     return x
 
 
@@ -444,25 +569,45 @@ def _logits(params, cfg: ModelConfig, x):
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
-            cache: dict, *, decoder=None) -> tuple[torch.Tensor, dict]:
+            cache: dict, *, embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None,
+            decoder=None) -> tuple[torch.Tensor, dict]:
     """Process the prompt (B, S), fill ``cache`` in place, return the
-    last token's logits (B, 1, V) and the same cache.  ``decoder`` runs
+    last token's logits (B, 1, V) and the same cache.  A VLM's ``embeds``
+    (B, P, d) go ahead of the prompt (P + S positions); an enc-dec
+    config's ``enc_embeds`` (B, E, d) run through the encoder, whose
+    output every layer projects to its cross-attention K/V in the cache
+    (``cross_k``/``cross_v`` take the activation type, as the
+    reference's), and the decoder positions are added.  ``decoder`` runs
     the layers (default ``_run_decoder``)."""
-    _require_ported(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, embeds)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
     sin, cos = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     ctx = {"mode": "prefill", "sin": sin, "cos": cos}
+    if cfg.encoder_layers:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: "
+                             "prefill needs enc_embeds")
+        enc_out = _encode(params, cfg, enc_embeds.to(x.device))
+        for key in ("cross_k", "cross_v"):
+            buf = cache[key]
+            shape = (*buf.shape[:3], enc_out.shape[1], buf.shape[4])
+            if buf.dtype != enc_out.dtype or tuple(buf.shape) != shape:
+                cache[key] = torch.empty(shape, dtype=enc_out.dtype,
+                                         device=buf.device)
+        ctx["enc_out"] = enc_out
+        x = x + params["dec_pos"][None, :s, :]
     x = (decoder or _run_decoder)(params, cfg, x, ctx, cache)
-    cap = cache["slot_pos"].shape[0]
-    idx = torch.arange(cap, device=x.device)
-    if s <= cap:
-        slot_pos = torch.where(idx < s, idx, POS_SENTINEL)
-    else:       # ring layout: slot j holds position p=start+((j-start)%C)
-        start = s - cap
-        slot_pos = start + (idx - start) % cap
-    cache["slot_pos"].copy_(slot_pos)
+    if "slot_pos" in cache:
+        cap = cache["slot_pos"].shape[0]
+        idx = torch.arange(cap, device=x.device)
+        if s <= cap:
+            slot_pos = torch.where(idx < s, idx, POS_SENTINEL)
+        else:   # ring layout: slot j holds position p=start+((j-start)%C)
+            start = s - cap
+            slot_pos = start + (idx - start) % cap
+        cache["slot_pos"].copy_(slot_pos)
     cache["pos"] = s
     return _logits(params, cfg, x[:, -1:, :]), cache
 
@@ -471,15 +616,17 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict, *, decoder=None) -> tuple[torch.Tensor, dict]:
     """One serving step: token (B,) -> (logits (B,1,V), the same cache,
     advanced in place by one position).  ``decoder`` runs the layers."""
-    _require_ported(cfg)
     x = _embed(params, cfg, token[:, None])
     pos = cache["pos"]
-    # tag the new token's slot *before* attention
-    cache["slot_pos"][pos % cache["slot_pos"].shape[0]] = pos
+    if cfg.encoder_layers:
+        npos = params["dec_pos"].shape[0]
+        x = x + params["dec_pos"][min(pos, npos - 1)][None, None, :]
+    if "slot_pos" in cache:   # tag the new token's slot *before* attention
+        cache["slot_pos"][pos % cache["slot_pos"].shape[0]] = pos
     pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     sin, cos = rope_tables(pos_t, cfg.resolved_head_dim, cfg.rope_theta)
     ctx = {"mode": "decode", "pos": pos, "sin": sin, "cos": cos,
-           "slot_pos": cache["slot_pos"]}
+           "slot_pos": cache.get("slot_pos")}
     x = (decoder or _run_decoder)(params, cfg, x, ctx, cache)
     cache["pos"] = pos + 1
     return _logits(params, cfg, x), cache
@@ -499,13 +646,14 @@ def _tag_slots(slot_pos: torch.Tensor, positions: torch.Tensor) -> None:
 
 def _slots_ctx(cfg: ModelConfig, cache: dict,
                positions: torch.Tensor) -> dict:
-    """Tag the ring (in place) and build what every layer shares: rope
-    tables, the tags and the query positions (the attention ops mask by
-    the tags themselves)."""
-    _tag_slots(cache["slot_pos"], positions)
+    """Tag the ring, where the cache has one (in place), and build what
+    every layer shares: rope tables, the tags and the query positions (the
+    attention ops mask by the tags themselves)."""
+    if "slot_pos" in cache:
+        _tag_slots(cache["slot_pos"], positions)
     sin, cos = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
     return {"mode": "slots", "positions": positions, "sin": sin, "cos": cos,
-            "slot_pos": cache["slot_pos"], "q_pos": positions[:, 0]}
+            "slot_pos": cache.get("slot_pos"), "q_pos": positions[:, 0]}
 
 
 def decode_slots(params, cfg: ModelConfig, token: torch.Tensor,
@@ -513,8 +661,10 @@ def decode_slots(params, cfg: ModelConfig, token: torch.Tensor,
     """One continuous-batching step: token (B,) against a per-slot cache
     (``CacheSpec(per_slot=True)``: pos (B,), slot_pos (B,C)).  Every slot
     advances by one token at its *own* position -> (logits (B,1,V), the
-    same cache, advanced in place).  ``decoder`` runs the layers."""
-    _require_ported(cfg)
+    same cache, advanced in place).  ``decoder`` runs the layers.  Enc-dec
+    models raise ``ValueError``, as in the reference."""
+    if cfg.encoder_layers:
+        raise ValueError("decode_slots does not support enc-dec models")
     x = _embed(params, cfg, token[:, None])
     positions = cache["pos"][:, None] + 0               # (B,1), a copy
     ctx = _slots_ctx(cfg, cache, positions)
@@ -531,10 +681,12 @@ def chunk_prefill(params, cfg: ModelConfig, tokens: torch.Tensor,
     against the ring cache (earlier chunks' K/V plus this chunk's, tagged
     by absolute position), so while the prompt fits the ring any chunking
     gives the same result as a single pass.  Returns (last-token logits
-    (B,1,V), the same cache).  ``decoder`` runs the layers."""
-    _require_ported(cfg)
+    (B,1,V), the same cache).  ``decoder`` runs the layers.  Enc-dec
+    models raise ``ValueError``, as in the reference."""
+    if cfg.encoder_layers:
+        raise ValueError("chunk_prefill does not support enc-dec models")
     b, t = tokens.shape
-    if t > cache["slot_pos"].shape[1]:
+    if "slot_pos" in cache and t > cache["slot_pos"].shape[1]:
         raise ValueError(f"chunk of {t} tokens exceeds cache capacity "
                          f"{cache['slot_pos'].shape[1]}")
     x = _embed(params, cfg, tokens)
@@ -562,7 +714,7 @@ def cache_insert_slot(cache: dict, slot: int, req_cache: dict) -> dict:
 
 def cache_extract_slot(cache: dict, slot: int) -> dict:
     """Inverse of ``cache_insert_slot``: one request's batch-1 cache (KV
-    ring plus ``pos``/``slot_pos``), as a **copy**: the slot cache is
+    ring, recurrent states, ``pos``/``slot_pos``), as a **copy**: the slot cache is
     mutated in place afterwards."""
     return {key: buf.narrow(_slot_batch_axis(key), slot, 1).clone()
             for key, buf in cache.items()}
@@ -570,7 +722,9 @@ def cache_extract_slot(cache: dict, slot: int) -> dict:
 
 def cache_evict_slot(cache: dict, slot: int) -> dict:
     """Free a slot in place: reset its position and mask every ring tag so
-    the stale K/V is unreachable.  The K/V buffers are left as they are."""
+    the stale K/V is unreachable.  The K/V buffers and recurrent states are
+    left as they are (``cache_insert_slot`` overwrites every leaf)."""
     cache["pos"][slot] = 0
-    cache["slot_pos"][slot] = POS_SENTINEL
+    if "slot_pos" in cache:
+        cache["slot_pos"][slot] = POS_SENTINEL
     return cache

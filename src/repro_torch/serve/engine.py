@@ -13,7 +13,10 @@ Counterpart of ``src/repro/serve/engine.py``.  Two execution modes:
   pass streams: prefill, decode, prefill chunks and slot steps.
   ``elk_serve_config`` chooses ``prefetch_depth`` and ``prefill_chunk``
   with the ELK planner (``core/integration.pod_plan``), for the port on
-  ``chip/h100.h100_host()``.
+  ``chip/h100.h100_host()``.  An encoder-decoder config is not streamed,
+  as in the reference (its decoder is small and its cross-attention K/V
+  live in the cache: nothing worth streaming): the engine keeps its
+  weights resident and says so.
 
 Two batching disciplines:
 
@@ -25,8 +28,8 @@ Two batching disciplines:
   granularity.  ``serve/batcher.py`` drives this as a continuous-batching
   scheduler.
 
-The spill half of the slot API moves one request's slot state (KV ring
-and ``pos``/``slot_pos``) between the card and host memory, the backing
+The spill half of the slot API moves one request's slot state (KV ring,
+recurrent states, ``pos``/``slot_pos``) between the card and host memory, the backing
 tier of the oversubscribed batcher: ``offload_slot`` hands back a host
 copy, ``refill_slot`` copies one back into a slot, ``slot_state_bytes``
 is what either moves; ``load_request_cache`` restores a prefix snapshot
@@ -49,6 +52,7 @@ import torch
 
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.frontends import frontend_embeddings
 from repro_torch.serve import stream
 
 
@@ -238,13 +242,24 @@ class ServeEngine:
         holding the decoder on the device, or another engine's, and both
         then stream from one host copy (through at most that stream's
         ``depth`` buffers).  The engine sizes the stream's expert buffer for
-        its largest pass (``largest_pass_experts``)."""
+        its largest pass (``largest_pass_experts``).  An enc-dec config
+        under ``elk_stream`` keeps its weights resident (``streamed`` is
+        False), as the reference's does, and prints that it does."""
         if scfg.mode not in ("gspmd", "resident", "elk_stream"):
             raise ValueError(f"unknown serve mode {scfg.mode!r}")
         self.cfg = cfg
         self.scfg = scfg
         self.device = tfm.resolve_device(device)
-        if scfg.mode == "elk_stream":
+        self.streamed = stream.streams(cfg, scfg.mode)
+        if scfg.mode == "elk_stream" and not self.streamed:
+            if isinstance(params["layers"], stream.LayerStream):
+                raise ValueError(f"{cfg.name} is an encoder-decoder model, "
+                                 "which is not streamed: pass its layers "
+                                 "as tensors")
+            print(f"elk_stream: {cfg.name} is an encoder-decoder model; its "
+                  "weights stay resident (nothing worth streaming, as in "
+                  "the reference)")
+        if self.streamed:
             self.params = {k: _to_device(v, self.device)
                            for k, v in params.items() if k != "layers"}
             layers = params["layers"]
@@ -265,20 +280,26 @@ class ServeEngine:
         ``elk_stream`` with its layers streamed through a window of the
         current ``prefetch_depth``."""
         decoder = None
-        if self.scfg.mode == "elk_stream":
+        if self.streamed:
             decoder = functools.partial(stream.streaming_decoder,
                                         prefetch=self.scfg.prefetch_depth)
         return fn(self.params, self.cfg, tokens, cache, decoder=decoder)
 
     # -- public API --------------------------------------------------------
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, cache: Optional[dict] = None
-                ) -> tuple[torch.Tensor, dict]:
+    def prefill(self, tokens: torch.Tensor, cache: Optional[dict] = None,
+                **frontends) -> tuple[torch.Tensor, dict]:
         """Prefill the prompt (B, S).  With ``cache=None`` a fresh cache
-        is made; a cache passed in is overwritten in place."""
+        is made; a cache passed in is written in place (its recurrent
+        states, where it has them, are where the prompt starts from, as in
+        the reference).  ``frontends``: a VLM's ``embeds`` (B, P, d), an
+        enc-dec model's ``enc_embeds`` (B, E, d)."""
         if cache is None:
             cache = tfm.init_cache(self.cfg, self._spec, self.device)
-        return self._pass(tfm.prefill, tokens.to(self.device), cache)
+        fe = {k: v.to(self.device) for k, v in frontends.items()
+              if v is not None}
+        return self._pass(functools.partial(tfm.prefill, **fe),
+                          tokens.to(self.device), cache)
 
     @torch.inference_mode()
     def decode(self, token: torch.Tensor, cache: dict
@@ -290,11 +311,15 @@ class ServeEngine:
     def generate(self, prompts: torch.Tensor, steps: int) -> torch.Tensor:
         """prompts: (B, S0) -> (B, S0 + steps) greedy continuation.
         ``torch.argmax`` returns the first maximal index, the tie-break of
-        the reference's ``jnp.argmax``."""
+        the reference's ``jnp.argmax``.  A frontend's stub embeddings come
+        from ``frontends.frontend_embeddings`` (seed 0), as the
+        reference's ``generate`` draws them."""
         if steps <= 0:
             return prompts
         prompts = prompts.to(self.device)
-        logits, cache = self.prefill(prompts)
+        fe = frontend_embeddings(self.cfg, prompts.shape[0],
+                                 device=self.device)
+        logits, cache = self.prefill(prompts, **fe)
         tok = torch.argmax(logits[:, -1, :], dim=-1)
         out = [prompts, tok[:, None].to(prompts.dtype)]
         for _ in range(steps - 1):

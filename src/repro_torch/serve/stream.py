@@ -22,7 +22,11 @@ the card so:
 
 Every pass streams: prefill, decode, prefill chunks and slot steps go through
 the same window (the reference runs prefill and chunks on FSDP-sharded
-weights that XLA gathers; here the weights' home is host memory).
+weights that XLA gathers; here the weights' home is host memory).  Every
+layer kind streams: dense, MoE, RWKV (its record holds the time and channel
+mix; its state stays in the cache) and the hybrid layer (its record holds
+the ``ssm`` branch beside attention and MLP).  Encoder-decoder models are not
+streamed, as in the reference (``ServeEngine`` keeps them resident).
 ``streaming_decoder`` is a drop-in for ``transformer._run_decoder``, as the
 reference's docstring says.  On the CPU the same window logic runs with plain
 tensors and no streams.
@@ -396,13 +400,19 @@ def streaming_decoder(params, cfg: ModelConfig, x, ctx, cache,
     for li in range(ls.n):
         slot = li % p
         w = ls.acquire(li, slot)
-        lc = None if cache is None else {"k": cache["k"][li],
-                                         "v": cache["v"][li]}
-        x = tfm._decoder_layer(x, w, cfg, spec, ctx, lc)
+        x = tfm._decoder_layer(x, w, cfg, spec, ctx,
+                               tfm.layer_slices(cache, li))
         ls.release(slot)
         if li + p < ls.n:
             ls.issue(li + p, slot)
     return x
+
+
+def streams(cfg: ModelConfig, mode: str) -> bool:
+    """Whether serve mode ``mode`` streams ``cfg``'s layers: ``elk_stream``
+    streams every decoder-only model, and an encoder-decoder model stays
+    resident, as in the reference ("nothing worth streaming")."""
+    return mode == "elk_stream" and not cfg.encoder_layers
 
 
 def init_streamed_params(generator: torch.Generator, cfg: ModelConfig,
@@ -411,7 +421,11 @@ def init_streamed_params(generator: torch.Generator, cfg: ModelConfig,
     ``LayerStream`` of window ``depth``: the same draws, so the same
     weights, but each layer goes to the host before the next is drawn, so
     the device never holds more of the decoder than a layer and the
-    window.  The embedding, final norm and LM head stay on ``device``."""
+    window.  The embedding, final norm and LM head stay on ``device``.
+    Raises ``ValueError`` for a config that ``streams`` keeps resident."""
+    if not streams(cfg, "elk_stream"):
+        raise ValueError(f"{cfg.name} is an encoder-decoder model, which is "
+                         "not streamed: draw it with transformer.init_params")
     return tfm.init_params(generator, cfg, device, collect_layers=(
         functools.partial(LayerStream, device=device, depth=depth,
                           like=tfm.layer_shapes(cfg))))

@@ -28,16 +28,21 @@ from repro.serve.batcher import make_trace as jax_make_trace
 from repro.serve.batcher import summarize as jax_summarize
 from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro.serve.engine import ServeEngine as JaxServeEngine
+from repro.serve.prefix import PrefixStore as JaxPrefixStore
 from repro_torch.configs import get_smoke_config
 from repro_torch.convert import cache_from_jax, cache_to_numpy, params_from_jax
 from repro_torch.models import transformer as tfm
 from repro_torch.serve.batcher import (ContinuousBatcher, Request, make_trace,
                                        run_static_trace, summarize)
 from repro_torch.serve.engine import ServeConfig, ServeEngine
+from repro_torch.serve.prefix import PrefixStore
 
 ARCHS = ["qwen3_14b", "llama2_13b", "gemma_7b", "opt_30b", "h2o_danube_1_8b",
          "gemma2_27b", "llama2_70b", "dit_xl", "llama4_maverick_400b_a17b",
          "kimi_k2_1t_a32b"]
+# the families with a state in the slot cache (RWKV: no ring; hybrid: SSM
+# state beside the ring) and the VLM (text only on the slot path)
+STATE_ARCHS = ["rwkv6_7b", "hymba_1_5b", "internvl2_1b"]
 TOL = {"float32": 2e-4, "bfloat16": 6e-2}
 
 
@@ -233,7 +238,9 @@ class TestContinuousBatching:
             np.testing.assert_array_equal(got, _solo(eng, r.prompt,
                                                      r.max_new_tokens))
 
-    @pytest.mark.parametrize("arch", ARCHS)
+    # internvl's generate puts stub patches ahead of the prompt and the slot
+    # path takes text only, so it is held to the reference's batcher below
+    @pytest.mark.parametrize("arch", ARCHS + STATE_ARCHS[:2])
     def test_slot_path_parity_across_families(self, arch):
         eng = _engine(arch, prefill_chunk=8)
         prompt = _prompt(eng.cfg, 11, 5)
@@ -292,6 +299,41 @@ class TestContinuousBatching:
                                          [1], 0.0)
         assert ContinuousBatcher(eng, oversub=2.0).virtual_slots == 4
         assert eng.slot_state_bytes() > 0
+
+    def test_enc_dec_refused_on_the_slot_path(self):
+        """whisper has no per-slot cache: the batcher's first admission
+        raises the reference's ``ValueError``, as the reference's engine
+        does when it builds its slot cache."""
+        eng = _engine("whisper_tiny")
+        with pytest.raises(ValueError, match="per-slot caches do not "
+                           "support enc-dec models"):
+            ContinuousBatcher(eng).run([Request(0, np.arange(4), 2)])
+        with pytest.raises(ValueError, match="per-slot caches"):
+            eng.new_request_cache()
+
+    def test_rwkv_slot_state_is_the_state_after_k_tokens(self):
+        """An RWKV request cache has no ring: offload and refill carry
+        ``rwkv_state`` and ``pos``, and a chunk boundary's snapshot holds
+        the state after exactly k tokens (a lock-step prefill of those k
+        tokens gives the same state)."""
+        eng = _engine("rwkv6_7b", prefill_chunk=4)
+        prompt = _prompt(eng.cfg, 8, 2)
+        cache = eng.new_request_cache()
+        assert set(cache) == {"pos", "rwkv_state"}
+        _, cache = eng.prefill_chunk(cache, torch.from_numpy(
+            prompt[None, :4]).long())
+        _, full = eng.prefill(torch.from_numpy(
+            np.tile(prompt[None, :4], (eng.scfg.batch, 1))).long())
+        assert torch.equal(cache["rwkv_state"][:, 0], full["rwkv_state"][:, 0])
+        eng.insert_slot(1, cache)
+        state = eng.offload_slot(1)
+        assert set(state) == {"pos", "rwkv_state"}
+        assert eng.slot_state_bytes() == sum(
+            t.numel() * t.element_size() for t in state.values())
+        eng.refill_slot(0, state)
+        assert torch.equal(eng.slot_cache["rwkv_state"][:, 0],
+                           cache["rwkv_state"][:, 0])
+        assert int(eng.slot_cache["pos"][0]) == 4
 
 
 class TestAgainstReference:
@@ -357,6 +399,52 @@ class TestAgainstReference:
         assert sorted(got) == sorted(ref) == list(range(6))
         for rid in ref:
             np.testing.assert_array_equal(got[rid], ref[rid], err_msg=rid)
+
+    @pytest.mark.parametrize("arch", STATE_ARCHS)
+    def test_state_families_batcher_equals_reference(self, arch, mesh11):
+        """rwkv, hymba and internvl (text only) through both batchers on
+        the same weights and trace: equal greedy tokens per request."""
+        jcfg, jparams, tcfg, tparams = _both(arch, "float32")
+        kw = dict(batch=2, cache_capacity=32, prefill_chunk=8,
+                  kv_dtype="float32")
+        jeng = JaxServeEngine(jcfg, mesh11, jparams, JaxServeConfig(**kw))
+        teng = ServeEngine(tcfg, tparams, ServeConfig(**kw), device="cpu")
+        ref = {c.rid: c.tokens for c in JaxBatcher(jeng).run(
+            jax_make_trace(5, vocab_size=jcfg.vocab_size, seed=3))}
+        got = {c.rid: c.tokens for c in ContinuousBatcher(teng).run(
+            make_trace(5, vocab_size=tcfg.vocab_size, seed=3))}
+        assert sorted(got) == sorted(ref) == list(range(5))
+        for rid in ref:
+            np.testing.assert_array_equal(got[rid], ref[rid], err_msg=rid)
+
+    def test_rwkv_prefix_hits_and_swaps_equal_reference(self, mesh11):
+        """rwkv oversubscribed (K = 2) with a prefix store and a shared
+        system prompt: the snapshots are recurrent states at chunk
+        boundaries; tokens, finish order, spill events and prefix counters
+        equal the reference's, with at least one hit and one spill."""
+        jcfg, jparams, tcfg, tparams = _both("rwkv6_7b", "float32")
+        kw = dict(batch=2, cache_capacity=32, prefill_chunk=4,
+                  kv_dtype="float32")
+        tkw = dict(prompt_lens=(5, 9, 6, 12), max_new=(3, 6, 4, 8),
+                   sys_prompt_len=8, sys_prompt_frac=0.5, seed=0)
+        ref = JaxBatcher(JaxServeEngine(jcfg, mesh11, jparams,
+                                        JaxServeConfig(**kw)),
+                         oversub=2.0, prefix_store=JaxPrefixStore(4 << 20),
+                         swap_after=2)
+        got = ContinuousBatcher(ServeEngine(tcfg, tparams,
+                                            ServeConfig(**kw), device="cpu"),
+                                oversub=2.0, prefix_store=PrefixStore(4 << 20),
+                                swap_after=2)
+        rcomps = ref.run(jax_make_trace(8, vocab_size=jcfg.vocab_size, **tkw))
+        tcomps = got.run(make_trace(8, vocab_size=tcfg.vocab_size, **tkw))
+        assert [c.rid for c in tcomps] == [c.rid for c in rcomps]
+        for a, b in zip(tcomps, rcomps):
+            np.testing.assert_array_equal(a.tokens, b.tokens, err_msg=a.rid)
+        assert got.spill_events == ref.spill_events
+        assert got.spill_events
+        assert (got.prefix_hits, got.prefix_tokens_saved) == (
+            ref.prefix_hits, ref.prefix_tokens_saved)
+        assert got.prefix_hits > 0
 
     def test_make_trace_byte_identical(self):
         kws = [dict(), dict(arrival_spacing_s=0.01, burst=2, seed=5),

@@ -278,12 +278,19 @@ def test_full_config_param_counts(arch):
         def zeros(self, shape):
             return torch.empty(shape, device="meta")
 
+        def full(self, shape, value):
+            return torch.empty(shape, device="meta")
+
     init = MetaInit()
     layers = [tfm.decoder_layer_params(init, tcfg, kind)
               for kind in tfm.layer_kinds(tcfg)]
+    layers += [tfm.encoder_layer_params(init, tcfg)
+               for _ in range(tcfg.encoder_layers)]
     total = sum(t.numel() for t in jax.tree.leaves(layers))
     total += tcfg.d_model * tcfg.vocab_size * (1 if tcfg.tie_embeddings
                                                else 2) + tcfg.d_model
+    if tcfg.encoder_layers:     # enc_norm, enc_pos, dec_pos (4096 rows)
+        total += tcfg.d_model * (1 + max(tcfg.encoder_seq, 1) + 4096)
     tree = jax.eval_shape(lambda: jtfm.init_params(jax.random.PRNGKey(0),
                                                    jcfg))
     assert total == sum(math.prod(leaf.shape)

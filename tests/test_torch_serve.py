@@ -276,10 +276,11 @@ def test_argmax_breaks_ties_to_first_index():
 
 
 def test_unported_parts_raise_and_name_the_roadmap():
-    """Still to port: the int8 cache and the families of ROADMAP item 9
-    (the MoE family is ported: ``tests/test_torch_moe.py``).  The spill
-    API (``offload_slot``/``refill_slot``) is ported and round-trips
-    (``tests/test_torch_kv_offload.py`` holds it in full)."""
+    """Still to port: the int8 cache.  The families of ROADMAP item 9 are
+    ported (``tests/test_torch_families.py``): their ids resolve and an
+    RWKV config draws.  The spill API (``offload_slot``/``refill_slot``)
+    is ported and round-trips (``tests/test_torch_kv_offload.py`` holds it
+    in full)."""
     tcfg = get_smoke_config("qwen3_14b")
     eng = ServeEngine(tcfg, tfm.init_params(torch.Generator().manual_seed(0),
                                             tcfg, "cpu"),
@@ -290,10 +291,10 @@ def test_unported_parts_raise_and_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfm.init_cache(tcfg, tfm.CacheSpec(8, 1, kv_dtype=torch.int8), "cpu")
     for arch in ("rwkv6-7b", "whisper-tiny", "hymba-1.5b", "internvl2-1b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-            get_smoke_config(arch)
+        assert get_smoke_config(arch).name == arch + "-smoke"
     with pytest.raises(KeyError):
         get_smoke_config("no-such-model")
-    rwkv = dataclasses.replace(tcfg, rwkv=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
-        tfm.init_params(torch.Generator().manual_seed(0), rwkv, "cpu")
+    rwkv = get_smoke_config("rwkv6-7b")
+    params = tfm.init_params(torch.Generator().manual_seed(0), rwkv, "cpu")
+    assert tfm.layer_kinds(rwkv) == ["rwkv"] * rwkv.num_layers
+    assert "w_decay" in params["layers"][0]

@@ -29,7 +29,7 @@ from repro.serve.batcher import ContinuousBatcher as JaxBatcher
 from repro.serve.batcher import make_trace as jax_make_trace
 from repro.serve.engine import ServeConfig as JaxServeConfig
 from repro.serve.engine import ServeEngine as JaxServeEngine
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models import transformer as tfm
 from repro_torch.serve import stream
@@ -554,3 +554,145 @@ def test_planner_knobs_for_moe(arch):
                             cache_capacity=64, pod=h100_host())
     assert scfg.mode == "elk_stream" and scfg.prefetch_depth >= 1
     assert 1 <= scfg.prefill_chunk <= 64
+
+
+# the families with state in the cache (RWKV: none but the state; hybrid: an
+# SSM state beside the ring) and the VLM, all streamed like the others
+STATE_ARCHS = ["rwkv6_7b", "hymba_1_5b", "internvl2_1b"]
+
+
+@pytest.mark.parametrize("arch", STATE_ARCHS)
+def test_state_families_stream_equal_resident_and_reference(
+        arch, mesh11, monkeypatch):
+    """rwkv, hymba and internvl under ``elk_stream`` against ``gspmd`` on
+    the port (lock-step with the VLM's stub patches, and the batcher) and
+    against the reference's ``elk_stream`` engine on the same converted
+    weights (its stub arrays handed to the port's ``generate``)."""
+    from repro.models.frontends import frontend_embeddings as jax_frontends
+    from repro_torch.convert import tensor_from_numpy
+    from repro_torch.serve import engine as engine_mod
+
+    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32",
+                               param_dtype="float32")
+    tcfg = _fp32(arch)
+    jparams = jtfm.init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                              device="cpu")
+    fe = {k: tensor_from_numpy(np.asarray(v), "cpu")
+          for k, v in jax_frontends(jcfg, 2).items()}
+    monkeypatch.setattr(engine_mod, "frontend_embeddings",
+                        lambda cfg, batch, **kw: fe)
+    kw = dict(batch=2, cache_capacity=32, prefetch_depth=2, prefill_chunk=8,
+              kv_dtype="float32")
+    teng = {mode: ServeEngine(tcfg, tparams, ServeConfig(mode=mode, **kw),
+                              "cpu") for mode in ("gspmd", "elk_stream")}
+    assert isinstance(teng["elk_stream"].params["layers"], stream.LayerStream)
+    jeng = JaxServeEngine(jcfg, mesh11, jparams,
+                          JaxServeConfig(mode="elk_stream", **kw))
+    prompts = _prompts(tcfg, 2, 10, seed=3)
+    ref = np.asarray(jeng.generate(jnp.asarray(prompts.numpy(), jnp.int32),
+                                   steps=6))
+    for eng in teng.values():
+        np.testing.assert_array_equal(eng.generate(prompts, steps=6).numpy(),
+                                      ref)
+    ref = {c.rid: c.tokens for c in JaxBatcher(jeng).run(
+        jax_make_trace(5, vocab_size=jcfg.vocab_size, seed=4))}
+    for mode, eng in teng.items():
+        got = {c.rid: c.tokens for c in ContinuousBatcher(eng).run(
+            make_trace(5, vocab_size=tcfg.vocab_size, seed=4))}
+        assert sorted(got) == sorted(ref) == list(range(5))
+        for rid in ref:
+            np.testing.assert_array_equal(got[rid], ref[rid],
+                                          err_msg=f"{mode} {rid}")
+
+
+def test_rwkv_and_hybrid_layers_stream_whole():
+    """An RWKV layer's record holds its time and channel mix (its state
+    stays in the cache); a hybrid layer's holds its ``ssm`` branch beside
+    attention and MLP: one copy a layer a pass, the views the layers'."""
+    for arch in ("rwkv6_7b", "hymba_1_5b"):
+        cfg = get_smoke_config(arch)
+        params = _params(cfg)
+        eng = ServeEngine(cfg, params, ServeConfig(
+            batch=2, cache_capacity=16, mode="elk_stream", prefetch_depth=1),
+            "cpu")
+        ls = eng.params["layers"]
+        paths = [path for path, *_ in ls.layouts[0]]
+        assert (("w_decay",) in paths) == cfg.rwkv
+        assert (("ssm", "w_bc") in paths) == cfg.hybrid_parallel_ssm
+        before = ls.copies
+        eng.generate(_prompts(cfg, 2, 5), steps=3)
+        assert ls.copies - before == 3 * cfg.num_layers
+        for li in range(cfg.num_layers):
+            ls.issue(li, 0)
+            view = ls.acquire(li, 0)
+            for path, t in stream._leaves(params["layers"][li]):
+                node = view
+                for key in path:
+                    node = node[key]
+                assert torch.equal(node, t), (arch, li, path)
+
+
+def test_whisper_under_elk_stream_runs_resident(capsys):
+    """An encoder-decoder model is not streamed, as in the reference:
+    under ``elk_stream`` the engine keeps its weights resident, says so,
+    and serves the tokens ``gspmd`` serves; ``init_streamed_params``
+    refuses to draw it and the engine refuses a ``LayerStream``; the
+    launcher serves it in both modes."""
+    cfg = get_smoke_config("whisper_tiny")
+    params = _params(cfg)
+    prompts = _prompts(cfg, 2, 6)
+    outs = {}
+    for mode in ("gspmd", "elk_stream"):
+        eng = ServeEngine(cfg, params, ServeConfig(
+            batch=2, cache_capacity=16, mode=mode), "cpu")
+        assert not eng.streamed
+        assert isinstance(eng.params["layers"], list)
+        outs[mode] = eng.generate(prompts, steps=4)
+    assert "weights stay resident" in capsys.readouterr().out
+    assert torch.equal(outs["gspmd"], outs["elk_stream"])
+    with pytest.raises(ValueError, match="not streamed"):
+        stream.init_streamed_params(torch.Generator().manual_seed(0), cfg,
+                                    "cpu", 1)
+    layers = stream.LayerStream(params["layers"], torch.device("cpu"),
+                                depth=1)
+    with pytest.raises(ValueError, match="not streamed"):
+        ServeEngine(cfg, {**params, "layers": layers},
+                    ServeConfig(batch=2, cache_capacity=16, mode="elk_stream"),
+                    "cpu")
+    from repro_torch.launch import serve
+    for mode in ("elk_stream", "gspmd"):
+        serve.main(["--arch", "whisper-tiny", "--smoke", "--device", "cpu",
+                    "--mode", mode, "--batch", "2", "--steps", "3",
+                    "--cache", "32"])
+        out = capsys.readouterr().out
+        assert "generated 3 tokens x 2 requests" in out
+        assert ("weights stay resident" in out) == (mode == "elk_stream")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_streams_every_decoder_only_model(arch):
+    """``stream.streams`` is the one rule of what ``elk_stream`` streams:
+    every decoder-only config, and no encoder-decoder one; ``gspmd``
+    streams nothing."""
+    cfg = get_smoke_config(arch)
+    assert stream.streams(cfg, "elk_stream") == (not cfg.encoder_layers)
+    assert not stream.streams(cfg, "gspmd")
+
+
+@pytest.mark.parametrize("arch", STATE_ARCHS)
+def test_launcher_serves_the_state_families(arch, capsys):
+    """The launcher serves rwkv, hymba and internvl in its default
+    ``elk_stream`` mode, lock-step and continuous, and with ``--mode
+    gspmd``."""
+    from repro_torch.launch import serve
+    base = ["--arch", arch.replace("_", "-"), "--smoke", "--device", "cpu"]
+    serve.main(base + ["--batch", "2", "--steps", "3", "--cache", "32"])
+    out = capsys.readouterr().out
+    assert "ELK scheduler: prefetch_depth=" in out
+    assert "generated 3 tokens x 2 requests" in out
+    serve.main(base + ["--trace", "3", "--cache", "64"])
+    assert "continuous:" in capsys.readouterr().out
+    serve.main(base + ["--mode", "gspmd", "--batch", "2", "--steps", "3",
+                       "--cache", "32"])
+    assert "generated 3 tokens x 2 requests" in capsys.readouterr().out
