@@ -26,14 +26,22 @@ exit code and no result line:
             and the matmul its plan (tiles,
             stages, splits) and its host time a call beside
             ``torch.matmul``'s; the MLP is timed on both routes at the rows
-            around its crossover R.
+            around its crossover R.  Both attention kernels also over an
+            int8 ring (dequantized in the kernel, every route, held to the
+            plain versions, which dequantize first), timed at the serving
+            shapes beside the bf16 kernel, and ``kv_quant`` (the int8 ring's
+            quantization) bit for bit against ``quantize_kv`` and its
+            scatter.
 4. parity   the smoke config in fp32 on the same seeded weights, on the CPU
             (plain path) and on the card (kernel path), with resident
             weights (``gspmd``) and streamed ones (``elk_stream``, MoE
             configs with their experts fetched after the router):
             ``ServeEngine``'s lock-step ``generate`` and
             ``ContinuousBatcher.run`` over a mixed trace give equal greedy
-            tokens; last logits close.
+            tokens; last logits close.  The qwen3 smoke config also over
+            an int8 ring (``kv_dtype`` int8).  Then ``[emulator]``:
+            ``chip/emulator.check_plan_numerics`` on the card over the
+            plans of a decode matmul of ``h100_sxm()``.
 5. serve    lock-step, resident weights: full-width qwen3-14b (bf16,
             random weights from seed 0), batch 8, prompts of 512 tokens,
             16 greedy steps through ``ServeEngine.generate``.
@@ -46,6 +54,12 @@ exit code and no result line:
             memory, LRU swaps) and a prefix store, then at K = 1 with no
             store; equal tokens, at least one swap and one prefix hit, and
             the offload, refill and snapshot copy rates.
+7b. int8    5, 6 and 7 again over the int8 ring: the cache's bytes (the
+            int8 ring and its scales exactly), the last logits within rel
+            0.15 of the bf16 ring's, no ring widened in a decode step (what
+            it allocates beyond the step before stays under one layer's
+            bf16 ring), the launches by route and by the K/V type the
+            attention kernels read; one ``[int8]`` line.
 8. stream-serve  the launcher's default path: the same model and weights
             under ``elk_stream``, knobs from ``elk_serve_config`` on
             ``h100_host()``, the layer weights in pinned host memory and
@@ -58,10 +72,8 @@ exit code and no result line:
             dit-xl (28 layers, head dim 72) and gemma2-27b (46 layers, tied
             head of 256000) resident, lock-step as in 5 (dit-xl: prompts of
             256, cache 512); llama2-70b under ``elk_stream`` with the
-            planner's knobs, first resident against streamed at 16 layers
-            on the same weights (equal tokens), then streamed alone at full
-            depth, or at the depth the host's memory holds (printed, with
-            the host's memory), 4 new tokens, with the copy rate;
+            planner's knobs, resident against streamed at 16 layers on the
+            same weights (equal tokens);
             llama4-maverick and kimi-k2 resident at 2 layers (a dense layer
             and an MoE layer of 128 / 384 experts), lock-step, and kimi-k2
             (head dim 112) through the 16-request continuous trace of 6.
@@ -72,8 +84,7 @@ exit code and no result line:
             Then both MoE configs under ``elk_stream`` with the planner's
             knobs: the resident run's weights moved into the layer stream
             (every product on the same route streamed as resident; equal
-            greedy tokens, 4 new), then streamed alone at the depth the
-            host holds (printed), each MoE layer's experts fetched after
+            greedy tokens, 4 new), each MoE layer's experts fetched after
             its router: one ``[stream-moe]`` line a config with the depth,
             pinned bytes, window and expert buffer, peak device memory,
             prefill and decode ms, and three decode steps' bytes copied
@@ -105,7 +116,9 @@ exit code and no result line:
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails if a kernel of the path was not
 launched as often as its layers, steps and chunks say, or the MLP and the
-matmul not through the routes their rows say.  Phase 3 also holds every
+matmul not through the routes their rows say, or the attention kernels not
+over the K/V type the path gives them.  Every phase prints its seconds
+(``[time]``).  Phase 3 also holds every
 kernel at every shape phases 9 and 10 give it (``MODEL_RUNS`` and
 ``FAMILY_RUNS``: each config's products, MLPs and attention at its decode,
 prefill and chunk rows, head dims 72 and 112, GQA groups of 7, whisper's
@@ -152,8 +165,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.chip.h100 import h100_host  # noqa: E402
+from repro_torch.chip.emulator import check_plan_numerics  # noqa: E402
+from repro_torch.chip.h100 import h100_host, h100_sxm  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core.graph import build_graph  # noqa: E402
+from repro_torch.core.partition import (  # noqa: E402
+    enumerate_exec_plans, enumerate_preload_plans)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
     ROUTES as DECODE_ROUTES, decode_attention_kernel)
@@ -187,6 +204,10 @@ from repro_torch.kernels.fused_mlp.kernel import \
 from repro_torch.kernels.fused_mlp.ops import fused_mlp  # noqa: E402
 from repro_torch.kernels.fused_mlp.ref import (act_fn,  # noqa: E402
                                                composed_ref)
+from repro_torch.kernels.kv_quant.kernel import (  # noqa: E402
+    KV_TYPES, kv_quant_kernel)
+from repro_torch.kernels.kv_quant.ref import (  # noqa: E402
+    quantize_into_ref, quantize_kv)
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.frontends import frontend_embeddings  # noqa: E402
@@ -266,14 +287,13 @@ MLP_EDGE_M = (1, 8, 16, 17, 63, 64, 65, 256)
 # fused_mlp rows timed on both routes to find the crossover R
 CROSSOVER_M = (8, 16, 32, 64, 128, 256)
 # the [models] phase's lock-step runs at full width: (arch, layers (0: all),
-# prompt length, ring).  llama2-70b runs resident against streamed at
-# STREAM_CHECK_LAYERS, then streamed alone (STREAM_STEPS tokens) at the depth
-# the host holds with HOST_HEADROOM free beside the pinned layers (the
-# process itself takes about 5 GB of it); the MoE models run at MOE_DEPTH
-# layers (a dense and an MoE layer); TRACE_ARCH also serves the continuous
-# trace
+# prompt length, ring).  llama2-70b runs resident against streamed
+# (STREAM_STEPS tokens) at STREAM_CHECK_LAYERS; the MoE models run at
+# MOE_DEPTH layers (a dense and an MoE layer), resident against streamed;
+# TRACE_ARCH also serves the continuous trace.  (Until the int8 phase came,
+# each was then streamed alone at the depth the host holds: 45, 5 and 3
+# layers, about 160 s of the time limit.)
 STREAM_CHECK_LAYERS, STREAM_STEPS = 16, 4
-HOST_HEADROOM = 24 << 30
 MOE_DEPTH = 2
 MODEL_RUNS = (("dit_xl", 0, DIT_PROMPT_LEN, DIT_CACHE),
               ("gemma2_27b", 0, PROMPT_LEN, CACHE),
@@ -680,18 +700,28 @@ def attn_inputs(gen, b, hq, hkv, c, d, dtype):
     return normal(b, hq, d), normal(b, hkv, c, d), normal(b, hkv, c, d)
 
 
+def int8_ring(k, v) -> tuple:
+    """(int8 K, int8 V, (k_scale, v_scale)): the ring ``k``, ``v``
+    quantized as the model quantizes its rows (``quantize_kv``); a slot
+    never written, tagged the sentinel, keeps its values, masked anyway."""
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    return kq, vq, (ks, vs)
+
+
 def check_attn(q, k, v, slot_pos, q_pos, window=0, dead_rows=(),
-               route=None, splits=None) -> tuple[float, float]:
+               route=None, splits=None, kv_scales=None) -> tuple[float, float]:
     """(max abs error, error over tolerance) of the kernel against
-    ``decode_attention_ref`` on these inputs; fails the run beyond
-    tolerance, if a row with no live slot is not exactly zero, or if a
-    second launch gives other bits."""
+    ``decode_attention_ref`` on these inputs (an int8 ring with its
+    ``kv_scales``); fails the run beyond tolerance, if a row with no live
+    slot is not exactly zero, or if a second launch gives other bits."""
     def run():
         return decode_attention_kernel(q, k, v, slot_pos, q_pos, window=window,
-                                       route=route, splits=splits)
+                                       route=route, splits=splits,
+                                       kv_scales=kv_scales)
     out, again = run(), run()
     torch.cuda.synchronize()
-    ref = decode_attention_ref(q, k, v, slot_pos, q_pos, window=window)
+    ref = decode_attention_ref(q, k, v, slot_pos, q_pos, window=window,
+                               kv_scales=kv_scales)
     where = (f"q{tuple(q.shape)} cache{tuple(k.shape)} {q.dtype}/{k.dtype} "
              f"slot_pos{tuple(slot_pos.shape)} window={window} route={route} "
              f"splits={splits}")
@@ -716,20 +746,33 @@ def check_attn(q, k, v, slot_pos, q_pos, window=0, dead_rows=(),
     return err, err / tol if tol else 0.0
 
 
+def kv_bytes_per_element(k, d: int) -> float:
+    """Bytes an attention kernel reads for one element of the ring: its
+    own, and over an int8 ring a share of the slot's bf16 scale."""
+    return k.element_size() + (2 / d if k.dtype == torch.int8 else 0)
+
+
+def products_peak(q, k) -> float:
+    """The peak rate of the attention products: of the ring's type, or over
+    an int8 ring (dequantized to bf16 in the kernel) of the query's."""
+    return PEAK_FLOPS[q.dtype if k.dtype == torch.int8 else k.dtype]
+
+
 def attn_bound_ms(q, k, slot_pos, q_pos, window) -> tuple[float, float, str]:
     """(bound over the live slots, bound over the whole ring, by what).
     Bytes: q read and the output written once, K and V of the slots this
-    data attends to, the tags; operations: two products over those slots.
-    The kernel reads the whole ring; the first bound is what the function
-    needs, the second what reading every slot costs at the memory rate."""
+    data attends to (an int8 ring's with their scales), the tags;
+    operations: two products over those slots.  The kernel reads the whole
+    ring; the first bound is what the function needs, the second what
+    reading every slot costs at the memory rate."""
     b, hq, d = q.shape
     hkv, c = k.shape[1], k.shape[2]
     live = int(live_mask(slot_pos, q_pos, b, window).sum())    # row-slots
-    size = k.element_size()
+    size = kv_bytes_per_element(k, d)
     fixed = 2 * q.numel() * q.element_size() + slot_pos.numel() * 4
     t_live = (fixed + 2 * live * hkv * d * size) / HBM_BYTES_PER_S
     t_ring = (fixed + 2 * k.numel() * size) / HBM_BYTES_PER_S
-    t_ops = 4 * live * hq * d / PEAK_FLOPS[k.dtype]
+    t_ops = 4 * live * hq * d / products_peak(q, k)
     return (max(t_live, t_ops) * 1e3, max(t_ring, t_ops) * 1e3,
             "bytes" if t_live >= t_ops else "operations")
 
@@ -822,6 +865,47 @@ def attention_phase(cfg) -> dict:
     say(f"[kernels] decode_attention: {cases} sweep cases inside tolerance "
         f"(worst err/tol and its err: {json.dumps(worst)})")
 
+    # the int8 ring, dequantized in the kernel: route "mma" (a bf16 query)
+    # and "fma" (forced, and an fp32 query, the fp32 parity's), head dims
+    # 64, 72 (the lanes copy its rows: TMA cannot stride 72 bytes), 112,
+    # 128 and 256 at groups of 1, 5, 7 and 8, windows, split as planned,
+    # unsplit and over a cluster of 8; per-row positions with a dead row
+    bf16_cases, worst_bf16 = cases, dict(worst)
+    worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    cases = 0
+    for b, hq, hkv, c, d, pos, win in (
+            (2, 8, 8, 300, 64, 250, 0), (2, 25, 5, 2048, 64, 3000, 1024),
+            (2, 14, 2, 1024, 64, 780, 0), (2, 16, 16, 300, 72, 250, 0),
+            (1, 16, 16, 517, 72, 900, 64), (2, 64, 8, 1000, 112, 999, 0),
+            (1, 35, 5, 130, 112, 700, 48), (2, 40, 8, 1000, 128, 999, 0),
+            (1, 56, 8, 517, 128, 900, 64), (3, 24, 3, 517, 256, 400, 0),
+            (1, 40, 5, 2048, 256, 1500, 100)):
+        q, k, v = attn_inputs(gen, b, hq, hkv, c, d, torch.bfloat16)
+        kq, vq, sc = int8_ring(k, v)
+        tags = ring_tags(c, pos)
+        for route in (None, "fma"):
+            for splits in (None, 1, 8):
+                case(q, kq, vq, tags, pos - 1, win, route=route,
+                     splits=splits, kv_scales=sc)
+        case(q.float(), kq, vq, tags, pos - 1, win, kv_scales=sc)
+    qp = torch.tensor([5, 130, 350, 0], dtype=torch.int32, device="cuda")
+    tags = torch.stack([ring_tags(200, int(p) + 1) for p in qp.tolist()])
+    tags[3] = SENTINEL
+    for hq, hkv, d in ((40, 8, 128), (16, 16, 72)):
+        q, k, v = attn_inputs(gen, 4, hq, hkv, 200, d, torch.bfloat16)
+        kq, vq, sc = int8_ring(k, v)
+        for win in (0, 48):
+            for route in (None, "fma"):
+                case(q, kq, vq, tags, qp, win, dead_rows=(3,), route=route,
+                     kv_scales=sc)
+            case(q.float(), kq, vq, tags, qp, win, dead_rows=(3,),
+                 kv_scales=sc)
+    worst_int8, int8_cases = worst, cases
+    say(f"[kernels] decode_attention int8 ring: {int8_cases} sweep cases "
+        f"inside tolerance (worst err/tol and its err: "
+        f"{json.dumps(worst_int8)})")
+    cases, worst = bf16_cases, worst_bf16
+
     # the two shapes the serving paths give it, full width, bf16, and the
     # continuous shape at a group of 8; each also on route "fma"; then every
     # shape the [models] and [families] phases give it, config by config at
@@ -886,6 +970,49 @@ def attention_phase(cfg) -> dict:
             "library_ms": time_ms(library, 50),
         })
         say(f"[kernels] decode_attention {label}: " + json.dumps(shapes[-1]))
+
+    # the int8 ring at the serving shapes, beside the bf16 kernel at the
+    # same shape: lock-step B 8, C 1024 at position 520; continuous 8 x
+    # 2048; and the reference's decode_32k shape (B 8, Hkv 8, D 128, C
+    # 32768, every slot live), for which its launch/specs.py picks int8
+    int8_shapes = []
+    hq, hkv, d = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    for label, b, c, lock_pos in (
+            ("lock-step", BATCH, CACHE, PROMPT_LEN + STEPS // 2),
+            ("continuous", SLOTS, SLOT_CACHE, None),
+            ("long ring C=32768", BATCH, 32768, 32768)):
+        q, k, v = attn_inputs(gen, b, hq, hkv, c, d, dtype)
+        kq, vq, sc = int8_ring(k, v)
+        if lock_pos is not None:
+            tags, qp = ring_tags(c, lock_pos + 1), lock_pos
+        else:
+            qp = torch.tensor(slot_pos_now, dtype=torch.int32, device="cuda")
+            tags = torch.stack([ring_tags(c, p + 1) for p in slot_pos_now])
+        err, _ = check_attn(q, kq, vq, tags, qp, kv_scales=sc)
+        bound, ring_bound, bound_by = attn_bound_ms(q, kq, tags, qp, 0)
+        bf16_bound = attn_bound_ms(q, k, tags, qp, 0)[0]
+        plan = decode_plan_for(q, kq)
+        int8_shapes.append({
+            "shape": f"int8 {label}", "b": b, "hq": hq, "hkv": hkv, "c": c,
+            "d": d, "kv": "int8", "route": plan["route"],
+            "splits": plan["splits"], "stages": plan["stages"],
+            "live_slots": int(live_mask(tags, qp, b, 0).sum()),
+            "max_abs_err": err,
+            "ms": time_ms(lambda: decode_attn(q, kq, vq, tags, qp,
+                                              kv_scales=sc), 50),
+            "bf16_ms": time_ms(lambda: decode_attn(q, k, v, tags, qp), 50),
+            "fma_ms": time_ms(lambda: decode_attention_kernel(
+                q, kq, vq, tags, qp, route="fma", kv_scales=sc), 20),
+            "plain_ms": time_ms(lambda: decode_attention_ref(
+                q, kq, vq, tags, qp, kv_scales=sc), 3, warmup=1),
+            "bound_ms": bound, "bound_by": bound_by,
+            "ring_bound_ms": ring_bound, "bf16_bound_ms": bf16_bound,
+            # no one PyTorch call attends over an int8 ring
+            "library_ms": None,
+        })
+        say(f"[kernels] decode_attention {int8_shapes[-1]['shape']}: "
+            + json.dumps(int8_shapes[-1]))
+        del q, k, v, kq, vq, sc
     main = shapes[1]
     return {
         "name": "decode_attention", "route": "cuda",
@@ -900,27 +1027,31 @@ def attention_phase(cfg) -> dict:
         "library_ms": main["library_ms"],
         "cases": cases, "max_err_over_tol": max(w for w, _ in worst.values()),
         "worst_by_dtype": worst, "shapes": shapes,
+        "int8_cases": int8_cases, "int8_worst_by_dtype": worst_int8,
+        "int8_shapes": int8_shapes,
     }
 
 
 def check_flash(q, k, v, q_pos=None, k_pos=None, *, causal=True, window=0,
-                dead=None, route=None, splits=None) -> tuple[float, float]:
+                dead=None, route=None, splits=None,
+                kv_scales=None) -> tuple[float, float]:
     """(max abs error, error over tolerance) of the kernel against
-    ``mha_ref`` (no positions) or ``mha_pos_ref`` on these inputs, on the
-    route and splits the wrapper plans unless given; fails the run beyond
-    tolerance, if a query marked in ``dead`` (B, Sq) is not exactly zero in
-    every head, or if a second launch gives other bits."""
+    ``mha_ref`` (no positions) or ``mha_pos_ref`` on these inputs (an int8
+    ring with its ``kv_scales``), on the route and splits the wrapper plans
+    unless given; fails the run beyond tolerance, if a query marked in
+    ``dead`` (B, Sq) is not exactly zero in every head, or if a second
+    launch gives other bits."""
     def run():
         return flash_attention_kernel(q, k, v, q_pos, k_pos, causal=causal,
                                       window=window, route=route,
-                                      splits=splits)
+                                      splits=splits, kv_scales=kv_scales)
     out, again = run(), run()
     torch.cuda.synchronize()
     if q_pos is None:
         ref = flash_ref.mha_ref(q, k, v, causal=causal, window=window)
     else:
         ref = flash_ref.mha_pos_ref(q, k, v, q_pos, k_pos, causal=causal,
-                                    window=window)
+                                    window=window, kv_scales=kv_scales)
     where = (f"q{tuple(q.shape)} strides {q.stride()} k{tuple(k.shape)} "
              f"{q.dtype}/{k.dtype} causal={causal} window={window} "
              f"positions={'no' if q_pos is None else tuple(k_pos.shape)} "
@@ -947,18 +1078,18 @@ def check_flash(q, k, v, q_pos=None, k_pos=None, *, causal=True, window=0,
 def flash_bound_ms(q, k, q_pos, k_pos, causal, window
                    ) -> tuple[float, str]:
     """Least time for the function on these inputs: q read and the output
-    written once, K and V of the keys some query attends to, the
-    positions; the two products over the (query, key) pairs the mask
-    lets through."""
+    written once, K and V of the keys some query attends to (an int8
+    ring's with their scales), the positions; the two products over the
+    (query, key) pairs the mask lets through."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     ok = flash_ref.live_mask(q_pos, k_pos, causal=causal, window=window)
     keys = int(ok.any(dim=1).sum())              # (row, key) pairs read
     pairs = int(ok.sum())
-    size = k.element_size()
+    size = kv_bytes_per_element(k, d)
     t_bytes = (2 * q.numel() * q.element_size() + 2 * keys * hkv * d * size
                + (q_pos.numel() + k_pos.numel()) * 4) / HBM_BYTES_PER_S
-    t_ops = 4 * pairs * hq * d / PEAK_FLOPS[k.dtype]
+    t_ops = 4 * pairs * hq * d / products_peak(q, k)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -1108,6 +1239,41 @@ def flash_phase(cfg, chunk: int) -> dict:
     say(f"[kernels] flash_attention: {cases} sweep cases inside tolerance "
         f"(worst err/tol and its err: {json.dumps(worst)})")
 
+    # the int8 ring, dequantized in the kernel: chunks of 4-256 tokens at
+    # ring offsets 0, 700 and 1900 of a ring of 2048 on every route
+    # ("wgmma" at D 64, 128, 256, split as planned, unsplit and over 8;
+    # "mma_sync" at 72 and 112; "fma" with an fp32 query), windows; three
+    # rows, one of them evicted
+    bf16_cases, worst_bf16 = cases, dict(worst)
+    worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
+    cases = 0
+    for hq, hkv, d in ((40, 8, 128), (14, 2, 64), (32, 16, 256), (16, 16, 72),
+                       (64, 8, 112)):
+        for t, start, win in ((4, 0, 0), (32, 700, 0), (32, 1900, 0),
+                              (256, 700, 0), (100, 1900, 300),
+                              (256, 0, 1024)):
+            q_pos, tags = chunk_positions(1, t, SLOT_CACHE, (start,))
+            q, k, v = qkv(1, hq, hkv, t, SLOT_CACHE, d, bf16)
+            kq, vq, sc = int8_ring(k, v)
+            for splits in ((None, 1, 8) if d in FLASH_WGMMA_HEAD_DIMS
+                           else (None,)):
+                case(q, kq, vq, q_pos, tags, window=win, splits=splits,
+                     kv_scales=sc)
+            case(q.float(), kq, vq, q_pos, tags, window=win, kv_scales=sc)
+        q_pos, tags = chunk_positions(3, 40, 512, (100, 600, 0))
+        tags[2] = SENTINEL
+        dead = torch.zeros((3, 40), dtype=torch.bool, device="cuda")
+        dead[2] = True
+        q, k, v = qkv(3, hq, hkv, 40, 512, d, bf16)
+        kq, vq, sc = int8_ring(k, v)
+        case(q, kq, vq, q_pos, tags, dead=dead, kv_scales=sc)
+        case(q.float(), kq, vq, q_pos, tags, dead=dead, kv_scales=sc)
+    worst_int8, int8_cases = worst, cases
+    say(f"[kernels] flash_attention int8 ring: {int8_cases} sweep cases "
+        f"inside tolerance (worst err/tol and its err: "
+        f"{json.dumps(worst_int8)})")
+    cases, worst = bf16_cases, worst_bf16
+
     # the shapes the serving paths give it, full width, bf16; then every
     # shape the [models] and [families] phases give it, config by config at
     # full width with its mask: the lock-step prefill (an enc-dec model's
@@ -1202,6 +1368,36 @@ def flash_phase(cfg, chunk: int) -> dict:
             "library_ms": time_ms(library, 20),
         })
         say(f"[kernels] flash_attention {label}: " + json.dumps(shapes[-1]))
+
+    # the int8 ring at the chunk shapes of the serving path, beside the
+    # bf16 kernel at the same shape
+    int8_shapes = []
+    hq, hkv, d = heads
+    for t, start in ((32, 700), (32, 1900), (PREFILL_CHUNK, 700)):
+        q, k, v = qkv(1, hq, hkv, t, SLOT_CACHE, d, dtype)
+        kq, vq, sc = int8_ring(k, v)
+        q_pos, k_pos = chunk_positions(1, t, SLOT_CACHE, (start,))
+        err, _ = check_flash(q, kq, vq, q_pos, k_pos, kv_scales=sc)
+        bound, bound_by = flash_bound_ms(q, kq, q_pos, k_pos, True, 0)
+        row_tiles, splits = flash_plan_splits(1, hkv, t, SLOT_CACHE, hq // hkv)
+        int8_shapes.append({
+            "shape": f"int8 chunk T={t} at {start}", "b": 1, "hq": hq,
+            "hkv": hkv, "sq": t, "sk": SLOT_CACHE, "d": d, "kv": "int8",
+            "route": flash_route_of(q, kq), "splits": splits,
+            "max_abs_err": err,
+            "ms": time_ms(lambda: flash_attn_pos(q, kq, vq, q_pos, k_pos,
+                                                 kv_scales=sc), 20),
+            "bf16_ms": time_ms(lambda: flash_attn_pos(q, k, v, q_pos, k_pos),
+                               20),
+            "plain_ms": time_ms(lambda: flash_ref.mha_pos_ref(
+                q, kq, vq, q_pos, k_pos, kv_scales=sc), 3, warmup=1),
+            "bound_ms": bound, "bound_by": bound_by,
+            "bf16_bound_ms": flash_bound_ms(q, k, q_pos, k_pos, True, 0)[0],
+            # no one PyTorch call attends over an int8 ring
+            "library_ms": None,
+        })
+        say(f"[kernels] flash_attention {int8_shapes[-1]['shape']}: "
+            + json.dumps(int8_shapes[-1]))
     # what encoding the tensor maps of K and V costs on the host: one
     # prefill-shaped call with the same k and v every time (maps from the
     # cache) against calls whose k and v start somewhere new each time (16
@@ -1238,6 +1434,110 @@ def flash_phase(cfg, chunk: int) -> dict:
         "library_ms": main["library_ms"],
         "cases": cases, "max_err_over_tol": max(w for w, _ in worst.values()),
         "worst_by_dtype": worst, "shapes": shapes, "host_map_encode": map_encode,
+        "int8_cases": int8_cases, "int8_worst_by_dtype": worst_int8,
+        "int8_shapes": int8_shapes,
+    }
+
+
+def kv_quant_phase(cfg) -> dict:
+    """The int8 ring's quantization kernel held bit for bit to its plain
+    version (``quantize_into_ref``: ``quantize_kv`` and the scatter): the
+    serving shapes (a lock-step decode step at one position, a slot step
+    at a position a row, chunks of 32 and 256), head dims 64, 72, 112 and
+    256, fp32 new rows (the fp32 parity's), V through the strides of a
+    (B, T, Hkv, D) projection, rows whose elements fall on .5 exactly and
+    all-zero rows; each launched twice for equal bits.  The serving shapes
+    timed."""
+    gen = torch.Generator(device="cuda").manual_seed(1357)
+    hkv, d = cfg.num_kv_heads, cfg.resolved_head_dim
+
+    def rings(b, h, c, dd):
+        return ([torch.zeros(b, h, c, dd, dtype=torch.int8, device="cuda")
+                 for _ in range(2)]
+                + [torch.zeros(b, h, c, 1, dtype=torch.bfloat16,
+                               device="cuda") for _ in range(2)])
+
+    def new_rows(b, h, t, dd, dtype, strided):
+        k = torch.randn(b, h, t, dd, generator=gen, device="cuda") * 3
+        v = torch.randn(b, t, h, dd, generator=gen, device="cuda")
+        v = v.transpose(1, 2) if strided else v.transpose(1, 2).contiguous()
+        k[0, 0, 0] = 0.0                                  # an all-zero row
+        k[-1, -1, -1, :8] = torch.tensor(                 # ties at .5
+            [0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -127.0, 3.5], device="cuda")
+        return k.to(dtype), v.to(dtype)
+
+    def positions(b, t, c, at):
+        if at is not None and t == 1:
+            return at                     # one position for every row
+        base = torch.randint(0, 4 * c, (b, 1), generator=gen, device="cuda")
+        if at is not None:
+            base = torch.full((b, 1), at, device="cuda")
+        return (base + torch.arange(t, device="cuda")).to(torch.int32)
+
+    cases = 0
+    serving = (("lock-step decode", BATCH, 1, CACHE, PROMPT_LEN + STEPS // 2),
+               ("continuous decode", SLOTS, 1, SLOT_CACHE, None),
+               ("chunk T=32", 1, 32, SLOT_CACHE, 700),
+               (f"chunk T={PREFILL_CHUNK}", 1, PREFILL_CHUNK, SLOT_CACHE,
+                700))
+    sweep = [(label, b, t, c, at, hkv, d, torch.bfloat16, True)
+             for label, b, t, c, at in serving]
+    sweep += [(f"D={dd} {str(dt).split('.')[1]}", b, t, c, at, h, dd, dt,
+               strided)
+              for dd in (64, 72, 112, 256) for dt in (torch.float32,
+                                                      torch.bfloat16)
+              for b, t, c, at, h, strided in ((3, 1, 77, 100, 5, False),
+                                              (2, 5, 300, None, 2, True))]
+    shapes = []
+    for label, b, t, c, at, h, dd, dtype, strided in sweep:
+        k_new, v_new = new_rows(b, h, t, dd, dtype, strided)
+        pos = positions(b, t, c, at)
+        got, again, want = rings(b, h, c, dd), rings(b, h, c, dd), \
+            rings(b, h, c, dd)
+        kv_quant_kernel(k_new, v_new, *got, pos)
+        kv_quant_kernel(k_new, v_new, *again, pos)
+        torch.cuda.synchronize()
+        quantize_into_ref(k_new, v_new, *want, pos)
+        for name, a, b2, w in zip(("k", "v", "k_scale", "v_scale"), got,
+                                  again, want):
+            if not torch.equal(a, b2):
+                fail(f"kv_quant gave other bits on a second launch: {label} "
+                     f"{name}")
+            if not torch.equal(a, w):
+                fail(f"kv_quant differs from quantize_kv and its scatter at "
+                     f"{label} (B {b}, Hkv {h}, T {t}, C {c}, D {dd}, "
+                     f"{dtype}): {name}, "
+                     f"{int((a.float() != w.float()).sum())} elements")
+        cases += 1
+        if (label, b, t, c, at) not in serving:
+            continue
+        elems = 2 * b * h * t * dd
+        nbytes = elems * k_new.element_size() + elems + 2 * b * h * t * 2
+        shapes.append({
+            "shape": label, "b": b, "hkv": h, "t": t, "c": c, "d": dd,
+            "src": "bfloat16", "max_abs_err": 0.0,
+            "ms": time_ms(lambda: kv_quant_kernel(k_new, v_new, *got, pos),
+                          100),
+            "plain_ms": time_ms(lambda: quantize_into_ref(k_new, v_new,
+                                                          *want, pos), 20),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            # no one PyTorch call quantizes and scatters
+            "library_ms": None,
+        })
+        say(f"[kernels] kv_quant {label}: " + json.dumps(shapes[-1]))
+    say(f"[kernels] kv_quant: {cases} cases equal to the plain version bit "
+        f"for bit, twice each")
+    main = shapes[1]
+    return {
+        "name": "kv_quant", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/kv_quant.cu",
+        # no TPU kernel: the reference quantizes in jnp (_quantize_kv and
+        # its scatter), which plain PyTorch runs as about ten launches
+        "replaces": "src/repro/models/transformer.py:233",
+        "launches": 0, "max_abs_err": 0.0, "ms": main["ms"],
+        "kernel_ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "cases": cases, "shapes": shapes,
     }
 
 
@@ -1491,6 +1791,12 @@ def parity_phase() -> None:
     for arch in PARITY_ARCHS:
         parity_config(dataclasses.replace(
             get_smoke_config(arch), dtype="float32", param_dtype="float32"))
+    # the int8 ring: quantized on the card by kv_quant, read by the fma
+    # routes of both attention kernels, which round each dequantized
+    # element to bf16 as the CPU's plain path does
+    parity_config(dataclasses.replace(
+        get_smoke_config("qwen3_14b"), dtype="float32",
+        param_dtype="float32"), kv_dtype="int8")
     # ties go to the first index on the card as on the CPU
     rows = torch.zeros(3, 300)
     rows[0, [7, 200]] = 3.0
@@ -1499,11 +1805,13 @@ def parity_phase() -> None:
         fail("torch.argmax on the card does not pick the first maximum")
 
 
-def parity_config(cfg) -> None:
+def parity_config(cfg, kv_dtype: str = "float32") -> None:
     params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
     modes = ("gspmd", "elk_stream")
-    scfg = ServeConfig(batch=2, cache_capacity=32, kv_dtype="float32",
+    scfg = ServeConfig(batch=2, cache_capacity=32, kv_dtype=kv_dtype,
                        prefetch_depth=2)
+    kv = "int8" if kv_dtype == "int8" else "bfloat16"
+    name = cfg.name + (" int8 KV" if kv == "int8" else "")
     engines = {(dev, mode): ServeEngine(
         cfg, params, dataclasses.replace(scfg, mode=mode), device=dev)
         for dev in ("cpu", "cuda") for mode in modes}
@@ -1514,15 +1822,15 @@ def parity_config(cfg) -> None:
     toks = {key: eng.generate(prompts, steps=8).cpu()
             for key, eng in engines.items()}
     launched = {k: n - before[k] for k, n in read_launches().items()}
-    want = lockstep_expected(cfg, 2, 12, 8)
+    want = lockstep_expected(cfg, 2, 12, 8, kv)
     want = {k: len(modes) * n for k, n in want.items() if k != "routes"}
     if launched != want:
-        fail(f"{cfg.name}: the card's engines launched the kernels "
+        fail(f"{name}: the card's engines launched the kernels "
              f"{launched} times, their passes say {want}")
     ref = toks["cpu", "gspmd"]
     for key, got in toks.items():
         if not torch.equal(ref, got):
-            fail(f"{cfg.name}: greedy tokens differ between the CPU (gspmd) "
+            fail(f"{name}: greedy tokens differ between the CPU (gspmd) "
                  f"and {key}:\n{ref}\n{got}")
     # last-step logits, all fed the CPU run's tokens
     last = {}
@@ -1535,11 +1843,11 @@ def parity_config(cfg) -> None:
     err = max(float((base - got).abs().max()) for got in last.values())
     tol = 2e-4 * (float(base.abs().max()) + 1.0)
     if err > tol:
-        fail(f"{cfg.name}: last-step logits differ: {err:.3e} > {tol:.3e}")
+        fail(f"{name}: last-step logits differ: {err:.3e} > {tol:.3e}")
     if not torch.equal(last["cuda", "gspmd"], last["cuda", "elk_stream"]):
-        fail(f"{cfg.name}: on the card elk_stream and gspmd logits are not "
+        fail(f"{name}: on the card elk_stream and gspmd logits are not "
              "identical")
-    say(f"[parity] smoke {cfg.name} fp32: tokens equal on CPU and card, "
+    say(f"[parity] smoke {name} fp32: tokens equal on CPU and card, "
         f"{' and '.join(modes)}, last-step logits max abs diff {err:.3e} "
         f"(tol {tol:.3e}); on the card elk_stream equals gspmd bit for bit"
         + ("" if engines["cuda", "elk_stream"].streamed else
@@ -1552,7 +1860,7 @@ def parity_config(cfg) -> None:
     # card launches the kernels a pass of the config runs (an RWKV config
     # no attention and no MLP), the CPU none
     used = {k for k, n in passes_expected(
-        cfg, [("flash", 8, 1), ("decode", 2, 2)]).items()
+        cfg, [("chunk", 8, 1), ("decode", 2, 2)], kv).items()
         if k != "routes" and n}
     done = {}
     for (dev, mode), eng in engines.items():
@@ -1564,15 +1872,15 @@ def parity_config(cfg) -> None:
         launched = {k: n - before[k] for k, n in read_launches().items()}
         if {k for k, n in launched.items() if n} != (
                 used if dev == "cuda" else set()):
-            fail(f"{cfg.name}: the {dev} {mode} batcher launched the kernels "
+            fail(f"{name}: the {dev} {mode} batcher launched the kernels "
                  f"{launched} times")
     ref = done["cpu", "gspmd"]
     for key, got in done.items():
         if sorted(got) != list(range(6)) or any(
                 not np.array_equal(ref[r], got[r]) for r in ref):
-            fail(f"{cfg.name}: continuous-batching tokens differ between the "
+            fail(f"{name}: continuous-batching tokens differ between the "
                  f"CPU (gspmd) and {key}:\n{ref}\n{got}")
-    say(f"[parity] smoke {cfg.name} fp32: ContinuousBatcher tokens equal on "
+    say(f"[parity] smoke {name} fp32: ContinuousBatcher tokens equal on "
         f"CPU and card, {' and '.join(modes)}, for 6 mixed requests")
 
 
@@ -1583,14 +1891,16 @@ def parity_config(cfg) -> None:
 COUNTERS = {"fused_mlp": fused_mlp_kernel,
             "decode_attention": decode_attention_kernel,
             "flash_attention": flash_attention_kernel,
-            "elk_matmul": elk_matmul_kernel}
+            "elk_matmul": elk_matmul_kernel,
+            "kv_quant": kv_quant_kernel}
 
 
 def zero_launches() -> None:
     for counter in COUNTERS.values():
         counter.launches = 0
-        if hasattr(counter, "by_route"):
-            counter.by_route = dict.fromkeys(counter.by_route, 0)
+        for by in ("by_route", "by_kv"):
+            if hasattr(counter, by):
+                setattr(counter, by, dict.fromkeys(getattr(counter, by), 0))
 
 
 def read_launches() -> dict:
@@ -1598,9 +1908,15 @@ def read_launches() -> dict:
 
 
 def read_routes() -> dict:
-    """Launches by route of every kernel."""
-    return {name: dict(counter.by_route)
-            for name, counter in COUNTERS.items()}
+    """Launches by route of every kernel that has routes, and the attention
+    kernels' by the type of the K/V they read ("<name> kv")."""
+    out = {}
+    for name, counter in COUNTERS.items():
+        if hasattr(counter, "by_route"):
+            out[name] = dict(counter.by_route)
+        if hasattr(counter, "by_kv"):
+            out[f"{name} kv"] = dict(counter.by_kv)
+    return out
 
 
 def record_launches(rows: list[dict], path: str, counts: dict,
@@ -1619,13 +1935,15 @@ def record_launches(rows: list[dict], path: str, counts: dict,
             continue
         row.setdefault("launches_by_path", {})[path] = n
         row["launches"] += n
-        if row["name"] in routes:
-            got = {r: c for r, c in routes[row["name"]].items() if c}
-            want = {r: c for r, c in expected["routes"][row["name"]].items()
-                    if c}
-            row.setdefault("launches_by_route", {})[path] = got
+        for key, field in ((row["name"], "launches_by_route"),
+                           (f"{row['name']} kv", "launches_by_kv")):
+            if key not in routes:
+                continue
+            got = {r: c for r, c in routes[key].items() if c}
+            want = {r: c for r, c in expected["routes"][key].items() if c}
+            row.setdefault(field, {})[path] = got
             if got != want:
-                fail(f"{row['name']} went through the routes {got} on the "
+                fail(f"{row['name']} went through {got} ({field}) on the "
                      f"{path} path, expected {want}")
 
 
@@ -1640,9 +1958,11 @@ def chunk_lengths(trace, budget: int) -> list[int]:
     return out
 
 
-def passes_expected(cfg, passes: list[tuple[str, int, int]]) -> dict:
+def passes_expected(cfg, passes: list[tuple[str, int, int]],
+                    kv: str = "bfloat16") -> dict:
     """Launches, in all and by route, of bf16 passes of ``cfg`` at full
-    width, each (attention "flash" or "decode", rows of the layers, rows of
+    width over a ring of type ``kv``, each (a prefill "flash", a chunk of a
+    prompt "chunk" or a decode step "decode", rows of the layers, rows of
     the LM head).  Every attention layer launches its attention kernel, the
     four projections and its MLP; an MoE layer the router (a product) and
     its shared expert's MLP in place of the MLP; a hybrid layer the four
@@ -1656,7 +1976,10 @@ def passes_expected(cfg, passes: list[tuple[str, int, int]]) -> dict:
     product on the route of its plan (``smem_plan``: TMA takes it when it
     is bf16 and its row strides are whole 16 bytes); flash attention on
     "wgmma" at the head dims it takes and "mma_sync" at the others; decode
-    attention on "mma"."""
+    attention on "mma".  By the type of K/V the attention kernels read:
+    the ring's at a decode step and a chunk, the activations' (bf16) at a
+    prefill, in cross-attention and in the encoder.  ``kv_quant`` once a
+    layer at a decode step and a chunk over an int8 ring."""
     layers = 0 if cfg.rwkv else cfg.num_layers
     enc, cross = cfg.encoder_layers, cfg.num_layers if cfg.encoder_layers else 0
     flash_route = ("wgmma" if cfg.resolved_head_dim in FLASH_WGMMA_HEAD_DIMS
@@ -1665,19 +1988,32 @@ def passes_expected(cfg, passes: list[tuple[str, int, int]]) -> dict:
     mm = dict.fromkeys(MATMUL_ROUTES, 0)
     attn = {"flash_attention": dict.fromkeys(FLASH_ROUTES, 0),
             "decode_attention": dict.fromkeys(DECODE_ROUTES, 0)}
+    kv_of = {"flash_attention kv": dict.fromkeys(KV_TYPES, 0),
+             "decode_attention kv": dict.fromkeys(KV_TYPES, 0)}
+    quant = 0
 
     def route(m, k, n, ldy, dtype):
         return plan_for(m, n, k, dtype, dtype == torch.bfloat16
                         and k % 8 == 0 and ldy % 8 == 0).route
 
     for kind, rows, head_rows in passes:
-        flash = kind == "flash"
+        flash = kind != "decode"
+        prefill = kind == "flash"
         attn["flash_attention"][flash_route] += cross + (
             layers + enc if flash else 0)
-        if not flash:
+        kv_of["flash_attention kv"]["bfloat16"] += cross + (
+            enc if prefill else 0)
+        if prefill:
+            kv_of["flash_attention kv"]["bfloat16"] += layers
+        elif flash:
+            kv_of["flash_attention kv"][kv] += layers
+        else:
             attn["decode_attention"]["mma"] += layers
+            kv_of["decode_attention kv"][kv] += layers
+        if kv == "int8" and not prefill:
+            quant += layers
         m_of = {"layer": rows, "head": head_rows,
-                "encoder": head_rows * cfg.encoder_seq if flash else 0}
+                "encoder": head_rows * cfg.encoder_seq if prefill else 0}
         for _, _, count, where in layer_mlps(cfg):
             if count and m_of[where]:
                 mlp["two_pass" if m_of[where] > SPLIT_FF_MAX_M
@@ -1687,16 +2023,17 @@ def passes_expected(cfg, passes: list[tuple[str, int, int]]) -> dict:
                 mm[route(m_of[where], k, n, ldy, product_dtype(name))] += count
     routes = {"fused_mlp": mlp, "elk_matmul": mm, **attn}
     return {**{name: sum(by.values()) for name, by in routes.items()},
-            "routes": routes}
+            "kv_quant": quant, "routes": {**routes, **kv_of}}
 
 
-def trace_expected(cfg, decode_ticks: int, chunks: list[int]) -> dict:
-    """Launches of a continuous trace: every decode tick a pass of SLOTS
-    rows; every chunk a pass of its tokens (decode attention for a chunk
-    of one token, flash attention for a longer one) whose head has one
-    row."""
+def trace_expected(cfg, decode_ticks: int, chunks: list[int],
+                   kv: str = "bfloat16") -> dict:
+    """Launches of a continuous trace over a ring of type ``kv``: every
+    decode tick a pass of SLOTS rows; every chunk a pass of its tokens
+    (decode attention for a chunk of one token, flash attention for a
+    longer one) whose head has one row."""
     return passes_expected(cfg, [("decode", SLOTS, SLOTS)] * decode_ticks + [
-        ("decode" if t == 1 else "flash", t, 1) for t in chunks])
+        ("decode" if t == 1 else "chunk", t, 1) for t in chunks], kv)
 
 
 def draw_params(cfg) -> dict:
@@ -1711,18 +2048,19 @@ def draw_params(cfg) -> dict:
 
 
 def lockstep_expected(cfg, batch: int = BATCH, prompt_len: int = PROMPT_LEN,
-                      steps: int = STEPS) -> dict:
+                      steps: int = STEPS, kv: str = "bfloat16") -> dict:
     """Launches of one ``generate`` of ``steps`` tokens: one prefill of
     batch x (prompt_len + a VLM's patches) rows (flash attention) and
     steps - 1 decode steps of batch rows (decode attention); the head has
     batch rows every pass."""
     return passes_expected(cfg, [
         ("flash", batch * seq_len(cfg, prompt_len), batch)] + [
-        ("decode", batch, batch)] * (steps - 1))
+        ("decode", batch, batch)] * (steps - 1), kv)
 
 
 def lockstep_run(cfg, eng: ServeEngine, kernel_rows: list[dict], path: str,
-                 prompt_len: int, steps: int, warm_steps: int) -> dict:
+                 prompt_len: int, steps: int, warm_steps: int,
+                 kv: str = "bfloat16") -> dict:
     """``generate`` of ``steps`` tokens for BATCH prompts of ``prompt_len``
     (seed 1) with the kernels' counts at 0 before and read after, recorded
     as ``path``; tokens inside the vocabulary, prompts kept.  Then a
@@ -1748,7 +2086,8 @@ def lockstep_run(cfg, eng: ServeEngine, kernel_rows: list[dict], path: str,
     gen_ms = start.elapsed_time(end)
     counts, routes = read_launches(), read_routes()
     record_launches(kernel_rows, path, counts,
-                    lockstep_expected(cfg, BATCH, prompt_len, steps), routes)
+                    lockstep_expected(cfg, BATCH, prompt_len, steps, kv),
+                    routes)
     if tuple(out.shape) != (BATCH, prompt_len + steps) or not torch.equal(
             out[:, :prompt_len], prompts):
         fail(f"{path}: generate gave shape {tuple(out.shape)} or lost the "
@@ -1844,15 +2183,16 @@ def check_completions(trace, comps, vocab: int) -> None:
 
 def trace_phase(cfg, params: dict, kernel_rows: list[dict], profile: bool,
                 path: str = "continuous", tag: str = "[serve-trace]",
-                requests: int = TRACE_N) -> None:
+                requests: int = TRACE_N, kv_dtype: str = "bfloat16") -> dict:
     """The first ``requests`` of the TRACE_N-request trace through
     ``ContinuousBatcher.run`` (SLOTS slots of SLOT_CACHE, chunks of
-    PREFILL_CHUNK), resident weights, its launches recorded as ``path``;
-    then, where the cache has a ring, layer 0's attention on the rings the
-    requests left behind."""
+    PREFILL_CHUNK, a ring of ``kv_dtype``), resident weights, its launches
+    recorded as ``path``; then, where the cache has a ring, layer 0's
+    attention on the rings the requests left behind.  Returns the line's
+    statistics."""
     torch.cuda.reset_peak_memory_stats()
     scfg = ServeConfig(batch=SLOTS, cache_capacity=SLOT_CACHE,
-                       prefill_chunk=PREFILL_CHUNK)
+                       prefill_chunk=PREFILL_CHUNK, kv_dtype=kv_dtype)
     eng = ServeEngine(cfg, params, scfg)
     vocab = cfg.vocab_size
     ContinuousBatcher(eng).run(make_trace(        # warm-up
@@ -1895,7 +2235,9 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict], profile: bool,
     chunks = chunk_lengths(trace, bat.chunk_budget)
     layers = cfg.num_layers
     record_launches(kernel_rows, path, counts,
-                    trace_expected(cfg, bat.decode_ticks, chunks), routes)
+                    trace_expected(cfg, bat.decode_ticks, chunks,
+                                   "int8" if kv_dtype == "int8"
+                                   else "bfloat16"), routes)
     check_completions(trace, comps, vocab)
     if eng.slot_cache is not cache or ptrs != {
             k: cache[k].data_ptr() for k in ptrs}:
@@ -1913,10 +2255,13 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict], profile: bool,
             (SLOTS, cfg.num_heads, cfg.resolved_head_dim),
             generator=torch.Generator(device="cuda").manual_seed(5),
             device="cuda").to(torch.bfloat16)
+        scales = ((cache["k_scale"][0], cache["v_scale"][0])
+                  if "k_scale" in cache else None)
         err, over = check_attn(q, cache["k"][0], cache["v"][0], tags, q_pos,
                                tfm.attn_spec(cfg).sliding_window,
                                dead_rows=[s for s in range(SLOTS)
-                                          if s not in last_tags])
+                                          if s not in last_tags],
+                               kv_scales=scales)
         say(f"{tag} layer 0 attention on the rings of {len(last_tags)} "
             f"slots: err {err:.3e}, err/tol {over:.3f}")
 
@@ -1936,6 +2281,7 @@ def trace_phase(cfg, params: dict, kernel_rows: list[dict], profile: bool,
     say(f"{tag} " + json.dumps(stats))
     if profile:
         profile_steps(eng, last_tags)
+    return stats
 
 
 # ---------------------------------------------------------------------------
@@ -1972,18 +2318,22 @@ def copy_gbps(eng: ServeEngine, slot: int, state: dict) -> dict:
             "snapshot_GBps": nbytes / snapshot_s / 1e9}
 
 
-def oversub_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
+def oversub_phase(cfg, params: dict, kernel_rows: list[dict],
+                  kv_dtype: str = "bfloat16", tag: str = "[oversub]",
+                  path: str = "oversub continuous") -> dict:
     """The resident model and weights of the continuous phase, 8 slots of
-    2048, serving 24 requests of which about half share a system prompt of
-    512 tokens: first oversubscribed (K = 2: prefill ahead, parked rings in
-    host memory, LRU swaps) with a prefix store of PREFIX_STORE_BYTES, then
-    at K = 1 with no store.  Every request must get the same tokens both
-    times; the first run must have swapped at least once and hit the store
-    at least once."""
+    2048 (a ring of ``kv_dtype``), serving 24 requests of which about half
+    share a system prompt of 512 tokens: first oversubscribed (K = 2:
+    prefill ahead, parked rings in host memory, LRU swaps) with a prefix
+    store of PREFIX_STORE_BYTES, then at K = 1 with no store.  Every
+    request must get the same tokens both times; the first run must have
+    swapped at least once and hit the store at least once.  Returns the
+    oversubscribed run's statistics and the copy rates."""
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
     scfg = ServeConfig(batch=SLOTS, cache_capacity=SLOT_CACHE,
-                       prefill_chunk=PREFILL_CHUNK)
+                       prefill_chunk=PREFILL_CHUNK, kv_dtype=kv_dtype)
+    kv = "int8" if kv_dtype == "int8" else "bfloat16"
     eng = ServeEngine(cfg, params, scfg)
     vocab = cfg.vocab_size
     trace = make_trace(OVERSUB_N, vocab_size=vocab, **TRACE,
@@ -2013,10 +2363,9 @@ def oversub_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts, routes = read_launches(), read_routes()
-        want = trace_expected(cfg, bat.decode_ticks, chunks)
+        want = trace_expected(cfg, bat.decode_ticks, chunks, kv)
         if label == "oversub":
-            record_launches(kernel_rows, "oversub continuous", counts, want,
-                            routes)
+            record_launches(kernel_rows, path, counts, want, routes)
         elif {**counts, "routes": routes} != want:
             fail(f"the K = 1 run launched {counts}, by route {routes}")
         check_completions(trace, comps, vocab)
@@ -2042,7 +2391,7 @@ def oversub_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
                 "prefix_store_budget": bat.prefix.capacity_bytes,
                 "prefix_snapshots_stored": len(bat.prefix)})
         runs[label] = ({c.rid: c.tokens for c in comps}, stats, bat)
-        say(f"[oversub] {label}: " + json.dumps(stats))
+        say(f"{tag} {label}: " + json.dumps(stats))
     del eng.prefill_chunk, eng.offload_slot  # the class's methods again
     got, stats, bat = runs["oversub"]
     want = runs["capped"][0]
@@ -2055,13 +2404,135 @@ def oversub_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
              f"the prefix store {stats['prefix_hits']} times")
     state = eng.offload_slot(0)
     rates = copy_gbps(eng, 0, state)
-    say("[oversub] " + json.dumps({
+    say(f"{tag} " + json.dumps({
         "model": cfg.name, "layers": cfg.num_layers, "slots": SLOTS,
         "cache": SLOT_CACHE, "prefill_chunk": PREFILL_CHUNK,
+        "kv_dtype": kv_dtype,
         "requests": OVERSUB_N, "sys_prompt_len": SYS_PROMPT_LEN,
         "tokens_equal_to_capped": True, **rates,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}))
     del runs, bat, state
+    return {**stats, **rates}
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: the int8 KV cache at full width
+# ---------------------------------------------------------------------------
+
+def last_logits(eng: ServeEngine, prompts, tokens, steps: int) -> torch.Tensor:
+    """The last of ``steps - 1`` decode steps' logits after a prefill of
+    ``prompts``, the steps fed ``tokens`` (B, steps) in turn (fp32)."""
+    logits, cache = eng.prefill(prompts)
+    for step in range(steps - 1):
+        logits, cache = eng.decode(tokens[:, step], cache)
+    return logits.float()
+
+
+def int8_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
+    """Full-width qwen3-14b, resident, bf16 activations, the int8 ring
+    (``ServeConfig(kv_dtype="int8")``): the lock-step run of [serve] (B 8,
+    prompts of 512, 16 steps, a ring of 1024), the 16-request continuous
+    trace on 8 slots of 2048 and the oversubscribed K = 2 trace of
+    [oversub], their launches recorded by route and by the K/V type the
+    attention kernels read.  Fails unless every request completes with its
+    tokens, the lock-step last logits lie within the reference's own bound
+    of the bf16 ring's (rel < 0.15, ``test_int8_kv_cache_close_to_bf16``),
+    the cache holds exactly the int8 ring and its scales, and a decode step
+    allocates less than one layer's bf16 ring beyond what the step before
+    held (nothing widens the ring)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, params, ServeConfig(
+        batch=BATCH, cache_capacity=CACHE, kv_dtype="int8"))
+    run = lockstep_run(cfg, eng, kernel_rows, "int8 lock-step", PROMPT_LEN,
+                       STEPS, warm_steps=2, kv="int8")
+    peak = torch.cuda.max_memory_allocated()
+    cache = run["cache"]
+    hkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    slots = cfg.num_layers * BATCH * hkv * CACHE
+    want_bytes = 2 * slots * hd + 2 * slots * 2    # int8 K, V; bf16 scales
+    bf16_bytes = 2 * slots * hd * 2
+    got_bytes = sum(t.numel() * t.element_size() for key, t in cache.items()
+                    if key in ("k", "v", "k_scale", "v_scale"))
+    if (got_bytes != want_bytes or cache["k"].dtype != torch.int8
+            or cache["k_scale"].dtype != torch.bfloat16):
+        fail(f"the int8 cache holds {got_bytes} bytes "
+             f"({cache['k'].dtype}, {cache['k_scale'].dtype}), the int8 "
+             f"ring and its scales are {want_bytes}")
+
+    # nothing widens the ring: one more decode step, its allocation beyond
+    # what the step before held
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    logits, cache = eng.decode(run["out"][:, -1], cache)
+    torch.cuda.synchronize()
+    step_extra = torch.cuda.max_memory_allocated() - base
+    layer_ring = 2 * BATCH * hkv * CACHE * hd * 2   # one layer's bf16 K, V
+    if not torch.isfinite(logits).all() or step_extra >= layer_ring:
+        fail(f"an int8 decode step allocated {step_extra} bytes beyond the "
+             f"step before (one layer's bf16 ring: {layer_ring})")
+
+    # the bf16 ring's last logits on the same tokens
+    bf = ServeEngine(cfg, params, ServeConfig(batch=BATCH,
+                                              cache_capacity=CACHE))
+    fed = run["out"][:, PROMPT_LEN:]
+    a = last_logits(bf, run["prompts"], fed, STEPS)
+    b = last_logits(eng, run["prompts"], fed, STEPS)
+    rel = float((a - b).abs().max()) / float(a.abs().max())
+    if not rel < 0.15:
+        fail(f"int8 KV cache too lossy against bf16: rel {rel:.4f}")
+    del bf, a, b, logits, cache, eng
+    lock = {k: run[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                "generate_ms", "tokens_per_s")}
+    lock["decode_tokens_per_s"] = BATCH / (run["decode_ms_per_token"] * 1e-3)
+    del run
+
+    trace = trace_phase(cfg, params, kernel_rows, False,
+                        path="int8 continuous", tag="[int8-trace]",
+                        kv_dtype="int8")
+    over = oversub_phase(cfg, params, kernel_rows, kv_dtype="int8",
+                         tag="[int8-oversub]",
+                         path="int8 oversub continuous")
+    say("[int8] " + json.dumps({
+        "model": cfg.name, "layers": cfg.num_layers, "kv_dtype": "int8",
+        "lock_step": lock, "cache_bytes": got_bytes,
+        "bf16_cache_bytes": bf16_bytes,
+        "cache_over_bf16": got_bytes / bf16_bytes,
+        "max_memory_allocated_bytes": peak,
+        "decode_step_extra_bytes": step_extra,
+        "layer_bf16_ring_bytes": layer_ring,
+        "last_logits_rel_to_bf16": rel,
+        "continuous": {k: trace[k] for k in (
+            "gen_tok_s", "decode_tok_s", "decode_ms_per_tick",
+            "p50_latency_s", "p99_latency_s", "max_memory_allocated_bytes")
+            if k in trace},
+        "oversub": {k: over[k] for k in (
+            "gen_tok_s", "spill_events", "swaps", "bytes_moved",
+            "slot_state_bytes", "offload_GBps", "refill_GBps",
+            "snapshot_GBps", "prefix_hits") if k in over},
+        "spill_GB": over["bytes_moved"] / 1e9}))
+    say(f"[int8] phase took {time.perf_counter() - t0:.1f}s")
+
+
+def emulator_phase() -> None:
+    """``check_plan_numerics`` on the card over the first exec plans of one
+    decode matmul of ``h100_sxm()`` (qwen3-14b, B 8, a ring of 1024), each
+    with its first and last preload plan."""
+    chip = h100_sxm()
+    g = build_graph(get_config("qwen3_14b"), batch=BATCH, seq=CACHE,
+                    phase="decode")
+    op = next(o for o in g.ops if o.kind == "matmul")
+    worst, plans = 0.0, 0
+    for ep in enumerate_exec_plans(op, chip)[:4]:
+        pps = enumerate_preload_plans(op, ep, chip)
+        for pp in (pps[0], pps[-1]):
+            worst = max(worst, check_plan_numerics(ep, pp))
+            plans += 1
+    say(f"[emulator] {plans} plans of {op.name} on h100_sxm inside the bound "
+        f"max|got-ref| <= 2e-2 (max|ref| + 1) on the card: worst err "
+        f"{worst:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -2359,13 +2830,11 @@ def live_checks(cfg, params: dict, prompts: torch.Tensor) -> None:
         f"{worst:.3f})")
 
 
-def llama2_70b_phase(kernel_rows: list[dict], host: dict) -> None:
+def llama2_70b_phase() -> None:
     """llama2-70b under ``elk_stream`` with the planner's knobs on
-    ``h100_host()``, full width.  First resident against streamed at
-    STREAM_CHECK_LAYERS layers on the same weights (equal greedy tokens);
-    then streamed alone at full depth if the host (``host``: its memory
-    when the script started) holds the pinned layers with HOST_HEADROOM to
-    spare, else at the depth it holds."""
+    ``h100_host()``, full width: resident against streamed at
+    STREAM_CHECK_LAYERS layers on the same weights (equal greedy tokens,
+    the launches of their passes), and the kernels on its live weights."""
     full = get_config("llama2_70b")
     dev = torch.device("cuda")
     say(f"[models] host memory now: {json.dumps(host_memory())}")
@@ -2401,56 +2870,6 @@ def llama2_70b_phase(kernel_rows: list[dict], host: dict) -> None:
         f"tokens equal, {outs['gspmd'][0, PROMPT_LEN:].tolist()}")
     live_checks(cfg, params, prompts)
     del res, eng, params, outs
-
-    # streamed at the depth the host holds
-    free_card("the streamed llama2-70b")
-    depth = host_depth(full, host, 1)
-    cfg = dataclasses.replace(full, num_layers=depth)
-    scfg = elk_serve_config(cfg, batch=BATCH, cache_capacity=CACHE,
-                            pod=h100_host())
-    t0 = time.perf_counter()
-    params = init_streamed_params(torch.Generator(device=dev).manual_seed(0),
-                                  cfg, dev, scfg.prefetch_depth)
-    torch.cuda.synchronize()
-    draw_s = time.perf_counter() - t0
-    eng = ServeEngine(cfg, params, scfg)
-    ls = eng.params["layers"]
-    copies0 = ls.copies
-    run = lockstep_run(cfg, eng, kernel_rows, "llama2-70b stream lock-step",
-                       PROMPT_LEN, STREAM_STEPS, warm_steps=1)
-    # every pass streams every layer: the warm-up, generate, two prefills
-    # and the decode steps
-    passes = 1 + STREAM_STEPS + 2 + (STREAM_STEPS - 1)
-    if ls.copies - copies0 != depth * passes:
-        fail(f"{ls.copies - copies0} layer copies in {passes} streamed passes "
-             f"of {depth} layers")
-    model_line(cfg, full.num_layers, tree_bytes(params), run,
-               batch=BATCH, prompt_len=PROMPT_LEN, cache=CACHE,
-               steps=STREAM_STEPS, mode="elk_stream",
-               prefetch_depth=scfg.prefetch_depth, drawn_in_s=draw_s,
-               pinned_host_bytes=ls.host_bytes, **copy_rates(ls))
-    del eng, params, ls
-
-
-def host_depth(full, host: dict, least: int) -> int:
-    """The most layers of ``full``, taken from the first, whose pinned
-    host copy the host held at the script's start (``host``) with
-    HOST_HEADROOM kept free (a MiB a layer for alignment); printed, and
-    fails below ``least``."""
-    budget, depth = host["usable_bytes"] - HOST_HEADROOM, 0
-    for layer in tfm.layer_shapes(full):
-        budget -= tree_bytes(layer) + 2 ** 20
-        if budget < 0:
-            break
-        depth += 1
-    if depth < least:
-        fail(f"the host cannot hold {least} {full.name} layers: "
-             f"{json.dumps(host)}")
-    say(f"[models] {full.name} streamed: {host['usable_bytes']} bytes of "
-        f"host memory usable at the start, {HOST_HEADROOM} kept free: depth "
-        f"{depth} of {full.num_layers}"
-        + ("" if depth == full.num_layers else " (cut; the width is not)"))
-    return depth
 
 
 def same_routes(cfg, layers: list, ls) -> int:
@@ -2496,26 +2915,25 @@ def same_routes(cfg, layers: list, ls) -> int:
 
 
 def moe_stream_phase(arch: str, cfg, params: dict, run: dict,
-                     kernel_rows: list[dict], host: dict,
-                     profile: bool) -> None:
+                     kernel_rows: list[dict], profile: bool) -> None:
     """An MoE config under ``elk_stream`` with the planner's knobs on
-    ``h100_host()``, full width.  First the resident run's weights
-    (``params``, ``cfg`` at MOE_DEPTH layers) move into a layer stream,
-    their device copy freed: every product takes the same route on the
-    stream's views, and the streamed engine (its expert buffer sized once
-    the resident layers are gone) gives the resident run's greedy tokens.
-    Then streamed alone at the depth the host holds (the weights drawn one
-    layer at a time into pinned host memory), lock-step,
-    and three decode steps one by one: the ``[stream-moe]`` line with the
-    bytes each copied, window and experts apart, beside what whole-layer
-    copies would have moved; then three at a window of 2 (the stream holds
-    two buffers for them), where the experts' copies queue behind the next
-    layer's window copy."""
+    ``h100_host()``, full width, at MOE_DEPTH layers.  The resident run's
+    weights (``params``) move into a layer stream, their device copy
+    freed: every product takes the same route on the stream's views, and
+    the streamed engine (its expert buffer sized once the resident layers
+    are gone) gives the resident run's greedy tokens.  Then lock-step on
+    it, and three decode steps one by one: the ``[stream-moe]`` line with
+    the bytes each copied, window and experts apart, beside what
+    whole-layer copies would have moved; then three at a window of 2 (the
+    stream holds two buffers for them), where the experts' copies queue
+    behind the next layer's window copy."""
     dev = torch.device("cuda")
+    full = get_config(arch)
+    depth = cfg.num_layers
     scfg = elk_serve_config(cfg, batch=BATCH, cache_capacity=CACHE,
                             pod=h100_host())
     layers = params.pop("layers")
-    ls = LayerStream(layers, dev, depth=scfg.prefetch_depth)
+    ls = LayerStream(layers, dev, depth=max(scfg.prefetch_depth, 2))
     checks = same_routes(cfg, layers, ls)
     del layers
     gc.collect()
@@ -2538,23 +2956,7 @@ def moe_stream_phase(arch: str, cfg, params: dict, run: dict,
         f"resident and streamed (prefetch_depth {scfg.prefetch_depth}, an "
         f"expert buffer of {ls.expert_slots} experts) tokens equal, "
         f"{out[0, PROMPT_LEN:].tolist()}")
-    del eng, ls, out
-    params.clear()
-
-    # streamed alone at the depth the host holds
-    free_card(f"the streamed {cfg.name}")
-    full = get_config(arch)
-    depth = host_depth(full, host, MOE_DEPTH)
-    cfg = dataclasses.replace(full, num_layers=depth)
-    scfg = elk_serve_config(cfg, batch=BATCH, cache_capacity=CACHE,
-                            pod=h100_host())
-    t0 = time.perf_counter()
-    eng = ServeEngine(cfg, init_streamed_params(     # 2 buffers: see below
-        torch.Generator(device=dev).manual_seed(0), cfg, dev,
-        max(scfg.prefetch_depth, 2)), scfg)
-    torch.cuda.synchronize()
-    draw_s = time.perf_counter() - t0
-    ls = eng.params["layers"]
+    del out
     copies0 = ls.copies
     run = lockstep_run(cfg, eng, kernel_rows, f"{cfg.name} stream lock-step",
                        PROMPT_LEN, STREAM_STEPS, warm_steps=1)
@@ -2584,8 +2986,7 @@ def moe_stream_phase(arch: str, cfg, params: dict, run: dict,
         "model": cfg.name, "depth": f"{depth} of {full.num_layers}",
         "layer_kinds": tfm.layer_kinds(cfg), "batch": BATCH,
         "prompt_len": PROMPT_LEN, "cache": CACHE, "steps": STREAM_STEPS,
-        "pinned_host_bytes": ls.host_bytes, "drawn_in_s": draw_s,
-        "prefetch_depth": planned,
+        "pinned_host_bytes": ls.host_bytes, "prefetch_depth": planned,
         "prefill_chunk": scfg.prefill_chunk, "window_buffers": ls.depth,
         "window_bytes": ls.depth * ls.layer_bytes,
         "expert_slots": ls.expert_slots,
@@ -2613,18 +3014,20 @@ def moe_stream_phase(arch: str, cfg, params: dict, run: dict,
                                 label=f"stream-moe decode p{window}")
         eng.scfg.prefetch_depth = planned
     del eng, ls, run, cache, logits
+    params.clear()
 
 
-def models_phase(kernel_rows: list[dict], host: dict, profile: bool) -> None:
+def models_phase(kernel_rows: list[dict], profile: bool) -> None:
     """The five configs of this slice at full width, one after another,
     each freed before the next: dit-xl and gemma2-27b resident at full
-    depth, llama2-70b streamed, llama4-maverick and kimi-k2 resident at
+    depth, llama2-70b resident against streamed, llama4-maverick and
+    kimi-k2 resident at
     MOE_DEPTH layers (a dense and an MoE layer), kimi-k2 also through the
     continuous batcher, then both streamed (``moe_stream_phase``)."""
     t_phase = time.perf_counter()
     for arch, depth, prompt_len, ring in MODEL_RUNS:
         if arch == "llama2_70b":
-            llama2_70b_phase(kernel_rows, host)
+            llama2_70b_phase()
             continue
         cfg, params, eng, run = resident_model(arch, depth, prompt_len, ring,
                                                kernel_rows)
@@ -2635,8 +3038,7 @@ def models_phase(kernel_rows: list[dict], host: dict, profile: bool) -> None:
             trace_phase(cfg, params, kernel_rows, False,
                         path=f"{cfg.name} continuous", tag="[models-trace]")
         if "moe" in tfm.layer_kinds(cfg):
-            moe_stream_phase(arch, cfg, params, run, kernel_rows, host,
-                             profile)
+            moe_stream_phase(arch, cfg, params, run, kernel_rows, profile)
         del params, run
     free_card("the end of the models phase")
     say(f"[models] phase took {time.perf_counter() - t_phase:.1f}s")
@@ -3123,35 +3525,47 @@ def main() -> None:
     chunk = _chunk_len(SLOT_CACHE, elk_serve_config(
         cfg, batch=SLOTS, cache_capacity=SLOT_CACHE,
         pod=h100_host()).prefill_chunk)
+    def timed(name: str, fn, *a):
+        t_phase = time.perf_counter()
+        result = fn(*a)
+        say(f"[time] {name}: {time.perf_counter() - t_phase:.1f}s")
+        return result
+
     with torch.inference_mode():
         if args.only == "kernels":
             for row in (elk_matmul_phase(cfg), kernels_phase(cfg),
-                        attention_phase(cfg), flash_phase(cfg, chunk)):
+                        attention_phase(cfg), flash_phase(cfg, chunk),
+                        kv_quant_phase(cfg)):
                 say(json.dumps({k: row[k] for k in ("name", "ms", "bound_ms",
                                                      "library_ms")}))
         elif args.only == "models":
             parity_phase()
             rows = [{"name": name, "launches": 0} for name in COUNTERS]
-            models_phase(rows, host, args.profile)
+            models_phase(rows, args.profile)
             families_phase(rows)
         if args.only:
             say(f"[only {args.only}] stopped; no result line")
             return
-        rows = [kernels_phase(cfg), attention_phase(cfg),
-                flash_phase(cfg, chunk), elk_matmul_phase(cfg)]
-        parity_phase()
-        params = draw_params(cfg)
-        out = serve_phase(lock_cfg, {
+        rows = [timed("fused_mlp kernels", kernels_phase, cfg),
+                timed("decode_attention kernels", attention_phase, cfg),
+                timed("flash_attention kernels", flash_phase, cfg, chunk),
+                timed("elk_matmul kernels", elk_matmul_phase, cfg),
+                timed("kv_quant kernels", kv_quant_phase, cfg)]
+        timed("parity", parity_phase)
+        timed("emulator", emulator_phase)
+        params = timed("draw", draw_params, cfg)
+        out = timed("serve", serve_phase, lock_cfg, {
             **params, "layers": params["layers"][:lock_cfg.num_layers]},
             rows, args.profile)
-        trace_phase(cfg, params, rows, args.profile)
-        oversub_phase(cfg, params, rows)
+        timed("serve-trace", trace_phase, cfg, params, rows, args.profile)
+        timed("oversub", oversub_phase, cfg, params, rows)
+        timed("int8", int8_phase, cfg, params, rows)
         del params                    # the stream phase draws its own
-        stream_phase(cfg, rows,
-                     out if lock_cfg.num_layers == cfg.num_layers else None,
-                     args.profile)
-        models_phase(rows, host, args.profile)
-        families_phase(rows)
+        timed("stream", stream_phase, cfg, rows,
+              out if lock_cfg.num_layers == cfg.num_layers else None,
+              args.profile)
+        timed("models", models_phase, rows, args.profile)
+        timed("families", families_phase, rows)
 
     for row in rows:
         for path, n in row["launches_by_path"].items():

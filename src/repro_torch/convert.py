@@ -77,15 +77,18 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
 
 
 # the reference's cache leaves besides ``pos``, all stacked over layers
-# except ``slot_pos``
-_CACHE_KEYS = ("k", "v", "slot_pos", "rwkv_state", "ssm_state", "cross_k",
-               "cross_v")
+# except ``slot_pos``; an int8 ring's scales are bf16
+_CACHE_KEYS = ("k", "v", "k_scale", "v_scale", "slot_pos", "rwkv_state",
+               "ssm_state", "cross_k", "cross_v")
+_SCALE_KEYS = ("k_scale", "v_scale")
 
 
 def cache_from_jax(tree: dict, device="cuda") -> dict:
     """The reference's cache (numpy leaves) as a port cache: lock-step
     (``pos`` a scalar, ``slot_pos (C,)``) or per-slot (``pos (B,)``,
-    ``slot_pos (B, C)``); the leaves it has of K/V, ``rwkv_state``,
+    ``slot_pos (B, C)``); the leaves it has of K/V (an int8 ring stays int8,
+    its ``k_scale``/``v_scale`` come as bf16, from bf16 bit for bit or from
+    ``cache_to_numpy``'s float32, which holds them exactly), ``rwkv_state``,
     ``ssm_state`` and ``cross_k``/``cross_v``, each in its own type."""
     device = resolve_device(device)
     pos = np.asarray(tree["pos"])
@@ -93,20 +96,23 @@ def cache_from_jax(tree: dict, device="cuda") -> dict:
                    else tensor_from_numpy(pos, device, torch.int32))}
     for key in _CACHE_KEYS:
         if key in tree:
-            out[key] = tensor_from_numpy(tree[key], device)
+            out[key] = tensor_from_numpy(
+                tree[key], device,
+                torch.bfloat16 if key in _SCALE_KEYS else None)
     return out
 
 
 def cache_to_numpy(cache: dict) -> dict:
     """A port cache as numpy arrays under the reference's keys, for
     comparison with the reference's cache: K/V and cross K/V widened to
-    float32, tags int32, states as they are (float32)."""
+    float32 (an int8 ring kept as int8), an int8 ring's scales widened to
+    float32 (exactly), tags int32, states as they are (float32)."""
     pos = cache["pos"]
     out = {"pos": (pos.cpu().numpy() if isinstance(pos, torch.Tensor)
                    else np.int32(pos))}
     for key in _CACHE_KEYS:
         if key in cache:
             t = cache[key]
-            out[key] = (t if key == "slot_pos" else t.to(torch.float32)
-                        ).cpu().numpy()
+            keep = key == "slot_pos" or t.dtype == torch.int8
+            out[key] = (t if keep else t.to(torch.float32)).cpu().numpy()
     return out

@@ -70,6 +70,17 @@
 //     enough to give every SM a block, at most 8 (the portable cluster
 //     size); a second block on an SM, or a larger cluster, cost more in
 //     prologue and merge than they saved (PERF.md).
+//   * an int8 ring (the reference's quantized serving cache: one bf16 scale a
+//     slot and kv head, k_scale / v_scale (B, Hkv, C)) is read as it is
+//     stored, half the bytes of bf16: the tiles arrive in int8 (TMA with
+//     boxes of 128 one-byte elements; at a head dim whose rows TMA cannot
+//     stride, D % 16 != 0, the producer's lanes copy them), the producer's
+//     lanes copy the tiles' scales beside their tags, and each element is
+//     dequantized as the reference does, (q * scale) rounded to bf16, before
+//     it enters a product.  Route "mma": each warp dequantizes its own 16
+//     slots of K and V into bf16 rows of its own, swizzled as the bf16 tile,
+//     and its ldmatrix reads those; route "fma": in registers, as the pieces
+//     are read.  Nothing widens the ring in device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,6 +93,8 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using hg::deq;
+using hg::dequant8;
 using hg::smem_u32;
 
 // kernels/decode_attention/kernel.py repeats these, smem_bytes and maxg_for,
@@ -101,6 +114,11 @@ constexpr int kCoef = kWarps + kMaxSplits + 2;
 
 struct Params {
   CUtensorMap k_map, v_map;  // (B Hkv, C, D) of T, boxes of 128 bytes x bk x 1
+  const void* k;             // the caches (B, Hkv, C, D), for the lanes' copies
+  const void* v;
+  const bf16* k_scale;       // int8 ring: (B, Hkv, C) scales; else null
+  const bf16* v_scale;
+  int lane_copy;             // int8 ring at D % 16 != 0: the producer's lanes copy the tiles
   const void* q;             // (B, Hq, D), fp32 or bf16 (q_bf16)
   const int* slot_pos;       // (C,) or (B, C)
   const int* q_pos;          // (B,) or one value (qp_stride 0); null: q_pos_value
@@ -120,22 +138,34 @@ __host__ __device__ inline int row_bytes_for(int d, int elem) { return (d * elem
 
 __host__ __device__ inline int pad4(int n) { return (n + 3) / 4 * 4; }
 
-// Shared memory: the ring (stages x (K tile, V tile), each tile row_bytes / 128
-// column blocks of bk rows x 128 bytes), the query rows (fp32, maxg x D), the
-// warps' probabilities (kWarps x bk / kWarps slots x pad4(maxg)), the tiles'
-// tags, the tile list, the combine coefficients, scratch, the mbarriers.
-__host__ __device__ inline size_t smem_bytes(int maxg, int d, int bk, int stages, int elem) {
-  const size_t ring = (size_t)stages * 2 * bk * row_bytes_for(d, elem);
-  const size_t rest = sizeof(float) * ((size_t)maxg * d + (size_t)bk * pad4(maxg) +
-                                       (size_t)stages * bk + kMaxListed + (size_t)maxg * kCoef +
-                                       4) +
-                      2 * (size_t)stages * sizeof(uint64_t);
-  return 1024 + ring + rest;
-}
-
 // (acc, m, l) of every warp and of the block, kept in the ring after the loop
 __host__ __device__ inline size_t partial_bytes(int maxg, int d) {
   return sizeof(float) * (size_t)(kWarps + 1) * maxg * (d + 2);
+}
+
+// The region at the start of shared memory: the ring (stages x (K tile, V
+// tile), each tile row_bytes / 128 column blocks of bk rows x 128 bytes); on
+// route "mma" over an int8 ring (elem 1) then each warp's 16 dequantized
+// slots of K and V in bf16; after the loop the carries, whichever is larger.
+__host__ __device__ inline size_t region_bytes(int maxg, int d, int bk, int stages, int elem,
+                                               bool mma) {
+  size_t ring = (size_t)stages * 2 * bk * row_bytes_for(d, elem);
+  if (elem == 1 && mma) ring += (size_t)kWarps * 2 * 16 * row_bytes_for(d, 2);
+  const size_t partial = partial_bytes(maxg, d);
+  return ring > partial ? ring : partial;
+}
+
+// Shared memory: the region, the query rows (fp32, maxg x D), the warps'
+// probabilities (kWarps x bk / kWarps slots x pad4(maxg)), the tiles' tags,
+// an int8 ring's scales (of K and V, a stage's tile each), the tile list, the
+// combine coefficients, scratch, the mbarriers.
+__host__ __device__ inline size_t smem_bytes(int maxg, int d, int bk, int stages, int elem,
+                                             bool mma) {
+  const size_t rest = sizeof(float) * ((size_t)maxg * d + (size_t)bk * pad4(maxg) +
+                                       (size_t)stages * bk * (elem == 1 ? 3 : 1) + kMaxListed +
+                                       (size_t)maxg * kCoef + 4) +
+                      2 * (size_t)stages * sizeof(uint64_t);
+  return 1024 + region_bytes(maxg, d, bk, stages, elem, mma) + rest;
 }
 
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -172,15 +202,35 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// The address of 16-byte piece c of row `row` of a K or V tile of bk rows
-// (128-byte column blocks, swizzled as TMA writes them).
+// The offset of 16-byte piece c of row `row` in a K or V tile of bk rows
+// (128-byte column blocks, swizzled as TMA writes them), and its address.
+__device__ __forceinline__ int piece_off(int bk, int row, int c) {
+  return (c >> 3) * (bk * 128) + row * 128 + (((c & 7) ^ (row & 7)) << 4);
+}
 __device__ __forceinline__ const unsigned char* piece(const unsigned char* tile, int bk, int row,
                                                       int c) {
-  return tile + (c >> 3) * (bk * 128) + row * 128 + (((c & 7) ^ (row & 7)) << 4);
+  return tile + piece_off(bk, row, c);
 }
 
-// NP: element pairs of every query row a lane owns for P.V on the FMA route,
-// 64 elements apart (D <= 64 NP).  DM > 0: route "mma" at head dim DM, a
+// An int8 ring whose rows TMA cannot stride (D % 16 != 0): the producer's 32
+// lanes copy `rows` rows of D bytes from src into a tile of bk rows, 8 bytes
+// at a time, swizzled as TMA would write them.  The bytes past D of a row are
+// left as they are: what they dequantize to is finite and meets zeros of the
+// query or lands in outputs past D, never stored.
+__device__ __forceinline__ void copy_rows_by_lanes(unsigned char* tile, const int8_t* src,
+                                                   int rows, int d, int bk, int lane) {
+  const int per_row = d / 8;
+#pragma unroll 4
+  for (int e = lane; e < rows * per_row; e += 32) {
+    const int r = e / per_row, h = e % per_row;
+    const uint2 v = *reinterpret_cast<const uint2*>(src + (size_t)r * d + 8 * h);
+    *reinterpret_cast<uint2*>(tile + piece_off(bk, r, h >> 1) + (h & 1) * 8) = v;
+  }
+}
+
+// T: the ring's type (float, bf16, or int8 with its scales).  NP: element
+// pairs of every query row a lane owns for P.V on the FMA route, 64 elements
+// apart (D <= 64 NP).  DM > 0: route "mma" at head dim DM, a
 // multiple of 8: at an odd multiple (72) the last k16 step of S^T = K Q^T
 // reads 8 columns past D, which the TMA copy of the tile zero-fills (its box
 // is 128 bytes wide, the tensor D) and whose query entries are zeros; O^T's
@@ -189,16 +239,22 @@ template <typename T, int MAXG, int NP, int DM>
 __global__ void __launch_bounds__(kThreads, 2)
     decode_attention_kernel(const __grid_constant__ Params p) {
   constexpr int E = 16 / (int)sizeof(T);  // elements of a 16-byte piece
+  constexpr bool Q8 = sizeof(T) == 1;     // an int8 ring with its scales
   constexpr int PST = (MAXG + 3) / 4 * 4;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int D = p.d, BK = p.bk, S = p.stages;
   const int tile_bytes = BK * row_bytes_for(D, (int)sizeof(T));  // a K or a V tile
   const int nblk = row_bytes_for(D, (int)sizeof(T)) / 128;
-  float* q_s = reinterpret_cast<float*>(ring + (size_t)S * 2 * tile_bytes);
+  // route "mma" over an int8 ring: each warp's dequantized K and V rows
+  unsigned char* dq = ring + (size_t)S * 2 * tile_bytes;
+  float* q_s = reinterpret_cast<float*>(
+      ring + region_bytes(MAXG, D, BK, S, (int)sizeof(T), DM > 0));
   float* p_s = q_s + MAXG * D;
   int* tags_s = reinterpret_cast<int*>(p_s + BK * PST);
-  int* list_s = tags_s + S * BK;
+  // an int8 ring's scales: stage s's of K at 2 s BK, of V at (2 s + 1) BK
+  float* sc_s = reinterpret_cast<float*>(tags_s + S * BK);
+  int* list_s = reinterpret_cast<int*>(sc_s + (Q8 ? 2 * S * BK : 0));
   float* coef_s = reinterpret_cast<float*>(list_s + kMaxListed);
   int* scratch_s = reinterpret_cast<int*>(coef_s + MAXG * kCoef);
   uint64_t* full = reinterpret_cast<uint64_t*>(scratch_s + 4);
@@ -306,15 +362,23 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto tile_at = [&](int i) { return listed ? list_s[k_begin + i] : k_begin + i; };
 
   if (warp == kWarps) {
-    // producer: lane 0 issues the copies of K and V, every lane copies tags,
-    // those of the next tile loaded while this one waits for its stage
+    // producer: lane 0 issues the copies of K and V, every lane copies tags
+    // (and an int8 ring's scales), those of the next tile loaded while this
+    // one waits for its stage
     int nxt[2] = {0, 0};
+    float nsc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // the next tile's K and V scales
     auto load_tags = [&](int i) {
       const int c0 = tile_at(i) * BK;
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int e = lane + 32 * u;
-        nxt[u] = e < BK && c0 + e < p.c ? __ldg(sp + c0 + e) : INT_MAX;
+        const bool in = e < BK && c0 + e < p.c;
+        nxt[u] = in ? __ldg(sp + c0 + e) : INT_MAX;
+        if constexpr (Q8) {
+          const size_t si = (size_t)bh * p.c + c0 + e;
+          nsc[0][u] = in ? __bfloat162float(p.k_scale[si]) : 0.0f;
+          nsc[1][u] = in ? __bfloat162float(p.v_scale[si]) : 0.0f;
+        }
       }
     };
     if (nk > 0) load_tags(0);
@@ -322,11 +386,19 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int i = 0; i < nk; ++i) {
       const int s = i % S;
       const int cur[2] = {nxt[0], nxt[1]};
+      const float csc[2][2] = {{nsc[0][0], nsc[0][1]}, {nsc[1][0], nsc[1][1]}};
       if (i + 1 < nk) load_tags(i + 1);
       hg::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
       const int c0 = tile_at(i) * BK;
-      if (lane == 0) {
-        unsigned char* kd = ring + (size_t)s * 2 * tile_bytes;
+      unsigned char* kd = ring + (size_t)s * 2 * tile_bytes;
+      if (Q8 && p.lane_copy) {
+        const size_t row0 = ((size_t)bh * p.c + c0) * D;
+        const int rows = min(BK, p.c - c0);
+        copy_rows_by_lanes(kd, static_cast<const int8_t*>(p.k) + row0, rows, D, BK, lane);
+        copy_rows_by_lanes(kd + tile_bytes, static_cast<const int8_t*>(p.v) + row0, rows, D, BK,
+                           lane);
+        if (lane == 0) hg::mbar_arrive(&full[s]);  // in place of the bytes' arrival
+      } else if (lane == 0) {
         hg::mbar_expect_tx(&full[s], 2 * tile_bytes);
         for (int blk = 0; blk < nblk; ++blk) {
           const int e0 = blk * (128 / (int)sizeof(T));
@@ -336,8 +408,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       // a slot past the ring has a tag that is never live
 #pragma unroll
-      for (int u = 0; u < 2; ++u)
-        if (lane + 32 * u < BK) tags_s[s * BK + lane + 32 * u] = cur[u];
+      for (int u = 0; u < 2; ++u) {
+        const int e = lane + 32 * u;
+        if (e < BK) {
+          tags_s[s * BK + e] = cur[u];
+          if constexpr (Q8) {
+            sc_s[2 * s * BK + e] = csc[0][u];
+            sc_s[(2 * s + 1) * BK + e] = csc[1][u];
+          }
+        }
+      }
       hg::mbar_arrive(&full[s]);
     }
   } else if constexpr (DM > 0) {
@@ -380,13 +460,40 @@ __global__ void __launch_bounds__(kThreads, 2)
       const unsigned char* kt = ring + (size_t)s * 2 * tile_bytes;
       const unsigned char* vt = kt + tile_bytes;
       const int c0 = tile_at(it) * BK;
+      // the bf16 rows the products read: the tile's own, or over an int8 ring
+      // this warp's 16 slots dequantized into its rows (tiles of 16 rows)
+      const unsigned char* ka = kt;
+      const unsigned char* va = vt;
+      int abk = BK, arow = slot0;
+      if constexpr (Q8) {
+        constexpr int DQ_ROW = (DM * 2 + 127) / 128 * 128;
+        constexpr int P8 = (DM + 15) / 16;  // int8 pieces of a row the products read
+        unsigned char* kq = dq + (size_t)warp * 2 * 16 * DQ_ROW;
+        unsigned char* vq = kq + 16 * DQ_ROW;
+        const float* ksc = sc_s + 2 * s * BK + slot0;
+        const float* vsc = ksc + BK;
+#pragma unroll 2
+        for (int u = lane; u < 2 * 16 * P8; u += 32) {
+          const int which = u / (16 * P8), r = (u / P8) % 16, c = u % P8;
+          const uint4 raw = *reinterpret_cast<const uint4*>(piece(which ? vt : kt, BK, slot0 + r, c));
+          const float scl = (which ? vsc : ksc)[r];
+          unsigned char* dst = which ? vq : kq;
+          *reinterpret_cast<uint4*>(dst + piece_off(16, r, 2 * c)) = dequant8(raw.x, raw.y, scl);
+          *reinterpret_cast<uint4*>(dst + piece_off(16, r, 2 * c + 1)) = dequant8(raw.z, raw.w, scl);
+        }
+        __syncwarp();
+        ka = kq;
+        va = vq;
+        abk = 16;
+        arow = 0;
+      }
 
       // S^T (16 slots x 8 rows): c0, c1 slot gid, c2, c3 slot gid + 8
       float sc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk) {
         uint32_t a[4];
-        ldmatrix_x4<false>(a, piece(kt, BK, slot0 + (mi & 1) * 8 + mr, 2 * kk + (mi >> 1)));
+        ldmatrix_x4<false>(a, piece(ka, abk, arow + (mi & 1) * 8 + mr, 2 * kk + (mi >> 1)));
         mma16816(sc, a, qf[kk][0], qf[kk][1]);
       }
       const int* tg = tags_s + s * BK + slot0;
@@ -426,7 +533,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
       for (int mt = 0; mt < KS; ++mt) {
         uint32_t a[4];  // V^T: dims 16 mt .. + 15 x the warp's 16 slots
-        ldmatrix_x4<true>(a, piece(vt, BK, slot0 + (mi >> 1) * 8 + mr, 2 * mt + (mi & 1)));
+        ldmatrix_x4<true>(a, piece(va, abk, arow + (mi >> 1) * 8 + mr, 2 * mt + (mi & 1)));
         mma16816(o[mt], a, pb0, pb1);
       }
       __syncwarp();
@@ -459,7 +566,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int parts = 32 / spw;
     const int j = lane % spw, part = lane / spw;
     const int slot = warp * spw + j;
-    const int nch = D * (int)sizeof(T) / 16;
+    const int nch = (D * (int)sizeof(T) + 15) / 16;  // an int8 row at D % 16: a half piece
     float m_run[MAXG], l_run[MAXG], acc[MAXG][NP][2];
 #pragma unroll
     for (int g = 0; g < MAXG; ++g) {
@@ -486,7 +593,12 @@ __global__ void __launch_bounds__(kThreads, 2)
         const uint4 raw = *reinterpret_cast<const uint4*>(
             kt + (ch >> 3) * (BK * 128) + slot * 128 + (((ch & 7) ^ (slot & 7)) << 4));
         float kf[E];
-        if constexpr (sizeof(T) == 2) {
+        if constexpr (Q8) {
+          const float ks = sc_s[2 * s * BK + slot];
+          const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+          for (int x = 0; x < 16; ++x) kf[x] = deq(w[x >> 2], x & 3, ks);
+        } else if constexpr (sizeof(T) == 2) {
           const __nv_bfloat162* k2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
           for (int x = 0; x < 4; ++x) {
@@ -506,6 +618,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           float a = sc[g];
 #pragma unroll
           for (int x = 0; x < E; x += 4) {
+            if (Q8 && ch * E + x >= D) break;  // past D: the query row ends
             const float4 q4 = *reinterpret_cast<const float4*>(qr + x);
             a = fmaf(q4.x, kf[x], a);
             a = fmaf(q4.y, kf[x + 1], a);
@@ -563,6 +676,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           pr[g + 2] = v4.z;
           pr[g + 3] = v4.w;
         }
+        const float vs = Q8 ? sc_s[(2 * s + 1) * BK + row] : 0.0f;
 #pragma unroll
         for (int i = 0; i < NP; ++i) {
           const int e = 2 * lane + 64 * i;
@@ -571,7 +685,10 @@ __global__ void __launch_bounds__(kThreads, 2)
             const unsigned char* vp = vt + (byte >> 7) * (BK * 128) + row * 128 +
                                       ((((byte & 127) >> 4) ^ (row & 7)) << 4) + (byte & 15);
             float2 v2;
-            if constexpr (sizeof(T) == 2)
+            if constexpr (Q8) {
+              const uint32_t two = *reinterpret_cast<const uint16_t*>(vp);
+              v2 = make_float2(deq(two, 0, vs), deq(two, 1, vs));
+            } else if constexpr (sizeof(T) == 2)
               v2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vp));
             else
               v2 = *reinterpret_cast<const float2*>(vp);
@@ -742,7 +859,7 @@ template <typename T, int MAXG, int NP, int DM>
 int launch(const Params& p, cudaStream_t stream) {
   const int gchunks = (p.g + kMaxGroup - 1) / kMaxGroup;
   const dim3 grid(p.splits, p.hkv, p.b * gchunks);
-  const size_t smem = smem_bytes(MAXG, p.d, p.bk, p.stages, (int)sizeof(T));
+  const size_t smem = smem_bytes(MAXG, p.d, p.bk, p.stages, (int)sizeof(T), DM > 0);
   if (p.splits == 1) {
     decode_attention_kernel<T, MAXG, NP, DM><<<grid, kThreads, smem, stream>>>(p);
     return (int)cudaGetLastError();
@@ -789,20 +906,20 @@ int maxg_for(int g) {
     }                                                                      \
   } while (0)
 
-// Route "mma" (bf16 q and cache): eight query rows a block, D one of 16, 32,
-// 64, 72, 80, 96, 112, 128, 256.
-#define DECODE_MMA_INSTANCE(F, d, ...)                                     \
+// Route "mma" (bf16 q, a bf16 or int8 cache KV): eight query rows a block, D
+// one of 16, 32, 64, 72, 80, 96, 112, 128, 256.
+#define DECODE_MMA_INSTANCE(F, KV, d, ...)                                 \
   do {                                                                     \
     switch (d) {                                                           \
-      case 16: return F<bf16, 8, 1, 16>(__VA_ARGS__);                      \
-      case 32: return F<bf16, 8, 1, 32>(__VA_ARGS__);                      \
-      case 64: return F<bf16, 8, 1, 64>(__VA_ARGS__);                      \
-      case 72: return F<bf16, 8, 1, 72>(__VA_ARGS__);                      \
-      case 80: return F<bf16, 8, 1, 80>(__VA_ARGS__);                      \
-      case 96: return F<bf16, 8, 1, 96>(__VA_ARGS__);                      \
-      case 112: return F<bf16, 8, 1, 112>(__VA_ARGS__);                    \
-      case 128: return F<bf16, 8, 1, 128>(__VA_ARGS__);                    \
-      case 256: return F<bf16, 8, 1, 256>(__VA_ARGS__);                    \
+      case 16: return F<KV, 8, 1, 16>(__VA_ARGS__);                        \
+      case 32: return F<KV, 8, 1, 32>(__VA_ARGS__);                        \
+      case 64: return F<KV, 8, 1, 64>(__VA_ARGS__);                        \
+      case 72: return F<KV, 8, 1, 72>(__VA_ARGS__);                        \
+      case 80: return F<KV, 8, 1, 80>(__VA_ARGS__);                        \
+      case 96: return F<KV, 8, 1, 96>(__VA_ARGS__);                        \
+      case 112: return F<KV, 8, 1, 112>(__VA_ARGS__);                      \
+      case 128: return F<KV, 8, 1, 128>(__VA_ARGS__);                      \
+      case 256: return F<KV, 8, 1, 256>(__VA_ARGS__);                      \
       default: return -1;                                                  \
     }                                                                      \
   } while (0)
@@ -822,7 +939,7 @@ int launch_t(const Params& p, cudaStream_t stream) {
 extern "C" {
 
 // Sets the shared-memory attributes on the current device of the kernel
-// instance of (route 1 "mma" / 0 "fma", kv dtype 0 fp32 / 1 bf16, head dim d,
+// instance of (route 1 "mma" / 0 "fma", kv dtype 0 fp32 / 1 bf16 / 2 int8, head dim d,
 // group size g) with the tiling of bk slots a tile and `stages`
 // (kernels/decode_attention/kernel.py plans them), which
 // decode_attention_launch needs.  Call it once for each device, route, cache
@@ -833,9 +950,11 @@ int decode_attention_prepare(int route, int kv_dtype, int d, int g, int bk, int 
       stages < kMinStages || stages > kMaxStages)
     return -1;
   if (route == 1) {
-    if (kv_dtype != 1 || bk != 64 || stages % 2 != 0) return -1;
-    DECODE_MMA_INSTANCE(prepare, d);
+    if ((kv_dtype != 1 && kv_dtype != 2) || bk != 64 || stages % 2 != 0) return -1;
+    if (kv_dtype == 2) DECODE_MMA_INSTANCE(prepare, int8_t, d);
+    DECODE_MMA_INSTANCE(prepare, bf16, d);
   }
+  if (kv_dtype == 2) return prepare_t<int8_t>(g, d);
   return kv_dtype == 1 ? prepare_t<bf16>(g, d) : prepare_t<float>(g, d);
 }
 
@@ -843,38 +962,46 @@ int decode_attention_prepare(int route, int kv_dtype, int d, int g, int bk, int 
 // cudaGetLastError() (0 = launched), or -1 for arguments it does not take.
 // slot_pos is (C,) (sp_stride 0) or (B, C) (sp_stride c); q_pos is null (one
 // position q_pos_value), or (B,) (qp_stride 1), or one value (qp_stride 0).
-// Route 1 "mma": q and the caches bf16, bk 64, D one of 16, 32, 64, 72, 80,
-// 96, 112, 128, 256; route 0 "fma": q and out fp32 (q_dtype 0) or bf16 (1), the caches
-// fp32 or bf16 (kv_dtype), D a multiple of 8 up to 256; with a tiling
-// decode_attention_prepare was called for.  All tensors are contiguous, the
-// caches 16-byte aligned; `splits` (1 to 8) blocks of a cluster share each
-// row's live tiles (a ring of more than 1024 tiles: tiles_per_split tiles
-// each).
-int decode_attention_launch(const void* q, const void* k, const void* v, const int* slot_pos,
-                            const int* q_pos, void* out, int b, int hq, int hkv, int c, int d,
-                            int sp_stride, int qp_stride, int q_pos_value, int window, float scale,
-                            int q_dtype, int kv_dtype, int route, int bk, int stages,
-                            int tiles_per_split, int splits, void* stream) {
+// Route 1 "mma": q bf16, the caches bf16 or int8, bk 64, D one of 16, 32, 64,
+// 72, 80, 96, 112, 128, 256; route 0 "fma": q and out fp32 (q_dtype 0) or bf16
+// (1), the caches fp32, bf16 or int8 (kv_dtype 0, 1, 2), D a multiple of 8 up
+// to 256; with a tiling decode_attention_prepare was called for.  An int8
+// cache takes its scales k_scale, v_scale (B, Hkv, C) bf16, any other cache
+// null ones.  All tensors are contiguous, the caches 16-byte aligned;
+// `splits` (1 to 8) blocks of a cluster share each row's live tiles (a ring
+// of more than 1024 tiles: tiles_per_split tiles each).
+int decode_attention_launch(const void* q, const void* k, const void* v, const void* k_scale,
+                            const void* v_scale, const int* slot_pos, const int* q_pos, void* out,
+                            int b, int hq, int hkv, int c, int d, int sp_stride, int qp_stride,
+                            int q_pos_value, int window, float scale, int q_dtype, int kv_dtype,
+                            int route, int bk, int stages, int tiles_per_split, int splits,
+                            void* stream) {
   if (hkv < 1 || hq % hkv != 0 || d <= 0 || d > 256 || d % 8 != 0 || splits < 1 ||
       splits > kMaxSplits || b < 1 || c < 1 || (bk != 16 && bk != 32 && bk != 64) ||
-      stages < kMinStages || stages > kMaxStages || tiles_per_split < 1)
+      stages < kMinStages || stages > kMaxStages || tiles_per_split < 1 || kv_dtype < 0 ||
+      kv_dtype > 2)
     return -1;
-  if (route == 1 && (q_dtype != 1 || kv_dtype != 1 || bk != 64 || stages % 2 != 0)) return -1;
-  const int elem = kv_dtype == 1 ? 2 : 4;
-  const int maxg = route == 1 ? kMaxGroup : maxg_for(hq / hkv);
-  if (partial_bytes(maxg, d) > (size_t)stages * 2 * bk * row_bytes_for(d, elem)) return -1;
+  if (route == 1 && (q_dtype != 1 || kv_dtype == 0 || bk != 64 || stages % 2 != 0)) return -1;
+  if ((kv_dtype == 2) != (k_scale != nullptr && v_scale != nullptr)) return -1;
+  const int elem = kv_dtype == 2 ? 1 : kv_dtype == 1 ? 2 : 4;
   Params p;
   const long long bh = (long long)b * hkv;
-  if (hg::tensor_map_3d(&p.k_map, k, elem, d, c, bh, bk) != 0 ||
-      hg::tensor_map_3d(&p.v_map, v, elem, d, c, bh, bk) != 0)
+  p.lane_copy = elem == 1 && d % 16 != 0;
+  if (!p.lane_copy && (hg::tensor_map_3d(&p.k_map, k, elem, d, c, bh, bk) != 0 ||
+                       hg::tensor_map_3d(&p.v_map, v, elem, d, c, bh, bk) != 0))
     return -1;
+  p.k = k; p.v = v;
+  p.k_scale = static_cast<const bf16*>(k_scale);
+  p.v_scale = static_cast<const bf16*>(v_scale);
   p.q = q; p.slot_pos = slot_pos; p.q_pos = q_pos; p.out = out;
   p.b = b; p.hq = hq; p.hkv = hkv; p.c = c; p.d = d; p.g = hq / hkv;
   p.sp_stride = sp_stride; p.qp_stride = qp_stride; p.q_pos_value = q_pos_value;
   p.window = window; p.scale = scale; p.q_bf16 = q_dtype == 1;
   p.bk = bk; p.stages = stages; p.tiles_per_split = tiles_per_split; p.splits = splits;
   cudaStream_t s = (cudaStream_t)stream;
-  if (route == 1) DECODE_MMA_INSTANCE(launch, d, p, s);
+  if (route == 1 && kv_dtype == 2) DECODE_MMA_INSTANCE(launch, int8_t, d, p, s);
+  if (route == 1) DECODE_MMA_INSTANCE(launch, bf16, d, p, s);
+  if (kv_dtype == 2) return launch_t<int8_t>(p, s);
   return kv_dtype == 1 ? launch_t<bf16>(p, s) : launch_t<float>(p, s);
 }
 

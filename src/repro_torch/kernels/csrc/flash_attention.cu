@@ -67,6 +67,15 @@
 //   * "fma" (fp32 query, fp32 or bf16 cache): a block owns (b, q head, 16
 //     query rows); scores, softmax and P.V are FMA loops over tiles in shared
 //     memory, since TF32 would miss the fp32 tolerance.
+//   * an int8 KV ring (the reference's quantized serving cache, one bf16
+//     scale a key and kv head: k_scale / v_scale (B, Hkv, Sk)) is read as it
+//     is stored, half the bytes of bf16, on every route: the tiles arrive in
+//     int8 ("wgmma": TMA with boxes of 128 one-byte elements; "mma_sync" and
+//     "fma": cp.async of 8-byte pieces), the tiles' scales beside them, and
+//     before the products the block dequantizes them into the bf16 tiles the
+//     route reads (the wgmma descriptors and the fragment loads unchanged),
+//     each element (q * scale) rounded to bf16 as the reference's
+//     _dequantize_kv.  Nothing widens the ring in device memory.
 //   * the KV loop is bounded on every route: contiguous positions give the
 //     causal and window range of tiles; with per-row positions every block
 //     scans the row's tags (sixteen loads in flight a thread) and lists the
@@ -90,6 +99,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using hg::dequant8;
 using hg::smem_u32;
 
 constexpr float kLog2e = 1.4426950408889634f;
@@ -119,6 +129,8 @@ struct Args {
   const void* q;        // (B, Hq, Sq, D) at strides q_sb, q_sh, q_ss (elements)
   const void* k;        // (B, Hkv, Sk, D), contiguous
   const void* v;
+  const bf16* k_scale;  // an int8 cache: (B, Hkv, Sk) scales; else null
+  const bf16* v_scale;
   const int* q_pos;     // (B, Sq) or null: contiguous positions
   const int* k_pos;     // (B, Sk), with q_pos
   void* out;            // (B, Hq, Sq, D) in q's type at strides o_sb, o_sh, o_ss
@@ -278,6 +290,46 @@ __device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src, long lon
     const bool inside = r0 + r < n;
     const T* s = inside ? src + (long long)(r0 + r) * src_ld + ch * (16 / sizeof(T)) : src;
     __pipeline_memcpy_async(dst + (size_t)r * ld + ch * (16 / sizeof(T)), s, 16, inside ? 0 : 16);
+  }
+}
+
+// Starts the copy of rows [r0, r0 + rows) of an (n, D) int8 matrix into
+// shared memory rows of D bytes, 8 bytes at a time (D % 8 == 0); rows past n
+// are zero-filled without a read.
+__device__ __forceinline__ void copy_rows8(int8_t* dst, const int8_t* src, int r0, int rows,
+                                           int n, int d) {
+  const int cpr = d / 8;
+  for (int e = threadIdx.x; e < rows * cpr; e += blockDim.x) {
+    const int r = e / cpr, ch = e % cpr;
+    const bool inside = r0 + r < n;
+    const int8_t* s = inside ? src + (long long)(r0 + r) * d + ch * 8 : src;
+    __pipeline_memcpy_async(dst + (size_t)r * d + ch * 8, s, 8, inside ? 0 : 8);
+  }
+}
+
+// Loads the scales of keys [j0, j0 + n) of K and V into ks_dst and vs_dst
+// (fp32), zeros past Sk.
+__device__ __forceinline__ void load_scales(float* ks_dst, float* vs_dst, const bf16* ks,
+                                            const bf16* vs, int j0, int n, int sk) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const bool inside = j0 + e < sk;
+    ks_dst[e] = inside ? __bfloat162float(ks[j0 + e]) : 0.0f;
+    vs_dst[e] = inside ? __bfloat162float(vs[j0 + e]) : 0.0f;
+  }
+}
+
+// Dequantizes int8 K and V tiles of `rows` rows of D bytes (src, K then V,
+// each rows x D) with their scales (scales, K's then V's) into bf16 tiles of
+// rows of ld elements (dst_k, dst_v), eight elements a thread at a time.
+__device__ __forceinline__ void dequant_rows(bf16* dst_k, bf16* dst_v, int ld, const int8_t* src,
+                                             const float* scales, int rows, int d) {
+  const int per_row = d / 8;
+  for (int e = threadIdx.x; e < 2 * rows * per_row; e += blockDim.x) {
+    const int which = e / (rows * per_row), r = (e / per_row) % rows, h = e % per_row;
+    const uint2 raw =
+        *reinterpret_cast<const uint2*>(src + ((size_t)which * rows + r) * d + 8 * h);
+    *reinterpret_cast<uint4*>((which ? dst_v : dst_k) + (size_t)r * ld + 8 * h) =
+        dequant8(raw.x, raw.y, scales[which * rows + r]);
   }
 }
 
@@ -459,38 +511,48 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[
 // same layout, kWgRows rows), the tiles' tags, the tile list, the combine's
 // coefficients, scratch, the mbarriers.  After the loop the ring holds a
 // split's (acc, m, l) for the combine.
-template <int D> struct WgTile {
-  static constexpr int BLOCKS = D / 64;             // 128-byte column blocks of a row
-  static constexpr int KV_BYTES = kWgBK * D * 2;    // one K or V tile
-  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+// An int8 ring (Q8): the stages hold the tiles as they arrive, in boxes of 128
+// one-byte elements (a row of 64 padded to 128), then come the bf16 K and V
+// tiles the products read, dequantized from the stage in hand; the scales sit
+// beside the tags.
+template <int D, bool Q8 = false> struct WgTile {
+  static constexpr int BLOCKS = D / 64;             // 128-byte column blocks of a bf16 row
+  static constexpr int KV_BYTES = kWgBK * D * 2;    // one bf16 K or V tile
+  static constexpr int BLOCKS8 = D > 128 ? D / 128 : 1;  // of an int8 row
+  static constexpr int IN_BYTES = Q8 ? kWgBK * 128 * BLOCKS8 : KV_BYTES;  // a tile as it arrives
+  static constexpr int STAGE_BYTES = 2 * IN_BYTES;
   static constexpr int STAGES = D == 64 ? 4 : 2;
   static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;  // blocks an SM holds
-  static constexpr int RING = STAGES * STAGE_BYTES;
+  static constexpr int RING = STAGES * STAGE_BYTES + (Q8 ? 2 * KV_BYTES : 0);
   static constexpr int Q_BYTES = kWgRows * D * 2;
-  static constexpr int SMEM = 1024 + RING + Q_BYTES + STAGES * kWgBK * 4 + kMaxListed * 4 +
-                              kWgRows * (kMaxSplits + 1) * 4 + 16 + 2 * STAGES * 8;
+  static constexpr int SMEM = 1024 + RING + Q_BYTES + STAGES * kWgBK * 4 * (Q8 ? 3 : 1) +
+                              kMaxListed * 4 + kWgRows * (kMaxSplits + 1) * 4 + 16 +
+                              2 * STAGES * 8;
   static_assert(D == 64 || D == 128 || D == 256, "head dims of the wgmma route");
   static_assert(kWgRows * D * 4 + kWgRows * 8 <= RING, "a split's (acc, m, l) fit the ring");
   static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "blocks an SM holds");
 };
 
 struct WgParams {
-  CUtensorMap k_map, v_map;  // (B Hkv, Sk, D) bf16, boxes of 64 x kWgBK x 1
+  CUtensorMap k_map, v_map;  // (B Hkv, Sk, D), boxes of 128 bytes x kWgBK x 1
   Args a;
   int splits;                // blocks of a cluster, each a share of the live tiles
 };
 
-template <int D>
+template <int D, bool Q8 = false>
 __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
     flash_attention_wgmma_kernel(const __grid_constant__ WgParams p) {
-  using W = WgTile<D>;
+  using W = WgTile<D, Q8>;
   const Args& a = p.a;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle atoms must start on 1024 bytes
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* dq_tiles = ring + W::STAGES * W::STAGE_BYTES;  // Q8: the bf16 K, V tiles
   unsigned char* q_s = ring + W::RING;
   int* tags_s = reinterpret_cast<int*>(q_s + W::Q_BYTES);
-  int* list_s = tags_s + W::STAGES * kWgBK;
+  // Q8: stage s's K scales at 2 s kWgBK, its V scales after them
+  float* sc_s = reinterpret_cast<float*>(tags_s + W::STAGES * kWgBK);
+  int* list_s = reinterpret_cast<int*>(sc_s + (Q8 ? 2 * W::STAGES * kWgBK : 0));
   float* coef_s = reinterpret_cast<float*>(list_s + kMaxListed);
   int* scratch_s = reinterpret_cast<int*>(coef_s + kWgRows * (kMaxSplits + 1));
   uint64_t* full = reinterpret_cast<uint64_t*>(scratch_s + 4);
@@ -541,37 +603,63 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
   const int nk = min(k_begin + per, ts.count) - k_begin;
 
   if (warp == 4) {
-    // producer: lane 0 issues the copies of K and V, every lane copies tags,
-    // those of the next tile loaded while this one waits for its stage
+    // producer: lane 0 issues the copies of K and V, every lane copies tags
+    // (and an int8 ring's scales), those of the next tile loaded while this
+    // one waits for its stage
     int nxt[2] = {0, 0};
+    float nsc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // Q8: the next tile's K, V scales
+    const bool side = kp != nullptr || Q8;  // something besides the tiles to copy
     auto load_tags = [&](int i) {
       const int j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int j = j0 + lane + 32 * u;
-        nxt[u] = j < a.sk ? __ldg(kp + j) : 0;
+        if (kp != nullptr) nxt[u] = j < a.sk ? __ldg(kp + j) : 0;
+        if constexpr (Q8) {
+          const size_t si = (size_t)bh * a.sk + j;
+          nsc[0][u] = j < a.sk ? __bfloat162float(a.k_scale[si]) : 0.0f;
+          nsc[1][u] = j < a.sk ? __bfloat162float(a.v_scale[si]) : 0.0f;
+        }
       }
     };
-    if (kp != nullptr && nk > 0) load_tags(0);
+    if (side && nk > 0) load_tags(0);
 #pragma unroll 1
     for (int i = 0; i < nk; ++i) {
       const int s = i % W::STAGES;
       const int cur[2] = {nxt[0], nxt[1]};
-      if (kp != nullptr && i + 1 < nk) load_tags(i + 1);
+      const float csc[2][2] = {{nsc[0][0], nsc[0][1]}, {nsc[1][0], nsc[1][1]}};
+      if (side && i + 1 < nk) load_tags(i + 1);
       hg::mbar_wait(&empty[s], ((i / W::STAGES) & 1) ^ 1);
       const int j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
       if (lane == 0) {
         unsigned char* st = ring + s * W::STAGE_BYTES;
         hg::mbar_expect_tx(&full[s], W::STAGE_BYTES);
+        if constexpr (Q8) {
 #pragma unroll
-        for (int c = 0; c < W::BLOCKS; ++c) {
-          hg::tma_load_3d(st + c * kWgBK * 128, &p.k_map, &full[s], c * 64, j0, bh);
-          hg::tma_load_3d(st + W::KV_BYTES + c * kWgBK * 128, &p.v_map, &full[s], c * 64, j0, bh);
+          for (int c = 0; c < W::BLOCKS8; ++c) {
+            hg::tma_load_3d(st + c * kWgBK * 128, &p.k_map, &full[s], c * 128, j0, bh);
+            hg::tma_load_3d(st + W::IN_BYTES + c * kWgBK * 128, &p.v_map, &full[s], c * 128, j0,
+                            bh);
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < W::BLOCKS; ++c) {
+            hg::tma_load_3d(st + c * kWgBK * 128, &p.k_map, &full[s], c * 64, j0, bh);
+            hg::tma_load_3d(st + W::KV_BYTES + c * kWgBK * 128, &p.v_map, &full[s], c * 64, j0,
+                            bh);
+          }
         }
       }
       if (kp != nullptr) {
         tags_s[s * kWgBK + lane] = cur[0];
         tags_s[s * kWgBK + lane + 32] = cur[1];
+      }
+      if constexpr (Q8) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          sc_s[2 * s * kWgBK + lane + 32 * u] = csc[0][u];
+          sc_s[(2 * s + 1) * kWgBK + lane + 32 * u] = csc[1][u];
+        }
       }
       hg::mbar_arrive(&full[s]);
     }
@@ -603,8 +691,35 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
     for (int i = 0; i < nk; ++i) {
       const int s = i % W::STAGES;
       hg::mbar_wait(&full[s], (i / W::STAGES) & 1);
-      const uint32_t k_base = smem_u32(ring + s * W::STAGE_BYTES);
-      const uint32_t v_base = k_base + W::KV_BYTES;
+      uint32_t k_base = smem_u32(ring + s * W::STAGE_BYTES);
+      uint32_t v_base = k_base + W::KV_BYTES;
+      if constexpr (Q8) {
+        // the stage's int8 K and V into the bf16 tiles the products read,
+        // swizzled as TMA writes a bf16 tile, once every warp's products of
+        // the last tile are done with them
+        if (i > 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
+        const unsigned char* in = ring + s * W::STAGE_BYTES;
+        const float* scl = sc_s + 2 * s * kWgBK;  // K's, then V's
+        constexpr int P8 = D / 16;                // 16-byte pieces of an int8 row
+#pragma unroll 2
+        for (int u = tid; u < 2 * kWgBK * P8; u += 128) {
+          const int which = u / (kWgBK * P8), r = (u / P8) % kWgBK, c = u % P8;
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              in + which * W::IN_BYTES + (c >> 3) * (kWgBK * 128) + r * 128 +
+              (((c & 7) ^ (r & 7)) << 4));
+          const float sc = scl[which * kWgBK + r];
+          unsigned char* out = dq_tiles + which * W::KV_BYTES + r * 128;
+          const int c0 = 2 * c, c1 = 2 * c + 1;  // its two bf16 pieces
+          *reinterpret_cast<uint4*>(out + (c0 >> 3) * (kWgBK * 128) + (((c0 & 7) ^ (r & 7)) << 4)) =
+              dequant8(raw.x, raw.y, sc);
+          *reinterpret_cast<uint4*>(out + (c1 >> 3) * (kWgBK * 128) + (((c1 & 7) ^ (r & 7)) << 4)) =
+              dequant8(raw.z, raw.w, sc);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");
+        k_base = smem_u32(dq_tiles);
+        v_base = k_base + W::KV_BYTES;
+      }
 
       // S = Q K^T: 64 rows x kWgBK keys
       float sc[kWgBK / 2];
@@ -786,7 +901,7 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int D> struct MmaTile {
+template <int D, bool Q8 = false> struct MmaTile {
   static_assert(D % 8 == 0, "head dims of route mma_sync are multiples of 8");
   static constexpr int BK = D > 128 ? 32 : 64;
   // a row of an odd number of 16-byte pieces, so that the 32-bit fragment
@@ -794,14 +909,17 @@ template <int D> struct MmaTile {
   // when D / 8 is odd (72)
   static constexpr int LD = (D / 8) % 2 ? D : D + 8;
   static constexpr size_t kTileBytes = (size_t)BK * LD * sizeof(bf16);
-  // q tile, two stages of K and V, two stages of tags, the tile list, scratch
+  // q tile, two stages of K and V, two stages of tags, the tile list, scratch;
+  // an int8 ring (Q8): two stages of its K and V tiles as they arrive (BK x D
+  // bytes each) and of their scales, dequantized into the bf16 stage
   static constexpr size_t kSmem = (size_t)kMmaBQ * LD * sizeof(bf16) + 4 * kTileBytes +
-                                  2 * BK * sizeof(int) + kMaxListed * sizeof(int) + 16;
+                                  2 * BK * sizeof(int) + kMaxListed * sizeof(int) + 16 +
+                                  (Q8 ? 4 * (size_t)BK * D + 4 * BK * sizeof(float) : 0);
 };
 
-template <int D>
+template <int D, bool Q8 = false>
 __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(Args a) {
-  using Tile = MmaTile<D>;
+  using Tile = MmaTile<D, Q8>;
   constexpr int BK = Tile::BK, LD = Tile::LD;
   constexpr int NT = BK / 8;   // score fragments (n8) a tile
   constexpr int ND = D / 8;          // output fragments (n8)
@@ -814,6 +932,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(Args a
   int* tags_s = reinterpret_cast<int*>(kv_s + 4 * BK * LD);
   int* list_s = tags_s + 2 * BK;
   int* scratch_s = list_s + kMaxListed;
+  // Q8: stage st's int8 K and V at 2 st and 2 st + 1 (BK x D bytes each), and
+  // their scales at 2 st BK and (2 st + 1) BK
+  int8_t* kv8_s = reinterpret_cast<int8_t*>(scratch_s + 4);
+  float* sc_s = reinterpret_cast<float*>(kv8_s + (Q8 ? 4 * BK * D : 0));
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * kMmaBQ;
@@ -826,6 +948,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(Args a
   const bf16* kg = reinterpret_cast<const bf16*>(a.k) + kv_off;
   const bf16* vg = reinterpret_cast<const bf16*>(a.v) + kv_off;
   const int* kp = a.k_pos != nullptr ? a.k_pos + (size_t)b * a.kp_stride : nullptr;
+  const size_t sc_off = ((size_t)b * a.hkv + hk) * a.sk;  // Q8: the row's scales
 
   const TileSet ts = plan_tiles(a, b, q0, kMmaBQ, BK, list_s, scratch_s);
 
@@ -834,8 +957,17 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(Args a
   auto load_tile = [&](int k, int st) {
     if (k < ts.count) {
       const int j0 = tile_index(ts, list_s, k) * BK;
-      copy_rows(kv_s + (2 * st) * BK * LD, LD, kg, D, j0, BK, a.sk, D);
-      copy_rows(kv_s + (2 * st + 1) * BK * LD, LD, vg, D, j0, BK, a.sk, D);
+      if constexpr (Q8) {
+        copy_rows8(kv8_s + (2 * st) * BK * D, reinterpret_cast<const int8_t*>(a.k) + kv_off, j0,
+                   BK, a.sk, D);
+        copy_rows8(kv8_s + (2 * st + 1) * BK * D, reinterpret_cast<const int8_t*>(a.v) + kv_off,
+                   j0, BK, a.sk, D);
+        load_scales(sc_s + 2 * st * BK, sc_s + (2 * st + 1) * BK, a.k_scale + sc_off,
+                    a.v_scale + sc_off, j0, BK, a.sk);
+      } else {
+        copy_rows(kv_s + (2 * st) * BK * LD, LD, kg, D, j0, BK, a.sk, D);
+        copy_rows(kv_s + (2 * st + 1) * BK * LD, LD, vg, D, j0, BK, a.sk, D);
+      }
       if (kp != nullptr) copy_tags(tags_s + st * BK, kp, j0, BK, a.sk);
     }
     __pipeline_commit();
@@ -862,6 +994,11 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(Args a
     load_tile(k + 1, st ^ 1);  // that stage was last read in tile k - 1
     __pipeline_wait_prior(1);
     __syncthreads();
+    if constexpr (Q8) {  // the stage's int8 tiles into its bf16 ones
+      dequant_rows(kv_s + (2 * st) * BK * LD, kv_s + (2 * st + 1) * BK * LD, LD,
+                   kv8_s + (2 * st) * BK * D, sc_s + 2 * st * BK, BK, D);
+      __syncthreads();
+    }
     const bf16* ks = kv_s + (2 * st) * BK * LD;
     const bf16* vs = kv_s + (2 * st + 1) * BK * LD;
     const int j0 = tile_index(ts, list_s, k) * BK;
@@ -954,8 +1091,11 @@ __host__ __device__ inline size_t fma_head_bytes(int d) {
   return (n + 15) / 16 * 16;
 }
 
-__host__ __device__ inline size_t fma_smem_bytes(int d, int elem) {
-  return fma_head_bytes(d) + 2 * (size_t)kFmaBK * fma_row_bytes(d, elem);
+// an int8 ring (q8): the tiles are bf16, and its int8 K and V tiles as they
+// arrive (kFmaBK x D bytes each) and their scales follow them
+__host__ __device__ inline size_t fma_smem_bytes(int d, int elem, bool q8) {
+  return fma_head_bytes(d) + 2 * (size_t)kFmaBK * fma_row_bytes(d, elem) +
+         (q8 ? 2 * (size_t)kFmaBK * d + 2 * kFmaBK * sizeof(float) : 0);
 }
 
 // the products of the 16 bytes of k at kp with q (fp32, shared memory)
@@ -992,8 +1132,11 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename TKV>
+// TKV: the type of the tiles the loops read; Q8: an int8 ring, dequantized
+// into bf16 tiles (TKV bf16)
+template <typename TKV, bool Q8 = false>
 __global__ void __launch_bounds__(kFmaThreads) flash_attention_fma_kernel(Args a) {
+  static_assert(!Q8 || sizeof(TKV) == 2, "an int8 ring is read from bf16 tiles");
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = a.d, BK = kFmaBK, BQ = kFmaBQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1010,6 +1153,8 @@ __global__ void __launch_bounds__(kFmaThreads) flash_attention_fma_kernel(Args a
   const int ld = rb / (int)sizeof(TKV);
   TKV* k_s = reinterpret_cast<TKV*>(smem + fma_head_bytes(D));
   TKV* v_s = reinterpret_cast<TKV*>(smem + fma_head_bytes(D) + (size_t)BK * rb);
+  int8_t* kv8_s = reinterpret_cast<int8_t*>(smem + fma_head_bytes(D) + 2 * (size_t)BK * rb);
+  float* sc_s = reinterpret_cast<float*>(kv8_s + 2 * BK * D);  // Q8: K's scales, V's
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
@@ -1019,6 +1164,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_attention_fma_kernel(Args a
   const TKV* kg = reinterpret_cast<const TKV*>(a.k) + kv_off;
   const TKV* vg = reinterpret_cast<const TKV*>(a.v) + kv_off;
   const int* kp = a.k_pos != nullptr ? a.k_pos + (size_t)b * a.kp_stride : nullptr;
+  const size_t sc_off = ((size_t)b * a.hkv + hk) * a.sk;  // Q8: the row's scales
 
   const TileSet ts = plan_tiles(a, b, q0, BQ, BK, list_s, scratch_s);
 
@@ -1035,12 +1181,22 @@ __global__ void __launch_bounds__(kFmaThreads) flash_attention_fma_kernel(Args a
 
   for (int k = 0; k < ts.count; ++k) {
     const int j0 = tile_index(ts, list_s, k) * BK;
-    copy_rows(k_s, ld, kg, D, j0, BK, a.sk, D);
-    copy_rows(v_s, ld, vg, D, j0, BK, a.sk, D);
+    if constexpr (Q8) {
+      copy_rows8(kv8_s, reinterpret_cast<const int8_t*>(a.k) + kv_off, j0, BK, a.sk, D);
+      copy_rows8(kv8_s + BK * D, reinterpret_cast<const int8_t*>(a.v) + kv_off, j0, BK, a.sk, D);
+      load_scales(sc_s, sc_s + BK, a.k_scale + sc_off, a.v_scale + sc_off, j0, BK, a.sk);
+    } else {
+      copy_rows(k_s, ld, kg, D, j0, BK, a.sk, D);
+      copy_rows(v_s, ld, vg, D, j0, BK, a.sk, D);
+    }
     if (kp != nullptr) copy_tags(tags_s, kp, j0, BK, a.sk);
     __pipeline_commit();
     __pipeline_wait_prior(0);
     __syncthreads();
+    if constexpr (Q8) {  // the int8 tiles into the bf16 ones
+      dequant_rows(k_s, v_s, ld, kv8_s, sc_s, BK, D);
+      __syncthreads();
+    }
 
     // scores; a masked key (or one past Sk, or a query row past Sq) is -inf
     for (int p = tid; p < BQ * BK; p += kFmaThreads) {
@@ -1118,13 +1274,14 @@ cudaError_t allow_smem(K kernel, int optin) {
   return err;
 }
 
-template <int D>
+template <int D, bool Q8 = false>
 int launch_wgmma(const Args& a, int splits, cudaStream_t stream) {
-  using W = WgTile<D>;
+  using W = WgTile<D, Q8>;
   WgParams p;
   const long long bh = (long long)a.b * a.hkv;
-  if (hg::tensor_map_3d(&p.k_map, a.k, 2, D, a.sk, bh, kWgBK) != 0 ||
-      hg::tensor_map_3d(&p.v_map, a.v, 2, D, a.sk, bh, kWgBK) != 0)
+  const int elem = Q8 ? 1 : 2;
+  if (hg::tensor_map_3d(&p.k_map, a.k, elem, D, a.sk, bh, kWgBK) != 0 ||
+      hg::tensor_map_3d(&p.v_map, a.v, elem, D, a.sk, bh, kWgBK) != 0)
     return -1;
   p.a = a;
   p.splits = splits;
@@ -1132,7 +1289,7 @@ int launch_wgmma(const Args& a, int splits, cudaStream_t stream) {
   if (row_tiles > 65535 || bh > 65535) return -1;
   const dim3 grid(splits, (unsigned)row_tiles, (unsigned)bh);
   if (splits == 1) {
-    flash_attention_wgmma_kernel<D><<<grid, kWgThreads, W::SMEM, stream>>>(p);
+    flash_attention_wgmma_kernel<D, Q8><<<grid, kWgThreads, W::SMEM, stream>>>(p);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -1147,22 +1304,22 @@ int launch_wgmma(const Args& a, int splits, cudaStream_t stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, flash_attention_wgmma_kernel<D>, p);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, flash_attention_wgmma_kernel<D, Q8>, p);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool Q8 = false>
 int launch_mma(const Args& a, cudaStream_t stream) {
   dim3 grid((a.sq + kMmaBQ - 1) / kMmaBQ, a.hq, a.b);
-  flash_attention_mma_kernel<D><<<grid, kMmaThreads, MmaTile<D>::kSmem, stream>>>(a);
+  flash_attention_mma_kernel<D, Q8><<<grid, kMmaThreads, MmaTile<D, Q8>::kSmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <typename TKV>
+template <typename TKV, bool Q8 = false>
 int launch_fma(const Args& a, cudaStream_t stream) {
   dim3 grid((a.sq + kFmaBQ - 1) / kFmaBQ, a.hq, a.b);
-  flash_attention_fma_kernel<TKV>
-      <<<grid, kFmaThreads, fma_smem_bytes(a.d, (int)sizeof(TKV)), stream>>>(a);
+  flash_attention_fma_kernel<TKV, Q8>
+      <<<grid, kFmaThreads, fma_smem_bytes(a.d, (int)sizeof(TKV), Q8), stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -1189,23 +1346,37 @@ int flash_attention_prepare(void) {
   if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<112>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_fma_kernel<float>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_fma_kernel<bf16>, optin);
+  // the int8 ring's instances
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<64, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<128, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<256, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<16, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<32, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<72, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<80, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<96, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<112, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_fma_kernel<bf16, true>, optin);
   return (int)err;
 }
 
 // Launches on `stream`; returns cudaGetLastError() (0 = launched) or -1 for
 // arguments it does not take.  q (B, Hq, Sq, D) at element strides q_sb,
 // q_sh, q_ss, out the same shape in q's type at o_sb, o_sh, o_ss; k, v
-// (B, Hkv, Sk, D) contiguous.  Routes: 2 "wgmma" (bf16 q and cache, D 64, 128
-// or 256, `splits` blocks of a cluster, 1 to 8), 1 "mma_sync" (bf16, D one of
-// 16, 32, 72, 80, 96, 112), 0 "fma" (fp32 q (q_dtype 0) with an fp32
-// (kv_dtype 0) or bf16 (1) cache, D a multiple of 8 up to 256).  q_pos null:
+// (B, Hkv, Sk, D) contiguous, fp32 (kv_dtype 0), bf16 (1) or int8 (2); an
+// int8 cache with its scales k_scale, v_scale (B, Hkv, Sk) bf16, any other
+// with null ones.  Routes: 2 "wgmma" (bf16 q, a bf16 or int8 cache, D 64, 128
+// or 256, `splits` blocks of a cluster, 1 to 8), 1 "mma_sync" (bf16 q, a bf16
+// or int8 cache, D one of 16, 32, 72, 80, 96, 112), 0 "fma" (fp32 q (q_dtype
+// 0) with any cache, D a multiple of 8 up to 256).  q_pos null:
 // contiguous positions (Sq == Sk), or with causal 0 and window 0 any Sq
 // against any Sk (a cross-attention: keys past Sk and rows past Sq are masked
 // by index, which is all the mask there is); else q_pos (B, Sq) and k_pos (B, Sk) int32
 // with batch strides qp_stride / kp_stride.  Pointers 16-byte aligned; on the
 // bf16 routes q's strides are multiples of 8 elements.
-int flash_attention_launch(const void* q, const void* k, const void* v, const int* q_pos,
-                           const int* k_pos, void* out, int b, int hq, int hkv, int sq, int sk,
+int flash_attention_launch(const void* q, const void* k, const void* v, const void* k_scale,
+                           const void* v_scale, const int* q_pos, const int* k_pos, void* out,
+                           int b, int hq, int hkv, int sq, int sk,
                            int d, long long q_sb, long long q_sh, long long q_ss, long long o_sb,
                            long long o_sh, long long o_ss, int qp_stride, int kp_stride,
                            int causal, int window, float scale, int q_dtype, int kv_dtype,
@@ -1214,15 +1385,28 @@ int flash_attention_launch(const void* q, const void* k, const void* v, const in
     return -1;
   if (q_pos == nullptr && sq != sk && (causal || window > 0)) return -1;
   if ((q_pos == nullptr) != (k_pos == nullptr)) return -1;
+  if (kv_dtype < 0 || kv_dtype > 2) return -1;
+  const bool q8 = kv_dtype == 2;
+  if (q8 != (k_scale != nullptr && v_scale != nullptr)) return -1;
   Args a;
   a.q = q; a.k = k; a.v = v; a.q_pos = q_pos; a.k_pos = k_pos; a.out = out;
+  a.k_scale = static_cast<const bf16*>(k_scale);
+  a.v_scale = static_cast<const bf16*>(v_scale);
   a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss; a.o_sb = o_sb; a.o_sh = o_sh; a.o_ss = o_ss;
   a.b = b; a.hq = hq; a.hkv = hkv; a.sq = sq; a.sk = sk; a.d = d; a.g = hq / hkv;
   a.qp_stride = qp_stride; a.kp_stride = kp_stride;
   a.causal = causal; a.window = window; a.scale_log2 = scale * kLog2e;
   cudaStream_t s = (cudaStream_t)stream;
   if (route == kRouteWgmma) {
-    if (q_dtype != 1 || kv_dtype != 1 || splits < 1 || splits > kMaxSplits) return -1;
+    if (q_dtype != 1 || kv_dtype == 0 || splits < 1 || splits > kMaxSplits) return -1;
+    if (q8) {
+      switch (d) {
+        case 64: return launch_wgmma<64, true>(a, splits, s);
+        case 128: return launch_wgmma<128, true>(a, splits, s);
+        case 256: return launch_wgmma<256, true>(a, splits, s);
+        default: return -1;
+      }
+    }
     switch (d) {
       case 64: return launch_wgmma<64>(a, splits, s);
       case 128: return launch_wgmma<128>(a, splits, s);
@@ -1231,7 +1415,18 @@ int flash_attention_launch(const void* q, const void* k, const void* v, const in
     }
   }
   if (route == kRouteMma) {
-    if (q_dtype != 1 || kv_dtype != 1) return -1;
+    if (q_dtype != 1 || kv_dtype == 0) return -1;
+    if (q8) {
+      switch (d) {
+        case 16: return launch_mma<16, true>(a, s);
+        case 32: return launch_mma<32, true>(a, s);
+        case 72: return launch_mma<72, true>(a, s);
+        case 80: return launch_mma<80, true>(a, s);
+        case 96: return launch_mma<96, true>(a, s);
+        case 112: return launch_mma<112, true>(a, s);
+        default: return -1;
+      }
+    }
     switch (d) {
       case 16: return launch_mma<16>(a, s);
       case 32: return launch_mma<32>(a, s);
@@ -1243,6 +1438,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, const in
     }
   }
   if (route != kRouteFma || q_dtype != 0) return -1;
+  if (q8) return launch_fma<bf16, true>(a, s);
   return kv_dtype == 1 ? launch_fma<bf16>(a, s) : launch_fma<float>(a, s);
 }
 

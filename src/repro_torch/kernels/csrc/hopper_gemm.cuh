@@ -135,6 +135,25 @@ __device__ __forceinline__ float apply_act(float v, int act) {
   return fmaxf(v, 0.0f);
 }
 
+// The attention kernels' int8 KV ring: element i (0-3) of four int8 values in
+// w, dequantized as the reference's _dequantize_kv, (q * scale) in fp32
+// rounded to bf16; and eight of them (w0, then w1) as one 16-byte piece of
+// bf16, lower elements at lower addresses.
+__device__ __forceinline__ float deq(uint32_t w, int i, float scale) {
+  const float q = (float)(static_cast<int>(w << (24 - 8 * i)) >> 24);
+  return __bfloat162float(__float2bfloat16_rn(q * scale));
+}
+
+__device__ __forceinline__ uint32_t deq_pair(uint32_t w, int i, float scale) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(deq(w, i, scale), deq(w, i + 1, scale));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint4 dequant8(uint32_t w0, uint32_t w1, float scale) {
+  return make_uint4(deq_pair(w0, 0, scale), deq_pair(w0, 2, scale), deq_pair(w1, 0, scale),
+                    deq_pair(w1, 2, scale));
+}
+
 // ---------------------------------------------------------------------------
 // PTX wrappers
 // ---------------------------------------------------------------------------
@@ -662,7 +681,7 @@ inline int tensor_map(CUtensorMap* out, const void* ptr, long long inner, long l
 }
 
 // The tensor map of a contiguous (outer, mid, inner) tensor of elements of
-// elem bytes (2: bf16, 4: fp32) read in boxes of 128 bytes x box_mid x 1
+// elem bytes (1: int8, 2: bf16, 4: fp32) read in boxes of 128 bytes x box_mid x 1
 // with the 128-byte swizzle (the attention kernels' K and V tiles: inner the
 // head dim, mid the keys, outer batch x heads); from the cache when this
 // (pointer, shape, box) was seen before.  Returns 0, or -1 if the encoding
@@ -680,14 +699,17 @@ inline int tensor_map_3d(CUtensorMap* out, const void* ptr, int elem, long long 
     return 0;
   }
   EncodeTiledFn encode = encode_fn();
-  if (encode == nullptr || (elem != 2 && elem != 4)) return -1;
+  if (encode == nullptr || (elem != 1 && elem != 2 && elem != 4)) return -1;
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)mid, (cuuint64_t)outer};
   const cuuint64_t strides[2] = {(cuuint64_t)(inner * elem), (cuuint64_t)(inner * mid * elem)};
   const cuuint32_t box[3] = {(cuuint32_t)(128 / elem), (cuuint32_t)box_mid, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   CUtensorMap map;
   if (encode(&map,
-             elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+             elem == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+             : elem == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                         : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+             3,
              const_cast<void*>(ptr), dims, strides, box, elem_strides,
              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,

@@ -12,10 +12,14 @@ refused.  It never gives way to the plain version: a tensor that is not on
 a CUDA device is an error here (``ops.decode_attn`` routes CPU tensors to
 ``ref.decode_attention_ref``).
 
+An int8 ring (``kv_scales`` = its bf16 scales) is read as it is stored and
+dequantized inside the kernel, tile by tile, on both routes.
+
 ``decode_attention_kernel.launches`` counts the launches, one per call that
-reaches the card, and ``decode_attention_kernel.by_route`` the same calls by
-route ("mma": bf16, the products on mma.sync; "fma": FMA loops), so that a
-run can show which kernels it went through.
+reaches the card, ``decode_attention_kernel.by_route`` the same calls by
+route ("mma": bf16, the products on mma.sync; "fma": FMA loops) and
+``decode_attention_kernel.by_kv`` by the ring's type, so that a run can show
+which kernels it went through.
 """
 
 from __future__ import annotations
@@ -28,8 +32,10 @@ import torch
 
 from repro_torch.chip.h100 import MAX_SPLITS, SMS
 from repro_torch.kernels import _build
+from repro_torch.kernels.kv_quant.kernel import (KV_DTYPES, KV_TYPES,
+                                                 kv_scale_pointers)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}              # the query
 ROUTES = ("mma", "fma")
 _ROUTE_IDS = {"fma": 0, "mma": 1}
 MMA_HEAD_DIMS = (16, 32, 64, 72, 80, 96, 112, 128, 256)  # route "mma"
@@ -55,20 +61,31 @@ def maxg_for(g: int) -> int:
     return 1 if c <= 1 else 4 if c <= 4 else 5 if c == 5 else 8
 
 
-def smem_bytes(maxg: int, d: int, bk: int, stages: int, elem: int) -> int:
+def smem_bytes(maxg: int, d: int, bk: int, stages: int, elem: int,
+               mma: bool = False) -> int:
     """Shared memory of a block (``smem_bytes`` of the source): the ring
-    of K and V tiles, rows padded to 128-byte blocks, and the rest."""
-    row = -(-d * elem // 128) * 128
-    rest = 4 * (maxg * d + bk * (-(-maxg // 4) * 4) + stages * bk
+    of K and V tiles, rows padded to 128-byte blocks (an int8 ring, ``elem``
+    1, on route "mma": and each warp's 16 dequantized slots of K and V in
+    bf16), or the carries after the loop if they are larger; and the rest,
+    an int8 ring's scales among it."""
+    def row(e):
+        return -(-d * e // 128) * 128
+    ring = stages * 2 * bk * row(elem)
+    if elem == 1 and mma:
+        ring += WARPS * 2 * 16 * row(2)
+    region = max(ring, 4 * (WARPS + 1) * maxg * (d + 2))
+    rest = 4 * (maxg * d + bk * (-(-maxg // 4) * 4)
+                + stages * bk * (3 if elem == 1 else 1)
                 + MAX_LISTED + maxg * COEF + 4) + 2 * stages * 8
-    return 1024 + stages * 2 * bk * row + rest
+    return 1024 + region + rest
 
 
 def route_of(q: torch.Tensor, k_cache: torch.Tensor) -> str:
-    """The route a call with this query and cache takes: "mma" (bf16 query
-    and cache, head dim in MMA_HEAD_DIMS: mma.sync products, eight query
-    rows a block), "fma" (the rest: FMA products)."""
-    if (q.dtype == torch.bfloat16 and k_cache.dtype == torch.bfloat16
+    """The route a call with this query and cache takes: "mma" (bf16 query,
+    a bf16 or int8 cache, head dim in MMA_HEAD_DIMS: mma.sync products,
+    eight query rows a block), "fma" (the rest: FMA products)."""
+    if (q.dtype == torch.bfloat16
+            and k_cache.dtype in (torch.bfloat16, torch.int8)
             and q.shape[-1] in MMA_HEAD_DIMS):
         return "mma"
     return "fma"
@@ -81,13 +98,14 @@ def tiling(g: int, d: int, elem: int, route: str = "fma") -> tuple[int, int]:
     up to MAX_STAGES, as fit beside it.  Route "mma": tiles of 64 slots
     (four warps of 16) and eight query rows; its two groups of four warps
     take alternate tiles, so the stages come in pairs, one group's each; as
-    many as fit with BLOCKS_PER_SM blocks an SM, else with one."""
+    many as fit with BLOCKS_PER_SM blocks an SM, else with one.  ``elem``
+    is the ring's element size, 1 for int8."""
     if route == "mma":
         for budget in (SM_BYTES // BLOCKS_PER_SM - BLOCK_RESERVE,
                        SM_BYTES - BLOCK_RESERVE):
             for stages in range(MAX_STAGES, MIN_STAGES - 1, -2):
                 if smem_bytes(MAX_GROUP, d, TILE_SLOTS[0], stages,
-                              elem) <= budget:
+                              elem, mma=True) <= budget:
                     return TILE_SLOTS[0], stages
         raise ValueError(f"no tiling of route mma at head dim {d}")
     budget = SM_BYTES // BLOCKS_PER_SM - BLOCK_RESERVE
@@ -107,7 +125,7 @@ def _lib() -> ctypes.CDLL:
     if lib.decode_attention_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.decode_attention_launch.argtypes = (
-            [ptr] * 6 + [i32] * 9 + [ctypes.c_float] + [i32] * 7 + [ptr])
+            [ptr] * 8 + [i32] * 9 + [ctypes.c_float] + [i32] * 7 + [ptr])
         lib.decode_attention_launch.restype = i32
         lib.decode_attention_prepare.argtypes = [i32] * 6
         lib.decode_attention_prepare.restype = i32
@@ -203,6 +221,7 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
                             q_pos: Union[int, torch.Tensor], *,
                             window: int = 0,
                             scale: Optional[float] = None,
+                            kv_scales: Optional[tuple] = None,
                             splits: Optional[int] = None,
                             route: Optional[str] = None) -> torch.Tensor:
     """Attention of one query token a row against the ring cache, on the
@@ -210,18 +229,22 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     ``plan_splits`` and ``route_of``.
 
     ``q``: (B, Hq, D); ``k_cache``/``v_cache``: (B, Hkv, C, D), one type;
-    ``q`` fp32 or bf16, the caches fp32 or bf16, all contiguous on one CUDA
-    device; ``Hq`` a multiple of ``Hkv``; ``D`` a multiple of 8 up to 256.
-    ``slot_pos``: int32 (C,) or (B, C); ``q_pos``: an int, or an int32
-    scalar or (B,) tensor on the card.  Returns (B, Hq, D) in ``q``'s
-    type."""
+    ``q`` fp32 or bf16, the caches fp32, bf16 or int8, all contiguous on one
+    CUDA device; an int8 cache with its ``kv_scales`` = (k_scale, v_scale),
+    bf16 (B, Hkv, C, 1), contiguous, and no other cache with scales; ``Hq``
+    a multiple of ``Hkv``; ``D`` a multiple of 8 up to 256.  ``slot_pos``:
+    int32 (C,) or (B, C); ``q_pos``: an int, or an int32 scalar or (B,)
+    tensor on the card.  Returns (B, Hq, D) in ``q``'s type."""
     if not q.is_cuda:
         raise ValueError(f"decode_attention_kernel needs a CUDA tensor, got "
                          f"{q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"decode_attention_kernel takes a float32 or "
+                        f"bfloat16 query, q is {q.dtype}")
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.dtype not in _DTYPES:
-            raise TypeError(f"decode_attention_kernel takes float32 or "
-                            f"bfloat16, {name} is {t.dtype}")
+        if t is not q and t.dtype not in KV_DTYPES:
+            raise TypeError(f"decode_attention_kernel takes a float32, "
+                            f"bfloat16 or int8 cache, {name} is {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if not t.is_contiguous():
@@ -251,18 +274,19 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
             raise ValueError(f"{name} is not 16-byte aligned")
     sp_stride, qp_t, qp_stride, qp_value = _positions(slot_pos, q_pos, b, c,
                                                       q.device)
+    scale_ptrs = kv_scale_pointers(k_cache, kv_scales)
     scale = float(scale) if scale is not None else d ** -0.5
 
     lib = _lib()
-    kv_dtype = _DTYPES[k_cache.dtype]
+    kv_dtype = KV_DTYPES[k_cache.dtype]
     g = hq // hkv
     if route is None:
         route = route_of(q, k_cache)
     elif route not in ROUTES:
         raise ValueError(f"unknown route {route!r}; known: {ROUTES}")
     if route == "mma" and route_of(q, k_cache) != "mma":
-        raise ValueError(f"route mma takes a bf16 query and cache at head "
-                         f"dims {MMA_HEAD_DIMS}")
+        raise ValueError(f"route mma takes a bf16 query, a bf16 or int8 "
+                         f"cache, at head dims {MMA_HEAD_DIMS}")
     bk, stages = tiling(g, d, k_cache.element_size(), route)
     _prepare(lib, q.device, route, kv_dtype, d, g, bk, stages)
     rows = b * hkv * -(-g // MAX_GROUP)
@@ -277,7 +301,7 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
     with torch.cuda.device(q.device):
         out = torch.empty((b, hq, d), dtype=q.dtype, device=q.device)
         err = lib.decode_attention_launch(
-            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), *scale_ptrs,
             slot_pos.data_ptr(), None if qp_t is None else qp_t.data_ptr(),
             out.data_ptr(), b, hq, hkv, c, d, sp_stride, qp_stride, qp_value,
             int(window), scale, _DTYPES[q.dtype], kv_dtype, _ROUTE_IDS[route],
@@ -285,6 +309,7 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
             torch.cuda.current_stream().cuda_stream)
     decode_attention_kernel.launches += 1
     decode_attention_kernel.by_route[route] += 1
+    decode_attention_kernel.by_kv[KV_TYPES[kv_dtype]] += 1
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err} "
                            f"(B={b}, Hq={hq}, Hkv={hkv}, C={c}, D={d}, "
@@ -296,3 +321,4 @@ def decode_attention_kernel(q: torch.Tensor, k_cache: torch.Tensor,
 
 decode_attention_kernel.launches = 0
 decode_attention_kernel.by_route = dict.fromkeys(ROUTES, 0)
+decode_attention_kernel.by_kv = dict.fromkeys(KV_TYPES, 0)

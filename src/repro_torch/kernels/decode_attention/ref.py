@@ -7,7 +7,9 @@ keeps ``layers.gqa_attention`` as the reference model does.
 
 Beyond the reference's signature it takes the per-row form that the
 slot-batched decode step needs: ``slot_pos`` (B, C) and ``q_pos`` (B,),
-one ring and one position per request.  ``decode_attention_split_ref`` is
+one ring and one position per request; and the int8 ring, ``kv_scales``
+(the reference's ``kq_scales``), dequantized to bf16 as the reference does
+before it attends.  ``decode_attention_split_ref`` is
 the plain version of how the kernel cuts the work (the cache split over a
 cluster, slots over warps, the carries merged in order); the CPU tests hold
 it to the oracle.
@@ -20,6 +22,7 @@ from typing import Optional, Union
 import torch
 
 from repro_torch.kernels.flash_attention.ref import carry, merge_carries
+from repro_torch.kernels.kv_quant.ref import KVScales, dequantized
 
 
 def live_mask(slot_pos: torch.Tensor, q_pos: Union[int, torch.Tensor],
@@ -40,11 +43,14 @@ def live_mask(slot_pos: torch.Tensor, q_pos: Union[int, torch.Tensor],
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, slot_pos: torch.Tensor,
                          q_pos: Union[int, torch.Tensor], *, window: int = 0,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         kv_scales: KVScales = None) -> torch.Tensor:
     """q: (B, Hq, D); caches: (B, Hkv, C, D); slot_pos: (C,) or (B, C)
     absolute position per slot (sentinel > q_pos for unwritten slots);
-    q_pos: scalar or (B,).  fp32 logits and P.V; a row with no attendable
-    slot gives zeros.  Returns (B, Hq, D) in ``q``'s dtype."""
+    q_pos: scalar or (B,); an int8 ring takes its scales ``kv_scales``.
+    fp32 logits and P.V; a row with no attendable slot gives zeros.
+    Returns (B, Hq, D) in ``q``'s dtype."""
+    k_cache, v_cache = dequantized(k_cache, v_cache, kv_scales)
     b, hq, d = q.shape
     hkv, c = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv
@@ -65,7 +71,8 @@ def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
                                q_pos: Union[int, torch.Tensor], *,
                                splits: int, route: str = "mma", bk: int = 64,
                                window: int = 0,
-                               scale: Optional[float] = None) -> torch.Tensor:
+                               scale: Optional[float] = None,
+                               kv_scales: KVScales = None) -> torch.Tensor:
     """What the CUDA kernel computes, in plain PyTorch (fp32 on the CPU):
     for each (b, kv head) the tiles of ``bk`` slots that hold a live slot,
     cut into ``splits`` ranges of ceil(n / splits) tiles (a range may be
@@ -75,6 +82,7 @@ def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
     warps' (m, l, acc) merged in warp order, then the splits' in rank
     order, l floored at 1e-30.  Same arguments and result as
     ``decode_attention_ref``."""
+    k_cache, v_cache = dequantized(k_cache, v_cache, kv_scales)
     b, hq, d = q.shape
     hkv, c = k_cache.shape[1], k_cache.shape[2]
     g = hq // hkv

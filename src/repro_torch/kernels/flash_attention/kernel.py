@@ -15,9 +15,16 @@ tensor that is not on a CUDA device is an error here (``ops.flash_attn`` /
 ``ops.flash_attn_pos`` route CPU tensors to ``ref.mha_ref`` /
 ``ref.mha_pos_ref``).
 
+An int8 cache (``kv_scales`` = its bf16 scales, the ring of a chunk of a
+prompt) is read as it is stored on every route and dequantized inside the
+kernel, tile by tile; the stages of route "wgmma" are the same for both
+types (``WG_STAGES``): the int8 tiles and the bf16 ones dequantized from
+them take the shared memory the bf16 stages took.
+
 ``flash_attention_kernel.launches`` counts the launches, one per call that
-reaches the card, and ``flash_attention_kernel.by_route`` the same calls by
-route, so that a run can show which kernels it went through.
+reaches the card, ``flash_attention_kernel.by_route`` the same calls by
+route and ``flash_attention_kernel.by_kv`` by the cache's type, so that a
+run can show which kernels it went through.
 """
 
 from __future__ import annotations
@@ -30,8 +37,10 @@ import torch
 
 from repro_torch.chip.h100 import MAX_SPLITS, SMS
 from repro_torch.kernels import _build
+from repro_torch.kernels.kv_quant.kernel import (KV_DTYPES, KV_TYPES,
+                                                 kv_scale_pointers)
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}              # the query
 ROUTES = ("wgmma", "mma_sync", "fma")
 _ROUTE_IDS = {"fma": 0, "mma_sync": 1, "wgmma": 2}
 MMA_HEAD_DIMS = (16, 32, 64, 72, 80, 96, 112, 128, 256)  # the bf16 routes
@@ -48,9 +57,9 @@ _PREPARED: set = set()    # device indices whose kernel attributes are set
 
 
 def route_of(q: torch.Tensor, k: torch.Tensor) -> str:
-    """The route a call with this query and cache takes: "wgmma" (bf16,
-    head dim 64, 128 or 256), "mma_sync" (bf16, the other head dims),
-    "fma" (fp32 query)."""
+    """The route a call with this query and cache takes: "wgmma" (bf16
+    query, a bf16 or int8 cache, head dim 64, 128 or 256), "mma_sync" (the
+    same at the other head dims), "fma" (fp32 query, any cache)."""
     if q.dtype == torch.float32:
         return "fma"
     return "wgmma" if q.shape[-1] in WGMMA_HEAD_DIMS else "mma_sync"
@@ -77,7 +86,7 @@ def _lib() -> ctypes.CDLL:
     if lib.flash_attention_launch.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_launch.argtypes = (
-            [ptr] * 6 + [i32] * 6 + [i64] * 6 + [i32] * 4 + [ctypes.c_float]
+            [ptr] * 8 + [i32] * 6 + [i64] * 6 + [i32] * 4 + [ctypes.c_float]
             + [i32] * 4 + [ptr])
         lib.flash_attention_launch.restype = i32
         lib.flash_attention_prepare.argtypes = []
@@ -116,6 +125,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            k_pos: Optional[torch.Tensor] = None, *,
                            causal: bool = True, window: int = 0,
                            scale: Optional[float] = None,
+                           kv_scales: Optional[tuple] = None,
                            route: Optional[str] = None,
                            splits: Optional[int] = None) -> torch.Tensor:
     """Causal / bidirectional, GQA, sliding-window attention on the card.
@@ -123,9 +133,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``q``: (B, Hq, Sq, D) with any strides whose last is 1 (on the bf16
     routes multiples of 8 elements, 16-byte aligned); ``k``/``v``:
     (B, Hkv, Sk, D), one type, contiguous, 16-byte aligned; on one CUDA
-    device; ``Hq`` a multiple of ``Hkv``.  bf16 ``q`` with a bf16 cache and
-    ``D`` in ``MMA_HEAD_DIMS`` (tensor cores), or fp32 ``q`` with an fp32 or
-    bf16 cache and ``D`` a multiple of 8 up to 256.  Without positions,
+    device; ``Hq`` a multiple of ``Hkv``.  bf16 ``q`` with a bf16 or int8
+    cache and ``D`` in ``MMA_HEAD_DIMS`` (tensor cores), or fp32 ``q`` with
+    an fp32, bf16 or int8 cache and ``D`` a multiple of 8 up to 256; an int8
+    cache with its ``kv_scales`` = (k_scale, v_scale), bf16 (B, Hkv, Sk, 1),
+    contiguous.  Without positions,
     ``Sq == Sk`` at positions 0..S-1, or any Sq against any Sk when
     ``causal`` is False and there is no window (a cross-attention: keys
     past Sk and query rows past Sq are masked by index); with them, ``q_pos`` (B, Sq) and
@@ -136,10 +148,13 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         raise ValueError(f"flash_attention_kernel needs a CUDA tensor, got "
                          f"{q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention_kernel takes a float32 or bfloat16 "
+                        f"query, q is {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype not in _DTYPES:
-            raise TypeError(f"flash_attention_kernel takes float32 or "
-                            f"bfloat16, {name} is {t.dtype}")
+        if t is not q and t.dtype not in KV_DTYPES:
+            raise TypeError(f"flash_attention_kernel takes a float32, "
+                            f"bfloat16 or int8 cache, {name} is {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if t is not q and not t.is_contiguous():
@@ -148,8 +163,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} is not 16-byte aligned")
     if v.dtype != k.dtype:
         raise TypeError(f"v is {v.dtype}, k is {k.dtype}")
-    if q.dtype == torch.bfloat16 and k.dtype != torch.bfloat16:
-        raise TypeError("a bf16 query takes a bf16 cache only")
+    if q.dtype == torch.bfloat16 and k.dtype == torch.float32:
+        raise TypeError("a bf16 query takes a bf16 or int8 cache")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q must be (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D)")
     b, hq, sq, d = q.shape
@@ -183,6 +198,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         qp_stride = _positions("q_pos", q_pos, b, sq, q.device)
         kp_stride = _positions("k_pos", k_pos, b, sk, q.device)
+    scale_ptrs = kv_scale_pointers(k, kv_scales)
     scale = float(scale) if scale is not None else d ** -0.5
     if route is None:
         route = route_of(q, k)
@@ -206,15 +222,16 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                           device=q.device).transpose(1, 2)
         err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), *scale_ptrs,
             None if q_pos is None else q_pos.data_ptr(),
             None if k_pos is None else k_pos.data_ptr(), out.data_ptr(),
             b, hq, hkv, sq, sk, d, q_sb, q_sh, q_ss, *out.stride()[:3],
             qp_stride, kp_stride, int(causal), int(window), scale,
-            _DTYPES[q.dtype], _DTYPES[k.dtype], _ROUTE_IDS[route], splits,
+            _DTYPES[q.dtype], KV_DTYPES[k.dtype], _ROUTE_IDS[route], splits,
             torch.cuda.current_stream().cuda_stream)
     flash_attention_kernel.launches += 1
     flash_attention_kernel.by_route[route] += 1
+    flash_attention_kernel.by_kv[KV_TYPES[KV_DTYPES[k.dtype]]] += 1
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err} "
                            f"(route {route}, splits {splits}, B={b}, "
@@ -235,3 +252,4 @@ def _sms(device: torch.device) -> int:
 
 flash_attention_kernel.launches = 0
 flash_attention_kernel.by_route = dict.fromkeys(ROUTES, 0)
+flash_attention_kernel.by_kv = dict.fromkeys(KV_TYPES, 0)

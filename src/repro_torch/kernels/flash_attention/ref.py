@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.kv_quant.ref import KVScales, dequantized
+
 
 def live_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
               window: int) -> torch.Tensor:
@@ -37,12 +39,15 @@ def live_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
 def mha_pos_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                 causal: bool = True, window: int = 0,
-                scale: Optional[float] = None) -> torch.Tensor:
+                scale: Optional[float] = None,
+                kv_scales: KVScales = None) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Sk, D); q_pos (B, Sq), k_pos (B, Sk)
     -> (B, Hq, Sq, D) in ``q``'s type.  A key is attendable where
     ``k_pos <= q_pos`` (causal) and ``k_pos > q_pos - window`` (window > 0).
-    fp32 logits, softmax and P.V; GQA by head-group folding; a query with no
-    attendable key gives zeros."""
+    An int8 ring takes its scales ``kv_scales`` and is dequantized to bf16
+    first, as the reference does.  fp32 logits, softmax and P.V; GQA by
+    head-group folding; a query with no attendable key gives zeros."""
+    k, v = dequantized(k, v, kv_scales)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -125,7 +130,8 @@ def mha_pos_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                       splits: int, rows: int = 64, bk: int = 64,
                       causal: bool = True, window: int = 0,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      kv_scales: KVScales = None) -> torch.Tensor:
     """What route "wgmma" of the CUDA kernel computes, in plain PyTorch (fp32
     on the CPU): rows (query position t, head g of a kv head's group) in
     tiles of ``rows``, row = t G + g; for each (b, kv head, row tile) the
@@ -134,6 +140,7 @@ def mha_pos_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (m, l, acc) over its keys, masked per query; the splits merged in rank
     order, l floored at 1e-30.  Same arguments and result as
     ``mha_pos_ref``."""
+    k, v = dequantized(k, v, kv_scales)
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     g = hq // hkv

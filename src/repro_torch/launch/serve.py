@@ -44,9 +44,12 @@ Runs on the GPU unless ``--device cpu`` is given (``--smoke`` makes that
 bearable).  Weights are random, drawn on the device from seed 0 (under
 ``elk_stream`` one layer at a time, each moved to the host before the
 next); prompts from seed 1, traces from ``--trace-seed``.  On the GPU the
-process's peak device memory, start-up included, is printed.  The reference launcher's
-``--kv-dtype int8`` and ``--fleet`` are not ported yet; ``--pipeline-pod``
-and ``--stacked-gb`` raise (ROADMAP.md, Queue 1).
+process's peak device memory, start-up included, is printed.  ``--kv-dtype
+int8`` serves from the reference's int8 KV cache (a bf16 scale a slot and kv
+head; the attention kernels read the int8 ring themselves) in every mode
+above, and the planner sizes its knobs by that ring's bytes.  The reference
+launcher's ``--fleet`` is not ported yet; ``--pipeline-pod`` and
+``--stacked-gb`` raise (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -127,6 +130,8 @@ def main(argv=None) -> None:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--cache", type=int, default=256)
+    ap.add_argument("--kv-dtype", default="bfloat16",
+                    choices=["bfloat16", "int8"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--trace", type=int, default=0, metavar="N",
                     help="serve an N-request mixed-length trace through the "
@@ -166,7 +171,8 @@ def main(argv=None) -> None:
     if args.mode == "elk_stream" and args.prefetch_depth <= 0:
         # plan against the config actually served, on one H100
         scfg = elk_serve_config(cfg, batch=args.batch,
-                                cache_capacity=args.cache, pod=h100_host())
+                                cache_capacity=args.cache,
+                                kv_dtype=args.kv_dtype, pod=h100_host())
         print(f"ELK scheduler: prefetch_depth={scfg.prefetch_depth} "
               f"prefill_chunk={scfg.prefill_chunk}")
         if args.prefill_chunk:
@@ -175,6 +181,7 @@ def main(argv=None) -> None:
         scfg = ServeConfig(batch=args.batch, cache_capacity=args.cache,
                            mode=args.mode,
                            prefetch_depth=max(args.prefetch_depth, 1),
+                           kv_dtype=args.kv_dtype,
                            prefill_chunk=args.prefill_chunk or 32)
     gen = torch.Generator(device=device).manual_seed(0)
     if stream.streams(cfg, scfg.mode):

@@ -12,9 +12,11 @@ no KV ring), the hybrid layer's parallel SSM branch (``models/ssm.py``,
 its state beside the ring), the encoder-decoder (whisper: ``_encode`` over
 stub frame embeddings, cross-attention K/V filled at prefill) and the VLM
 (stub patch embeddings ahead of the prompt).  The frontends' stubs are
-``models/frontends.py``.  The int8 cache and ``forward_train`` are still
-to be ported (ROADMAP.md, Queue 1) and raise ``NotImplementedError``;
-enc-dec models take no per-slot cache, as in the reference.
+``models/frontends.py``.  The serving cache is the reference's in bf16,
+fp32 or int8 (``CacheSpec.kv_dtype``; int8 with a bf16 scale a slot and kv
+head, the reference's ``k_scale``/``v_scale``).  ``forward_train`` is still
+to be ported (ROADMAP.md, Queue 1); enc-dec models take no per-slot cache,
+as in the reference.
 
 What differs from the reference, by design:
 
@@ -43,6 +45,12 @@ What differs from the reference, by design:
   ``decode_slots`` and ``chunk_prefill`` take ``decoder=`` in place of
   ``_run_decoder``, which is how ``serve/stream.py`` streams the layer
   weights through every pass.
+* An int8 ring is quantized as the reference quantizes it (``quantize_kv``
+  of ``kernels/kv_quant``), but on the decode steps and chunks the new rows
+  go into the ring through ``kv_quant.ops.quantize_into`` (one kernel a
+  layer on the card), and the attention ops read the int8 ring and its
+  scales themselves: nothing dequantizes the ring in the model, where the
+  reference dequantizes the whole ring every step before it attends.
 * There is no ``mesh`` argument: the port runs on one GPU.
 """
 
@@ -55,6 +63,8 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import decode_attn
 from repro_torch.kernels.flash_attention.ops import flash_attn, flash_attn_pos
+from repro_torch.kernels.kv_quant.ops import quantize_into
+from repro_torch.kernels.kv_quant.ref import KVScales, quantize_kv
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
@@ -263,7 +273,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
 class CacheSpec:
     capacity: int                  # KV slots per layer (ring buffer)
     batch: int
-    kv_dtype: Any = torch.bfloat16
+    kv_dtype: Any = torch.bfloat16   # bf16 | fp32 | int8 (quantized)
     per_slot: bool = False         # independent per-request slots
                                    # (pos: (B,), slot_pos: (B, C))
 
@@ -271,7 +281,9 @@ class CacheSpec:
 def init_cache(cfg: ModelConfig, spec: CacheSpec, device="cuda") -> dict:
     """The reference's serving cache, leaf for leaf.  Attention configs: a
     ring KV cache ``k``/``v`` ``(L, B, Hkv, C, hd)`` with ``slot_pos`` tags
-    (``POS_SENTINEL`` = unwritten).  RWKV: no ring, ``rwkv_state``
+    (``POS_SENTINEL`` = unwritten); an int8 ring also ``k_scale``/``v_scale``
+    ``(L, B, Hkv, C, 1)`` bf16 zeros (an unwritten slot dequantizes to 0).
+    RWKV: no ring, ``rwkv_state``
     ``(L, B, H, d/H, d/H)`` fp32.  Hybrid SSM: ``ssm_state``
     ``(L, B, d, N)`` fp32 beside the ring.  Enc-dec: ``cross_k``/``cross_v``
     ``(L, B, Hkv, E, hd)`` bf16 zeros, which ``prefill`` replaces with K/V
@@ -280,9 +292,6 @@ def init_cache(cfg: ModelConfig, spec: CacheSpec, device="cuda") -> dict:
     (B, C)`` and ``pos`` an int32 tensor (B,), both on the device; an
     enc-dec config takes no per-slot cache (``ValueError``, the
     reference's)."""
-    if spec.kv_dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 KV cache not ported yet (ROADMAP.md, Queue 1, item 9)")
     if spec.per_slot and cfg.encoder_layers:
         raise ValueError("per-slot caches do not support enc-dec models")
     device = resolve_device(device)
@@ -296,6 +305,10 @@ def init_cache(cfg: ModelConfig, spec: CacheSpec, device="cuda") -> dict:
         kv_shape = (L, B, nkv, C, hd)
         cache["k"] = torch.zeros(kv_shape, dtype=spec.kv_dtype, device=device)
         cache["v"] = torch.zeros(kv_shape, dtype=spec.kv_dtype, device=device)
+        if spec.kv_dtype == torch.int8:
+            for key in ("k_scale", "v_scale"):
+                cache[key] = torch.zeros((*kv_shape[:4], 1),
+                                         dtype=torch.bfloat16, device=device)
         cache["slot_pos"] = torch.full((B, C) if spec.per_slot else (C,),
                                        POS_SENTINEL, dtype=torch.int32,
                                        device=device)
@@ -316,8 +329,8 @@ def init_cache(cfg: ModelConfig, spec: CacheSpec, device="cuda") -> dict:
     return cache
 
 
-_LAYER_CACHE_KEYS = ("k", "v", "rwkv_state", "ssm_state", "cross_k",
-                     "cross_v")
+_LAYER_CACHE_KEYS = ("k", "v", "k_scale", "v_scale", "rwkv_state",
+                     "ssm_state", "cross_k", "cross_v")
 
 
 def layer_slices(cache: Optional[dict], li: int) -> Optional[dict]:
@@ -367,58 +380,77 @@ def _self_attention_full(x, p, cfg: ModelConfig, spec: AttnSpec, sin, cos):
     return linear(out, p["w_o"]), k, v
 
 
+def _kv_scales(layer_cache: dict) -> KVScales:
+    """An int8 ring's scales (k_scale, v_scale), or None."""
+    if "k_scale" not in layer_cache:
+        return None
+    return layer_cache["k_scale"], layer_cache["v_scale"]
+
+
 def _self_attention_decode(x, p, cfg: ModelConfig, spec: AttnSpec,
-                           k_cache, v_cache, ctx: dict):
+                           layer_cache: dict, ctx: dict):
     """x: (B,1,d), one token at absolute position ``ctx["pos"]`` against
     the ring cache (B,Hkv,C,hd).  The new K/V row is written **in place**
-    at slot ``pos % C`` before attention.  The rope tables are the same
-    for every layer and come ready in ``ctx``.  Attention is ``decode_attn``
-    with the Pallas kernel's own signature (``slot_pos (C,)``, scalar
-    position)."""
+    at slot ``pos % C`` before attention (an int8 ring: quantized, with its
+    scales).  The rope tables are the same for every layer and come ready
+    in ``ctx``.  Attention is ``decode_attn`` with the Pallas kernel's own
+    signature (``slot_pos (C,)``, scalar position)."""
     b, s, _ = x.shape
-    c = k_cache.shape[2]
+    k_cache, v_cache = layer_cache["k"], layer_cache["v"]
+    scales = _kv_scales(layer_cache)
     q, k_new, v_new = _project_qkv(x, p, cfg)          # (B,H,1,hd)
     q = apply_rope(q, ctx["sin"], ctx["cos"])
     k_new = apply_rope(k_new, ctx["sin"], ctx["cos"])
-    slot = ctx["pos"] % c
-    k_cache[:, :, slot:slot + 1, :] = k_new.to(k_cache.dtype)
-    v_cache[:, :, slot:slot + 1, :] = v_new.to(v_cache.dtype)
+    if scales is not None:
+        quantize_into(k_new, v_new, k_cache, v_cache, *scales, ctx["pos"])
+    else:
+        slot = ctx["pos"] % k_cache.shape[2]
+        k_cache[:, :, slot:slot + 1, :] = k_new.to(k_cache.dtype)
+        v_cache[:, :, slot:slot + 1, :] = v_new.to(v_cache.dtype)
     out = decode_attn(q.reshape(b, spec.num_heads, spec.head_dim),
                       k_cache, v_cache, ctx["slot_pos"], ctx["pos"],
-                      window=spec.sliding_window, scale=spec.scale)
+                      window=spec.sliding_window, scale=spec.scale,
+                      kv_scales=scales)
     return linear(out.reshape(b, s, -1), p["w_o"])
 
 
 def _self_attention_slots(x, p, cfg: ModelConfig, spec: AttnSpec,
-                          k_cache, v_cache, ctx: dict):
+                          layer_cache: dict, ctx: dict):
     """Per-slot cached attention: every batch row sits at its own absolute
     position.  x: (B,T,d), ``ctx["positions"]`` (B,T) per-row token
     positions, ``ctx["slot_pos"]`` (B,C) per-row ring tags (already
     updated for this step's writes), caches (B,Hkv,C,hd).  Serves both the
     continuous-batching decode step (T=1, B=slots) and chunked prefill
     (B=1, T=chunk).  The T new K/V rows are written **in place** into each
-    row's ring slots.  At T=1 attention is ``decode_attn`` with per-row
-    positions; at T>1 ``flash_attn_pos`` with the chunk's positions
-    against the ring's tags, on the ring as it is stored (no widened
-    copy), its output in (B, T, Hq, D) storage."""
+    row's ring slots (an int8 ring: quantized, with their scales, the
+    chunk's own rows among those it attends to).  At T=1 attention is
+    ``decode_attn`` with per-row positions; at T>1 ``flash_attn_pos`` with
+    the chunk's positions against the ring's tags, on the ring as it is
+    stored (no widened copy), its output in (B, T, Hq, D) storage."""
     b, t, _ = x.shape
-    c = k_cache.shape[2]
+    k_cache, v_cache = layer_cache["k"], layer_cache["v"]
+    scales = _kv_scales(layer_cache)
     positions = ctx["positions"]
     q, k_new, v_new = _project_qkv(x, p, cfg)          # (B,H,T,hd)
     q = apply_rope(q, ctx["sin"], ctx["cos"])
     k_new = apply_rope(k_new, ctx["sin"], ctx["cos"])
-    rows = torch.arange(b, device=x.device)[:, None]   # (B,1)
-    slots = (positions % c).long()                     # (B,T), distinct (T<=C)
-    k_cache[rows, :, slots, :] = k_new.to(k_cache.dtype).transpose(1, 2)
-    v_cache[rows, :, slots, :] = v_new.to(v_cache.dtype).transpose(1, 2)
+    if scales is not None:
+        quantize_into(k_new, v_new, k_cache, v_cache, *scales, positions)
+    else:
+        rows = torch.arange(b, device=x.device)[:, None]   # (B,1)
+        slots = (positions % k_cache.shape[2]).long()      # (B,T), distinct
+        k_cache[rows, :, slots, :] = k_new.to(k_cache.dtype).transpose(1, 2)
+        v_cache[rows, :, slots, :] = v_new.to(v_cache.dtype).transpose(1, 2)
     if t == 1:
         out = decode_attn(q.reshape(b, spec.num_heads, spec.head_dim),
                           k_cache, v_cache, ctx["slot_pos"], ctx["q_pos"],
-                          window=spec.sliding_window, scale=spec.scale)
+                          window=spec.sliding_window, scale=spec.scale,
+                          kv_scales=scales)
         return linear(out.reshape(b, t, -1), p["w_o"])
     out = flash_attn_pos(q, k_cache, v_cache, positions,
                          ctx["slot_pos"], causal=spec.causal,
-                         window=spec.sliding_window, scale=spec.scale)
+                         window=spec.sliding_window, scale=spec.scale,
+                         kv_scales=scales)
     out = out.transpose(1, 2).reshape(b, t, -1)     # a view on the card
     return linear(out, p["w_o"])
 
@@ -505,19 +537,24 @@ def _decoder_layer(x, p, cfg: ModelConfig, spec: AttnSpec, ctx: dict,
         return x
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if ctx["mode"] == "decode":
-        attn_out = _self_attention_decode(
-            h, p["attn"], cfg, spec, layer_cache["k"], layer_cache["v"], ctx)
+        attn_out = _self_attention_decode(h, p["attn"], cfg, spec,
+                                          layer_cache, ctx)
     elif ctx["mode"] == "slots":
-        attn_out = _self_attention_slots(
-            h, p["attn"], cfg, spec, layer_cache["k"], layer_cache["v"], ctx)
+        attn_out = _self_attention_slots(h, p["attn"], cfg, spec,
+                                         layer_cache, ctx)
     else:
         attn_out, k, v = _self_attention_full(
             h, p["attn"], cfg, spec, ctx["sin"], ctx["cos"])
         if layer_cache is not None:   # prefill: write the cache
             c = layer_cache["k"].shape[2]
             s = k.shape[2]
-            _fill_ring(layer_cache["k"], k[:, :, -c:, :], s)
-            _fill_ring(layer_cache["v"], v[:, :, -c:, :], s)
+            kw, vw = k[:, :, -c:, :], v[:, :, -c:, :]
+            if "k_scale" in layer_cache:   # the reference's int8 ring fill
+                (kw, ks), (vw, vs) = quantize_kv(kw), quantize_kv(vw)
+                _fill_ring(layer_cache["k_scale"], ks, s)
+                _fill_ring(layer_cache["v_scale"], vs, s)
+            _fill_ring(layer_cache["k"], kw, s)
+            _fill_ring(layer_cache["v"], vw, s)
     if cfg.hybrid_parallel_ssm:
         state = layer_cache["ssm_state"] if layer_cache else None
         ssm_out, new_state = ssm_mod.ssm_branch(h, p["ssm"], cfg, state)

@@ -399,7 +399,8 @@ def test_planner_constants_are_what_the_kernel_compiles():
     assert "(bk != 16 && bk != 32 && bk != 64)" in src
     assert set(dk.TILE_SLOTS) == {16, 32, 64}
     for d in dk.MMA_HEAD_DIMS:
-        assert f"case {d}: return F<bf16, 8, 1, {d}>" in src
+        assert f"case {d}: return F<KV, 8, 1, {d}>" in src
+    assert "DECODE_MMA_INSTANCE(prepare, bf16, d)" in src
     for g in range(1, 9):
         assert f"F<T, {dk.maxg_for(g)}, " in src
     assert "decode_attention_combine_kernel" not in src
