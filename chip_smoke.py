@@ -39,7 +39,13 @@ exit code and no result line:
             ``ServeEngine``'s lock-step ``generate`` and
             ``ContinuousBatcher.run`` over a mixed trace give equal greedy
             tokens; last logits close.  The qwen3 smoke config also over
-            an int8 ring (``kv_dtype`` int8).  Then ``[emulator]``:
+            an int8 ring (``kv_dtype`` int8), and through fleets on the
+            virtual clock (``serve/fleet.py``): one mixed pod, equal to
+            ``run_virtual_trace`` of a direct batcher, and a prefill pod
+            and a decode pod with every request migrating (the pods of a
+            streamed fleet on one ``LayerStream``): tokens, virtual times,
+            summaries and migration events equal on CPU and card, resident
+            and streamed.  Then ``[emulator]``:
             ``chip/emulator.check_plan_numerics`` on the card over the
             plans of a decode matmul of ``h100_sxm()``.
 5. serve    lock-step, resident weights: full-width qwen3-14b (bf16,
@@ -93,7 +99,8 @@ exit code and no result line:
             card is optional and not run (a kimi-k2 chunk of 32 tokens
             touches up to 256 of 384 experts); the parity phase runs the
             MoE smoke configs streamed through the batcher.
-10. families  the four remaining families at full width and full depth,
+10. families  the four remaining families at full width and full depth
+            (rwkv6-7b at RWKV_DEPTH of its 32 layers, for the time limit),
             random weights from seed 0, each freed before the next
             (``FAMILY_RUNS``): rwkv6-7b (RWKV6, a recurrent state and no KV
             ring) resident lock-step as in 5, then the first 8 requests of
@@ -167,6 +174,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.chip.emulator import check_plan_numerics  # noqa: E402
 from repro_torch.chip.h100 import h100_host, h100_sxm  # noqa: E402
+from repro_torch.chip.simulator import simulate_fleet_traffic  # noqa: E402
+from repro_torch.chip.topology import fleet_spec  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.graph import build_graph  # noqa: E402
 from repro_torch.core.partition import (  # noqa: E402
@@ -208,15 +217,22 @@ from repro_torch.kernels.kv_quant.kernel import (  # noqa: E402
     KV_TYPES, kv_quant_kernel)
 from repro_torch.kernels.kv_quant.ref import (  # noqa: E402
     quantize_into_ref, quantize_kv)
+from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.frontends import frontend_embeddings  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.serve import batcher as batcher_mod  # noqa: E402
 from repro_torch.serve.batcher import (ContinuousBatcher,  # noqa: E402
                                        _chunk_len, make_trace, summarize)
-from repro_torch.serve.engine import (ServeConfig, ServeEngine,  # noqa: E402
-                                     elk_serve_config)
-from repro_torch.serve.prefix import PrefixStore, host_copy  # noqa: E402
+from repro_torch.serve.engine import (PREFILL_SAT, ServeConfig,  # noqa: E402
+                                      ServeEngine, elk_serve_config,
+                                      kv_ring_bytes)
+from repro_torch.serve.fleet import (FleetPod, FleetRouter,  # noqa: E402
+                                     PodCosts, VirtualClock,
+                                     run_virtual_trace)
+from repro_torch.serve.prefix import (PrefixStore, host_copy,  # noqa: E402
+                                      state_bytes)
 from repro_torch.serve.stream import (LayerStream, _leaves,  # noqa: E402
                                       init_streamed_params, streams)
 
@@ -303,9 +319,13 @@ MODEL_RUNS = (("dit_xl", 0, DIT_PROMPT_LEN, DIT_CACHE),
 TRACE_ARCH = "kimi_k2_1t_a32b"
 # the [families] phase: the four remaining families at full width and depth,
 # (arch, layers (0: all), prompt length, ring) as MODEL_RUNS; whisper's
-# prompts of 64 tokens against 1500 frames
+# prompts of 64 tokens against 1500 frames.  rwkv6-7b, the largest path of
+# the run (112.2 s at its 32 layers on an H100 80GB HBM3 at 700 W), runs at
+# RWKV_DEPTH layers since the [fleet] phase came, so that the run stays well
+# inside its time limit
 WHISPER_PROMPT_LEN, WHISPER_CACHE = 64, 512
-FAMILY_RUNS = (("rwkv6_7b", 0, PROMPT_LEN, CACHE),
+RWKV_DEPTH = 16
+FAMILY_RUNS = (("rwkv6_7b", RWKV_DEPTH, PROMPT_LEN, CACHE),
                ("hymba_1_5b", 0, PROMPT_LEN, SLOT_CACHE),
                ("internvl2_1b", 0, PROMPT_LEN, CACHE),
                ("whisper_tiny", 0, WHISPER_PROMPT_LEN, WHISPER_CACHE))
@@ -1797,6 +1817,7 @@ def parity_phase() -> None:
     parity_config(dataclasses.replace(
         get_smoke_config("qwen3_14b"), dtype="float32",
         param_dtype="float32"), kv_dtype="int8")
+    parity_fleets()
     # ties go to the first index on the card as on the CPU
     rows = torch.zeros(3, 300)
     rows[0, [7, 200]] = 3.0
@@ -1882,6 +1903,105 @@ def parity_config(cfg, kv_dtype: str = "float32") -> None:
                  f"CPU (gspmd) and {key}:\n{ref}\n{got}")
     say(f"[parity] smoke {name} fp32: ContinuousBatcher tokens equal on "
         f"CPU and card, {' and '.join(modes)}, for 6 mixed requests")
+
+
+# the virtual prices of a tick in the parity phase's fleets (the reference
+# tests' COSTS)
+PARITY_FLEET_COSTS = PodCosts(decode_step_s=1e-3, tick_overhead_s=5e-4)
+
+
+def fleet_outcome(completions, summary: dict, router=None) -> dict:
+    """What a fleet run must reproduce: each request's tokens, virtual
+    first-token and finish times and place in the finish order, the
+    summary's ``summarize`` keys, and the router's migrations."""
+    out = {"completions": [(c.rid, c.tokens.tolist(), c.first_token_s,
+                            c.finish_s, c.finish_order) for c in completions],
+           "summary": {k: summary[k] for k in summarize(completions, 1.0)}}
+    if router is not None:
+        out.update(migration_events=list(router.migration_events),
+                   planned_migration_s=router.planned_migration_s,
+                   routed=list(router.routed), shed=len(router.shed))
+    return out
+
+
+def parity_fleets() -> None:
+    """The qwen3 smoke config in fp32 on seeded weights, on the CPU and on
+    the card, resident and streamed (the pods of a streamed fleet share one
+    ``LayerStream``), through (a) a fleet of one mixed pod, which must equal
+    ``run_virtual_trace`` of a direct batcher, and (b) a prefill pod (chunk
+    ``PREFILL_SAT`` clamped to the ring) and a decode pod (chunk 16) priced
+    by ``fleet_spec(h100_host(), 2)``, every request migrating.  Tokens,
+    virtual times, summaries and migration events must be equal on all
+    four; the card launches the kernels of the passes, the CPU none."""
+    cfg = dataclasses.replace(get_smoke_config("qwen3_14b"), dtype="float32",
+                              param_dtype="float32")
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    scfg = ServeConfig(batch=2, cache_capacity=32, kv_dtype="float32",
+                       prefetch_depth=2, prefill_chunk=8)
+    trace = make_trace(6, vocab_size=cfg.vocab_size, arrival_spacing_s=1e-3)
+    used = {k for k, n in passes_expected(
+        cfg, [("chunk", 8, 1), ("decode", 2, 2)]).items()
+        if k != "routes" and n}
+    results = {}
+    for dev in ("cpu", "cuda"):
+        for mode in ("gspmd", "elk_stream"):
+            base = ServeEngine(cfg, params, dataclasses.replace(
+                scfg, mode=mode), device=dev)
+
+            def engine(chunk: int) -> ServeEngine:
+                return ServeEngine(cfg, base.params, dataclasses.replace(
+                    base.scfg, prefill_chunk=chunk), device=dev)
+
+            fleets = {
+                "one mixed pod": ([FleetPod(engine(8), "mixed",
+                                            costs=PARITY_FLEET_COSTS)], None),
+                "disaggregated": ([
+                    FleetPod(engine(min(PREFILL_SAT, 32)), "prefill",
+                             costs=PARITY_FLEET_COSTS),
+                    FleetPod(engine(16), "decode",
+                             costs=PARITY_FLEET_COSTS)],
+                    fleet_spec(h100_host(), 2))}
+            runs = {}
+            for label, (pods, fl) in fleets.items():
+                before = read_launches()
+                fr = FleetRouter(pods, fleet=fl)
+                fr.run(trace)
+                launched = {k for k, n in read_launches().items()
+                            if n - before[k]}
+                if launched != (used if dev == "cuda" else set()):
+                    fail(f"parity fleet {label} on {dev} {mode} launched "
+                         f"{sorted(launched)}, its passes run {sorted(used)}")
+                if len(fr.completed) != len(trace):
+                    fail(f"parity fleet {label}: {len(fr.completed)} of "
+                         f"{len(trace)} requests completed")
+                runs[label] = fleet_outcome(fr.completed, fr.summary(), fr)
+            if runs["disaggregated"]["summary"]["requests"] != len(trace) or \
+                    len(runs["disaggregated"]["migration_events"]) != \
+                    len(trace):
+                fail(f"parity fleet on {dev} {mode}: not every request "
+                     "migrated")
+            vc = VirtualClock()
+            comps = run_virtual_trace(ContinuousBatcher(engine(8), vc),
+                                      trace, PARITY_FLEET_COSTS)
+            direct = fleet_outcome(comps, summarize(comps, vc.t))
+            one = {k: runs["one mixed pod"][k] for k in direct}
+            if one != direct:
+                fail(f"parity fleet of one mixed pod on {dev} {mode} differs "
+                     f"from run_virtual_trace:\n{one}\n{direct}")
+            results[dev, mode] = runs
+    ref = results["cpu", "gspmd"]
+    for key, runs in results.items():
+        for label, got in runs.items():
+            if got != ref[label]:
+                fail(f"parity fleet {label}: {key} differs from the CPU's "
+                     f"gspmd run:\n{got}\n{ref[label]}")
+    dis = ref["disaggregated"]
+    say(f"[parity] smoke {cfg.name} fp32 fleets: one mixed pod equal to "
+        "run_virtual_trace, and a prefill + decode fleet (6 migrations of "
+        f"{dis['migration_events'][0][0]} bytes, planned "
+        f"{dis['planned_migration_s']:.6f} s): tokens, virtual times, "
+        "summaries and migration events equal on CPU and card, gspmd and "
+        "elk_stream (the pods on one LayerStream)")
 
 
 # ---------------------------------------------------------------------------
@@ -2516,6 +2636,245 @@ def int8_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
     say(f"[int8] phase took {time.perf_counter() - t0:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 7c: the fleet router at full width
+# ---------------------------------------------------------------------------
+
+def fleet_expected(cfg, router, trace, kv: str = "bfloat16") -> dict:
+    """Launches of a fleet's run: every pod's decode ticks (passes of SLOTS
+    rows) and the chunks of the prompts it prefilled: a mixed pod those of
+    the requests it completed, a prefill pod (the fleet's one pod that is
+    not a decode pod) those of every completed request, a decode pod
+    none."""
+    roles = [p.role for p in router.pods]
+    if "prefill" in roles and sum(r != "decode" for r in roles) > 1:
+        fail(f"fleet_expected counts a prefill pod alone beside decode "
+             f"pods, not {roles}")
+    by_rid = {r.rid: r for r in trace}
+    passes = []
+    for p in router.pods:
+        done = {"mixed": p.batcher.completed, "prefill": router.completed,
+                "decode": []}[p.role]
+        chunks = chunk_lengths([by_rid[c.rid] for c in done],
+                               p.batcher.chunk_budget)
+        passes += [("decode", SLOTS, SLOTS)] * p.batcher.decode_ticks + [
+            ("decode" if t == 1 else "chunk", t, 1) for t in chunks]
+    return passes_expected(cfg, passes, kv)
+
+
+def timed_calls(fn, seconds: list):
+    """``fn``, with the seconds of each call (the card synchronised before
+    and after) appended to ``seconds``."""
+    def call(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+    return call
+
+
+def served(router: FleetRouter, trace) -> FleetRouter:
+    router.run(trace)
+    return router
+
+
+def fleet_run(cfg, serve, trace, kernel_rows: list[dict], path: str) -> tuple:
+    """``serve()`` (a fleet's run over ``trace``, returning its router) with
+    the kernels' counts at 0 before and read after, recorded as ``path``;
+    every request that was not shed completes with its tokens.  Returns
+    the router and the run's line."""
+    gc.collect()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fr = serve()
+    torch.cuda.synchronize()
+    real = time.perf_counter() - t0
+    counts, routes = read_launches(), read_routes()
+    record_launches(kernel_rows, path, counts,
+                    fleet_expected(cfg, fr, trace), routes)
+    shed = {r.rid for r in fr.shed}
+    check_completions([r for r in trace if r.rid not in shed], fr.completed,
+                      cfg.vocab_size)
+    s = fr.summary()
+    line = {k: s[k] for k in ("pods", "roles", "routed", "migrations",
+                              "planned_migration_s", "shed", "requests",
+                              "wall_s", "p50_ttft_s", "p99_ttft_s",
+                              "gen_tok_s")}
+    line.update(virtual_planned_migration_s=fr.planned_migration_s,
+                migrated_bytes=sum(nb for nb, *_ in fr.migration_events),
+                max_ttft_s=max(c.ttft_s for c in fr.completed),
+                ticks=[p.batcher.ticks for p in fr.pods],
+                decode_ticks=[p.batcher.decode_ticks for p in fr.pods],
+                real_s=real, launches=counts)
+    return fr, line
+
+
+def direct_run(cfg, eng: ServeEngine, trace, costs: PodCosts) -> tuple:
+    """A direct batcher on ``eng`` over ``trace`` on a virtual clock
+    (``run_virtual_trace``), its launches checked (not recorded)."""
+    gc.collect()
+    vc = VirtualClock()
+    bat = ContinuousBatcher(eng, vc)
+    zero_launches()
+    comps = run_virtual_trace(bat, trace, costs)
+    torch.cuda.synchronize()
+    want = trace_expected(cfg, bat.decode_ticks,
+                          chunk_lengths(trace, bat.chunk_budget))
+    if {**read_launches(), "routes": read_routes()} != want:
+        fail(f"the direct batcher launched {read_launches()}, by route "
+             f"{read_routes()}; its passes say {want}")
+    check_completions(trace, comps, cfg.vocab_size)
+    return comps, summarize(comps, vc.t)
+
+
+def fleet_phase(cfg, params: dict, kernel_rows: list[dict]) -> dict:
+    """Full-width qwen3-14b, resident bf16 weights shared by every pod, 8
+    slots of 2048 a pod, the 16-request trace of the continuous phase on
+    the fleet's virtual clock, each pod priced by
+    ``PodCosts.from_serve_config`` of the launcher's ``ServeConfig``
+    (``--mode gspmd --batch 8 --cache 2048 --prefill-chunk 256``): (a) one
+    mixed pod, equal to ``run_virtual_trace`` of a direct batcher (tokens,
+    virtual first-token and finish times, finish order, ``summarize``);
+    (b) a prefill pod (chunk 128, ``PREFILL_SAT``) and a decode pod (chunk
+    16) priced by ``fleet_spec(h100_host(), 2)``: all 16 requests migrate,
+    as host copies of their request caches, each migration the request
+    cache's bytes; the tokens those of a direct batcher at chunk 128;
+    ``planned_migration_s`` > 0; ``simulate_fleet_traffic`` prices each
+    migration alone as the plan does, and on the router's events adds the
+    fleet link's queue (its ratio to the plan is printed: the plan prices
+    each migration alone); the real handoff and refill copies timed; (c) the
+    launcher's ``_run_fleet`` with ``--fleet 2`` (mixed), then with
+    ``--ttft-slo-ms`` half of (a)'s virtual p99 TTFT, which must shed and
+    keep every admitted TTFT under the target.  Each fleet's launches are
+    recorded as a path of its own.  One ``[fleet]`` line."""
+    t_phase = time.perf_counter()
+    vocab = cfg.vocab_size
+    trace = make_trace(TRACE_N, vocab_size=vocab, **TRACE)
+    argv = ["--arch", "qwen3-14b", "--mode", "gspmd", "--batch", str(SLOTS),
+            "--cache", str(SLOT_CACHE), "--prefill-chunk",
+            str(PREFILL_CHUNK), "--trace", str(TRACE_N), "--fleet", "2"]
+    args = launcher.parse_args(argv)
+    scfg = launcher.serve_config(cfg, args)
+    costs = PodCosts.from_serve_config(scfg)
+    base = ServeEngine(cfg, params, scfg)
+
+    def engine(chunk: int) -> ServeEngine:
+        # every pod on the same weight tensors
+        return ServeEngine(cfg, base.params,
+                           dataclasses.replace(scfg, prefill_chunk=chunk))
+
+    ContinuousBatcher(engine(scfg.prefill_chunk)).run(make_trace(  # warm-up
+        2, vocab_size=vocab, prompt_lens=(16, 48), max_new=(2, 5), seed=1))
+    out = {"model": cfg.name, "layers": cfg.num_layers, "slots": SLOTS,
+           "cache": SLOT_CACHE, "requests": TRACE_N,
+           "costs": dataclasses.asdict(costs)}
+
+    # (a) one mixed pod against the direct batcher
+    fr, line = fleet_run(cfg, lambda: served(FleetRouter([FleetPod(
+        engine(scfg.prefill_chunk), "mixed", costs=costs)]), trace), trace,
+        kernel_rows, "fleet one mixed pod")
+    comps, direct = direct_run(cfg, engine(scfg.prefill_chunk), trace, costs)
+    if fleet_outcome(fr.completed, fr.summary()) != \
+            fleet_outcome(comps, direct):
+        fail("the fleet of one mixed pod differs from run_virtual_trace of "
+             "a direct batcher")
+    out["one_mixed_pod"] = {**line, "equal_to_run_virtual_trace": True}
+    p99_a = line["p99_ttft_s"]
+    del fr, comps
+
+    # (b) prefill pod + decode pod, priced migrations, real copies timed
+    fl = fleet_spec(h100_host(), 2)
+    pf, dec = engine(min(PREFILL_SAT, SLOT_CACHE)), engine(min(16, SLOT_CACHE))
+    handoff_s, refill_s = [], []
+    dec.refill_slot = timed_calls(dec.refill_slot, refill_s)
+    batcher_mod.host_copy = timed_calls(host_copy, handoff_s)
+    try:
+        fr, line = fleet_run(cfg, lambda: served(FleetRouter(
+            [FleetPod(pf, "prefill", costs=costs),
+             FleetPod(dec, "decode", costs=costs)], fleet=fl), trace),
+            trace, kernel_rows, "fleet disaggregated")
+    finally:
+        batcher_mod.host_copy = host_copy
+        del dec.refill_slot             # the class's method again
+    nbytes = state_bytes(pf.new_request_cache())
+    if fr.migrations != TRACE_N or len(fr.migration_events) != TRACE_N:
+        fail(f"{fr.migrations} of {TRACE_N} requests migrated")
+    if {nb for nb, *_ in fr.migration_events} != {nbytes} or nbytes != \
+            kv_ring_bytes(cfg, SLOT_CACHE) or nbytes != dec.slot_state_bytes():
+        fail(f"a migration moved {set(nb for nb, *_ in fr.migration_events)} "
+             f"bytes; the request cache holds {nbytes}")
+    if len(handoff_s) != TRACE_N or len(refill_s) != TRACE_N:
+        fail(f"{len(handoff_s)} handoff copies and {len(refill_s)} refills "
+             f"for {TRACE_N} migrations")
+    # the fleet simulator on the same events, and on the same migrations
+    # each alone on the fleet link: alone, its legs must price each one as
+    # the plan does; together it adds only the link's queue, which the
+    # router's per-migration plan leaves out (reported, not a failure)
+    events = fr.migration_events
+    res = simulate_fleet_traffic(fl, events)
+    sim = sum(f - at for f, (_, at, _, _) in zip(res.finish, events))
+    gap = 2 * max(fl.migration_time(nb, a, b) for nb, _, a, b in events)
+    alone = simulate_fleet_traffic(fl, [(nb, i * gap, a, b) for i, (
+        nb, _, a, b) in enumerate(events)])
+    alone_s = sum(f - i * gap for i, f in enumerate(alone.finish))
+    planned = fr.planned_migration_s
+    if not (planned > 0 and abs(alone_s - planned) <= 1e-9 * planned
+            and sim >= planned * (1 - 1e-12)):
+        fail(f"planned migration {planned} s; the fleet simulator {sim} s "
+             f"on the router's events, {alone_s} s on them one at a time")
+    ratio = sim / planned
+    got = {c.rid: c.tokens for c in fr.completed}
+    comps, _ = direct_run(cfg, engine(min(PREFILL_SAT, SLOT_CACHE)), trace,
+                          costs)
+    for c in comps:
+        if not np.array_equal(got[c.rid], c.tokens):
+            fail(f"request {c.rid}: migrated tokens differ from a direct "
+                 f"batcher's at chunk 128:\n{got[c.rid]}\n{c.tokens}")
+    out["disaggregated"] = {
+        **line, "tokens_equal_to_direct_chunk_128": True,
+        "migration_bytes": nbytes, "sim_migration_s": sim,
+        "sim_over_plan": ratio, "sim_within_2x_of_plan": ratio <= 2.0,
+        "sim_alone_migration_s": alone_s,
+        "fleet_link_busy_s": res.busy["fleet"],
+        "last_migration_lands_s": max(res.finish),
+        "handoff_GBps": nbytes * TRACE_N / sum(handoff_s) / 1e9,
+        "handoff_ms": [t * 1e3 for t in (min(handoff_s), max(handoff_s))],
+        "refill_GBps": nbytes * TRACE_N / sum(refill_s) / 1e9,
+        "refill_ms": [t * 1e3 for t in (min(refill_s), max(refill_s))]}
+    del fr, comps, pf, dec, got
+
+    # (c) the launcher's _run_fleet: two mixed pods, then shedding
+    slo_ms = p99_a * 1e3 / 2
+    for label, extra in (("launcher_mixed", []),
+                         ("launcher_shed", ["--ttft-slo-ms", repr(slo_ms)])):
+        a = launcher.parse_args(argv + extra)
+        keep, summary = [], {}
+
+        def serve(a=a, keep=keep, summary=summary):
+            summary.update(launcher._run_fleet(base, a, vocab, trace=trace,
+                                               keep=keep))
+            return keep[0]
+
+        fr, line = fleet_run(cfg, serve, trace, kernel_rows,
+                             "fleet " + label.replace("_", " "))
+        if summary != fr.summary() | {"disagg": False,
+                                      "ttft_slo_ms": a.ttft_slo_ms}:
+            fail(f"_run_fleet's summary {summary} is not its router's")
+        out[label] = {**line, "ttft_slo_ms": a.ttft_slo_ms}
+        if extra and not (len(fr.shed) >= 1 and line["max_ttft_s"]
+                          <= slo_ms * 1e-3 + 1e-9):
+            fail(f"at a TTFT target of {slo_ms} ms the launcher's fleet shed "
+                 f"{len(fr.shed)} requests and admitted one of "
+                 f"{line['max_ttft_s']} s")
+        del fr
+    out["phase_s"] = time.perf_counter() - t_phase
+    say("[fleet] " + json.dumps(out))
+    return out
+
+
 def emulator_phase() -> None:
     """``check_plan_numerics`` on the card over the first exec plans of one
     decode matmul of ``h100_sxm()`` (qwen3-14b, B 8, a ring of 1024), each
@@ -3045,7 +3404,8 @@ def models_phase(kernel_rows: list[dict], profile: bool) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the four remaining families at full width and full depth
+# phase 10: the four remaining families at full width (rwkv6-7b at
+# RWKV_DEPTH layers, the others at full depth)
 # ---------------------------------------------------------------------------
 
 # the port's kernels by name: each lies in an anonymous namespace at the top
@@ -3198,7 +3558,7 @@ def family_stream(arch: str, cfg, params: dict, run: dict, prompt_len: int,
 
 
 def families_phase(kernel_rows: list[dict]) -> None:
-    """The four configs of ``FAMILY_RUNS`` at full width and full depth,
+    """The four configs of ``FAMILY_RUNS`` at full width and their depth,
     one after another, each freed before the next: drawn on the card from
     seed 0, served lock-step and resident (BATCH x the run's prompt length,
     STEPS steps, the run's ring; the VLM's patches and the enc-dec model's
@@ -3560,6 +3920,7 @@ def main() -> None:
         timed("serve-trace", trace_phase, cfg, params, rows, args.profile)
         timed("oversub", oversub_phase, cfg, params, rows)
         timed("int8", int8_phase, cfg, params, rows)
+        timed("fleet", fleet_phase, cfg, params, rows)
         del params                    # the stream phase draws its own
         timed("stream", stream_phase, cfg, rows,
               out if lock_cfg.num_layers == cfg.num_layers else None,

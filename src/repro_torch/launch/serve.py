@@ -47,19 +47,42 @@ next); prompts from seed 1, traces from ``--trace-seed``.  On the GPU the
 process's peak device memory, start-up included, is printed.  ``--kv-dtype
 int8`` serves from the reference's int8 KV cache (a bf16 scale a slot and kv
 head; the attention kernels read the int8 ring themselves) in every mode
-above, and the planner sizes its knobs by that ring's bytes.  The reference
-launcher's ``--fleet`` is not ported yet; ``--pipeline-pod`` and
-``--stacked-gb`` raise (ROADMAP.md, Queue 1).
+above, and the planner sizes its knobs by that ring's bytes.
+
+A fleet of N pods behind the SLO-aware router, serving the same trace on
+the virtual clock after the continuous run (``serve/fleet.py``): N mixed
+replicas, or with ``--disagg`` one prefill pod and N - 1 decode pods, each
+finished prefill migrating as a host copy of its request cache;
+``--ttft-slo-ms`` sheds requests whose predicted TTFT exceeds the target.
+The pods share the engine's weights (the resident tensors, or under
+``elk_stream`` its one layer stream).  Every pass runs for real; the times
+in the fleet's summary are virtual, priced by ``PodCosts``:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+      --mode gspmd --batch 8 --trace 16 --cache 2048 --prefill-chunk 256 \
+      --fleet 2 --disagg
+
+``--pipeline-pod GROUPS`` plans on a TPU v5e pod of GROUPS chip islands
+with the joint hybrid search and sizes admission from its steady-state
+interval; ``--stacked-gb G`` plans on an SRAM-only IPU pod with G GB of
+stacked DRAM (an all-finite hierarchy: the plan's K > 1, a slot-spill cost
+and a prefix store).  Both are the reference's modelled pods: the
+``steady_interval``, ``slot_spill`` and K they print are the planner's
+figures for that pod, not times taken on the H100, where the engine runs
+with the knobs they give.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
+from typing import Optional
 
 import torch
 
+from repro_torch.chip.config import GB, ipu_mk2, tpu_v5e_pod_hier
 from repro_torch.chip.h100 import h100_host
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.models import transformer as tfm
@@ -109,10 +132,101 @@ def _run_trace(eng: ServeEngine, args, vocab: int) -> dict:
         static = run_static_trace(eng, trace)
         stats["static"] = summarize(static, time.perf_counter() - t0)
         print(f"static:     {stats['static']}")
+
+    if args.fleet > 0:
+        stats["fleet"] = _run_fleet(eng, args, vocab)
+        print(f"fleet:      {stats['fleet']}")
     return stats
 
 
-def main(argv=None) -> None:
+def _run_fleet(eng: ServeEngine, args, vocab: int, *, trace=None,
+               keep: Optional[list] = None) -> dict:
+    """Serve the trace (the launcher's, or ``trace``) on an ``--fleet N``
+    pod fleet over the virtual clock (scheduling deltas, not wall time): N
+    mixed replicas, or ``--disagg`` 1 prefill + N-1 decode pods with
+    migrations; ``--ttft-slo-ms`` arms shedding.  The pods share
+    ``eng.params``: the resident tensors, or under ``elk_stream`` the one
+    ``LayerStream``.  Pods tick one at a time on the host, so one stream
+    serves them all, and ``reserve_experts`` only grows its expert buffer,
+    so a prefill pod's larger passes over an MoE config are safe.  The
+    router is appended to ``keep`` when given (its completions, for a
+    caller that checks them)."""
+    from repro_torch.serve.batcher import make_trace
+    from repro_torch.serve.engine import PREFILL_SAT
+    from repro_torch.serve.fleet import FleetPod, FleetRouter, PodCosts
+
+    def pod(role):
+        # elk_serve_config's role sizing, on the launcher's scfg
+        chunk = eng.scfg.prefill_chunk
+        if role == "prefill":
+            chunk = min(PREFILL_SAT, eng.scfg.cache_capacity)
+        elif role == "decode":
+            chunk = min(16, eng.scfg.cache_capacity)
+        scfg = dataclasses.replace(eng.scfg, prefill_chunk=chunk)
+        return FleetPod(ServeEngine(eng.cfg, eng.params, scfg, eng.device),
+                        role, costs=PodCosts.from_serve_config(scfg))
+
+    roles = (["prefill"] + ["decode"] * (args.fleet - 1)
+             if args.disagg and args.fleet > 1
+             else ["mixed"] * args.fleet)
+    router = FleetRouter([pod(r) for r in roles],
+                         ttft_slo_s=args.ttft_slo_ms * 1e-3)
+    if trace is None:
+        trace = make_trace(args.trace, vocab_size=vocab,
+                           arrival_spacing_s=args.arrival_spacing,
+                           seed=args.trace_seed, burst=args.burst,
+                           sys_prompt_len=args.sys_prompt_len,
+                           sys_prompt_frac=args.sys_prompt_frac)
+    router.run(trace)
+    if keep is not None:
+        keep.append(router)
+    out = router.summary()
+    out["disagg"] = bool(args.disagg and args.fleet > 1)
+    out["ttft_slo_ms"] = args.ttft_slo_ms
+    return out
+
+
+def serve_config(cfg, args) -> ServeConfig:
+    """The launcher's ``ServeConfig``: under ``elk_stream`` with
+    ``--prefetch-depth 0`` the knobs the ELK planner chooses for the config
+    served, on one H100 (``h100_host``), or on the modelled pod that
+    ``--pipeline-pod`` / ``--stacked-gb`` name (the reference's); printed
+    as the reference's launcher prints them.  Else the knobs given."""
+    if args.mode == "elk_stream" and args.prefetch_depth <= 0:
+        pod = h100_host()
+        if args.pipeline_pod > 0:
+            pod = tpu_v5e_pod_hier(groups=args.pipeline_pod)
+        elif args.stacked_gb > 0:
+            pod = ipu_mk2().with_stacked_dram(int(args.stacked_gb * GB))
+        scfg = elk_serve_config(cfg, batch=args.batch,
+                                cache_capacity=args.cache,
+                                kv_dtype=args.kv_dtype,
+                                pipeline=args.pipeline_pod > 0, pod=pod)
+        msg = (f"ELK scheduler: prefetch_depth={scfg.prefetch_depth} "
+               f"prefill_chunk={scfg.prefill_chunk}")
+        if scfg.steady_interval_s:
+            msg += (f" steady_interval="
+                    f"{scfg.steady_interval_s * 1e3:.3f}ms")
+        if scfg.oversub > 1.0:
+            msg += (f" oversub K={scfg.oversub:.2f} "
+                    f"slot_spill={scfg.slot_spill_s * 1e6:.1f}us "
+                    f"prefix_cache={scfg.prefix_cache_bytes >> 20}MB")
+        if args.pipeline_pod > 0 or args.stacked_gb > 0:
+            msg += (f" (planned on the modelled pod {pod.name}; the "
+                    "planner's figures for that pod, not times taken on "
+                    "the H100)")
+        print(msg)
+        if args.prefill_chunk:
+            scfg.prefill_chunk = args.prefill_chunk
+        return scfg
+    return ServeConfig(batch=args.batch, cache_capacity=args.cache,
+                       mode=args.mode,
+                       prefetch_depth=max(args.prefetch_depth, 1),
+                       kv_dtype=args.kv_dtype,
+                       prefill_chunk=args.prefill_chunk or 32)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True,
                     help=f"one of {ARCH_IDS} (dashed aliases ok)")
@@ -123,9 +237,13 @@ def main(argv=None) -> None:
                     help="0 = ask the ELK scheduler (core.integration) on "
                     "one H100 (chip.h100.h100_host)")
     ap.add_argument("--pipeline-pod", type=int, default=0, metavar="GROUPS",
-                    help="not ported yet (ROADMAP.md, Queue 1, item 13)")
+                    help="plan on a modelled TPU v5e pod of GROUPS chip "
+                    "islands with the joint hybrid search and size admission "
+                    "from its steady-state interval (0 = one H100)")
     ap.add_argument("--stacked-gb", type=float, default=0.0,
-                    help="not ported yet (ROADMAP.md, Queue 1, item 13)")
+                    help="plan on a modelled SRAM-only IPU pod with this "
+                    "much stacked DRAM (an all-finite hierarchy: K > 1, KV "
+                    "offload and a prefix store)")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--steps", type=int, default=16)
@@ -157,32 +275,27 @@ def main(argv=None) -> None:
                     "else 32)")
     ap.add_argument("--compare-static", action="store_true",
                     help="also run the trace through the static baseline")
+    ap.add_argument("--fleet", type=int, default=0, metavar="N",
+                    help="also serve the trace on an N-pod fleet behind the "
+                    "SLO-aware router, ticked on the virtual clock")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregate the --fleet pods: 1 prefill pod + "
+                    "N-1 decode pods with priced KV migrations (default: N "
+                    "mixed replicas)")
+    ap.add_argument("--ttft-slo-ms", type=float, default=0.0,
+                    help="shed fleet requests whose predicted TTFT exceeds "
+                    "this target (0 = admit everything)")
     ap.add_argument("--json-out", default="",
                     help="write the trace statistics to this file")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    for flag, value in (("--pipeline-pod", args.pipeline_pod),
-                        ("--stacked-gb", args.stacked_gb)):
-        if value:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md, Queue 1, item 13)")
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     device = tfm.resolve_device(args.device)
-    if args.mode == "elk_stream" and args.prefetch_depth <= 0:
-        # plan against the config actually served, on one H100
-        scfg = elk_serve_config(cfg, batch=args.batch,
-                                cache_capacity=args.cache,
-                                kv_dtype=args.kv_dtype, pod=h100_host())
-        print(f"ELK scheduler: prefetch_depth={scfg.prefetch_depth} "
-              f"prefill_chunk={scfg.prefill_chunk}")
-        if args.prefill_chunk:
-            scfg.prefill_chunk = args.prefill_chunk
-    else:
-        scfg = ServeConfig(batch=args.batch, cache_capacity=args.cache,
-                           mode=args.mode,
-                           prefetch_depth=max(args.prefetch_depth, 1),
-                           kv_dtype=args.kv_dtype,
-                           prefill_chunk=args.prefill_chunk or 32)
+    # plan against the config actually served
+    scfg = serve_config(cfg, args)
     gen = torch.Generator(device=device).manual_seed(0)
     if stream.streams(cfg, scfg.mode):
         # each layer goes to pinned host memory as it is drawn: the card

@@ -32,8 +32,12 @@ prompt at admission.
 
 The decode hot loop is one ``engine.step`` per tick regardless of how
 requests come and go.  Greedy outputs equal running each request alone.
-The fleet's ``handoff``/``adopt`` migration raises ``NotImplementedError``
-naming ROADMAP.md, Queue 1, item 11.  ``make_trace`` and ``summarize`` are
+Two hooks serve the fleet (``serve/fleet.py``): with ``handoff`` given, a
+request that finishes its prefill leaves as a host copy of its request
+cache and its first token instead of decoding here (a prefill pod), and
+``adopt`` takes such a request over mid-stream (a decode pod); each tick
+records the prompt tokens it prefilled and whether it decoded, which the
+fleet's virtual clock prices.  ``make_trace`` and ``summarize`` are
 numpy-only and give what the reference's give for equal arguments.
 """
 
@@ -133,11 +137,6 @@ def _chunk_len(remaining: int, budget: int) -> int:
     return t
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} not ported yet (ROADMAP.md, Queue 1, "
-                               f"{item})")
-
-
 class ContinuousBatcher:
     """Drives a ``ServeEngine`` in slot-batched mode.
 
@@ -169,8 +168,10 @@ class ContinuousBatcher:
                 and engine.scfg.prefix_cache_bytes > 0:
             prefix_store = PrefixStore(engine.scfg.prefix_cache_bytes)
         self.prefix = prefix_store
-        if handoff is not None:
-            raise _unported("fleet handoff", "item 11")
+        # fleet migration hook: when set, a request that finishes prefill
+        # is handed off (host state + first token) to the router instead of
+        # decoding here (a prefill pod)
+        self.handoff = handoff
         self.clock = clock
         self.queue: deque[Request] = deque()
         self.prefilling: Optional[_Prefill] = None
@@ -187,6 +188,10 @@ class ContinuousBatcher:
         self.prefix_tokens_saved = 0
         self._ring_bytes = 0
         self._admitted: dict[int, float] = {}   # rid -> admission time
+        # what this tick did, read by the fleet's virtual clock to price it
+        # (reset at the top of every tick)
+        self.tick_prefill_tokens = 0
+        self.tick_decoded = False
         self.t0 = self.clock()
 
     # -- scheduling --------------------------------------------------------
@@ -264,6 +269,7 @@ class ContinuousBatcher:
             ps.req.prompt[None, ps.off:ps.off + t], dtype=np.int64))
         tok, ps.cache = self.engine.prefill_chunk(ps.cache, chunk)
         ps.off += t
+        self.tick_prefill_tokens = t
         if ps.off < len(ps.req.prompt):
             # snapshot at the chunk boundary: a strict in-capacity prefix
             # whose ring has never wrapped, the prefix store's unit of reuse
@@ -277,6 +283,16 @@ class ContinuousBatcher:
             self._finish(ps.req, [first], first_s=now)
             if ps.slot >= 0:
                 self.free.append(ps.slot)
+        elif self.handoff is not None:
+            # prefill pod: the finished prefill leaves for a decode pod as a
+            # host copy of its request cache (one charged offload); the slot
+            # is free only once the copy is taken
+            state = host_copy(ps.cache)
+            self._charge("spill")
+            if ps.slot >= 0:
+                self.free.append(ps.slot)
+            self.handoff(ps.req, state, [first], now,
+                         self._admitted.pop(ps.req.rid, -1.0))
         elif ps.slot >= 0:
             self.engine.insert_slot(ps.slot, ps.cache)
             self.active[ps.slot] = _Active(
@@ -345,6 +361,7 @@ class ContinuousBatcher:
         if not self.active:
             return
         self.decode_ticks += 1
+        self.tick_decoded = True
         nxt = self.engine.step(torch.from_numpy(
             self.tokens.astype(np.int64))).cpu().numpy().astype(np.int32)
         self.tokens = nxt.copy()
@@ -361,6 +378,8 @@ class ContinuousBatcher:
     def tick(self) -> None:
         """One scheduler step: refill spilled work into freed slots, admit,
         advance one prefill chunk, decode."""
+        self.tick_prefill_tokens = 0
+        self.tick_decoded = False
         self._refill_tick()
         self._admit()
         self._prefill_tick()
@@ -369,7 +388,22 @@ class ContinuousBatcher:
 
     def adopt(self, req: Request, state: dict, generated: list,
               first_s: float, *, admitted_s: float = -1.0) -> None:
-        raise _unported("adopt (fleet migration)", "item 11")
+        """Take over a request mid-stream (fleet migration).
+
+        ``state`` is a host slot state (another pod's ``handoff`` payload
+        or an ``offload_slot`` result); it parks on this pod's backing tier
+        and the refill-ahead path puts it into the next free slot, at any K
+        (the refill is charged there; the offload was charged where the
+        state came from).  ``generated`` must hold at least the prefill's
+        first token: its last entry is the next token to feed."""
+        if not generated:
+            raise ValueError(f"request {req.rid}: nothing generated yet -- "
+                             "adopt() resumes a stream, prefill seeds it")
+        self._admitted[req.rid] = admitted_s
+        self.spilled[req.rid] = _Spilled(
+            req=req, generated=list(generated),
+            pending=int(generated[-1]), state=state, first_s=first_s,
+            spilled_at=self.ticks, last_step=self.ticks)
 
     # -- trace replay ------------------------------------------------------
     def run(self, requests: list[Request]) -> list[Completion]:

@@ -288,15 +288,31 @@ class TestContinuousBatching:
             sum(r.max_new_tokens for r in trace))
 
     def test_unported_parts_raise_and_name_the_roadmap(self):
-        """The fleet's migration (item 11) is still to port; item 10
-        (oversubscription, the prefix store, the spill API) no longer
-        raises: ``tests/test_torch_kv_offload.py`` holds it."""
+        """Nothing of the batcher is left to port: the fleet's hooks work.
+        A ``handoff`` batcher hands each finished prefill over (a host copy
+        of its request cache, its first token, the admission stamp), frees
+        the slot and decodes nothing; ``adopt`` on another batcher at K = 1
+        resumes it to the tokens of serving it alone
+        (``tests/test_torch_fleet.py`` holds the fleet in full)."""
         eng = _engine()
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-            ContinuousBatcher(eng, handoff=lambda *a: None)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-            ContinuousBatcher(eng).adopt(Request(0, np.arange(3), 2), {},
-                                         [1], 0.0)
+        handed = []
+        src = ContinuousBatcher(eng, handoff=lambda *a: handed.append(a))
+        req = Request(0, np.arange(3, dtype=np.int32), 4)
+        src.submit(req)
+        while src.busy:
+            src.tick()
+        assert not src.completed and src.decode_ticks == 0
+        assert sorted(src.free) == [0, 1]
+        ((got_req, state, generated, first_s, admitted_s),) = handed
+        assert got_req is req and len(generated) == 1 and admitted_s >= 0.0
+        assert all(t.device.type == "cpu" for t in state.values())
+        assert [k for k, _ in src.spill_events] == ["spill"]
+        dst = ContinuousBatcher(_engine())
+        dst.adopt(req, state, generated, first_s, admitted_s=admitted_s)
+        while dst.busy:
+            dst.tick()
+        np.testing.assert_array_equal(dst.completed[0].tokens,
+                                      _solo(eng, req.prompt, 4))
         assert ContinuousBatcher(eng, oversub=2.0).virtual_slots == 4
         assert eng.slot_state_bytes() > 0
 

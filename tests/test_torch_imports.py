@@ -40,6 +40,7 @@ print(json.dumps(bad))
     "repro_torch.serve.prefix", "repro_torch.chip.simulator",
     "repro_torch.kernels.elk_matmul.ops",
     "repro_torch.kernels.elk_matmul.kernel",
+    "repro_torch.serve.fleet", "repro_torch.chip.dse",
 ])
 def test_import_leaves_jax_and_reference_out(module):
     env = dict(os.environ)

@@ -27,7 +27,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.convert import (cache_from_jax, cache_to_numpy,
                                  params_from_jax)
 from repro_torch.models import transformer as tfm
-from repro_torch.serve.batcher import ContinuousBatcher
+from repro_torch.serve.batcher import ContinuousBatcher, Request
 from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 ARCHS = ["qwen3_14b", "llama2_13b", "gemma_7b", "opt_30b", "h2o_danube_1_8b",
@@ -277,13 +277,15 @@ def test_argmax_breaks_ties_to_first_index():
 
 
 def test_unported_parts_raise_and_name_the_roadmap():
-    """Still to port: the fleet's migration (``adopt``, a batcher's
-    ``handoff``).  The int8 cache is ported (``tests/test_torch_int8_kv.py``
-    holds it in full): ``init_cache`` takes it.  The families are ported
-    (``tests/test_torch_families.py``): their ids resolve and an RWKV
-    config draws.  The spill API (``offload_slot``/``refill_slot``) is
-    ported and round-trips (``tests/test_torch_kv_offload.py`` holds it in
-    full)."""
+    """Nothing of the serving path is left to port.  The fleet's migration
+    works: a slot state offloaded from one engine is ``adopt``ed by a
+    batcher of another, and a batcher takes a ``handoff`` hook
+    (``tests/test_torch_fleet.py`` holds the fleet in full).  The int8
+    cache is ported (``tests/test_torch_int8_kv.py``): ``init_cache`` takes
+    it.  The families are ported (``tests/test_torch_families.py``): their
+    ids resolve and an RWKV config draws.  The spill API
+    (``offload_slot``/``refill_slot``) round-trips
+    (``tests/test_torch_kv_offload.py`` holds it in full)."""
     tcfg = get_smoke_config("qwen3_14b")
     eng = ServeEngine(tcfg, tfm.init_params(torch.Generator().manual_seed(0),
                                             tcfg, "cpu"),
@@ -291,10 +293,13 @@ def test_unported_parts_raise_and_name_the_roadmap():
     state = eng.offload_slot(0)
     eng.refill_slot(0, state)
     assert int(eng.slot_cache["pos"][0]) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-        ContinuousBatcher(eng).adopt(None, state, [], 0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-        ContinuousBatcher(eng, handoff=lambda *a: None)
+    with pytest.raises(ValueError, match="nothing generated"):
+        ContinuousBatcher(eng).adopt(Request(0, np.arange(3), 2), state, [],
+                                     0.0)
+    bat = ContinuousBatcher(eng, handoff=lambda *a: None)
+    assert bat.handoff is not None
+    bat.adopt(Request(0, np.arange(3), 2), state, [1], 0.0)
+    assert 0 in bat.spilled and bat.busy
     cache = tfm.init_cache(tcfg, tfm.CacheSpec(8, 1, kv_dtype=torch.int8),
                            "cpu")
     assert cache["k"].dtype == torch.int8 and "k_scale" in cache

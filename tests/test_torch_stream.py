@@ -291,7 +291,8 @@ def test_engines_share_one_host_copy():
 
 def test_launcher_default_is_planned_elk_stream(capsys):
     """``--device cpu --smoke`` runs the reference's default: elk_stream
-    with the knobs the planner chose on one H100."""
+    with the knobs the planner chose on one H100; ``--pipeline-pod`` and
+    ``--stacked-gb`` plan on the reference's modelled pods instead."""
     from repro_torch.launch import serve
     serve.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
                 "--batch", "2", "--steps", "4", "--cache", "64"])
@@ -302,10 +303,16 @@ def test_launcher_default_is_planned_elk_stream(capsys):
                 "--batch", "2", "--steps", "4", "--cache", "64",
                 "--prefetch-depth", "2"])
     assert "ELK scheduler" not in capsys.readouterr().out
+    # the reference's modelled pods plan the knobs, and the launcher says
+    # whose figures they are
     for flag in ("--pipeline-pod", "--stacked-gb"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 13"):
-            serve.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
-                        flag, "2"])
+        serve.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu",
+                    "--batch", "2", "--steps", "4", "--cache", "64", flag,
+                    "2"])
+        out = capsys.readouterr().out
+        assert "planned on the modelled pod" in out
+        assert "not times taken on the H100" in out
+        assert "generated 4 tokens x 2 requests" in out
 
 
 UNIFORM = dict(moe_first_dense=0, moe_every=1, moe_offset=0)
