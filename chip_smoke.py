@@ -66,7 +66,8 @@ exit code and no result line:
             it allocates beyond the step before stays under one layer's
             bf16 ring), the launches by route and by the K/V type the
             attention kernels read; one ``[int8]`` line.
-8. stream-serve  the launcher's default path: the same model and weights
+8. stream-serve  the launcher's default path: the same model and weights,
+            cut to STREAM_DEPTH (20) of its 40 layers for the time limit,
             under ``elk_stream``, knobs from ``elk_serve_config`` on
             ``h100_host()``, the layer weights in pinned host memory and
             streamed through the planner's window; lock-step as in 5 and a
@@ -120,6 +121,24 @@ exit code and no result line:
             split between the port's kernels and PyTorch's own (for rwkv:
             the products against the recurrence, its launches counted).
 
+11. train  outside inference mode, the training side: the three backward
+            kernels (``elk_matmul``'s x^T dy and its two-part sum,
+            ``fused_mlp_bwd``, ``flash_attention_bwd``) held against their
+            plain backward versions over bf16 and fp32 sweeps (attention:
+            causal, window, bidirectional, cross with Sq != Sk, G 1, 5, 7,
+            8, D 64-128; the forward's log-sum-exp beside it), each case
+            launched twice with equal bits, and timed at qwen3-14b's
+            training shapes (4096 tokens) beside the plain versions and a
+            library yardstick; one fp32 training step (loss and every
+            gradient) of every smoke config on the card against the CPU;
+            the smoke trainer (the loss falls; a crash and a restart from
+            the checkpoint equal the uninterrupted run bit for bit; the
+            launcher runs); then qwen3-14b at full width and TRAIN_DEPTH
+            (4) of its 40 layers, bf16, B 8 x S 512, remat, 6 AdamW steps
+            through ``Trainer``: one ``[train]`` line with the losses, step
+            ms, tokens/s, peak memory, launches, and layer 0's and the LM
+            head's gradients against the plain versions'.
+
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails if a kernel of the path was not
 launched as often as its layers, steps and chunks say, or the MLP and the
@@ -148,18 +167,21 @@ prefill, with the expert products' share of the device time, and of one
 streamed kimi-k2 decode step, its expert copies apart from the window's
 (how long they waited behind window copies).
 ``--only kernels`` runs the build and the kernel phases, ``--only models``
-the build, the parity, the ``[models]`` and the ``[families]`` phases
-(neither prints a result line): the loops for working on one part.
+the build, the parity, the ``[models]`` and the ``[families]`` phases,
+``--only train`` the build and the ``[train]`` phase (none prints a result
+line): the loops for working on one part.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import importlib.metadata
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -176,7 +198,9 @@ from repro_torch.chip.emulator import check_plan_numerics  # noqa: E402
 from repro_torch.chip.h100 import h100_host, h100_sxm  # noqa: E402
 from repro_torch.chip.simulator import simulate_fleet_traffic  # noqa: E402
 from repro_torch.chip.topology import fleet_spec  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.configs import (ARCH_IDS, get_config,  # noqa: E402
+                                 get_smoke_config)
+from repro_torch.data.pipeline import DataConfig  # noqa: E402
 from repro_torch.core.graph import build_graph  # noqa: E402
 from repro_torch.core.partition import (  # noqa: E402
     enumerate_exec_plans, enumerate_preload_plans)
@@ -195,11 +219,12 @@ from repro_torch.kernels.elk_matmul.kernel import \
 from repro_torch.kernels.elk_matmul.kernel import \
     route_of as matmul_route_of  # noqa: E402
 from repro_torch.kernels.elk_matmul.ops import matmul  # noqa: E402
-from repro_torch.kernels.elk_matmul.ref import matmul_ref  # noqa: E402
+from repro_torch.kernels.elk_matmul.ref import (matmul2_ref,  # noqa: E402
+                                                matmul_ref)
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     ROUTES as FLASH_ROUTES, WGMMA_HEAD_DIMS as FLASH_WGMMA_HEAD_DIMS,
-    flash_attention_kernel)
+    flash_attention_bwd_kernel, flash_attention_kernel)
 from repro_torch.kernels.flash_attention.kernel import \
     plan_splits as flash_plan_splits  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import \
@@ -207,17 +232,20 @@ from repro_torch.kernels.flash_attention.kernel import \
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attn, flash_attn_pos)
 from repro_torch.kernels.fused_mlp.kernel import (  # noqa: E402
-    ROUTES as MLP_ROUTES, SPLIT_FF_MAX_M, fused_mlp_kernel)
+    ROUTES as MLP_ROUTES, SPLIT_FF_MAX_M, fused_mlp_bwd_kernel,
+    fused_mlp_kernel)
 from repro_torch.kernels.fused_mlp.kernel import \
     route_of as mlp_route_of  # noqa: E402
 from repro_torch.kernels.fused_mlp.ops import fused_mlp  # noqa: E402
 from repro_torch.kernels.fused_mlp.ref import (act_fn,  # noqa: E402
-                                               composed_ref)
+                                               composed_ref,
+                                               fused_mlp_bwd_ref)
 from repro_torch.kernels.kv_quant.kernel import (  # noqa: E402
     KV_TYPES, kv_quant_kernel)
 from repro_torch.kernels.kv_quant.ref import (  # noqa: E402
     quantize_into_ref, quantize_kv)
 from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.frontends import frontend_embeddings  # noqa: E402
@@ -233,8 +261,14 @@ from repro_torch.serve.fleet import (FleetPod, FleetRouter,  # noqa: E402
                                      run_virtual_trace)
 from repro_torch.serve.prefix import (PrefixStore, host_copy,  # noqa: E402
                                       state_bytes)
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig  # noqa: E402
 from repro_torch.serve.stream import (LayerStream, _leaves,  # noqa: E402
                                       init_streamed_params, streams)
+from repro_torch.train.step import make_loss_fn, value_and_grad  # noqa: E402
+from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.tree import (tree_items, tree_leaves,  # noqa: E402
+                              tree_map, tree_unflatten)
 
 # datasheet, H100 SXM
 HBM_BYTES_PER_S = 3.35e12
@@ -334,6 +368,10 @@ FAMILY_RUNS = (("rwkv6_7b", RWKV_DEPTH, PROMPT_LEN, CACHE),
 FAMILY_TRACE_N = {"rwkv6_7b": 8, "hymba_1_5b": TRACE_N}
 FAMILY_STREAMED = ("rwkv6_7b", "internvl2_1b")
 RUNS = MODEL_RUNS + FAMILY_RUNS
+# the stream phase serves qwen3-14b at STREAM_DEPTH of its 40 layers (since
+# the [train] phase came, for the time limit), its tokens held to the
+# resident weights cut to the same depth
+STREAM_DEPTH = 20
 TRACE_ARCHS = (TRACE_ARCH, *FAMILY_TRACE_N)
 # products that run in fp32 on a bf16 model (hymba's w_dt and w_bc)
 FP32_PRODUCTS = ("ssm dt", "ssm bc")
@@ -2008,30 +2046,57 @@ def parity_fleets() -> None:
 # phase 5: full-width serving
 # ---------------------------------------------------------------------------
 
+class _XtCount:
+    """The launches of ``elk_matmul`` that read x transposed (the x^T dy
+    of a weight gradient), counted as a kernel of their own."""
+
+    @property
+    def launches(self) -> int:
+        return elk_matmul_kernel.by_operand["x_trans"]
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        elk_matmul_kernel.by_operand["x_trans"] = n
+
+
+# the kernels of the serving paths, whose rows the kernel phases make
 COUNTERS = {"fused_mlp": fused_mlp_kernel,
             "decode_attention": decode_attention_kernel,
             "flash_attention": flash_attention_kernel,
             "elk_matmul": elk_matmul_kernel,
             "kv_quant": kv_quant_kernel}
+SERVING_KERNELS = tuple(COUNTERS)
+# the training side's: the backward kernels, and the products of elk_matmul
+# that read x transposed (x^T dy, counted in elk_matmul's launches too)
+TRAIN_COUNTERS = {"fused_mlp_bwd": fused_mlp_bwd_kernel,
+                  "flash_attention_bwd": flash_attention_bwd_kernel,
+                  "elk_matmul_xt": _XtCount()}
 
 
 def zero_launches() -> None:
-    for counter in COUNTERS.values():
+    for counter in (*COUNTERS.values(), *TRAIN_COUNTERS.values()):
         counter.launches = 0
-        for by in ("by_route", "by_kv"):
+        for by in ("by_route", "by_kv", "by_operand"):
             if hasattr(counter, by):
                 setattr(counter, by, dict.fromkeys(getattr(counter, by), 0))
 
 
-def read_launches() -> dict:
-    return {name: counter.launches for name, counter in COUNTERS.items()}
+def _counters(train: bool) -> dict:
+    return {**COUNTERS, **TRAIN_COUNTERS} if train else COUNTERS
 
 
-def read_routes() -> dict:
+def read_launches(train: bool = False) -> dict:
+    """Launches of the serving kernels, and with ``train`` of the training
+    side's too."""
+    return {name: counter.launches
+            for name, counter in _counters(train).items()}
+
+
+def read_routes(train: bool = False) -> dict:
     """Launches by route of every kernel that has routes, and the attention
     kernels' by the type of the K/V they read ("<name> kv")."""
     out = {}
-    for name, counter in COUNTERS.items():
+    for name, counter in _counters(train).items():
         if hasattr(counter, "by_route"):
             out[name] = dict(counter.by_route)
         if hasattr(counter, "by_kv"):
@@ -2246,6 +2311,20 @@ def lockstep_run(cfg, eng: ServeEngine, kernel_rows: list[dict], path: str,
             "prefill_ms": prefill_ms,
             "decode_ms_per_token": start.elapsed_time(end) / (steps - 1),
             "launches": counts, "launches_by_route": routes}
+
+
+def resident_tokens(cfg, params: dict) -> torch.Tensor:
+    """``generate`` of STEPS tokens for the lock-step prompts (seed 1) on
+    the resident weights cut to ``cfg``'s depth: what the streamed run of
+    the same weights must give."""
+    dev = torch.device("cuda")
+    eng = ServeEngine(cfg, {**params,
+                            "layers": params["layers"][:cfg.num_layers]},
+                      ServeConfig(batch=BATCH, cache_capacity=CACHE))
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
+                            device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    return eng.generate(prompts, steps=STEPS)
 
 
 def serve_phase(cfg, params: dict, kernel_rows: list[dict],
@@ -3825,6 +3904,632 @@ def profile_phase(eng: ServeEngine, prompts: torch.Tensor,
                    wall_ms["prefill"])
 
 
+# ---------------------------------------------------------------------------
+# phase 11: training
+# ---------------------------------------------------------------------------
+
+# backward kernels: every gradient within TOL * (max|plain| + 1e-3) of the
+# plain backward on the same inputs (fp32: the kernels sum in other orders,
+# attention takes exp2 on the card; bf16: the kernels round P, dS, dg, du and
+# h to bf16 before their products, the plain versions keep them in fp32).
+# The bf16 limit is three times the largest bf16 error the sweeps measured on
+# an H100: attention 0.0068 of max|plain|, the MLP 0.0022
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# (tokens, K, N): x^T dy at odd shapes and at shapes TMA takes
+XT_SWEEP = [(100, 60, 70), (33, 129, 257), (257, 200, 328), (513, 64, 136),
+            (512, 256, 384), (4096, 32, 200), (64, 512, 1024)]
+# (M, D, FF, gated, bias, act)
+MLP_BWD_SWEEP = [(128, 128, 256, True, False, "silu"),
+                 (100, 80, 144, False, True, "gelu"),
+                 (64, 96, 200, False, False, "relu"),
+                 (33, 64, 257, True, False, "silu")]
+# (B, Hq, Hkv, Sq, Sk, D, causal, window): every mask, G 1, 5, 7, 8, the head
+# dims of the configs
+FLASH_BWD_SWEEP = [(2, 4, 4, 128, 128, 64, True, 0),
+                   (1, 5, 1, 96, 96, 72, True, 0),
+                   (1, 7, 1, 130, 130, 80, True, 48),
+                   (2, 8, 1, 64, 64, 112, False, 0),
+                   (1, 8, 2, 77, 150, 128, False, 0),
+                   (1, 5, 1, 200, 200, 128, True, 0),
+                   (1, 2, 2, 40, 40, 64, True, 16)]
+# the full-width slice: qwen3-14b at TRAIN_DEPTH of its 40 layers (2.88 B
+# parameters; at 12 bytes each with bf16 weights and gradients and fp32
+# moments, 34.5 GB; all 40 layers would need 178 GB)
+TRAIN_DEPTH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 6
+TRAIN_GRAD_TOL = 5e-2     # relative Frobenius error of a bf16 gradient
+TRAIN_PARITY_TOL = 5e-4   # fp32 smoke configs, card against CPU
+TRAIN_DIR = ROOT / "build" / "train"
+
+
+def _grad_err(got: torch.Tensor, ref: torch.Tensor, dtype) -> tuple:
+    ref32 = ref.to(torch.float32)
+    err = float((got.to(torch.float32) - ref32).abs().max()) \
+        if ref.numel() else 0.0
+    tol = BWD_TOL[dtype] * (float(ref32.abs().max()) + 1e-3)
+    return err, err / tol
+
+
+def check_xt(x, dy, x2=None, dy2=None) -> tuple[float, float]:
+    """x^T dy (x stored (tokens, K), read transposed) against
+    ``matmul_ref`` of the view, or the two-part x dy + x2 dy2; the limit of
+    ``check_matmul`` (the sums' order, one rounding in bf16)."""
+    if x2 is None:
+        return check_matmul(x.t(), dy)
+    out = elk_matmul_kernel(x, dy, x2, dy2)
+    again = elk_matmul_kernel(x, dy, x2, dy2)
+    torch.cuda.synchronize()
+    where = f"two-part x{tuple(x.shape)} y{tuple(dy.shape)} {x.dtype}"
+    if not torch.equal(out, again):
+        fail(f"elk_matmul gave other bits the second time at {where}")
+    ref32 = matmul2_ref(x, dy, x2, dy2).to(torch.float32)
+    f = torch.float32
+    k = 2 * x.shape[1]
+    limit = 2 * k * 2.0 ** -23 * (torch.matmul(x.to(f).abs(), dy.to(f).abs())
+                                  + torch.matmul(x2.to(f).abs(),
+                                                 dy2.to(f).abs()))
+    if x.dtype == torch.bfloat16:
+        limit += 2.0 ** -7 * ref32.abs()
+    diff = (out.to(f) - ref32).abs()
+    over = float((diff / limit.clamp(min=1e-30)).max())
+    if over > 1.0:
+        fail(f"elk_matmul disagrees with matmul2_ref at {where}: "
+             f"{over:.3f} x its limit")
+    return float(diff.max()), over
+
+
+def check_mlp_bwd(x, w_up, w_down, kw, act, dy) -> tuple[float, float]:
+    """Every gradient of ``fused_mlp_bwd_kernel`` against
+    ``fused_mlp_bwd_ref``; launched twice, equal bits."""
+    run = lambda: fused_mlp_bwd_kernel(x, w_up, w_down, dy, act=act, **kw)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    ref = fused_mlp_bwd_ref(x, w_up, w_down, dy, act=act, **kw)
+    where = (f"x{tuple(x.shape)} ff={w_up.shape[1]} {x.dtype} act={act} "
+             f"{sorted(kw)}")
+    worst = (0.0, 0.0)
+    for name, r in ref.items():
+        if r is None:
+            continue
+        g = got[name]
+        if not torch.equal(g, again[name]):
+            fail(f"fused_mlp_bwd gave other bits the second time: {name} "
+                 f"at {where}")
+        if g.shape != r.shape or g.dtype != r.dtype or \
+                not torch.isfinite(g.float()).all():
+            fail(f"fused_mlp_bwd {name}: {tuple(g.shape)} {g.dtype}, plain "
+                 f"{tuple(r.shape)} {r.dtype}, or not finite at {where}")
+        err, over = _grad_err(g, r, x.dtype)
+        if over > 1:
+            fail(f"fused_mlp_bwd {name} disagrees with fused_mlp_bwd_ref at "
+                 f"{where}: max abs err {err:.3e}, {over:.3f} x tol")
+        worst = max(worst, (over, err))
+    return worst[1], worst[0]
+
+
+def check_flash_bwd(q, k, v, dout, causal, window) -> tuple[float, float]:
+    """The forward's log-sum-exp against ``mha_lse_ref``, then dq, dk, dv of
+    ``flash_attention_bwd_kernel`` against ``mha_bwd_ref`` from the
+    kernel's own output and log-sum-exp; launched twice, equal bits."""
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    out = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                 lse=lse)
+    ref_out, ref_lse = flash_ref.mha_lse_ref(q, k, v, causal=causal,
+                                             window=window)
+    where = (f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype} causal={causal}"
+             f" window={window} route={flash_route_of(q, k)}")
+    lse_err = float((lse - ref_lse).abs().max())
+    if not torch.equal(out, flash_attention_kernel(q, k, v, causal=causal,
+                                                   window=window)) \
+            or lse_err > 1e-3:
+        fail(f"flash_attention with lse: other output bits than without, or "
+             f"lse off by {lse_err:.3e}, at {where}")
+    run = lambda: flash_attention_bwd_kernel(q, k, v, out, dout, lse,
+                                             causal=causal, window=window)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    ref = flash_ref.mha_bwd_ref(q, k, v, out, dout, lse, causal=causal,
+                                window=window)
+    worst = (0.0, 0.0)
+    for name, g, a, r in zip("qkv", got, again, ref):
+        if not torch.equal(g, a):
+            fail(f"flash_attention_bwd gave other bits the second time: d{name}"
+                 f" at {where}")
+        if g.shape != r.shape or not torch.isfinite(g.float()).all():
+            fail(f"flash_attention_bwd d{name} {tuple(g.shape)} against "
+                 f"{tuple(r.shape)}, or not finite, at {where}")
+        err, over = _grad_err(g, r, q.dtype)
+        if over > 1:
+            fail(f"flash_attention_bwd d{name} disagrees with mha_bwd_ref at "
+                 f"{where}: max abs err {err:.3e}, {over:.3f} x tol")
+        worst = max(worst, (over, err))
+    return worst[1], worst[0]
+
+
+def flash_bwd_bound_ms(b, hq, hkv, s, d, dtype) -> tuple[float, str]:
+    """Least time of a causal backward: q, out, dout (Hq heads), k, v (Hkv
+    heads) and the fp32 lse read once, dq, dk, dv written once; five
+    products over the causal pairs."""
+    size = torch.empty((), dtype=dtype).element_size()
+    pairs = s * (s + 1) // 2
+    q_like, kv_like = b * hq * s * d, b * hkv * s * d
+    t_bytes = ((3 * q_like + 2 * kv_like) * size + b * hq * s * 4
+               + (q_like + 2 * kv_like) * size) / HBM_BYTES_PER_S
+    t_ops = 5 * 2 * b * hq * pairs * d / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mlp_bwd_bound_ms(m, d, ff, dtype) -> tuple[float, str]:
+    """Least time of a GLU MLP's gradient from its inputs: x, the three
+    weights and dy read once, dx and the three weight gradients written
+    once; the eight products (two to recompute g and u, dh, three weight
+    gradients, two for dx), 2 m d ff operations each."""
+    size = torch.empty((), dtype=dtype).element_size()
+    t_bytes = 2 * (2 * m * d + 3 * d * ff) * size / HBM_BYTES_PER_S
+    t_ops = 8 * 2 * m * d * ff / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def train_rows(cfg) -> dict:
+    """The backward sweeps (bf16 and fp32), then the timed rows at qwen3-14b's
+    training shapes (B 8, S 512 = 4096 tokens): one row a kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    def normal(*shape, dtype, scale=1.0):
+        t = torch.randn(shape, generator=gen, device="cuda",
+                        dtype=torch.float32) * scale
+        return t.to(dtype)
+
+    names = ("elk_matmul_xt", "fused_mlp_bwd", "flash_attention_bwd")
+    # worst (err/tol, err) a kernel and type
+    by_type = {name: {} for name in names}
+    cases = dict.fromkeys(names, 0)
+    xt_routes = dict.fromkeys(MATMUL_ROUTES, 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = dict.fromkeys(names, (0.0, 0.0))
+        for tok, k, n in XT_SWEEP:
+            x = normal(tok, k, dtype=dtype)
+            dy = normal(tok, n, dtype=dtype)
+            xt_routes[matmul_route_of(x.t(), dy)] += 1
+            err, over = check_xt(x, dy)
+            worst["elk_matmul_xt"] = max(worst["elk_matmul_xt"], (over, err))
+            # the two-part sum of the MLP's dx: dg w_gate^T + du w_up^T
+            dg, du = normal(n, tok, dtype=dtype), normal(n, tok, dtype=dtype)
+            wg, wu = normal(k, tok, dtype=dtype), normal(k, tok, dtype=dtype)
+            err, over = check_xt(dg, wg.t(), du, wu.t())
+            worst["elk_matmul_xt"] = max(worst["elk_matmul_xt"], (over, err))
+            cases["elk_matmul_xt"] += 2
+        for m, d, ff, gated, bias, act in MLP_BWD_SWEEP:
+            x, w_up, w_down, kw = mlp_inputs(gen, (m,), d, ff, gated, bias,
+                                             dtype)
+            err, over = check_mlp_bwd(x, w_up, w_down, kw, act,
+                                      normal(m, d, dtype=dtype))
+            worst["fused_mlp_bwd"] = max(worst["fused_mlp_bwd"], (over, err))
+            cases["fused_mlp_bwd"] += 1
+        for b, hq, hkv, sq, sk, d, causal, window in FLASH_BWD_SWEEP:
+            q = normal(b, hq, sq, d, dtype=dtype)
+            kk = normal(b, hkv, sk, d, dtype=dtype)
+            vv = normal(b, hkv, sk, d, dtype=dtype)
+            # dout in the (B, S, Hq, D) storage autograd hands over
+            dout = normal(b, sq, hq, d, dtype=dtype).transpose(1, 2)
+            err, over = check_flash_bwd(q, kk, vv, dout, causal, window)
+            worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
+                                               (over, err))
+            cases["flash_attention_bwd"] += 1
+        for name in names:
+            by_type[name][str(dtype).removeprefix("torch.")] = worst[name]
+    worst = {name: max(by_type[name].values()) for name in names}
+    say(f"[train] backward sweeps, bf16 and fp32, every case launched twice "
+        f"with equal bits: cases {json.dumps(cases)}; x^T dy by route "
+        f"{json.dumps(xt_routes)}; worst err/tol and its err by type "
+        f"{json.dumps(by_type)}")
+
+    # timed rows at the full-width training shapes
+    dt = torch.bfloat16
+    m, d = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model
+    out = {}
+    x = normal(m, d, dtype=dt)
+    shapes = []
+    for label, n in (("q, o", cfg.num_heads * cfg.resolved_head_dim),
+                     ("k, v", cfg.num_kv_heads * cfg.resolved_head_dim),
+                     ("lm_head", cfg.vocab_size)):
+        dy = normal(m, n, dtype=dt)
+        err, over = check_xt(x, dy)
+        bound, by = matmul_bound_ms(d, n, m, dt)
+        iters = 3 if n > 100000 else 10
+        shapes.append({
+            "shape": f"x^T dy {label} tokens={m}", "m": d, "n": n, "k": m,
+            "route": matmul_route_of(x.t(), dy), "max_abs_err": err,
+            "err_over_tol": over,
+            "ms": time_ms(lambda: matmul(x.t(), dy), iters),
+            "plain_ms": time_ms(lambda: matmul_ref(x.t(), dy), 2, warmup=1),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lambda: torch.matmul(x.t(), dy), iters)})
+        say("[train] elk_matmul_xt " + json.dumps(shapes[-1]))
+        del dy
+    out["elk_matmul_xt"] = shapes
+
+    ff = cfg.d_ff
+    xm, w_up, w_down, kw = mlp_inputs(gen, (m,), d, ff, True, False, dt)
+    dy = normal(m, d, dtype=dt)
+    err, over = check_mlp_bwd(xm, w_up, w_down, kw, cfg.mlp_act, dy)
+    bound, by = mlp_bwd_bound_ms(m, d, ff, dt)
+    act = act_fn(cfg.mlp_act)
+    leaves = [t.detach().requires_grad_(True)
+              for t in (xm, kw["w_gate"], w_up, w_down)]
+    with torch.enable_grad():
+        lib_out = torch.matmul(act(torch.matmul(leaves[0], leaves[1]))
+                               * torch.matmul(leaves[0], leaves[2]),
+                               leaves[3])
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dy, retain_graph=True), 3)
+    del lib_out, leaves
+    out["fused_mlp_bwd"] = [{
+        "shape": f"GLU {cfg.mlp_act} m={m} d={d} ff={ff}",
+        "route": "two_pass", "max_abs_err": err, "err_over_tol": over,
+        "ms": time_ms(lambda: fused_mlp_bwd_kernel(
+            xm, w_up, w_down, dy, act=cfg.mlp_act, **kw), 3),
+        "plain_ms": time_ms(lambda: fused_mlp_bwd_ref(
+            xm, w_up, w_down, dy, act=cfg.mlp_act, **kw), 1, warmup=1),
+        "bound_ms": bound, "bound_by": by, "library_ms": library_ms}]
+    say("[train] fused_mlp_bwd " + json.dumps(out["fused_mlp_bwd"][0]))
+    del xm, w_up, w_down, kw, dy
+
+    b, hq, hkv, hd, s = (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.resolved_head_dim, TRAIN_SEQ)
+    q = normal(b, s, hq, hd, dtype=dt).transpose(1, 2)
+    kk, vv = normal(b, hkv, s, hd, dtype=dt), normal(b, hkv, s, hd, dtype=dt)
+    dout = normal(b, s, hq, hd, dtype=dt).transpose(1, 2)
+    err, over = check_flash_bwd(q, kk, vv, dout, True, 0)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+    o = flash_attention_kernel(q, kk, vv, causal=True, lse=lse)
+    bound, by = flash_bwd_bound_ms(b, hq, hkv, s, hd, dt)
+    g = hq // hkv
+    sdpa = [t.detach().requires_grad_(True) for t in
+            (q, kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1))]
+    with torch.enable_grad():
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *sdpa, is_causal=True)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, sdpa, dout, retain_graph=True), 10)
+    del lib_out, sdpa
+    out["flash_attention_bwd"] = [{
+        "shape": f"B={b} Hq={hq} Hkv={hkv} S={s} D={hd} causal",
+        "route": "mma_sync", "max_abs_err": err, "err_over_tol": over,
+        "ms": time_ms(lambda: flash_attention_bwd_kernel(
+            q, kk, vv, o, dout, lse, causal=True), 10),
+        "plain_ms": time_ms(lambda: flash_ref.mha_bwd_ref(
+            q, kk, vv, o, dout, lse, causal=True), 2, warmup=1),
+        "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+        "library_note": "SDPA's backward with K and V repeated to Hq heads"}]
+    say("[train] flash_attention_bwd "
+        + json.dumps(out["flash_attention_bwd"][0]))
+
+    sources = {"elk_matmul_xt": ("elk_matmul.cu",
+                                 "src/repro/kernels/elk_matmul/kernel.py:31"),
+               "fused_mlp_bwd": ("fused_mlp_bwd.cu",
+                                 "src/repro/kernels/fused_mlp/kernel.py:79"),
+               "flash_attention_bwd": (
+                   "flash_attention_bwd.cu",
+                   "src/repro/kernels/flash_attention/kernel.py:86")}
+    rows = []
+    for name, (src, replaces) in sources.items():
+        main = out[name][0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces,
+            "replaces_note": "the gradient of that TPU kernel's function; "
+                             "the reference has no backward kernel and "
+                             "trains through XLA's gradient",
+            "launches": 0, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "cases": cases[name],
+            "max_err_over_tol": worst[name][0], "shapes": out[name]})
+    return rows
+
+
+def train_expected(cfg, steps: int, remat: bool = True) -> dict:
+    """Launches of ``steps`` training steps of a dense GLU decoder: a
+    layer's four projections, its MLP and its attention run forward once
+    (twice under remat: the recompute of the backward), and backward once:
+    dx and dW of each projection, the MLP's backward (its three weight
+    gradients and dx on elk_matmul, x read transposed for the weight
+    gradients) and attention's; the LM head forward, dx and dW."""
+    if cfg.moe_experts or cfg.rwkv or cfg.hybrid_parallel_ssm or \
+            cfg.encoder_layers or not cfg.gated_mlp:
+        raise ValueError("train_expected counts dense GLU decoders only")
+    n, fwd = cfg.num_layers, 2 if remat else 1
+    return {"elk_matmul": steps * (n * (4 * fwd + 4 + 4 + 4) + 3),
+            "elk_matmul_xt": steps * (n * (4 + 3) + 1),
+            "fused_mlp": steps * n * fwd, "fused_mlp_bwd": steps * n,
+            "flash_attention": steps * n * fwd,
+            "flash_attention_bwd": steps * n,
+            "decode_attention": 0, "kv_quant": 0}
+
+
+def _plain_dispatch():
+    """Every kernel op takes its plain version, on the card too: the three
+    ops modules' ``dispatch`` replaced until the context ends."""
+    from repro_torch.kernels.elk_matmul import ops as m_ops
+    from repro_torch.kernels.flash_attention import ops as f_ops
+    from repro_torch.kernels.fused_mlp import ops as l_ops
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = [(mod, mod.dispatch) for mod in (m_ops, f_ops, l_ops)]
+        for mod, _ in saved:
+            mod.dispatch = lambda x, kernel_call, ref_call: ref_call()
+        try:
+            yield
+        finally:
+            for mod, fn in saved:
+                mod.dispatch = fn
+    return ctx()
+
+
+def train_parity() -> None:
+    """One training step (loss and every gradient, remat on) of every smoke
+    config in fp32: the plain path on the CPU against the kernels on the
+    card, on the same weights and batch."""
+    worst = {}
+    for arch in dict.fromkeys((*ARCH_IDS, *PARITY_ARCHS)):
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                                  param_dtype="float32")
+        cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+        card = tree_map(lambda t: t.to("cuda"), cpu)
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 12)).astype(np.int32)),
+            "labels": torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (2, 12)).astype(np.int32)),
+            **frontend_embeddings(cfg, 2, device="cpu")}
+        res = []
+        for params, dev in ((cpu, "cpu"), (card, "cuda")):
+            for p in tree_leaves(params):
+                p.requires_grad_(True)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            res.append(value_and_grad(make_loss_fn(cfg), params, b))
+        (l_cpu, g_cpu), (l_card, g_card) = res
+        if not abs(float(l_card) - float(l_cpu)) <= 1e-5 * abs(float(l_cpu)):
+            fail(f"[train] {arch}: loss {float(l_card)} on the card, "
+                 f"{float(l_cpu)} on the CPU")
+        over = 0.0
+        for (path, a), (_, r) in zip(tree_items(g_card), tree_items(g_cpu)):
+            err = float((a.cpu() - r).abs().max())
+            tol = TRAIN_PARITY_TOL * (float(r.abs().max()) + 1e-3)
+            if err > tol:
+                fail(f"[train] {arch}: gradient {path} off by {err:.3e} "
+                     f"(tol {tol:.3e}) between card and CPU")
+            over = max(over, err / tol)
+        worst[arch] = round(over, 4)
+        del cpu, card, res
+    say(f"[train] parity, one fp32 step of every smoke config, card against "
+        f"CPU: loss within 1e-5, worst gradient err/tol {json.dumps(worst)}")
+
+
+def smoke_trainer() -> None:
+    """The qwen3 smoke trainer on the card: the loss falls; a crash at step
+    9 and a restart from the step-6 checkpoint give the uninterrupted run's
+    losses and weights bit for bit (under
+    ``torch.use_deterministic_algorithms``: the embedding's gradient
+    accumulates by index, atomics otherwise); the launcher runs."""
+    cfg = get_smoke_config("qwen3_14b")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    def trainer(wd, steps, hook=None):
+        return Trainer(cfg, DataConfig(batch=4, seq=16,
+                                       vocab_size=cfg.vocab_size),
+                       AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=60),
+                       TrainerConfig(workdir=str(wd), total_steps=steps,
+                                     ckpt_every=6), failure_hook=hook)
+
+    class Crash(RuntimeError):
+        pass
+
+    def bomb(step):
+        if step == 9:
+            raise Crash()
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        ta = trainer(TRAIN_DIR / "a", 12)
+        log_a = ta.run()
+        tb = trainer(TRAIN_DIR / "b", 12, bomb)
+        try:
+            tb.run()
+            fail("[train] the failure hook did not crash the run")
+        except Crash:
+            tb.store.wait()
+        tb2 = trainer(TRAIN_DIR / "b", 12)
+        if tb2.step != 6:
+            fail(f"[train] the restarted trainer resumed at {tb2.step}, not 6")
+        log_b = tb2.run()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same_loss = [m["loss"] for m in log_a[6:]] == [m["loss"] for m in log_b]
+    same_bits = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(ta.params), tree_leaves(tb2.params)))
+    if not (same_loss and same_bits):
+        fail(f"[train] the restarted run differs from the uninterrupted one: "
+             f"losses equal {same_loss}, weights equal {same_bits}")
+    if not log_a[-1]["loss"] < log_a[0]["loss"]:
+        fail(f"[train] the smoke trainer's loss did not fall: "
+             f"{[m['loss'] for m in log_a]}")
+    log = launch_train.main(["--arch", "qwen3-14b", "--smoke", "--steps", "4",
+                             "--workdir", str(TRAIN_DIR / "launcher"),
+                             "--ckpt-every", "2"])
+    if len(log) != 4 or not all(np.isfinite(m["loss"]) for m in log):
+        fail(f"[train] launch/train.main --smoke gave {log}")
+    say(f"[train] smoke trainer: loss {log_a[0]['loss']:.4f} -> "
+        f"{log_a[-1]['loss']:.4f} over 12 steps; crash at step 9 and restart "
+        f"from step 6 equal to the uninterrupted run bit for bit (losses of "
+        f"steps 7-12 and every weight; deterministic algorithms on); "
+        f"launcher --smoke: 4 steps, final loss {log[-1]['loss']:.4f}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+
+def train_full(rows: list[dict]) -> dict:
+    """qwen3-14b at full width and TRAIN_DEPTH layers, bf16, B 8 x S 512,
+    remat: TRAIN_STEPS AdamW steps through ``Trainer`` with the launch
+    counts recorded as the "train" path; then layer 0's and the LM head's
+    gradients of one step against the plain versions' on the same weights
+    and batch."""
+    cfg = model_cfg("qwen3_14b", TRAIN_DEPTH)
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                 vocab_size=cfg.vocab_size),
+                 AdamWConfig(lr=1e-4, warmup_steps=2,
+                             total_steps=TRAIN_STEPS),
+                 TrainerConfig(workdir=str(TRAIN_DIR),
+                               total_steps=TRAIN_STEPS,
+                               ckpt_every=TRAIN_STEPS + 1))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(tr.params))
+    init_s = time.perf_counter() - t0
+    zero_launches()
+    log = tr.run()
+    torch.cuda.synchronize()
+    counts, routes = read_launches(train=True), read_routes(train=True)
+    peak = torch.cuda.max_memory_allocated() - base
+    record_launches(rows, "train", counts,
+                    {**train_expected(cfg, TRAIN_STEPS), "routes": {}}, {})
+    losses = [m["loss"] for m in log]
+    if not all(np.isfinite(losses)):
+        fail(f"[train] full width: losses {losses}")
+    step_s = statistics.mean(m["step_time"] for m in log[1:])
+
+    # layer 0's and the LM head's gradients against the plain versions'
+    batch = {k: v.to("cuda") for k, v in tr.data.batch_at(0).items()}
+    split = train_split(tr, batch)
+    leaves = [t for _, t in tree_items(tr.params["layers"][0])]
+    leaves.append(tr.params["lm_head"])
+    names = [f"layers/0/{p}" for p, _ in tree_items(tr.params["layers"][0])]
+    names.append("lm_head")
+    loss_fn = make_loss_fn(cfg)
+    grads = torch.autograd.grad(loss_fn(tr.params, batch), leaves)
+    with _plain_dispatch():
+        plain = torch.autograd.grad(loss_fn(tr.params, batch), leaves)
+    checked = {}
+    for name, g, r in zip(names, grads, plain):
+        g32, r32 = g.float(), r.float()
+        rel = float((g32 - r32).norm() / r32.norm().clamp(min=1e-30))
+        checked[name] = round(rel, 5)
+        if not rel < TRAIN_GRAD_TOL:
+            fail(f"[train] full width: gradient {name} off by {rel:.4f} "
+                 f"(relative norm) from the plain versions'")
+    del grads, plain, leaves, batch
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    line = {
+        "model": cfg.name, "layers": TRAIN_DEPTH, "of_layers": 40,
+        "d_model": cfg.d_model, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab_size, "params": n_params, "dtype": "bfloat16",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": True,
+        "steps": TRAIN_STEPS, "losses": losses,
+        "step_ms": step_s * 1e3,
+        "first_step_ms": log[0]["step_time"] * 1e3,
+        "tokens_per_s": tokens / step_s,
+        "max_memory_allocated_bytes": peak, "init_s": init_s,
+        "grad_rel_err_vs_plain": checked,
+        "launches": counts, "launches_by_route": routes, "split": split}
+    say("[train] " + json.dumps(line))
+    del tr
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def train_split(tr, batch: dict) -> dict:
+    """Where a training step's time goes: one step timed by CUDA events in
+    its three stages (the loss's forward; the backward, with remat's
+    recompute of every layer; the AdamW update), the launches of each
+    stage, then the same step under ``torch.profiler``: the device's busy
+    time and idle share, the port's kernels against PyTorch's own, and the
+    kernels that take the most device time.  Each run is one more step of
+    ``tr``'s weights."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    loss_fn = make_loss_fn(tr.cfg)
+    leaves = tree_leaves(tr.params)
+
+    def step(events=None, counts=None):
+        def mark(i):
+            if events:
+                events[i].record()
+            if counts is not None and i in (1, 2):
+                counts.append(read_launches(train=True))
+
+        mark(0)
+        loss = loss_fn(tr.params, batch)
+        mark(1)
+        grads = torch.autograd.grad(loss, leaves)
+        mark(2)
+        adamw.apply_update(tr.params, tree_unflatten(tr.params, list(grads)),
+                           tr.opt_state, tr.opt_cfg)
+        mark(3)
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    counts = []
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    step(events, counts)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    fwd, bwd = counts
+    out = {"wall_ms": wall,
+           "forward_ms": events[0].elapsed_time(events[1]),
+           "backward_ms": events[1].elapsed_time(events[2]),
+           "optimizer_ms": events[2].elapsed_time(events[3]),
+           "forward_launches": {k: v for k, v in fwd.items() if v},
+           "backward_launches": {k: bwd[k] - fwd[k] for k in bwd
+                                 if bwd[k] - fwd[k]}}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    by_name, port, other = {}, 0.0, 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.self_device_time_total * 1e-3
+        if PORT_KERNEL.match(e.key):
+            port += ms
+        else:
+            other += ms
+        by_name[e.key[:90]] = (by_name.get(e.key[:90], (0.0, 0))[0] + ms,
+                               by_name.get(e.key[:90], (0.0, 0))[1] + e.count)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    out.update({"profiled_wall_ms": prof_wall,
+                "device_busy_ms": port + other,
+                "device_idle_share": 1.0 - (port + other) / prof_wall,
+                "port_kernels_ms": port, "other_kernels_ms": other,
+                "top_kernels": [[k, round(ms, 3), n] for k, (ms, n) in top]})
+    return out
+
+
+def train_phase(cfg, rows: list[dict]) -> None:
+    """Phase 11, outside inference mode: the backward kernels held and
+    timed (``train_rows``), their rows added to ``rows``; the fp32 parity
+    of one step of every smoke config; the smoke trainer; the full-width
+    slice (``train_full``), its launches the "train" path of every kernel
+    it runs."""
+    new = train_rows(get_config("qwen3_14b"))
+    train_parity()
+    smoke_trainer()
+    rows.extend(new)
+    train_full(rows)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=0,
@@ -3832,10 +4537,11 @@ def main() -> None:
                     "the model's own); the other phases keep full depth")
     ap.add_argument("--profile", action="store_true",
                     help="also trace decode steps, a prefill and slot steps")
-    ap.add_argument("--only", choices=("kernels", "models"),
-                    help="run the kernel phases only, or the parity, "
-                    "[models] and [families] phases only (to iterate on "
-                    "one part); prints no result line")
+    ap.add_argument("--only", choices=("kernels", "models", "train"),
+                    help="run the kernel phases only, the parity, "
+                    "[models] and [families] phases only, or the [train] "
+                    "phase only (to iterate on one part); prints no result "
+                    "line")
     args = ap.parse_args()
 
     # phase 1: device
@@ -3883,14 +4589,20 @@ def main() -> None:
         f"continuous depth {cfg.num_layers}")
     # the chunk the batcher cuts from the planner's budget on the stream path
     chunk = _chunk_len(SLOT_CACHE, elk_serve_config(
-        cfg, batch=SLOTS, cache_capacity=SLOT_CACHE,
-        pod=h100_host()).prefill_chunk)
+        model_cfg("qwen3_14b", STREAM_DEPTH), batch=SLOTS,
+        cache_capacity=SLOT_CACHE, pod=h100_host()).prefill_chunk)
     def timed(name: str, fn, *a):
         t_phase = time.perf_counter()
         result = fn(*a)
         say(f"[time] {name}: {time.perf_counter() - t_phase:.1f}s")
         return result
 
+    if args.only == "train":
+        rows = [{"name": name, "launches": 0} for name in SERVING_KERNELS]
+        timed("train", train_phase, cfg, rows)
+        say(json.dumps({"kernels": rows}))
+        say(f"[only {args.only}] stopped; no result line")
+        return
     with torch.inference_mode():
         if args.only == "kernels":
             for row in (elk_matmul_phase(cfg), kernels_phase(cfg),
@@ -3900,7 +4612,8 @@ def main() -> None:
                                                      "library_ms")}))
         elif args.only == "models":
             parity_phase()
-            rows = [{"name": name, "launches": 0} for name in COUNTERS]
+            rows = [{"name": name, "launches": 0}
+                    for name in SERVING_KERNELS]
             models_phase(rows, args.profile)
             families_phase(rows)
         if args.only:
@@ -3921,12 +4634,17 @@ def main() -> None:
         timed("oversub", oversub_phase, cfg, params, rows)
         timed("int8", int8_phase, cfg, params, rows)
         timed("fleet", fleet_phase, cfg, params, rows)
-        del params                    # the stream phase draws its own
-        timed("stream", stream_phase, cfg, rows,
-              out if lock_cfg.num_layers == cfg.num_layers else None,
+        stream_cfg = model_cfg("qwen3_14b", STREAM_DEPTH)
+        stream_ref = timed("stream reference", resident_tokens, stream_cfg,
+                           params)
+        del params, out               # the stream phase draws its own
+        timed("stream", stream_phase, stream_cfg, rows, stream_ref,
               args.profile)
         timed("models", models_phase, rows, args.profile)
         timed("families", families_phase, rows)
+    # the training side, outside inference mode (its tensors take part in
+    # autograd)
+    timed("train", train_phase, cfg, rows)
 
     for row in rows:
         for path, n in row["launches_by_path"].items():

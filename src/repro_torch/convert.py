@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import block_structure, resolve_device
+from repro_torch.tree import tree_map
 
 
 def tensor_from_numpy(a: Any, device, dtype: Optional[torch.dtype] = None
@@ -33,14 +34,6 @@ def tensor_from_numpy(a: Any, device, dtype: Optional[torch.dtype] = None
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
-def _map(tree: Any, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
-
-
 def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
                     dtype: Optional[torch.dtype] = None) -> dict:
     """The reference's parameter pytree (numpy leaves) in the port's
@@ -49,7 +42,9 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
     dictionary in ``params["layers"]``.  An enc-dec config's stacked
     ``encoder`` becomes a list of layers the same way; ``enc_norm``,
     ``enc_pos`` and ``dec_pos`` pass as they are.  ``dtype`` casts every
-    leaf (default: as stored)."""
+    leaf (default: as stored).  Any tree of the parameters' structure
+    converts the same way: gradients (``jax.grad`` of the reference's
+    ``loss_fn``) and the optimizer's moments (``opt_state_from_jax``)."""
     device = resolve_device(device)
     prefix, period, n_blocks = block_structure(cfg)
 
@@ -57,23 +52,32 @@ def params_from_jax(tree: dict, cfg: ModelConfig, device="cuda",
         return tensor_from_numpy(a, device, dtype)
 
     def unstack(stacked, n):
-        return [_map(stacked, lambda a, i=i: leaf(np.asarray(a)[i]))
+        return [tree_map(lambda a, i=i: leaf(np.asarray(a)[i]), stacked)
                 for i in range(n)]
 
-    layers = [_map(p, leaf) for p in tree["prefix"]]
+    layers = [tree_map(leaf, p) for p in tree["prefix"]]
     if len(layers) != prefix or len(tree["blocks"]) != period:
         raise ValueError("parameter tree does not match the config's "
                          "block structure")
     for b in range(n_blocks):
         for slot in range(period):
-            layers.append(_map(tree["blocks"][slot],
-                               lambda a, b=b: leaf(np.asarray(a)[b])))
+            layers.append(tree_map(lambda a, b=b: leaf(np.asarray(a)[b]),
+                                   tree["blocks"][slot]))
     out = {k: leaf(v) for k, v in tree.items()
            if k not in ("prefix", "blocks", "encoder")}
     out["layers"] = layers
     if "encoder" in tree:
         out["encoder"] = unstack(tree["encoder"], cfg.encoder_layers)
     return out
+
+
+def opt_state_from_jax(state: dict, cfg: ModelConfig, device="cuda") -> dict:
+    """The reference's AdamW state (``step``, ``m``, ``v``; numpy leaves)
+    as the port's: the step a Python int, the moments unstacked as
+    ``params_from_jax`` unstacks the parameters, in their stored type."""
+    return {"step": int(np.asarray(state["step"])),
+            "m": params_from_jax(state["m"], cfg, device),
+            "v": params_from_jax(state["v"], cfg, device)}
 
 
 # the reference's cache leaves besides ``pos``, all stacked over layers

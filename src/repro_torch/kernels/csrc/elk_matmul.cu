@@ -51,6 +51,17 @@
 // Every route sums each output element's K steps in a fixed order and uses
 // no atomics: the same inputs give the same bits on every run.
 //
+// The training side's operands (kernels/elk_matmul/ops.py, an autograd
+// Function): x given as the transpose of a stored (k, m) matrix (x_trans,
+// the x^T dy of a weight gradient, contracted over the tokens) is read in
+// place on every route: "wgmma"/"splitk" load it as MN-major A tiles, the
+// mma_sync kernel keeps its (bk, BM) tile and builds A fragments by
+// ldmatrix.x4.trans, the FMA kernel reads the stored tile; and a second
+// pair x2, y2 (same shapes and strides, x as stored and y transposed) is
+// summed after the first in the same accumulator, its K tiles after x's.
+// The two-part sum is an instance of its own (TWO) on every route, so the
+// one-part products of serving carry no test of it.
+//
 // Where it stands (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W; the
 // mma_sync kernel's times in brackets): decode q/o 0.0253 ms (0.0420), k/v
 // 0.0110 (0.0363), the LM head 0.523 (0.658), against bounds of 0.0157,
@@ -75,6 +86,8 @@ int g_smem_optin = 0;       // set by elk_matmul_prepare
 struct Args {
   const void* x;
   const void* y;
+  const void* x2;  // a second part, out = x y + x2 y2 (same shapes and strides), or null
+  const void* y2;
   void* out;
   int m, n, k;
   int lda, ldy;    // row strides of x and of y as stored, in elements
@@ -130,12 +143,37 @@ __device__ __forceinline__ void load_tile(T* s, int lds, const T* g, int ld, int
   }
 }
 
-// Shared-memory elements of one stage: x (BM, bk) and y (bk, BN) or (BN, bk),
-// rows padded.
+// Shared-memory elements of one stage: x (BM, bk), or (bk, BM) read
+// transposed (xt), and y (bk, BN) or (BN, bk), rows padded.
 template <typename T>
-__host__ __device__ __forceinline__ int stage_elems(int bm, int bn, int bk, bool yt) {
+__host__ __device__ __forceinline__ int stage_elems(int bm, int bn, int bk, bool yt,
+                                                    bool xt = false) {
   const int pad = kPadBytes / (int)sizeof(T);
-  return bm * (bk + pad) + (yt ? bn * (bk + pad) : bk * (bn + pad));
+  return (xt ? bk * (bm + pad) : bm * (bk + pad)) + (yt ? bn * (bk + pad) : bk * (bn + pad));
+}
+
+// The operands of K tile kt: the first part's, or past its nk1 tiles the
+// second part's (x2, y2) from its own K tile 0.
+struct Part {
+  const void* x;
+  const void* y;
+  int k0;
+};
+template <bool TWO>
+__device__ __forceinline__ Part part_of(const Args& a, int kt, int nk1) {
+  if (TWO && kt >= nk1) return {a.x2, a.y2, (kt - nk1) * a.bk};
+  return {a.x, a.y, kt * a.bk};
+}
+
+// The x tile of K tile k0: (BM rows, bk) of x (m, k), or with XT (bk rows,
+// BM) of x stored (k, m), row stride lda either way.
+template <bool XT, typename T>
+__device__ __forceinline__ void load_x(T* xs, int ldx, const T* xg, const Args& a, int m0, int k0,
+                                       int BM) {
+  if (XT)
+    load_tile(xs, ldx, xg, a.lda, a.k, a.m, k0, m0, a.bk, BM, a.x_vec != 0);
+  else
+    load_tile(xs, ldx, xg, a.lda, a.m, a.k, m0, k0, BM, a.bk, a.x_vec != 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -162,6 +200,16 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1, co
                : "r"(smem_addr(p)));
 }
 
+// A fragment of an m16 x k16 block stored k-major (rows k, m contiguous: x
+// stored (k, m)): matrices (k 0-7, m 0-7), (k 0-7, m 8-15), (k 8-15, m 0-7),
+// (k 8-15, m 8-15) = a0..a3, transposed on the way; p is this lane's row:
+// k (lane & 7) + 8 (lane >> 4), m 8 ((lane >> 3) & 1).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(smem_addr(p)));
+}
+
 template <int BM, int BN>
 struct MmaShape {
   static constexpr int kThreads = BM >= 128 ? 256 : 128;
@@ -175,26 +223,27 @@ struct MmaShape {
   static_assert(kWTM % 16 == 0 && kWTN % 8 == 0 && kWM * kWN == kWarps, "warp tiling");
 };
 
-template <int BM, int BN, bool YT>
+template <int BM, int BN, bool YT, bool XT, bool TWO>
 __global__ void __launch_bounds__(MmaShape<BM, BN>::kThreads) elk_matmul_mma_kernel(Args a) {
   using S = MmaShape<BM, BN>;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ring = reinterpret_cast<bf16*>(smem);
   const int bk = a.bk;
-  const int ldx = bk + 8, ldy = YT ? bk + 8 : BN + 8;
-  const int x_elems = BM * ldx;
-  const int stage = stage_elems<bf16>(BM, BN, bk, YT);
+  const int ldx = XT ? BM + 8 : bk + 8, ldy = YT ? bk + 8 : BN + 8;
+  const int x_elems = XT ? bk * ldx : BM * ldx;
+  const int stage = stage_elems<bf16>(BM, BN, bk, YT, XT);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const bf16* xg = reinterpret_cast<const bf16*>(a.x);
-  const bf16* yg = reinterpret_cast<const bf16*>(a.y);
-  const int nk = (a.k + bk - 1) / bk;
+  const int nk1 = (a.k + bk - 1) / bk;
+  const int nk = (TWO ? 2 : 1) * nk1;
 
   auto load = [&](int kt) {
     if (kt < nk) {
       bf16* xs = ring + (kt % kStages) * stage;
       bf16* ys = xs + x_elems;
-      const int k0 = kt * bk;
-      load_tile(xs, ldx, xg, a.lda, a.m, a.k, m0, k0, BM, bk, a.x_vec != 0);
+      const Part pt = part_of<TWO>(a, kt, nk1);
+      const int k0 = pt.k0;
+      const bf16* yg = reinterpret_cast<const bf16*>(pt.y);
+      load_x<XT>(xs, ldx, reinterpret_cast<const bf16*>(pt.x), a, m0, k0, BM);
       if (YT)
         load_tile(ys, ldy, yg, a.ldy, a.n, a.k, n0, k0, BN, bk, a.y_vec != 0);
       else
@@ -223,11 +272,16 @@ __global__ void __launch_bounds__(MmaShape<BM, BN>::kThreads) elk_matmul_mma_ker
       uint32_t af[S::kMI][4];
 #pragma unroll
       for (int mi = 0; mi < S::kMI; ++mi) {
-        const bf16* p = xs + (wm * S::kWTM + mi * 16 + gid) * ldx + kk + 2 * tig;
-        af[mi][0] = ld32(p);
-        af[mi][1] = ld32(p + 8 * ldx);
-        af[mi][2] = ld32(p + 8);
-        af[mi][3] = ld32(p + 8 * ldx + 8);
+        if (XT) {
+          ldmatrix_x4_trans(af[mi], xs + (kk + (lane & 7) + 8 * (lane >> 4)) * ldx +
+                                        wm * S::kWTM + mi * 16 + 8 * ((lane >> 3) & 1));
+        } else {
+          const bf16* p = xs + (wm * S::kWTM + mi * 16 + gid) * ldx + kk + 2 * tig;
+          af[mi][0] = ld32(p);
+          af[mi][1] = ld32(p + 8 * ldx);
+          af[mi][2] = ld32(p + 8);
+          af[mi][3] = ld32(p + 8 * ldx + 8);
+        }
       }
 #pragma unroll
       for (int ni = 0; ni < S::kNI; ++ni) {
@@ -279,26 +333,27 @@ struct FmaShape {
   static_assert(kCols * kRows == kThreads && kTM * kTN == kPer, "thread tiling");
 };
 
-template <int BM, int BN, bool YT>
+template <int BM, int BN, bool YT, bool XT, bool TWO>
 __global__ void __launch_bounds__(FmaShape<BM, BN>::kThreads) elk_matmul_fma_kernel(Args a) {
   using S = FmaShape<BM, BN>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);
   const int bk = a.bk;
-  const int ldx = bk + 4, ldy = YT ? bk + 4 : BN + 4;
-  const int x_elems = BM * ldx;
-  const int stage = stage_elems<float>(BM, BN, bk, YT);
+  const int ldx = XT ? BM + 4 : bk + 4, ldy = YT ? bk + 4 : BN + 4;
+  const int x_elems = XT ? bk * ldx : BM * ldx;
+  const int stage = stage_elems<float>(BM, BN, bk, YT, XT);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const float* xg = reinterpret_cast<const float*>(a.x);
-  const float* yg = reinterpret_cast<const float*>(a.y);
-  const int nk = (a.k + bk - 1) / bk;
+  const int nk1 = (a.k + bk - 1) / bk;
+  const int nk = (TWO ? 2 : 1) * nk1;
 
   auto load = [&](int kt) {
     if (kt < nk) {
       float* xs = ring + (kt % kStages) * stage;
       float* ys = xs + x_elems;
-      const int k0 = kt * bk;
-      load_tile(xs, ldx, xg, a.lda, a.m, a.k, m0, k0, BM, bk, a.x_vec != 0);
+      const Part pt = part_of<TWO>(a, kt, nk1);
+      const int k0 = pt.k0;
+      const float* yg = reinterpret_cast<const float*>(pt.y);
+      load_x<XT>(xs, ldx, reinterpret_cast<const float*>(pt.x), a, m0, k0, BM);
       if (YT)
         load_tile(ys, ldy, yg, a.ldy, a.n, a.k, n0, k0, BN, bk, a.y_vec != 0);
       else
@@ -326,7 +381,8 @@ __global__ void __launch_bounds__(FmaShape<BM, BN>::kThreads) elk_matmul_fma_ker
     for (int kk = 0; kk < bk; ++kk) {
       float av[S::kTM], bv[S::kTN];
 #pragma unroll
-      for (int i = 0; i < S::kTM; ++i) av[i] = xs[(ty + i * S::kRows) * ldx + kk];
+      for (int i = 0; i < S::kTM; ++i)
+        av[i] = XT ? xs[kk * ldx + ty + i * S::kRows] : xs[(ty + i * S::kRows) * ldx + kk];
 #pragma unroll
       for (int j = 0; j < S::kTN; ++j)
         bv[j] = YT ? ys[(tx + j * S::kCols) * ldy + kk] : ys[kk * ldy + tx + j * S::kCols];
@@ -364,17 +420,17 @@ cudaError_t allow_smem(K kernel, int optin) {
   return err;
 }
 
-template <typename T, int BM, int BN, bool YT>
+template <typename T, int BM, int BN, bool YT, bool XT, bool TWO>
 int launch_tile(const Args& a, cudaStream_t stream) {
-  const size_t smem = (size_t)kStages * stage_elems<T>(BM, BN, a.bk, YT) * sizeof(T);
+  const size_t smem = (size_t)kStages * stage_elems<T>(BM, BN, a.bk, YT, XT) * sizeof(T);
   if (g_smem_optin <= 0 || smem > (size_t)g_smem_optin) return -1;
   const dim3 grid((a.n + BN - 1) / BN, (a.m + BM - 1) / BM);
   if (grid.y > 65535) return -1;
   if constexpr (sizeof(T) == 2)
-    elk_matmul_mma_kernel<BM, BN, YT>
+    elk_matmul_mma_kernel<BM, BN, YT, XT, TWO>
         <<<grid, MmaShape<BM, BN>::kThreads, smem, stream>>>(a);
   else
-    elk_matmul_fma_kernel<BM, BN, YT>
+    elk_matmul_fma_kernel<BM, BN, YT, XT, TWO>
         <<<grid, FmaShape<BM, BN>::kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -384,10 +440,10 @@ int launch_tile(const Args& a, cudaStream_t stream) {
   F(16, 32) F(16, 64) F(16, 128) F(32, 32) F(32, 64) F(32, 128) \
   F(64, 32) F(64, 64) F(64, 128) F(128, 32) F(128, 64) F(128, 128)
 
-template <typename T, bool YT>
+template <typename T, bool YT, bool XT, bool TWO = false>
 int launch(const Args& a, int bm, int bn, cudaStream_t stream) {
 #define ELK_CASE(BM, BN) \
-  if (bm == BM && bn == BN) return launch_tile<T, BM, BN, YT>(a, stream);
+  if (bm == BM && bn == BN) return launch_tile<T, BM, BN, YT, XT, TWO>(a, stream);
   ELK_MATMUL_TILES(ELK_CASE)
 #undef ELK_CASE
   return -1;
@@ -398,8 +454,17 @@ int launch(const Args& a, int bm, int bn, cudaStream_t stream) {
 #define ELK_TMA_TILES(F) F(1, 64) F(1, 128) F(2, 64) F(2, 128) F(2, 256)
 
 template <int WG, int BN>
-int launch_tma(hg::GemmParams& p, bool y_kmajor, int m, int n, int k, int k_per_split,
-               cudaStream_t stream) {
+int launch_tma(hg::GemmParams& p, bool x_trans, bool y_kmajor, bool two, int m, int n, int k,
+               int k_per_split, cudaStream_t stream) {
+  if (x_trans) {  // x^T dy of a weight gradient: dy (k, n) row-major
+    if (y_kmajor || two) return -1;
+    return hg::launch_gemm<hg::GemmCfg<WG, BN, 1, false, true>>(p, m, n, k, k_per_split, stream);
+  }
+  if (two) {  // the MLP's dx = dg w_gate^T + du w_up^T: y K-major
+    if (!y_kmajor) return -1;
+    return hg::launch_gemm<hg::GemmCfg<WG, BN, 1, true, false, false, true>>(p, m, n, k,
+                                                                          k_per_split, stream);
+  }
   if (y_kmajor)
     return hg::launch_gemm<hg::GemmCfg<WG, BN, 1, true>>(p, m, n, k, k_per_split, stream);
   return hg::launch_gemm<hg::GemmCfg<WG, BN, 1, false>>(p, m, n, k, k_per_split, stream);
@@ -409,31 +474,45 @@ int launch_tma(hg::GemmParams& p, bool y_kmajor, int m, int n, int k, int k_per_
 
 extern "C" {
 
-// Launches out = x @ y on the TMA + wgmma mainloop (routes "wgmma" and
-// "splitk") on `stream`; returns cudaGetLastError() (0 = launched) or -1
-// for arguments it does not take.  bf16 only.  x (m, k) row stride lda; y
-// (k, n) row stride ldy (y_trans 0, MN-major) or stored (n, k) row stride
-// ldy (y_trans 1, K-major); every base 16-byte aligned and every stride a
-// multiple of 8 elements.  wg consumer warpgroups (64 wg rows a tile), bn
-// columns, K cut in splits of k_per_split tiles of 64 (at most 8 splits,
-// each tile's a cluster).
-int elk_matmul_tma_launch(const void* x, const void* y, void* out, int m, int n, int k, int lda,
-                          int ldy, int y_trans, int wg, int bn, int k_per_split, void* stream) {
+// Launches out = x @ y [+ x2 @ y2] on the TMA + wgmma mainloop (routes
+// "wgmma" and "splitk") on `stream`; returns cudaGetLastError() (0 =
+// launched) or -1 for arguments it does not take.  bf16 only.  x (m, k) row
+// stride lda (x_trans 0), or stored (k, m) row stride lda and read as its
+// transpose (x_trans 1, MN-major: the x^T dy of a weight gradient, with y
+// MN-major); y (k, n) row stride ldy (y_trans 0, MN-major) or stored (n, k)
+// row stride ldy (y_trans 1, K-major); x2 and y2 (or null) a second part of
+// the same shapes and strides, with x_trans 0 and y_trans 1, summed after
+// the first in one fp32 sum;
+// every base 16-byte aligned and every stride a multiple of 8 elements.  wg
+// consumer warpgroups (64 wg rows a tile), bn columns, the K tiles of both
+// parts cut in splits of k_per_split tiles of 64 (at most 8 splits, each
+// tile's a cluster).
+int elk_matmul_tma_launch(const void* x, const void* y, void* out, const void* x2,
+                          const void* y2, int m, int n, int k, int lda, int ldy, int x_trans,
+                          int y_trans, int wg, int bn, int k_per_split, void* stream) {
   if (m < 1 || n < 1 || k < 1 || k_per_split < 1) return -1;
-  if (lda < k || ldy < (y_trans ? k : n)) return -1;
+  if (lda < (x_trans ? m : k) || ldy < (y_trans ? k : n)) return -1;
   if (!hg::tma_ok(x, lda) || !hg::tma_ok(y, ldy)) return -1;
+  if ((x2 == nullptr) != (y2 == nullptr)) return -1;
+  if (x2 != nullptr && (!hg::tma_ok(x2, lda) || !hg::tma_ok(y2, ldy))) return -1;
   hg::GemmParams p{};
   p.epi.out = out;
   p.epi.bias = nullptr;
   p.epi.ldo = n;
   p.epi.mode = hg::kEpiStore;
   p.epi.act = 0;
-  if (hg::map_a(&p.a, x, m, k, lda, 64 * wg) != 0) return -1;
+  if (hg::map_a(&p.a, x, m, k, lda, 64 * wg, x_trans != 0) != 0) return -1;
   if (hg::map_b(&p.b0, y, n, k, ldy, y_trans != 0, bn) != 0) return -1;
   p.b1 = p.b0;
+  if (x2 != nullptr) {
+    if (hg::map_a(&p.a1, x2, m, k, lda, 64 * wg, x_trans != 0) != 0) return -1;
+    if (hg::map_b(&p.b1, y2, n, k, ldy, y_trans != 0, bn) != 0) return -1;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-#define ELK_TMA_CASE(WG, BN) \
-  if (wg == WG && bn == BN) return launch_tma<WG, BN>(p, y_trans != 0, m, n, k, k_per_split, s);
+#define ELK_TMA_CASE(WG, BN)                                                         \
+  if (wg == WG && bn == BN)                                                          \
+    return launch_tma<WG, BN>(p, x_trans != 0, y_trans != 0, x2 != nullptr, m, n, k, \
+                              k_per_split, s);
   ELK_TMA_TILES(ELK_TMA_CASE)
 #undef ELK_TMA_CASE
   return -1;
@@ -447,40 +526,60 @@ int elk_matmul_prepare(void) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-#define ELK_ALLOW(BM, BN)                                                                    \
-  if (err == cudaSuccess) err = allow_smem(elk_matmul_mma_kernel<BM, BN, false>, optin);     \
-  if (err == cudaSuccess) err = allow_smem(elk_matmul_mma_kernel<BM, BN, true>, optin);      \
-  if (err == cudaSuccess) err = allow_smem(elk_matmul_fma_kernel<BM, BN, false>, optin);     \
-  if (err == cudaSuccess) err = allow_smem(elk_matmul_fma_kernel<BM, BN, true>, optin);
+#define ELK_ALLOW_ONE(K, BM, BN, YT, XT, TWO) \
+  if (err == cudaSuccess) err = allow_smem(K<BM, BN, YT, XT, TWO>, optin);
+#define ELK_ALLOW(BM, BN)                                                \
+  ELK_ALLOW_ONE(elk_matmul_mma_kernel, BM, BN, false, false, false)      \
+  ELK_ALLOW_ONE(elk_matmul_mma_kernel, BM, BN, true, false, false)       \
+  ELK_ALLOW_ONE(elk_matmul_mma_kernel, BM, BN, false, true, false)       \
+  ELK_ALLOW_ONE(elk_matmul_mma_kernel, BM, BN, true, false, true)        \
+  ELK_ALLOW_ONE(elk_matmul_fma_kernel, BM, BN, false, false, false)      \
+  ELK_ALLOW_ONE(elk_matmul_fma_kernel, BM, BN, true, false, false)       \
+  ELK_ALLOW_ONE(elk_matmul_fma_kernel, BM, BN, false, true, false)       \
+  ELK_ALLOW_ONE(elk_matmul_fma_kernel, BM, BN, true, false, true)
   ELK_MATMUL_TILES(ELK_ALLOW)
 #undef ELK_ALLOW
+#undef ELK_ALLOW_ONE
   if (err == cudaSuccess) g_smem_optin = optin;
   return (int)err;
 }
 
-// Launches out = x @ y on `stream`; returns cudaGetLastError() (0 = launched)
-// or -1 for arguments it does not take.  dtype 1: bf16 (tensor cores), 0:
-// fp32 (FMA); x, y and out of that type.  x (m, k) with row stride lda >= k;
-// y_trans 0: y (k, n) with row stride ldy >= n; y_trans 1: y stored as
-// (n, k) with row stride ldy >= k.  out (m, n) contiguous.  (bm, bn) one of
-// the compiled tiles, bk a positive multiple of 16, and the ring within the
-// opt-in shared memory (elk_matmul_prepare first).
-int elk_matmul_launch(const void* x, const void* y, void* out, int m, int n, int k, int lda,
-                      int ldy, int y_trans, int dtype, int bm, int bn, int bk, void* stream) {
+// Launches out = x @ y [+ x2 @ y2] on `stream`; returns cudaGetLastError()
+// (0 = launched) or -1 for arguments it does not take.  dtype 1: bf16
+// (tensor cores), 0: fp32 (FMA); x, y and out of that type.  x_trans 0: x
+// (m, k) with row stride lda >= k; x_trans 1: x stored as (k, m) with row
+// stride lda >= m, read as its transpose (with y_trans 0 only); y_trans 0: y
+// (k, n) with row stride ldy >= n; y_trans 1: y stored as (n, k) with row
+// stride ldy >= k.  x2, y2: null, or a second part of the same shapes and
+// strides whose product is summed after the first (x_trans 0, y_trans 1
+// only).  out (m, n) contiguous.
+// (bm, bn) one of the compiled tiles, bk a positive multiple of 16, and the
+// ring within the opt-in shared memory (elk_matmul_prepare first).
+int elk_matmul_launch(const void* x, const void* y, void* out, const void* x2, const void* y2,
+                      int m, int n, int k, int lda, int ldy, int x_trans, int y_trans, int dtype,
+                      int bm, int bn, int bk, void* stream) {
   if (m < 1 || n < 1 || k < 1 || bk < 16 || bk % 16 != 0) return -1;
-  if (lda < k || ldy < (y_trans ? k : n) || (dtype != 0 && dtype != 1)) return -1;
+  if (lda < (x_trans ? m : k) || ldy < (y_trans ? k : n) || (dtype != 0 && dtype != 1)) return -1;
+  if ((x2 == nullptr) != (y2 == nullptr) || (x_trans && y_trans)) return -1;
+  if (x2 != nullptr && (x_trans || !y_trans)) return -1;
   const int v = dtype == 1 ? 8 : 4;  // elements of 16 bytes
-  const bool x_aligned = (uintptr_t)x % 16 == 0, y_aligned = (uintptr_t)y % 16 == 0;
+  auto aligned = [](const void* p) { return p == nullptr || (uintptr_t)p % 16 == 0; };
   Args a;
-  a.x = x; a.y = y; a.out = out;
+  a.x = x; a.y = y; a.x2 = x2; a.y2 = y2; a.out = out;
   a.m = m; a.n = n; a.k = k; a.lda = lda; a.ldy = ldy;
   a.bk = bk;
-  a.x_vec = x_aligned && lda % v == 0 && k % v == 0;
-  a.y_vec = y_aligned && ldy % v == 0 && (y_trans ? k : n) % v == 0;
+  a.x_vec = aligned(x) && aligned(x2) && lda % v == 0 && (x_trans ? m : k) % v == 0;
+  a.y_vec = aligned(y) && aligned(y2) && ldy % v == 0 && (y_trans ? k : n) % v == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 1)
-    return y_trans ? launch<bf16, true>(a, bm, bn, s) : launch<bf16, false>(a, bm, bn, s);
-  return y_trans ? launch<float, true>(a, bm, bn, s) : launch<float, false>(a, bm, bn, s);
+  if (x2 != nullptr)
+    return dtype == 1 ? launch<bf16, true, false, true>(a, bm, bn, s)
+                      : launch<float, true, false, true>(a, bm, bn, s);
+  if (dtype == 1) {
+    if (x_trans) return launch<bf16, false, true>(a, bm, bn, s);
+    return y_trans ? launch<bf16, true, false>(a, bm, bn, s) : launch<bf16, false, false>(a, bm, bn, s);
+  }
+  if (x_trans) return launch<float, false, true>(a, bm, bn, s);
+  return y_trans ? launch<float, true, false>(a, bm, bn, s) : launch<float, false, false>(a, bm, bn, s);
 }
 
 // The name of a CUDA error a launch function returned.

@@ -81,6 +81,9 @@
 //     scans the row's tags (sixteen loads in flight a thread) and lists the
 //     tiles that hold a key live for some query of the block, and reads only
 //     those.
+// Training asks every route for each row's log-sum-exp (Args::lse), which
+// the backward (flash_attention_bwd.cu) recomputes P from; without the
+// buffer nothing else changes.
 // Where it stands (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W; PERF.md):
 // a block's time goes to its prologue, the softmax between the two products
 // and, split, the cluster merge, not to the tensor cores; the lock-step
@@ -134,12 +137,23 @@ struct Args {
   const int* q_pos;     // (B, Sq) or null: contiguous positions
   const int* k_pos;     // (B, Sk), with q_pos
   void* out;            // (B, Hq, Sq, D) in q's type at strides o_sb, o_sh, o_ss
+  float* lse;           // (B, Hq, Sq) fp32 or null: each row's log-sum-exp (training)
   long long q_sb, q_sh, q_ss, o_sb, o_sh, o_ss;
   int b, hq, hkv, sq, sk, d, g;
   int qp_stride, kp_stride;  // batch strides of q_pos / k_pos (0: one row for all)
   int causal, window;
   float scale_log2;     // scale * log2(e)
 };
+
+// Row (b, h, i)'s natural log-sum-exp of the scaled scores, from its base-2
+// running max m and sum l: +inf for a row with no live key, so that the
+// backward's exp(s - lse) is 0 there (flash_attention_bwd.cu).  Only where
+// the caller asked for it (a.lse not null).
+__device__ __forceinline__ void store_lse(const Args& a, int b, int h, int i, float m, float l) {
+  if (a.lse == nullptr) return;
+  a.lse[((long long)b * a.hq + h) * a.sq + i] =
+      m == -INFINITY ? INFINITY : (m + log2f(fmaxf(l, 1e-30f))) * 0.6931471805599453f;
+}
 
 __device__ __forceinline__ bool live(const Args& a, int kp, int qp) {
   return (!a.causal || kp <= qp) && (a.window <= 0 || kp > qp - a.window);
@@ -790,6 +804,7 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
         const int row = r0 + warp * 16 + gid + 8 * hh;
         if (row < rows_total) {
           const int tq = row / G, g = row - tq * G;
+          if (tig == 0) store_lse(a, b, hk * G + g, tq, m_run[hh], l_row[hh]);
           const float inv = 1.0f / fmaxf(l_row[hh], 1e-30f);
           bf16* dst = reinterpret_cast<bf16*>(a.out) + b * a.o_sb +
                       (long long)(hk * G + g) * a.o_sh + (long long)tq * a.o_ss + 2 * tig;
@@ -851,6 +866,10 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
         }
       }
       inv[tid] = 1.0f / fmaxf(l, 1e-30f);
+      if (r0 + r < rows_total) {
+        const int tq = (r0 + r) / G;
+        store_lse(a, b, hk * G + (r0 + r - tq * G), tq, mmax, l);
+      }
     }
     __syncthreads();
     // four columns a thread: the splits' sums in rank order
@@ -1062,6 +1081,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_attention_mma_kernel(Args a
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float inv = 1.0f / fmaxf(l, 1e-30f);
     const int i = q0 + r_lo + 8 * hh;
+    if (i < a.sq && tig == 0) store_lse(a, b, h, i, m_run[hh], l);
     if (i < a.sq) {
 #pragma unroll
       for (int n = 0; n < ND; ++n) {
@@ -1254,6 +1274,8 @@ __global__ void __launch_bounds__(kFmaThreads) flash_attention_fma_kernel(Args a
   __syncthreads();  // l_s, even when no tile was read
 
   float* og = reinterpret_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh;
+  for (int r = tid; r < BQ; r += kFmaThreads)
+    if (q0 + r < a.sq) store_lse(a, b, h, q0 + r, m_s[r], l_s[r]);
   for (int i = tid; i < BQ * D; i += kFmaThreads) {
     const int r = i / D, dd = i % D;
     if (q0 + r < a.sq) og[(q0 + r) * a.o_ss + dd] = o_s[i] / fmaxf(l_s[r], 1e-30f);
@@ -1373,10 +1395,11 @@ int flash_attention_prepare(void) {
 // against any Sk (a cross-attention: keys past Sk and rows past Sq are masked
 // by index, which is all the mask there is); else q_pos (B, Sq) and k_pos (B, Sk) int32
 // with batch strides qp_stride / kp_stride.  Pointers 16-byte aligned; on the
-// bf16 routes q's strides are multiples of 8 elements.
+// bf16 routes q's strides are multiples of 8 elements.  lse: null, or (B, Hq,
+// Sq) fp32 contiguous, where every route writes each row's log-sum-exp.
 int flash_attention_launch(const void* q, const void* k, const void* v, const void* k_scale,
                            const void* v_scale, const int* q_pos, const int* k_pos, void* out,
-                           int b, int hq, int hkv, int sq, int sk,
+                           float* lse, int b, int hq, int hkv, int sq, int sk,
                            int d, long long q_sb, long long q_sh, long long q_ss, long long o_sb,
                            long long o_sh, long long o_ss, int qp_stride, int kp_stride,
                            int causal, int window, float scale, int q_dtype, int kv_dtype,
@@ -1389,7 +1412,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v, const vo
   const bool q8 = kv_dtype == 2;
   if (q8 != (k_scale != nullptr && v_scale != nullptr)) return -1;
   Args a;
-  a.q = q; a.k = k; a.v = v; a.q_pos = q_pos; a.k_pos = k_pos; a.out = out;
+  a.q = q; a.k = k; a.v = v; a.q_pos = q_pos; a.k_pos = k_pos; a.out = out; a.lse = lse;
   a.k_scale = static_cast<const bf16*>(k_scale);
   a.v_scale = static_cast<const bf16*>(v_scale);
   a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss; a.o_sb = o_sb; a.o_sh = o_sh; a.o_ss = o_ss;

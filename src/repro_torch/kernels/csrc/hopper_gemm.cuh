@@ -9,7 +9,13 @@
 //   out (m, n) = epilogue( a (m, K) @ b_j (K, n) ),  j < NB (1, or 2 for a
 //   gate and an up product that share the a tile)
 //
-// a is x, row-major with a row stride of its own.  b is taken as stored:
+// a is x, row-major with a row stride of its own, or (A_MNMAJOR) read as
+// the transpose of a stored (K, m) matrix: a weight gradient's x^T dy, the
+// box over the stored layout landing as the MN-major tile wgmma reads with
+// its transpose bit for A.  A two-part sum (TWO, compiled apart so that the
+// one-part instances keep no test of it) walks a second (a1, b1) pair after
+// the first's K tiles, in the same accumulator: the MLP's dx = dg w_gate^T +
+// du w_up^T.  b is taken as stored:
 // MN-major, a (K, n) row-major weight (every weight of the models here), or
 // K-major, the transpose of an (n, K) row-major tensor (embed.t() of a tied
 // LM head).  The wgmma descriptor's transpose bit says which; get it wrong
@@ -124,7 +130,10 @@ constexpr int stages_for(int wg, int bn, int nb) {
 }
 
 enum : int { kActSilu = 0, kActGelu = 1, kActRelu = 2 };
-enum : int { kEpiStore = 0, kEpiAct = 1, kEpiGated = 2 };
+// kEpiPre and kEpiDeriv are the MLP backward's (fused_mlp_bwd.cu): the
+// pre-activations in fp32, and the derivative of the activation applied to
+// dh = dy w_down^T
+enum : int { kEpiStore = 0, kEpiAct = 1, kEpiGated = 2, kEpiPre = 3, kEpiDeriv = 4 };
 
 __device__ __forceinline__ float apply_act(float v, int act) {
   if (act == kActSilu) return v / (1.0f + expf(-v));
@@ -133,6 +142,20 @@ __device__ __forceinline__ float apply_act(float v, int act) {
     return 0.5f * v * (1.0f + tanhf(c * (v + 0.044715f * v * v * v)));
   }
   return fmaxf(v, 0.0f);
+}
+
+// d act / d v at v, of the same three activations.
+__device__ __forceinline__ float act_grad(float v, int act) {
+  if (act == kActSilu) {
+    const float sg = 1.0f / (1.0f + expf(-v));
+    return sg * (1.0f + v * (1.0f - sg));
+  }
+  if (act == kActGelu) {
+    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+    const float t = tanhf(c * (v + 0.044715f * v * v * v));
+    return 0.5f * (1.0f + t) + 0.5f * v * (1.0f - t * t) * c * (1.0f + 3.0f * 0.044715f * v * v);
+  }
+  return v > 0.0f ? 1.0f : 0.0f;
 }
 
 // The attention kernels' int8 KV ring: element i (0-3) of four int8 values in
@@ -256,8 +279,10 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
 }
 
 // d (64 x 64, fp32, the accumulator layout of wgmma) += A (64 x 16) B (16 x 64),
-// both bf16 in shared memory, by descriptor; TRANS_B 1 takes B MN-major.
-template <int TRANS_B>
+// both bf16 in shared memory, by descriptor; TRANS_B 1 takes B MN-major,
+// TRANS_A 1 takes A MN-major (rows K, M contiguous: the transpose of a stored
+// (K, M) matrix, x^T of a weight gradient).
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -266,18 +291,20 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t desc_a, ui
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // d (64 x 128, fp32, the accumulator layout of wgmma) += A (64 x 16) B (16 x 128),
-// both bf16 in shared memory, by descriptor; TRANS_B 1 takes B MN-major.
-template <int TRANS_B>
+// both bf16 in shared memory, by descriptor; TRANS_B 1 takes B MN-major,
+// TRANS_A 1 takes A MN-major (rows K, M contiguous: the transpose of a stored
+// (K, M) matrix, x^T of a weight gradient).
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -288,7 +315,7 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t desc_a, u
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, %67;\n"
+      "}, %64, %65, p, 1, 1, %68, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -298,12 +325,14 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t desc_a, u
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // d (64 x 256, fp32, the accumulator layout of wgmma) += A (64 x 16) B (16 x 256),
-// both bf16 in shared memory, by descriptor; TRANS_B 1 takes B MN-major.
-template <int TRANS_B>
+// both bf16 in shared memory, by descriptor; TRANS_B 1 takes B MN-major,
+// TRANS_A 1 takes A MN-major (rows K, M contiguous: the transpose of a stored
+// (K, M) matrix, x^T of a weight gradient).
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
   asm volatile(
       "{\n"
@@ -318,7 +347,7 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t desc_a, 
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, %131;\n"
+      "}, %128, %129, p, 1, 1, %132, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -336,14 +365,14 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t desc_a, 
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
 }
 
-template <int BN, int TRANS_B>
+template <int BN, int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t desc_a, uint64_t desc_b) {
-  if constexpr (BN == 64) wgmma_m64n64<TRANS_B>(d, desc_a, desc_b);
-  else if constexpr (BN == 128) wgmma_m64n128<TRANS_B>(d, desc_a, desc_b);
-  else wgmma_m64n256<TRANS_B>(d, desc_a, desc_b);
+  if constexpr (BN == 64) wgmma_m64n64<TRANS_B, TRANS_A>(d, desc_a, desc_b);
+  else if constexpr (BN == 128) wgmma_m64n128<TRANS_B, TRANS_A>(d, desc_a, desc_b);
+  else wgmma_m64n256<TRANS_B, TRANS_A>(d, desc_a, desc_b);
 }
 
 // ---------------------------------------------------------------------------
@@ -351,11 +380,15 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t desc_a, 
 // ---------------------------------------------------------------------------
 
 // WG consumer warpgroups (BM = 64 WG rows), BN columns, NB b operands, b
-// K-major or MN-major.
-template <int WG_, int BN_, int NB_, bool B_KMAJOR_>
+// K-major or MN-major; a K-major (x) or MN-major (A_MNMAJOR: x stored as
+// (K, m), read as its transpose: the x^T dy of a weight gradient, whose K is
+// the tokens); BWD compiles the MLP backward's epilogues (kEpiPre, kEpiDeriv)
+// and only those; TWO a second (a1, b1) part after the first's K tiles.
+template <int WG_, int BN_, int NB_, bool B_KMAJOR_, bool A_MNMAJOR_ = false, bool BWD_ = false,
+          bool TWO_ = false>
 struct GemmCfg {
   static constexpr int WG = WG_, BM = 64 * WG_, BN = BN_, NB = NB_;
-  static constexpr bool B_KMAJOR = B_KMAJOR_;
+  static constexpr bool B_KMAJOR = B_KMAJOR_, A_MNMAJOR = A_MNMAJOR_, BWD = BWD_, TWO = TWO_;
   static constexpr int THREADS = 128 * (WG + 1);
   static constexpr int MIN_BLOCKS = WG == 1 ? 2 : 1;
   static constexpr int A_BYTES = BM * kBK * 2;
@@ -376,25 +409,64 @@ struct EpiArgs {
   int ldo;
   int mode;             // kEpiStore: a [+ bias]; kEpiAct: act(a [+ bias]); kEpiGated: act(a) * a2
   int act;
+  // kEpiPre: out = a [+ bias] and out2 = a2, fp32.  kEpiDeriv, a = dh: with
+  // pre_g (gated) dg = dh u act'(g) -> out, du = dh act(g) -> out2, h =
+  // act(g) u -> out3; without, du = dh act'(u) -> out2, h = act(u) -> out3;
+  // g, u the fp32 pre-activations, the outputs bf16
+  void* out2;
+  void* out3;
+  const float* pre_g;
+  const float* pre_u;
 };
 
 struct GemmParams {
-  CUtensorMap a, b0, b1;  // b1 only with two b operands
+  CUtensorMap a, b0, b1;  // b1 only with two b operands, or a second part
+  CUtensorMap a1;       // GemmCfg::TWO: the second part's a (b1 its b)
+  int k_tiles0;         // TWO: K tiles of a part; else 0
   int m, n;
-  int k_tiles;          // ceil(K / kBK)
+  int k_tiles;          // ceil(K / kBK), twice that with two parts
   int k_per_split;      // K tiles of one split (blockIdx.y, its rank in the cluster)
   int splits;           // blocks of a cluster; 1: no cluster
   int m_tiles, n_tiles, group_m;
   EpiArgs epi;
 };
 
+// The MLP backward's epilogues (kEpiPre, kEpiDeriv) of one element.
+__device__ __forceinline__ void store_bwd(const EpiArgs& e, int row, int col, float a, float g) {
+  const size_t i = (size_t)row * e.ldo + col;
+  if (e.mode == kEpiPre) {
+    if (e.bias != nullptr) a += __bfloat162float(e.bias[col]);
+    reinterpret_cast<float*>(e.out)[i] = a;
+    if (e.out2 != nullptr) reinterpret_cast<float*>(e.out2)[i] = g;
+    return;
+  }
+  const float u = e.pre_u[i];
+  if (e.pre_g != nullptr) {
+    const float gp = e.pre_g[i];
+    const float ag = apply_act(gp, e.act);
+    reinterpret_cast<bf16*>(e.out)[i] = __float2bfloat16(a * u * act_grad(gp, e.act));
+    reinterpret_cast<bf16*>(e.out2)[i] = __float2bfloat16(a * ag);
+    reinterpret_cast<bf16*>(e.out3)[i] = __float2bfloat16(ag * u);
+  } else {
+    reinterpret_cast<bf16*>(e.out2)[i] = __float2bfloat16(a * act_grad(u, e.act));
+    reinterpret_cast<bf16*>(e.out3)[i] = __float2bfloat16(apply_act(u, e.act));
+  }
+}
+
 // Stores the pair (row, col), (row, col + 1) of the output: a0, a1 [+ bias],
-// through the activation or the gate (g0, g1 the second operand's sums).
+// through the activation or the gate (g0, g1 the second operand's sums); BWD:
+// through the MLP backward's epilogue.
+template <bool BWD>
 __device__ __forceinline__ void store_pair(const GemmParams& p, int row, int col, float a0,
                                            float a1, float g0, float g1) {
   if (row >= p.m || col >= p.n) return;
   const bool two = col + 1 < p.n;
   const EpiArgs& e = p.epi;
+  if constexpr (BWD) {
+    store_bwd(e, row, col, a0, g0);
+    if (two) store_bwd(e, row, col + 1, a1, g1);
+    return;
+  }
   float v0 = a0, v1 = a1;
   if (e.bias != nullptr) {
     v0 += __bfloat162float(e.bias[col]);
@@ -488,11 +560,20 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
         mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
         unsigned char* st = smem + s * C::STAGE_BYTES;
         mbar_expect_tx(&full[s], C::STAGE_BYTES);
-        const int k0 = (kt0 + i) * kBK;
-        tma_load_2d(st, &p.a, &full[s], k0, m0);
+        // the second part of a two-part sum reads (a1, b1) from its K tile 0
+        const bool second = C::TWO && kt0 + i >= p.k_tiles0;
+        const int k0 = (kt0 + i - (second ? p.k_tiles0 : 0)) * kBK;
+        const CUtensorMap* amap = second ? &p.a1 : &p.a;
+        if constexpr (C::A_MNMAJOR) {
+#pragma unroll
+          for (int c = 0; c < C::WG; ++c)
+            tma_load_2d(st + c * 64 * 128, amap, &full[s], m0 + 64 * c, k0);
+        } else {
+          tma_load_2d(st, amap, &full[s], k0, m0);
+        }
 #pragma unroll
         for (int j = 0; j < C::NB; ++j) {
-          const CUtensorMap* map = j == 0 ? &p.b0 : &p.b1;
+          const CUtensorMap* map = j == 0 && !second ? &p.b0 : &p.b1;
           unsigned char* dst = st + C::A_BYTES + j * C::B_BYTES;
           if constexpr (C::B_KMAJOR) {
             tma_load_2d(dst, map, &full[s], k0, n0);
@@ -526,13 +607,15 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        const uint64_t da = desc_sw128(a_base + kk * 32, 16, 1024);
+        // an MN-major a: rows of K, this warpgroup's 64 m a row (one box)
+        const uint64_t da = C::A_MNMAJOR ? desc_sw128(a_base + kk * 16 * 128, 64 * 128, 1024)
+                                         : desc_sw128(a_base + kk * 32, 16, 1024);
 #pragma unroll
         for (int j = 0; j < C::NB; ++j) {
           const uint32_t bb = b_base + j * C::B_BYTES;
           const uint64_t db = C::B_KMAJOR ? desc_sw128(bb + kk * 32, 16, 1024)
                                           : desc_sw128(bb + kk * 16 * 128, 64 * 128, 1024);
-          wgmma_tile<C::BN, C::B_KMAJOR ? 0 : 1>(acc[j], da, db);
+          wgmma_tile<C::BN, C::B_KMAJOR ? 0 : 1, C::A_MNMAJOR ? 1 : 0>(acc[j], da, db);
         }
       }
       wgmma_commit();
@@ -557,7 +640,7 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
           const int r = 4 * c + 2 * h;
           const float g0 = C::NB == 2 ? acc[C::NB - 1][r] : 0.0f;
           const float g1 = C::NB == 2 ? acc[C::NB - 1][r + 1] : 0.0f;
-          store_pair(p, row0 + 8 * h, col0 + 8 * c, acc[0][r], acc[0][r + 1], g0, g1);
+          store_pair<C::BWD>(p, row0 + 8 * h, col0 + 8 * c, acc[0][r], acc[0][r + 1], g0, g1);
         }
       }
     } else {
@@ -721,9 +804,11 @@ inline int tensor_map_3d(CUtensorMap* out, const void* ptr, int elem, long long 
   return 0;
 }
 
-// a: (m, k) row stride lda, boxes of 64 K x BM rows.
-inline int map_a(CUtensorMap* out, const void* a, int m, int k, int lda, int bm) {
-  return tensor_map(out, a, k, m, lda, kBK, bm);
+// a: (m, k) row stride lda, boxes of 64 K x BM rows; MN-major (mn_major):
+// stored (k, m) row stride lda, boxes of 64 m x 64 K rows (one a warpgroup).
+inline int map_a(CUtensorMap* out, const void* a, int m, int k, int lda, int bm,
+                 bool mn_major = false) {
+  return mn_major ? tensor_map(out, a, m, k, lda, 64, kBK) : tensor_map(out, a, k, m, lda, kBK, bm);
 }
 
 // b MN-major: (k, n) row stride ldb, boxes of 64 columns x 64 K rows;
@@ -740,7 +825,9 @@ constexpr int kMaxSplits = 8;
 
 // Launches gemm_kernel<C> over every output tile and `splits` splits of K
 // (k_per_split K tiles each; the last may hold fewer, none is empty), the
-// splits of a tile as one cluster.  p.a, p.b0 (and p.b1) must be set.
+// splits of a tile as one cluster.  p.a, p.b0 (and p.b1) must be set; with
+// C::TWO also p.a1 and p.b1, a second (m, k) x (k, n) product summed after
+// the first (k the depth of one part, k_per_split counted over both).
 // Returns 0, a CUDA error, or -1 for what it does not take.
 template <class C>
 int launch_gemm(GemmParams& p, int m, int n, int k, int k_per_split, cudaStream_t stream) {
@@ -756,7 +843,8 @@ int launch_gemm(GemmParams& p, int m, int n, int k, int k_per_split, cudaStream_
   }
   p.m = m;
   p.n = n;
-  p.k_tiles = (k + kBK - 1) / kBK;
+  p.k_tiles0 = C::TWO ? (k + kBK - 1) / kBK : 0;
+  p.k_tiles = (C::TWO ? 2 : 1) * ((k + kBK - 1) / kBK);
   p.k_per_split = k_per_split;
   p.splits = (p.k_tiles + k_per_split - 1) / k_per_split;
   p.m_tiles = (m + C::BM - 1) / C::BM;

@@ -15,8 +15,19 @@ device is an error here (``ops.matmul`` routes CPU tensors to
 ``ref.matmul_ref``).
 
 ``elk_matmul_kernel.launches`` counts the launches, one per call that
-reaches the card, and ``elk_matmul_kernel.by_route`` the same calls by
-route, so that a run can show which kernels it went through.
+reaches the card, ``elk_matmul_kernel.by_route`` the same calls by
+route, and ``elk_matmul_kernel.by_operand`` by how x is read ("x", or
+"x_trans": the transposed view of a stored matrix, the x^T dy of a weight
+gradient), so that a run can show which kernels it went through.
+
+The training side adds two operands the kernel reads in place: ``x`` given
+as the transpose of a stored (k, m) matrix (the activations of a weight
+gradient x^T dy, contracted over the tokens, with no transposed copy:
+TMA's box over the stored layout and wgmma's MN-major A, ldmatrix.trans on
+mma_sync, the stored tile on the FMA route), and a second pair ``x2, y2``
+whose product is summed after the first in the same fp32 accumulator (the
+MLP's dx = dg w_gate^T + du w_up^T, one sum in a fixed order; x as stored,
+y transposed, an instance of its own on every route).
 """
 
 from __future__ import annotations
@@ -27,21 +38,23 @@ from typing import Optional
 
 import torch
 
-from repro_torch.chip.h100 import TILE_M, TILE_N, SmemPlan, smem_plan
+from repro_torch.chip.h100 import (ROW_PAD_BYTES, SMEM_PER_BLOCK, STAGES,
+                                   TILE_M, TILE_N, SmemPlan, smem_plan)
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PREPARED: set = set()    # device indices whose kernel attributes are set
 ROUTES = ("wgmma", "splitk", "mma_sync")
+OPERANDS = ("x", "x_trans")
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("elk_matmul")
     if lib.elk_matmul_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.elk_matmul_launch.argtypes = [ptr] * 3 + [i32] * 10 + [ptr]
+        lib.elk_matmul_launch.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
         lib.elk_matmul_launch.restype = i32
-        lib.elk_matmul_tma_launch.argtypes = [ptr] * 3 + [i32] * 9 + [ptr]
+        lib.elk_matmul_tma_launch.argtypes = [ptr] * 5 + [i32] * 10 + [ptr]
         lib.elk_matmul_tma_launch.restype = i32
         lib.elk_matmul_error_name.argtypes = [i32]
         lib.elk_matmul_error_name.restype = ctypes.c_char_p
@@ -84,13 +97,23 @@ def route_of(x: torch.Tensor, y: torch.Tensor) -> str:
     return plan_for(m, n, k, x.dtype, tma_legal(x, y, lda, ldy)).route
 
 
+def x_trans_of(x: torch.Tensor) -> bool:
+    """Whether ``x`` (m, k) is read as the transpose of a stored (k, m)
+    matrix (unit row stride, its column stride the stored row's), rather
+    than by rows: an x whose rows are contiguous is read by rows."""
+    m, k = x.shape
+    return k > 1 and x.stride(1) != 1 and (m == 1 or x.stride(0) == 1)
+
+
 def layout(x: torch.Tensor, y: torch.Tensor
            ) -> tuple[int, int, int, int, int, int]:
     """(m, n, k, lda, ldy, y_trans) of ``x @ y`` as the kernel takes it, or
     raises.  ``x`` (m, k) with unit column stride (a row stride of its own,
-    as ``x[:, -1, :]`` of a prefill has); ``y`` (k, n) row-major, or the
-    transposed view of an (n, k) row-major tensor (``embed.t()`` of a tied
-    embedding, ``y_trans`` 1); no other stride."""
+    as ``x[:, -1, :]`` of a prefill has; ``lda`` that stride), or the
+    transposed view of a stored (k, m) matrix (``x_trans_of``; ``lda`` the
+    stored row stride, y then (k, n) row-major); ``y`` (k, n) row-major, or
+    the transposed view of an (n, k) row-major tensor (``embed.t()`` of a
+    tied embedding, ``y_trans`` 1); no other stride."""
     xs, ys = x.shape, y.shape
     if len(xs) != 2 or len(ys) != 2:
         raise ValueError(f"x must be (m, k) and y (k, n), got "
@@ -99,10 +122,13 @@ def layout(x: torch.Tensor, y: torch.Tensor
     if k != k2:
         raise ValueError(f"x {tuple(xs)} and y {tuple(ys)} do not chain")
     (sx0, sx1), (sy0, sy1) = x.stride(), y.stride()
-    if k > 1 and sx1 != 1:
+    if x_trans_of(x):
+        lda = sx1
+    elif k > 1 and sx1 != 1:
         raise ValueError(f"x's rows are not contiguous (strides "
                          f"{(sx0, sx1)})")
-    lda = sx0 if m > 1 else k
+    else:
+        lda = sx0 if m > 1 else k
     # the stride of a dimension of size 1 does not matter, as for
     # is_contiguous (a call here costs a view for the transposed case)
     if (n == 1 or sy1 == 1) and (k == 1 or sy0 == n):
@@ -114,14 +140,32 @@ def layout(x: torch.Tensor, y: torch.Tensor
                      "(n, k) row-major tensor")
 
 
-def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor, *,
+def _xt_bk(bm: int, bn: int, bk: int, esize: int) -> int:
+    """bk of an mma_sync / FMA plan for a transposed x: the x tile is
+    stored (bk, bm) there, which can take more shared memory than the
+    plan's (bm, bk); halve bk (not below 32) until the ring fits."""
+    pad = ROW_PAD_BYTES // esize
+    while bk > 32 and STAGES * (bk * (bm + pad) + bk * (bn + pad)) * esize \
+            > SMEM_PER_BLOCK:
+        bk //= 2
+    return bk
+
+
+def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor,
+                      x2: Optional[torch.Tensor] = None,
+                      y2: Optional[torch.Tensor] = None, *,
                       bm: Optional[int] = None, bn: Optional[int] = None,
                       bk: Optional[int] = None) -> torch.Tensor:
-    """(m, k) @ (k, n) -> (m, n) on the card, fp32 sum, output in x's type.
+    """(m, k) @ (k, n) [+ x2 @ y2] -> (m, n) on the card, fp32 sum, output
+    in x's type.
 
-    fp32 or bf16, both of one type, on one CUDA device; strides as
-    ``layout`` says.  With no block shape given the route and its plan come
-    from ``plan_for``.  A block shape given, or any part of it, is one of
+    fp32 or bf16, all of one type, on one CUDA device; strides as
+    ``layout`` says (a transposed x takes a row-major y).  ``x2``/``y2``:
+    a second product of the same shapes and strides, x as stored and y
+    transposed, summed after the first in the same accumulator (its K
+    tiles after x's).  With no block
+    shape given the route and its plan come from ``plan_for`` (over the K
+    of both parts).  A block shape given, or any part of it, is one of
     the mma_sync kernel's and runs it (the rest from its plan): ``bm`` in
     ``TILE_M``, ``bn`` in ``TILE_N``, ``bk`` a multiple of 16."""
     if not x.is_cuda:
@@ -136,13 +180,30 @@ def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor, *,
     if y.get_device() != dev:
         raise ValueError(f"y on {y.device}, x on {x.device}")
     m, n, k, lda, ldy, y_trans = layout(x, y)
+    x_trans = int(x_trans_of(x))
+    if x_trans and y_trans:
+        raise ValueError("a transposed x takes a (k, n) row-major y")
+    parts = 1
+    if (x2 is None) != (y2 is None):
+        raise ValueError("x2 and y2 come both or not at all")
+    if x2 is not None:
+        for name, t, like in (("x2", x2, x), ("y2", y2, y)):
+            if (t.shape != like.shape or t.stride() != like.stride()
+                    or t.dtype != like.dtype or t.device != like.device):
+                raise ValueError(f"{name} must have the shape, strides, "
+                                 f"type and device of {name[0]}")
+        if x_trans or not y_trans:
+            raise ValueError("a second part takes x as stored and y "
+                             "transposed (dg w_gate^T + du w_up^T)")
+        parts = 2
     if m == 0 or n == 0 or k == 0:
         return torch.zeros((m, n), dtype=x.dtype, device=x.device)
-    if max(m, n, k, lda, ldy) >= 2 ** 31:
+    if max(m, n, parts * k, lda, ldy) >= 2 ** 31:
         raise ValueError("a dimension exceeds the kernel's 32-bit indices")
     forced = not (bm is None and bn is None and bk is None)
-    plan = plan_for(m, n, k, x.dtype,
-                    not forced and tma_legal(x, y, lda, ldy))
+    legal = tma_legal(x, y, lda, ldy) and (
+        x2 is None or tma_legal(x2, y2, lda, ldy))
+    plan = plan_for(m, n, parts * k, x.dtype, not forced and legal)
     route = plan.route
     if forced:
         bm, bn, bk = bm or plan.bm, bn or plan.bn, bk or plan.bk
@@ -152,19 +213,24 @@ def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor, *,
                              f"{TILE_N}, bk a multiple of 16")
     else:
         bm, bn, bk = plan.bm, plan.bn, plan.bk
+    if x_trans and route == "mma_sync":
+        bk = _xt_bk(bm, bn, bk, x.element_size())
 
     lib = _lib()
     out = x.new_empty((m, n))
     stream = torch._C._cuda_getCurrentRawStream(dev)
+    ptr2 = (None, None) if x2 is None else (x2.data_ptr(), y2.data_ptr())
     if route == "mma_sync":
         _prepare(lib, x.device)
         launch = lib.elk_matmul_launch
-        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, lda, ldy,
-                y_trans, _DTYPES[x.dtype], bm, bn, bk, stream)
+        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), *ptr2, m, n, k,
+                lda, ldy, x_trans, y_trans, _DTYPES[x.dtype], bm, bn, bk,
+                stream)
     else:
         launch = lib.elk_matmul_tma_launch
-        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k, lda,
-                ldy, y_trans, bm // 64, bn, plan.k_per_split, stream)
+        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), *ptr2, m, n, k,
+                lda, ldy, x_trans, y_trans, bm // 64, bn, plan.k_per_split,
+                stream)
     # the runtime launches on the calling thread's device; enter x's only
     # when it is another
     if dev == torch.cuda.current_device():
@@ -174,14 +240,17 @@ def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor, *,
             err = launch(*args)
     elk_matmul_kernel.launches += 1
     elk_matmul_kernel.by_route[route] += 1
+    elk_matmul_kernel.by_operand[OPERANDS[x_trans]] += 1
     if err != 0:
         raise RuntimeError(f"elk_matmul launch failed: CUDA error {err} "
                            f"({lib.elk_matmul_error_name(err).decode()}; "
                            f"route {route}, m={m}, n={n}, k={k}, lda={lda}, "
-                           f"ldy={ldy}, y_trans={y_trans}, {x.dtype}, block "
-                           f"({bm}, {bn}, {bk}), splits {plan.splits})")
+                           f"ldy={ldy}, x_trans={x_trans}, y_trans={y_trans}, "
+                           f"parts {parts}, {x.dtype}, block ({bm}, {bn}, "
+                           f"{bk}), splits {plan.splits})")
     return out
 
 
 elk_matmul_kernel.launches = 0
 elk_matmul_kernel.by_route = dict.fromkeys(ROUTES, 0)
+elk_matmul_kernel.by_operand = dict.fromkeys(OPERANDS, 0)

@@ -17,6 +17,27 @@ import torch
 
 def matmul_ref(x: torch.Tensor, y: torch.Tensor,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """(M, K) @ (K, N) with fp32 accumulation, output in ``x``'s dtype."""
-    out = torch.matmul(x.to(torch.float32), y.to(torch.float32))
+    """(M, K) @ (K, N) with fp32 accumulation (float64 for float64
+    operands), output in ``x``'s dtype."""
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
+    out = torch.matmul(x.to(f), y.to(f))
     return out.to(out_dtype or x.dtype)
+
+
+def matmul2_ref(x: torch.Tensor, y: torch.Tensor, x2: torch.Tensor,
+                y2: torch.Tensor) -> torch.Tensor:
+    """x @ y + x2 @ y2 in one fp32 sum (the two products added in that
+    order), output in ``x``'s dtype: the kernel's two-part product."""
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
+    return (matmul_ref(x, y, f) + matmul_ref(x2, y2, f)).to(x.dtype)
+
+
+def matmul_bwd_ref(x: torch.Tensor, y: torch.Tensor, dout: torch.Tensor,
+                   need_x: bool = True, need_y: bool = True
+                   ) -> tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The gradients of ``out = x @ y`` for ``dout``: dx = dout @ y^T and
+    dy = x^T @ dout, each ``matmul_ref`` of the transposed view (fp32 sum,
+    in x's dtype); the one not needed is None."""
+    dx = matmul_ref(dout, y.t()) if need_x else None
+    dy = matmul_ref(x.t(), dout) if need_y else None
+    return dx, dy

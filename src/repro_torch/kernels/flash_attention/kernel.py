@@ -25,6 +25,13 @@ them take the shared memory the bf16 stages took.
 reaches the card, ``flash_attention_kernel.by_route`` the same calls by
 route and ``flash_attention_kernel.by_kv`` by the cache's type, so that a
 run can show which kernels it went through.
+
+Training asks the forward for each row's log-sum-exp (``lse``, fp32
+(B, Hq, Sq)), which every route writes when given the buffer; the serving
+paths pass none and run as before.  ``flash_attention_bwd_kernel`` is the
+gradient (``csrc/flash_attention_bwd.cu``: a dQ pass, then a dK/dV pass),
+``flash_attention_bwd_kernel.launches`` counts its calls (two kernels
+each) and ``by_route`` them by route ("mma_sync" for bf16, "fma" for fp32).
 """
 
 from __future__ import annotations
@@ -86,7 +93,7 @@ def _lib() -> ctypes.CDLL:
     if lib.flash_attention_launch.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.flash_attention_launch.argtypes = (
-            [ptr] * 8 + [i32] * 6 + [i64] * 6 + [i32] * 4 + [ctypes.c_float]
+            [ptr] * 9 + [i32] * 6 + [i64] * 6 + [i32] * 4 + [ctypes.c_float]
             + [i32] * 4 + [ptr])
         lib.flash_attention_launch.restype = i32
         lib.flash_attention_prepare.argtypes = []
@@ -127,7 +134,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale: Optional[float] = None,
                            kv_scales: Optional[tuple] = None,
                            route: Optional[str] = None,
-                           splits: Optional[int] = None) -> torch.Tensor:
+                           splits: Optional[int] = None,
+                           lse: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Causal / bidirectional, GQA, sliding-window attention on the card.
 
     ``q``: (B, Hq, Sq, D) with any strides whose last is 1 (on the bf16
@@ -144,7 +153,9 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``k_pos`` (B, Sk) int32 on the card.  Returns (B, Hq, Sq, D) in ``q``'s
     type, the transposed view of (B, Sq, Hq, D) storage.  ``route`` and
     ``splits`` (route "wgmma", 1 to MAX_SPLITS) override ``route_of`` and
-    ``plan_splits``."""
+    ``plan_splits``.  ``lse``: None, or an fp32 (B, Hq, Sq) contiguous
+    tensor on q's device into which the kernel writes each row's
+    log-sum-exp of the scaled scores (+inf for a row with no live key)."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention_kernel needs a CUDA tensor, got "
                          f"{q.device}")
@@ -198,6 +209,11 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     else:
         qp_stride = _positions("q_pos", q_pos, b, sq, q.device)
         kp_stride = _positions("k_pos", k_pos, b, sk, q.device)
+    if lse is not None and (lse.dtype != torch.float32 or lse.device
+                            != q.device or tuple(lse.shape) != (b, hq, sq)
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be float32 ({b}, {hq}, {sq}), "
+                         "contiguous, on q's device")
     scale_ptrs = kv_scale_pointers(k, kv_scales)
     scale = float(scale) if scale is not None else d ** -0.5
     if route is None:
@@ -225,7 +241,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *scale_ptrs,
             None if q_pos is None else q_pos.data_ptr(),
             None if k_pos is None else k_pos.data_ptr(), out.data_ptr(),
-            b, hq, hkv, sq, sk, d, q_sb, q_sh, q_ss, *out.stride()[:3],
+            None if lse is None else lse.data_ptr(), b, hq, hkv, sq, sk, d, q_sb, q_sh, q_ss, *out.stride()[:3],
             qp_stride, kp_stride, int(causal), int(window), scale,
             _DTYPES[q.dtype], KV_DTYPES[k.dtype], _ROUTE_IDS[route], splits,
             torch.cuda.current_stream().cuda_stream)
@@ -253,3 +269,117 @@ def _sms(device: torch.device) -> int:
 flash_attention_kernel.launches = 0
 flash_attention_kernel.by_route = dict.fromkeys(ROUTES, 0)
 flash_attention_kernel.by_kv = dict.fromkeys(KV_TYPES, 0)
+
+
+BWD_ROUTES = ("mma_sync", "fma")
+BWD_HEAD_DIMS = (16, 32, 64, 72, 80, 96, 112, 128)   # route "mma_sync"
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_bwd")
+    if lib.flash_attention_bwd_launch.argtypes is None:
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.flash_attention_bwd_launch.argtypes = (
+            [ptr] * 10 + [i32] * 6 + [i64] * 12 + [i32] * 2
+            + [ctypes.c_float, i32, ptr])
+        lib.flash_attention_bwd_launch.restype = i32
+        lib.flash_attention_bwd_error_name.argtypes = [i32]
+        lib.flash_attention_bwd_error_name.restype = ctypes.c_char_p
+    return lib
+
+
+def _strided(name: str, t: torch.Tensor, shape: tuple, like: torch.Tensor,
+             bf16: bool) -> torch.Tensor:
+    """``t`` as the kernel reads it: ``shape``, ``like``'s type and device,
+    the last stride 1 (and on bf16 the others multiples of 8, the base on
+    16 bytes); a tensor that is not so is copied contiguous first."""
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{shape}")
+    if t.dtype != like.dtype or t.device != like.device:
+        raise ValueError(f"{name} must have q's type and device")
+    ok = t.stride(-1) == 1 and (not bf16 or (
+        all(s % 8 == 0 for s in t.stride()[:-1]) and t.data_ptr() % 16 == 0))
+    return t if ok else t.contiguous()
+
+
+def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, out: torch.Tensor,
+                               dout: torch.Tensor, lse: torch.Tensor, *,
+                               causal: bool = True, window: int = 0,
+                               scale: Optional[float] = None
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention_kernel``'s function at positions
+    0..S-1 (Sq != Sk bidirectional with no window only) on the card, from
+    its output ``out`` and row log-sum-exp ``lse``.  q, out, dout (B, Hq,
+    Sq, D) with any strides whose last is 1 (dout as autograd hands it: the
+    (B, Sq, Hq, D) storage of the forward's output); k, v (B, Hkv, Sk, D)
+    contiguous; one type, bf16 (D in ``BWD_HEAD_DIMS``) or fp32 (D a
+    multiple of 8 up to 256).  dq comes in (B, Sq, Hq, D) storage as the
+    forward's output, dk and dv contiguous.  The plain version is
+    ``ref.mha_bwd_ref``."""
+    if not q.is_cuda:
+        raise ValueError(f"flash_attention_bwd_kernel needs a CUDA tensor, "
+                         f"got {q.device}")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention_bwd_kernel takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("q must be (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D)")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and d not in BWD_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the bf16 backward takes "
+                         f"{BWD_HEAD_DIMS}")
+    if d % 8 or not 0 < d <= 256:
+        raise ValueError(f"head dim {d}: the kernel takes multiples of 8 "
+                         "up to 256")
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"Hq = {hq} is not a multiple of Hkv = {hkv}")
+    if sq != sk and (causal or window):
+        raise ValueError(f"Sq {sq} != Sk {sk} takes causal=False and no "
+                         "window")
+    for name, t in (("k", k), ("v", v)):
+        if (tuple(t.shape) != (b, hkv, sk, d) or t.dtype != q.dtype
+                or t.device != q.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be ({b}, {hkv}, {sk}, {d}) of "
+                             "q's type, contiguous, 16-byte aligned")
+    q = _strided("q", q, (b, hq, sq, d), q, bf16)
+    out = _strided("out", out, (b, hq, sq, d), q, bf16)
+    dout = _strided("dout", dout, (b, hq, sq, d), q, bf16)
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"lse must be float32 ({b}, {hq}, {sq}), "
+                         "contiguous, on q's device")
+    scale = float(scale) if scale is not None else d ** -0.5
+    route = "mma_sync" if bf16 else "fma"
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        dq = torch.empty((b, sq, hq, d), dtype=q.dtype,
+                         device=q.device).transpose(1, 2)
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        delta = torch.empty_like(lse)
+        err = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d,
+            *q.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
+            *dq.stride()[:3], int(causal), int(window), scale, int(bf16),
+            torch.cuda.current_stream().cuda_stream)
+    flash_attention_bwd_kernel.launches += 1
+    flash_attention_bwd_kernel.by_route[route] += 1
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_bwd launch failed: CUDA error {err} "
+            f"({lib.flash_attention_bwd_error_name(err).decode()}; route "
+            f"{route}, B={b}, Hq={hq}, Hkv={hkv}, Sq={sq}, Sk={sk}, D={d}, "
+            f"{q.dtype}, causal {causal}, window {window})")
+    return dq, dk, dv
+
+
+flash_attention_bwd_kernel.launches = 0
+flash_attention_bwd_kernel.by_route = dict.fromkeys(BWD_ROUTES, 0)

@@ -21,6 +21,12 @@ import torch
 from repro_torch.kernels.kv_quant.ref import KVScales, dequantized
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the plain versions sum in: fp32, or float64 for float64
+    operands (``torch.autograd.gradcheck``)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def live_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
               window: int) -> torch.Tensor:
     """(B, Sq, Sk) bool: key j may be attended to by query i of row b.
@@ -52,14 +58,14 @@ def mha_pos_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     hkv, sk = k.shape[1], k.shape[2]
     g = hq // hkv
     sc = scale if scale is not None else d ** -0.5
-    qg = q.reshape(b, hkv, g, sq, d).to(torch.float32)
-    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg,
-                          k.to(torch.float32)) * sc
+    f = acc_dtype(q.dtype)
+    qg = q.reshape(b, hkv, g, sq, d).to(f)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(f)) * sc
     ok = live_mask(q_pos, k_pos, causal=causal, window=window)
     logits = logits.masked_fill(~ok[:, None, None], float("-inf"))
     p = torch.softmax(logits, dim=-1)
     p = torch.nan_to_num(p, nan=0.0)
-    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32))
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(f))
     return out.reshape(b, hq, sq, d).to(q.dtype)
 
 
@@ -171,3 +177,71 @@ def mha_pos_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 _, l, acc = merge_carries(carries)
                 out[bi, h * g + gg, t] = acc / l.clamp_min(1e-30)[:, None]
     return out.to(q.dtype)
+
+
+def _positions_mask(q: torch.Tensor, sk: int, causal: bool, window: int
+                    ) -> torch.Tensor:
+    """(Sq, Sk) bool: key j live for query i at positions 0..S-1."""
+    sq = q.shape[2]
+    if sq != sk and (causal or window):
+        raise ValueError(f"Sq {sq} != Sk {sk} takes causal=False and no "
+                         "window")
+    qp = torch.arange(sq, device=q.device)[None]
+    kp = torch.arange(sk, device=q.device)[None]
+    return live_mask(qp, kp, causal=causal, window=window)[0]
+
+
+def mha_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                causal: bool = True, window: int = 0,
+                scale: Optional[float] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``mha_ref`` and each row's log-sum-exp of the scaled, masked scores
+    (fp32 (B, Hq, Sq); +inf for a row with no live key): what the forward
+    kernel returns when asked for ``lse``."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    sc = scale if scale is not None else d ** -0.5
+    f = acc_dtype(q.dtype)
+    qg = q.reshape(b, hkv, hq // hkv, sq, d).to(f)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(f)) * sc
+    ok = _positions_mask(q, sk, causal, window)
+    logits = logits.masked_fill(~ok, float("-inf"))
+    lse = torch.logsumexp(logits, dim=-1)
+    lse = torch.where(torch.isneginf(lse), torch.full_like(lse, float("inf")),
+                      lse)
+    return (mha_ref(q, k, v, causal=causal, window=window, scale=scale),
+            lse.reshape(b, hq, sq))
+
+
+def mha_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                out: torch.Tensor, dout: torch.Tensor, lse: torch.Tensor, *,
+                causal: bool = True, window: int = 0,
+                scale: Optional[float] = None
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``mha_ref`` for ``dout``, step by step as the
+    backward kernel takes them, in fp32: delta = rowsum(dout * out), P =
+    exp(scale q k^T - lse) (0 where a key is not live, and on a row with no
+    live key, whose lse is +inf), dv = P^T dout, dP = dout v^T, dS = P (dP -
+    delta), dq = scale dS k, dk = scale dS^T q; a kv head's dk and dv sum
+    the G query heads of its group.  Each in its operand's type."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    g = hq // hkv
+    sc = scale if scale is not None else d ** -0.5
+    f32 = acc_dtype(q.dtype)
+    qf = q.reshape(b, hkv, g, sq, d).to(f32)
+    of = out.reshape(b, hkv, g, sq, d).to(f32)
+    dof = dout.reshape(b, hkv, g, sq, d).to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    delta = (dof * of).sum(-1)                                # (b,hkv,g,sq)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kf) * sc
+    ok = _positions_mask(q, sk, causal, window)
+    p = torch.exp(s - lse.reshape(b, hkv, g, sq, 1).to(f32))
+    p = torch.where(ok, p, torch.zeros_like(p))
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, vf)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * sc
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * sc
+    return (dq.reshape(b, hq, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

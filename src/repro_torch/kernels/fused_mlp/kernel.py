@@ -16,6 +16,15 @@ tensors to ``ref.fused_mlp_ref``).
 ``fused_mlp_kernel.launches`` counts the launches, one per call that
 reaches the card, and ``fused_mlp_kernel.by_route`` the same calls by
 route, so that a run can show which kernels it went through.
+
+``fused_mlp_bwd_kernel`` is the gradient (``csrc/fused_mlp_bwd.cu``): the
+recompute of the pre-activations and the dh pass with the activation's
+derivative in its epilogue, then the weight and input products on
+``elk_matmul`` (x read transposed in place; dx one two-part sum) and the
+bias gradients as column sums.  ``fused_mlp_bwd_kernel.launches`` counts
+its calls (one a backward), ``by_route`` them by route ("two_pass": the
+TMA + wgmma mainloop, bf16 operands TMA takes; "fma": the FMA tile
+kernel, fp32 and any other bf16).
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.elk_matmul.kernel import plan_for
+from repro_torch.kernels.elk_matmul.kernel import elk_matmul_kernel, plan_for
 from repro_torch.kernels.fused_mlp.ref import ACTS
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,6 +64,21 @@ def _lib() -> ctypes.CDLL:
         lib.fused_mlp_pass2_launch.restype = i32
         lib.fused_mlp_error_name.argtypes = [i32]
         lib.fused_mlp_error_name.restype = ctypes.c_char_p
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("fused_mlp_bwd")
+    if lib.fused_mlp_bwd_pre_launch.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.fused_mlp_bwd_pre_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.fused_mlp_bwd_pre_launch.restype = i32
+        lib.fused_mlp_bwd_dh_launch.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        lib.fused_mlp_bwd_dh_launch.restype = i32
+        lib.fused_mlp_bwd_colsum_launch.argtypes = [ptr] * 2 + [i32] * 3 + [ptr]
+        lib.fused_mlp_bwd_colsum_launch.restype = i32
+        lib.fused_mlp_bwd_error_name.argtypes = [i32]
+        lib.fused_mlp_bwd_error_name.restype = ctypes.c_char_p
     return lib
 
 
@@ -211,3 +235,119 @@ def fused_mlp_kernel(x: torch.Tensor, w_up: torch.Tensor,
 
 fused_mlp_kernel.launches = 0
 fused_mlp_kernel.by_route = dict.fromkeys(ROUTES, 0)
+
+
+BWD_ROUTES = ("two_pass", "fma")
+
+
+def bwd_route_of(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+                 w_gate: Optional[torch.Tensor] = None) -> str:
+    """The route ``fused_mlp_bwd_kernel``'s two MLP passes take: "two_pass"
+    (the TMA + wgmma mainloop) for bf16 whose x, weights and dy TMA takes
+    (bases on 16 bytes, d, ff and d_out multiples of 8), "fma" for the
+    rest."""
+    tensors = (x, w_up, w_down) + (() if w_gate is None else (w_gate,))
+    if x.dtype == torch.bfloat16 and _tma_ok(*tensors):
+        return "two_pass"
+    return "fma"
+
+
+def fused_mlp_bwd_kernel(x: torch.Tensor, w_up: torch.Tensor,
+                         w_down: torch.Tensor, dy: torch.Tensor,
+                         w_gate: Optional[torch.Tensor] = None,
+                         b_up: Optional[torch.Tensor] = None,
+                         b_down: Optional[torch.Tensor] = None, *,
+                         act: str = "silu") -> dict:
+    """The gradients of ``fused_mlp_kernel``'s function for ``dy`` on the
+    card, by the names of the operands (``x``, ``w_up``, ``w_down``,
+    ``w_gate``, ``b_up``, ``b_down``; None for one not given), each in x's
+    type.  Operands as ``fused_mlp_kernel`` takes them; ``dy`` (..., d_out)
+    of x's type.  The plain version is ``ref.fused_mlp_bwd_ref``."""
+    if not x.is_cuda:
+        raise ValueError(f"fused_mlp_bwd_kernel needs a CUDA tensor, got "
+                         f"{x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fused_mlp_bwd_kernel takes float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if act not in ACTS:
+        raise ValueError(f"unknown activation {act!r}; known: {ACTS}")
+    if (b_up is None) != (b_down is None) or (w_gate is not None
+                                              and b_up is not None):
+        raise ValueError("biases come both or not at all, and not with a "
+                         "gate")
+    if not x.is_contiguous():
+        raise ValueError("x is not contiguous")
+    d, ff, dout = x.shape[-1], w_up.shape[1], w_down.shape[1]
+    m = math.prod(x.shape[:-1])
+    _check("w_up", w_up, (d, ff), x)
+    _check("w_down", w_down, (ff, dout), x)
+    if w_gate is not None:
+        _check("w_gate", w_gate, (d, ff), x)
+    if b_up is not None:
+        _check("b_up", b_up, (ff,), x)
+        _check("b_down", b_down, (dout,), x)
+    dy2 = dy.reshape(m, dout).to(x.dtype).contiguous()
+    _check("dy", dy2, (m, dout), x)
+    if min(m, d, ff, dout) < 1:
+        raise ValueError(f"empty operand: m={m}, d={d}, ff={ff}, "
+                         f"d_out={dout}")
+    if max(m, d, ff, dout) >= 2 ** 31:
+        raise ValueError("a dimension exceeds the kernel's 32-bit indices")
+    route = ("two_pass" if bwd_route_of(x, w_up, w_down, w_gate)
+             == "two_pass" and _tma_ok(dy2) else "fma")
+    tma = int(route == "two_pass")
+    lib = _bwd_lib()
+    dtype = _DTYPES[x.dtype]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    x2 = x.reshape(m, d)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def check(err, what):
+        if err != 0:
+            raise RuntimeError(
+                f"fused_mlp_bwd {what} failed: CUDA error {err} "
+                f"({lib.fused_mlp_bwd_error_name(err).decode()}; route "
+                f"{route}, m={m}, d={d}, ff={ff}, d_out={dout}, {x.dtype})")
+
+    f32 = torch.float32
+    grads = dict.fromkeys(("x", "w_up", "w_down", "w_gate", "b_up",
+                           "b_down"))
+    with torch.cuda.device(x.device):
+        pre_u = torch.empty((m, ff), dtype=f32, device=x.device)
+        pre_g = None if w_gate is None else torch.empty_like(pre_u)
+        err = lib.fused_mlp_bwd_pre_launch(
+            ptr(x), ptr(w_up), ptr(w_gate), ptr(b_up), ptr(pre_g), ptr(pre_u),
+            m, d, ff, dtype, tma, stream)
+        fused_mlp_bwd_kernel.launches += 1
+        fused_mlp_bwd_kernel.by_route[route] += 1
+        check(err, "recompute")
+        du = torch.empty((m, ff), dtype=x.dtype, device=x.device)
+        h = torch.empty_like(du)
+        dg = None if w_gate is None else torch.empty_like(du)
+        check(lib.fused_mlp_bwd_dh_launch(
+            ptr(dy2), ptr(w_down), ptr(pre_g), ptr(pre_u), ptr(dg), ptr(du),
+            ptr(h), m, ff, dout, ACTS.index(act), dtype, tma, stream),
+            "dh pass")
+        del pre_g, pre_u
+        grads["w_down"] = elk_matmul_kernel(h.t(), dy2)
+        grads["w_up"] = elk_matmul_kernel(x2.t(), du)
+        if w_gate is not None:
+            grads["w_gate"] = elk_matmul_kernel(x2.t(), dg)
+            dx = elk_matmul_kernel(dg, w_gate.t(), du, w_up.t())
+        else:
+            dx = elk_matmul_kernel(du, w_up.t())
+        grads["x"] = dx.reshape(x.shape)
+        if b_up is not None:
+            for name, src, n in (("b_up", du, ff), ("b_down", dy2, dout)):
+                grads[name] = torch.empty((n,), dtype=x.dtype,
+                                          device=x.device)
+                check(lib.fused_mlp_bwd_colsum_launch(
+                    ptr(src), ptr(grads[name]), m, n, dtype, stream),
+                    "bias sums")
+    return grads
+
+
+fused_mlp_bwd_kernel.launches = 0
+fused_mlp_bwd_kernel.by_route = dict.fromkeys(BWD_ROUTES, 0)

@@ -14,9 +14,11 @@ kernels on the card: ``linear`` (every q/k/v/o projection, and through
 route and tiles from ``chip/h100.smem_plan``, and ``mlp`` through
 ``kernels/fused_mlp``; on CPU tensors both take their plain versions.
 (The model's attention reaches ``kernels/decode_attention`` and
-``kernels/flash_attention`` from ``transformer.py``.)  ``softmax_xent``
-and ``mlp_params`` belong to the training side and the initialiser
-respectively (``transformer.init_params`` draws the MLP weights).
+``kernels/flash_attention`` from ``transformer.py``.)  All three kernel
+ops are autograd Functions with hand-written backward kernels on the card,
+so training runs through them.  ``softmax_xent`` is the training loss, in
+plain PyTorch as the reference leaves it to XLA; ``mlp_params`` draws an
+MLP's weights (``transformer.init_params`` calls it).
 """
 
 from __future__ import annotations
@@ -209,3 +211,43 @@ def mlp(x: torch.Tensor, p: dict, cfg: ModelConfig) -> torch.Tensor:
                          act=cfg.mlp_act)
     return fused_mlp(x, p["w_up"], p["w_down"], b_up=p.get("b_up"),
                      b_down=p.get("b_down"), act=cfg.mlp_act)
+
+
+def mlp_params(init, cfg: ModelConfig, d: int, ff: int) -> dict:
+    """An MLP's weights with the reference's scales, drawn by ``init`` (the
+    initialiser of ``transformer.init_params``: ``normal(shape, scale)``
+    and ``zeros(shape)`` on its device and type): GLU ``w_gate``, ``w_up``
+    (d, ff) and ``w_down`` (ff, d); plain ``w_up``, ``w_down`` and, with
+    ``qkv_bias``, the fc biases."""
+    s_in, s_ff = d ** -0.5, ff ** -0.5
+    if cfg.gated_mlp:
+        return {"w_gate": init.normal((d, ff), s_in),
+                "w_up": init.normal((d, ff), s_in),
+                "w_down": init.normal((ff, d), s_ff)}
+    p = {"w_up": init.normal((d, ff), s_in),
+         "w_down": init.normal((ff, d), s_ff)}
+    if cfg.qkv_bias:   # opt-style fc biases travel with qkv_bias configs
+        p["b_up"] = init.zeros((ff,))
+        p["b_down"] = init.zeros((d,))
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None,
+                 z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy in fp32; optional z-loss regularizer and
+    token mask (the reference's ``softmax_xent``)."""
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    if mask is not None:
+        m = mask.to(torch.float32)
+        return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.mean(nll)

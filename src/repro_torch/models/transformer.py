@@ -1,9 +1,10 @@
-"""Decoder of the port: lock-step and slot-batched serving.
+"""Decoder of the port: training, lock-step and slot-batched serving.
 
-Counterpart of ``src/repro/models/transformer.py``, cut to what greedy
-serving runs: ``init_params``, ``init_cache``, ``prefill`` and
-``decode_step`` (lock-step), ``decode_slots``, ``chunk_prefill`` and the
-slot cache operations (continuous batching), over every family of the
+Counterpart of ``src/repro/models/transformer.py``: ``init_params``,
+``forward_train`` and ``loss_fn`` (training: the whole sequence, remat per
+layer), ``init_cache``, ``prefill`` and ``decode_step`` (lock-step),
+``decode_slots``, ``chunk_prefill`` and the slot cache operations
+(continuous batching), over every family of the
 reference: the dense / GQA / SWA / qk-norm / GeGLU layer, the MoE layer
 (``models/moe.py``, with a shared expert; capacity dropping at prefill,
 dropless at decode and on the slot path, which chunked prefill runs on),
@@ -14,9 +15,11 @@ stub frame embeddings, cross-attention K/V filled at prefill) and the VLM
 (stub patch embeddings ahead of the prompt).  The frontends' stubs are
 ``models/frontends.py``.  The serving cache is the reference's in bf16,
 fp32 or int8 (``CacheSpec.kv_dtype``; int8 with a bf16 scale a slot and kv
-head, the reference's ``k_scale``/``v_scale``).  ``forward_train`` is still
-to be ported (ROADMAP.md, Queue 1); enc-dec models take no per-slot cache,
-as in the reference.
+head, the reference's ``k_scale``/``v_scale``).  Enc-dec models take no
+per-slot cache, as in the reference.  Training differentiates through the
+same kernels as serving: ``linear``, ``mlp`` and ``flash_attn`` are
+autograd Functions whose backward is a hand-written kernel on the card
+(and the plain version's gradient on the CPU).
 
 What differs from the reference, by design:
 
@@ -52,6 +55,11 @@ What differs from the reference, by design:
   scales themselves: nothing dequantizes the ring in the model, where the
   reference dequantizes the whole ring every step before it attends.
 * There is no ``mesh`` argument: the port runs on one GPU.
+* ``forward_train`` remats each layer with
+  ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``, the
+  counterpart of the reference's ``jax.checkpoint`` of a scan block (a
+  block is one layer here); ``remat=False`` gives the same values.  Under
+  remat the forward kernels of a layer launch twice a step.
 """
 
 from __future__ import annotations
@@ -60,6 +68,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.decode_attention.ops import decode_attn
 from repro_torch.kernels.flash_attention.ops import flash_attn, flash_attn_pos
@@ -70,7 +79,8 @@ from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (AttnSpec, apply_rope, linear, mlp,
-                                       qk_head_norm, rms_norm, rope_tables)
+                                       mlp_params, qk_head_norm, rms_norm,
+                                       rope_tables, softmax_xent)
 
 POS_SENTINEL = 2 ** 30   # tag of cache slots not yet written
 DEC_POSITIONS = 4096     # rows of an enc-dec model's learned decoder positions
@@ -160,21 +170,6 @@ def _attn_params(init: _Init, cfg: ModelConfig, cross: bool = False) -> dict:
     return p
 
 
-def _mlp_params(init: _Init, cfg: ModelConfig, ff: int) -> dict:
-    d = cfg.d_model
-    s_in, s_ff = d ** -0.5, ff ** -0.5
-    if cfg.gated_mlp:
-        return {"w_gate": init.normal((d, ff), s_in),
-                "w_up": init.normal((d, ff), s_in),
-                "w_down": init.normal((ff, d), s_ff)}
-    p = {"w_up": init.normal((d, ff), s_in),
-         "w_down": init.normal((ff, d), s_ff)}
-    if cfg.qkv_bias:   # opt-style fc biases travel with qkv_bias configs
-        p["b_up"] = init.zeros((ff,))
-        p["b_down"] = init.zeros((d,))
-    return p
-
-
 def decoder_layer_params(init: _Init, cfg: ModelConfig, kind: str) -> dict:
     """One decoder layer of ``kind`` ("dense", "moe" or "rwkv"): norms,
     attention and the FFN; a hybrid config's SSM branch (``ssm``); an
@@ -187,9 +182,9 @@ def decoder_layer_params(init: _Init, cfg: ModelConfig, kind: str) -> dict:
     if kind == "moe":
         p["moe"] = moe_mod.moe_params(init, cfg)
         if cfg.moe_shared_d_ff:
-            p["shared_mlp"] = _mlp_params(init, cfg, cfg.moe_shared_d_ff)
+            p["shared_mlp"] = mlp_params(init, cfg, d, cfg.moe_shared_d_ff)
     else:
-        p["mlp"] = _mlp_params(init, cfg, cfg.d_ff)
+        p["mlp"] = mlp_params(init, cfg, d, cfg.d_ff)
     if cfg.hybrid_parallel_ssm:
         p["ssm"] = ssm_mod.ssm_params(init, cfg)
     if cfg.encoder_layers:
@@ -202,7 +197,7 @@ def encoder_layer_params(init: _Init, cfg: ModelConfig) -> dict:
     d = cfg.d_model
     return {"ln1": init.zeros((d,)), "ln2": init.zeros((d,)),
             "attn": _attn_params(init, cfg),
-            "mlp": _mlp_params(init, cfg, cfg.d_ff)}
+            "mlp": mlp_params(init, cfg, d, cfg.d_ff)}
 
 
 class _MetaInit(_Init):
@@ -466,13 +461,18 @@ def _cross_attention(x, p, cfg: ModelConfig, ck, cv):
     return linear(out.transpose(1, 2).reshape(b, s, -1), p["w_o"])
 
 
-def _cross_kv(enc_out, p, cfg: ModelConfig, layer_cache: dict):
+def _cross_kv(enc_out, p, cfg: ModelConfig, layer_cache: Optional[dict]):
     """A layer's cross-attention K/V of ``enc_out`` (B, E, d), written into
-    its cache slices (in place); returns those slices."""
+    its cache slices (in place) and returned; without a cache (training)
+    new contiguous tensors, as the reference projects them in each layer."""
     nkv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    k = _heads(linear(enc_out, p["w_k"]), nkv, hd)
+    v = _heads(linear(enc_out, p["w_v"]), nkv, hd)
+    if layer_cache is None:
+        return k.contiguous(), v.contiguous()
     ck, cv = layer_cache["cross_k"], layer_cache["cross_v"]
-    ck.copy_(_heads(linear(enc_out, p["w_k"]), nkv, hd))
-    cv.copy_(_heads(linear(enc_out, p["w_v"]), nkv, hd))
+    ck.copy_(k)
+    cv.copy_(v)
     return ck, cv
 
 
@@ -510,8 +510,8 @@ def _fill_ring(buf: torch.Tensor, val: torch.Tensor, total_seq: int) -> None:
 def _ffn(x, p, cfg: ModelConfig, mode: str):
     """The layer's FFN: the MLP, or (a layer with ``p["moe"]``) the MoE
     FFN over the flattened tokens plus the shared expert's MLP.  Capacity
-    dropping at prefill; dropless at decode and in ``slots`` mode (the
-    continuous decode step and chunked prefill)."""
+    dropping at prefill and in training; dropless at decode and in
+    ``slots`` mode (the continuous decode step and chunked prefill)."""
     if "moe" not in p:
         return mlp(x, p["mlp"], cfg)
     b, s, d = x.shape
@@ -582,6 +582,24 @@ def _run_decoder(params, cfg: ModelConfig, x, ctx, cache):
     return x
 
 
+def _run_decoder_train(params, cfg: ModelConfig, x, ctx, remat: bool):
+    """The decoder in training: no cache, each layer under
+    ``checkpoint(use_reentrant=False)`` when ``remat`` (its activations
+    recomputed in the backward, as the reference's ``jax.checkpoint``; an
+    enc-dec model's ``enc_out`` reaches the layers through ``ctx``, and its
+    cross K/V are projected inside each layer as the reference's
+    ``_run_decoder_with_cross`` does)."""
+    spec = attn_spec(cfg)
+    for p in params["layers"]:
+        if remat:
+            x = checkpoint(lambda x, p=p: _decoder_layer(x, p, cfg, spec, ctx,
+                                                         None),
+                           x, use_reentrant=False)
+        else:
+            x = _decoder_layer(x, p, cfg, spec, ctx, None)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # full forward passes
 # ---------------------------------------------------------------------------
@@ -603,6 +621,46 @@ def _logits(params, cfg: ModelConfig, x):
     if cfg.tie_embeddings:
         return linear(x, params["embed"].t())
     return linear(x, params["lm_head"])
+
+
+def forward_train(params, cfg: ModelConfig, tokens: torch.Tensor,
+                  embeds: Optional[torch.Tensor] = None,
+                  enc_embeds: Optional[torch.Tensor] = None,
+                  remat: bool = True) -> torch.Tensor:
+    """Causal forward over (B, S) tokens -> (B, S[, +patches], V) logits,
+    differentiable (the reference's ``forward_train``).  A VLM's ``embeds``
+    (B, P, d) go ahead of the tokens; an enc-dec config runs ``enc_embeds``
+    (B, E, d) through the encoder and adds its decoder positions.
+    ``remat`` recomputes each layer in the backward."""
+    x = _embed(params, cfg, tokens, embeds)
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    sin, cos = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta)
+    ctx = {"mode": "train", "sin": sin, "cos": cos}
+    if cfg.encoder_layers:
+        if enc_embeds is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: "
+                             "forward_train needs enc_embeds")
+        ctx["enc_out"] = _encode(params, cfg, enc_embeds.to(x.device))
+        x = x + params["dec_pos"][None, :s, :]
+    x = _run_decoder_train(params, cfg, x, ctx, remat)
+    return _logits(params, cfg, x)
+
+
+def loss_fn(params, cfg: ModelConfig, batch: dict,
+            remat: bool = True) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch`` (``tokens``, ``labels``,
+    optional ``mask``, ``embeds``, ``enc_embeds``): the reference's
+    ``loss_fn``.  A VLM's logits are cut to the text (the last
+    ``labels.shape[1]`` positions).  No MoE load-balance term, as the
+    reference adds none."""
+    logits = forward_train(params, cfg, batch["tokens"],
+                           embeds=batch.get("embeds"),
+                           enc_embeds=batch.get("enc_embeds"), remat=remat)
+    labels = batch["labels"]
+    if logits.shape[1] != labels.shape[1]:   # vision prefix: score text only
+        logits = logits[:, -labels.shape[1]:, :]
+    return softmax_xent(logits, labels, batch.get("mask"))
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor,

@@ -101,8 +101,12 @@ def test_layout_is_what_the_kernel_takes():
     assert layout(x, torch.zeros(4, 10).t()) == (6, 4, 10, 10, 10, 1)
     assert layout(torch.zeros(6, 3, 10)[:, 1, :], y) == (6, 4, 10, 30, 4, 0)
     assert layout(x[:1], y)[3] == 10
+    # the transpose of a stored (k, m) matrix: x^T of a weight gradient,
+    # lda the stored row stride
+    assert layout(torch.zeros(10, 6).t(), y) == (6, 4, 10, 6, 4, 0)
+    assert mk.x_trans_of(torch.zeros(10, 6).t()) and not mk.x_trans_of(x)
     with pytest.raises(ValueError, match="rows are not contiguous"):
-        layout(torch.zeros(10, 6).t(), y)
+        layout(torch.zeros(6, 20)[:, ::2], y)
     with pytest.raises(ValueError, match="neither"):
         layout(x, torch.zeros(10, 8)[:, ::2])
     with pytest.raises(ValueError, match="do not chain"):

@@ -41,6 +41,10 @@ print(json.dumps(bad))
     "repro_torch.kernels.elk_matmul.ops",
     "repro_torch.kernels.elk_matmul.kernel",
     "repro_torch.serve.fleet", "repro_torch.chip.dse",
+    "repro_torch.train.trainer", "repro_torch.launch.train",
+    "repro_torch.train.step", "repro_torch.optim.adamw",
+    "repro_torch.distributed.compression", "repro_torch.data.pipeline",
+    "repro_torch.checkpoint.store", "repro_torch.kernels.fused_mlp.ops",
 ])
 def test_import_leaves_jax_and_reference_out(module):
     env = dict(os.environ)
