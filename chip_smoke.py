@@ -79,8 +79,8 @@ exit code and no result line:
             dit-xl (28 layers, head dim 72) and gemma2-27b (46 layers, tied
             head of 256000) resident, lock-step as in 5 (dit-xl: prompts of
             256, cache 512); llama2-70b under ``elk_stream`` with the
-            planner's knobs, resident against streamed at 16 layers on the
-            same weights (equal tokens);
+            planner's knobs, resident against streamed at 8 layers (16 until
+            the dry run came) on the same weights (equal tokens);
             llama4-maverick and kimi-k2 resident at 2 layers (a dense layer
             and an MoE layer of 128 / 384 experts), lock-step, and kimi-k2
             (head dim 112) through the 16-request continuous trace of 6.
@@ -138,6 +138,21 @@ exit code and no result line:
             through ``Trainer``: one ``[train]`` line with the losses, step
             ms, tokens/s, peak memory, launches, and layer 0's and the LM
             head's gradients against the plain versions'.
+12. dryrun  the dry run (``launch/dryrun.py``): every (arch, shape) cell of
+            ``launch/specs.all_cells`` (15 x 4) counted on the meta device
+            on the single-pod mesh, in worker processes (no cell in error;
+            exactly the reference's ineligible cells skipped), while four
+            cells run on the card at full width at the reference's two
+            reduced depths, extrapolated to full depth (``DRYRUN_MEASURED``:
+            qwen3-14b decode_32k, streamed over an int8 ring of 32768,
+            prefill_32k and train_4k at the batch that fits, hymba-1.5b
+            long_500k): one ``[dryrun]`` line each with the counted FLOPs
+            and bytes, ``model_flops``, the bound and its term, ms and peak
+            bytes at both depths, the full-depth ms, memory and fit, the
+            roofline fraction at the measured time and the cuts; it fails
+            where a variant runs under its counted bound, where the card's
+            argument bytes differ from ``local_bytes``, or where the count's
+            product FLOPs differ from what ``model_flops`` explains.
 
 Each serving path runs with the kernels' launch counts set to 0 just
 before it and read just after, and fails if a kernel of the path was not
@@ -168,18 +183,22 @@ streamed kimi-k2 decode step, its expert copies apart from the window's
 (how long they waited behind window copies).
 ``--only kernels`` runs the build and the kernel phases, ``--only models``
 the build, the parity, the ``[models]`` and the ``[families]`` phases,
-``--only train`` the build and the ``[train]`` phase (none prints a result
-line): the loops for working on one part.
+``--only train`` the build and the ``[train]`` phase, ``--only dryrun`` the
+build and the ``[dryrun]`` phase (none prints a result line): the loops for
+working on one part.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import gc
 import importlib.metadata
 import json
+import multiprocessing
+import os
 import re
 import shutil
 import statistics
@@ -244,7 +263,9 @@ from repro_torch.kernels.kv_quant.kernel import (  # noqa: E402
     KV_TYPES, kv_quant_kernel)
 from repro_torch.kernels.kv_quant.ref import (  # noqa: E402
     quantize_into_ref, quantize_kv)
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
+from repro_torch.launch.specs import SHAPES, all_cells  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
@@ -338,12 +359,13 @@ MLP_EDGE_M = (1, 8, 16, 17, 63, 64, 65, 256)
 CROSSOVER_M = (8, 16, 32, 64, 128, 256)
 # the [models] phase's lock-step runs at full width: (arch, layers (0: all),
 # prompt length, ring).  llama2-70b runs resident against streamed
-# (STREAM_STEPS tokens) at STREAM_CHECK_LAYERS; the MoE models run at
+# (STREAM_STEPS tokens) at STREAM_CHECK_LAYERS (16 until the [dryrun] phase
+# came, for the time limit); the MoE models run at
 # MOE_DEPTH layers (a dense and an MoE layer), resident against streamed;
 # TRACE_ARCH also serves the continuous trace.  (Until the int8 phase came,
 # each was then streamed alone at the depth the host holds: 45, 5 and 3
 # layers, about 160 s of the time limit.)
-STREAM_CHECK_LAYERS, STREAM_STEPS = 16, 4
+STREAM_CHECK_LAYERS, STREAM_STEPS = 8, 4
 MOE_DEPTH = 2
 MODEL_RUNS = (("dit_xl", 0, DIT_PROMPT_LEN, DIT_CACHE),
               ("gemma2_27b", 0, PROMPT_LEN, CACHE),
@@ -3465,7 +3487,10 @@ def models_phase(kernel_rows: list[dict], profile: bool) -> None:
     t_phase = time.perf_counter()
     for arch, depth, prompt_len, ring in MODEL_RUNS:
         if arch == "llama2_70b":
+            t_check = time.perf_counter()
             llama2_70b_phase()
+            say(f"[models] llama2-70b check at {STREAM_CHECK_LAYERS} layers "
+                f"took {time.perf_counter() - t_check:.1f}s")
             continue
         cfg, params, eng, run = resident_model(arch, depth, prompt_len, ring,
                                                kernel_rows)
@@ -4259,7 +4284,8 @@ def _plain_dispatch():
     def ctx():
         saved = [(mod, mod.dispatch) for mod in (m_ops, f_ops, l_ops)]
         for mod, _ in saved:
-            mod.dispatch = lambda x, kernel_call, ref_call: ref_call()
+            mod.dispatch = (lambda x, kernel_call, ref_call, meta_call=None:
+                            ref_call())
         try:
             yield
         finally:
@@ -4529,6 +4555,118 @@ def train_phase(cfg, rows: list[dict]) -> None:
     rows.extend(new)
     train_full(rows)
 
+# ---------------------------------------------------------------------------
+# phase 12: the dry run (launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+# the cells measured on the card, each at its two reduced depths
+DRYRUN_MEASURED = (("qwen3_14b", "decode_32k"), ("qwen3_14b", "prefill_32k"),
+                   ("qwen3_14b", "train_4k"), ("hymba_1_5b", "long_500k"))
+DRYRUN_DIR = ROOT / "build" / "dryrun_torch"
+DRYRUN_JOBS = 6          # counting processes beside the one that measures
+DRYRUN_ITERS = {"decode": 3, "prefill": 1, "train": 1}
+# the count's product FLOPs against dryrun.explained_flops: norms, biases
+# and the router's few products are all that differ
+FLOP_TOL = 0.01
+# what PyTorch's caching allocator may hold beyond a tensor's bytes: a small
+# one is rounded up to 512 bytes, and a large one keeps the rest of its
+# segment when that rest is under 1 MiB (too small to split off)
+ALLOC_SLACK = 1 << 20
+
+
+def count_one(cell: tuple) -> dict:
+    """One cell counted on the meta device on the single-pod mesh (a worker
+    process of ``dryrun_phase``)."""
+    return dryrun.run_cell(*cell, "single", force=True,
+                           out_dir=str(DRYRUN_DIR))
+
+
+def check_counts(recs: list[dict]) -> None:
+    """No cell in error; the cells skipped exactly those the reference's
+    ``eligible`` skips (long_500k of a model that is not sub-quadratic)."""
+    for r in recs:
+        if r["status"] == "error":
+            fail(f"[dryrun] {r['arch']} {r['shape']}: {r['error']}")
+    skipped = {(r["arch"], r["shape"]) for r in recs
+               if r["status"] == "skipped"}
+    want = {(a, "long_500k") for a in ARCH_IDS
+            if not get_config(a).sub_quadratic}
+    if skipped != want:
+        fail(f"[dryrun] skipped {sorted(skipped)}, expected {sorted(want)}")
+
+
+def check_measured(rec: dict) -> dict:
+    """The measured cell's checks: no variant faster than its counted
+    bound, the card's argument bytes those ``local_bytes`` gives on a mesh
+    of one (within the allocator's slack), the count's product FLOPs
+    those ``model_flops`` explains; its ``[dryrun]`` line."""
+    arch, shape = rec["arch"], rec["shape"]
+    if rec["status"] != "ok":
+        fail(f"[dryrun] {arch} {shape}: {rec.get('error')}\n"
+             f"{rec.get('traceback', '')}")
+    for v in rec["variants"]:
+        if v["ms"] < v["bound_ms"]:
+            fail(f"[dryrun] {arch} {shape} at {v['layers']} layers ran in "
+                 f"{v['ms']} ms, under its counted bound {v['bound_ms']} ms:"
+                 " a fault of the count")
+        gap = abs(v["arg_bytes_card"] - v["arg_bytes_local"])
+        if gap > ALLOC_SLACK * v["arg_tensors"]:
+            fail(f"[dryrun] {arch} {shape} at {v['layers']} layers: the card "
+                 f"holds {v['arg_bytes_card']} bytes of arguments, "
+                 f"local_bytes says {v['arg_bytes_local']}")
+    cfg, case = get_config(arch), SHAPES[shape]
+    count = rec["count"]
+    products = count["flops"] - count["attention_flops"]
+    explained = dryrun.explained_flops(cfg, case)
+    if abs(products - explained) > FLOP_TOL * explained:
+        fail(f"[dryrun] {arch} {shape}: the count's product FLOPs "
+             f"{products:.6e} against {explained:.6e} that model_flops "
+             f"{rec['meta']['model_flops']:.6e} explains")
+    rf = rec["roofline_flash"]
+    line = {
+        "cell": f"{arch} {shape}", "counted_flops": count["flops"],
+        "counted_bytes": count["bytes"], "host_bytes": count["host_bytes"],
+        "attention_flops": count["attention_flops"],
+        "product_flops": products, "explained_flops": explained,
+        "model_flops": rec["meta"]["model_flops"],
+        "bound_ms": rf["bound_s"] * 1e3, "dominant": rf["dominant"],
+        "variants": [{k: v.get(k) for k in (
+            "layers", "batch", "ms", "bound_ms", "peak_bytes",
+            "arg_bytes_card", "arg_bytes_local", "fwd_bwd_ms", "opt_ms")}
+            for v in rec["variants"]],
+        "full_ms": rec["ms"], "full_hbm_bytes":
+            rec["memory"]["total_hbm_bytes"], "fits_80gb": rec["fits_80gb"],
+        "roofline_fraction": rec["roofline_fraction"],
+        "reduced": rec["reduced"]}
+    say(f"[dryrun] {json.dumps(line)}")
+    return line
+
+
+def dryrun_phase() -> None:
+    """Phase 12: every cell of ``launch/specs.all_cells`` counted on the
+    meta device (single-pod mesh) in ``DRYRUN_JOBS`` worker processes,
+    while this process measures the ``DRYRUN_MEASURED`` cells on the card
+    (``dryrun.run_cell_accounting``: two reduced depths, extrapolated)."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    cells = sorted(all_cells(), key=lambda c: c[1] != "train_4k")
+    ctx = multiprocessing.get_context("spawn")
+    jobs = max(1, min(DRYRUN_JOBS, (os.cpu_count() or 2) - 2))
+    with concurrent.futures.ProcessPoolExecutor(jobs, mp_context=ctx) as pool:
+        counts = pool.map(count_one, cells)
+        t_measure = time.perf_counter()
+        for arch, shape in DRYRUN_MEASURED:
+            free_card(f"the dry run of {arch} {shape}")
+            rec = dryrun.run_cell_accounting(
+                arch, shape, force=True, out_dir=str(DRYRUN_DIR),
+                iters=DRYRUN_ITERS[SHAPES[shape].kind])
+            check_measured(rec)
+        say(f"[dryrun] measured {len(DRYRUN_MEASURED)} cells in "
+            f"{time.perf_counter() - t_measure:.1f}s")
+        recs = list(counts)
+    check_counts(recs)
+    tally = {s: sum(r["status"] == s for r in recs) for s in ("ok", "skipped")}
+    say(f"[dryrun] counted {len(recs)} cells on the meta device: {tally}")
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4537,11 +4675,12 @@ def main() -> None:
                     "the model's own); the other phases keep full depth")
     ap.add_argument("--profile", action="store_true",
                     help="also trace decode steps, a prefill and slot steps")
-    ap.add_argument("--only", choices=("kernels", "models", "train"),
+    ap.add_argument("--only", choices=("kernels", "models", "train",
+                                       "dryrun"),
                     help="run the kernel phases only, the parity, "
-                    "[models] and [families] phases only, or the [train] "
-                    "phase only (to iterate on one part); prints no result "
-                    "line")
+                    "[models] and [families] phases only, the [train] or "
+                    "the [dryrun] phase only (to iterate on one part); "
+                    "prints no result line")
     args = ap.parse_args()
 
     # phase 1: device
@@ -4597,6 +4736,10 @@ def main() -> None:
         say(f"[time] {name}: {time.perf_counter() - t_phase:.1f}s")
         return result
 
+    if args.only == "dryrun":
+        timed("dryrun", dryrun_phase)
+        say(f"[only {args.only}] stopped; no result line")
+        return
     if args.only == "train":
         rows = [{"name": name, "launches": 0} for name in SERVING_KERNELS]
         timed("train", train_phase, cfg, rows)
@@ -4645,6 +4788,8 @@ def main() -> None:
     # the training side, outside inference mode (its tensors take part in
     # autograd)
     timed("train", train_phase, cfg, rows)
+    free_card("the dry run")
+    timed("dryrun", dryrun_phase)
 
     for row in rows:
         for path, n in row["launches_by_path"].items():

@@ -47,6 +47,7 @@ HBM_BYTES_PER_S = 3.35e12  # HBM3, 3.35 TB/s
 BF16_FLOPS = 989e12        # dense bf16 on the tensor cores (no sparsity)
 FP32_FLOPS = 67e12         # fp32 outside the tensor cores
 PCIE_BYTES_PER_S = 64e9    # PCIe Gen5 x16: 128 GB/s both ways, 64 GB/s host to card
+NVLINK_BYTES_PER_S = 450e9 # NVLink 4: 900 GB/s both ways, 450 GB/s each way
 SMS = 132                  # streaming multiprocessors of the SXM5 card
 SMEM_PER_BLOCK = 232_448   # shared memory one block can opt in to (227 KB)
 REGISTERS_PER_SM = 65_536  # 32-bit registers of one SM

@@ -8,6 +8,7 @@ import torch
 
 from repro_torch.kernels.decode_attention.kernel import decode_attention_kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels import cost
 from repro_torch.kernels.dispatch import dispatch
 from repro_torch.kernels.kv_quant.ref import KVScales
 
@@ -29,4 +30,5 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                                         kv_scales=kv_scales),
         lambda: decode_attention_ref(q, k_cache, v_cache, slot_pos, q_pos,
                                      window=window, scale=scale,
-                                     kv_scales=kv_scales))
+                                     kv_scales=kv_scales),
+        lambda: cost.decode_attn(q, k_cache, v_cache, slot_pos, kv_scales))

@@ -7,6 +7,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.dispatch import dispatch
 from repro_torch.kernels.elk_matmul.kernel import elk_matmul_kernel
 from repro_torch.kernels.elk_matmul.ref import matmul_bwd_ref, matmul_ref
@@ -23,7 +24,7 @@ class _Matmul(torch.autograd.Function):
     def forward(ctx, x, y):
         ctx.save_for_backward(x, y)
         return dispatch(x, lambda: elk_matmul_kernel(x, y),
-                        lambda: matmul_ref(x, y))
+                        lambda: matmul_ref(x, y), lambda: cost.matmul(x, y))
 
     @staticmethod
     def backward(ctx, dout):
@@ -34,7 +35,8 @@ class _Matmul(torch.autograd.Function):
             x,
             lambda: (elk_matmul_kernel(dout, y.t()) if need_x else None,
                      elk_matmul_kernel(x.t(), dout) if need_y else None),
-            lambda: matmul_bwd_ref(x, y, dout, need_x, need_y))
+            lambda: matmul_bwd_ref(x, y, dout, need_x, need_y),
+            lambda: cost.matmul_bwd(x, y, dout, need_x, need_y))
 
 
 def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: Optional[int] = None,
@@ -52,5 +54,5 @@ def matmul(x: torch.Tensor, y: torch.Tensor, *, bm: Optional[int] = None,
             and bm is None and bn is None and bk is None):
         return _Matmul.apply(x, y)
     return dispatch(x, lambda: elk_matmul_kernel(x, y, bm=bm, bn=bn, bk=bk),
-                    lambda: matmul_ref(x, y))
+                    lambda: matmul_ref(x, y), lambda: cost.matmul(x, y))
 

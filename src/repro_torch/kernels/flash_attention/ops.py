@@ -7,6 +7,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.dispatch import dispatch
 from repro_torch.kernels.flash_attention.kernel import (
     flash_attention_bwd_kernel, flash_attention_kernel)
@@ -30,7 +31,10 @@ class _FlashAttn(torch.autograd.Function):
                               device=q.device)
             return flash_attention_kernel(q, k, v, lse=lse, **ctx.kw), lse
 
-        out, lse = dispatch(q, kernel, lambda: mha_lse_ref(q, k, v, **ctx.kw))
+        out, lse = dispatch(
+            q, kernel, lambda: mha_lse_ref(q, k, v, **ctx.kw),
+            lambda: cost.flash(q, k, v, causal=causal, window=window,
+                               lse=True))
         ctx.save_for_backward(q, k, v, out, lse)
         return out
 
@@ -41,7 +45,9 @@ class _FlashAttn(torch.autograd.Function):
             q,
             lambda: flash_attention_bwd_kernel(q, k, v, out, dout, lse,
                                                **ctx.kw),
-            lambda: mha_bwd_ref(q, k, v, out, dout, lse, **ctx.kw))
+            lambda: mha_bwd_ref(q, k, v, out, dout, lse, **ctx.kw),
+            lambda: cost.flash_bwd(q, k, v, causal=ctx.kw["causal"],
+                                   window=ctx.kw["window"]))
         return dq, dk, dv, None, None, None
 
 
@@ -63,7 +69,8 @@ def flash_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q,
         lambda: flash_attention_kernel(q, k, v, causal=causal, window=window,
                                        scale=scale),
-        lambda: mha_ref(q, k, v, causal=causal, window=window, scale=scale))
+        lambda: mha_ref(q, k, v, causal=causal, window=window, scale=scale),
+        lambda: cost.flash(q, k, v, causal=causal, window=window))
 
 
 def flash_attn_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -84,4 +91,6 @@ def flash_attn_pos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                        window=window, scale=scale,
                                        kv_scales=kv_scales),
         lambda: mha_pos_ref(q, k, v, q_pos, k_pos, causal=causal,
-                            window=window, scale=scale, kv_scales=kv_scales))
+                            window=window, scale=scale, kv_scales=kv_scales),
+        lambda: cost.flash(q, k, v, causal=causal, window=window,
+                           positions=(q_pos, k_pos), kv_scales=kv_scales))

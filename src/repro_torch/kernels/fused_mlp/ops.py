@@ -7,6 +7,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.dispatch import dispatch
 from repro_torch.kernels.fused_mlp.kernel import (fused_mlp_bwd_kernel,
                                                   fused_mlp_kernel)
@@ -31,7 +32,9 @@ class _FusedMlp(torch.autograd.Function):
         kw = dict(w_gate=w_gate, b_up=b_up, b_down=b_down, act=ctx.act)
         grads = dispatch(
             x, lambda: fused_mlp_bwd_kernel(x, w_up, w_down, dy, **kw),
-            lambda: fused_mlp_bwd_ref(x, w_up, w_down, dy, **kw))
+            lambda: fused_mlp_bwd_ref(x, w_up, w_down, dy, **kw),
+            lambda: cost.fused_mlp_bwd(x, w_up, w_down, dy, w_gate, b_up,
+                                       b_down))
         return (*(grads[name] for name in _OPERANDS), None)
 
 
@@ -41,7 +44,8 @@ def _forward(x, w_up, w_down, w_gate, b_up, b_down, act):
         lambda: fused_mlp_kernel(x, w_up, w_down, w_gate, b_up, b_down,
                                  act=act),
         lambda: fused_mlp_ref(x, w_up, w_down, w_gate=w_gate, b_up=b_up,
-                              b_down=b_down, act=act))
+                              b_down=b_down, act=act),
+        lambda: cost.fused_mlp(x, w_up, w_down, w_gate, b_up, b_down))
 
 
 def fused_mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor, *,

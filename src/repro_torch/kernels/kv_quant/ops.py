@@ -7,6 +7,7 @@ from typing import Union
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.dispatch import dispatch
 from repro_torch.kernels.kv_quant.kernel import kv_quant_kernel
 from repro_torch.kernels.kv_quant.ref import quantize_into_ref
@@ -23,4 +24,5 @@ def quantize_into(k_new: torch.Tensor, v_new: torch.Tensor,
     tensor ``quantize_into_ref``."""
     args = (k_new, v_new, k_cache, v_cache, k_scale, v_scale, positions)
     dispatch(k_new, lambda: kv_quant_kernel(*args),
-             lambda: quantize_into_ref(*args))
+             lambda: quantize_into_ref(*args),
+             lambda: cost.kv_quant(k_new, v_new, k_scale))

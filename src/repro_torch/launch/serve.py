@@ -69,7 +69,9 @@ stacked DRAM (an all-finite hierarchy: the plan's K > 1, a slot-spill cost
 and a prefix store).  Both are the reference's modelled pods: the
 ``steady_interval``, ``slot_spill`` and K they print are the planner's
 figures for that pod, not times taken on the H100, where the engine runs
-with the knobs they give.
+with the knobs they give.  ``--production-mesh`` builds the reference's
+(16, 16) mesh, which one GPU cannot host: the run is refused with that
+mesh's device-count error.
 """
 
 from __future__ import annotations
@@ -85,6 +87,7 @@ import torch
 from repro_torch.chip.config import GB, ipu_mk2, tpu_v5e_pod_hier
 from repro_torch.chip.h100 import h100_host
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import transformer as tfm
 from repro_torch.serve import stream
 from repro_torch.serve.engine import ServeConfig, ServeEngine, elk_serve_config
@@ -287,12 +290,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "this target (0 = admit everything)")
     ap.add_argument("--json-out", default="",
                     help="write the trace statistics to this file")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's (16, 16) mesh: needs 256 "
+                    "devices, refused on one GPU")
     return ap.parse_args(argv)
 
 
 def main(argv=None) -> None:
     args = parse_args(argv)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.production_mesh:
+        make_production_mesh().devices           # raises: 256 devices
     device = tfm.resolve_device(args.device)
     # plan against the config actually served
     scfg = serve_config(cfg, args)

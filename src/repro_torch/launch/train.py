@@ -6,10 +6,12 @@ bearable):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \\
       --smoke --device cpu --steps 4
 
-The reference's flags, but ``--production-mesh`` (the port has no mesh
-yet: ROADMAP.md, Queue 1); ``--fsdp`` is refused on one GPU.  Metrics go
-to ``<workdir>/metrics.json``; the default workdir lies under the
-temporary directory.
+The reference's flags.  ``--production-mesh`` builds the (16, 16) mesh,
+whose 256 devices one GPU cannot host, and the run is refused with that
+mesh's device-count error; ``--fsdp`` trains on the local mesh of one
+device, where it changes nothing (as on the reference's (1, 1) mesh).
+Metrics go to ``<workdir>/metrics.json``; the default workdir lies under
+the temporary directory.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Optional
 from repro_torch.configs import ARCH_IDS, canonical, get_config, \
     get_smoke_config
 from repro_torch.data.pipeline import DataConfig
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -41,13 +44,15 @@ def parse_args(argv: Optional[list] = None) -> argparse.Namespace:
     ap.add_argument("--compression", default="none",
                     choices=["none", "bf16", "int8"])
     ap.add_argument("--fsdp", action="store_true",
-                    help="the reference's flag, kept so its command lines "
-                         "parse; refused: the port trains on one GPU")
+                    help="the FSDP specs; on one device they change "
+                         "nothing")
     ap.add_argument("--workdir", default=os.path.join(tempfile.gettempdir(),
                                                       "repro_torch_train"))
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the plain path)")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the (16, 16) mesh: needs 256 devices, refused")
     return ap.parse_args(argv)
 
 
@@ -55,6 +60,9 @@ def main(argv: Optional[list] = None) -> list[dict]:
     args = parse_args(argv)
     arch = canonical(args.arch)
     cfg = get_smoke_config(arch) if args.smoke else get_config(arch)
+    if args.production_mesh:
+        make_production_mesh().devices           # raises: 256 devices
+    mesh = make_local_mesh(device=args.device)
     dcfg = DataConfig(batch=args.batch, seq=args.seq,
                       vocab_size=cfg.vocab_size)
     ocfg = AdamWConfig(lr=args.lr, warmup_steps=max(args.steps // 20, 2),
@@ -64,7 +72,7 @@ def main(argv: Optional[list] = None) -> list[dict]:
                          grad_accum=args.grad_accum,
                          compression=args.compression, fsdp=args.fsdp)
     os.makedirs(args.workdir, exist_ok=True)
-    trainer = Trainer(cfg, dcfg, ocfg, tcfg, device=args.device)
+    trainer = Trainer(cfg, dcfg, ocfg, tcfg, device=args.device, mesh=mesh)
     print(f"training {cfg.name} ({cfg.param_count() / 1e6:.1f}M params) on "
           f"{trainer.device}, resuming from step {trainer.step}")
     log = trainer.run()

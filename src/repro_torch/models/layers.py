@@ -251,3 +251,29 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         m = mask.to(torch.float32)
         return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
     return torch.mean(nll)
+
+
+class _StandIn(torch.autograd.Function):
+    """Empty outputs that autograd connects to the inputs, computing
+    nothing, forward or backward (``stand_in``)."""
+
+    @staticmethod
+    def forward(ctx, likes, *inputs):
+        ctx.likes = [(t.shape, t.dtype, t.device) for t in inputs]
+        return tuple(torch.empty(shape, dtype=dt, device=dev)
+                     for shape, dt, dev in likes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *(torch.empty(shape, dtype=dt, device=dev)
+                        for shape, dt, dev in ctx.likes))
+
+
+def stand_in(likes: tuple, *inputs: torch.Tensor) -> tuple:
+    """Tensors of ``likes``' shapes and types, connected for autograd to
+    ``inputs``, with no operation run: on the meta device, the dry run's
+    stand-in for a recurrence over time, whose work it adds from the
+    reference's analytic count (``launch/dryrun._recurrence_correction``)
+    instead of walking hundreds of thousands of steps."""
+    return _StandIn.apply([(t.shape, t.dtype, t.device) for t in likes],
+                          *inputs)

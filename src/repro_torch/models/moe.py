@@ -32,6 +32,10 @@ What differs from the reference, by design:
   (``serve/stream.LayerExperts``, which fetches them into the device's
   expert buffer, the paper's §7 late-bound preload), or
   ``ResidentExperts`` over ``p``'s own (E, ...) tensors.
+* On the meta device (the dry run's count) there are no counts to read
+  back: every expert runs at capacity, on C rows gathered from the tokens
+  (``_at_capacity``), which is what the reference's static (E, C, d)
+  shapes make XLA count; a streamed layer fetches all its experts.
 """
 
 from __future__ import annotations
@@ -115,6 +119,8 @@ def moe_ffn(x: torch.Tensor, p: dict, cfg: ModelConfig,
     cf = capacity_factor or cfg.moe_capacity_factor
     c = t * k if dropless else capacity(t, e, k, cf)
 
+    if x.device.type == "meta":
+        return _at_capacity(x, p, cfg, c)
     logits = linear(x, p["router"])                          # (T, E)
     gates, idx = router_weights(logits, k)                   # (T, k)
     order, slot, counts = expert_slots(idx.reshape(t * k), e)
@@ -157,3 +163,26 @@ def aux_load_balance_loss(logits: torch.Tensor, idx: torch.Tensor,
     assign = torch.nn.functional.one_hot(
         idx[..., 0].long(), num_experts).to(torch.float32)
     return num_experts * torch.mean(probs.mean(0) * assign.mean(0))
+
+
+def _at_capacity(x: torch.Tensor, p: dict, cfg: ModelConfig,
+                 c: int) -> torch.Tensor:
+    """``moe_ffn`` on meta tensors: the router, then every expert on ``c``
+    gathered rows, (E, C, ·) products, and the combine of the first T k
+    rows; shapes and work only (no data on the meta device)."""
+    t, d = x.shape
+    e, k = cfg.moe_experts, cfg.moe_top_k
+    gates, _ = router_weights(linear(x, p["router"]), k)
+    if "experts" in p:                   # streamed: fetch them all
+        acc = p["experts"]
+        one = None
+        for group in acc.rounds(list(range(e))):
+            one = one or acc.weights(group[0])
+        w = {n: v.new_empty((e, *v.shape)) for n, v in one.items()}
+    else:
+        w = {n: p[n] for n in ("w_gate", "w_up", "w_down") if n in p}
+    rows = torch.empty((e * c,), dtype=torch.long, device=x.device)
+    y = _expert(x[rows].reshape(e, c, d), w, cfg)            # (E, C, d)
+    y = y.reshape(e * c, d)[:t * k].reshape(t, k, d)
+    out = torch.einsum("tk,tkd->td", gates, y.to(torch.float32))
+    return out.to(x.dtype)

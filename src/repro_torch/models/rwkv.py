@@ -22,7 +22,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import linear, rms_norm
+from repro_torch.models.layers import linear, rms_norm, stand_in
 
 
 def wkv_step(state: torch.Tensor, r, k, v, w, u):
@@ -36,7 +36,11 @@ def wkv_step(state: torch.Tensor, r, k, v, w, u):
 
 def wkv_sequence(r, k, v, w, u, state):
     """r,k,v,w: (B,H,S,D) fp32; u: (H,D); state: (B,H,D,D).
-    Returns (y (B,H,S,D), final_state)."""
+    Returns (y (B,H,S,D), final_state).  On the meta device no step
+    runs (``layers.stand_in``): the dry run counts the recurrence
+    analytically."""
+    if r.device.type == "meta":
+        return stand_in((r, state), r, k, v, w, u, state)
     ys = []
     for t in range(r.shape[2]):
         state, y = wkv_step(state, r[:, :, t], k[:, :, t], v[:, :, t],

@@ -23,14 +23,18 @@ from typing import Optional
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import linear
+from repro_torch.models.layers import linear, stand_in
 
 SCAN_CHUNK = 64   # time steps whose decay and input terms are built at once
 
 
 def ssm_scan(x, dt, b_t, c_t, a, d_skip, state):
     """x: (B,S,d) fp32; dt: (B,S,d); b_t/c_t: (B,S,N); a: (d,N);
-    state: (B,d,N).  Returns (y (B,S,d), final_state)."""
+    state: (B,d,N).  Returns (y (B,S,d), final_state).  On the meta
+    device no step runs (``layers.stand_in``): the dry run counts the scan
+    analytically."""
+    if x.device.type == "meta":
+        return stand_in((x, state), x, dt, b_t, c_t, a, d_skip, state)
     ys = []
     for t0 in range(0, x.shape[1], SCAN_CHUNK):
         sl = slice(t0, t0 + SCAN_CHUNK)

@@ -244,6 +244,22 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
     ``DEC_POSITIONS`` rows."""
     device = resolve_device(device)
     init = _Init(generator, device, getattr(torch, cfg.param_dtype))
+    return _params(init, cfg, collect_layers, DEC_POSITIONS)
+
+
+def param_shapes(cfg: ModelConfig, decode_positions: int = 0) -> dict:
+    """``init_params``' tree as meta tensors: the structure, shapes and
+    types, nothing drawn or allocated (the counterpart of the reference's
+    ``jax.eval_shape`` of ``init_params``).  ``decode_positions`` sizes an
+    enc-dec model's decoder position table (0: ``DEC_POSITIONS``), as the
+    reference's ``init_params`` argument does."""
+    init = _MetaInit(getattr(torch, cfg.param_dtype))
+    return _params(init, cfg, list, decode_positions or DEC_POSITIONS)
+
+
+def _params(init: _Init, cfg: ModelConfig, collect_layers,
+            dec_positions: int) -> dict:
+    """The parameter tree drawn by ``init``, in ``init_params``' order."""
     d, v = cfg.d_model, cfg.vocab_size
     params: dict = {"embed": init.normal((v, d), d ** -0.5),
                     "final_norm": init.zeros((d,))}
@@ -256,7 +272,7 @@ def init_params(generator: torch.Generator, cfg: ModelConfig,
                              for _ in range(cfg.encoder_layers)]
         params["enc_norm"] = init.zeros((d,))
         params["enc_pos"] = init.normal((max(cfg.encoder_seq, 1), d), 0.02)
-        params["dec_pos"] = init.normal((DEC_POSITIONS, d), 0.02)
+        params["dec_pos"] = init.normal((dec_positions, d), 0.02)
     return params
 
 

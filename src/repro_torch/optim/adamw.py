@@ -83,8 +83,9 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 def _slabs(t: torch.Tensor) -> list[torch.Tensor]:
     """Views of ``t`` along its first axis whose fp32 copies take at most
-    ``SLAB_BYTES`` (the whole tensor when it is small)."""
-    if t.dim() == 0 or t.numel() * 4 <= SLAB_BYTES:
+    ``SLAB_BYTES`` (the whole tensor when it is small, or on the meta
+    device, where nothing is allocated and the count is the same)."""
+    if t.dim() == 0 or t.is_meta or t.numel() * 4 <= SLAB_BYTES:
         return [t]
     rows = max(1, SLAB_BYTES // (4 * (t.numel() // t.shape[0])))
     return list(torch.split(t, rows, dim=0))

@@ -53,6 +53,7 @@ import weakref
 
 import torch
 
+from repro_torch.kernels.dispatch import count_host_copy
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
@@ -221,8 +222,9 @@ class LayerStream:
         if self.device.type == "cuda":
             host = _pinned(off)
             weakref.finalize(self, _unpin, host).atexit = False
-        else:
-            host = torch.empty(off, dtype=torch.uint8)
+        else:                  # the CPU, or the meta device's shapes
+            host = torch.empty(off, dtype=torch.uint8, device=(
+                self.device if self.device.type == "meta" else "cpu"))
         self.host = [host[o:o + size] for o, size, _ in spans]
         self.banks = [host[o + size:o + size + bank] if bank else None
                       for o, size, bank in spans]
@@ -236,14 +238,16 @@ class LayerStream:
                 if self.banks[li] is not None else [])):
             raise ValueError(f"layer {li} differs in structure from its "
                              "layout")
+        meta = self.device.type == "meta"     # shapes only: nothing to copy
         for (path, o, shape, dtype), (_, t) in zip(layout, rest):
             self._check(li, path, t, shape, dtype)
-            _view(self.host[li], o, shape, dtype).copy_(t)
+            if not meta:
+                _view(self.host[li], o, shape, dtype).copy_(t)
         eb = self.expert_bytes
         for (name, o, shape, dtype), (path, t) in zip(self.expert_layout or (),
                                                       experts):
             self._check(li, path, t, (self.num_experts,) + shape, dtype)
-            for e in range(self.num_experts):
+            for e in range(0 if meta else self.num_experts):
                 _view(self.banks[li][e * eb:(e + 1) * eb], o, shape,
                       dtype).copy_(t[e])
 
@@ -254,6 +258,13 @@ class LayerStream:
                              f"{tuple(t.shape)} {t.dtype}, its layout "
                              f"{shape} {dtype}")
 
+    @property
+    def device_bytes(self) -> int:
+        """Bytes the stream holds on its device: the window's buffers and
+        the expert buffer."""
+        return self.depth * self.layer_bytes + (
+            self.expert_slots * self.expert_bytes)
+
     def issue(self, layer: int, slot: int) -> None:
         """Start the copy of ``layer``'s record into buffer ``slot``, after
         the last compute that read that buffer."""
@@ -262,6 +273,9 @@ class LayerStream:
         self.copies += 1
         self.bytes["window"] += src.numel()
         self.log.append(("copy", layer, slot))
+        if self.device.type == "meta":
+            count_host_copy(src.numel())
+            return
         if self.copy_stream is None:
             dst.copy_(src)
             return
@@ -330,6 +344,9 @@ class LayerStream:
         self.expert_copies += len(experts)
         self.bytes["experts"] += len(experts) * eb
         self.log += [("expert", layer, e) for e in experts]
+        if self.device.type == "meta":
+            count_host_copy(len(experts) * eb)
+            return
         pairs = [(self.expert_buffer[s * eb:(s + 1) * eb],
                   bank[e * eb:(e + 1) * eb]) for s, e in enumerate(experts)]
         if self.copy_stream is None:

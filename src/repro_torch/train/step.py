@@ -11,11 +11,14 @@ Counterpart of ``src/repro/train/step.py`` on one GPU:
   feedback (``distributed/compression.py``), applied before the update;
 * **the update**: ``optim/adamw.apply_update``, in place.
 
-There are no shardings, meshes or ``jit_train_step``: the port runs on one
-GPU, where PyTorch runs the step eagerly and nothing needs placing
-(ROADMAP.md, Queue 1: the production mesh).  Gradients come from autograd
-through the model's kernels, whose backward passes are hand-written
-kernels on the card (``kernels/*/ops.py``).
+``jit_train_step`` keeps the reference's signature and returns this eager
+step with the spec trees of the parameters, the optimizer state and the
+batch from ``distributed/sharding.py``'s rules: there is no jit (PyTorch
+runs the step as it comes), and on the one GPU the port runs on every spec
+is already met; on the production mesh the specs give the per-device
+shards the dry run accounts (``launch/dryrun.py``).  Gradients come from
+autograd through the model's kernels, whose backward passes are
+hand-written kernels on the card (``kernels/*/ops.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.distributed import compression as comp
+from repro_torch.distributed.sharding import batch_specs, param_specs
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
@@ -89,3 +93,29 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         return params, opt_state, metrics, err_fb
 
     return train_step
+
+
+def jit_train_step(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig,
+                   params_like: Any, batch_like: dict,
+                   grad_accum: int = 1, compression: str = "none",
+                   fsdp: bool = False, layout: str = "tp"
+                   ) -> tuple[Callable, dict]:
+    """The reference's ``jit_train_step``: (step_fn, specs), where step_fn
+    is ``make_train_step``'s eager step (no jit: PyTorch runs it as it
+    comes) and ``specs`` holds the spec trees the reference pins as
+    shardings: ``params`` (``fsdp``, ``layout``), ``opt`` (the step
+    replicated; the moments in the ZeRO placement, sharded over data and
+    model, or the parameters' own under ``fsdp2d``), ``batch`` (dim 0 over
+    (pod, data)) and ``err`` (the int8 error feedback in the ZeRO
+    placement, else None).  ``params_like`` and ``batch_like`` may be meta
+    tensors (the dry run's)."""
+    p_specs = param_specs(params_like, mesh, fsdp=fsdp, layout=layout,
+                          cfg=cfg)
+    zero = (p_specs if layout == "fsdp2d"
+            else param_specs(params_like, mesh, fsdp=True, cfg=cfg))
+    specs = {"params": p_specs, "opt": {"step": (), "m": zero, "v": zero},
+             "batch": batch_specs(batch_like, mesh),
+             "err": zero if compression == "int8" else None}
+    step = make_train_step(cfg, opt_cfg, grad_accum=grad_accum,
+                           compression=compression)
+    return step, specs

@@ -12,11 +12,14 @@ Counterpart of ``src/repro/train/trainer.py``, with the same contract:
 * **failure injection**: ``failure_hook(step)`` raising mid-run is the
   crash; a fresh Trainer resumes.
 
-What differs: no mesh.  ``device`` (default ``"cuda"``, through
+What differs: ``device`` (default ``"cuda"``, through
 ``transformer.resolve_device``: it raises without a card unless the CPU is
 asked for) holds the parameters, moments and batches; weights are drawn on
-it from ``torch.Generator(device).manual_seed(seed)``.  ``fsdp`` shards
-over a mesh and is refused (ROADMAP.md, Queue 1: the production mesh).
+it from ``torch.Generator(device).manual_seed(seed)``.  ``mesh`` (default:
+the local mesh of one device on ``device``) must span one device: on it
+every spec of ``jit_train_step`` is met, so ``fsdp`` changes nothing, as
+on the reference's (1, 1) mesh.  A mesh of more devices is refused: the
+port has no multi-GPU placement.
 """
 
 from __future__ import annotations
@@ -33,10 +36,11 @@ import torch
 from repro_torch.checkpoint.store import CheckpointStore
 from repro_torch.data.pipeline import DataConfig, make_dataset
 from repro_torch.distributed import compression as comp
+from repro_torch.launch.mesh import make_local_mesh, mesh_num_devices
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import jit_train_step
 from repro_torch.tree import tree_leaves
 
 
@@ -60,11 +64,15 @@ class Trainer:
                  opt_cfg: adamw.AdamWConfig, tcfg: TrainerConfig,
                  failure_hook: Optional[Callable[[int], None]] = None,
                  on_straggler: Optional[Callable[["Trainer"], None]] = None,
-                 device="cuda"):
-        if tcfg.fsdp:
-            raise ValueError("fsdp shards parameters over a mesh; the port "
-                             "trains on one GPU")
+                 device="cuda", mesh=None):
         self.device = tfm.resolve_device(device)
+        mesh = mesh or make_local_mesh(device=self.device)
+        if mesh_num_devices(mesh) != 1:
+            raise ValueError(
+                f"a mesh of {mesh_num_devices(mesh)} devices "
+                f"({dict(mesh.shape)}): the port trains on one GPU and has "
+                "no multi-GPU placement of parameters or batches")
+        self.mesh = mesh
         self.cfg = model_cfg
         self.tcfg = tcfg
         self.opt_cfg = opt_cfg
@@ -81,9 +89,11 @@ class Trainer:
         gen = torch.Generator(self.device).manual_seed(tcfg.seed)
         params = tfm.init_params(gen, model_cfg, self.device)
         opt_state = adamw.init_state(params, opt_cfg)
-        self.step_fn = make_train_step(model_cfg, opt_cfg,
-                                       grad_accum=tcfg.grad_accum,
-                                       compression=tcfg.compression)
+        batch0 = self.data.batch_at(0)
+        self.step_fn, self.specs = jit_train_step(
+            model_cfg, mesh, opt_cfg, params, batch0,
+            grad_accum=tcfg.grad_accum, compression=tcfg.compression,
+            fsdp=tcfg.fsdp)
         self.err_fb = comp.init_error_feedback(params, tcfg.compression)
 
         latest = self.store.latest_step()

@@ -45,6 +45,9 @@ print(json.dumps(bad))
     "repro_torch.train.step", "repro_torch.optim.adamw",
     "repro_torch.distributed.compression", "repro_torch.data.pipeline",
     "repro_torch.checkpoint.store", "repro_torch.kernels.fused_mlp.ops",
+    "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+    "repro_torch.launch.specs", "repro_torch.launch.hlo_analysis",
+    "repro_torch.launch.dryrun", "repro_torch.kernels.cost",
 ])
 def test_import_leaves_jax_and_reference_out(module):
     env = dict(os.environ)
@@ -115,3 +118,19 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, cwd=ROOT, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_dryrun_defaults_to_the_card_and_refuses_without_one(tmp_path):
+    """``python -m repro_torch.launch.dryrun`` measures on ``cuda`` unless
+    told otherwise: without a card it refuses before any work."""
+    _skip_if_card()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen3_14b", "--shape", "decode_32k", "--mesh", "single",
+         "--out-dir", str(tmp_path)],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    assert res.returncode != 0
+    assert "CUDA device" in res.stderr
+    assert not list(tmp_path.iterdir())

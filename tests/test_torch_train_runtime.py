@@ -36,6 +36,7 @@ from repro_torch.convert import opt_state_from_jax, params_from_jax
 from repro_torch.data.pipeline import DataConfig, MemmapDataset, SyntheticLM
 from repro_torch.distributed import compression as comp
 from repro_torch.launch import train as launch_train
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as tfm
 from repro_torch.models.frontends import frontend_embeddings
 from repro_torch.optim import adamw
@@ -245,14 +246,15 @@ class TestCheckpoint:
 # trainer
 # ---------------------------------------------------------------------------
 
-def _mk_trainer(wd, steps=20, ckpt_every=5, failure_hook=None, **tkw):
+def _mk_trainer(wd, steps=20, ckpt_every=5, failure_hook=None, mesh=None,
+                **tkw):
     cfg = get_smoke_config("qwen3_14b")
     return Trainer(
         cfg, DataConfig(batch=4, seq=16, vocab_size=cfg.vocab_size),
         AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=60),
         TrainerConfig(workdir=str(wd), total_steps=steps,
                       ckpt_every=ckpt_every, **tkw),
-        failure_hook=failure_hook, device="cpu")
+        failure_hook=failure_hook, device="cpu", mesh=mesh)
 
 
 class TestTrainer:
@@ -325,8 +327,12 @@ class TestTrainer:
                                              - b.detach().float()))) < 1e-1
 
     def test_fsdp_is_refused(self, tmp_path):
+        """FSDP over a mesh of more than one device is refused: the port
+        trains on one GPU (on a mesh of one device ``fsdp`` is accepted
+        and changes nothing, ``test_torch_dryrun.py``)."""
+        mesh = Mesh(("data", "model"), (2, 1), (torch.device("cpu"),) * 2)
         with pytest.raises(ValueError, match="one GPU"):
-            _mk_trainer(tmp_path, fsdp=True)
+            _mk_trainer(tmp_path, fsdp=True, mesh=mesh)
 
     def test_cuda_is_the_default_device(self, tmp_path):
         if torch.cuda.is_available():
