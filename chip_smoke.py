@@ -232,7 +232,9 @@ from repro_torch.kernels.decode_attention.ops import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, live_mask)
 from repro_torch.kernels.elk_matmul.kernel import (  # noqa: E402
-    ROUTES as MATMUL_ROUTES, elk_matmul_kernel, plan_for, tma_legal)
+    ROUTES as MATMUL_ROUTES, elk_matmul_kernel, plan_for, plan_of)
+from repro_torch.kernels.elk_matmul.kernel import \
+    route_for as matmul_route_for  # noqa: E402
 from repro_torch.kernels.elk_matmul.kernel import \
     layout as matmul_layout  # noqa: E402
 from repro_torch.kernels.elk_matmul.kernel import \
@@ -242,8 +244,10 @@ from repro_torch.kernels.elk_matmul.ref import (matmul2_ref,  # noqa: E402
                                                 matmul_ref)
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    ROUTES as FLASH_ROUTES, WGMMA_HEAD_DIMS as FLASH_WGMMA_HEAD_DIMS,
-    flash_attention_bwd_kernel, flash_attention_kernel)
+    PADDED_HEAD_DIMS, ROUTES as FLASH_ROUTES, flash_attention_bwd_kernel,
+    flash_attention_kernel)
+from repro_torch.kernels.flash_attention.kernel import \
+    route_for as flash_route_for  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import \
     plan_splits as flash_plan_splits  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import \
@@ -395,6 +399,8 @@ RUNS = MODEL_RUNS + FAMILY_RUNS
 # resident weights cut to the same depth
 STREAM_DEPTH = 20
 TRACE_ARCHS = (TRACE_ARCH, *FAMILY_TRACE_N)
+# the matmul routes that replaced "mma_sync" at some shapes (timed beside it)
+NEW_MATMUL_ROUTES = ("wgmma_realign", "splitk_realign", "fma", "fma_splitk")
 # products that run in fp32 on a bf16 model (hymba's w_dt and w_bc)
 FP32_PRODUCTS = ("ssm dt", "ssm bc")
 # the SSM weights ``models/ssm.ssm_branch`` casts to fp32 on every pass
@@ -499,6 +505,33 @@ def layer_mlps(cfg) -> list[tuple[str, int, int, str]]:
             ("shared expert", cfg.moe_shared_d_ff,
              moe if cfg.moe_shared_d_ff else 0, "layer"),
             ("encoder mlp", cfg.d_ff, cfg.encoder_layers, "encoder")]
+
+
+# the instances the [build] lines list one by one (registers, spills): flash
+# attention's "wgmma" instances, the fp32 "fma" kernel's serving instances
+# (x and y as stored, one part), the realigning producer's GemmCfg (its last
+# flag, B_LDG, set)
+WATCHED_INSTANCES = ("flash_attention_wgmma_kernel",
+                     "Lb0ELb0ELb0EEEvNS_4ArgsEii", "Lb0ELb0ELb0ELb0ELb1E")
+
+
+def ptxas_entries(log: str) -> list[tuple[str, int, int]]:
+    """(mangled entry name, registers, spill store bytes) of each kernel in
+    ``ptxas -v`` output (its spill line comes before its registers)."""
+    out, entry, spill = [], None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out.append((entry, int(m.group(1)), spill))
+            entry = None
+    return out
 
 
 def fail(msg: str) -> None:
@@ -1291,27 +1324,37 @@ def flash_phase(cfg, chunk: int) -> dict:
             q, k, v = qkv(2, hq, hkv, sq, 1500, d, bf16)
             for splits in (None, 1, 8):
                 case(q, k, v, causal=False, splits=splits)
-    # route "mma_sync" at dit-xl's D 72 (G 1) and kimi-k2's D 112 (G 8):
+    # dit-xl's D 72 (G 1) and kimi-k2's D 112 (G 8), and 80 and 96: route
+    # "wgmma" in the layout of 128, split as planned, unsplit and over a
+    # cluster of 8; "mma_sync" forced; the planned route:
     # prefills with ragged S, a window, bidirectional; chunks against a ring
     # of 512 (part-filled, wrapped, windowed, a dead row); q through the
     # strides of a (B, S, Hq, D) projection
-    for hq, hkv, d in ((16, 16, 72), (64, 8, 112)):
+    wg_pad = [dict(route="wgmma", splits=sp) for sp in (None, 1, 8)] + [
+        dict(route="mma_sync"), {}]
+    for hq, hkv, d in ((16, 16, 72), (64, 8, 112), (8, 2, 80), (10, 2, 96)):
         for b, s_len, causal, win in ((2, 257, True, 0), (1, 200, True, 50),
                                       (1, 130, False, 0)):
-            case(*qkv(b, hq, hkv, s_len, s_len, d, bf16), causal=causal,
-                 window=win)
+            q, k, v = qkv(b, hq, hkv, s_len, s_len, d, bf16)
+            for kw in wg_pad:
+                case(q, k, v, causal=causal, window=win, **kw)
         for t, start, win in ((1, 300, 0), (37, 100, 0), (64, 480, 64),
                               (256, 200, 0)):
             q_pos, tags = chunk_positions(1, t, 512, (start,))
-            case(*qkv(1, hq, hkv, t, 512, d, bf16), q_pos, tags, window=win)
+            q, k, v = qkv(1, hq, hkv, t, 512, d, bf16)
+            for kw in wg_pad:
+                case(q, k, v, q_pos, tags, window=win, **kw)
         q_pos, tags = chunk_positions(3, 40, 512, (100, 600, 0))
         tags[2] = SENTINEL
         dead = torch.zeros((3, 40), dtype=torch.bool, device="cuda")
         dead[2] = True
-        case(*qkv(3, hq, hkv, 40, 512, d, bf16), q_pos, tags, dead=dead)
+        q, k, v = qkv(3, hq, hkv, 40, 512, d, bf16)
+        for kw in wg_pad:
+            case(q, k, v, q_pos, tags, dead=dead, **kw)
         q_strided = normal(2, 150, hq, d, dtype=bf16).transpose(1, 2)
         k, v = qkv(2, hq, hkv, 150, 150, d, bf16)[1:]
-        case(q_strided, k, v)
+        for kw in wg_pad:
+            case(q_strided, k, v, **kw)
     # fp32 query against a bf16 ring (fp32 weights, default bf16 KV)
     q_pos, tags = chunk_positions(2, 33, 128, (10, 200))
     case(*qkv(2, 8, 2, 33, 128, 32, torch.float32, torch.bfloat16), q_pos,
@@ -1321,8 +1364,9 @@ def flash_phase(cfg, chunk: int) -> dict:
 
     # the int8 ring, dequantized in the kernel: chunks of 4-256 tokens at
     # ring offsets 0, 700 and 1900 of a ring of 2048 on every route
-    # ("wgmma" at D 64, 128, 256, split as planned, unsplit and over 8;
-    # "mma_sync" at 72 and 112; "fma" with an fp32 query), windows; three
+    # ("wgmma" at D 64, 112, 128, 256, split as planned, unsplit and over 8,
+    # and at 112 also "mma_sync" forced; "mma_sync" at 72, where an int8 row
+    # is no stride TMA takes; "fma" with an fp32 query), windows; three
     # rows, one of them evicted
     bf16_cases, worst_bf16 = cases, dict(worst)
     worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
@@ -1335,10 +1379,12 @@ def flash_phase(cfg, chunk: int) -> dict:
             q_pos, tags = chunk_positions(1, t, SLOT_CACHE, (start,))
             q, k, v = qkv(1, hq, hkv, t, SLOT_CACHE, d, bf16)
             kq, vq, sc = int8_ring(k, v)
-            for splits in ((None, 1, 8) if d in FLASH_WGMMA_HEAD_DIMS
-                           else (None,)):
-                case(q, kq, vq, q_pos, tags, window=win, splits=splits,
-                     kv_scales=sc)
+            wg = flash_route_for(bf16, torch.int8, d, hq // hkv) == "wgmma"
+            for kw in ([dict(splits=sp) for sp in (None, 1, 8)]
+                       + ([dict(route="mma_sync")] if d in PADDED_HEAD_DIMS
+                          else [])
+                       if wg else [{}]):
+                case(q, kq, vq, q_pos, tags, window=win, kv_scales=sc, **kw)
             case(q.float(), kq, vq, q_pos, tags, window=win, kv_scales=sc)
         q_pos, tags = chunk_positions(3, 40, 512, (100, 600, 0))
         tags[2] = SENTINEL
@@ -1437,6 +1483,18 @@ def flash_phase(cfg, chunk: int) -> dict:
             blocks = b * hkv * row_tiles * splits
         else:   # a block for 64 queries (kMmaBQ) of a head, the ring unsplit
             splits, blocks = 1, b * hq * -(-t // 64)
+        padded = d in PADDED_HEAD_DIMS
+        if padded:
+            # the head dims "wgmma" lays out as 128: both kernels alone,
+            # "mma_sync" the one these shapes ran on before
+            pos = {} if start is None else dict(q_pos=q_pos, k_pos=k_pos)
+            alt = {"wgmma_ms": time_ms(lambda: flash_attention_kernel(
+                q, k, v, causal=causal, window=win, route="wgmma", **pos),
+                20)}
+            alt["mma_sync_ms"] = time_ms(
+                lambda: flash_attention_kernel(q, k, v, causal=causal,
+                                               window=win, route="mma_sync",
+                                               **pos), 20)
         shapes.append({
             "shape": label, "b": b, "hq": hq, "hkv": hkv, "sq": t, "sk": c,
             "d": d, "causal": causal, "window": win, "dtype": "bfloat16",
@@ -1446,14 +1504,18 @@ def flash_phase(cfg, chunk: int) -> dict:
             "plain_ms": time_ms(plain, 3, warmup=1),
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": time_ms(library, 20),
+            **(alt if padded else {}),
         })
         say(f"[kernels] flash_attention {label}: " + json.dumps(shapes[-1]))
 
     # the int8 ring at the chunk shapes of the serving path, beside the
-    # bf16 kernel at the same shape
+    # bf16 kernel at the same shape; and kimi-k2's chunk of 256 (D 112, G 8)
     int8_shapes = []
-    hq, hkv, d = heads
-    for t, start in ((32, 700), (32, 1900), (PREFILL_CHUNK, 700)):
+    kimi = get_config("kimi_k2_1t_a32b")
+    for (hq, hkv, d), t, start in (
+            (heads, 32, 700), (heads, 32, 1900), (heads, PREFILL_CHUNK, 700),
+            ((kimi.num_heads, kimi.num_kv_heads, kimi.resolved_head_dim),
+             PREFILL_CHUNK, 700)):
         q, k, v = qkv(1, hq, hkv, t, SLOT_CACHE, d, dtype)
         kq, vq, sc = int8_ring(k, v)
         q_pos, k_pos = chunk_positions(1, t, SLOT_CACHE, (start,))
@@ -1461,7 +1523,7 @@ def flash_phase(cfg, chunk: int) -> dict:
         bound, bound_by = flash_bound_ms(q, kq, q_pos, k_pos, True, 0)
         row_tiles, splits = flash_plan_splits(1, hkv, t, SLOT_CACHE, hq // hkv)
         int8_shapes.append({
-            "shape": f"int8 chunk T={t} at {start}", "b": 1, "hq": hq,
+            "shape": f"int8 chunk T={t} at {start} D={d}", "b": 1, "hq": hq,
             "hkv": hkv, "sq": t, "sk": SLOT_CACHE, "d": d, "kv": "int8",
             "route": flash_route_of(q, kq), "splits": splits,
             "max_abs_err": err,
@@ -1475,6 +1537,9 @@ def flash_phase(cfg, chunk: int) -> dict:
             "bf16_bound_ms": flash_bound_ms(q, k, q_pos, k_pos, True, 0)[0],
             # no one PyTorch call attends over an int8 ring
             "library_ms": None,
+            **({"mma_sync_ms": time_ms(lambda: flash_attention_kernel(
+                q, kq, vq, q_pos, k_pos, kv_scales=sc, route="mma_sync"), 20)}
+               if d in PADDED_HEAD_DIMS else {}),
         })
         say(f"[kernels] flash_attention {int8_shapes[-1]['shape']}: "
             + json.dumps(int8_shapes[-1]))
@@ -1755,6 +1820,26 @@ def elk_matmul_phase(cfg) -> dict:
             case(x, y.t().contiguous().t())
         case(normal(m, 200, dtype=torch.float32),
              normal(200, 32, dtype=torch.float32))
+    # the realigning producer ("_realign" routes): y's rows 1001 and 32001
+    # elements apart (hymba's untied head), a base 2 bytes off 16 (a
+    # contiguous view, and column views of a wider weight on an odd stride
+    # and on one TMA would take), the head also on the mma_sync kernel
+    bf16 = torch.bfloat16
+    odd_ys = (normal(200, 1001, dtype=bf16), normal(200, 32001, dtype=bf16),
+              normal(200 * 1000 + 1, dtype=bf16)[1:].view(200, 1000),
+              normal(200, 1025, dtype=bf16)[:, 1:],
+              normal(200, 1032, dtype=bf16)[:, 1:1001])
+    for m in (1, 8, 17, 64, 65, 300):
+        x = normal(m, 200, dtype=bf16)
+        for y in odd_ys:
+            case(x, y)
+        case(x, odd_ys[1], bm=64, bn=64, bk=64)
+    # fp32 ("fma", "fma_splitk"): hymba's w_bc (N 32) and w_dt (N 1600),
+    # K 1600, at the rows of a decode step, the tiles' edges and a prefill
+    for m in (1, 8, 17, 64, 65, 4096):
+        x = normal(m, 1600, dtype=torch.float32)
+        for n in (32, 1600):
+            case(x, normal(1600, n, dtype=torch.float32, scale=1600 ** -0.5))
     if min(reached.values()) < 1:
         fail(f"the elk_matmul sweep did not reach every route: {reached}")
     say(f"[kernels] elk_matmul: {cases} sweep cases inside their limits, each "
@@ -1769,9 +1854,17 @@ def elk_matmul_phase(cfg) -> dict:
         version and the library call."""
         err = case(x, w)
         m, n, k, lda, ldy, _ = matmul_layout(x, w)
-        plan = plan_for(m, n, k, x.dtype, tma_legal(x, w, lda, ldy))
+        plan = plan_of(x, w)
         bound, bound_by = matmul_bound_ms(m, n, k, x.dtype)
         iters = 5 if m * n > 2 ** 24 else 20
+        old = {}
+        if plan.route in NEW_MATMUL_ROUTES:
+            # the mma_sync kernel these shapes ran on before, on its plan
+            o = plan_for(m, n, k, x.dtype, mma_sync=True)
+            old = {"old_route": "mma_sync",
+                   "old_tiles": [o.bm, o.bn, o.bk],
+                   "old_route_ms": time_ms(lambda: matmul(
+                       x, w, bm=o.bm, bn=o.bn, bk=o.bk), iters)}
         shapes.append({
             "shape": label, "m": m, "n": n, "k": k,
             "dtype": str(x.dtype).split(".")[1],
@@ -1783,6 +1876,7 @@ def elk_matmul_phase(cfg) -> dict:
             "plain_ms": time_ms(lambda: matmul_ref(x, w), 3, warmup=1),
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": time_ms(lambda: torch.matmul(x, w), iters),
+            **old,
         })
         say(f"[kernels] elk_matmul {label}: " + json.dumps(shapes[-1]))
 
@@ -2180,17 +2274,20 @@ def passes_expected(cfg, passes: list[tuple[str, int, int]],
     are its batch), its cross k, v products and the encoder's layers over
     the batch's frames; the head one product a pass.  By route: the MLP on
     "two_pass" above SPLIT_FF_MAX_M rows and "split_ff" at or below; each
-    product on the route of its plan (``smem_plan``: TMA takes it when it
-    is bf16 and its row strides are whole 16 bytes); flash attention on
-    "wgmma" at the head dims it takes and "mma_sync" at the others; decode
-    attention on "mma".  By the type of K/V the attention kernels read:
+    product on the route of its plan (``elk_matmul.kernel.route_for``: TMA
+    takes it when it is bf16 and its row strides are whole 16 bytes, the
+    "_realign" routes an untied head whose rows are not, "fma" /
+    "fma_splitk" the fp32 ones); flash attention on the route of
+    ``flash_attention.kernel.route_for`` for the K/V it reads (a chunk over
+    an int8 ring at D 72 on "mma_sync"); decode attention on "mma".  By the
+    type of K/V the attention kernels read:
     the ring's at a decode step and a chunk, the activations' (bf16) at a
     prefill, in cross-attention and in the encoder.  ``kv_quant`` once a
     layer at a decode step and a chunk over an int8 ring."""
     layers = 0 if cfg.rwkv else cfg.num_layers
     enc, cross = cfg.encoder_layers, cfg.num_layers if cfg.encoder_layers else 0
-    flash_route = ("wgmma" if cfg.resolved_head_dim in FLASH_WGMMA_HEAD_DIMS
-                   else "mma_sync")
+    d, g = cfg.resolved_head_dim, cfg.num_heads // cfg.num_kv_heads
+    kv_dtype = torch.int8 if kv == "int8" else torch.bfloat16
     mlp = dict.fromkeys(MLP_ROUTES, 0)
     mm = dict.fromkeys(MATMUL_ROUTES, 0)
     attn = {"flash_attention": dict.fromkeys(FLASH_ROUTES, 0),
@@ -2200,14 +2297,21 @@ def passes_expected(cfg, passes: list[tuple[str, int, int]],
     quant = 0
 
     def route(m, k, n, ldy, dtype):
-        return plan_for(m, n, k, dtype, dtype == torch.bfloat16
-                        and k % 8 == 0 and ldy % 8 == 0).route
+        # a tied head is the transposed embedding: its rows are K long
+        return matmul_route_for(m, n, k, dtype, k, ldy, int(ldy != n))
 
     for kind, rows, head_rows in passes:
         flash = kind != "decode"
         prefill = kind == "flash"
-        attn["flash_attention"][flash_route] += cross + (
-            layers + enc if flash else 0)
+        # a chunk reads the ring's type, the rest bf16 K/V (cross-attention,
+        # the encoder, a prefill's own)
+        bf16_route = flash_route_for(torch.bfloat16, torch.bfloat16, d, g)
+        attn["flash_attention"][bf16_route] += cross + (
+            enc if prefill else 0)
+        if flash:
+            attn["flash_attention"][flash_route_for(
+                torch.bfloat16, torch.bfloat16 if prefill else kv_dtype,
+                d, g)] += layers
         kv_of["flash_attention kv"]["bfloat16"] += cross + (
             enc if prefill else 0)
         if prefill:
@@ -4715,8 +4819,14 @@ def main() -> None:
                          ln for ln in lines if "error" in ln.lower()]
         for line in lines:
             say(f"[build] {name}: {line}")
+        for entry, regs, spill in ptxas_entries(log):
+            if any(key in entry for key in WATCHED_INSTANCES):
+                say(f"[build] {name}: {entry}: {regs} registers, {spill} "
+                    "bytes spill stores")
     say(f"[build] {len(logs)} source(s) {sorted(logs)} built with nvcc for "
-        f"sm_90a in {time.perf_counter() - t0:.1f}s")
+        f"sm_90a in {time.perf_counter() - t0:.1f}s; seconds by source "
+        + json.dumps({n: round(t, 1)
+                      for n, t in sorted(_build.build_seconds.items())}))
 
     # the plain versions are the reference: full fp32 products, no TF32
     torch.backends.cuda.matmul.allow_tf32 = False

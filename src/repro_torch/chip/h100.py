@@ -143,6 +143,22 @@ SMEM_BLOCK_RESERVE = 1024   # shared memory the system keeps for each block
 # splits of K at most: one cluster a tile, of the size every card takes
 # (kMaxSplits of the header)
 MAX_SPLITS = 8
+# routes "wgmma_realign" / "splitk_realign": y loaded and realigned by the
+# producer warpgroup (GemmCfg::B_LDG), one consumer warpgroup, these widths
+# (ELK_REALIGN_TILES of csrc/elk_matmul.cu)
+REALIGN_TILE_N = (64, 128)
+
+# fp32, routes "fma" / "fma_splitk" (csrc/elk_matmul_sync.cu: ELK_FMA_TILES,
+# kF32Stages, F32Shape): the (bm, bn) tiles, the ring's stages, the threads
+# of a block
+FMA_TILES = ((16, 32), (16, 64), (32, 64), (64, 64), (64, 128), (128, 128))
+FMA_STAGES = 4
+
+
+def fma_threads(bm: int, bn: int) -> int:
+    """Threads of a block of the "fma" kernel: 256 from 128 x 128, else
+    128."""
+    return 256 if bm * bn >= 128 * 128 else 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,7 +173,8 @@ class SmemPlan:
     tiles: int            # output tiles = blocks launched
     acc_bytes: int        # the fp32 accumulator, held in registers
     blocks_per_sm: int    # blocks bk was sized to keep resident together
-    route: str = "mma_sync"   # "mma_sync", "wgmma" or "splitk"
+    route: str = "mma_sync"   # "mma_sync", "wgmma", "splitk", their
+    #                           "_realign" twins, "fma" or "fma_splitk"
     stages: int = STAGES      # the ring's depth
     splits: int = 1           # splits of K (route "splitk"), each its blocks
     k_per_split: int = 0      # K tiles of one split
@@ -236,16 +253,22 @@ def _split(k_tiles: int, tiles: int, sms: int) -> tuple[int, int]:
     return best
 
 
-def _tma_plan(m: int, n: int, k: int, chip: ChipConfig
-              ) -> Optional[SmemPlan]:
+def _tma_plan(m: int, n: int, k: int, chip: ChipConfig,
+              realign: bool = False) -> Optional[SmemPlan]:
     """The plan of a bf16 product on the TMA + wgmma mainloop, or None when
     no tile of it fits ``chip``'s shared memory.  The same three steps as
     the mma_sync plan: cost = HBM traffic, then cover the SMs, then the
-    preload depth (stages) from what shared memory is left."""
+    preload depth (stages) from what shared memory is left.  ``realign``:
+    y loaded by the producer warpgroup (routes "wgmma_realign" and
+    "splitk_realign"), one consumer warpgroup and the widths of
+    ``REALIGN_TILE_N``."""
     budget, sms = chip.sram_per_core, chip.num_cores
     k_tiles = -(-k // WG_BK)
+    suffix = "_realign" if realign else ""
 
     def fits(bm, bn):
+        if realign and (bm != WGMMA_M or bn not in REALIGN_TILE_N):
+            return False
         return wg_acc_fits(bm, bn) and wg_stages(bm, bn, budget=budget)[0] >= 2
 
     def plan(bm, bn, route, splits=1, per=k_tiles, traffic=0):
@@ -254,7 +277,7 @@ def _tma_plan(m: int, n: int, k: int, chip: ChipConfig
                         smem_bytes=wg_smem_bytes(bm, bn, stages),
                         hbm_traffic=traffic, tiles=tiles(bm, bn),
                         acc_bytes=bm * bn * 4, blocks_per_sm=per_sm,
-                        route=route, stages=stages, splits=splits,
+                        route=route + suffix, stages=stages, splits=splits,
                         k_per_split=per)
 
     def traffic(bm, bn):
@@ -319,8 +342,68 @@ def _tma_plan(m: int, n: int, k: int, chip: ChipConfig
     return plan(bm, bn, "wgmma", splits, per, traffic(bm, bn))
 
 
+def _fma_plan(m: int, n: int, k: int, chip: ChipConfig
+              ) -> Optional[SmemPlan]:
+    """The plan of an fp32 product on the "fma" kernel, or None when no tile
+    of it fits ``chip``'s shared memory.  Cost = HBM traffic over the
+    compiled tiles (``FMA_TILES``) no larger than m and n rounded up to 16
+    and 32: of those that give every SM a block, the one that moves the
+    fewest bytes ("fma"); when none does, the smallest, and K split over
+    up to MAX_SPLITS blocks of a cluster so that the SMs have blocks
+    ("fma_splitk"; rank-order sums in the cluster's shared memory).  Then
+    the depth bk: the deepest of ``TILE_K`` (not past K) whose ring of
+    ``FMA_STAGES`` fits the budget shared by the blocks an SM runs at once
+    (the splits counted at the finest depth first).  From the shapes and
+    the card alone.  The smallest tile's fp32 sums, one set a K slice (8
+    KB), always fit the ring they are left in."""
+    budget, sms = chip.sram_per_core, chip.num_cores
+
+    def ring(bm, bn, bk):
+        return FMA_STAGES * ((bm * bk + bk * bn) * 4
+                             + (bm + max(bk, bn)) * ROW_PAD_BYTES)
+
+    def traffic(bm, bn):
+        return (m * k * math.ceil(n / bn) + k * n * math.ceil(m / bm)
+                + m * n) * 4
+
+    def tiles(bm, bn):
+        return math.ceil(m / bm) * math.ceil(n / bn)
+
+    fit = [t for t in FMA_TILES if ring(*t, TILE_K[0]) <= budget]
+    if not fit:
+        return None
+    cands = [t for t in fit if t[0] <= _round_up(m, 16)
+             and t[1] <= _round_up(n, 32)] or fit[:1]
+    covering = [t for t in cands if tiles(*t) >= sms]
+    if covering:
+        bm, bn = min(covering, key=lambda t: (traffic(*t), -t[0]))
+        splits = 1
+    else:       # the smallest tile: the most blocks
+        bm, bn = max(cands, key=lambda t: (tiles(*t), -t[0] * t[1]))
+        splits = _split(-(-k // TILE_K[0]), tiles(bm, bn), sms)[0]
+    threads = fma_threads(bm, bn)
+    resident = max(1, min(math.ceil(tiles(bm, bn) * splits / sms),
+                          THREADS_PER_SM // threads))
+    k_cap = _round_up(k, MMA_K)
+    bk = TILE_K[0]
+    while True:
+        nk = _step(TILE_K, bk, 1)
+        if nk is None or nk > k_cap or ring(bm, bn, nk) > budget // resident:
+            break
+        bk = nk
+    k_tiles = -(-k // bk)
+    per = -(-k_tiles // splits)
+    splits = -(-k_tiles // per)     # none empty
+    return SmemPlan(bm=bm, bn=bn, bk=bk, smem_bytes=ring(bm, bn, bk),
+                    hbm_traffic=traffic(bm, bn), tiles=tiles(bm, bn),
+                    acc_bytes=bm * bn * 4, blocks_per_sm=resident,
+                    route="fma_splitk" if splits > 1 else "fma",
+                    stages=FMA_STAGES, splits=splits, k_per_split=per)
+
+
 def smem_plan(m: int, n: int, k: int, *, dtype_bytes: int = 2,
-              chip: Optional[ChipConfig] = None, tma: bool = True
+              chip: Optional[ChipConfig] = None, tma: bool = True,
+              realign: bool = False, mma_sync: bool = False
               ) -> SmemPlan:
     """Choose the route and the block plan of ``elk_matmul`` on one H100
     (``h100_sxm``).
@@ -333,9 +416,14 @@ def smem_plan(m: int, n: int, k: int, *, dtype_bytes: int = 2,
     "splitk" below, one 64-row tile, a width of ``WG_TILE_N`` and
     the split of K that gives every SM a block (``splits`` <= MAX_SPLITS,
     ``k_per_split``; the splits of a tile run as one cluster and are summed
-    in rank order).  Anything else (fp32, a
-    stride TMA does not take, a budget no TMA tile fits) takes the route
-    "mma_sync", (bm, bn, bk) as follows.
+    in rank order).  A bf16 product whose x TMA takes and whose (K, N)
+    row-major y it refuses (``realign``: hymba's untied head, rows of 32001
+    elements) takes the same plan on one consumer warpgroup as
+    "wgmma_realign" / "splitk_realign".  fp32 takes ``_fma_plan`` (routes
+    "fma" and "fma_splitk").  Anything else (another stride TMA does not
+    take, a budget no tile of those fits, or ``mma_sync``: the plan behind
+    a forced block shape) takes the route "mma_sync", (bm, bn, bk) as
+    follows.
 
     The shared-memory twin of ``vmem_plan``, with Hopper's model: shared
     memory holds a ring of ``STAGES`` operand tiles (the execution space
@@ -369,10 +457,13 @@ def smem_plan(m: int, n: int, k: int, *, dtype_bytes: int = 2,
     if min(m, n, k) < 1:
         raise ValueError(f"empty product: m={m}, n={n}, k={k}")
     chip = chip or h100_sxm()
-    if dtype_bytes == 2 and tma:
-        plan = _tma_plan(m, n, k, chip)
-        if plan is not None:
-            return plan
+    plan = None
+    if not mma_sync and dtype_bytes == 2 and (tma or realign):
+        plan = _tma_plan(m, n, k, chip, realign=not tma)
+    elif not mma_sync and dtype_bytes == 4:
+        plan = _fma_plan(m, n, k, chip)
+    if plan is not None:
+        return plan
     budget = chip.sram_per_core
     sms = chip.num_cores
 

@@ -7,16 +7,19 @@ at import: a machine without ``nvcc`` or without a card can import every
 module of the port.  Libraries go to ``build/`` at the repository root
 (listed in ``.gitignore``), named by a hash of source and flags so that an
 edited source is rebuilt.  ``build_all`` starts one ``nvcc`` per source at
-once; a failed build raises with the compiler's output.
+once and records each one's seconds (``build_seconds``); a failed build
+raises with the compiler's output.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -26,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+build_seconds: dict[str, float] = {}   # the last build of each source
 
 
 def nvcc_path() -> str:
@@ -65,11 +69,13 @@ class _Build:
         self.tmp = self.out.with_suffix(f".tmp{os.getpid()}.so")
         cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(self.tmp),
                str(CSRC / f"{name}.cu")]
+        self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
 
     def finish(self) -> str:
         log, _ = self.proc.communicate()
+        build_seconds[self.name] = time.perf_counter() - self.t0
         if self.proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.name}.cu "
                                f"(exit {self.proc.returncode}):\n{log}")
@@ -85,7 +91,14 @@ def build_all(verbose: bool = False) -> dict[str, str]:
     extra = ["-Xptxas", "-v"] if verbose else []
     builds = [_Build(n, extra) for n in sources()
               if verbose or not _lib_path(n).exists()]
-    return {b.name: b.finish() for b in builds}
+    # a thread a build reads its output as it comes, so that each one's
+    # seconds are its own and no full pipe stalls a compiler
+    with concurrent.futures.ThreadPoolExecutor(max(1, len(builds))) as ex:
+        done = [ex.submit(b.finish) for b in builds]
+    failed = [str(f.exception()) for f in done if f.exception() is not None]
+    if failed:      # every source that failed, not only the first
+        raise RuntimeError("\n".join(failed))
+    return {b.name: f.result() for b, f in zip(builds, done)}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -31,26 +31,32 @@
 //
 // Design.  The TPU grid (B, Hq, S / bq, S / bk) walks the KV axis in order
 // and carries (m, l, acc) in scratch across grid steps; on Hopper the KV axis
-// becomes a loop inside the block.  Three routes, chosen by the wrapper:
-//   * "wgmma" (bf16 query and cache, head dim 64, 128 or 256): a block owns
+// becomes a loop inside the block.  Three routes, chosen by the wrapper; the
+// "wgmma" instances are compiled from flash_attention_wgmma.cu (a library of
+// their own, so that the two nvcc processes run side by side), what all
+// routes share is in flash_attention.cuh:
+//   * "wgmma" (bf16 query, a bf16 cache at head dim 64, 72, 80, 96, 112, 128
+//     or 256, an int8 one at the same but 72): a block owns
 //     one (b, kv head) and 64 "rows", a row being a (query position t, query
 //     head g of the kv head's group) pair, row = t G + g.  Each K and V tile
 //     is read once for all G heads of its kv head, and a tile of rows spans
 //     64 / G positions, so the causal and window bounds of its KV loop stay
 //     tight.  One producer warp keeps K, V (and the tiles' tags) in flight
 //     through a ring of stages: its first lane issues the TMA copies (three
-//     dimensional maps over (B Hkv, Sk, D), 128-byte swizzle, zeros past Sk),
-//     all its lanes copy the tags (the next tile's loaded while this one
-//     waits for its stage), and full[s] completes on the bytes and the 32
-//     arrivals.  One consumer warpgroup copies its Q tile into shared memory
-//     (cp.async, swizzled as TMA would, issued before the block plans its
-//     tiles), computes S = Q K^T by wgmma m64n64k16 from shared memory (K the
-//     K-major B operand), masks (only tiles with some key not live for some
-//     row: the plan flags them) and runs the online softmax in registers,
-//     rounds P to bf16 (as the model's attention rounds P to V's type) and
-//     accumulates O += P V by wgmma m64nDk16 with P as the A operand in
-//     registers and V the MN-major B operand, then releases the stage on
-//     empty[s].  No block barrier inside the loop.
+//     dimensional maps over (B Hkv, Sk, D), 128-byte swizzle, zeros past Sk
+//     and past D), all its lanes copy the tags (the next tile's loaded while
+//     this one waits for its stage), and full[s] completes on the bytes and
+//     the 32 arrivals.  One consumer warpgroup copies its Q tile into shared
+//     memory (cp.async, swizzled as TMA would, zeros past D, issued before
+//     the block plans its tiles), computes S = Q K^T by wgmma m64n64k16 from
+//     shared memory (K the K-major B operand), masks (only tiles with some
+//     key not live for some row: the plan flags them) and runs the online
+//     softmax in registers, rounds P to bf16 (as the model's attention rounds
+//     P to V's type) and accumulates O += P V by wgmma with P as the A
+//     operand in registers and V the MN-major B operand, then releases the
+//     stage on empty[s].  No block barrier inside the loop.  Head dims 72-112
+//     take the shared-memory layout of 128 (flash_attention_wgmma.cu says
+//     how).
 //   * when the blocks of a launch do not fill the card (a chunk at B 1: 8 kv
 //     heads x 1-3 row tiles), the live tiles of the KV loop are divided among
 //     `splits` blocks of one thread-block cluster.  Each block keeps its
@@ -60,10 +66,12 @@
 //     hopper_gemm.cuh: one launch, no partials in device memory, no atomics,
 //     the same bits every run).  The wrapper picks `splits` from the shapes
 //     and the card alone.
-//   * "mma_sync" (bf16, the other head dims: 16, 32, 72, 80, 96, 112): a
-//     block owns (b, q head, 64 query rows); K and V tiles through two
-//     cp.async stages, both products on mma.sync m16n8k16 (at D 72 the last
-//     k16 step of S = Q K^T takes zeros for the 8 columns past D).
+//   * "mma_sync" (bf16 at head dims 16, 32, 72, 80, 96, 112; the planned
+//     route at 16 and 32 and for an int8 ring at 72, reachable at the others
+//     by route="mma_sync"): a block owns (b, q head, 64 query rows); K and V
+//     tiles through two cp.async stages, both products on mma.sync m16n8k16
+//     (at D 72 the last k16 step of S = Q K^T takes zeros for the 8 columns
+//     past D).
 //   * "fma" (fp32 query, fp32 or bf16 cache): a block owns (b, q head, 16
 //     query rows); scores, softmax and P.V are FMA loops over tiles in shared
 //     memory, since TF32 would miss the fp32 tolerance.
@@ -88,821 +96,13 @@
 // a block's time goes to its prologue, the softmax between the two products
 // and, split, the cluster merge, not to the tensor cores; the lock-step
 // prefill runs at about half the speed of scaled_dot_product_attention, the
-// chunks against the ring ahead of it.
+// chunks against the ring ahead of it.  Until head dims 72-112 took route
+// "wgmma", mma_sync's block a query head read each K/V tile G times over
+// (8 at kimi-k2's 64/8 heads of 112: its prefill 4.15x the library).
 
-#include <cuda_bf16.h>
-#include <cuda_pipeline.h>
-#include <cuda_runtime.h>
-#include <limits.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "hopper_gemm.cuh"
+#include "flash_attention.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-using hg::dequant8;
-using hg::smem_u32;
-
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kMaxListed = 1024;  // rows of up to this many tiles are read live tiles only
-constexpr int kPartTile = 1 << 30;  // flag of a listed tile: some key is masked for some row
-
-// route "wgmma": kernels/flash_attention/kernel.py repeats these four
-// (tests/test_torch_flash_attention.py reads them from here)
-constexpr int kWgRows = 64;       // rows of a block: (query position, head of the group) pairs
-constexpr int kWgBK = 64;         // keys of a K or V tile
-constexpr int kWgThreads = 160;   // one consumer warpgroup and one producer warp
-constexpr int kMaxSplits = 8;     // blocks of a cluster (chip/h100.py MAX_SPLITS)
-// route "mma_sync"
-constexpr int kMmaThreads = 128;  // four warps of 16 query rows
-constexpr int kMmaBQ = 64;
-// route "fma"
-constexpr int kFmaThreads = 128;
-constexpr int kFmaBQ = 16;
-constexpr int kFmaBK = 32;
-
-enum : int { kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2 };
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-
-struct Args {
-  const void* q;        // (B, Hq, Sq, D) at strides q_sb, q_sh, q_ss (elements)
-  const void* k;        // (B, Hkv, Sk, D), contiguous
-  const void* v;
-  const bf16* k_scale;  // an int8 cache: (B, Hkv, Sk) scales; else null
-  const bf16* v_scale;
-  const int* q_pos;     // (B, Sq) or null: contiguous positions
-  const int* k_pos;     // (B, Sk), with q_pos
-  void* out;            // (B, Hq, Sq, D) in q's type at strides o_sb, o_sh, o_ss
-  float* lse;           // (B, Hq, Sq) fp32 or null: each row's log-sum-exp (training)
-  long long q_sb, q_sh, q_ss, o_sb, o_sh, o_ss;
-  int b, hq, hkv, sq, sk, d, g;
-  int qp_stride, kp_stride;  // batch strides of q_pos / k_pos (0: one row for all)
-  int causal, window;
-  float scale_log2;     // scale * log2(e)
-};
-
-// Row (b, h, i)'s natural log-sum-exp of the scaled scores, from its base-2
-// running max m and sum l: +inf for a row with no live key, so that the
-// backward's exp(s - lse) is 0 there (flash_attention_bwd.cu).  Only where
-// the caller asked for it (a.lse not null).
-__device__ __forceinline__ void store_lse(const Args& a, int b, int h, int i, float m, float l) {
-  if (a.lse == nullptr) return;
-  a.lse[((long long)b * a.hq + h) * a.sq + i] =
-      m == -INFINITY ? INFINITY : (m + log2f(fmaxf(l, 1e-30f))) * 0.6931471805599453f;
-}
-
-__device__ __forceinline__ bool live(const Args& a, int kp, int qp) {
-  return (!a.causal || kp <= qp) && (a.window <= 0 || kp > qp - a.window);
-}
-
-// The KV tiles a block of query positions [q0, q0 + rows) reads, into list_s
-// (when `listed`) or as the range [t_lo, t_lo + count).  Contiguous positions:
-// the causal and window range.  Per-row positions: the tiles that hold at
-// least one key live for some query of the block (qmin / qmax of the block's
-// positions), listed in order by one warp, each flagged kPartTile unless
-// every key of it is live for every query of the block.  Every thread must
-// call this; blockDim.x is a multiple of 32 and bk of 32.
-struct TileSet {
-  int count, t_lo;
-  int q_lo, q_hi;  // the block's least and greatest position
-  bool listed;
-};
-
-__device__ TileSet plan_tiles(const Args& a, int b, int q0, int rows, int bk, int* list_s,
-                              int* scratch_s) {
-  const int tid = threadIdx.x, nthreads = blockDim.x, lane = tid & 31;
-  const int tiles_total = (a.sk + bk - 1) / bk;
-  TileSet ts;
-  ts.listed = false;
-  ts.t_lo = 0;
-  ts.count = tiles_total;
-  if (a.q_pos == nullptr) {
-    const int q_last = min(q0 + rows, a.sq) - 1;
-    int hi = tiles_total;
-    if (a.causal) hi = min(hi, q_last / bk + 1);
-    int lo = 0;
-    if (a.window > 0) lo = max(0, q0 - a.window + 1) / bk;
-    ts.t_lo = lo;
-    ts.count = max(0, hi - lo);
-    ts.q_lo = q0;
-    ts.q_hi = q_last;
-    return ts;
-  }
-  // the first tags are loaded before anything waits; warp 0 takes qmin /
-  // qmax of the block's positions (at most 64 of them); the list's flags
-  // are cleared
-  const int* qp = a.q_pos + (size_t)b * a.qp_stride;
-  const int* kp = a.k_pos + (size_t)b * a.kp_stride;
-  const bool listed = tiles_total <= kMaxListed;
-  constexpr int kLoads = 16;  // tags in flight a thread
-  const int first = tid - lane;  // the warp's first key: a warp's 32 keys lie in one tile
-  int p[kLoads];
-  if (listed) {
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int j = first + u * nthreads + lane;
-      p[u] = j < a.sk ? __ldg(kp + j) : INT_MAX;
-    }
-    for (int i = tid; i < tiles_total; i += nthreads) list_s[i] = (i + 1) * bk > a.sk ? 2 : 0;
-  }
-  if (tid < 32) {
-    int lo = INT_MAX, hi = INT_MIN;
-    for (int r = lane; r < rows && q0 + r < a.sq; r += 32) {
-      const int v = __ldg(qp + q0 + r);
-      lo = min(lo, v);
-      hi = max(hi, v);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-    }
-    if (lane == 0) {
-      scratch_s[0] = lo;
-      scratch_s[1] = hi;
-    }
-  }
-  __syncthreads();
-  const int qmin = scratch_s[0], qmax = scratch_s[1];
-  ts.q_lo = qmin;
-  ts.q_hi = qmax;
-  if (!listed) return ts;  // a longer ring: every tile, every one masked
-  ts.listed = true;
-  // per tile: bit 0 some key live for some query, bit 1 some key not live
-  // for every query
-  for (int j0 = first; j0 < a.sk; j0 += kLoads * nthreads) {
-    if (j0 != first) {
-#pragma unroll
-      for (int u = 0; u < kLoads; ++u) {
-        const int j = j0 + u * nthreads + lane;
-        p[u] = j < a.sk ? __ldg(kp + j) : INT_MAX;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      const int jw = j0 + u * nthreads;  // the warp's first key
-      const bool inside = jw + lane < a.sk;
-      const bool any =
-          inside && (!a.causal || p[u] <= qmax) && (a.window <= 0 || p[u] > qmin - a.window);
-      const bool all =
-          (!a.causal || p[u] <= qmin) && (a.window <= 0 || p[u] > qmax - a.window);
-      const unsigned some = __ballot_sync(0xffffffffu, any);
-      const unsigned part = __ballot_sync(0xffffffffu, inside && !all);
-      if (lane == 0 && jw < a.sk) {
-        if (some) atomicOr(&list_s[jw / bk], 1);
-        if (part) atomicOr(&list_s[jw / bk], 2);
-      }
-    }
-  }
-  __syncthreads();
-  if (tid < 32) {  // compact in place: entry n <= i is written after i is read
-    int n = 0;
-    for (int base = 0; base < tiles_total; base += 32) {
-      const int i = base + lane;
-      const int f = i < tiles_total ? list_s[i] : 0;
-      const bool lv = (f & 1) != 0;
-      const unsigned m = __ballot_sync(0xffffffffu, lv);
-      __syncwarp();
-      if (lv) list_s[n + __popc(m & ((1u << lane) - 1))] = i | ((f & 2) ? kPartTile : 0);
-      n += __popc(m);
-    }
-    if (lane == 0) scratch_s[2] = n;
-  }
-  __syncthreads();
-  ts.count = scratch_s[2];
-  return ts;
-}
-
-__device__ __forceinline__ int tile_index(const TileSet& ts, const int* list_s, int k) {
-  return ts.listed ? list_s[k] & (kPartTile - 1) : ts.t_lo + k;
-}
-
-// Whether every key of the k-th tile is live for every query of the block,
-// so that the tile needs no mask.
-__device__ __forceinline__ bool tile_full(const Args& a, const TileSet& ts, const int* list_s,
-                                          int k, int bk) {
-  if (ts.listed) return (list_s[k] & kPartTile) == 0;
-  if (a.q_pos != nullptr) return false;
-  const int j0 = (ts.t_lo + k) * bk;
-  return j0 + bk <= a.sk && (!a.causal || j0 + bk - 1 <= ts.q_lo) &&
-         (a.window <= 0 || j0 > ts.q_hi - a.window);
-}
-
-// Starts the copy of rows [r0, r0 + rows) of an (n, D) matrix of T with a row
-// stride of src_ld elements into shared memory rows of ld elements; rows past
-// n are zero-filled without a read.
-template <typename T>
-__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src, long long src_ld, int r0,
-                                          int rows, int n, int d) {
-  const int cpr = d * (int)sizeof(T) / 16;  // 16-byte pieces of a row
-  for (int e = threadIdx.x; e < rows * cpr; e += blockDim.x) {
-    const int r = e / cpr, ch = e % cpr;
-    const bool inside = r0 + r < n;
-    const T* s = inside ? src + (long long)(r0 + r) * src_ld + ch * (16 / sizeof(T)) : src;
-    __pipeline_memcpy_async(dst + (size_t)r * ld + ch * (16 / sizeof(T)), s, 16, inside ? 0 : 16);
-  }
-}
-
-// Starts the copy of rows [r0, r0 + rows) of an (n, D) int8 matrix into
-// shared memory rows of D bytes, 8 bytes at a time (D % 8 == 0); rows past n
-// are zero-filled without a read.
-__device__ __forceinline__ void copy_rows8(int8_t* dst, const int8_t* src, int r0, int rows,
-                                           int n, int d) {
-  const int cpr = d / 8;
-  for (int e = threadIdx.x; e < rows * cpr; e += blockDim.x) {
-    const int r = e / cpr, ch = e % cpr;
-    const bool inside = r0 + r < n;
-    const int8_t* s = inside ? src + (long long)(r0 + r) * d + ch * 8 : src;
-    __pipeline_memcpy_async(dst + (size_t)r * d + ch * 8, s, 8, inside ? 0 : 8);
-  }
-}
-
-// Loads the scales of keys [j0, j0 + n) of K and V into ks_dst and vs_dst
-// (fp32), zeros past Sk.
-__device__ __forceinline__ void load_scales(float* ks_dst, float* vs_dst, const bf16* ks,
-                                            const bf16* vs, int j0, int n, int sk) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const bool inside = j0 + e < sk;
-    ks_dst[e] = inside ? __bfloat162float(ks[j0 + e]) : 0.0f;
-    vs_dst[e] = inside ? __bfloat162float(vs[j0 + e]) : 0.0f;
-  }
-}
-
-// Dequantizes int8 K and V tiles of `rows` rows of D bytes (src, K then V,
-// each rows x D) with their scales (scales, K's then V's) into bf16 tiles of
-// rows of ld elements (dst_k, dst_v), eight elements a thread at a time.
-__device__ __forceinline__ void dequant_rows(bf16* dst_k, bf16* dst_v, int ld, const int8_t* src,
-                                             const float* scales, int rows, int d) {
-  const int per_row = d / 8;
-  for (int e = threadIdx.x; e < 2 * rows * per_row; e += blockDim.x) {
-    const int which = e / (rows * per_row), r = (e / per_row) % rows, h = e % per_row;
-    const uint2 raw =
-        *reinterpret_cast<const uint2*>(src + ((size_t)which * rows + r) * d + 8 * h);
-    *reinterpret_cast<uint4*>((which ? dst_v : dst_k) + (size_t)r * ld + 8 * h) =
-        dequant8(raw.x, raw.y, scales[which * rows + r]);
-  }
-}
-
-// Starts the copy of the tags of keys [j0, j0 + n) (past Sk: anything, those
-// keys are masked by index).
-__device__ __forceinline__ void copy_tags(int* dst, const int* kp, int j0, int n, int sk) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const bool inside = j0 + e < sk;
-    __pipeline_memcpy_async(dst + e, kp + (inside ? j0 + e : 0), 4, inside ? 0 : 4);
-  }
-}
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ uint32_t pack2f(float lo, float hi) {
-  return pack2(__float2bfloat16(lo), __float2bfloat16(hi));
-}
-
-// The online-softmax step of one tile for the two rows a thread holds, over
-// scores in the accumulator layout of an m16n8 / m64nN product: s[4 n + e]
-// is row gid + 8 (e >> 1) of the warp's 16, key 8 n + 2 tig + (e & 1) of the
-// tile.  A tile that is not `full` is masked first (keys not live for a row,
-// by index j0 + ... and by position from tags or the index).  Scales to base
-// 2, turns s into probabilities, updates m_run / l_run (l_run: this thread's
-// share of the row sum) and returns the factor alpha by which the output
-// rows are rescaled.
-template <int BK>
-__device__ __forceinline__ void softmax_tile(const Args& a, float (&s)[BK / 2], int j0,
-                                             bool full, const int* tags, const int (&qpos)[2],
-                                             int tig, float (&m_run)[2], float (&l_run)[2],
-                                             float (&alpha)[2]) {
-  float mx[2] = {-INFINITY, -INFINITY};
-  if (full) {  // every key live for every row: no mask
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[4 * n + e] *= a.scale_log2;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[4 * n + e]);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int jl = n * 8 + 2 * tig + (e & 1);
-        const int j = j0 + jl;
-        const int hh = e >> 1;
-        const int kpos = tags == nullptr ? j : tags[jl];
-        const bool ok = j < a.sk && live(a, kpos, qpos[hh]);
-        s[4 * n + e] = ok ? s[4 * n + e] * a.scale_log2 : -INFINITY;
-        mx[hh] = fmaxf(mx[hh], s[4 * n + e]);
-      }
-    }
-  }
-  float m_use[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
-    mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
-    const float m_new = fmaxf(m_run[hh], mx[hh]);
-    // nothing live yet: exp2(-inf - 0) = 0 keeps p, l and o at zero
-    m_use[hh] = m_new == -INFINITY ? 0.0f : m_new;
-    alpha[hh] = exp2f(m_run[hh] - m_use[hh]);
-    m_run[hh] = m_new;
-  }
-  float rs[2] = {0.0f, 0.0f};
-#pragma unroll
-  for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float p = exp2f(s[4 * n + e] - m_use[e >> 1]);
-      s[4 * n + e] = p;
-      rs[e >> 1] += p;
-    }
-  }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) l_run[hh] = l_run[hh] * alpha[hh] + rs[hh];
-}
-
-// ---------------------------------------------------------------------------
-// route "wgmma": bf16, GQA rows packed, TMA ring, wgmma, split over a cluster
-// ---------------------------------------------------------------------------
-
-// d (64 x N, fp32, the accumulator layout of wgmma) += A (64 x 16 bf16, four
-// registers a thread in the A layout of mma.m16n8k16, each warp its 16 rows)
-// B (16 x N bf16 in shared memory by descriptor, MN-major: the transpose bit).
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
-                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_m64n256(float (&d)[128], const uint32_t (&a)[4],
-                                                 uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4],
-                                         uint64_t desc_b) {
-  if constexpr (D == 64) wgmma_rs_m64n64(d, a, desc_b);
-  else if constexpr (D == 128) wgmma_rs_m64n128(d, a, desc_b);
-  else wgmma_rs_m64n256(d, a, desc_b);
-}
-
-// Shared memory of a block: the ring (STAGES x (K tile, V tile), each tile
-// D / 64 column blocks of kWgBK rows x 128 bytes, swizzled), the Q tile (the
-// same layout, kWgRows rows), the tiles' tags, the tile list, the combine's
-// coefficients, scratch, the mbarriers.  After the loop the ring holds a
-// split's (acc, m, l) for the combine.
-// An int8 ring (Q8): the stages hold the tiles as they arrive, in boxes of 128
-// one-byte elements (a row of 64 padded to 128), then come the bf16 K and V
-// tiles the products read, dequantized from the stage in hand; the scales sit
-// beside the tags.
-template <int D, bool Q8 = false> struct WgTile {
-  static constexpr int BLOCKS = D / 64;             // 128-byte column blocks of a bf16 row
-  static constexpr int KV_BYTES = kWgBK * D * 2;    // one bf16 K or V tile
-  static constexpr int BLOCKS8 = D > 128 ? D / 128 : 1;  // of an int8 row
-  static constexpr int IN_BYTES = Q8 ? kWgBK * 128 * BLOCKS8 : KV_BYTES;  // a tile as it arrives
-  static constexpr int STAGE_BYTES = 2 * IN_BYTES;
-  static constexpr int STAGES = D == 64 ? 4 : 2;
-  static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;  // blocks an SM holds
-  static constexpr int RING = STAGES * STAGE_BYTES + (Q8 ? 2 * KV_BYTES : 0);
-  static constexpr int Q_BYTES = kWgRows * D * 2;
-  static constexpr int SMEM = 1024 + RING + Q_BYTES + STAGES * kWgBK * 4 * (Q8 ? 3 : 1) +
-                              kMaxListed * 4 + kWgRows * (kMaxSplits + 1) * 4 + 16 +
-                              2 * STAGES * 8;
-  static_assert(D == 64 || D == 128 || D == 256, "head dims of the wgmma route");
-  static_assert(kWgRows * D * 4 + kWgRows * 8 <= RING, "a split's (acc, m, l) fit the ring");
-  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "blocks an SM holds");
-};
-
-struct WgParams {
-  CUtensorMap k_map, v_map;  // (B Hkv, Sk, D), boxes of 128 bytes x kWgBK x 1
-  Args a;
-  int splits;                // blocks of a cluster, each a share of the live tiles
-};
-
-template <int D, bool Q8 = false>
-__global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
-    flash_attention_wgmma_kernel(const __grid_constant__ WgParams p) {
-  using W = WgTile<D, Q8>;
-  const Args& a = p.a;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  // the swizzle atoms must start on 1024 bytes
-  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* dq_tiles = ring + W::STAGES * W::STAGE_BYTES;  // Q8: the bf16 K, V tiles
-  unsigned char* q_s = ring + W::RING;
-  int* tags_s = reinterpret_cast<int*>(q_s + W::Q_BYTES);
-  // Q8: stage s's K scales at 2 s kWgBK, its V scales after them
-  float* sc_s = reinterpret_cast<float*>(tags_s + W::STAGES * kWgBK);
-  int* list_s = reinterpret_cast<int*>(sc_s + (Q8 ? 2 * W::STAGES * kWgBK : 0));
-  float* coef_s = reinterpret_cast<float*>(list_s + kMaxListed);
-  int* scratch_s = reinterpret_cast<int*>(coef_s + kWgRows * (kMaxSplits + 1));
-  uint64_t* full = reinterpret_cast<uint64_t*>(scratch_s + 4);
-  uint64_t* empty = full + W::STAGES;
-
-  const int split = blockIdx.x;  // rank in the cluster
-  const int bh = blockIdx.z;
-  const int b = bh / a.hkv, hk = bh % a.hkv, G = a.g;
-  const int r0 = blockIdx.y * kWgRows;
-  const int rows_total = a.sq * G;
-  const int t_first = r0 / G;
-  const int t_last = min((r0 + kWgRows - 1) / G, a.sq - 1);
-  const int* kp = a.k_pos != nullptr ? a.k_pos + (size_t)b * a.kp_stride : nullptr;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-
-  if (tid == 0) {
-#pragma unroll 1
-    for (int s = 0; s < W::STAGES; ++s) {
-      hg::mbar_init(&full[s], 33);  // the producer's expect_tx and its 32 lanes' tags
-      hg::mbar_init(&empty[s], 4);  // one arrival a consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  if (warp < 4) {
-    // the consumers start copying the Q tile into shared memory, swizzled as
-    // TMA would (16-byte piece c of row r at c ^ (r % 8)); rows past the end
-    // are zeros
-    constexpr int CPR = D / 8;  // 16-byte pieces of a row
-    for (int e = tid; e < kWgRows * CPR; e += 128) {
-      const int r = e / CPR, ch = e % CPR;
-      const int row = r0 + r;
-      const bool inside = row < rows_total;
-      const int tq = row / G, g = row - tq * G;
-      const bf16* src = reinterpret_cast<const bf16*>(a.q);
-      if (inside)
-        src += b * a.q_sb + (long long)(hk * G + g) * a.q_sh + (long long)tq * a.q_ss + ch * 8;
-      __pipeline_memcpy_async(
-          q_s + (ch >> 3) * (kWgRows * 128) + r * 128 + (((ch & 7) ^ (r & 7)) << 4), src, 16,
-          inside ? 0 : 16);
-    }
-    __pipeline_commit();
-  }
-  const TileSet ts = plan_tiles(a, b, t_first, t_last - t_first + 1, kWgBK, list_s, scratch_s);
-  __syncthreads();
-  // this split's share of the live tiles (none at all for some splits)
-  const int per = (ts.count + p.splits - 1) / p.splits;
-  const int k_begin = min(split * per, ts.count);
-  const int nk = min(k_begin + per, ts.count) - k_begin;
-
-  if (warp == 4) {
-    // producer: lane 0 issues the copies of K and V, every lane copies tags
-    // (and an int8 ring's scales), those of the next tile loaded while this
-    // one waits for its stage
-    int nxt[2] = {0, 0};
-    float nsc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // Q8: the next tile's K, V scales
-    const bool side = kp != nullptr || Q8;  // something besides the tiles to copy
-    auto load_tags = [&](int i) {
-      const int j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int j = j0 + lane + 32 * u;
-        if (kp != nullptr) nxt[u] = j < a.sk ? __ldg(kp + j) : 0;
-        if constexpr (Q8) {
-          const size_t si = (size_t)bh * a.sk + j;
-          nsc[0][u] = j < a.sk ? __bfloat162float(a.k_scale[si]) : 0.0f;
-          nsc[1][u] = j < a.sk ? __bfloat162float(a.v_scale[si]) : 0.0f;
-        }
-      }
-    };
-    if (side && nk > 0) load_tags(0);
-#pragma unroll 1
-    for (int i = 0; i < nk; ++i) {
-      const int s = i % W::STAGES;
-      const int cur[2] = {nxt[0], nxt[1]};
-      const float csc[2][2] = {{nsc[0][0], nsc[0][1]}, {nsc[1][0], nsc[1][1]}};
-      if (side && i + 1 < nk) load_tags(i + 1);
-      hg::mbar_wait(&empty[s], ((i / W::STAGES) & 1) ^ 1);
-      const int j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
-      if (lane == 0) {
-        unsigned char* st = ring + s * W::STAGE_BYTES;
-        hg::mbar_expect_tx(&full[s], W::STAGE_BYTES);
-        if constexpr (Q8) {
-#pragma unroll
-          for (int c = 0; c < W::BLOCKS8; ++c) {
-            hg::tma_load_3d(st + c * kWgBK * 128, &p.k_map, &full[s], c * 128, j0, bh);
-            hg::tma_load_3d(st + W::IN_BYTES + c * kWgBK * 128, &p.v_map, &full[s], c * 128, j0,
-                            bh);
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < W::BLOCKS; ++c) {
-            hg::tma_load_3d(st + c * kWgBK * 128, &p.k_map, &full[s], c * 64, j0, bh);
-            hg::tma_load_3d(st + W::KV_BYTES + c * kWgBK * 128, &p.v_map, &full[s], c * 64, j0,
-                            bh);
-          }
-        }
-      }
-      if (kp != nullptr) {
-        tags_s[s * kWgBK + lane] = cur[0];
-        tags_s[s * kWgBK + lane + 32] = cur[1];
-      }
-      if constexpr (Q8) {
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          sc_s[2 * s * kWgBK + lane + 32 * u] = csc[0][u];
-          sc_s[(2 * s + 1) * kWgBK + lane + 32 * u] = csc[1][u];
-        }
-      }
-      hg::mbar_arrive(&full[s]);
-    }
-  } else {
-    // consumers: the Q tile is on its way since the start
-    __pipeline_wait_prior(0);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-    asm volatile("bar.sync 1, 128;\n" ::: "memory");
-
-    // this thread's two rows: 16 warp + gid and + 8 of the block's 64
-    const int gid = lane >> 2, tig = lane & 3;
-    int qpos[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int row = r0 + warp * 16 + gid + 8 * hh;
-      const int tq = row / G;
-      qpos[hh] = row >= rows_total ? INT_MIN / 2
-                 : a.q_pos == nullptr ? tq
-                                      : a.q_pos[(size_t)b * a.qp_stride + tq];
-    }
-    float o[D / 2];
-#pragma unroll
-    for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
-    float m_run[2] = {-INFINITY, -INFINITY};
-    float l_run[2] = {0.0f, 0.0f};
-    const uint32_t q_base = smem_u32(q_s);
-
-#pragma unroll 1
-    for (int i = 0; i < nk; ++i) {
-      const int s = i % W::STAGES;
-      hg::mbar_wait(&full[s], (i / W::STAGES) & 1);
-      uint32_t k_base = smem_u32(ring + s * W::STAGE_BYTES);
-      uint32_t v_base = k_base + W::KV_BYTES;
-      if constexpr (Q8) {
-        // the stage's int8 K and V into the bf16 tiles the products read,
-        // swizzled as TMA writes a bf16 tile, once every warp's products of
-        // the last tile are done with them
-        if (i > 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
-        const unsigned char* in = ring + s * W::STAGE_BYTES;
-        const float* scl = sc_s + 2 * s * kWgBK;  // K's, then V's
-        constexpr int P8 = D / 16;                // 16-byte pieces of an int8 row
-#pragma unroll 2
-        for (int u = tid; u < 2 * kWgBK * P8; u += 128) {
-          const int which = u / (kWgBK * P8), r = (u / P8) % kWgBK, c = u % P8;
-          const uint4 raw = *reinterpret_cast<const uint4*>(
-              in + which * W::IN_BYTES + (c >> 3) * (kWgBK * 128) + r * 128 +
-              (((c & 7) ^ (r & 7)) << 4));
-          const float sc = scl[which * kWgBK + r];
-          unsigned char* out = dq_tiles + which * W::KV_BYTES + r * 128;
-          const int c0 = 2 * c, c1 = 2 * c + 1;  // its two bf16 pieces
-          *reinterpret_cast<uint4*>(out + (c0 >> 3) * (kWgBK * 128) + (((c0 & 7) ^ (r & 7)) << 4)) =
-              dequant8(raw.x, raw.y, sc);
-          *reinterpret_cast<uint4*>(out + (c1 >> 3) * (kWgBK * 128) + (((c1 & 7) ^ (r & 7)) << 4)) =
-              dequant8(raw.z, raw.w, sc);
-        }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-        asm volatile("bar.sync 1, 128;\n" ::: "memory");
-        k_base = smem_u32(dq_tiles);
-        v_base = k_base + W::KV_BYTES;
-      }
-
-      // S = Q K^T: 64 rows x kWgBK keys
-      float sc[kWgBK / 2];
-#pragma unroll
-      for (int e = 0; e < kWgBK / 2; ++e) sc[e] = 0.0f;
-      hg::fence_acc(sc);
-      hg::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint64_t dq =
-            hg::desc_sw128(q_base + (kk >> 2) * (kWgRows * 128) + (kk & 3) * 32, 16, 1024);
-        const uint64_t dk =
-            hg::desc_sw128(k_base + (kk >> 2) * (kWgBK * 128) + (kk & 3) * 32, 16, 1024);
-        hg::wgmma_m64n64<0>(sc, dq, dk);
-      }
-      hg::wgmma_commit();
-      hg::wgmma_wait<0>();
-      hg::fence_acc(sc);
-
-      const int j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
-      const bool full = tile_full(a, ts, list_s, k_begin + i, kWgBK);
-      float alpha[2];
-      softmax_tile<kWgBK>(a, sc, j0, full, kp != nullptr ? tags_s + s * kWgBK : nullptr, qpos,
-                          tig, m_run, l_run, alpha);
-      if (alpha[0] != 1.0f || alpha[1] != 1.0f) {  // a row's max moved
-#pragma unroll
-        for (int c = 0; c < D / 8; ++c) {
-          o[4 * c] *= alpha[0];
-          o[4 * c + 1] *= alpha[0];
-          o[4 * c + 2] *= alpha[1];
-          o[4 * c + 3] *= alpha[1];
-        }
-      }
-      // P in bf16 as the A operand: keys 16 j .. 16 j + 15 are score blocks 2 j, 2 j + 1
-      uint32_t pf[kWgBK / 16][4];
-#pragma unroll
-      for (int j = 0; j < kWgBK / 16; ++j) {
-        pf[j][0] = pack2f(sc[8 * j], sc[8 * j + 1]);
-        pf[j][1] = pack2f(sc[8 * j + 2], sc[8 * j + 3]);
-        pf[j][2] = pack2f(sc[8 * j + 4], sc[8 * j + 5]);
-        pf[j][3] = pack2f(sc[8 * j + 6], sc[8 * j + 7]);
-      }
-      // O += P V: V's 16 keys of step j start 16 rows (2048 bytes) on, its
-      // 64-column blocks kWgBK rows apart
-      hg::fence_acc(o);
-      hg::wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < kWgBK / 16; ++j)
-        wgmma_rs<D>(o, pf[j], hg::desc_sw128(v_base + j * 16 * 128, kWgBK * 128, 1024));
-      hg::wgmma_commit();
-      hg::wgmma_wait<0>();
-      hg::fence_acc(o);
-      __syncwarp();
-      if (lane == 0) hg::mbar_arrive(&empty[s]);  // this warp is done with stage s
-    }
-
-    float l_row[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float l = l_run[hh];
-      l += __shfl_xor_sync(0xffffffffu, l, 1);
-      l += __shfl_xor_sync(0xffffffffu, l, 2);
-      l_row[hh] = l;
-    }
-    if (p.splits == 1) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int row = r0 + warp * 16 + gid + 8 * hh;
-        if (row < rows_total) {
-          const int tq = row / G, g = row - tq * G;
-          if (tig == 0) store_lse(a, b, hk * G + g, tq, m_run[hh], l_row[hh]);
-          const float inv = 1.0f / fmaxf(l_row[hh], 1e-30f);
-          bf16* dst = reinterpret_cast<bf16*>(a.out) + b * a.o_sb +
-                      (long long)(hk * G + g) * a.o_sh + (long long)tq * a.o_ss + 2 * tig;
-#pragma unroll
-          for (int c = 0; c < D / 8; ++c)
-            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * c) =
-                __floats2bfloat162_rn(o[4 * c + 2 * hh] * inv, o[4 * c + 2 * hh + 1] * inv);
-        }
-      }
-    } else {
-      // a split: (acc, m, l) of the 64 rows into this block's ring, which
-      // every consumer warp has finished reading
-      asm volatile("bar.sync 1, 128;\n" ::: "memory");
-      float* red = reinterpret_cast<float*>(ring);
-      float* ml = red + kWgRows * D;
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int r = warp * 16 + gid + 8 * hh;
-#pragma unroll
-        for (int c = 0; c < D / 8; ++c)
-          *reinterpret_cast<float2*>(red + r * D + 8 * c + 2 * tig) =
-              make_float2(o[4 * c + 2 * hh], o[4 * c + 2 * hh + 1]);
-        if (tig == 0) {
-          ml[2 * r] = m_run[hh];
-          ml[2 * r + 1] = l_row[hh];
-        }
-      }
-    }
-  }
-
-  if (p.splits > 1) {
-    hg::cluster_sync();  // every split's (acc, m, l) is in its block's shared memory
-    const float* red = reinterpret_cast<const float*>(ring);
-    const float* ml = red + kWgRows * D;
-    const int splits = p.splits;
-    const int rpb = (kWgRows + splits - 1) / splits;
-    const int rb = min(split * rpb, kWgRows), nr = min(kWgRows, rb + rpb) - rb;
-    // this block's rows: the weight of each split and 1 / l, the (m, l) of
-    // every split loaded at once
-    float* wq = coef_s;                   // [nr][splits]
-    float* inv = coef_s + kWgRows * kMaxSplits / 2 + kMaxSplits;  // [nr]
-    if (tid < nr) {
-      const int r = rb + tid;
-      float2 v[kMaxSplits];
-#pragma unroll
-      for (int q = 0; q < kMaxSplits; ++q)
-        if (q < splits) v[q] = *reinterpret_cast<const float2*>(hg::cluster_ptr(ml + 2 * r, q, true));
-      float mmax = -INFINITY;
-#pragma unroll
-      for (int q = 0; q < kMaxSplits; ++q)
-        if (q < splits) mmax = fmaxf(mmax, v[q].x);
-      float l = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kMaxSplits; ++q) {
-        if (q < splits) {
-          const float w = v[q].x == -INFINITY ? 0.0f : exp2f(v[q].x - mmax);
-          wq[tid * splits + q] = w;
-          l += w * v[q].y;
-        }
-      }
-      inv[tid] = 1.0f / fmaxf(l, 1e-30f);
-      if (r0 + r < rows_total) {
-        const int tq = (r0 + r) / G;
-        store_lse(a, b, hk * G + (r0 + r - tq * G), tq, mmax, l);
-      }
-    }
-    __syncthreads();
-    // four columns a thread: the splits' sums in rank order
-    for (int e = tid; e < nr * (D / 4); e += kWgThreads) {
-      const int rl = e / (D / 4), col = 4 * (e % (D / 4));
-      const int r = rb + rl, row = r0 + r;
-      if (row >= rows_total) continue;
-      float4 part[kMaxSplits];
-#pragma unroll
-      for (int q = 0; q < kMaxSplits; ++q)
-        if (q < splits)
-          part[q] = *reinterpret_cast<const float4*>(hg::cluster_ptr(red + r * D + col, q, true));
-      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-#pragma unroll
-      for (int q = 0; q < kMaxSplits; ++q) {
-        if (q < splits) {
-          const float w = wq[rl * splits + q];
-          acc.x += w * part[q].x;
-          acc.y += w * part[q].y;
-          acc.z += w * part[q].z;
-          acc.w += w * part[q].w;
-        }
-      }
-      const float iv = inv[rl];
-      const int tq = row / G, g = row - tq * G;
-      bf16* dst = reinterpret_cast<bf16*>(a.out) + b * a.o_sb + (long long)(hk * G + g) * a.o_sh +
-                  (long long)tq * a.o_ss + col;
-      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(acc.x * iv, acc.y * iv);
-      *reinterpret_cast<__nv_bfloat162*>(dst + 2) = __floats2bfloat162_rn(acc.z * iv, acc.w * iv);
-    }
-    hg::cluster_sync();  // no block leaves while another reads its shared memory
-  }
-}
 
 // ---------------------------------------------------------------------------
 // route "mma_sync": bf16, one query head a block, mma.sync m16n8k16
@@ -1282,54 +482,6 @@ __global__ void __launch_bounds__(kFmaThreads) flash_attention_fma_kernel(Args a
   }
 }
 
-// ---------------------------------------------------------------------------
-// host side
-// ---------------------------------------------------------------------------
-
-template <typename K>
-cudaError_t allow_smem(K kernel, int optin) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - (int)attr.sharedSizeBytes);
-  return err;
-}
-
-template <int D, bool Q8 = false>
-int launch_wgmma(const Args& a, int splits, cudaStream_t stream) {
-  using W = WgTile<D, Q8>;
-  WgParams p;
-  const long long bh = (long long)a.b * a.hkv;
-  const int elem = Q8 ? 1 : 2;
-  if (hg::tensor_map_3d(&p.k_map, a.k, elem, D, a.sk, bh, kWgBK) != 0 ||
-      hg::tensor_map_3d(&p.v_map, a.v, elem, D, a.sk, bh, kWgBK) != 0)
-    return -1;
-  p.a = a;
-  p.splits = splits;
-  const long long row_tiles = ((long long)a.sq * a.g + kWgRows - 1) / kWgRows;
-  if (row_tiles > 65535 || bh > 65535) return -1;
-  const dim3 grid(splits, (unsigned)row_tiles, (unsigned)bh);
-  if (splits == 1) {
-    flash_attention_wgmma_kernel<D, Q8><<<grid, kWgThreads, W::SMEM, stream>>>(p);
-    return (int)cudaGetLastError();
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kWgThreads, 1, 1);
-  cfg.dynamicSmemBytes = W::SMEM;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, flash_attention_wgmma_kernel<D, Q8>, p);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
-}
-
 template <int D, bool Q8 = false>
 int launch_mma(const Args& a, cudaStream_t stream) {
   dim3 grid((a.sq + kMmaBQ - 1) / kMmaBQ, a.hq, a.b);
@@ -1357,9 +509,6 @@ int flash_attention_prepare(void) {
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<64>, optin);
-  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<128>, optin);
-  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<256>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<16>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<32>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<72>, optin);
@@ -1369,9 +518,6 @@ int flash_attention_prepare(void) {
   if (err == cudaSuccess) err = allow_smem(flash_attention_fma_kernel<float>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_fma_kernel<bf16>, optin);
   // the int8 ring's instances
-  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<64, true>, optin);
-  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<128, true>, optin);
-  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<256, true>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<16, true>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<32, true>, optin);
   if (err == cudaSuccess) err = allow_smem(flash_attention_mma_kernel<72, true>, optin);
@@ -1387,9 +533,8 @@ int flash_attention_prepare(void) {
 // q_sh, q_ss, out the same shape in q's type at o_sb, o_sh, o_ss; k, v
 // (B, Hkv, Sk, D) contiguous, fp32 (kv_dtype 0), bf16 (1) or int8 (2); an
 // int8 cache with its scales k_scale, v_scale (B, Hkv, Sk) bf16, any other
-// with null ones.  Routes: 2 "wgmma" (bf16 q, a bf16 or int8 cache, D 64, 128
-// or 256, `splits` blocks of a cluster, 1 to 8), 1 "mma_sync" (bf16 q, a bf16
-// or int8 cache, D one of 16, 32, 72, 80, 96, 112), 0 "fma" (fp32 q (q_dtype
+// with null ones.  Routes: 1 "mma_sync" (bf16 q, a bf16 or int8 cache, D
+// one of 16, 32, 72, 80, 96, 112), 0 "fma" (fp32 q (q_dtype
 // 0) with any cache, D a multiple of 8 up to 256).  q_pos null:
 // contiguous positions (Sq == Sk), or with causal 0 and window 0 any Sq
 // against any Sk (a cross-attention: keys past Sk and rows past Sq are masked
@@ -1397,6 +542,8 @@ int flash_attention_prepare(void) {
 // with batch strides qp_stride / kp_stride.  Pointers 16-byte aligned; on the
 // bf16 routes q's strides are multiples of 8 elements.  lse: null, or (B, Hq,
 // Sq) fp32 contiguous, where every route writes each row's log-sum-exp.
+// `splits` 1 (route "wgmma", 2, is flash_attention_wgmma_launch, in
+// flash_attention_wgmma.cu).
 int flash_attention_launch(const void* q, const void* k, const void* v, const void* k_scale,
                            const void* v_scale, const int* q_pos, const int* k_pos, void* out,
                            float* lse, int b, int hq, int hkv, int sq, int sk,
@@ -1404,39 +551,14 @@ int flash_attention_launch(const void* q, const void* k, const void* v, const vo
                            long long o_sh, long long o_ss, int qp_stride, int kp_stride,
                            int causal, int window, float scale, int q_dtype, int kv_dtype,
                            int route, int splits, void* stream) {
-  if (b < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 1 || d < 8 || d > 256 || d % 8 != 0)
-    return -1;
-  if (q_pos == nullptr && sq != sk && (causal || window > 0)) return -1;
-  if ((q_pos == nullptr) != (k_pos == nullptr)) return -1;
-  if (kv_dtype < 0 || kv_dtype > 2) return -1;
-  const bool q8 = kv_dtype == 2;
-  if (q8 != (k_scale != nullptr && v_scale != nullptr)) return -1;
   Args a;
-  a.q = q; a.k = k; a.v = v; a.q_pos = q_pos; a.k_pos = k_pos; a.out = out; a.lse = lse;
-  a.k_scale = static_cast<const bf16*>(k_scale);
-  a.v_scale = static_cast<const bf16*>(v_scale);
-  a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss; a.o_sb = o_sb; a.o_sh = o_sh; a.o_ss = o_ss;
-  a.b = b; a.hq = hq; a.hkv = hkv; a.sq = sq; a.sk = sk; a.d = d; a.g = hq / hkv;
-  a.qp_stride = qp_stride; a.kp_stride = kp_stride;
-  a.causal = causal; a.window = window; a.scale_log2 = scale * kLog2e;
+  if (splits != 1 ||
+      !make_args(&a, q, k, v, k_scale, v_scale, q_pos, k_pos, out, lse, b, hq, hkv, sq, sk, d,
+                 q_sb, q_sh, q_ss, o_sb, o_sh, o_ss, qp_stride, kp_stride, causal, window, scale,
+                 kv_dtype))
+    return -1;
+  const bool q8 = kv_dtype == 2;
   cudaStream_t s = (cudaStream_t)stream;
-  if (route == kRouteWgmma) {
-    if (q_dtype != 1 || kv_dtype == 0 || splits < 1 || splits > kMaxSplits) return -1;
-    if (q8) {
-      switch (d) {
-        case 64: return launch_wgmma<64, true>(a, splits, s);
-        case 128: return launch_wgmma<128, true>(a, splits, s);
-        case 256: return launch_wgmma<256, true>(a, splits, s);
-        default: return -1;
-      }
-    }
-    switch (d) {
-      case 64: return launch_wgmma<64>(a, splits, s);
-      case 128: return launch_wgmma<128>(a, splits, s);
-      case 256: return launch_wgmma<256>(a, splits, s);
-      default: return -1;
-    }
-  }
   if (route == kRouteMma) {
     if (q_dtype != 1 || kv_dtype == 0) return -1;
     if (q8) {

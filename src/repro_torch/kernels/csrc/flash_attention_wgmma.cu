@@ -1,0 +1,721 @@
+// Flash attention for Hopper (sm_90a), route "wgmma": bf16 query with a bf16
+// or int8 cache, head dims 64, 72, 80, 96, 112, 128 and 256.  What the kernel
+// computes, and the other routes, are in flash_attention.cu; this source
+// holds the "wgmma" instances only, so that its nvcc runs beside that one's.
+//
+// A block owns one (b, kv head) and 64 "rows", a row being a (query position
+// t, query head g of the kv head's group) pair, row = t G + g: each K and V
+// tile is read once for all G heads of its kv head.  One producer warp keeps
+// K and V (and the tiles' tags) in flight through a ring of stages by TMA;
+// one consumer warpgroup computes S = Q K^T by wgmma from shared memory, runs
+// the online softmax in registers and accumulates O += P V by wgmma with P in
+// registers; when the blocks do not fill the card the live tiles are divided
+// among the blocks of a cluster and merged over distributed shared memory in
+// rank order (flash_attention.cu says more).
+//
+// Head dims 72, 80, 96 and 112 (dit-xl's 72, kimi-k2's 112) use the shared
+// memory layout of 128: a K or V tile is two 64-column blocks of 128-byte
+// swizzled rows, as at 128, and the tensor maps over (B Hkv, Sk, D) give the
+// boxes of 64 columns whose columns past D arrive as zeros (TMA's
+// out-of-bounds fill; D x 2 bytes is a whole 16 bytes at each, so the bf16
+// maps are legal).  The consumers' copy of the Q tile writes zeros into the
+// columns past D (never stale bytes: garbage times a zero key could be NaN).
+// S = Q K^T runs ceil(D / 16) k16 steps; O += P V runs at wgmma n = D
+// (m64n72k16 ... m64n112k16), chosen by measurement: against n = 128 with
+// the padded columns dropped it was as fast or up to 1.6 % faster at 7 of
+// dit-xl's and kimi-k2's 8 shapes (chip_smoke.py, NVIDIA H100 80GB HBM3 at
+// 700 W; PERF.md), and n = 128 was removed.  Only D columns are stored,
+// combined or rescaled.  An int8 ring at these
+// dims: rows of 80, 96 or 112 bytes are a whole 16 bytes and TMA takes them
+// (boxes of 128 bytes, zeros past D); at 72 bytes it cannot, and the wrapper
+// keeps an int8 ring at D 72 on route "mma_sync".
+//
+// Registers: the output tile is D / 2 fp32 a thread (56 at D 112, 64 at 128),
+// the scores 32; chip_smoke.py prints ptxas's counts and spills for every
+// instance ([build]).
+
+#include "flash_attention.cuh"
+
+namespace {
+
+// d (64 x N, fp32, the accumulator layout of wgmma) += A (64 x 16 bf16, four
+// registers a thread in the A layout of mma.m16n8k16, each warp its 16 rows)
+// B (16 x N bf16 in shared memory by descriptor, MN-major: the transpose bit).
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n256(float (&d)[128], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+
+__device__ __forceinline__ void wgmma_rs_m64n72(float (&d)[36], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %41, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n72k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35"
+      "}, {%36, %37, %38, %39}, %40, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n80(float (&d)[40], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n96(float (&d)[48], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_m64n112(float (&d)[56], const uint32_t (&a)[4],
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// The shared-memory layout's head dim: 64, 128 (for every D from 72 to 128)
+// or 256.
+constexpr int padded_dim(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
+// O += P V: d (64 x D, fp32) += P (64 x 16, registers) V (16 x D, shared
+// memory) at wgmma n = D; at 72-112 the V tile's columns past D, laid out
+// as 128, are not read.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b) {
+  if constexpr (D == 64) wgmma_rs_m64n64(d, a, desc_b);
+  else if constexpr (D == 72) wgmma_rs_m64n72(d, a, desc_b);
+  else if constexpr (D == 80) wgmma_rs_m64n80(d, a, desc_b);
+  else if constexpr (D == 96) wgmma_rs_m64n96(d, a, desc_b);
+  else if constexpr (D == 112) wgmma_rs_m64n112(d, a, desc_b);
+  else if constexpr (D == 128) wgmma_rs_m64n128(d, a, desc_b);
+  else wgmma_rs_m64n256(d, a, desc_b);
+}
+
+// Shared memory of a block: the ring (STAGES x (K tile, V tile), each tile
+// DP / 64 column blocks of kWgBK rows x 128 bytes, swizzled), the Q tile (the
+// same layout, kWgRows rows), the tiles' tags, the tile list, the combine's
+// coefficients, scratch, the mbarriers.  After the loop the ring holds a
+// split's (acc, m, l) for the combine.
+// An int8 ring (Q8): the stages hold the tiles as they arrive, in boxes of 128
+// one-byte elements (a row of 64 padded to 128), then come the bf16 K and V
+// tiles the products read, dequantized from the stage in hand; the scales sit
+// beside the tags.
+template <int D, bool Q8 = false> struct WgTile {
+  static constexpr int DP = padded_dim(D);          // the layout's head dim
+  static constexpr int BLOCKS = DP / 64;            // 128-byte column blocks of a bf16 row
+  static constexpr int KV_BYTES = kWgBK * DP * 2;   // one bf16 K or V tile
+  static constexpr int BLOCKS8 = DP > 128 ? DP / 128 : 1;  // of an int8 row
+  static constexpr int IN_BYTES = Q8 ? kWgBK * 128 * BLOCKS8 : KV_BYTES;  // a tile as it arrives
+  static constexpr int STAGE_BYTES = 2 * IN_BYTES;
+  static constexpr int STAGES = D == 64 ? 4 : 2;
+  static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;  // blocks an SM holds
+  static constexpr int RING = STAGES * STAGE_BYTES + (Q8 ? 2 * KV_BYTES : 0);
+  static constexpr int Q_BYTES = kWgRows * DP * 2;
+  static constexpr int SMEM = 1024 + RING + Q_BYTES + STAGES * kWgBK * 4 * (Q8 ? 3 : 1) +
+                              kMaxListed * 4 + kWgRows * (kMaxSplits + 1) * 4 + 16 +
+                              2 * STAGES * 8;
+  static_assert(D == 64 || D == 72 || D == 80 || D == 96 || D == 112 || D == 128 || D == 256,
+                "head dims of the wgmma route");
+  static_assert(!Q8 || D % 16 == 0, "an int8 row TMA takes is a whole 16 bytes");
+  static_assert(kWgRows * D * 4 + kWgRows * 8 <= RING, "a split's (acc, m, l) fit the ring");
+  static_assert(MIN_BLOCKS * (SMEM + 1024) <= 233472, "blocks an SM holds");
+};
+
+struct WgParams {
+  CUtensorMap k_map, v_map;  // (B Hkv, Sk, D), boxes of 128 bytes x kWgBK x 1
+  Args a;
+  int splits;                // blocks of a cluster, each a share of the live tiles
+};
+
+template <int D, bool Q8 = false>
+__global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
+    flash_attention_wgmma_kernel(const __grid_constant__ WgParams p) {
+  using W = WgTile<D, Q8>;
+  constexpr int DP = W::DP;
+  const Args& a = p.a;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle atoms must start on 1024 bytes
+  unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* dq_tiles = ring + W::STAGES * W::STAGE_BYTES;  // Q8: the bf16 K, V tiles
+  unsigned char* q_s = ring + W::RING;
+  int* tags_s = reinterpret_cast<int*>(q_s + W::Q_BYTES);
+  // Q8: stage s's K scales at 2 s kWgBK, its V scales after them
+  float* sc_s = reinterpret_cast<float*>(tags_s + W::STAGES * kWgBK);
+  int* list_s = reinterpret_cast<int*>(sc_s + (Q8 ? 2 * W::STAGES * kWgBK : 0));
+  float* coef_s = reinterpret_cast<float*>(list_s + kMaxListed);
+  int* scratch_s = reinterpret_cast<int*>(coef_s + kWgRows * (kMaxSplits + 1));
+  uint64_t* full = reinterpret_cast<uint64_t*>(scratch_s + 4);
+  uint64_t* empty = full + W::STAGES;
+
+  const int split = blockIdx.x;  // rank in the cluster
+  const int bh = blockIdx.z;
+  const int b = bh / a.hkv, hk = bh % a.hkv, G = a.g;
+  const int r0 = blockIdx.y * kWgRows;
+  const int rows_total = a.sq * G;
+  const int t_first = r0 / G;
+  const int t_last = min((r0 + kWgRows - 1) / G, a.sq - 1);
+  const int* kp = a.k_pos != nullptr ? a.k_pos + (size_t)b * a.kp_stride : nullptr;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+#pragma unroll 1
+    for (int s = 0; s < W::STAGES; ++s) {
+      hg::mbar_init(&full[s], 33);  // the producer's expect_tx and its 32 lanes' tags
+      hg::mbar_init(&empty[s], 4);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (warp < 4) {
+    // the consumers start copying the Q tile into shared memory, swizzled as
+    // TMA would (16-byte piece c of row r at c ^ (r % 8)); rows past the end
+    // and the columns past D are zeros
+    constexpr int CPR = DP / 8;  // 16-byte pieces of a row of the layout
+    for (int e = tid; e < kWgRows * CPR; e += 128) {
+      const int r = e / CPR, ch = e % CPR;
+      const int row = r0 + r;
+      const bool inside = row < rows_total && ch < D / 8;
+      const int tq = row / G, g = row - tq * G;
+      const bf16* src = reinterpret_cast<const bf16*>(a.q);
+      if (inside)
+        src += b * a.q_sb + (long long)(hk * G + g) * a.q_sh + (long long)tq * a.q_ss + ch * 8;
+      __pipeline_memcpy_async(
+          q_s + (ch >> 3) * (kWgRows * 128) + r * 128 + (((ch & 7) ^ (r & 7)) << 4), src, 16,
+          inside ? 0 : 16);
+    }
+    __pipeline_commit();
+  }
+  const TileSet ts = plan_tiles(a, b, t_first, t_last - t_first + 1, kWgBK, list_s, scratch_s);
+  __syncthreads();
+  // this split's share of the live tiles (none at all for some splits)
+  const int per = (ts.count + p.splits - 1) / p.splits;
+  const int k_begin = min(split * per, ts.count);
+  const int nk = min(k_begin + per, ts.count) - k_begin;
+
+  if (warp == 4) {
+    // producer: lane 0 issues the copies of K and V, every lane copies tags
+    // (and an int8 ring's scales), those of the next tile loaded while this
+    // one waits for its stage
+    int nxt[2] = {0, 0};
+    float nsc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // Q8: the next tile's K, V scales
+    const bool side = kp != nullptr || Q8;  // something besides the tiles to copy
+    auto load_tags = [&](int i) {
+      const int j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = j0 + lane + 32 * u;
+        if (kp != nullptr) nxt[u] = j < a.sk ? __ldg(kp + j) : 0;
+        if constexpr (Q8) {
+          const size_t si = (size_t)bh * a.sk + j;
+          nsc[0][u] = j < a.sk ? __bfloat162float(a.k_scale[si]) : 0.0f;
+          nsc[1][u] = j < a.sk ? __bfloat162float(a.v_scale[si]) : 0.0f;
+        }
+      }
+    };
+    if (side && nk > 0) load_tags(0);
+#pragma unroll 1
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % W::STAGES;
+      const int cur[2] = {nxt[0], nxt[1]};
+      const float csc[2][2] = {{nsc[0][0], nsc[0][1]}, {nsc[1][0], nsc[1][1]}};
+      if (side && i + 1 < nk) load_tags(i + 1);
+      hg::mbar_wait(&empty[s], ((i / W::STAGES) & 1) ^ 1);
+      const int j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
+      if (lane == 0) {
+        unsigned char* st = ring + s * W::STAGE_BYTES;
+        hg::mbar_expect_tx(&full[s], W::STAGE_BYTES);
+        if constexpr (Q8) {
+#pragma unroll
+          for (int c = 0; c < W::BLOCKS8; ++c) {
+            hg::tma_load_3d(st + c * kWgBK * 128, &p.k_map, &full[s], c * 128, j0, bh);
+            hg::tma_load_3d(st + W::IN_BYTES + c * kWgBK * 128, &p.v_map, &full[s], c * 128, j0,
+                            bh);
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < W::BLOCKS; ++c) {
+            hg::tma_load_3d(st + c * kWgBK * 128, &p.k_map, &full[s], c * 64, j0, bh);
+            hg::tma_load_3d(st + W::KV_BYTES + c * kWgBK * 128, &p.v_map, &full[s], c * 64, j0,
+                            bh);
+          }
+        }
+      }
+      if (kp != nullptr) {
+        tags_s[s * kWgBK + lane] = cur[0];
+        tags_s[s * kWgBK + lane + 32] = cur[1];
+      }
+      if constexpr (Q8) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          sc_s[2 * s * kWgBK + lane + 32 * u] = csc[0][u];
+          sc_s[(2 * s + 1) * kWgBK + lane + 32 * u] = csc[1][u];
+        }
+      }
+      hg::mbar_arrive(&full[s]);
+    }
+  } else {
+    // consumers: the Q tile is on its way since the start
+    __pipeline_wait_prior(0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+    // this thread's two rows: 16 warp + gid and + 8 of the block's 64
+    const int gid = lane >> 2, tig = lane & 3;
+    int qpos[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + warp * 16 + gid + 8 * hh;
+      const int tq = row / G;
+      qpos[hh] = row >= rows_total ? INT_MIN / 2
+                 : a.q_pos == nullptr ? tq
+                                      : a.q_pos[(size_t)b * a.qp_stride + tq];
+    }
+    float o[D / 2];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
+    float m_run[2] = {-INFINITY, -INFINITY};
+    float l_run[2] = {0.0f, 0.0f};
+    const uint32_t q_base = smem_u32(q_s);
+
+#pragma unroll 1
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % W::STAGES;
+      hg::mbar_wait(&full[s], (i / W::STAGES) & 1);
+      uint32_t k_base = smem_u32(ring + s * W::STAGE_BYTES);
+      uint32_t v_base = k_base + W::KV_BYTES;
+      if constexpr (Q8) {
+        // the stage's int8 K and V into the bf16 tiles the products read,
+        // swizzled as TMA writes a bf16 tile, once every warp's products of
+        // the last tile are done with them
+        if (i > 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
+        const unsigned char* in = ring + s * W::STAGE_BYTES;
+        const float* scl = sc_s + 2 * s * kWgBK;  // K's, then V's
+        constexpr int P8 = DP / 16;               // 16-byte pieces of an int8 row
+#pragma unroll 2
+        for (int u = tid; u < 2 * kWgBK * P8; u += 128) {
+          const int which = u / (kWgBK * P8), r = (u / P8) % kWgBK, c = u % P8;
+          const uint4 raw = *reinterpret_cast<const uint4*>(
+              in + which * W::IN_BYTES + (c >> 3) * (kWgBK * 128) + r * 128 +
+              (((c & 7) ^ (r & 7)) << 4));
+          const float sc = scl[which * kWgBK + r];
+          unsigned char* out = dq_tiles + which * W::KV_BYTES + r * 128;
+          const int c0 = 2 * c, c1 = 2 * c + 1;  // its two bf16 pieces
+          *reinterpret_cast<uint4*>(out + (c0 >> 3) * (kWgBK * 128) + (((c0 & 7) ^ (r & 7)) << 4)) =
+              dequant8(raw.x, raw.y, sc);
+          *reinterpret_cast<uint4*>(out + (c1 >> 3) * (kWgBK * 128) + (((c1 & 7) ^ (r & 7)) << 4)) =
+              dequant8(raw.z, raw.w, sc);
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+        asm volatile("bar.sync 1, 128;\n" ::: "memory");
+        k_base = smem_u32(dq_tiles);
+        v_base = k_base + W::KV_BYTES;
+      }
+
+      // S = Q K^T: 64 rows x kWgBK keys
+      float sc[kWgBK / 2];
+#pragma unroll
+      for (int e = 0; e < kWgBK / 2; ++e) sc[e] = 0.0f;
+      hg::fence_acc(sc);
+      hg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < (D + 15) / 16; ++kk) {
+        const uint64_t dq =
+            hg::desc_sw128(q_base + (kk >> 2) * (kWgRows * 128) + (kk & 3) * 32, 16, 1024);
+        const uint64_t dk =
+            hg::desc_sw128(k_base + (kk >> 2) * (kWgBK * 128) + (kk & 3) * 32, 16, 1024);
+        hg::wgmma_m64n64<0>(sc, dq, dk);
+      }
+      hg::wgmma_commit();
+      hg::wgmma_wait<0>();
+      hg::fence_acc(sc);
+
+      const int j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
+      const bool full = tile_full(a, ts, list_s, k_begin + i, kWgBK);
+      float alpha[2];
+      softmax_tile<kWgBK>(a, sc, j0, full, kp != nullptr ? tags_s + s * kWgBK : nullptr, qpos,
+                          tig, m_run, l_run, alpha);
+      if (alpha[0] != 1.0f || alpha[1] != 1.0f) {  // a row's max moved
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c) {
+          o[4 * c] *= alpha[0];
+          o[4 * c + 1] *= alpha[0];
+          o[4 * c + 2] *= alpha[1];
+          o[4 * c + 3] *= alpha[1];
+        }
+      }
+      // P in bf16 as the A operand: keys 16 j .. 16 j + 15 are score blocks 2 j, 2 j + 1
+      uint32_t pf[kWgBK / 16][4];
+#pragma unroll
+      for (int j = 0; j < kWgBK / 16; ++j) {
+        pf[j][0] = pack2f(sc[8 * j], sc[8 * j + 1]);
+        pf[j][1] = pack2f(sc[8 * j + 2], sc[8 * j + 3]);
+        pf[j][2] = pack2f(sc[8 * j + 4], sc[8 * j + 5]);
+        pf[j][3] = pack2f(sc[8 * j + 6], sc[8 * j + 7]);
+      }
+      // O += P V: V's 16 keys of step j start 16 rows (2048 bytes) on, its
+      // 64-column blocks kWgBK rows apart
+      hg::fence_acc(o);
+      hg::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kWgBK / 16; ++j) {
+        const uint64_t dv = hg::desc_sw128(v_base + j * 16 * 128, kWgBK * 128, 1024);
+        wgmma_pv<D>(o, pf[j], dv);
+      }
+      hg::wgmma_commit();
+      hg::wgmma_wait<0>();
+      hg::fence_acc(o);
+      __syncwarp();
+      if (lane == 0) hg::mbar_arrive(&empty[s]);  // this warp is done with stage s
+    }
+
+    float l_row[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float l = l_run[hh];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      l_row[hh] = l;
+    }
+    if (p.splits == 1) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + warp * 16 + gid + 8 * hh;
+        if (row < rows_total) {
+          const int tq = row / G, g = row - tq * G;
+          if (tig == 0) store_lse(a, b, hk * G + g, tq, m_run[hh], l_row[hh]);
+          const float inv = 1.0f / fmaxf(l_row[hh], 1e-30f);
+          bf16* dst = reinterpret_cast<bf16*>(a.out) + b * a.o_sb +
+                      (long long)(hk * G + g) * a.o_sh + (long long)tq * a.o_ss + 2 * tig;
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c)
+            *reinterpret_cast<__nv_bfloat162*>(dst + 8 * c) =
+                __floats2bfloat162_rn(o[4 * c + 2 * hh] * inv, o[4 * c + 2 * hh + 1] * inv);
+        }
+      }
+    } else {
+      // a split: (acc, m, l) of the 64 rows into this block's ring, which
+      // every consumer warp has finished reading
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      float* red = reinterpret_cast<float*>(ring);
+      float* ml = red + kWgRows * D;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = warp * 16 + gid + 8 * hh;
+#pragma unroll
+        for (int c = 0; c < D / 8; ++c)
+          *reinterpret_cast<float2*>(red + r * D + 8 * c + 2 * tig) =
+              make_float2(o[4 * c + 2 * hh], o[4 * c + 2 * hh + 1]);
+        if (tig == 0) {
+          ml[2 * r] = m_run[hh];
+          ml[2 * r + 1] = l_row[hh];
+        }
+      }
+    }
+  }
+
+  if (p.splits > 1) {
+    hg::cluster_sync();  // every split's (acc, m, l) is in its block's shared memory
+    const float* red = reinterpret_cast<const float*>(ring);
+    const float* ml = red + kWgRows * D;
+    const int splits = p.splits;
+    const int rpb = (kWgRows + splits - 1) / splits;
+    const int rb = min(split * rpb, kWgRows), nr = min(kWgRows, rb + rpb) - rb;
+    // this block's rows: the weight of each split and 1 / l, the (m, l) of
+    // every split loaded at once
+    float* wq = coef_s;                   // [nr][splits]
+    float* inv = coef_s + kWgRows * kMaxSplits / 2 + kMaxSplits;  // [nr]
+    if (tid < nr) {
+      const int r = rb + tid;
+      float2 v[kMaxSplits];
+#pragma unroll
+      for (int q = 0; q < kMaxSplits; ++q)
+        if (q < splits) v[q] = *reinterpret_cast<const float2*>(hg::cluster_ptr(ml + 2 * r, q, true));
+      float mmax = -INFINITY;
+#pragma unroll
+      for (int q = 0; q < kMaxSplits; ++q)
+        if (q < splits) mmax = fmaxf(mmax, v[q].x);
+      float l = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kMaxSplits; ++q) {
+        if (q < splits) {
+          const float w = v[q].x == -INFINITY ? 0.0f : exp2f(v[q].x - mmax);
+          wq[tid * splits + q] = w;
+          l += w * v[q].y;
+        }
+      }
+      inv[tid] = 1.0f / fmaxf(l, 1e-30f);
+      if (r0 + r < rows_total) {
+        const int tq = (r0 + r) / G;
+        store_lse(a, b, hk * G + (r0 + r - tq * G), tq, mmax, l);
+      }
+    }
+    __syncthreads();
+    // four columns a thread: the splits' sums in rank order
+    for (int e = tid; e < nr * (D / 4); e += kWgThreads) {
+      const int rl = e / (D / 4), col = 4 * (e % (D / 4));
+      const int r = rb + rl, row = r0 + r;
+      if (row >= rows_total) continue;
+      float4 part[kMaxSplits];
+#pragma unroll
+      for (int q = 0; q < kMaxSplits; ++q)
+        if (q < splits)
+          part[q] = *reinterpret_cast<const float4*>(hg::cluster_ptr(red + r * D + col, q, true));
+      float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int q = 0; q < kMaxSplits; ++q) {
+        if (q < splits) {
+          const float w = wq[rl * splits + q];
+          acc.x += w * part[q].x;
+          acc.y += w * part[q].y;
+          acc.z += w * part[q].z;
+          acc.w += w * part[q].w;
+        }
+      }
+      const float iv = inv[rl];
+      const int tq = row / G, g = row - tq * G;
+      bf16* dst = reinterpret_cast<bf16*>(a.out) + b * a.o_sb + (long long)(hk * G + g) * a.o_sh +
+                  (long long)tq * a.o_ss + col;
+      *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(acc.x * iv, acc.y * iv);
+      *reinterpret_cast<__nv_bfloat162*>(dst + 2) = __floats2bfloat162_rn(acc.z * iv, acc.w * iv);
+    }
+    hg::cluster_sync();  // no block leaves while another reads its shared memory
+  }
+}
+
+template <int D, bool Q8 = false>
+int launch_wgmma(const Args& a, int splits, cudaStream_t stream) {
+  using W = WgTile<D, Q8>;
+  WgParams p;
+  const long long bh = (long long)a.b * a.hkv;
+  const int elem = Q8 ? 1 : 2;
+  if (hg::tensor_map_3d(&p.k_map, a.k, elem, D, a.sk, bh, kWgBK) != 0 ||
+      hg::tensor_map_3d(&p.v_map, a.v, elem, D, a.sk, bh, kWgBK) != 0)
+    return -1;
+  p.a = a;
+  p.splits = splits;
+  const long long row_tiles = ((long long)a.sq * a.g + kWgRows - 1) / kWgRows;
+  if (row_tiles > 65535 || bh > 65535) return -1;
+  const dim3 grid(splits, (unsigned)row_tiles, (unsigned)bh);
+  if (splits == 1) {
+    flash_attention_wgmma_kernel<D, Q8><<<grid, kWgThreads, W::SMEM, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kWgThreads, 1, 1);
+  cfg.dynamicSmemBytes = W::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, flash_attention_wgmma_kernel<D, Q8>, p);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Sets every instance's dynamic shared-memory limit on the current device to
+// what a block may opt in to, so that launches need not set it.  Call once a
+// device before launching.  Returns 0 or a CUDA error.
+int flash_attention_wgmma_prepare(void) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<64>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<72>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<80>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<96>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<112>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<128>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<256>, optin);
+  // the int8 ring's instances (D 72: its 72-byte rows are no TMA stride)
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<64, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<80, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<96, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<112, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<128, true>, optin);
+  if (err == cudaSuccess) err = allow_smem(flash_attention_wgmma_kernel<256, true>, optin);
+  return (int)err;
+}
+
+// Route "wgmma" of flash_attention_launch (flash_attention.cu), the same
+// arguments and returns: bf16 q with a bf16 cache at head dim 64, 72, 80,
+// 96, 112, 128 or 256, or with an int8 cache at the same but 72; `splits`
+// blocks of a cluster, 1 to 8.
+int flash_attention_wgmma_launch(const void* q, const void* k, const void* v,
+                                 const void* k_scale, const void* v_scale, const int* q_pos,
+                                 const int* k_pos, void* out, float* lse, int b, int hq, int hkv,
+                                 int sq, int sk, int d, long long q_sb, long long q_sh,
+                                 long long q_ss, long long o_sb, long long o_sh, long long o_ss,
+                                 int qp_stride, int kp_stride, int causal, int window,
+                                 float scale, int q_dtype, int kv_dtype, int splits,
+                                 void* stream) {
+  Args a;
+  if (!make_args(&a, q, k, v, k_scale, v_scale, q_pos, k_pos, out, lse, b, hq, hkv, sq, sk, d,
+                 q_sb, q_sh, q_ss, o_sb, o_sh, o_ss, qp_stride, kp_stride, causal, window, scale,
+                 kv_dtype))
+    return -1;
+  if (q_dtype != 1 || kv_dtype == 0 || splits < 1 || splits > kMaxSplits) return -1;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (kv_dtype == 2) {
+    switch (d) {
+      case 64: return launch_wgmma<64, true>(a, splits, s);
+      case 80: return launch_wgmma<80, true>(a, splits, s);
+      case 96: return launch_wgmma<96, true>(a, splits, s);
+      case 112: return launch_wgmma<112, true>(a, splits, s);
+      case 128: return launch_wgmma<128, true>(a, splits, s);
+      case 256: return launch_wgmma<256, true>(a, splits, s);
+      default: return -1;
+    }
+  }
+  switch (d) {
+    case 64: return launch_wgmma<64>(a, splits, s);
+    case 72: return launch_wgmma<72>(a, splits, s);
+    case 80: return launch_wgmma<80>(a, splits, s);
+    case 96: return launch_wgmma<96>(a, splits, s);
+    case 112: return launch_wgmma<112>(a, splits, s);
+    case 128: return launch_wgmma<128>(a, splits, s);
+    case 256: return launch_wgmma<256>(a, splits, s);
+    default: return -1;
+  }
+}
+
+}  // extern "C"

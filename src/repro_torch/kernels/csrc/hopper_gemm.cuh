@@ -82,7 +82,20 @@
 // TMA's rules decide which products the mainloop takes: bf16, every base
 // 16-byte aligned and every row stride a multiple of 16 bytes.  The callers
 // check them before the launch and route what breaks them to their older
-// kernels; the launch functions here check them again and refuse (-1).
+// kernels; the launch functions here check them again and refuse (-1).  One
+// exception: an MN-major b that TMA refuses (a row stride or a base off 16
+// bytes: hymba's untied LM head, (1600, 32001), has rows of 64002 bytes) can
+// be loaded by the producer warpgroup itself (B_LDG, one consumer
+// warpgroup): its 128 threads read each row's 16-byte-aligned pieces once
+// (ld.global.nc.v4, all of a stage in flight at once; the piece a lane's 8
+// elements spill into comes from the next lane by a shuffle), realign them
+// in registers by the row's byte offset (funnel shifts), zero
+// what lies past n or K, and store them into the same 128-byte-swizzled tile
+// a TMA box would fill; after a proxy fence each thread arrives on full[s],
+// which completes on the a tile's bytes and those 128 arrivals.  The
+// consumers, the split of K over a cluster and the epilogue are unchanged,
+// and the weight keeps the layout the model, its checkpoints and its
+// streamed records give it.
 //
 // Where it stands (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): the
 // products at m = 4096 run at 55-66 % of the tensor cores' dense peak
@@ -383,12 +396,15 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t desc_a, 
 // K-major or MN-major; a K-major (x) or MN-major (A_MNMAJOR: x stored as
 // (K, m), read as its transpose: the x^T dy of a weight gradient, whose K is
 // the tokens); BWD compiles the MLP backward's epilogues (kEpiPre, kEpiDeriv)
-// and only those; TWO a second (a1, b1) part after the first's K tiles.
+// and only those; TWO a second (a1, b1) part after the first's K tiles;
+// B_LDG an MN-major b TMA refuses, loaded and realigned by the producer
+// warpgroup's threads (one consumer warpgroup, one b, one part).
 template <int WG_, int BN_, int NB_, bool B_KMAJOR_, bool A_MNMAJOR_ = false, bool BWD_ = false,
-          bool TWO_ = false>
+          bool TWO_ = false, bool B_LDG_ = false>
 struct GemmCfg {
   static constexpr int WG = WG_, BM = 64 * WG_, BN = BN_, NB = NB_;
   static constexpr bool B_KMAJOR = B_KMAJOR_, A_MNMAJOR = A_MNMAJOR_, BWD = BWD_, TWO = TWO_;
+  static constexpr bool B_LDG = B_LDG_;
   static constexpr int THREADS = 128 * (WG + 1);
   static constexpr int MIN_BLOCKS = WG == 1 ? 2 : 1;
   static constexpr int A_BYTES = BM * kBK * 2;
@@ -401,6 +417,8 @@ struct GemmCfg {
   static_assert(NB * BN <= (WG == 1 ? 128 : 256), "accumulators a consumer thread can hold");
   static_assert(STAGES >= 2, "a stage is filled while another is read");
   static_assert(SMEM <= kSmemBudget, "a block has 227 KB of shared memory");
+  static_assert(!B_LDG || (WG == 1 && NB == 1 && !B_KMAJOR && !A_MNMAJOR && !TWO && !BWD),
+                "the realigned b: one consumer warpgroup, one MN-major b, one part");
 };
 
 struct EpiArgs {
@@ -423,12 +441,14 @@ struct GemmParams {
   CUtensorMap a, b0, b1;  // b1 only with two b operands, or a second part
   CUtensorMap a1;       // GemmCfg::TWO: the second part's a (b1 its b)
   int k_tiles0;         // TWO: K tiles of a part; else 0
-  int m, n;
+  int m, n, k;          // k: of one part
   int k_tiles;          // ceil(K / kBK), twice that with two parts
   int k_per_split;      // K tiles of one split (blockIdx.y, its rank in the cluster)
   int splits;           // blocks of a cluster; 1: no cluster
   int m_tiles, n_tiles, group_m;
   EpiArgs epi;
+  const bf16* b_ptr;    // GemmCfg::B_LDG: b (k, n) row-major, row stride ldb elements
+  long long ldb;
 };
 
 // The MLP backward's epilogues (kEpiPre, kEpiDeriv) of one element.
@@ -518,6 +538,102 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+// The 16-byte-aligned piece of b at `p` (ld.global.nc: b is read-only for
+// the kernel's life).
+__device__ __forceinline__ uint4 ldg16(const uint4* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// Eight bf16 from the 32 bytes (lo, hi) starting `off` bytes into lo (off
+// even: bf16 elements), shifted by 8, 4 and 2 bytes in registers; elements
+// from `live` on are zeros.
+__device__ __forceinline__ uint4 realign8(uint4 lo, uint4 hi, unsigned off, int live) {
+  const bool s8 = off & 8, s4 = off & 4, s2 = off & 2;
+  const uint32_t a0 = s8 ? lo.z : lo.x, a1 = s8 ? lo.w : lo.y, a2 = s8 ? hi.x : lo.z,
+                 a3 = s8 ? hi.y : lo.w, a4 = s8 ? hi.z : hi.x, a5 = s8 ? hi.w : hi.y;
+  const uint32_t b0 = s4 ? a1 : a0, b1 = s4 ? a2 : a1, b2 = s4 ? a3 : a2, b3 = s4 ? a4 : a3,
+                 b4 = s4 ? a5 : a4;
+  uint32_t w[4] = {s2 ? __funnelshift_r(b0, b1, 16) : b0, s2 ? __funnelshift_r(b1, b2, 16) : b1,
+                   s2 ? __funnelshift_r(b2, b3, 16) : b2, s2 ? __funnelshift_r(b3, b4, 16) : b3};
+  if (live < 8) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = 2 * i >= live ? 0u : 2 * i + 1 >= live ? (w[i] & 0xFFFFu) : w[i];
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The producer warpgroup's share of a B_LDG stage: the (kBK, BN) tile of b at
+// (k0, n0) into BN / 64 column blocks of kBK rows x 128 bytes, swizzled as a
+// TMA box lands (16-byte piece c of row r at c ^ (r % 8)); then the proxy
+// fence that lets wgmma see the stores.  Piece c of a row (8 columns) lies
+// `off` bytes into the aligned piece lo_c and, unless off is 0, spills into
+// the next, lo_{c+1}: the piece the next lane of the warp loads (a row's
+// BN / 8 pieces are adjacent lanes of one warp), passed over by a shuffle;
+// the row's last lane loads it itself.  So each aligned piece is read once,
+// only where it holds some element of the row's live columns (never a
+// piece past the row's end or past b), and every load of the stage is in
+// flight before the first is used.
+template <int BN>
+__device__ __forceinline__ void load_b_tile(const GemmParams& p, unsigned char* dst, int k0,
+                                            int n0, int t) {
+  constexpr int PPR = BN / 8;                  // 16-byte pieces of a row
+  constexpr int PER = kBK * PPR / 128;          // of a thread
+  static_assert(32 % PPR == 0, "a row's pieces are lanes of one warp");
+  // lo[u]: the aligned piece piece u starts in; last[u]: the one after it,
+  // loaded by a row's last lane (t % PPR is the same for all of its pieces)
+  uint4 lo[PER], last[PER];
+  // where piece u of this thread lies: its row's pointer, byte offset, live
+  // elements (recomputed after the loads rather than held in registers)
+  auto where = [&](int u, const uint4*& lo_p, uintptr_t& end, unsigned& off, int& live) {
+    const int e = u * 128 + t, r = e / PPR, c = e % PPR;
+    const int row = k0 + r, col = n0 + 8 * c;
+    const bf16* rp = p.b_ptr + (size_t)(row < p.k ? row : 0) * p.ldb;
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(rp + col);
+    end = reinterpret_cast<uintptr_t>(rp + p.n);  // past the row's last element
+    off = (unsigned)(addr & 15);
+    live = row < p.k ? min(8, p.n - col) : 0;
+    lo_p = reinterpret_cast<const uint4*>(addr - off);
+  };
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const uint4* lo_p;
+    uintptr_t end;
+    unsigned off;
+    int live;
+    where(u, lo_p, end, off, live);
+    const bool in_b = k0 + (u * 128 + t) / PPR < p.k;
+    lo[u] = in_b && reinterpret_cast<uintptr_t>(lo_p) < end ? ldg16(lo_p)
+                                                           : make_uint4(0u, 0u, 0u, 0u);
+    last[u] = t % PPR == PPR - 1 && live > 0 && off + 2 * live > 16
+                  ? ldg16(lo_p + 1)
+                  : make_uint4(0u, 0u, 0u, 0u);
+  }
+#pragma unroll
+  for (int u = 0; u < PER; ++u) {
+    const int e = u * 128 + t, r = e / PPR, c = e % PPR;
+    const uint4* lo_p;
+    uintptr_t end;
+    unsigned off;
+    int live;
+    where(u, lo_p, end, off, live);
+    uint4 hi;  // the next lane's piece: lo_{c+1} of the same row
+    hi.x = __shfl_down_sync(0xffffffffu, lo[u].x, 1);
+    hi.y = __shfl_down_sync(0xffffffffu, lo[u].y, 1);
+    hi.z = __shfl_down_sync(0xffffffffu, lo[u].z, 1);
+    hi.w = __shfl_down_sync(0xffffffffu, lo[u].w, 1);
+    if (c == PPR - 1) hi = last[u];
+    const uint4 v = live > 0 ? realign8(lo[u], hi, off, live) : make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(dst + (c >> 3) * (kBK * 128) + r * 128 +
+                              (((c & 7) ^ (r & 7)) << 4)) = v;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 template <class C>
 __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
     gemm_kernel(const __grid_constant__ GemmParams p) {
@@ -542,7 +658,8 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   if (threadIdx.x == 0) {
 #pragma unroll 1
     for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      // B_LDG: the a tile's expect_tx and the producer warpgroup's 128 stores
+      mbar_init(&full[s], C::B_LDG ? 129 : 1);
       mbar_init(&empty[s], 4 * C::WG);  // one arrival a consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -553,7 +670,22 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   if (wg == 0) {
     // producer: one thread issues every copy
     if constexpr (C::WG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 0) {
+    if constexpr (C::B_LDG) {
+      // one thread issues the a tile's copy, all 128 load the b tile
+#pragma unroll 1
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % C::STAGES;
+        mbar_wait(&empty[s], ((i / C::STAGES) & 1) ^ 1);
+        unsigned char* st = smem + s * C::STAGE_BYTES;
+        const int k0 = (kt0 + i) * kBK;
+        if (threadIdx.x == 0) {
+          mbar_expect_tx(&full[s], C::A_BYTES);
+          tma_load_2d(st, &p.a, &full[s], k0, m0);
+        }
+        load_b_tile<C::BN>(p, st + C::A_BYTES, k0, n0, threadIdx.x);
+        mbar_arrive(&full[s]);
+      }
+    } else if (threadIdx.x == 0) {
 #pragma unroll 1
       for (int i = 0; i < nk; ++i) {
         const int s = i % C::STAGES;
@@ -843,6 +975,7 @@ int launch_gemm(GemmParams& p, int m, int n, int k, int k_per_split, cudaStream_
   }
   p.m = m;
   p.n = n;
+  p.k = k;
   p.k_tiles0 = C::TWO ? (k + kBK - 1) / kBK : 0;
   p.k_tiles = (C::TWO ? 2 : 1) * ((k + kBK - 1) / kBK);
   p.k_per_split = k_per_split;

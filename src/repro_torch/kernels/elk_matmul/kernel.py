@@ -4,8 +4,11 @@ Counterpart of ``src/repro/kernels/elk_matmul/kernel.py`` (``elk_matmul``).
 The CUDA source says what the kernel computes and how it is cut for the
 card.  This wrapper checks device, types, shapes and strides, decides the
 route before the launch (``route_of``: "wgmma" for bf16 with m >= 64 and
-operands TMA takes, "splitk" for such products with fewer rows,
-"mma_sync" for the rest) and takes its plan from ``chip/h100.smem_plan``
+operands TMA takes, "splitk" for such products with fewer rows; their
+"_realign" twins where TMA takes x but not a (K, N) row-major y, whose
+tiles the producer loads and realigns itself; "fma" for fp32, "fma_splitk"
+where its output tiles do not cover the SMs; "mma_sync" for the rest and
+for any forced block shape) and takes its plan from ``chip/h100.smem_plan``
 (cached per shape, type and route, so a decode step's 161 products do not
 run the greedy), allocates the output with ``torch.empty``, launches on
 PyTorch's current stream without synchronising, and raises if the launch
@@ -38,24 +41,39 @@ from typing import Optional
 
 import torch
 
-from repro_torch.chip.h100 import (ROW_PAD_BYTES, SMEM_PER_BLOCK, STAGES,
-                                   TILE_M, TILE_N, SmemPlan, smem_plan)
+from repro_torch.chip.h100 import (FMA_STAGES, ROW_PAD_BYTES,
+                                   SMEM_PER_BLOCK, STAGES, TILE_M, TILE_N,
+                                   SmemPlan, smem_plan)
 from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PREPARED: set = set()    # device indices whose kernel attributes are set
-ROUTES = ("wgmma", "splitk", "mma_sync")
+ROUTES = ("wgmma", "splitk", "wgmma_realign", "splitk_realign", "fma",
+          "fma_splitk", "mma_sync")
+# the library of a route: the TMA + wgmma routes are compiled from
+# csrc/elk_matmul.cu, the others from csrc/elk_matmul_sync.cu (two nvcc
+# processes side by side)
+_TMA_ROUTES = ("wgmma", "splitk", "wgmma_realign", "splitk_realign")
 OPERANDS = ("x", "x_trans")
 
 
-def _lib() -> ctypes.CDLL:
+def _tma_lib() -> ctypes.CDLL:
     lib = _build.load("elk_matmul")
+    if lib.elk_matmul_tma_launch.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.elk_matmul_tma_launch.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
+        lib.elk_matmul_tma_launch.restype = i32
+    return lib
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("elk_matmul_sync")
     if lib.elk_matmul_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.elk_matmul_launch.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
         lib.elk_matmul_launch.restype = i32
-        lib.elk_matmul_tma_launch.argtypes = [ptr] * 5 + [i32] * 10 + [ptr]
-        lib.elk_matmul_tma_launch.restype = i32
+        lib.elk_matmul_fma_launch.argtypes = [ptr] * 5 + [i32] * 12 + [ptr]
+        lib.elk_matmul_fma_launch.restype = i32
         lib.elk_matmul_error_name.argtypes = [i32]
         lib.elk_matmul_error_name.restype = ctypes.c_char_p
         lib.elk_matmul_prepare.argtypes = []
@@ -76,25 +94,59 @@ def _prepare(lib: ctypes.CDLL, device: torch.device) -> None:
 
 @functools.lru_cache(maxsize=4096)
 def plan_for(m: int, n: int, k: int, dtype: torch.dtype,
-             tma: bool = True) -> SmemPlan:
+             tma: bool = True, realign: bool = False,
+             mma_sync: bool = False) -> SmemPlan:
     """``smem_plan`` on one H100 for this product, once per shape, type and
-    TMA legality."""
+    what the operands allow (``tma``: TMA takes both; ``realign``: TMA
+    takes x, y is loaded and realigned by the producer; ``mma_sync``: the
+    plan behind a forced block shape)."""
     return smem_plan(m, n, k, dtype_bytes=torch.empty(
-        (), dtype=dtype).element_size(), tma=tma)
+        (), dtype=dtype).element_size(), tma=tma, realign=realign,
+        mma_sync=mma_sync)
+
+
+def _tma_ok(t: torch.Tensor, ld: int) -> bool:
+    return ld % 8 == 0 and t.data_ptr() % 16 == 0
 
 
 def tma_legal(x: torch.Tensor, y: torch.Tensor, lda: int, ldy: int) -> bool:
     """The operands are what TMA takes: bf16, bases on 16 bytes, row
     strides of whole 16 bytes (8 elements)."""
-    return (x.dtype == torch.bfloat16 and lda % 8 == 0 and ldy % 8 == 0
-            and x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0)
+    return x.dtype == torch.bfloat16 and _tma_ok(x, lda) and _tma_ok(y, ldy)
+
+
+def realign_legal(x: torch.Tensor, y: torch.Tensor, lda: int, ldy: int,
+                  y_trans: int) -> bool:
+    """A bf16 product the "_realign" routes take: x (m, k) as stored and
+    what TMA takes, y (k, n) row-major with a row stride or a base TMA
+    refuses (hymba's untied head, rows of 32001 elements; an unaligned
+    view), loaded by the producer warpgroup and realigned."""
+    return (x.dtype == torch.bfloat16 and not x_trans_of(x) and not y_trans
+            and _tma_ok(x, lda) and not _tma_ok(y, ldy))
+
+
+def plan_of(x: torch.Tensor, y: torch.Tensor) -> SmemPlan:
+    """The plan ``elk_matmul_kernel`` takes for ``x @ y`` with no block
+    shape given: from dtype, shapes and strides, before any launch."""
+    m, n, k, lda, ldy, y_trans = layout(x, y)
+    return plan_for(m, n, k, x.dtype, tma_legal(x, y, lda, ldy),
+                    realign_legal(x, y, lda, ldy, y_trans))
 
 
 def route_of(x: torch.Tensor, y: torch.Tensor) -> str:
     """The route ``elk_matmul_kernel`` takes for ``x @ y`` with no block
     shape given: from dtype, m and strides, before any launch."""
-    m, n, k, lda, ldy, _ = layout(x, y)
-    return plan_for(m, n, k, x.dtype, tma_legal(x, y, lda, ldy)).route
+    return plan_of(x, y).route
+
+
+def route_for(m: int, n: int, k: int, dtype: torch.dtype, lda: int,
+              ldy: int, y_trans: int = 0) -> str:
+    """``route_of`` from shapes and row strides alone, the bases on 16
+    bytes (a model's weights and activations)."""
+    bf16 = dtype == torch.bfloat16
+    x_ok, y_ok = lda % 8 == 0, ldy % 8 == 0
+    return plan_for(m, n, k, dtype, bf16 and x_ok and y_ok,
+                    bf16 and x_ok and not y_ok and not y_trans).route
 
 
 def x_trans_of(x: torch.Tensor) -> bool:
@@ -111,9 +163,10 @@ def layout(x: torch.Tensor, y: torch.Tensor
     raises.  ``x`` (m, k) with unit column stride (a row stride of its own,
     as ``x[:, -1, :]`` of a prefill has; ``lda`` that stride), or the
     transposed view of a stored (k, m) matrix (``x_trans_of``; ``lda`` the
-    stored row stride, y then (k, n) row-major); ``y`` (k, n) row-major, or
-    the transposed view of an (n, k) row-major tensor (``embed.t()`` of a
-    tied embedding, ``y_trans`` 1); no other stride."""
+    stored row stride, y then (k, n) row-major); ``y`` (k, n) with unit
+    column stride and a row stride of at least n (``ldy``: n, or a column
+    view's), or the transposed view of an (n, k) row-major tensor
+    (``embed.t()`` of a tied embedding, ``y_trans`` 1); no other stride."""
     xs, ys = x.shape, y.shape
     if len(xs) != 2 or len(ys) != 2:
         raise ValueError(f"x must be (m, k) and y (k, n), got "
@@ -131,8 +184,8 @@ def layout(x: torch.Tensor, y: torch.Tensor
         lda = sx0 if m > 1 else k
     # the stride of a dimension of size 1 does not matter, as for
     # is_contiguous (a call here costs a view for the transposed case)
-    if (n == 1 or sy1 == 1) and (k == 1 or sy0 == n):
-        return m, n, k, lda, n, 0
+    if (n == 1 or sy1 == 1) and (k == 1 or sy0 >= n):
+        return m, n, k, lda, sy0 if k > 1 else n, 0
     if (k == 1 or sy0 == 1) and (n == 1 or sy1 == k):
         return m, n, k, lda, k, 1
     raise ValueError(f"y {tuple(ys)} with strides {(sy0, sy1)} is "
@@ -140,12 +193,14 @@ def layout(x: torch.Tensor, y: torch.Tensor
                      "(n, k) row-major tensor")
 
 
-def _xt_bk(bm: int, bn: int, bk: int, esize: int) -> int:
+def _xt_bk(bm: int, bn: int, bk: int, esize: int,
+           stages: int = STAGES) -> int:
     """bk of an mma_sync / FMA plan for a transposed x: the x tile is
     stored (bk, bm) there, which can take more shared memory than the
-    plan's (bm, bk); halve bk (not below 32) until the ring fits."""
+    plan's (bm, bk); halve bk (not below 32) until the ring of ``stages``
+    fits."""
     pad = ROW_PAD_BYTES // esize
-    while bk > 32 and STAGES * (bk * (bm + pad) + bk * (bn + pad)) * esize \
+    while bk > 32 and stages * (bk * (bm + pad) + bk * (bn + pad)) * esize \
             > SMEM_PER_BLOCK:
         bk //= 2
     return bk
@@ -203,7 +258,9 @@ def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor,
     forced = not (bm is None and bn is None and bk is None)
     legal = tma_legal(x, y, lda, ldy) and (
         x2 is None or tma_legal(x2, y2, lda, ldy))
-    plan = plan_for(m, n, parts * k, x.dtype, not forced and legal)
+    realign = x2 is None and realign_legal(x, y, lda, ldy, y_trans)
+    plan = plan_for(m, n, parts * k, x.dtype, not forced and legal,
+                    not forced and realign, forced)
     route = plan.route
     if forced:
         bm, bn, bk = bm or plan.bm, bn or plan.bn, bk or plan.bk
@@ -215,22 +272,33 @@ def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor,
         bm, bn, bk = plan.bm, plan.bn, plan.bk
     if x_trans and route == "mma_sync":
         bk = _xt_bk(bm, bn, bk, x.element_size())
+    elif x_trans and route.startswith("fma"):
+        bk = _xt_bk(bm, bn, bk, x.element_size(), FMA_STAGES)
 
-    lib = _lib()
     out = x.new_empty((m, n))
     stream = torch._C._cuda_getCurrentRawStream(dev)
     ptr2 = (None, None) if x2 is None else (x2.data_ptr(), y2.data_ptr())
-    if route == "mma_sync":
-        _prepare(lib, x.device)
-        launch = lib.elk_matmul_launch
-        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), *ptr2, m, n, k,
-                lda, ldy, x_trans, y_trans, _DTYPES[x.dtype], bm, bn, bk,
-                stream)
-    else:
+    head = (x.data_ptr(), y.data_ptr(), out.data_ptr(), *ptr2, m, n, k, lda,
+            ldy, x_trans, y_trans)
+    splits = plan.splits
+    if route in _TMA_ROUTES:
+        lib = _tma_lib()
         launch = lib.elk_matmul_tma_launch
-        args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), *ptr2, m, n, k,
-                lda, ldy, x_trans, y_trans, bm // 64, bn, plan.k_per_split,
-                stream)
+        args = (*head, bm // 64, bn, plan.k_per_split,
+                int(route.endswith("_realign")), stream)
+    else:
+        lib = _lib()
+        _prepare(lib, x.device)
+        if route == "mma_sync":
+            launch = lib.elk_matmul_launch
+            args = (*head, _DTYPES[x.dtype], bm, bn, bk, stream)
+        else:
+            # the kernel's K tiles over both parts, cut as the plan's splits
+            k_tiles = parts * -(-k // bk)
+            per = -(-k_tiles // splits)
+            splits = -(-k_tiles // per)
+            launch = lib.elk_matmul_fma_launch
+            args = (*head, bm, bn, bk, per, splits, stream)
     # the runtime launches on the calling thread's device; enter x's only
     # when it is another
     if dev == torch.cuda.current_device():
@@ -243,11 +311,11 @@ def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor,
     elk_matmul_kernel.by_operand[OPERANDS[x_trans]] += 1
     if err != 0:
         raise RuntimeError(f"elk_matmul launch failed: CUDA error {err} "
-                           f"({lib.elk_matmul_error_name(err).decode()}; "
+                           f"({_lib().elk_matmul_error_name(err).decode()}; "
                            f"route {route}, m={m}, n={n}, k={k}, lda={lda}, "
                            f"ldy={ldy}, x_trans={x_trans}, y_trans={y_trans}, "
                            f"parts {parts}, {x.dtype}, block ({bm}, {bn}, "
-                           f"{bk}), splits {plan.splits})")
+                           f"{bk}), splits {splits})")
     return out
 
 

@@ -24,6 +24,26 @@ def matmul_ref(x: torch.Tensor, y: torch.Tensor,
     return out.to(out_dtype or x.dtype)
 
 
+def matmul_split_ref(x: torch.Tensor, y: torch.Tensor, *, bk: int,
+                     splits: int) -> torch.Tensor:
+    """``matmul_ref`` summed as route "fma_splitk" sums it: K cut into
+    tiles of ``bk``, the tiles into ``splits`` runs of the same count (the
+    last shorter, none empty), each run's fp32 partial product taken on its
+    own and the partials added in rank order; output in ``x``'s dtype.  The
+    plain split-and-combine version of the kernel's split, for the CPU
+    tests (``mha_pos_split_ref`` is attention's)."""
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
+    k = x.shape[1]
+    k_tiles = -(-k // bk)
+    per = -(-k_tiles // splits)
+    out = None
+    for s in range(-(-k_tiles // per)):
+        lo, hi = s * per * bk, min(k, (s + 1) * per * bk)
+        part = matmul_ref(x[:, lo:hi], y[lo:hi], f)
+        out = part if out is None else out + part
+    return out.to(x.dtype)
+
+
 def matmul2_ref(x: torch.Tensor, y: torch.Tensor, x2: torch.Tensor,
                 y2: torch.Tensor) -> torch.Tensor:
     """x @ y + x2 @ y2 in one fp32 sum (the two products added in that

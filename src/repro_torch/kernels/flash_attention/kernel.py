@@ -4,8 +4,9 @@ Counterpart of ``src/repro/kernels/flash_attention/kernel.py``
 (``flash_attention``).  The CUDA source says what the kernel computes and
 how it is cut for the card.  This wrapper checks device, types, shapes,
 strides, alignment and the head ratio, decides the route before the launch
-(``route_of``: "wgmma" for bf16 with head dim 64, 128 or 256, "mma_sync" for
-the other bf16 head dims, "fma" for an fp32 query) and, on "wgmma", the
+(``route_of``: "wgmma" for bf16 at the head dims of ``WGMMA_HEAD_DIMS``, an
+int8 cache at those of ``WGMMA_INT8_HEAD_DIMS``, "mma_sync" for the other
+bf16 head dims, "fma" for an fp32 query) and, on "wgmma", the
 split of the KV loop over a cluster (``plan_splits``, from the shapes and
 the card alone), allocates the output in (B, Sq, Hq, D) storage with
 ``torch.empty`` and returns it as the (B, Hq, Sq, D) view, launches on
@@ -51,7 +52,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}              # the query
 ROUTES = ("wgmma", "mma_sync", "fma")
 _ROUTE_IDS = {"fma": 0, "mma_sync": 1, "wgmma": 2}
 MMA_HEAD_DIMS = (16, 32, 64, 72, 80, 96, 112, 128, 256)  # the bf16 routes
-WGMMA_HEAD_DIMS = (64, 128, 256)                  # route "wgmma"; "mma_sync" the rest
+# route "wgmma" (csrc/flash_attention_wgmma.cu): a bf16 cache at these head
+# dims, an int8 one at those of WGMMA_INT8_HEAD_DIMS (an int8 row of 72 bytes
+# is no stride TMA takes); "mma_sync" (csrc/flash_attention.cu) compiles
+# MMA_SYNC_HEAD_DIMS and is the plan at the rest
+WGMMA_HEAD_DIMS = (64, 72, 80, 96, 112, 128, 256)
+WGMMA_INT8_HEAD_DIMS = (64, 80, 96, 112, 128, 256)
+MMA_SYNC_HEAD_DIMS = (16, 32, 72, 80, 96, 112)
 # route "wgmma": kWgRows, kWgBK, kWgThreads of the source.  A block owns 64
 # rows, a row being a (query position, head of the kv head's group) pair,
 # and walks K and V tiles of 64 keys; one consumer warpgroup and one
@@ -59,17 +66,35 @@ WGMMA_HEAD_DIMS = (64, 128, 256)                  # route "wgmma"; "mma_sync" th
 WG_ROWS = 64
 WG_BK = 64
 WG_THREADS = 160
-WG_STAGES = {64: 4, 128: 2, 256: 2}   # the ring's stages by head dim
-_PREPARED: set = set()    # device indices whose kernel attributes are set
+WG_STAGES = {d: 4 if d == 64 else 2 for d in WGMMA_HEAD_DIMS}  # the ring's stages
+# head dims route "wgmma" lays out as 128; there it takes a group of one
+# query head a kv head (G 1) only where no "mma_sync" instance is compiled:
+# packing rows saves nothing at G 1 (each K/V tile is read once a head on
+# both routes), and dit-xl's prefill (D 72, G 1) measured "mma_sync" faster
+# (0.0220 against 0.0240 ms, PERF.md, PR 24)
+PADDED_HEAD_DIMS = (72, 80, 96, 112)
+_PREPARED: set = set()    # (library, device index) whose kernel attributes are set
+
+
+def route_for(q_dtype: torch.dtype, kv_dtype: torch.dtype, d: int,
+              g: int) -> str:
+    """The route of a query of ``q_dtype`` on a cache of ``kv_dtype`` at head
+    dim ``d`` with ``g`` query heads a kv head: "fma" for an fp32 query;
+    "wgmma" for bf16 at the head dims of ``WGMMA_HEAD_DIMS`` (an int8
+    cache: ``WGMMA_INT8_HEAD_DIMS``), but at ``PADDED_HEAD_DIMS`` only with
+    g > 1; "mma_sync" for the rest."""
+    if q_dtype == torch.float32:
+        return "fma"
+    dims = WGMMA_INT8_HEAD_DIMS if kv_dtype == torch.int8 else WGMMA_HEAD_DIMS
+    if d in PADDED_HEAD_DIMS and g == 1:
+        return "mma_sync"
+    return "wgmma" if d in dims else "mma_sync"
 
 
 def route_of(q: torch.Tensor, k: torch.Tensor) -> str:
-    """The route a call with this query and cache takes: "wgmma" (bf16
-    query, a bf16 or int8 cache, head dim 64, 128 or 256), "mma_sync" (the
-    same at the other head dims), "fma" (fp32 query, any cache)."""
-    if q.dtype == torch.float32:
-        return "fma"
-    return "wgmma" if q.shape[-1] in WGMMA_HEAD_DIMS else "mma_sync"
+    """The route a call with this query and cache takes (``route_for``)."""
+    return route_for(q.dtype, k.dtype, q.shape[-1],
+                     q.shape[1] // max(1, k.shape[1]))
 
 
 def plan_splits(b: int, hkv: int, sq: int, sk: int, g: int,
@@ -88,28 +113,38 @@ def plan_splits(b: int, hkv: int, sq: int, sk: int, g: int,
     return row_tiles, max(1, min(MAX_SPLITS, -(-sk // WG_BK), -(-sms // base)))
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    if lib.flash_attention_launch.argtypes is None:
+# the library of a route: "wgmma" is compiled from flash_attention_wgmma.cu,
+# the others from flash_attention.cu, two nvcc processes side by side
+_LIBS = {"wgmma": "flash_attention_wgmma", "mma_sync": "flash_attention",
+         "fma": "flash_attention"}
+
+
+def _lib(route: str) -> tuple[ctypes.CDLL, str]:
+    """The library of ``route`` and the prefix of its functions."""
+    name = _LIBS[route]
+    lib = _build.load(name)
+    launch = getattr(lib, f"{name}_launch")
+    if launch.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_launch.argtypes = (
+        # route "wgmma" takes no route id
+        launch.argtypes = (
             [ptr] * 9 + [i32] * 6 + [i64] * 6 + [i32] * 4 + [ctypes.c_float]
-            + [i32] * 4 + [ptr])
-        lib.flash_attention_launch.restype = i32
-        lib.flash_attention_prepare.argtypes = []
-        lib.flash_attention_prepare.restype = i32
-    return lib
+            + [i32] * (3 if route == "wgmma" else 4) + [ptr])
+        launch.restype = i32
+        getattr(lib, f"{name}_prepare").argtypes = []
+        getattr(lib, f"{name}_prepare").restype = i32
+    return lib, name
 
 
-def _prepare(lib: ctypes.CDLL, device: torch.device) -> None:
-    """Set the kernels' shared-memory limits once on ``device``."""
-    if device.index in _PREPARED:
+def _prepare(lib: ctypes.CDLL, name: str, device: torch.device) -> None:
+    """Set the library's shared-memory limits once on ``device``."""
+    if (name, device.index) in _PREPARED:
         return
     with torch.cuda.device(device):
-        err = lib.flash_attention_prepare()
+        err = getattr(lib, f"{name}_prepare")()
     if err:
-        raise RuntimeError(f"flash_attention_prepare failed: CUDA error {err}")
-    _PREPARED.add(device.index)
+        raise RuntimeError(f"{name}_prepare failed: CUDA error {err}")
+    _PREPARED.add((name, device.index))
 
 
 def _positions(name: str, t: torch.Tensor, b: int, n: int, device
@@ -221,9 +256,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elif route not in ROUTES:
         raise ValueError(f"unknown route {route!r}; known: {ROUTES}")
     if (route == "fma") != (q.dtype == torch.float32) or (
-            route != "fma" and (route == "wgmma") != (d in WGMMA_HEAD_DIMS)):
-        raise ValueError(f"route {route} does not take {q.dtype} at head "
-                         f"dim {d}")
+            route == "wgmma" and route_for(q.dtype, k.dtype, d, 2) != "wgmma") \
+            or (route == "mma_sync" and d not in MMA_SYNC_HEAD_DIMS):
+        raise ValueError(f"route {route} does not take {q.dtype} with a "
+                         f"{k.dtype} cache at head dim {d}")
     if route != "wgmma":
         splits = 1
     elif splits is None:
@@ -232,18 +268,19 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elif not 1 <= splits <= MAX_SPLITS:
         raise ValueError(f"splits {splits}: 1 to {MAX_SPLITS}")
 
-    lib = _lib()
-    _prepare(lib, q.device)
+    lib, name = _lib(route)
+    _prepare(lib, name, q.device)
+    last = (splits,) if route == "wgmma" else (_ROUTE_IDS[route], splits)
     with torch.cuda.device(q.device):
         out = torch.empty((b, sq, hq, d), dtype=q.dtype,
                           device=q.device).transpose(1, 2)
-        err = lib.flash_attention_launch(
+        err = getattr(lib, f"{name}_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *scale_ptrs,
             None if q_pos is None else q_pos.data_ptr(),
             None if k_pos is None else k_pos.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, hq, hkv, sq, sk, d, q_sb, q_sh, q_ss, *out.stride()[:3],
             qp_stride, kp_stride, int(causal), int(window), scale,
-            _DTYPES[q.dtype], KV_DTYPES[k.dtype], _ROUTE_IDS[route], splits,
+            _DTYPES[q.dtype], KV_DTYPES[k.dtype], *last,
             torch.cuda.current_stream().cuda_stream)
     flash_attention_kernel.launches += 1
     flash_attention_kernel.by_route[route] += 1

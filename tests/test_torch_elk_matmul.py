@@ -99,6 +99,8 @@ def test_layout_is_what_the_kernel_takes():
     y = torch.zeros(10, 4)
     assert layout(x, y) == (6, 4, 10, 10, 4, 0)
     assert layout(x, torch.zeros(4, 10).t()) == (6, 4, 10, 10, 10, 1)
+    # a column view of a wider (k, n') weight: its own row stride
+    assert layout(x, torch.zeros(10, 7)[:, 1:5]) == (6, 4, 10, 10, 7, 0)
     assert layout(torch.zeros(6, 3, 10)[:, 1, :], y) == (6, 4, 10, 30, 4, 0)
     assert layout(x[:1], y)[3] == 10
     # the transpose of a stored (k, m) matrix: x^T of a weight gradient,
@@ -140,7 +142,7 @@ def test_plan_is_cached_per_shape_and_type(monkeypatch):
         assert (a.route, a.bm, a.bn, a.bk, a.splits) == ("splitk", 64, 128,
                                                          64, 4)
         assert (c.route, c.bm, c.bn, c.bk) == ("mma_sync", 16, 32, 256)
-        assert b.route == "mma_sync"
+        assert b.route == "fma"   # 160 tiles of (16, 32): no split
         assert b.bk < c.bk        # fp32 tiles take twice the bytes
     finally:
         mk.plan_for.cache_clear()
@@ -156,7 +158,8 @@ def test_planner_constants_are_what_the_kernel_compiles():
     mainloop's tiles (of ``elk_matmul`` and of the MLP's down product),
     K depth, reserve, stage limit and budget, must be those of the CUDA
     sources."""
-    src = _cu("elk_matmul.cu")
+    # the TMA routes' source and the mma_sync / FMA one
+    src = _cu("elk_matmul.cu") + _cu("elk_matmul_sync.cu")
     macro = re.search(r"#define ELK_MATMUL_TILES\(F\)((?:.*\\\n)*.*)", src)
     tiles = {(int(a), int(b))
              for a, b in re.findall(r"F\((\d+), (\d+)\)", macro.group(1))}
@@ -177,6 +180,20 @@ def test_planner_constants_are_what_the_kernel_compiles():
     # the TMA routes: (consumer warpgroups, bn) instances
     want = {(bm // h100.WGMMA_M, bn) for bm in h100.WG_TILE_M
             for bn in h100.WG_TILE_N if h100.wg_acc_fits(bm, bn)}
+    # the fp32 "fma" routes' tiles, stages and threads
+    line = re.search(r"#define ELK_FMA_TILES\(F\)(.*)", src).group(1)
+    assert tuple((int(a), int(b)) for a, b in
+                 re.findall(r"F\((\d+), (\d+)\)", line)) == h100.FMA_TILES
+    assert int(re.search(r"constexpr int kF32Stages = (\d+);", src).group(1)) \
+        == h100.FMA_STAGES
+    assert "kThreads = BM * BN >= 128 * 128 ? 256 : 128;" in src
+    assert h100.fma_threads(128, 128) == 256 and h100.fma_threads(64, 128) \
+        == 128
+    # the realigning producer's widths, one consumer warpgroup
+    line = re.search(r"#define ELK_REALIGN_TILES\(F\)(.*)", src).group(1)
+    assert {(int(a), int(b)) for a, b in
+            re.findall(r"F\((\d+), (\d+)\)", line)} \
+        == {(1, bn) for bn in h100.REALIGN_TILE_N}
     for name, macro in (("elk_matmul.cu", "ELK_TMA_TILES"),
                         ("fused_mlp.cu", "FUSED_MLP_PASS2_TILES")):
         line = re.search(rf"#define {macro}\(F\)(.*)", _cu(name)).group(1)
@@ -214,6 +231,10 @@ def test_planner_constants_are_what_the_kernel_compiles():
 SERVING_ROUTES = {(m, n): ("wgmma" if m >= 64 else "splitk")
                   for m in (8, 32, 256, 4096) for n in (5120, 1024, 151936)
                   if n != 151936 or m <= 32}
+# the same in fp32: "fma", and "fma_splitk" where the (16, 32) tiles of k/v
+# (32 at a decode step, 64 at 32 rows) leave SMs without a block
+FP32_ROUTES = {mn: ("fma_splitk" if mn in ((8, 1024), (32, 1024)) else "fma")
+               for mn in SERVING_ROUTES}
 
 
 @pytest.mark.parametrize("mn", sorted(SERVING_ROUTES))
@@ -225,7 +246,7 @@ def test_route_of_serving_shapes_pinned(mn):
     # a tied head (the transpose of an (n, K) tensor) takes the same route
     assert mk.route_of(x, torch.empty((n, 5120), dtype=torch.bfloat16).t()) \
         == SERVING_ROUTES[mn]
-    assert mk.route_of(x.float(), y.float()) == "mma_sync"
+    assert mk.route_of(x.float(), y.float()) == FP32_ROUTES[mn]
 
 
 @pytest.mark.parametrize("mnk", SWEEP)
@@ -319,3 +340,110 @@ def test_every_projection_and_the_head_go_through_ops_matmul(arch,
     assert counts == [per_pass * i for i in range(1, 5)]
     head = (cfg.d_model, cfg.vocab_size)
     assert calls.count(head) == 4
+
+
+# ---------------------------------------------------------------------------
+# the routes TMA cannot take alone: the realigned y, and fp32
+# ---------------------------------------------------------------------------
+
+HYMBA_D, HYMBA_VOCAB, HYMBA_BC = 1600, 32001, 32
+
+
+@pytest.mark.parametrize("m, route", [(1, "splitk_realign"),
+                                      (8, "splitk_realign"),
+                                      (63, "splitk_realign"),
+                                      (64, "wgmma_realign"),
+                                      (4096, "wgmma_realign")])
+def test_route_of_hymba_head_is_realigned(m, route):
+    """hymba-1.5b's untied LM head, (1600, 32001): rows 64002 bytes apart,
+    which TMA refuses, so its tiles are loaded and realigned by the
+    producer, on one consumer warpgroup; a tied head of the same shape (y
+    K-major) and an x TMA refuses stay on mma_sync."""
+    x = torch.empty((m, HYMBA_D), dtype=torch.bfloat16)
+    y = torch.empty((HYMBA_D, HYMBA_VOCAB), dtype=torch.bfloat16)
+    assert mk.route_of(x, y) == route
+    plan = mk.plan_of(x, y)
+    assert (plan.bm, plan.bn, plan.splits) == (64, 128, 1)
+    assert mk.route_for(m, HYMBA_VOCAB, HYMBA_D, torch.bfloat16, HYMBA_D,
+                        HYMBA_VOCAB) == route
+    tied = torch.empty((HYMBA_VOCAB, HYMBA_D), dtype=torch.bfloat16).t()
+    assert mk.route_of(x, tied) == ("wgmma" if m >= 64 else "splitk")
+    odd_x = torch.empty((m, HYMBA_D + 1), dtype=torch.bfloat16)[:, 1:]
+    assert mk.route_of(odd_x, y) == "mma_sync"
+
+
+def test_route_of_unaligned_y_base_is_realigned():
+    """A view of a weight whose base lies 2 bytes off 16: contiguous, or a
+    column view of a wider weight on a row stride TMA would take or on an
+    odd one."""
+    x = torch.empty((8, 200), dtype=torch.bfloat16)
+    flat = torch.empty(200 * 1000 + 1, dtype=torch.bfloat16)
+    for y in (flat[1:].view(200, 1000),
+              torch.empty((200, 1032), dtype=torch.bfloat16)[:, 1:1001],
+              torch.empty((200, 1025), dtype=torch.bfloat16)[:, 1:]):
+        assert y.data_ptr() % 16
+        assert mk.route_of(x, y) == "splitk_realign"
+        assert mk.route_of(torch.empty((100, 200), dtype=torch.bfloat16),
+                           y) == "wgmma_realign"
+
+
+# hymba-1.5b's fp32 products (w_dt 1600 x 1600, w_bc 1600 x 32) at a decode
+# step, a chunk of 256 and a prefill: (m, n) -> (route, bm, bn, bk, tiles,
+# splits, K tiles a split)
+HYMBA_FP32_PLANS = {
+    (8, 32): ("fma_splitk", 16, 32, 256, 1, 7, 1),
+    (8, 1600): ("fma_splitk", 16, 32, 128, 50, 3, 5),
+    (256, 32): ("fma_splitk", 16, 32, 256, 16, 7, 1),
+    (256, 1600): ("fma", 32, 64, 64, 200, 1, 25),
+    (4096, 32): ("fma", 16, 32, 128, 256, 1, 13),
+    (4096, 1600): ("fma", 128, 128, 32, 416, 1, 50),
+}
+
+
+@pytest.mark.parametrize("mn", sorted(HYMBA_FP32_PLANS))
+def test_fp32_plan_pinned_at_hymba_shapes(mn):
+    """The fp32 plan from the shapes and the card alone: the tile that
+    covers the SMs with the fewest bytes, else the smallest with K split
+    over a cluster (at most MAX_SPLITS, every split a share, the last
+    shorter); the ring of FMA_STAGES within the budget."""
+    m, n = mn
+    p = h100.smem_plan(m, n, HYMBA_D, dtype_bytes=4)
+    assert (p.route, p.bm, p.bn, p.bk, p.tiles, p.splits,
+            p.k_per_split) == HYMBA_FP32_PLANS[mn]
+    k_tiles = -(-HYMBA_D // p.bk)
+    assert (p.splits - 1) * p.k_per_split < k_tiles <= p.splits * p.k_per_split
+    assert p.smem_bytes <= h100.SMEM_PER_BLOCK and p.stages == h100.FMA_STAGES
+    assert (p.bm, p.bn) in h100.FMA_TILES and p.splits <= h100.MAX_SPLITS
+    x = torch.empty((m, HYMBA_D))
+    y = torch.empty((HYMBA_D, n))
+    assert mk.route_of(x, y) == p.route
+    # a forced block shape keeps the mma_sync kernel's FMA and its plan
+    assert mk.plan_for(m, n, HYMBA_D, torch.float32,
+                       mma_sync=True).route == "mma_sync"
+
+
+@pytest.mark.parametrize("m, n, k, bk, splits", [
+    (8, 32, 400, 32, 7),        # w_bc scaled down: 13 K tiles in 7 splits
+    (8, 200, 200, 32, 3),       # w_dt scaled down
+    (17, 64, 160, 16, 8),       # a ragged row tile, every split one tile
+    (5, 40, 100, 64, 2),        # K ragged against the tile
+])
+def test_split_ref_matches_jax_kernel(m, n, k, bk, splits):
+    """The plain split-and-combine version of "fma_splitk" (each split's
+    partial in fp32, added in rank order) against the JAX ``elk_matmul`` in
+    interpret mode and its oracle, fp32, the kernel tests' bound ``TOL *
+    (max|ref| + 1)``; against ``matmul_ref`` within 1e-5 of it (the same
+    sums in another order)."""
+    from repro_torch.kernels.elk_matmul.ref import matmul_ref, matmul_split_ref
+    tx, jx = _pair((m, k), "float32", 11)
+    ty, jy = _pair((k, n), "float32", 12)
+    got = matmul_split_ref(tx, ty, bk=bk, splits=splits)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    _check(got, jax_elk_matmul(jx, jy, bm=64, bn=64, bk=64, interpret=True),
+           "float32")
+    _check(got, jax_matmul_ref(jx, jy), "float32")
+    ref = matmul_ref(tx, ty)
+    assert float((got - ref).abs().max()) <= 1e-5 * (
+        float(ref.abs().max()) + 1.0)
+    # one split is the plain product
+    assert torch.equal(matmul_split_ref(tx, ty, bk=bk, splits=1), ref)

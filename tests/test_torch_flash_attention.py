@@ -241,7 +241,11 @@ def test_wired_model_matches_reference(arch, dtype):
 # constants the CUDA source compiles
 # ---------------------------------------------------------------------------
 
-CU = Path(fk.__file__).resolve().parents[1] / "csrc" / "flash_attention.cu"
+CSRC = Path(fk.__file__).resolve().parents[1] / "csrc"
+# the forward's sources: the header the routes share, the "mma_sync" and
+# "fma" instances, the "wgmma" instances
+CU = [CSRC / name for name in ("flash_attention.cuh", "flash_attention.cu",
+                               "flash_attention_wgmma.cu")]
 
 # the shapes the serving paths of full qwen3-14b (Hq 40, Hkv 8, D 128) give
 # the kernel: lock-step prefill, and chunks against a ring of 2048
@@ -298,16 +302,30 @@ def test_plan_splits_depends_on_shapes_only():
 
 
 def test_route_of():
-    def t(dtype, d):
-        return torch.empty(1, 4, 8, d, dtype=dtype)
-    assert fk.route_of(t(torch.bfloat16, 128), t(torch.bfloat16, 128)) \
-        == "wgmma"
-    for d in (72, 80, 112):
-        assert fk.route_of(t(torch.bfloat16, d), t(torch.bfloat16, d)) \
-            == "mma_sync"
-    assert fk.route_of(t(torch.float32, 128), t(torch.bfloat16, 128)) \
-        == "fma"
+    """bf16 at every head dim from 64 up takes "wgmma" (72-112 in the
+    layout of 128, there only with more than one query head a kv head, as
+    measured), and over an int8 ring too but at 72, whose 72-byte rows are
+    no stride TMA takes; 16 and 32 stay on "mma_sync"; an fp32 query takes
+    "fma"."""
+    def t(dtype, d, heads=4):
+        return torch.empty(1, heads, 8, d, dtype=dtype)
+    bf, i8 = torch.bfloat16, torch.int8
+    assert fk.route_of(t(bf, 128), t(bf, 128)) == "wgmma"
+    for d in (72, 80, 96, 112):
+        assert fk.route_of(t(bf, d), t(bf, d, 2)) == "wgmma"     # G 2
+        assert fk.route_of(t(bf, d), t(bf, d)) == "mma_sync"     # G 1
+    for d in (80, 96, 112, 128):
+        assert fk.route_of(t(bf, d), t(i8, d, 1)) == "wgmma"
+    assert fk.route_of(t(bf, 72), t(i8, 72, 1)) == "mma_sync"
+    assert fk.route_of(t(bf, 64), t(bf, 64)) == "wgmma"
+    for d in (16, 32):
+        assert fk.route_of(t(bf, d), t(bf, d)) == "mma_sync"
+    assert fk.route_of(t(torch.float32, 128), t(bf, 128)) == "fma"
+    assert fk.route_of(t(torch.float32, 112), t(i8, 112)) == "fma"
     assert set(fk.WGMMA_HEAD_DIMS) <= set(fk.MMA_HEAD_DIMS)
+    assert set(fk.WGMMA_INT8_HEAD_DIMS) == set(fk.WGMMA_HEAD_DIMS) - {72}
+    assert set(fk.MMA_SYNC_HEAD_DIMS) | set(fk.WGMMA_HEAD_DIMS) \
+        == set(fk.MMA_HEAD_DIMS)
 
 
 SPLIT_CASES = [
@@ -365,7 +383,7 @@ def test_planner_constants_are_what_the_kernel_compiles():
     """Rows of a block, keys of a tile, threads, cluster limit and stages
     by head dim of route "wgmma": the Python plan against the CUDA
     source."""
-    src = CU.read_text()
+    src = "".join(p.read_text() for p in CU)
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
@@ -375,12 +393,20 @@ def test_planner_constants_are_what_the_kernel_compiles():
     assert const("kWgThreads") == fk.WG_THREADS
     assert const("kMaxSplits") == h100.MAX_SPLITS
     stages = re.search(r"STAGES = D == 64 \? (\d+) : (\d+);", src)
-    assert {64: int(stages.group(1)), 128: int(stages.group(2)),
-            256: int(stages.group(2))} == fk.WG_STAGES
+    assert {d: int(stages.group(1 if d == 64 else 2))
+            for d in fk.WGMMA_HEAD_DIMS} == fk.WG_STAGES
     for d in fk.WGMMA_HEAD_DIMS:
         assert f"flash_attention_wgmma_kernel<{d}>" in src
-        assert f"case {d}: return launch_wgmma<{d}>" in src
-    for d in set(fk.MMA_HEAD_DIMS) - set(fk.WGMMA_HEAD_DIMS):
+        assert f"case {d}: return launch_wgmma<{d}>(a, splits, s)" in src
+    wg = re.search(r"static_assert\((D == 64(?: \|\| D == \d+)*),", src)
+    assert {int(d) for d in re.findall(r"D == (\d+)", wg.group(1))} \
+        == set(fk.WGMMA_HEAD_DIMS)
+    # the layout of 128 for every head dim from 72 to 128 (O += P V at n =
+    # D: m64n72k16 ... m64n112k16)
+    assert "d <= 64 ? 64 : d <= 128 ? 128 : 256" in src
+    for d in set(fk.WGMMA_HEAD_DIMS) - {64, 128, 256}:
+        assert f"wgmma.mma_async.sync.aligned.m64n{d}k16.f32.bf16.bf16" in src
+    for d in fk.MMA_SYNC_HEAD_DIMS:
         assert f"allow_smem(flash_attention_mma_kernel<{d}>, optin)" in src
         assert f"case {d}: return launch_mma<{d}>" in src
 
@@ -432,3 +458,34 @@ def test_model_reads_projection_layout_without_copies():
     out = torch.empty(2, 24, 8, 16).transpose(1, 2)           # the kernel's
     flat = out.transpose(1, 2).reshape(2, 24, -1)
     assert flat.data_ptr() == out.data_ptr() and flat.is_contiguous()
+
+
+# the serving shapes of the configs whose head dims route "wgmma" lays out
+# as 128 (kimi-k2: 64/8 heads of 112; dit-xl: 16/16 of 72) and of hymba-1.5b
+# (25/5 of 64): (B, Hkv, Sq, Sk, G) -> (row tiles, splits)
+HEAD_DIM_PLANS = {
+    "kimi-k2 prefill": ((8, 8, 512, 512, 8), (64, 1)),
+    "kimi-k2 chunk T 256": ((1, 8, 256, 2048, 8), (32, 1)),
+    "kimi-k2 chunk T 32": ((1, 8, 32, 2048, 8), (4, 5)),
+    "kimi-k2 chunk T 4": ((1, 8, 4, 2048, 8), (1, 8)),
+    "dit-xl prefill": ((8, 16, 256, 256, 1), (4, 1)),
+    "hymba-1.5b prefill": ((8, 5, 512, 512, 5), (40, 1)),
+    "hymba-1.5b chunk T 4": ((1, 5, 4, 2048, 5), (1, 8)),
+}
+
+
+@pytest.mark.parametrize("label", sorted(HEAD_DIM_PLANS))
+def test_plan_splits_pinned_at_model_shapes(label):
+    """kimi-k2's chunks late in the ring, which on "mma_sync" were one block
+    a query head walking the whole ring, are split over a cluster on
+    "wgmma"; the prefills cover the SMs unsplit.  dit-xl (D 72, G 1) stays
+    on "mma_sync", measured faster there."""
+    args, want = HEAD_DIM_PLANS[label]
+    assert fk.plan_splits(*args) == want
+    d = 112 if label.startswith("kimi") else 72 if label.startswith("dit") \
+        else 64
+    g = args[-1]
+    bf, i8 = torch.bfloat16, torch.int8
+    assert fk.route_for(bf, bf, d, g) == ("mma_sync" if d == 72 else "wgmma")
+    # over an int8 ring: "wgmma" at 112 and 64, "mma_sync" at 72
+    assert fk.route_for(bf, i8, d, g) == ("mma_sync" if d == 72 else "wgmma")

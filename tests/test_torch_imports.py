@@ -2,6 +2,7 @@
 and its entry points refuse to run when no card is there instead of
 falling back to the CPU."""
 
+import json
 import os
 import subprocess
 import sys
@@ -16,16 +17,41 @@ from repro_torch.serve.engine import ServeConfig, ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 
+# One interpreter imports every module of MODULES in turn.  Before any of
+# them, a meta-path finder records and refuses (ImportError) every import of
+# jax, jaxlib or the reference package, with the module being probed at the
+# time, so that a guarded ``try: import jax`` is caught as well as a plain
+# one; the record of each module is printed as one JSON object.
 _PROBE = """
-import importlib, json, sys
-importlib.import_module({module!r})
-bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
-print(json.dumps(bad))
+import importlib, json, sys, traceback
+FORBIDDEN = ('jax', 'jaxlib', 'repro')
+probing = [None]
+attempts = {}
+
+class Refuse:
+    def find_spec(self, name, path=None, target=None):
+        if name.split('.')[0] in FORBIDDEN:
+            attempts.setdefault(probing[0], []).append(name)
+            raise ImportError('the port may not import ' + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+records = {}
+for module in json.loads(sys.argv[1]):
+    probing[0] = module
+    error = None
+    try:
+        importlib.import_module(module)
+    except BaseException:
+        error = traceback.format_exc()
+    loaded = sorted(m for m in sys.modules
+                    if m.split('.')[0] in FORBIDDEN)
+    records[module] = {'error': error, 'refused': attempts.get(module, []),
+                       'loaded': loaded}
+print(json.dumps(records))
 """
 
-
-@pytest.mark.parametrize("module", [
+MODULES = [
     "repro_torch", "repro_torch.serve.engine", "repro_torch.launch.serve",
     "repro_torch.convert", "repro_torch.kernels.fused_mlp.kernel",
     "repro_torch.kernels._build", "repro_torch.serve.batcher",
@@ -48,15 +74,30 @@ print(json.dumps(bad))
     "repro_torch.launch.mesh", "repro_torch.distributed.sharding",
     "repro_torch.launch.specs", "repro_torch.launch.hlo_analysis",
     "repro_torch.launch.dryrun", "repro_torch.kernels.cost",
-])
-def test_import_leaves_jax_and_reference_out(module):
+]
+
+
+@pytest.fixture(scope="module")
+def import_records() -> dict:
+    """Every module's record from one interpreter (``_PROBE``)."""
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join([str(ROOT / "src"), str(ROOT)])
-    res = subprocess.run([sys.executable, "-c", _PROBE.format(module=module)],
+    res = subprocess.run([sys.executable, "-c", _PROBE, json.dumps(MODULES)],
                          capture_output=True, text=True, env=env, cwd=ROOT,
-                         timeout=120)
+                         timeout=300)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().splitlines()[-1] == "[]", res.stdout
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_import_leaves_jax_and_reference_out(module, import_records):
+    """The module imports, tries no import of jax, jaxlib or the reference
+    package (guarded or not) while it is being imported, and leaves none
+    loaded."""
+    rec = import_records[module]
+    assert rec["error"] is None, rec["error"]
+    assert rec["refused"] == [], rec
+    assert rec["loaded"] == [], rec
 
 
 def test_no_source_of_the_port_names_jax_imports():

@@ -607,11 +607,13 @@ def test_int8_instances_are_in_the_sources():
     assert "DECODE_MMA_INSTANCE(prepare, int8_t, d)" in dec
     assert "DECODE_MMA_INSTANCE(launch, int8_t, d, p, s)" in dec
     assert "prepare_t<int8_t>(g, d)" in dec
-    fl = (CSRC / "flash_attention.cu").read_text()
-    for d in fk.WGMMA_HEAD_DIMS:
+    # the forward's "mma_sync" / "fma" source and its "wgmma" one
+    fl = "".join((CSRC / name).read_text() for name in (
+        "flash_attention.cu", "flash_attention_wgmma.cu"))
+    for d in fk.WGMMA_INT8_HEAD_DIMS:
         assert f"case {d}: return launch_wgmma<{d}, true>" in fl
         assert f"allow_smem(flash_attention_wgmma_kernel<{d}, true>" in fl
-    for d in set(fk.MMA_HEAD_DIMS) - set(fk.WGMMA_HEAD_DIMS):
+    for d in fk.MMA_SYNC_HEAD_DIMS:
         assert f"case {d}: return launch_mma<{d}, true>" in fl
         assert f"allow_smem(flash_attention_mma_kernel<{d}, true>" in fl
     assert "launch_fma<bf16, true>" in fl

@@ -29,7 +29,8 @@ from repro.serve import engine as reng
 from repro_torch.chip import config as tchip
 from repro.chip import simulator as rsim
 from repro_torch.chip import simulator as tsim
-from repro_torch.chip.h100 import (ACC_BYTES_MAX, BF16_FLOPS, FP32_FLOPS,
+from repro_torch.chip.h100 import (ACC_BYTES_MAX, BF16_FLOPS, FMA_STAGES,
+                                   FMA_TILES, FP32_FLOPS,
                                    HBM_BYTES, HBM_BYTES_PER_S, MAX_SPLITS,
                                    MMA_K, MMA_M, MMA_N, PCIE_BYTES_PER_S,
                                    SMEM_PER_BLOCK, SMS, TILE_K, TILE_M,
@@ -254,6 +255,13 @@ def _check_fits(p, budget=SMEM_PER_BLOCK):
     assert p.smem_bytes <= budget
     assert p.acc_bytes == p.bm * p.bn * 4
     assert 1 <= p.splits <= MAX_SPLITS and p.k_per_split >= 1
+    if p.route in ("fma", "fma_splitk"):
+        assert (p.bm, p.bn) in FMA_TILES and p.bk in TILE_K
+        assert p.stages == FMA_STAGES
+        assert (p.splits > 1) == (p.route == "fma_splitk")
+        if p.splits > 1:    # the tile's fp32 sums are left in the ring
+            assert p.bm * p.bn * 4 <= p.smem_bytes
+        return
     if p.route == "mma_sync":
         assert p.acc_bytes <= ACC_BYTES_MAX
         assert p.bm % MMA_M == 0 and p.bn % MMA_N == 0 and p.bk % MMA_K == 0
@@ -434,7 +442,7 @@ def test_wgmma_route_starts_at_64_rows():
     assert WGMMA_MIN_M == WGMMA_M == 64
     assert smem_plan(WGMMA_MIN_M - 1, 5120, 5120).route == "splitk"
     assert smem_plan(WGMMA_MIN_M, 5120, 5120).route == "wgmma"
-    assert smem_plan(4096, 5120, 5120, dtype_bytes=4).route == "mma_sync"
+    assert smem_plan(4096, 5120, 5120, dtype_bytes=4).route == "fma"
 
 
 def test_wg_stages_fill_the_budget():
