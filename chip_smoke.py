@@ -124,20 +124,26 @@ exit code and no result line:
 11. train  outside inference mode, the training side: the three backward
             kernels (``elk_matmul``'s x^T dy and its two-part sum,
             ``fused_mlp_bwd``, ``flash_attention_bwd``) held against their
-            plain backward versions over bf16 and fp32 sweeps (attention:
-            causal, window, bidirectional, cross with Sq != Sk, G 1, 5, 7,
-            8, D 64-128; the forward's log-sum-exp beside it), each case
-            launched twice with equal bits, and timed at qwen3-14b's
-            training shapes (4096 tokens) beside the plain versions and a
-            library yardstick; one fp32 training step (loss and every
-            gradient) of every smoke config on the card against the CPU;
-            the smoke trainer (the loss falls; a crash and a restart from
-            the checkpoint equal the uninterrupted run bit for bit; the
-            launcher runs); then qwen3-14b at full width and TRAIN_DEPTH
-            (4) of its 40 layers, bf16, B 8 x S 512, remat, 6 AdamW steps
-            through ``Trainer``: one ``[train]`` line with the losses, step
-            ms, tokens/s, peak memory, launches, and layer 0's and the LM
-            head's gradients against the plain versions'.
+            plain backward versions over bf16 and fp32 sweeps on every route
+            (attention: "wgmma", "mma_sync" and "fma"; causal, window,
+            bidirectional, cross with Sq != Sk, G 1-8, D 16-128, S no
+            multiple of 64, rings that wrap; the MLP: "fused" and "fma",
+            ragged m and ff; the forward's log-sum-exp
+            beside it, and the fused pass's h against the forward's bit for
+            bit), each case launched twice with equal bits, and timed at
+            qwen3-14b's training shapes (4096 tokens; attention also at S
+            4096), dit-xl's plain MLP and D 72 attention, kimi-k2's D 112
+            attention and D 64's, beside the plain versions and a library
+            yardstick, the MLP's each launch alone; one fp32 training step (loss
+            and every gradient) of every smoke config on the card against
+            the CPU; the smoke trainer (the loss falls; a crash and a
+            restart from the checkpoint equal the uninterrupted run bit for
+            bit; the launcher runs); then qwen3-14b at full width and
+            TRAIN_DEPTH (4) of its 40 layers, bf16, B 8 x S 512, remat, 6
+            AdamW steps through ``Trainer``: one ``[train]`` line with the
+            losses, step ms, tokens/s, peak memory, launches in all and by
+            route, and layer 0's and the LM head's gradients against the
+            plain versions'.
 12. dryrun  the dry run (``launch/dryrun.py``): every (arch, shape) cell of
             ``launch/specs.all_cells`` (15 x 4) counted on the meta device
             on the single-pod mesh, in worker processes (no cell in error;
@@ -243,9 +249,13 @@ from repro_torch.kernels.elk_matmul.ops import matmul  # noqa: E402
 from repro_torch.kernels.elk_matmul.ref import (matmul2_ref,  # noqa: E402
                                                 matmul_ref)
 from repro_torch.kernels.flash_attention import ref as flash_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import \
+    kernel as flash_kernels  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     PADDED_HEAD_DIMS, ROUTES as FLASH_ROUTES, flash_attention_bwd_kernel,
     flash_attention_kernel)
+from repro_torch.kernels.flash_attention.kernel import \
+    bwd_route_of as flash_bwd_route_of  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import \
     route_for as flash_route_for  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import \
@@ -254,15 +264,18 @@ from repro_torch.kernels.flash_attention.kernel import \
     route_of as flash_route_of  # noqa: E402
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attn, flash_attn_pos)
+from repro_torch.kernels.fused_mlp import \
+    kernel as fused_mlp_kernels  # noqa: E402
 from repro_torch.kernels.fused_mlp.kernel import (  # noqa: E402
     ROUTES as MLP_ROUTES, SPLIT_FF_MAX_M, fused_mlp_bwd_kernel,
     fused_mlp_kernel)
 from repro_torch.kernels.fused_mlp.kernel import \
+    bwd_route_of as mlp_bwd_route_of  # noqa: E402
+from repro_torch.kernels.fused_mlp.kernel import \
     route_of as mlp_route_of  # noqa: E402
 from repro_torch.kernels.fused_mlp.ops import fused_mlp  # noqa: E402
-from repro_torch.kernels.fused_mlp.ref import (act_fn,  # noqa: E402
-                                               composed_ref,
-                                               fused_mlp_bwd_ref)
+from repro_torch.kernels.fused_mlp.ref import (  # noqa: E402
+    ACTS as MLP_ACTS, act_fn, composed_ref, fused_mlp_bwd_ref)
 from repro_torch.kernels.kv_quant.kernel import (  # noqa: E402
     KV_TYPES, kv_quant_kernel)
 from repro_torch.kernels.kv_quant.ref import (  # noqa: E402
@@ -508,11 +521,22 @@ def layer_mlps(cfg) -> list[tuple[str, int, int, str]]:
 
 
 # the instances the [build] lines list one by one (registers, spills): flash
-# attention's "wgmma" instances, the fp32 "fma" kernel's serving instances
-# (x and y as stored, one part), the realigning producer's GemmCfg (its last
-# flag, B_LDG, set)
+# attention's "wgmma" instances and its backward's, the fp32 "fma" kernel's
+# serving instances (x and y as stored, one part), the realigning producer's
+# GemmCfg (its last flag, B_LDG, set), the MLP backward's fused pass and its
+# two weight gradients' GemmCfg (A_MNMAJOR and BWD set)
 WATCHED_INSTANCES = ("flash_attention_wgmma_kernel",
-                     "Lb0ELb0ELb0EEEvNS_4ArgsEii", "Lb0ELb0ELb0ELb0ELb1E")
+                     "Lb0ELb0ELb0EEEvNS_4ArgsEii", "Lb0ELb0ELb0ELb0ELb1E",
+                     "flash_attention_bwd_dq_kernel",
+                     "flash_attention_bwd_dkv_kernel",
+                     "fused_mlp_bwd_fused_kernel", "Lb0ELb1ELb1ELb0ELb0E")
+# of those, the ones a spill fails the run for: the backward's were measured
+# much slower when ptxas spilled them (the fused MLP pass at 128 columns 14.7
+# against 10.1 ms) and read 0, as the forward's "wgmma" instances do
+NO_SPILL_INSTANCES = ("flash_attention_wgmma_kernel",
+                      "flash_attention_bwd_dq_kernel",
+                      "flash_attention_bwd_dkv_kernel",
+                      "fused_mlp_bwd_fused_kernel", "Lb0ELb1ELb1ELb0ELb0E")
 
 
 def ptxas_entries(log: str) -> list[tuple[str, int, int]]:
@@ -4047,20 +4071,37 @@ BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 # (tokens, K, N): x^T dy at odd shapes and at shapes TMA takes
 XT_SWEEP = [(100, 60, 70), (33, 129, 257), (257, 200, 328), (513, 64, 136),
             (512, 256, 384), (4096, 32, 200), (64, 512, 1024)]
-# (M, D, FF, gated, bias, act)
+# (M, D, FF, gated, bias, act): both routes ("fused" where TMA takes the
+# operands, ff = 257 on "fma"), ragged m, ff no multiple of the fused pass's
+# 64 or 128 columns, d and d_out past its ring of stages (640: ten 64-deep K
+# steps a phase), gated and plain
 MLP_BWD_SWEEP = [(128, 128, 256, True, False, "silu"),
                  (100, 80, 144, False, True, "gelu"),
                  (64, 96, 200, False, False, "relu"),
-                 (33, 64, 257, True, False, "silu")]
-# (B, Hq, Hkv, Sq, Sk, D, causal, window): every mask, G 1, 5, 7, 8, the head
-# dims of the configs
+                 (33, 64, 257, True, False, "silu"),
+                 (333, 256, 200, True, False, "silu"),
+                 (1000, 192, 328, False, True, "gelu"),
+                 (300, 640, 520, True, False, "silu")]
+# (B, Hq, Hkv, Sq, Sk, D, causal, window): every mask, G 1, 4, 5, 7, 8, every
+# head dim of the bf16 routes (16 and 32 on "mma_sync" only), S no multiple of
+# 64 or 128, Sq != Sk, and rows enough that both rings of route "wgmma" wrap
+# (520: nine key tiles of the dQ pass through its three stages; G 7 x 6
+# query tiles through the dK/dV pass's four)
 FLASH_BWD_SWEEP = [(2, 4, 4, 128, 128, 64, True, 0),
                    (1, 5, 1, 96, 96, 72, True, 0),
                    (1, 7, 1, 130, 130, 80, True, 48),
                    (2, 8, 1, 64, 64, 112, False, 0),
                    (1, 8, 2, 77, 150, 128, False, 0),
                    (1, 5, 1, 200, 200, 128, True, 0),
-                   (1, 2, 2, 40, 40, 64, True, 16)]
+                   (1, 2, 2, 40, 40, 64, True, 16),
+                   (1, 7, 1, 333, 333, 64, True, 0),
+                   (1, 8, 1, 300, 300, 112, True, 100),
+                   (2, 5, 1, 257, 257, 128, False, 0),
+                   (1, 8, 1, 190, 450, 72, False, 0),
+                   (1, 1, 1, 520, 520, 128, True, 0),
+                   (1, 5, 5, 300, 300, 96, True, 64),
+                   (1, 4, 2, 100, 100, 32, True, 0),
+                   (1, 2, 1, 70, 70, 16, False, 0)]
 # the full-width slice: qwen3-14b at TRAIN_DEPTH of its 40 layers (2.88 B
 # parameters; at 12 bytes each with bf16 weights and gradients and fp32
 # moments, 34.5 GB; all 40 layers would need 178 GB)
@@ -4114,7 +4155,8 @@ def check_mlp_bwd(x, w_up, w_down, kw, act, dy) -> tuple[float, float]:
     torch.cuda.synchronize()
     ref = fused_mlp_bwd_ref(x, w_up, w_down, dy, act=act, **kw)
     where = (f"x{tuple(x.shape)} ff={w_up.shape[1]} {x.dtype} act={act} "
-             f"{sorted(kw)}")
+             f"{sorted(kw)} route="
+             f"{mlp_bwd_route_of(x, w_up, w_down, kw.get('w_gate'))}")
     worst = (0.0, 0.0)
     for name, r in ref.items():
         if r is None:
@@ -4135,6 +4177,35 @@ def check_mlp_bwd(x, w_up, w_down, kw, act, dy) -> tuple[float, float]:
     return worst[1], worst[0]
 
 
+def check_h_bits(x, w_up, w_down, kw, act, dy) -> None:
+    """The h that the fused pass of ``fused_mlp_bwd`` writes (and dw_down =
+    h^T dy reads) against the h of the forward's pass 1, bit for bit (the
+    same K order and one rounding of act(g) u); both launched through their
+    libraries' C functions, as the wrappers launch them."""
+    lib, flib = fused_mlp_kernels._bwd_lib(), fused_mlp_kernels._lib()
+    m, d = x.shape
+    ff, dout = w_up.shape[1], w_down.shape[1]
+    w_gate, b_up = kw.get("w_gate"), kw.get("b_up")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = torch.cuda.current_stream().cuda_stream
+    h_fwd, h_bwd, du = (torch.empty((m, ff), dtype=x.dtype, device="cuda")
+                        for _ in range(3))
+    dg = None if w_gate is None else torch.empty_like(du)
+    act_id = MLP_ACTS.index(act)
+    errs = (flib.fused_mlp_pass1_launch(ptr(x), ptr(w_up), ptr(w_gate),
+                                        ptr(b_up), ptr(h_fwd), m, d, ff,
+                                        act_id, stream),
+            lib.fused_mlp_bwd_fused_launch(
+                ptr(x), ptr(w_up), ptr(w_gate), ptr(b_up), ptr(dy),
+                ptr(w_down), ptr(dg), ptr(du), ptr(h_bwd), m, d, ff, dout,
+                act_id, stream))
+    torch.cuda.synchronize()
+    if any(errs) or not torch.equal(h_fwd, h_bwd):
+        fail(f"fused_mlp_bwd: the fused pass's h is not the forward's bit for "
+             f"bit (launches {errs}) at x{tuple(x.shape)} ff={ff} act={act} "
+             f"{sorted(kw)}")
+
+
 def check_flash_bwd(q, k, v, dout, causal, window) -> tuple[float, float]:
     """The forward's log-sum-exp against ``mha_lse_ref``, then dq, dk, dv of
     ``flash_attention_bwd_kernel`` against ``mha_bwd_ref`` from the
@@ -4145,7 +4216,8 @@ def check_flash_bwd(q, k, v, dout, causal, window) -> tuple[float, float]:
     ref_out, ref_lse = flash_ref.mha_lse_ref(q, k, v, causal=causal,
                                              window=window)
     where = (f"q{tuple(q.shape)} k{tuple(k.shape)} {q.dtype} causal={causal}"
-             f" window={window} route={flash_route_of(q, k)}")
+             f" window={window} route={flash_route_of(q, k)}, backward route "
+             f"{flash_bwd_route_of(q)}")
     lse_err = float((lse - ref_lse).abs().max())
     if not torch.equal(out, flash_attention_kernel(q, k, v, causal=causal,
                                                    window=window)) \
@@ -4174,12 +4246,13 @@ def check_flash_bwd(q, k, v, dout, causal, window) -> tuple[float, float]:
     return worst[1], worst[0]
 
 
-def flash_bwd_bound_ms(b, hq, hkv, s, d, dtype) -> tuple[float, str]:
-    """Least time of a causal backward: q, out, dout (Hq heads), k, v (Hkv
-    heads) and the fp32 lse read once, dq, dk, dv written once; five
-    products over the causal pairs."""
+def flash_bwd_bound_ms(b, hq, hkv, s, d, dtype, causal=True
+                       ) -> tuple[float, str]:
+    """Least time of a backward at Sq = Sk = s: q, out, dout (Hq heads), k, v
+    (Hkv heads) and the fp32 lse read once, dq, dk, dv written once; five
+    products over the live pairs (the causal half, or all)."""
     size = torch.empty((), dtype=dtype).element_size()
-    pairs = s * (s + 1) // 2
+    pairs = s * (s + 1) // 2 if causal else s * s
     q_like, kv_like = b * hq * s * d, b * hkv * s * d
     t_bytes = ((3 * q_like + 2 * kv_like) * size + b * hq * s * 4
                + (q_like + 2 * kv_like) * size) / HBM_BYTES_PER_S
@@ -4187,20 +4260,172 @@ def flash_bwd_bound_ms(b, hq, hkv, s, d, dtype) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def mlp_bwd_bound_ms(m, d, ff, dtype) -> tuple[float, str]:
-    """Least time of a GLU MLP's gradient from its inputs: x, the three
-    weights and dy read once, dx and the three weight gradients written
-    once; the eight products (two to recompute g and u, dh, three weight
-    gradients, two for dx), 2 m d ff operations each."""
+def mlp_bwd_bound_ms(m, d, ff, dtype, gated=True) -> tuple[float, str]:
+    """Least time of an MLP's gradient from its inputs: x, the weights and dy
+    read once, dx and the weight gradients written once (the plain MLP's
+    biases and their gradients too); the products under remat, 2 m d ff
+    operations each: GLU eight (g and u recomputed, dh, three weight
+    gradients, two for dx), plain five (u, dh, two weight gradients, dx)."""
     size = torch.empty((), dtype=dtype).element_size()
-    t_bytes = 2 * (2 * m * d + 3 * d * ff) * size / HBM_BYTES_PER_S
-    t_ops = 8 * 2 * m * d * ff / PEAK_FLOPS[dtype]
+    weights = (3 if gated else 2) * d * ff + (0 if gated else ff + d)
+    t_bytes = 2 * (2 * m * d + weights) * size / HBM_BYTES_PER_S
+    t_ops = (8 if gated else 5) * 2 * m * d * ff / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def mlp_bwd_launches_ms(x, w_up, w_down, dy, kw, act) -> dict:
+    """Each launch of ``fused_mlp_bwd_kernel`` on route "fused" timed alone
+    by CUDA events, called as the wrapper calls it: the fused pass, the
+    weight gradients (dw_gate and dw_up in one launch for a GLU, dw_up on
+    ``elk_matmul`` for the plain MLP), dw_down, dx, and the bias sums."""
+    lib = fused_mlp_kernels._bwd_lib()
+    m, d = x.shape
+    ff, dout = w_up.shape[1], w_down.shape[1]
+    w_gate, b_up = kw.get("w_gate"), kw.get("b_up")
+    ptr = lambda t: None if t is None else t.data_ptr()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    du, h = (torch.empty((m, ff), dtype=x.dtype, device="cuda") for _ in range(2))
+    dg = None if w_gate is None else torch.empty_like(du)
+    fused = lambda: lib.fused_mlp_bwd_fused_launch(
+        ptr(x), ptr(w_up), ptr(w_gate), ptr(b_up), ptr(dy), ptr(w_down),
+        ptr(dg), ptr(du), ptr(h), m, d, ff, dout, MLP_ACTS.index(act),
+        stream())
+    if fused():
+        fail("fused_mlp_bwd: the fused pass was refused")
+    out = {"fused pass": time_ms(fused, 3)}
+    if w_gate is not None:
+        dw = torch.empty((2, d, ff), dtype=x.dtype, device="cuda")
+        wgrad = lambda: lib.fused_mlp_bwd_wgrad_launch(
+            ptr(x), ptr(dg), ptr(du), ptr(dw[0]), ptr(dw[1]), m, d, ff,
+            stream())
+        if wgrad():
+            fail("fused_mlp_bwd: the weight gradients' launch was refused")
+        out["dw_gate + dw_up"] = time_ms(wgrad, 3)
+        out["dx"] = time_ms(lambda: elk_matmul_kernel(dg, w_gate.t(), du,
+                                                      w_up.t()), 3)
+    else:
+        out["dw_up"] = time_ms(lambda: elk_matmul_kernel(x.t(), du), 3)
+        out["dx"] = time_ms(lambda: elk_matmul_kernel(du, w_up.t()), 3)
+        db = torch.empty((ff,), dtype=x.dtype, device="cuda")
+        out["db_up, db_down"] = time_ms(lambda: lib.fused_mlp_bwd_colsum_launch(
+            ptr(du), ptr(db), m, ff, 1, stream()), 3) + time_ms(
+            lambda: lib.fused_mlp_bwd_colsum_launch(ptr(dy), ptr(db), m, dout,
+                                                    1, stream()), 3)
+    out["dw_down"] = time_ms(lambda: elk_matmul_kernel(h.t(), dy), 3)
+    return out
+
+
+def flash_bwd_launches_ms(q, k, v, o, dout, lse, causal) -> dict:
+    """The two passes of ``flash_attention_bwd_kernel`` (bf16, q and dout
+    as the row gives them) each timed alone by CUDA events, called as the
+    wrapper calls them: the dQ pass (which writes each row's delta), then
+    the dK/dV pass (which reads it)."""
+    lib, name = flash_kernels._bwd_lib(flash_bwd_route_of(q))
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    dq = torch.empty((b, sq, hq, d), dtype=q.dtype,
+                     device="cuda").transpose(1, 2)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    work = torch.empty((b, hq, -(-sq // flash_kernels.BWD_TILE)
+                        * flash_kernels.BWD_TILE, 2), dtype=torch.float32,
+                       device="cuda")
+
+    def launch(passes):
+        err = getattr(lib, f"{name}_launch")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d,
+            *q.stride()[:3], *o.stride()[:3], *dout.stride()[:3],
+            *dq.stride()[:3], int(causal), 0, d ** -0.5, 1, passes,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            fail(f"flash_attention_bwd: pass {passes} was refused ({err})")
+
+    return {"dQ pass": time_ms(lambda: launch(flash_kernels.BWD_PASS_DQ), 10),
+            "dK/dV pass": time_ms(
+                lambda: launch(flash_kernels.BWD_PASS_DKV), 10)}
+
+
+def flash_bwd_row(normal, b, hq, hkv, s, hd, causal) -> dict:
+    """A timed row of the attention backward at (B, Hq, Hkv, S, D) with the
+    mask's ``causal`` flag: held to ``mha_bwd_ref``, timed beside its bound,
+    the plain version and SDPA's backward, and pass by pass."""
+    dt = torch.bfloat16
+    q = normal(b, s, hq, hd, dtype=dt).transpose(1, 2)
+    kk, vv = normal(b, hkv, s, hd, dtype=dt), normal(b, hkv, s, hd, dtype=dt)
+    dout = normal(b, s, hq, hd, dtype=dt).transpose(1, 2)
+    err, over = check_flash_bwd(q, kk, vv, dout, causal, 0)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+    o = flash_attention_kernel(q, kk, vv, causal=causal, lse=lse)
+    bound, by = flash_bwd_bound_ms(b, hq, hkv, s, hd, dt, causal)
+    g = hq // hkv
+    sdpa = [t.detach().requires_grad_(True) for t in
+            (q, kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1))]
+    with torch.enable_grad():
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *sdpa, is_causal=causal)
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, sdpa, dout, retain_graph=True), 10)
+    del lib_out, sdpa
+    run = lambda: flash_attention_bwd_kernel(q, kk, vv, o, dout, lse,
+                                             causal=causal)
+    row = {"shape": f"B={b} Hq={hq} Hkv={hkv} S={s} D={hd} "
+                    f"{'causal' if causal else 'bidirectional'}",
+           "route": flash_bwd_route_of(q), "max_abs_err": err,
+           "err_over_tol": over, "ms": time_ms(run, 10),
+           "plain_ms": time_ms(lambda: flash_ref.mha_bwd_ref(
+               q, kk, vv, o, dout, lse, causal=causal), 2, warmup=1)
+           if b * hq * s * s <= 8 * 40 * 512 * 512 else None,
+           "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+           "library_note": "SDPA's backward with K and V repeated to Hq heads",
+           "launch_ms": flash_bwd_launches_ms(q, kk, vv, o, dout, lse, causal)}
+    return row
+
+
+def mlp_bwd_row(gen, normal, m, d, ff, gated, bias, act) -> dict:
+    """A timed row of the MLP backward: held to ``fused_mlp_bwd_ref`` and its
+    h to the forward's, timed beside its bound, the plain version and
+    autograd of the ``torch.matmul`` chain, and launch by launch."""
+    dt = torch.bfloat16
+    xm, w_up, w_down, kw = mlp_inputs(gen, (m,), d, ff, gated, bias, dt)
+    dy = normal(m, d, dtype=dt)
+    err, over = check_mlp_bwd(xm, w_up, w_down, kw, act, dy)
+    check_h_bits(xm, w_up, w_down, kw, act, dy)
+    bound, by = mlp_bwd_bound_ms(m, d, ff, dt, gated)
+    fn = act_fn(act)
+    names = ("w_gate",) if gated else ("b_up", "b_down")
+    leaves = [t.detach().requires_grad_(True)
+              for t in (xm, w_up, w_down, *(kw[n] for n in names))]
+    with torch.enable_grad():
+        x_, wu, wd = leaves[:3]
+        if gated:
+            hid = fn(torch.matmul(x_, leaves[3])) * torch.matmul(x_, wu)
+            lib_out = torch.matmul(hid, wd)
+        else:
+            lib_out = torch.matmul(fn(torch.matmul(x_, wu) + leaves[3]),
+                                   wd) + leaves[4]
+        library_ms = time_ms(lambda: torch.autograd.grad(
+            lib_out, leaves, dy, retain_graph=True), 3)
+    del lib_out, leaves
+    run = lambda: fused_mlp_bwd_kernel(xm, w_up, w_down, dy, act=act, **kw)
+    row = {"shape": f"{'GLU' if gated else 'plain'} {act}"
+                    f"{' biases' if bias else ''} m={m} d={d} ff={ff}",
+           "route": mlp_bwd_route_of(xm, w_up, w_down, kw.get("w_gate")),
+           "max_abs_err": err, "err_over_tol": over, "ms": time_ms(run, 3),
+           "plain_ms": time_ms(lambda: fused_mlp_bwd_ref(
+               xm, w_up, w_down, dy, act=act, **kw), 1, warmup=1),
+           "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+           "library_note": "autograd of the torch.matmul chain",
+           "launch_ms": mlp_bwd_launches_ms(xm, w_up, w_down, dy, kw, act)}
+    return row
+
+
 def train_rows(cfg) -> dict:
-    """The backward sweeps (bf16 and fp32), then the timed rows at qwen3-14b's
-    training shapes (B 8, S 512 = 4096 tokens): one row a kernel."""
+    """The backward sweeps (bf16 on every route, and fp32), then the timed
+    rows at the training shapes (B 8, S 512 = 4096 tokens): qwen3-14b's
+    products, MLP and attention, attention at S 4096, dit-xl's plain MLP and
+    bidirectional attention at D 72, kimi-k2's attention at D 112, and at D
+    64 internvl2-1b's and whisper-tiny's encoder's."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
 
     def normal(*shape, dtype, scale=1.0):
@@ -4213,6 +4438,7 @@ def train_rows(cfg) -> dict:
     by_type = {name: {} for name in names}
     cases = dict.fromkeys(names, 0)
     xt_routes = dict.fromkeys(MATMUL_ROUTES, 0)
+    bwd_routes = {"fused_mlp_bwd": {}, "flash_attention_bwd": {}}
     for dtype in (torch.bfloat16, torch.float32):
         worst = dict.fromkeys(names, (0.0, 0.0))
         for tok, k, n in XT_SWEEP:
@@ -4230,10 +4456,15 @@ def train_rows(cfg) -> dict:
         for m, d, ff, gated, bias, act in MLP_BWD_SWEEP:
             x, w_up, w_down, kw = mlp_inputs(gen, (m,), d, ff, gated, bias,
                                              dtype)
-            err, over = check_mlp_bwd(x, w_up, w_down, kw, act,
-                                      normal(m, d, dtype=dtype))
+            dy = normal(m, d, dtype=dtype)
+            route = mlp_bwd_route_of(x, w_up, w_down, kw.get("w_gate"))
+            err, over = check_mlp_bwd(x, w_up, w_down, kw, act, dy)
+            if route == "fused":   # its h the forward's
+                check_h_bits(x, w_up, w_down, kw, act, dy)
             worst["fused_mlp_bwd"] = max(worst["fused_mlp_bwd"], (over, err))
             cases["fused_mlp_bwd"] += 1
+            bwd_routes["fused_mlp_bwd"][route] = \
+                bwd_routes["fused_mlp_bwd"].get(route, 0) + 1
         for b, hq, hkv, sq, sk, d, causal, window in FLASH_BWD_SWEEP:
             q = normal(b, hq, sq, d, dtype=dtype)
             kk = normal(b, hkv, sk, d, dtype=dtype)
@@ -4244,12 +4475,17 @@ def train_rows(cfg) -> dict:
             worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"],
                                                (over, err))
             cases["flash_attention_bwd"] += 1
+            route = flash_bwd_route_of(q)
+            bwd_routes["flash_attention_bwd"][route] = \
+                bwd_routes["flash_attention_bwd"].get(route, 0) + 1
         for name in names:
             by_type[name][str(dtype).removeprefix("torch.")] = worst[name]
     worst = {name: max(by_type[name].values()) for name in names}
     say(f"[train] backward sweeps, bf16 and fp32, every case launched twice "
-        f"with equal bits: cases {json.dumps(cases)}; x^T dy by route "
-        f"{json.dumps(xt_routes)}; worst err/tol and its err by type "
+        f"with equal bits, the fused pass's h the forward's bit for bit: "
+        f"cases {json.dumps(cases)}; x^T dy by route "
+        f"{json.dumps(xt_routes)}; the MLP and attention backward by route "
+        f"{json.dumps(bwd_routes)}; worst err/tol and its err by type "
         f"{json.dumps(by_type)}")
 
     # timed rows at the full-width training shapes
@@ -4276,69 +4512,40 @@ def train_rows(cfg) -> dict:
         say("[train] elk_matmul_xt " + json.dumps(shapes[-1]))
         del dy
     out["elk_matmul_xt"] = shapes
+    del x
 
-    ff = cfg.d_ff
-    xm, w_up, w_down, kw = mlp_inputs(gen, (m,), d, ff, True, False, dt)
-    dy = normal(m, d, dtype=dt)
-    err, over = check_mlp_bwd(xm, w_up, w_down, kw, cfg.mlp_act, dy)
-    bound, by = mlp_bwd_bound_ms(m, d, ff, dt)
-    act = act_fn(cfg.mlp_act)
-    leaves = [t.detach().requires_grad_(True)
-              for t in (xm, kw["w_gate"], w_up, w_down)]
-    with torch.enable_grad():
-        lib_out = torch.matmul(act(torch.matmul(leaves[0], leaves[1]))
-                               * torch.matmul(leaves[0], leaves[2]),
-                               leaves[3])
-        library_ms = time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, dy, retain_graph=True), 3)
-    del lib_out, leaves
-    out["fused_mlp_bwd"] = [{
-        "shape": f"GLU {cfg.mlp_act} m={m} d={d} ff={ff}",
-        "route": "two_pass", "max_abs_err": err, "err_over_tol": over,
-        "ms": time_ms(lambda: fused_mlp_bwd_kernel(
-            xm, w_up, w_down, dy, act=cfg.mlp_act, **kw), 3),
-        "plain_ms": time_ms(lambda: fused_mlp_bwd_ref(
-            xm, w_up, w_down, dy, act=cfg.mlp_act, **kw), 1, warmup=1),
-        "bound_ms": bound, "bound_by": by, "library_ms": library_ms}]
-    say("[train] fused_mlp_bwd " + json.dumps(out["fused_mlp_bwd"][0]))
-    del xm, w_up, w_down, kw, dy
+    dit = get_config("dit_xl")
+    out["fused_mlp_bwd"] = []
+    for args in ((m, d, cfg.d_ff, True, False, cfg.mlp_act),
+                 (m, dit.d_model, dit.d_ff, False, True, dit.mlp_act)):
+        out["fused_mlp_bwd"].append(mlp_bwd_row(gen, normal, *args))
+        say("[train] fused_mlp_bwd " + json.dumps(out["fused_mlp_bwd"][-1]))
+        torch.cuda.empty_cache()
 
-    b, hq, hkv, hd, s = (TRAIN_BATCH, cfg.num_heads, cfg.num_kv_heads,
-                         cfg.resolved_head_dim, TRAIN_SEQ)
-    q = normal(b, s, hq, hd, dtype=dt).transpose(1, 2)
-    kk, vv = normal(b, hkv, s, hd, dtype=dt), normal(b, hkv, s, hd, dtype=dt)
-    dout = normal(b, s, hq, hd, dtype=dt).transpose(1, 2)
-    err, over = check_flash_bwd(q, kk, vv, dout, True, 0)
-    lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
-    o = flash_attention_kernel(q, kk, vv, causal=True, lse=lse)
-    bound, by = flash_bwd_bound_ms(b, hq, hkv, s, hd, dt)
-    g = hq // hkv
-    sdpa = [t.detach().requires_grad_(True) for t in
-            (q, kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1))]
-    with torch.enable_grad():
-        lib_out = torch.nn.functional.scaled_dot_product_attention(
-            *sdpa, is_causal=True)
-        library_ms = time_ms(lambda: torch.autograd.grad(
-            lib_out, sdpa, dout, retain_graph=True), 10)
-    del lib_out, sdpa
-    out["flash_attention_bwd"] = [{
-        "shape": f"B={b} Hq={hq} Hkv={hkv} S={s} D={hd} causal",
-        "route": "mma_sync", "max_abs_err": err, "err_over_tol": over,
-        "ms": time_ms(lambda: flash_attention_bwd_kernel(
-            q, kk, vv, o, dout, lse, causal=True), 10),
-        "plain_ms": time_ms(lambda: flash_ref.mha_bwd_ref(
-            q, kk, vv, o, dout, lse, causal=True), 2, warmup=1),
-        "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
-        "library_note": "SDPA's backward with K and V repeated to Hq heads"}]
-    say("[train] flash_attention_bwd "
-        + json.dumps(out["flash_attention_bwd"][0]))
+    kimi = get_config("kimi_k2_1t_a32b")
+    # D 64: internvl2-1b (G 7) causal, whisper-tiny's encoder over its 1500
+    # frames (G 1) bidirectional
+    intern, whisper = get_config("internvl2_1b"), get_config("whisper_tiny")
+    out["flash_attention_bwd"] = []
+    for b, c, s, causal in ((TRAIN_BATCH, cfg, TRAIN_SEQ, True),
+                            (1, cfg, 4096, True),
+                            (TRAIN_BATCH, dit, TRAIN_SEQ, False),
+                            (TRAIN_BATCH, kimi, TRAIN_SEQ, True),
+                            (TRAIN_BATCH, intern, TRAIN_SEQ, True),
+                            (TRAIN_BATCH, whisper, 1500, False)):
+        out["flash_attention_bwd"].append(flash_bwd_row(
+            normal, b, c.num_heads, c.num_kv_heads, s, c.resolved_head_dim,
+            causal))
+        say("[train] flash_attention_bwd "
+            + json.dumps(out["flash_attention_bwd"][-1]))
+        torch.cuda.empty_cache()
 
     sources = {"elk_matmul_xt": ("elk_matmul.cu",
                                  "src/repro/kernels/elk_matmul/kernel.py:31"),
                "fused_mlp_bwd": ("fused_mlp_bwd.cu",
                                  "src/repro/kernels/fused_mlp/kernel.py:79"),
                "flash_attention_bwd": (
-                   "flash_attention_bwd.cu",
+                   "flash_attention_bwd_wgmma.cu",
                    "src/repro/kernels/flash_attention/kernel.py:86")}
     rows = []
     for name, (src, replaces) in sources.items():
@@ -4359,22 +4566,34 @@ def train_rows(cfg) -> dict:
 
 
 def train_expected(cfg, steps: int, remat: bool = True) -> dict:
-    """Launches of ``steps`` training steps of a dense GLU decoder: a
-    layer's four projections, its MLP and its attention run forward once
-    (twice under remat: the recompute of the backward), and backward once:
-    dx and dW of each projection, the MLP's backward (its three weight
-    gradients and dx on elk_matmul, x read transposed for the weight
-    gradients) and attention's; the LM head forward, dx and dW."""
+    """Launches of ``steps`` training steps of a dense GLU decoder, in all
+    and by route: a layer's four projections, its MLP and its attention run
+    forward once (twice under remat: the recompute of the backward), and
+    backward once: dx and dW of each projection, the MLP's backward (its
+    fused pass and its two weight gradients dw_gate, dw_up in
+    ``fused_mlp_bwd``'s launches; dw_down and the two-part dx on
+    elk_matmul, x read transposed for dw_down) and attention's; the LM head
+    forward, dx and dW.  Every product of these bf16 shapes on "wgmma", the
+    MLP forward on "two_pass", the attention kernels on "wgmma" over bf16
+    K/V, the MLP backward on "fused"."""
     if cfg.moe_experts or cfg.rwkv or cfg.hybrid_parallel_ssm or \
             cfg.encoder_layers or not cfg.gated_mlp:
         raise ValueError("train_expected counts dense GLU decoders only")
     n, fwd = cfg.num_layers, 2 if remat else 1
-    return {"elk_matmul": steps * (n * (4 * fwd + 4 + 4 + 4) + 3),
-            "elk_matmul_xt": steps * (n * (4 + 3) + 1),
-            "fused_mlp": steps * n * fwd, "fused_mlp_bwd": steps * n,
-            "flash_attention": steps * n * fwd,
-            "flash_attention_bwd": steps * n,
-            "decode_attention": 0, "kv_quant": 0}
+    products = steps * (n * (4 * fwd + 4 + 4 + 2) + 3)
+    counts = {"elk_matmul": products,
+              "elk_matmul_xt": steps * (n * (4 + 1) + 1),
+              "fused_mlp": steps * n * fwd, "fused_mlp_bwd": steps * n,
+              "flash_attention": steps * n * fwd,
+              "flash_attention_bwd": steps * n,
+              "decode_attention": 0, "kv_quant": 0}
+    routes = {"elk_matmul": {"wgmma": products},
+              "fused_mlp": {"two_pass": counts["fused_mlp"]},
+              "flash_attention": {"wgmma": counts["flash_attention"]},
+              "flash_attention kv": {"bfloat16": counts["flash_attention"]},
+              "fused_mlp_bwd": {"fused": counts["fused_mlp_bwd"]},
+              "flash_attention_bwd": {"wgmma": counts["flash_attention_bwd"]}}
+    return {**counts, "routes": routes}
 
 
 def _plain_dispatch():
@@ -4527,8 +4746,8 @@ def train_full(rows: list[dict]) -> dict:
     torch.cuda.synchronize()
     counts, routes = read_launches(train=True), read_routes(train=True)
     peak = torch.cuda.max_memory_allocated() - base
-    record_launches(rows, "train", counts,
-                    {**train_expected(cfg, TRAIN_STEPS), "routes": {}}, {})
+    record_launches(rows, "train", counts, train_expected(cfg, TRAIN_STEPS),
+                    routes)
     losses = [m["loss"] for m in log]
     if not all(np.isfinite(losses)):
         fail(f"[train] full width: losses {losses}")
@@ -4823,6 +5042,14 @@ def main() -> None:
             if any(key in entry for key in WATCHED_INSTANCES):
                 say(f"[build] {name}: {entry}: {regs} registers, {spill} "
                     "bytes spill stores")
+            if spill and any(key in entry for key in NO_SPILL_INSTANCES):
+                fail(f"[build] {name}: ptxas spilled {spill} bytes in "
+                     f"{entry}")
+        # ptxas serializing the wgmma of a kernel (C7515) costs it most of
+        # the tensor cores' overlap (the fused MLP pass 11.46 against 10.12
+        # ms): no kernel may be so
+        for fn in sorted(set(re.findall(r"C7515\).*?function '([^']+)'", log))):
+            fail(f"[build] {name}: {fn}: wgmma serialized (ptxas C7515)")
     say(f"[build] {len(logs)} source(s) {sorted(logs)} built with nvcc for "
         f"sm_90a in {time.perf_counter() - t0:.1f}s; seconds by source "
         + json.dumps({n: round(t, 1)

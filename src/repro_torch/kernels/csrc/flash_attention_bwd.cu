@@ -27,17 +27,19 @@
 // and the lse in, dq, dk, dv out are 0.202 GB, 0.060 ms.  About balanced;
 // this design is far from either (PERF.md).
 //
-// Design, simple and right first (a wgmma/TMA version is later work):
+// Route "wgmma" (flash_attention_bwd_wgmma.cu) takes bf16 at
+// head dims 64-128, faster at every one measured (PERF.md); this source
+// keeps the routes of the rest, bf16 at 16 and 32 ("mma_sync") and fp32
+// ("fma").  Their design, simple and right first:
 //   * two launches: a Q-major pass computes delta for its rows (and writes
 //     it) and dQ; a KV-major pass, after it on the stream, dK and dV.  Each
 //     output element is summed in one block, in a fixed order (key tiles in
 //     order; for dK and dV the G heads of the group, then the query tiles,
 //     in order): no atomics, the same bits on every run.
-//   * bf16 (head dims 16-128 that the forward takes on its bf16 routes):
-//     mma.sync m16n8k16 with fp32 accumulators, four warps of 16 rows.  Q,
-//     dO, K and V tiles sit in shared memory with rows padded by 16 bytes
-//     (conflict-free fragment loads), zeros past D up to the next 16 (D 72,
-//     80, 112); S and dP stay in registers, and P (for dV) and dS (for dQ,
+//   * bf16 (head dims 16 and 32): mma.sync m16n8k16 with fp32
+//     accumulators, four warps of 16 rows.  Q, dO, K and V tiles sit in
+//     shared memory with rows padded by 16 bytes (conflict-free fragment
+//     loads); S and dP stay in registers, and P (for dV) and dS (for dQ,
 //     dK) go to the next product straight from the accumulator layout as A
 //     fragments in bf16, as the forward's P V does.  dQ pass: 64 query rows
 //     against tiles of 64 keys; dKV pass: 64 keys against tiles of 32 query
@@ -63,6 +65,8 @@ constexpr int kBQ = 64;        // bf16 dQ pass: query rows of a block
 constexpr int kBK = 64;        // bf16 dQ pass: keys of a tile; dKV pass: keys of a block
 constexpr int kBQ2 = 32;       // bf16 dKV pass: query rows of a tile
 constexpr int kFT = 32;        // fp32: rows of every tile
+constexpr int kPassDq = 1;     // the passes a launch runs (`passes`)
+constexpr int kPassDkv = 2;
 
 struct Args {
   const void* q;        // (B, Hq, Sq, D) at q_sb, q_sh, q_ss
@@ -593,20 +597,23 @@ int allow(K kernel, int bytes, uint64_t& done) {
 }
 
 template <int D>
-int launch_mma(const Args& a, cudaStream_t s) {
+int launch_mma(const Args& a, int passes, cudaStream_t s) {
   static uint64_t dq_done = 0, dkv_done = 0;
   using M = Mma<D>;
   int err = allow(dq_mma_kernel<D>, M::DQ_SMEM, dq_done);
   if (err == 0) err = allow(dkv_mma_kernel<D>, M::DKV_SMEM, dkv_done);
   if (err != 0) return err;
-  dq_mma_kernel<D><<<dim3((a.sq + kBQ - 1) / kBQ, a.hq, a.b), kThreads, M::DQ_SMEM, s>>>(a);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  dkv_mma_kernel<D><<<dim3((a.sk + kBK - 1) / kBK, a.hkv, a.b), kThreads, M::DKV_SMEM, s>>>(a);
+  if (passes & kPassDq) {
+    dq_mma_kernel<D><<<dim3((a.sq + kBQ - 1) / kBQ, a.hq, a.b), kThreads, M::DQ_SMEM, s>>>(a);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  if (passes & kPassDkv)
+    dkv_mma_kernel<D><<<dim3((a.sk + kBK - 1) / kBK, a.hkv, a.b), kThreads, M::DKV_SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-int launch_fma(const Args& a, cudaStream_t s) {
+int launch_fma(const Args& a, int passes, cudaStream_t s) {
   static uint64_t dq_done = 0, dkv_done = 0;
   const int dq_smem = (5 * kFT * a.d + kFT * kLdS + 2 * kFT) * 4;
   const int dkv_smem = (6 * kFT * a.d + 2 * kFT * kLdS + 2 * kFT) * 4;
@@ -614,10 +621,13 @@ int launch_fma(const Args& a, cudaStream_t s) {
   if (err == 0)
     err = allow(dkv_fma_kernel, 6 * kFT * 256 * 4 + 2 * kFT * kLdS * 4 + 2 * kFT * 4, dkv_done);
   if (err != 0) return err;
-  dq_fma_kernel<<<dim3((a.sq + kFT - 1) / kFT, a.hq, a.b), kThreads, dq_smem, s>>>(a);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  dkv_fma_kernel<<<dim3((a.sk + kFT - 1) / kFT, a.hkv, a.b), kThreads, dkv_smem, s>>>(a);
+  if (passes & kPassDq) {
+    dq_fma_kernel<<<dim3((a.sq + kFT - 1) / kFT, a.hq, a.b), kThreads, dq_smem, s>>>(a);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  if (passes & kPassDkv)
+    dkv_fma_kernel<<<dim3((a.sk + kFT - 1) / kFT, a.hkv, a.b), kThreads, dkv_smem, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -625,13 +635,15 @@ int launch_fma(const Args& a, cudaStream_t s) {
 
 extern "C" {
 
-// Launches the backward on `stream`, the dQ pass then the dKV pass; returns
-// cudaGetLastError() (0 = launched) or -1 for arguments it does not take.
+// Launches the backward on `stream`, the dQ pass then the dKV pass (those of
+// `passes`: 1 the dQ pass, which writes delta, 2 the dKV pass, which reads
+// it); returns cudaGetLastError() (0 = launched) or -1 for arguments it does
+// not take.
 // q, o, dout, dq (B, Hq, Sq, D) at their element strides (the last 1); k, v,
 // dk, dv (B, Hkv, Sk, D) contiguous; lse and delta (B, Hq, Sq) fp32
-// contiguous, delta written here.  dtype 1: bf16, D one of 16, 32, 64, 72,
-// 80, 96, 112, 128, pointers 16-byte aligned and strides multiples of 8
-// elements; 0: fp32, D a multiple of 8 up to 256.  Sq != Sk only with causal
+// contiguous, delta written here.  dtype 1: bf16, D 16 or 32 (the other
+// head dims are route "wgmma"'s), pointers 16-byte aligned and strides
+// multiples of 8 elements; 0: fp32, D a multiple of 8 up to 256.  Sq != Sk only with causal
 // 0 and window 0.
 int flash_attention_bwd_launch(const void* q, const void* k, const void* v, const void* o,
                                const void* dout, const float* lse, float* delta, void* dq,
@@ -640,11 +652,11 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
                                long long o_sh, long long o_ss, long long do_sb, long long do_sh,
                                long long do_ss, long long dq_sb, long long dq_sh,
                                long long dq_ss, int causal, int window, float scale, int dtype,
-                               void* stream) {
+                               int passes, void* stream) {
   if (b < 1 || hkv < 1 || hq % hkv != 0 || sq < 1 || sk < 1 || d < 8 || d > 256 || d % 8 != 0)
     return -1;
   if (sq != sk && (causal || window > 0)) return -1;
-  if (b > 65535 || hq > 65535) return -1;
+  if (b > 65535 || hq > 65535 || passes < 1 || passes > 3) return -1;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout; a.lse = lse; a.delta = delta;
   a.dq = dq; a.dk = dk; a.dv = dv;
@@ -654,17 +666,11 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v, cons
   a.b = b; a.hq = hq; a.hkv = hkv; a.sq = sq; a.sk = sk; a.d = d; a.g = hq / hkv;
   a.causal = causal; a.window = window; a.scale = scale; a.scale_log2 = scale * kLog2e;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return launch_fma(a, s);
+  if (dtype == 0) return launch_fma(a, passes, s);
   if (dtype != 1) return -1;
   switch (d) {
-    case 16: return launch_mma<16>(a, s);
-    case 32: return launch_mma<32>(a, s);
-    case 64: return launch_mma<64>(a, s);
-    case 72: return launch_mma<72>(a, s);
-    case 80: return launch_mma<80>(a, s);
-    case 96: return launch_mma<96>(a, s);
-    case 112: return launch_mma<112>(a, s);
-    case 128: return launch_mma<128>(a, s);
+    case 16: return launch_mma<16>(a, passes, s);
+    case 32: return launch_mma<32>(a, passes, s);
     default: return -1;
   }
 }

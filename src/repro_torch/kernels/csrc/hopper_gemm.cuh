@@ -143,9 +143,9 @@ constexpr int stages_for(int wg, int bn, int nb) {
 }
 
 enum : int { kActSilu = 0, kActGelu = 1, kActRelu = 2 };
-// kEpiPre and kEpiDeriv are the MLP backward's (fused_mlp_bwd.cu): the
-// pre-activations in fp32, and the derivative of the activation applied to
-// dh = dy w_down^T
+// kEpiPre and kEpiDeriv are the MLP backward's FMA tile kernel's
+// (fused_mlp_bwd.cu): the pre-activations in fp32, and the derivative of the
+// activation applied to dh = dy w_down^T
 enum : int { kEpiStore = 0, kEpiAct = 1, kEpiGated = 2, kEpiPre = 3, kEpiDeriv = 4 };
 
 __device__ __forceinline__ float apply_act(float v, int act) {
@@ -294,9 +294,11 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint
 // d (64 x 64, fp32, the accumulator layout of wgmma) += A (64 x 16) B (16 x 64),
 // both bf16 in shared memory, by descriptor; TRANS_B 1 takes B MN-major,
 // TRANS_A 1 takes A MN-major (rows K, M contiguous: the transpose of a stored
-// (K, M) matrix, x^T of a weight gradient).
+// (K, M) matrix, x^T of a weight gradient).  scale_d 0: d = A B, d's old
+// value not read (the attention backward's first products of a tile).
 template <int TRANS_B, int TRANS_A = 0>
-__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b) {
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d = 1) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -310,7 +312,7 @@ __device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t desc_a, ui
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(1), "n"(TRANS_B), "n"(TRANS_A));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // d (64 x 128, fp32, the accumulator layout of wgmma) += A (64 x 16) B (16 x 128),
@@ -395,8 +397,10 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t desc_a, 
 // WG consumer warpgroups (BM = 64 WG rows), BN columns, NB b operands, b
 // K-major or MN-major; a K-major (x) or MN-major (A_MNMAJOR: x stored as
 // (K, m), read as its transpose: the x^T dy of a weight gradient, whose K is
-// the tokens); BWD compiles the MLP backward's epilogues (kEpiPre, kEpiDeriv)
-// and only those; TWO a second (a1, b1) part after the first's K tiles;
+// the tokens); BWD compiles the MLP backward's epilogue, and only it: two b
+// operands and two outputs, acc[0] -> out and acc[1] -> out2 (its dw_gate =
+// x^T dg and dw_up = x^T du on one x^T tile); TWO a second (a1, b1) part
+// after the first's K tiles;
 // B_LDG an MN-major b TMA refuses, loaded and realigned by the producer
 // warpgroup's threads (one consumer warpgroup, one b, one part).
 template <int WG_, int BN_, int NB_, bool B_KMAJOR_, bool A_MNMAJOR_ = false, bool BWD_ = false,
@@ -419,6 +423,7 @@ struct GemmCfg {
   static_assert(SMEM <= kSmemBudget, "a block has 227 KB of shared memory");
   static_assert(!B_LDG || (WG == 1 && NB == 1 && !B_KMAJOR && !A_MNMAJOR && !TWO && !BWD),
                 "the realigned b: one consumer warpgroup, one MN-major b, one part");
+  static_assert(!BWD || NB == 2, "the MLP backward's epilogue stores two outputs");
 };
 
 struct EpiArgs {
@@ -427,14 +432,7 @@ struct EpiArgs {
   int ldo;
   int mode;             // kEpiStore: a [+ bias]; kEpiAct: act(a [+ bias]); kEpiGated: act(a) * a2
   int act;
-  // kEpiPre: out = a [+ bias] and out2 = a2, fp32.  kEpiDeriv, a = dh: with
-  // pre_g (gated) dg = dh u act'(g) -> out, du = dh act(g) -> out2, h =
-  // act(g) u -> out3; without, du = dh act'(u) -> out2, h = act(u) -> out3;
-  // g, u the fp32 pre-activations, the outputs bf16
-  void* out2;
-  void* out3;
-  const float* pre_g;
-  const float* pre_u;
+  void* out2;           // GemmCfg::BWD: the second output, (m, n) bf16 at ldo
 };
 
 struct GemmParams {
@@ -451,31 +449,22 @@ struct GemmParams {
   long long ldb;
 };
 
-// The MLP backward's epilogues (kEpiPre, kEpiDeriv) of one element.
-__device__ __forceinline__ void store_bwd(const EpiArgs& e, int row, int col, float a, float g) {
-  const size_t i = (size_t)row * e.ldo + col;
-  if (e.mode == kEpiPre) {
-    if (e.bias != nullptr) a += __bfloat162float(e.bias[col]);
-    reinterpret_cast<float*>(e.out)[i] = a;
-    if (e.out2 != nullptr) reinterpret_cast<float*>(e.out2)[i] = g;
-    return;
-  }
-  const float u = e.pre_u[i];
-  if (e.pre_g != nullptr) {
-    const float gp = e.pre_g[i];
-    const float ag = apply_act(gp, e.act);
-    reinterpret_cast<bf16*>(e.out)[i] = __float2bfloat16(a * u * act_grad(gp, e.act));
-    reinterpret_cast<bf16*>(e.out2)[i] = __float2bfloat16(a * ag);
-    reinterpret_cast<bf16*>(e.out3)[i] = __float2bfloat16(ag * u);
+// Stores (v0, v1) at (row, col), (row, col + 1) of the bf16 output o (m, n)
+// at row stride ldo; col + 1 only if `two`.
+__device__ __forceinline__ void store_bf16_pair(void* o, int ldo, int row, int col, bool two,
+                                                float v0, float v1) {
+  bf16* d = reinterpret_cast<bf16*>(o) + (size_t)row * ldo + col;
+  if (two && (ldo & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(d) = __floats2bfloat162_rn(v0, v1);
   } else {
-    reinterpret_cast<bf16*>(e.out2)[i] = __float2bfloat16(a * act_grad(u, e.act));
-    reinterpret_cast<bf16*>(e.out3)[i] = __float2bfloat16(apply_act(u, e.act));
+    d[0] = __float2bfloat16(v0);
+    if (two) d[1] = __float2bfloat16(v1);
   }
 }
 
 // Stores the pair (row, col), (row, col + 1) of the output: a0, a1 [+ bias],
 // through the activation or the gate (g0, g1 the second operand's sums); BWD:
-// through the MLP backward's epilogue.
+// a0, a1 to out and g0, g1 to out2 (the MLP backward's two weight gradients).
 template <bool BWD>
 __device__ __forceinline__ void store_pair(const GemmParams& p, int row, int col, float a0,
                                            float a1, float g0, float g1) {
@@ -483,8 +472,8 @@ __device__ __forceinline__ void store_pair(const GemmParams& p, int row, int col
   const bool two = col + 1 < p.n;
   const EpiArgs& e = p.epi;
   if constexpr (BWD) {
-    store_bwd(e, row, col, a0, g0);
-    if (two) store_bwd(e, row, col + 1, a1, g1);
+    store_bf16_pair(e.out, e.ldo, row, col, two, a0, a1);
+    store_bf16_pair(e.out2, e.ldo, row, col, two, g0, g1);
     return;
   }
   float v0 = a0, v1 = a1;
@@ -499,13 +488,7 @@ __device__ __forceinline__ void store_pair(const GemmParams& p, int row, int col
     v0 = apply_act(a0, e.act) * g0;
     v1 = apply_act(a1, e.act) * g1;
   }
-  bf16* o = reinterpret_cast<bf16*>(e.out) + (size_t)row * e.ldo + col;
-  if (two && (e.ldo & 1) == 0) {
-    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(v0, v1);
-  } else {
-    o[0] = __float2bfloat16(v0);
-    if (two) o[1] = __float2bfloat16(v1);
-  }
+  store_bf16_pair(e.out, e.ldo, row, col, two, v0, v1);
 }
 
 // The fp32 at the same shared-memory offset in block `rank` of the cluster.

@@ -30,9 +30,11 @@ run can show which kernels it went through.
 Training asks the forward for each row's log-sum-exp (``lse``, fp32
 (B, Hq, Sq)), which every route writes when given the buffer; the serving
 paths pass none and run as before.  ``flash_attention_bwd_kernel`` is the
-gradient (``csrc/flash_attention_bwd.cu``: a dQ pass, then a dK/dV pass),
-``flash_attention_bwd_kernel.launches`` counts its calls (two kernels
-each) and ``by_route`` them by route ("mma_sync" for bf16, "fma" for fp32).
+gradient (a dQ pass, then a dK/dV pass; ``bwd_route_of``: "wgmma" for bf16
+at ``BWD_WGMMA_HEAD_DIMS``, ``csrc/flash_attention_bwd_wgmma.cu``;
+"mma_sync" for the other bf16 head dims and "fma" for fp32,
+``csrc/flash_attention_bwd.cu``), ``flash_attention_bwd_kernel.launches``
+counts its calls (two kernels each) and ``by_route`` them by route.
 """
 
 from __future__ import annotations
@@ -308,21 +310,70 @@ flash_attention_kernel.by_route = dict.fromkeys(ROUTES, 0)
 flash_attention_kernel.by_kv = dict.fromkeys(KV_TYPES, 0)
 
 
-BWD_ROUTES = ("mma_sync", "fma")
-BWD_HEAD_DIMS = (16, 32, 64, 72, 80, 96, 112, 128)   # route "mma_sync"
+BWD_ROUTES = ("wgmma", "mma_sync", "fma")
+BWD_HEAD_DIMS = (16, 32, 64, 72, 80, 96, 112, 128)   # the bf16 backward's
+# route "wgmma" (csrc/flash_attention_bwd_wgmma.cu): these head dims, 72-112
+# in the layout of 128, faster than "mma_sync" at every one measured
+# (PERF.md); "mma_sync" (csrc/flash_attention_bwd.cu) compiles the rest
+BWD_WGMMA_HEAD_DIMS = (64, 72, 80, 96, 112, 128)
+BWD_MMA_HEAD_DIMS = (16, 32)
+# kBwdBlockRows, kBwdTile, the threads and the stages of its two passes: a
+# block owns 128 query rows (dQ: two consumer warpgroups of 64) or 64 keys
+# (dK/dV: one warpgroup takes dV, the other dK), and a producer warp, and
+# walks tiles of 64 keys (dQ) or query rows (dK/dV)
+BWD_BLOCK_ROWS = 128
+BWD_TILE = 64
+BWD_DQ_THREADS = 288
+BWD_DKV_THREADS = 288
+BWD_DQ_STAGES = 3
+BWD_DKV_STAGES = 4
 
 
-def _bwd_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention_bwd")
-    if lib.flash_attention_bwd_launch.argtypes is None:
+def bwd_route_of(q: torch.Tensor) -> str:
+    """The route ``flash_attention_bwd_kernel`` takes for this query: "fma"
+    for fp32, "wgmma" for bf16 at ``BWD_WGMMA_HEAD_DIMS``, "mma_sync" for
+    the other bf16 head dims."""
+    if q.dtype == torch.float32:
+        return "fma"
+    return "wgmma" if q.shape[-1] in BWD_WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def bwd_wgmma_smem(d: int) -> tuple[int, int]:
+    """Shared memory of a block of route "wgmma"'s (dQ, dK/dV) passes at
+    head dim ``d``: ``BwdTile<D>::DQ_SMEM`` and ``DKV_SMEM`` of the source
+    (1024 bytes of alignment slack, the block's Q and dO, or K and V,
+    tiles, the ring of 64-row tiles, the (lse, delta) pairs, the
+    mbarriers)."""
+    dp = 64 if d <= 64 else 128
+    tile64, tile128 = BWD_TILE * dp * 2, BWD_BLOCK_ROWS * dp * 2
+    dq = (1024 + 2 * tile128 + BWD_DQ_STAGES * 2 * tile64
+          + BWD_BLOCK_ROWS * 8 + (2 * BWD_DQ_STAGES + 1) * 8)
+    dkv = (1024 + 2 * tile64 + BWD_DKV_STAGES * 2 * tile64
+           + BWD_DKV_STAGES * BWD_TILE * 8 + (2 * BWD_DKV_STAGES + 1) * 8)
+    return dq, dkv
+
+
+# the library of a backward route and the prefix of its functions; both
+# launchers take the same arguments
+_BWD_LIBS = {"wgmma": "flash_attention_bwd_wgmma",
+             "mma_sync": "flash_attention_bwd", "fma": "flash_attention_bwd"}
+# the passes a launch runs: the dQ pass (which also writes each row's delta),
+# the dK/dV pass (which reads it)
+BWD_PASS_DQ, BWD_PASS_DKV = 1, 2
+
+
+def _bwd_lib(route: str) -> tuple[ctypes.CDLL, str]:
+    name = _BWD_LIBS[route]
+    lib = _build.load(name)
+    launch = getattr(lib, f"{name}_launch")
+    if launch.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.flash_attention_bwd_launch.argtypes = (
-            [ptr] * 10 + [i32] * 6 + [i64] * 12 + [i32] * 2
-            + [ctypes.c_float, i32, ptr])
-        lib.flash_attention_bwd_launch.restype = i32
-        lib.flash_attention_bwd_error_name.argtypes = [i32]
-        lib.flash_attention_bwd_error_name.restype = ctypes.c_char_p
-    return lib
+        launch.argtypes = ([ptr] * 10 + [i32] * 6 + [i64] * 12 + [i32] * 2
+                           + [ctypes.c_float, i32, i32, ptr])
+        launch.restype = i32
+        getattr(lib, f"{name}_error_name").argtypes = [i32]
+        getattr(lib, f"{name}_error_name").restype = ctypes.c_char_p
+    return lib, name
 
 
 def _strided(name: str, t: torch.Tensor, shape: tuple, like: torch.Tensor,
@@ -354,8 +405,8 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     (B, Sq, Hq, D) storage of the forward's output); k, v (B, Hkv, Sk, D)
     contiguous; one type, bf16 (D in ``BWD_HEAD_DIMS``) or fp32 (D a
     multiple of 8 up to 256).  dq comes in (B, Sq, Hq, D) storage as the
-    forward's output, dk and dv contiguous.  The plain version is
-    ``ref.mha_bwd_ref``."""
+    forward's output, dk and dv contiguous; the route ``bwd_route_of``'s.
+    The plain version is ``ref.mha_bwd_ref``."""
     if not q.is_cuda:
         raise ValueError(f"flash_attention_bwd_kernel needs a CUDA tensor, "
                          f"got {q.device}")
@@ -392,27 +443,31 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"lse must be float32 ({b}, {hq}, {sq}), "
                          "contiguous, on q's device")
     scale = float(scale) if scale is not None else d ** -0.5
-    route = "mma_sync" if bf16 else "fma"
-    lib = _bwd_lib()
+    route = bwd_route_of(q)
+    lib, name = _bwd_lib(route)
     with torch.cuda.device(q.device):
         dq = torch.empty((b, sq, hq, d), dtype=q.dtype,
                          device=q.device).transpose(1, 2)
         dk = torch.empty_like(k)
         dv = torch.empty_like(v)
-        delta = torch.empty_like(lse)
-        err = lib.flash_attention_bwd_launch(
+        # each row's (lse log2 e, delta) on route "wgmma", rows padded to
+        # the 64 of a tile; each row's delta on the others
+        work = torch.empty((b, hq, -(-sq // BWD_TILE) * BWD_TILE, 2),
+                           dtype=torch.float32, device=q.device)
+        err = getattr(lib, f"{name}_launch")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), work.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), b, hq, hkv, sq, sk, d,
             *q.stride()[:3], *out.stride()[:3], *dout.stride()[:3],
             *dq.stride()[:3], int(causal), int(window), scale, int(bf16),
+            BWD_PASS_DQ | BWD_PASS_DKV,
             torch.cuda.current_stream().cuda_stream)
     flash_attention_bwd_kernel.launches += 1
     flash_attention_bwd_kernel.by_route[route] += 1
     if err != 0:
         raise RuntimeError(
             f"flash_attention_bwd launch failed: CUDA error {err} "
-            f"({lib.flash_attention_bwd_error_name(err).decode()}; route "
+            f"({getattr(lib, f'{name}_error_name')(err).decode()}; route "
             f"{route}, B={b}, Hq={hq}, Hkv={hkv}, Sq={sq}, Sk={sk}, D={d}, "
             f"{q.dtype}, causal {causal}, window {window})")
     return dq, dk, dv

@@ -17,14 +17,15 @@ tensors to ``ref.fused_mlp_ref``).
 reaches the card, and ``fused_mlp_kernel.by_route`` the same calls by
 route, so that a run can show which kernels it went through.
 
-``fused_mlp_bwd_kernel`` is the gradient (``csrc/fused_mlp_bwd.cu``): the
-recompute of the pre-activations and the dh pass with the activation's
-derivative in its epilogue, then the weight and input products on
-``elk_matmul`` (x read transposed in place; dx one two-part sum) and the
-bias gradients as column sums.  ``fused_mlp_bwd_kernel.launches`` counts
-its calls (one a backward), ``by_route`` them by route ("two_pass": the
-TMA + wgmma mainloop, bf16 operands TMA takes; "fma": the FMA tile
-kernel, fp32 and any other bf16).
+``fused_mlp_bwd_kernel`` is the gradient (``csrc/fused_mlp_bwd.cu``).  On
+route "fused" (bf16 operands TMA takes) one launch recomputes g and u,
+takes dh = dy w_down^T and writes dg, du and h, and a GLU's dw_gate and
+dw_up are one more launch; on route "fma" (fp32 and any other bf16) the
+recompute and the dh pass are two launches of an FMA tile kernel and the
+weight gradients ``elk_matmul``'s.  The rest is ``elk_matmul`` (x read
+transposed in place; dx one two-part sum) and the bias gradients are column
+sums.  ``fused_mlp_bwd_kernel.launches`` counts its calls (one a backward),
+``by_route`` them by route.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.chip.h100 import wg_smem_bytes, wg_stages
 from repro_torch.kernels import _build
 from repro_torch.kernels.elk_matmul.kernel import elk_matmul_kernel, plan_for
 from repro_torch.kernels.fused_mlp.ref import ACTS
@@ -71,10 +73,14 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("fused_mlp_bwd")
     if lib.fused_mlp_bwd_pre_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.fused_mlp_bwd_pre_launch.argtypes = [ptr] * 6 + [i32] * 5 + [ptr]
+        lib.fused_mlp_bwd_pre_launch.argtypes = [ptr] * 6 + [i32] * 4 + [ptr]
         lib.fused_mlp_bwd_pre_launch.restype = i32
-        lib.fused_mlp_bwd_dh_launch.argtypes = [ptr] * 7 + [i32] * 6 + [ptr]
+        lib.fused_mlp_bwd_dh_launch.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
         lib.fused_mlp_bwd_dh_launch.restype = i32
+        lib.fused_mlp_bwd_fused_launch.argtypes = [ptr] * 9 + [i32] * 5 + [ptr]
+        lib.fused_mlp_bwd_fused_launch.restype = i32
+        lib.fused_mlp_bwd_wgrad_launch.argtypes = [ptr] * 5 + [i32] * 3 + [ptr]
+        lib.fused_mlp_bwd_wgrad_launch.restype = i32
         lib.fused_mlp_bwd_colsum_launch.argtypes = [ptr] * 2 + [i32] * 3 + [ptr]
         lib.fused_mlp_bwd_colsum_launch.restype = i32
         lib.fused_mlp_bwd_error_name.argtypes = [i32]
@@ -237,18 +243,32 @@ fused_mlp_kernel.launches = 0
 fused_mlp_kernel.by_route = dict.fromkeys(ROUTES, 0)
 
 
-BWD_ROUTES = ("two_pass", "fma")
+BWD_ROUTES = ("fused", "fma")
+# route "fused": the (rows, columns of ff) tile of a block of the fused pass
+# (csrc/fused_mlp_bwd.cu kFusedBN, FusedCfg): two consumer warpgroups of 64
+# rows; 64 columns, where 128 spilled (PERF.md)
+FUSED_BM, FUSED_BN = 128, 64
+
+
+def fused_bwd_plan(gated: bool) -> tuple[int, int]:
+    """(stages, shared memory bytes) of a block of the fused pass
+    (``FusedCfg<GATED>`` of ``csrc/fused_mlp_bwd.cu``): the TMA ring
+    ``wg_stages`` gives its tile with two b operands (GLU: both weights) or
+    one, and the reserve."""
+    nb = 2 if gated else 1
+    stages = wg_stages(FUSED_BM, FUSED_BN, nb)[0]
+    return stages, wg_smem_bytes(FUSED_BM, FUSED_BN, stages, nb)
 
 
 def bwd_route_of(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
                  w_gate: Optional[torch.Tensor] = None) -> str:
-    """The route ``fused_mlp_bwd_kernel``'s two MLP passes take: "two_pass"
-    (the TMA + wgmma mainloop) for bf16 whose x, weights and dy TMA takes
+    """The route of ``fused_mlp_bwd_kernel``'s MLP passes: "fused" (the
+    fused pass on TMA + wgmma) for bf16 whose x, weights and dy TMA takes
     (bases on 16 bytes, d, ff and d_out multiples of 8), "fma" for the
     rest."""
     tensors = (x, w_up, w_down) + (() if w_gate is None else (w_gate,))
     if x.dtype == torch.bfloat16 and _tma_ok(*tensors):
-        return "two_pass"
+        return "fused"
     return "fma"
 
 
@@ -293,9 +313,8 @@ def fused_mlp_bwd_kernel(x: torch.Tensor, w_up: torch.Tensor,
                          f"d_out={dout}")
     if max(m, d, ff, dout) >= 2 ** 31:
         raise ValueError("a dimension exceeds the kernel's 32-bit indices")
-    route = ("two_pass" if bwd_route_of(x, w_up, w_down, w_gate)
-             == "two_pass" and _tma_ok(dy2) else "fma")
-    tma = int(route == "two_pass")
+    route = ("fused" if bwd_route_of(x, w_up, w_down, w_gate) == "fused"
+             and _tma_ok(dy2) else "fma")
     lib = _bwd_lib()
     dtype = _DTYPES[x.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -311,30 +330,44 @@ def fused_mlp_bwd_kernel(x: torch.Tensor, w_up: torch.Tensor,
                 f"({lib.fused_mlp_bwd_error_name(err).decode()}; route "
                 f"{route}, m={m}, d={d}, ff={ff}, d_out={dout}, {x.dtype})")
 
-    f32 = torch.float32
     grads = dict.fromkeys(("x", "w_up", "w_down", "w_gate", "b_up",
                            "b_down"))
     with torch.cuda.device(x.device):
-        pre_u = torch.empty((m, ff), dtype=f32, device=x.device)
-        pre_g = None if w_gate is None else torch.empty_like(pre_u)
-        err = lib.fused_mlp_bwd_pre_launch(
-            ptr(x), ptr(w_up), ptr(w_gate), ptr(b_up), ptr(pre_g), ptr(pre_u),
-            m, d, ff, dtype, tma, stream)
-        fused_mlp_bwd_kernel.launches += 1
-        fused_mlp_bwd_kernel.by_route[route] += 1
-        check(err, "recompute")
         du = torch.empty((m, ff), dtype=x.dtype, device=x.device)
         h = torch.empty_like(du)
         dg = None if w_gate is None else torch.empty_like(du)
-        check(lib.fused_mlp_bwd_dh_launch(
-            ptr(dy2), ptr(w_down), ptr(pre_g), ptr(pre_u), ptr(dg), ptr(du),
-            ptr(h), m, ff, dout, ACTS.index(act), dtype, tma, stream),
-            "dh pass")
-        del pre_g, pre_u
+        fused_mlp_bwd_kernel.launches += 1
+        fused_mlp_bwd_kernel.by_route[route] += 1
+        if route == "fused":
+            check(lib.fused_mlp_bwd_fused_launch(
+                ptr(x), ptr(w_up), ptr(w_gate), ptr(b_up), ptr(dy2),
+                ptr(w_down), ptr(dg), ptr(du), ptr(h), m, d, ff, dout,
+                ACTS.index(act), stream), "fused pass")
+        else:
+            pre_u = torch.empty((m, ff), dtype=torch.float32,
+                                device=x.device)
+            pre_g = None if w_gate is None else torch.empty_like(pre_u)
+            check(lib.fused_mlp_bwd_pre_launch(
+                ptr(x), ptr(w_up), ptr(w_gate), ptr(b_up), ptr(pre_g),
+                ptr(pre_u), m, d, ff, dtype, stream), "recompute")
+            check(lib.fused_mlp_bwd_dh_launch(
+                ptr(dy2), ptr(w_down), ptr(pre_g), ptr(pre_u), ptr(dg),
+                ptr(du), ptr(h), m, ff, dout, ACTS.index(act), dtype,
+                stream), "dh pass")
+            del pre_g, pre_u
         grads["w_down"] = elk_matmul_kernel(h.t(), dy2)
-        grads["w_up"] = elk_matmul_kernel(x2.t(), du)
+        if w_gate is not None and route == "fused":
+            grads["w_gate"] = torch.empty((d, ff), dtype=x.dtype,
+                                          device=x.device)
+            grads["w_up"] = torch.empty_like(grads["w_gate"])
+            check(lib.fused_mlp_bwd_wgrad_launch(
+                ptr(x2), ptr(dg), ptr(du), ptr(grads["w_gate"]),
+                ptr(grads["w_up"]), m, d, ff, stream), "weight gradients")
+        else:
+            grads["w_up"] = elk_matmul_kernel(x2.t(), du)
+            if w_gate is not None:
+                grads["w_gate"] = elk_matmul_kernel(x2.t(), dg)
         if w_gate is not None:
-            grads["w_gate"] = elk_matmul_kernel(x2.t(), dg)
             dx = elk_matmul_kernel(dg, w_gate.t(), du, w_up.t())
         else:
             dx = elk_matmul_kernel(du, w_up.t())

@@ -243,9 +243,9 @@ def test_wired_model_matches_reference(arch, dtype):
 
 CSRC = Path(fk.__file__).resolve().parents[1] / "csrc"
 # the forward's sources: the header the routes share, the "mma_sync" and
-# "fma" instances, the "wgmma" instances
+# "fma" instances, the "wgmma" instances and their register-A products
 CU = [CSRC / name for name in ("flash_attention.cuh", "flash_attention.cu",
-                               "flash_attention_wgmma.cu")]
+                               "flash_attention_wgmma.cu", "wgmma_rs.cuh")]
 
 # the shapes the serving paths of full qwen3-14b (Hq 40, Hkv 8, D 128) give
 # the kernel: lock-step prefill, and chunks against a ring of 2048

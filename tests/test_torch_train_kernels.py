@@ -27,6 +27,7 @@ import torch
 
 from repro.kernels.fused_mlp.ref import fused_mlp_ref as jax_fused_mlp_ref
 from repro.models import layers as jlayers
+from repro_torch.chip import h100
 from repro_torch.kernels.elk_matmul import ops as matmul_ops
 from repro_torch.kernels.elk_matmul.ops import matmul
 from repro_torch.kernels.elk_matmul.ref import matmul2_ref, matmul_bwd_ref
@@ -232,25 +233,112 @@ def test_bwd_routes():
     x = torch.empty(64, 128, dtype=torch.bfloat16)
     w_up = torch.empty(128, 256, dtype=torch.bfloat16)
     w_down = torch.empty(256, 128, dtype=torch.bfloat16)
-    assert mk.bwd_route_of(x, w_up, w_down) == "two_pass"
+    assert mk.bwd_route_of(x, w_up, w_down) == "fused"
+    assert mk.bwd_route_of(x, w_up, w_down, w_up) == "fused"
     assert mk.bwd_route_of(x.float(), w_up.float(), w_down.float()) == "fma"
     assert mk.bwd_route_of(torch.empty(64, 100, dtype=torch.bfloat16),
                            torch.empty(100, 36, dtype=torch.bfloat16),
                            torch.empty(36, 100, dtype=torch.bfloat16)) \
         == "fma"
+    # attention: "wgmma" for bf16 at its head dims, "mma_sync" for the other
+    # bf16 ones, "fma" for fp32 at any
+    for d in fk.BWD_HEAD_DIMS:
+        q = torch.empty(1, 2, 4, d, dtype=torch.bfloat16)
+        want = "wgmma" if d in fk.BWD_WGMMA_HEAD_DIMS else "mma_sync"
+        assert fk.bwd_route_of(q) == want
+        assert fk.bwd_route_of(q.float()) == "fma"
+    assert set(fk.BWD_WGMMA_HEAD_DIMS) <= set(fk.BWD_HEAD_DIMS)
+    assert {fk.bwd_route_of(torch.empty(1, 2, 4, d, dtype=torch.bfloat16))
+            for d in (16, 32)} == {"mma_sync"}
+    assert set(fk.BWD_ROUTES) == {"wgmma", "mma_sync", "fma"}
+    assert set(mk.BWD_ROUTES) == {"fused", "fma"}
 
 
 def test_bwd_constants_are_what_the_kernels_compile():
-    """The head dims the bf16 backward takes are the cases its launcher
-    compiles; the forward's launcher takes the lse buffer; the MLP
-    backward's epilogue modes are the header's."""
+    """The head dims each backward route of attention compiles, the
+    constants of route "wgmma" and the tile of the fused MLP pass are the
+    Python plans'; the forward's launcher takes the lse buffer; the
+    FMA tile kernel's epilogue modes are the header's; the MLP's two weight
+    gradients are the mainloop's instance with x^T as A and two outputs."""
     src = (CSRC / "flash_attention_bwd.cu").read_text()
     cases = {int(c) for c in re.findall(r"case (\d+): return launch_mma<",
                                         src)}
-    assert cases == set(fk.BWD_HEAD_DIMS)
+    assert cases == set(fk.BWD_MMA_HEAD_DIMS)
     assert set(fk.BWD_HEAD_DIMS) <= set(fk.MMA_HEAD_DIMS)
+    assert set(fk.BWD_HEAD_DIMS) == \
+        set(fk.BWD_MMA_HEAD_DIMS) | set(fk.BWD_WGMMA_HEAD_DIMS)
+    wg = (CSRC / "flash_attention_bwd_wgmma.cu").read_text()
+    assert {int(c) for c in re.findall(r"case (\d+): return launch<", wg)} \
+        == set(fk.BWD_WGMMA_HEAD_DIMS)
+    dims = re.search(r"static_assert\((D == 64(?: \|\| D == \d+)*),", wg)
+    assert {int(d) for d in re.findall(r"D == (\d+)", dims.group(1))} \
+        == set(fk.BWD_WGMMA_HEAD_DIMS)
+
+    def const(name, text=wg):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+    assert const("kBwdBlockRows") == fk.BWD_BLOCK_ROWS
+    assert const("kBwdTile") == fk.BWD_TILE
+    assert const("kBwdDqThreads") == fk.BWD_DQ_THREADS == 2 * 128 + 32
+    assert const("kBwdDkvThreads") == fk.BWD_DKV_THREADS == 2 * 128 + 32
+    assert const("kBwdDqStages") == fk.BWD_DQ_STAGES
+    assert const("kBwdDkvStages") == fk.BWD_DKV_STAGES
+    assert "d <= 64 ? 64 : 128" in wg     # 72-112 in the layout of 128
+    rs = (CSRC / "wgmma_rs.cuh").read_text()
+    for d in fk.BWD_WGMMA_HEAD_DIMS:
+        assert f"wgmma.mma_async.sync.aligned.m64n{d}k16.f32.bf16.bf16" in rs
     assert "float* lse, int b," in (CSRC / "flash_attention.cu").read_text()
     hdr = (CSRC / "hopper_gemm.cuh").read_text()
     assert "kEpiPre = 3, kEpiDeriv = 4" in hdr
-    assert "GemmCfg<2, 128, 1, true, false, true>" in \
-        (CSRC / "fused_mlp_bwd.cu").read_text()
+    mlp = (CSRC / "fused_mlp_bwd.cu").read_text()
+    assert "using WGrad = hg::GemmCfg<2, 128, 2, false, true, true>;" in mlp
+    assert const("kFusedBN", mlp) == mk.FUSED_BN
+    assert re.search(r"static constexpr int BN = kFusedBN, BM = (\d+),",
+                     mlp).group(1) == str(mk.FUSED_BM)
+    assert {g for g in re.findall(r"launch_fused<FusedCfg<(true|false)>>",
+                                  mlp)} == {"true", "false"}
+
+
+def test_bwd_launchers_take_one_argument_list():
+    """Both libraries of attention's backward export a launcher of the same
+    parameter types, the list ``_bwd_lib`` declares (10 pointers, 6 ints,
+    12 strides, causal, window, scale, dtype, passes, stream), so one call
+    in the wrapper serves every route; the pass bits are the wrapper's."""
+    def params(text, name):
+        body = re.search(rf"int {name}\(([^)]*)\)", text).group(1)
+        kinds = []
+        for p in body.split(","):
+            p = p.strip()
+            kinds.append("ptr" if "*" in p else p.rsplit(" ", 1)[0])
+        return kinds
+
+    old = params((CSRC / "flash_attention_bwd.cu").read_text(),
+                 "flash_attention_bwd_launch")
+    wg = (CSRC / "flash_attention_bwd_wgmma.cu").read_text()
+    assert params(wg, "flash_attention_bwd_wgmma_launch") == old
+    assert old == (["ptr"] * 10 + ["int"] * 6 + ["long long"] * 12
+                   + ["int"] * 2 + ["float", "int", "int", "ptr"])
+    for text in (wg, (CSRC / "flash_attention_bwd.cu").read_text()):
+        assert "constexpr int kPassDq = 1;" in text
+        assert "constexpr int kPassDkv = 2;" in text
+    assert (fk.BWD_PASS_DQ, fk.BWD_PASS_DKV) == (1, 2)
+
+
+def test_new_bwd_instances_fit_shared_memory():
+    """Every instance this backward compiles fits the 232,448 bytes a block
+    may take, by the Python plans: route "wgmma"'s two passes at each head
+    dim, the fused MLP pass (gated and plain) with its outputs staged over
+    its ring, the weight gradients' instance."""
+    budget = h100.SMEM_PER_BLOCK
+    assert budget == 232448
+    for d in fk.BWD_WGMMA_HEAD_DIMS:
+        dq, dkv = fk.bwd_wgmma_smem(d)
+        assert dq <= budget and dkv <= budget, d
+    bn = mk.FUSED_BN
+    for gated in (True, False):
+        stages, smem = mk.fused_bwd_plan(gated)
+        assert 2 <= stages <= h100.WG_MAX_STAGES and smem <= budget
+        ring = stages * (mk.FUSED_BM + (2 if gated else 1) * bn) * 64 * 2
+        assert 3 * mk.FUSED_BM * (bn + 8) * 2 <= ring
+    stages, _ = h100.wg_stages(128, 128, 2)
+    assert h100.wg_smem_bytes(128, 128, stages, 2) <= budget
