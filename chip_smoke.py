@@ -76,11 +76,13 @@ exit code and no result line:
             decode step at a window of 1 beside the planner's.
 9. models   the paper's Table 2 models and the MoE family at full width,
             random weights from seed 0, each freed before the next:
-            dit-xl (28 layers, head dim 72) and gemma2-27b (46 layers, tied
-            head of 256000) resident, lock-step as in 5 (dit-xl: prompts of
-            256, cache 512); llama2-70b under ``elk_stream`` with the
-            planner's knobs, resident against streamed at 8 layers (16 until
-            the dry run came) on the same weights (equal tokens);
+            dit-xl (28 layers, head dim 72), gemma2-27b (46 layers, tied
+            head of 256000) and gemma-7b (28 layers, 16 heads of 256 with
+            G 1, GeGLU 24576, tied head of 256000) resident, lock-step as in
+            5 (dit-xl: prompts of 256, cache 512); llama2-70b under
+            ``elk_stream`` with the planner's knobs, resident against
+            streamed at 8 layers (16 until the dry run came) on the same
+            weights (equal tokens);
             llama4-maverick and kimi-k2 resident at 2 layers (a dense layer
             and an MoE layer of 128 / 384 experts), lock-step, and kimi-k2
             (head dim 112) through the 16-request continuous trace of 6.
@@ -126,14 +128,15 @@ exit code and no result line:
             ``fused_mlp_bwd``, ``flash_attention_bwd``) held against their
             plain backward versions over bf16 and fp32 sweeps on every route
             (attention: "wgmma", "mma_sync" and "fma"; causal, window,
-            bidirectional, cross with Sq != Sk, G 1-8, D 16-128, S no
+            bidirectional, cross with Sq != Sk, G 1-8, D 16-256, S no
             multiple of 64, rings that wrap; the MLP: "fused" and "fma",
             ragged m and ff; the forward's log-sum-exp
             beside it, and the fused pass's h against the forward's bit for
             bit), each case launched twice with equal bits, and timed at
             qwen3-14b's training shapes (4096 tokens; attention also at S
             4096), dit-xl's plain MLP and D 72 attention, kimi-k2's D 112
-            attention and D 64's, beside the plain versions and a library
+            attention, D 64's, and gemma-7b's D 256 (B 8 x S 512 and B 1 x
+            S 4096), beside the plain versions and a library
             yardstick, the MLP's each launch alone; one fp32 training step (loss
             and every gradient) of every smoke config on the card against
             the CPU; the smoke trainer (the loss falls; a crash and a
@@ -143,7 +146,10 @@ exit code and no result line:
             AdamW steps through ``Trainer``: one ``[train]`` line with the
             losses, step ms, tokens/s, peak memory, launches in all and by
             route, and layer 0's and the LM head's gradients against the
-            plain versions'.
+            plain versions'; then gemma-7b the same way at GEMMA_TRAIN_DEPTH
+            (4) of its 28 layers, GEMMA_TRAIN_STEPS (3) steps (head dim 256
+            on the backward's "wgmma" route, GeGLU, the tied head), its
+            launches the "train gemma-7b" path.
 12. dryrun  the dry run (``launch/dryrun.py``): every (arch, shape) cell of
             ``launch/specs.all_cells`` (15 x 4) counted on the meta device
             on the single-pod mesh, in worker processes (no cell in error;
@@ -386,6 +392,7 @@ STREAM_CHECK_LAYERS, STREAM_STEPS = 8, 4
 MOE_DEPTH = 2
 MODEL_RUNS = (("dit_xl", 0, DIT_PROMPT_LEN, DIT_CACHE),
               ("gemma2_27b", 0, PROMPT_LEN, CACHE),
+              ("gemma_7b", 0, PROMPT_LEN, CACHE),
               ("llama2_70b", STREAM_CHECK_LAYERS, PROMPT_LEN, CACHE),
               ("llama4_maverick_400b_a17b", MOE_DEPTH, PROMPT_LEN, CACHE),
               ("kimi_k2_1t_a32b", MOE_DEPTH, PROMPT_LEN, CACHE))
@@ -3386,8 +3393,8 @@ def live_checks(cfg, params: dict, prompts: torch.Tensor) -> None:
     """Each kernel product of layer 0 and of the first MoE layer, and the LM
     head, on the live weights, held to its plain version at the prefill's
     rows: the embedded prompts after the layer's norms (the o projection
-    takes their first Hq x D columns), the head the last tokens after the
-    final norm."""
+    takes their first Hq x D columns, repeated where Hq x D exceeds d_model),
+    the head the last tokens after the final norm."""
     x = params["embed"][prompts]                        # (B, S, d)
     kinds = tfm.layer_kinds(cfg)
     checked = sorted({0, kinds.index("moe") if "moe" in kinds else 0})
@@ -3398,8 +3405,9 @@ def live_checks(cfg, params: dict, prompts: torch.Tensor) -> None:
         a = p["attn"]
         for w in (a["w_q"], a["w_k"], a["w_v"]):
             worst = max(worst, check_matmul(h, w)[1])
-        worst = max(worst, check_matmul(
-            h[:, :a["w_o"].shape[0]].contiguous(), a["w_o"])[1])
+        n_o = a["w_o"].shape[0]         # Hq x D, past d_model at gemma-7b
+        worst = max(worst, check_matmul(h.repeat(
+            1, -(-n_o // h.shape[1]))[:, :n_o].contiguous(), a["w_o"])[1])
         h = rms_norm(x, p["ln2"], cfg.norm_eps).reshape(-1, cfg.d_model)
         if "moe" in p:
             worst = max(worst, check_matmul(h, p["moe"]["router"])[1])
@@ -3606,22 +3614,24 @@ def moe_stream_phase(arch: str, cfg, params: dict, run: dict,
 
 
 def models_phase(kernel_rows: list[dict], profile: bool) -> None:
-    """The five configs of this slice at full width, one after another,
-    each freed before the next: dit-xl and gemma2-27b resident at full
-    depth, llama2-70b resident against streamed, llama4-maverick and
+    """The six configs of this slice at full width, one after another,
+    each freed before the next: dit-xl, gemma2-27b and gemma-7b resident at
+    full depth, llama2-70b resident against streamed, llama4-maverick and
     kimi-k2 resident at
     MOE_DEPTH layers (a dense and an MoE layer), kimi-k2 also through the
     continuous batcher, then both streamed (``moe_stream_phase``)."""
     t_phase = time.perf_counter()
     for arch, depth, prompt_len, ring in MODEL_RUNS:
+        t_check = time.perf_counter()
         if arch == "llama2_70b":
-            t_check = time.perf_counter()
             llama2_70b_phase()
             say(f"[models] llama2-70b check at {STREAM_CHECK_LAYERS} layers "
                 f"took {time.perf_counter() - t_check:.1f}s")
             continue
         cfg, params, eng, run = resident_model(arch, depth, prompt_len, ring,
                                                kernel_rows)
+        say(f"[models] {cfg.name} resident took "
+            f"{time.perf_counter() - t_check:.1f}s")
         if arch == TRACE_ARCH and profile:
             profile_moe(eng, run)
         del eng
@@ -4086,7 +4096,10 @@ MLP_BWD_SWEEP = [(128, 128, 256, True, False, "silu"),
 # head dim of the bf16 routes (16 and 32 on "mma_sync" only), S no multiple of
 # 64 or 128, Sq != Sk, and rows enough that both rings of route "wgmma" wrap
 # (520: nine key tiles of the dQ pass through its three stages; G 7 x 6
-# query tiles through the dK/dV pass's four)
+# query tiles through the dK/dV pass's four).  D 256 (the plan that splits
+# the output's columns, two stages a ring): G 1 and 2; causal, windowed and
+# bidirectional with Sq != Sk; S no multiple of 64; 333 rows (six tiles
+# through each two-stage ring, 2 x 4 for G 2)
 FLASH_BWD_SWEEP = [(2, 4, 4, 128, 128, 64, True, 0),
                    (1, 5, 1, 96, 96, 72, True, 0),
                    (1, 7, 1, 130, 130, 80, True, 48),
@@ -4101,11 +4114,20 @@ FLASH_BWD_SWEEP = [(2, 4, 4, 128, 128, 64, True, 0),
                    (1, 1, 1, 520, 520, 128, True, 0),
                    (1, 5, 5, 300, 300, 96, True, 64),
                    (1, 4, 2, 100, 100, 32, True, 0),
-                   (1, 2, 1, 70, 70, 16, False, 0)]
+                   (1, 2, 1, 70, 70, 16, False, 0),
+                   (1, 2, 2, 333, 333, 256, True, 0),
+                   (2, 4, 2, 200, 200, 256, True, 70),
+                   (1, 2, 1, 77, 150, 256, False, 0),
+                   (1, 4, 2, 256, 256, 256, True, 0)]
 # the full-width slice: qwen3-14b at TRAIN_DEPTH of its 40 layers (2.88 B
 # parameters; at 12 bytes each with bf16 weights and gradients and fp32
 # moments, 34.5 GB; all 40 layers would need 178 GB)
 TRAIN_DEPTH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 6
+# gemma-7b (head dim 256) at GEMMA_TRAIN_DEPTH of its 28 layers: 1.89 B
+# parameters, 22.7 GB at 12 bytes each (all 28: about 102 GB); the fewest
+# steps the checks need (the first is the warm-up; the step time is the
+# mean of the others)
+GEMMA_TRAIN_DEPTH, GEMMA_TRAIN_STEPS = 4, 3
 TRAIN_GRAD_TOL = 5e-2     # relative Frobenius error of a bf16 gradient
 TRAIN_PARITY_TOL = 5e-4   # fp32 smoke configs, card against CPU
 TRAIN_DIR = ROOT / "build" / "train"
@@ -4424,8 +4446,9 @@ def train_rows(cfg) -> dict:
     """The backward sweeps (bf16 on every route, and fp32), then the timed
     rows at the training shapes (B 8, S 512 = 4096 tokens): qwen3-14b's
     products, MLP and attention, attention at S 4096, dit-xl's plain MLP and
-    bidirectional attention at D 72, kimi-k2's attention at D 112, and at D
-    64 internvl2-1b's and whisper-tiny's encoder's."""
+    bidirectional attention at D 72, kimi-k2's attention at D 112, at D
+    64 internvl2-1b's and whisper-tiny's encoder's, and gemma-7b's at D 256
+    (B 8 x S 512, and B 1 x S 4096, the length of its train_4k cell)."""
     gen = torch.Generator(device="cuda").manual_seed(4321)
 
     def normal(*shape, dtype, scale=1.0):
@@ -4439,6 +4462,7 @@ def train_rows(cfg) -> dict:
     cases = dict.fromkeys(names, 0)
     xt_routes = dict.fromkeys(MATMUL_ROUTES, 0)
     bwd_routes = {"fused_mlp_bwd": {}, "flash_attention_bwd": {}}
+    attn_dims = {}     # the attention backward's cases by head dim and route
     for dtype in (torch.bfloat16, torch.float32):
         worst = dict.fromkeys(names, (0.0, 0.0))
         for tok, k, n in XT_SWEEP:
@@ -4478,6 +4502,8 @@ def train_rows(cfg) -> dict:
             route = flash_bwd_route_of(q)
             bwd_routes["flash_attention_bwd"][route] = \
                 bwd_routes["flash_attention_bwd"].get(route, 0) + 1
+            by_dim = attn_dims.setdefault(f"D{d}", {})
+            by_dim[route] = by_dim.get(route, 0) + 1
         for name in names:
             by_type[name][str(dtype).removeprefix("torch.")] = worst[name]
     worst = {name: max(by_type[name].values()) for name in names}
@@ -4485,7 +4511,8 @@ def train_rows(cfg) -> dict:
         f"with equal bits, the fused pass's h the forward's bit for bit: "
         f"cases {json.dumps(cases)}; x^T dy by route "
         f"{json.dumps(xt_routes)}; the MLP and attention backward by route "
-        f"{json.dumps(bwd_routes)}; worst err/tol and its err by type "
+        f"{json.dumps(bwd_routes)}; attention by head dim and route "
+        f"{json.dumps(attn_dims)}; worst err/tol and its err by type "
         f"{json.dumps(by_type)}")
 
     # timed rows at the full-width training shapes
@@ -4526,13 +4553,16 @@ def train_rows(cfg) -> dict:
     # D 64: internvl2-1b (G 7) causal, whisper-tiny's encoder over its 1500
     # frames (G 1) bidirectional
     intern, whisper = get_config("internvl2_1b"), get_config("whisper_tiny")
+    gemma = get_config("gemma_7b")
     out["flash_attention_bwd"] = []
     for b, c, s, causal in ((TRAIN_BATCH, cfg, TRAIN_SEQ, True),
                             (1, cfg, 4096, True),
                             (TRAIN_BATCH, dit, TRAIN_SEQ, False),
                             (TRAIN_BATCH, kimi, TRAIN_SEQ, True),
                             (TRAIN_BATCH, intern, TRAIN_SEQ, True),
-                            (TRAIN_BATCH, whisper, 1500, False)):
+                            (TRAIN_BATCH, whisper, 1500, False),
+                            (TRAIN_BATCH, gemma, TRAIN_SEQ, True),
+                            (1, gemma, 4096, True)):
         out["flash_attention_bwd"].append(flash_bwd_row(
             normal, b, c.num_heads, c.num_kv_heads, s, c.resolved_head_dim,
             causal))
@@ -4718,13 +4748,16 @@ def smoke_trainer() -> None:
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
 
-def train_full(rows: list[dict]) -> dict:
-    """qwen3-14b at full width and TRAIN_DEPTH layers, bf16, B 8 x S 512,
-    remat: TRAIN_STEPS AdamW steps through ``Trainer`` with the launch
-    counts recorded as the "train" path; then layer 0's and the LM head's
-    gradients of one step against the plain versions' on the same weights
-    and batch."""
-    cfg = model_cfg("qwen3_14b", TRAIN_DEPTH)
+def train_full(rows: list[dict], arch: str = "qwen3_14b",
+               depth: int = TRAIN_DEPTH, steps: int = TRAIN_STEPS,
+               path: str = "train") -> dict:
+    """``arch`` at full width and ``depth`` layers, bf16, B 8 x S 512,
+    remat: ``steps`` AdamW steps through ``Trainer`` with the launch counts
+    recorded as ``path``; then layer 0's and the LM head's gradients of one
+    step against the plain versions' on the same weights and batch (a tied
+    head's: the embedding's, which also takes the lookup's gradient), and
+    where a step's time goes (``train_split``)."""
+    cfg = model_cfg(arch, depth)
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4733,11 +4766,9 @@ def train_full(rows: list[dict]) -> dict:
     t0 = time.perf_counter()
     tr = Trainer(cfg, DataConfig(batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                                  vocab_size=cfg.vocab_size),
-                 AdamWConfig(lr=1e-4, warmup_steps=2,
-                             total_steps=TRAIN_STEPS),
-                 TrainerConfig(workdir=str(TRAIN_DIR),
-                               total_steps=TRAIN_STEPS,
-                               ckpt_every=TRAIN_STEPS + 1))
+                 AdamWConfig(lr=1e-4, warmup_steps=2, total_steps=steps),
+                 TrainerConfig(workdir=str(TRAIN_DIR), total_steps=steps,
+                               ckpt_every=steps + 1))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in tree_leaves(tr.params))
     init_s = time.perf_counter() - t0
@@ -4746,20 +4777,20 @@ def train_full(rows: list[dict]) -> dict:
     torch.cuda.synchronize()
     counts, routes = read_launches(train=True), read_routes(train=True)
     peak = torch.cuda.max_memory_allocated() - base
-    record_launches(rows, "train", counts, train_expected(cfg, TRAIN_STEPS),
-                    routes)
+    record_launches(rows, path, counts, train_expected(cfg, steps), routes)
     losses = [m["loss"] for m in log]
     if not all(np.isfinite(losses)):
-        fail(f"[train] full width: losses {losses}")
+        fail(f"[train] {cfg.name} full width: losses {losses}")
     step_s = statistics.mean(m["step_time"] for m in log[1:])
 
     # layer 0's and the LM head's gradients against the plain versions'
     batch = {k: v.to("cuda") for k, v in tr.data.batch_at(0).items()}
     split = train_split(tr, batch)
+    head = "embed" if cfg.tie_embeddings else "lm_head"
     leaves = [t for _, t in tree_items(tr.params["layers"][0])]
-    leaves.append(tr.params["lm_head"])
+    leaves.append(tr.params[head])
     names = [f"layers/0/{p}" for p, _ in tree_items(tr.params["layers"][0])]
-    names.append("lm_head")
+    names.append(head)
     loss_fn = make_loss_fn(cfg)
     grads = torch.autograd.grad(loss_fn(tr.params, batch), leaves)
     with _plain_dispatch():
@@ -4770,16 +4801,17 @@ def train_full(rows: list[dict]) -> dict:
         rel = float((g32 - r32).norm() / r32.norm().clamp(min=1e-30))
         checked[name] = round(rel, 5)
         if not rel < TRAIN_GRAD_TOL:
-            fail(f"[train] full width: gradient {name} off by {rel:.4f} "
-                 f"(relative norm) from the plain versions'")
+            fail(f"[train] {cfg.name} full width: gradient {name} off by "
+                 f"{rel:.4f} (relative norm) from the plain versions'")
     del grads, plain, leaves, batch
     tokens = TRAIN_BATCH * TRAIN_SEQ
     line = {
-        "model": cfg.name, "layers": TRAIN_DEPTH, "of_layers": 40,
+        "model": cfg.name, "layers": depth,
+        "of_layers": get_config(arch).num_layers,
         "d_model": cfg.d_model, "d_ff": cfg.d_ff,
         "vocab": cfg.vocab_size, "params": n_params, "dtype": "bfloat16",
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "remat": True,
-        "steps": TRAIN_STEPS, "losses": losses,
+        "steps": steps, "losses": losses,
         "step_ms": step_s * 1e3,
         "first_step_ms": log[0]["step_time"] * 1e3,
         "tokens_per_s": tokens / step_s,
@@ -4871,12 +4903,17 @@ def train_phase(cfg, rows: list[dict]) -> None:
     timed (``train_rows``), their rows added to ``rows``; the fp32 parity
     of one step of every smoke config; the smoke trainer; the full-width
     slice (``train_full``), its launches the "train" path of every kernel
-    it runs."""
+    it runs; gemma-7b's slice (head dim 256), the "train gemma-7b" path."""
     new = train_rows(get_config("qwen3_14b"))
     train_parity()
     smoke_trainer()
     rows.extend(new)
     train_full(rows)
+    t0 = time.perf_counter()
+    train_full(rows, "gemma_7b", GEMMA_TRAIN_DEPTH, GEMMA_TRAIN_STEPS,
+               "train gemma-7b")
+    say(f"[train] gemma-7b at {GEMMA_TRAIN_DEPTH} layers took "
+        f"{time.perf_counter() - t0:.1f}s")
 
 # ---------------------------------------------------------------------------
 # phase 12: the dry run (launch/dryrun.py)

@@ -1,5 +1,5 @@
 // The backward of flash attention for Hopper (sm_90a), route "wgmma": bf16 at
-// head dims 64, 72, 80, 96, 112 and 128.  What it computes, the masks, GQA
+// head dims 64, 72, 80, 96, 112, 128 and 256.  What it computes, the masks, GQA
 // and the rows with no live key are as in flash_attention_bwd.cu, which keeps
 // the routes "mma_sync" (head dims 16 and 32) and "fma" (fp32); this source
 // holds the "wgmma" route only, so that its nvcc runs beside that one's.
@@ -39,7 +39,8 @@
 //     first products on wgmma from shared memory, P^T or dS^T formed in
 //     registers and fed as the register A of the last (dO or Q read MN-major
 //     from the same stage).  dK or dV stays in registers to the end, D / 2
-//     fp32 a thread, at most 128 accumulator registers with S^T and dP^T.
+//     fp32 a thread (D / 4 at D 256, below), at most 128 accumulator
+//     registers with S^T and dP^T.
 //     S^T is taken twice, five products a tile where four would do: with
 //     both dK and dV (and S^T, dP^T) in one warpgroup, 192 accumulators at D
 //     128, ptxas spilled 256-792 bytes from D 80 up, with 288 threads as
@@ -65,6 +66,25 @@
 //     ceil(D / 16) k16 steps and the RS products at n = D, as the forward's.
 //   * TMA zero-fills rows past S; their lse is +inf and their delta 0, so P
 //     and dS are 0 there.
+//   * D 256 (gemma-7b) splits each output's columns between the two consumer
+//     warpgroups, so that each keeps the accumulators it keeps at D 128:
+//     128 output columns (64 registers) beside S and dP (or S^T and dP^T).
+//     A whole 64 x 256 output would be 128 registers a thread, 192 with S
+//     and dP, where ptxas spilled past about 128 (above).  The dQ pass's
+//     block owns 64 query rows; both warpgroups take S and dP of those rows
+//     (each its own copy, from the same tiles) and warpgroup c dQ's columns
+//     128 c .. 128 c + 127.  The dK/dV pass's block owns 64 keys and one half
+//     of D's columns (two blocks a key tile): S^T and dP^T over the whole D,
+//     dV or dK of its half.  S is taken twice as often as at D 128 and dP
+//     twice in the dK/dV pass, 13 products of 64 x 64 x 256 a tile pair
+//     where five would do; the 64-row tiles of 512 bytes a row leave room
+//     for two stages a ring (kBwdSplitStages).  Handing P and dS from one
+//     warpgroup to the other through shared memory would save the copies of
+//     S and dP, at a wait a step; at D 128 that measured slower (above).
+//     At gemma-7b's training shape (B 8, 16/16 heads, S 512, causal) the
+//     bound is 0.080 ms (bytes, 0.269 GB; the five products 42.9 GFLOP,
+//     0.043 ms); the plan measured 0.447 ms against 0.288 for SDPA's
+//     backward (chip_smoke.py, H100 80GB HBM3 at 700 W; PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,29 +112,39 @@ constexpr int kBwdDqThreads = 288;     // two consumer warpgroups and a producer
 constexpr int kBwdDkvThreads = 288;    // the same
 constexpr int kBwdDqStages = 3;        // the dQ pass's ring: (K, V) tiles
 constexpr int kBwdDkvStages = 4;       // the dK/dV pass's: (Q, dO) tiles and their (lse, delta)
+constexpr int kBwdSplitStages = 2;     // both rings at D 256, whose tiles are twice as wide
 constexpr int kPassDq = 1;            // the passes a launch runs (`passes`)
 constexpr int kPassDkv = 2;
 
-// The shared-memory layout's head dim: 64, or 128 for every D from 72 to 128.
-constexpr int padded_dim(int d) { return d <= 64 ? 64 : 128; }
+// The shared-memory layout's head dim: 64, 128 for every D from 72 to 128,
+// or 256.
+constexpr int padded_dim(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
 
 // Shared memory of the two passes.  A tile of R rows is DP / 64 column blocks
 // of R rows x 128 bytes (swizzled as TMA writes them).
-//   dQ:    the Q and dO tiles of the block's 128 rows, the ring of (K, V)
-//          tiles of 64 keys, (lse log2 e, delta) of the 128 rows, mbarriers
+//   dQ:    the Q and dO tiles of the block's ROWS rows, the ring of (K, V)
+//          tiles of 64 keys, (lse log2 e, delta) of the ROWS rows, mbarriers
 //   dK/dV: the K and V tiles of the block's 64 keys, the ring of (Q, dO)
 //          tiles of 64 queries, their (lse log2 e, delta), mbarriers
+// SPLIT (D 256): the two consumer warpgroups split the output's columns, NW
+// each, on the same rows (see the top of this file).
 template <int D>
 struct BwdTile {
+  static constexpr bool SPLIT = D > 128;
+  static constexpr int NW = SPLIT ? D / 2 : D;                     // a warpgroup's output columns
+  static constexpr int ROWS = SPLIT ? kBwdRows : kBwdBlockRows;    // a dQ block's query rows
+  static constexpr int HALVES = SPLIT ? 2 : 1;                     // dK/dV blocks a key tile
+  static constexpr int DQ_STAGES = SPLIT ? kBwdSplitStages : kBwdDqStages;
+  static constexpr int DKV_STAGES = SPLIT ? kBwdSplitStages : kBwdDkvStages;
   static constexpr int DP = padded_dim(D);
   static constexpr int BLOCKS = DP / 64;
   static constexpr int TILE64 = kBwdTile * DP * 2;         // a tile of 64 rows
-  static constexpr int DQ_TILE = kBwdBlockRows * DP * 2;   // a dQ block's rows
-  static constexpr int DQ_SMEM = 1024 + 2 * DQ_TILE + kBwdDqStages * 2 * TILE64 +
-                                 kBwdBlockRows * 8 + (2 * kBwdDqStages + 1) * 8;
-  static constexpr int DKV_SMEM = 1024 + 2 * TILE64 + kBwdDkvStages * 2 * TILE64 +
-                                  kBwdDkvStages * kBwdTile * 8 + (2 * kBwdDkvStages + 1) * 8;
-  static_assert(D == 64 || D == 72 || D == 80 || D == 96 || D == 112 || D == 128,
+  static constexpr int DQ_TILE = ROWS * DP * 2;            // a dQ block's rows
+  static constexpr int DQ_SMEM = 1024 + 2 * DQ_TILE + DQ_STAGES * 2 * TILE64 + ROWS * 8 +
+                                 (2 * DQ_STAGES + 1) * 8;
+  static constexpr int DKV_SMEM = 1024 + 2 * TILE64 + DKV_STAGES * 2 * TILE64 +
+                                  DKV_STAGES * kBwdTile * 8 + (2 * DKV_STAGES + 1) * 8;
+  static_assert(D == 64 || D == 72 || D == 80 || D == 96 || D == 112 || D == 128 || D == 256,
                 "head dims of the wgmma backward");
   static_assert(DQ_SMEM <= hg::kSmemBudget && DKV_SMEM <= hg::kSmemBudget,
                 "a block has 227 KB of shared memory");
@@ -246,20 +276,20 @@ __global__ void __launch_bounds__(kBwdDqThreads, 1)
   unsigned char* q_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* do_s = q_s + T::DQ_TILE;
   unsigned char* ring = do_s + T::DQ_TILE;  // stage s: the K tile, then the V tile
-  float2* ld_s = reinterpret_cast<float2*>(ring + kBwdDqStages * 2 * T::TILE64);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ld_s + kBwdBlockRows);
-  uint64_t* empty = full + kBwdDqStages;
-  uint64_t* qbar = empty + kBwdDqStages;
+  float2* ld_s = reinterpret_cast<float2*>(ring + T::DQ_STAGES * 2 * T::TILE64);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ld_s + T::ROWS);
+  uint64_t* empty = full + T::DQ_STAGES;
+  uint64_t* qbar = empty + T::DQ_STAGES;
 
   // the block: the last query rows first when causal (they walk the most tiles)
-  const int nqb = (a.sq + kBwdBlockRows - 1) / kBwdBlockRows;
+  const int nqb = (a.sq + T::ROWS - 1) / T::ROWS;
   const int per = a.hq * a.b;
   const int rank = blockIdx.x / per, rem = blockIdx.x % per;
   const int qb = a.causal ? nqb - 1 - rank : rank;
   const int h = rem % a.hq, b = rem / a.hq, hk = h / a.g;
-  const int q0 = qb * kBwdBlockRows;
+  const int q0 = qb * T::ROWS;
   const int nk = (a.sk + kBwdTile - 1) / kBwdTile;
-  const int q_last = min(q0 + kBwdBlockRows, a.sq) - 1;
+  const int q_last = min(q0 + T::ROWS, a.sq) - 1;
   const int kt_first = a.window > 0 ? max(0, (q0 - a.window + 1) / kBwdTile) : 0;
   const int kt_last = a.causal ? min(nk, q_last / kBwdTile + 1) : nk;
   const int n_tiles = max(0, kt_last - kt_first);
@@ -267,7 +297,7 @@ __global__ void __launch_bounds__(kBwdDqThreads, 1)
 
   if (tid == 0) {
 #pragma unroll 1
-    for (int s = 0; s < kBwdDqStages; ++s) {
+    for (int s = 0; s < T::DQ_STAGES; ++s) {
       hg::mbar_init(&full[s], 1);
       hg::mbar_init(&empty[s], 8);  // one arrival a consumer warp
     }
@@ -283,15 +313,15 @@ __global__ void __launch_bounds__(kBwdDqThreads, 1)
 #pragma unroll
       for (int c = 0; c < T::BLOCKS; ++c)
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int off = c * kBwdBlockRows * 128 + half * kBwdRows * 128;
+        for (int half = 0; half < T::ROWS / kBwdRows; ++half) {
+          const int off = c * T::ROWS * 128 + half * kBwdRows * 128;
           tma_load_4d(q_s + off, &p.q_map, qbar, c * 64, q0 + half * kBwdRows, h, b);
           tma_load_4d(do_s + off, &p.do_map, qbar, c * 64, q0 + half * kBwdRows, h, b);
         }
 #pragma unroll 1
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kBwdDqStages;
-        hg::mbar_wait(&empty[s], ((i / kBwdDqStages) & 1) ^ 1);
+        const int s = i % T::DQ_STAGES;
+        hg::mbar_wait(&empty[s], ((i / T::DQ_STAGES) & 1) ^ 1);
         unsigned char* st = ring + s * 2 * T::TILE64;
         const int j0 = (kt_first + i) * kBwdTile;
         hg::mbar_expect_tx(&full[s], 2 * T::TILE64);
@@ -305,53 +335,64 @@ __global__ void __launch_bounds__(kBwdDqThreads, 1)
     return;
   }
 
-  // consumers: warpgroup cw owns rows q0 + 64 cw .. + 63
+  // consumers: warpgroup cw owns rows q0 + 64 cw .. + 63 and all D columns
+  // of dQ, or (SPLIT) rows q0 .. q0 + 63 and columns col0 .. col0 + NW - 1
   const int cw = warp >> 2, t = tid & 127, wq = warp & 3;
-  const int i0 = q0 + cw * kBwdRows;
+  const int r0 = T::SPLIT ? 0 : cw * kBwdRows;  // the warpgroup's first row in the block
+  const int col0 = T::SPLIT ? cw * T::NW : 0;
+  const int i0 = q0 + r0;
   {
-    // delta of each row, two threads a row, 16-byte loads of O and dO; the
-    // rows past Sq (up to sq_pad) get lse +inf and delta 0
-    const int r = t >> 1, part = t & 1, i = i0 + r;
+    // delta of each row, TPR threads a row (the block's 256 consumer threads
+    // on its 64 rows when SPLIT, else each warpgroup on its own), 16-byte
+    // loads of O and dO; the rows past Sq (up to sq_pad) get lse +inf and
+    // delta 0
+    constexpr int TPR = T::SPLIT ? 4 : 2;
+    const int u = T::SPLIT ? tid : t;
+    const int r = r0 + u / TPR, part = u % TPR, i = q0 + r;
     float s = 0.0f;
     if (i < a.sq) {
       const bf16* op = a.o + b * a.o_sb + h * a.o_sh + (long long)i * a.o_ss;
       const bf16* dp = a.dout + b * a.do_sb + h * a.do_sh + (long long)i * a.do_ss;
 #pragma unroll
-      for (int c = part; c < D / 8; c += 2)
+      for (int c = part; c < D / 8; c += TPR)
         s += dot8(*reinterpret_cast<const uint4*>(op + 8 * c),
                   *reinterpret_cast<const uint4*>(dp + 8 * c));
     }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
+#pragma unroll
+    for (int m = 1; m < TPR; m <<= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
     if (part == 0) {
       const long long row = ((long long)b * a.hq + h) * a.sq;
       const float2 v = i < a.sq ? make_float2(a.lse[row + i] * kLog2e, s)
                                 : make_float2(INFINITY, 0.0f);
-      ld_s[cw * kBwdRows + r] = v;
+      ld_s[r] = v;
       if (i < a.sq_pad) a.ld[((long long)b * a.hq + h) * a.sq_pad + i] = v;
     }
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+    if constexpr (T::SPLIT)
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    else
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
   }
   const int gid = lane >> 2, tig = lane & 3;
   int qi[2];
   float l2[2], dl[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int r = cw * kBwdRows + wq * 16 + gid + 8 * hh;
+    const int r = r0 + wq * 16 + gid + 8 * hh;
     qi[hh] = q0 + r;
     l2[hh] = ld_s[r].x;
     dl[hh] = ld_s[r].y;
   }
-  float dq[D / 2];
+  float dq[T::NW / 2];
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) dq[e] = 0.0f;
+  for (int e = 0; e < T::NW / 2; ++e) dq[e] = 0.0f;
   const uint32_t q_base = smem_u32(q_s), do_base = smem_u32(do_s);
   hg::mbar_wait(qbar, 0);
 
 #pragma unroll 1
   for (int it = 0; it < n_tiles; ++it) {
-    const int s = it % kBwdDqStages;
+    const int s = it % T::DQ_STAGES;
     const int j0 = (kt_first + it) * kBwdTile;
-    hg::mbar_wait(&full[s], (it / kBwdDqStages) & 1);
+    hg::mbar_wait(&full[s], (it / T::DQ_STAGES) & 1);
     if (tile_dead(a, i0, j0)) {
       __syncwarp();
       if (lane == 0) hg::mbar_arrive(&empty[s]);
@@ -365,12 +406,12 @@ __global__ void __launch_bounds__(kBwdDqThreads, 1)
     hg::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < (D + 15) / 16; ++kk)
-      hg::wgmma_m64n64<0>(sc, kmajor(q_base, kk, kBwdBlockRows * 128, cw * kBwdRows * 128),
+      hg::wgmma_m64n64<0>(sc, kmajor(q_base, kk, T::ROWS * 128, r0 * 128),
                  kmajor(k_base, kk, kBwdTile * 128, 0), kk != 0);
     hg::wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < (D + 15) / 16; ++kk)
-      hg::wgmma_m64n64<0>(dp, kmajor(do_base, kk, kBwdBlockRows * 128, cw * kBwdRows * 128),
+      hg::wgmma_m64n64<0>(dp, kmajor(do_base, kk, T::ROWS * 128, r0 * 128),
                  kmajor(v_base, kk, kBwdTile * 128, 0), kk != 0);
     hg::wgmma_commit();
     hg::wgmma_wait<1>();
@@ -396,7 +437,8 @@ __global__ void __launch_bounds__(kBwdDqThreads, 1)
     hg::fence_acc(dq);
     hg::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wgmma_pv<D>(dq, af[j], mnmajor(k_base, j));
+    for (int j = 0; j < 4; ++j)
+      wgmma_pv<T::NW>(dq, af[j], mnmajor(k_base + col0 / 64 * kBwdTile * 128, j));
     hg::wgmma_commit();
     hg::wgmma_wait<0>();
     hg::fence_acc(dq);
@@ -408,9 +450,9 @@ __global__ void __launch_bounds__(kBwdDqThreads, 1)
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (qi[hh] >= a.sq) continue;
-    bf16* row = dqg + (long long)qi[hh] * a.dq_ss + 2 * tig;
+    bf16* row = dqg + (long long)qi[hh] * a.dq_ss + col0 + 2 * tig;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+    for (int c = 0; c < T::NW / 8; ++c)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * c) =
           __floats2bfloat162_rn(dq[4 * c + 2 * hh] * a.scale, dq[4 * c + 2 * hh + 1] * a.scale);
   }
@@ -429,15 +471,17 @@ __global__ void __launch_bounds__(kBwdDkvThreads, 1)
   unsigned char* k_s = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* v_s = k_s + T::TILE64;
   unsigned char* ring = v_s + T::TILE64;  // stage s: the Q tile, then the dO tile
-  float2* ld_s = reinterpret_cast<float2*>(ring + kBwdDkvStages * 2 * T::TILE64);
-  uint64_t* full = reinterpret_cast<uint64_t*>(ld_s + kBwdDkvStages * kBwdTile);
-  uint64_t* empty = full + kBwdDkvStages;
-  uint64_t* kvbar = empty + kBwdDkvStages;
+  float2* ld_s = reinterpret_cast<float2*>(ring + T::DKV_STAGES * 2 * T::TILE64);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ld_s + T::DKV_STAGES * kBwdTile);
+  uint64_t* empty = full + T::DKV_STAGES;
+  uint64_t* kvbar = empty + T::DKV_STAGES;
 
-  // the block: the first keys first (under a causal mask they walk the most tiles)
-  const int per = a.hkv * a.b;
+  // the block: the first keys first (under a causal mask they walk the most
+  // tiles); SPLIT: each key tile's two blocks, one a half of D's columns
+  const int per = a.hkv * a.b * T::HALVES;
   const int kb = blockIdx.x / per, rem = blockIdx.x % per;
-  const int hk = rem % a.hkv, b = rem / a.hkv;
+  const int col0 = rem % T::HALVES * T::NW, hb = rem / T::HALVES;
+  const int hk = hb % a.hkv, b = hb / a.hkv;
   const int j0 = kb * kBwdRows;
   const int j_last = min(j0 + kBwdRows, a.sk) - 1;
   const int nq = (a.sq + kBwdTile - 1) / kBwdTile;
@@ -450,7 +494,7 @@ __global__ void __launch_bounds__(kBwdDkvThreads, 1)
 
   if (tid == 0) {
 #pragma unroll 1
-    for (int s = 0; s < kBwdDkvStages; ++s) {
+    for (int s = 0; s < T::DKV_STAGES; ++s) {
       hg::mbar_init(&full[s], 1);
       hg::mbar_init(&empty[s], 8);  // one arrival a consumer warp
     }
@@ -471,9 +515,9 @@ __global__ void __launch_bounds__(kBwdDkvThreads, 1)
       int g = 0, qt = qt_first;
 #pragma unroll 1
       for (int i = 0; i < n_steps; ++i) {
-        const int s = i % kBwdDkvStages;
+        const int s = i % T::DKV_STAGES;
         const int h = hk * a.g + g;
-        hg::mbar_wait(&empty[s], ((i / kBwdDkvStages) & 1) ^ 1);
+        hg::mbar_wait(&empty[s], ((i / T::DKV_STAGES) & 1) ^ 1);
         unsigned char* st = ring + s * 2 * T::TILE64;
         hg::mbar_expect_tx(&full[s], 2 * T::TILE64 + kBwdTile * 8);
 #pragma unroll
@@ -495,23 +539,24 @@ __global__ void __launch_bounds__(kBwdDkvThreads, 1)
   }
 
   // consumers, both on the block's 64 keys: warpgroup 0 takes S^T and dV +=
-  // P^T dO, warpgroup 1 S^T, dP^T and dK += dS^T Q
+  // P^T dO, warpgroup 1 S^T, dP^T and dK += dS^T Q (columns col0 .. col0 +
+  // NW - 1 of each)
   const bool dk_wg = warp >= 4;
   const int wk = warp & 3, gid = lane >> 2, tig = lane & 3;
   const int kj[2] = {j0 + wk * 16 + gid, j0 + wk * 16 + gid + 8};
-  float acc[D / 2];  // dV, or dK
+  float acc[T::NW / 2];  // dV, or dK
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.0f;
+  for (int e = 0; e < T::NW / 2; ++e) acc[e] = 0.0f;
   const uint32_t k_base = smem_u32(k_s), v_base = smem_u32(v_s);
   hg::mbar_wait(kvbar, 0);
 
   int qt = qt_first;
 #pragma unroll 1
   for (int it = 0; it < n_steps; ++it) {
-    const int s = it % kBwdDkvStages;
+    const int s = it % T::DKV_STAGES;
     const int qi0 = qt * kBwdTile;
     if (++qt == qt_last) qt = qt_first;
-    hg::mbar_wait(&full[s], (it / kBwdDkvStages) & 1);
+    hg::mbar_wait(&full[s], (it / T::DKV_STAGES) & 1);
     if (tile_dead(a, qi0, j0)) {
       __syncwarp();
       if (lane == 0) hg::mbar_arrive(&empty[s]);
@@ -574,12 +619,12 @@ __global__ void __launch_bounds__(kBwdDkvThreads, 1)
       }
       acc_to_a(af, st);
     }
-    // dK += dS^T Q, or dV += P^T dO: Q or dO read MN-major
-    const uint32_t b_base = dk_wg ? q_base : do_base;
+    // dK += dS^T Q, or dV += P^T dO: Q or dO read MN-major, from column col0
+    const uint32_t b_base = (dk_wg ? q_base : do_base) + col0 / 64 * kBwdTile * 128;
     hg::fence_acc(acc);
     hg::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wgmma_pv<D>(acc, af[j], mnmajor(b_base, j));
+    for (int j = 0; j < 4; ++j) wgmma_pv<T::NW>(acc, af[j], mnmajor(b_base, j));
     hg::wgmma_commit();
     hg::wgmma_wait<0>();
     hg::fence_acc(acc);
@@ -593,9 +638,9 @@ __global__ void __launch_bounds__(kBwdDkvThreads, 1)
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     if (kj[hh] >= a.sk) continue;
-    bf16* row = out + kv0 + (long long)kj[hh] * D + 2 * tig;
+    bf16* row = out + kv0 + (long long)kj[hh] * D + col0 + 2 * tig;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+    for (int c = 0; c < T::NW / 8; ++c)
       *reinterpret_cast<__nv_bfloat162*>(row + 8 * c) =
           __floats2bfloat162_rn(acc[4 * c + 2 * hh] * mul, acc[4 * c + 2 * hh + 1] * mul);
   }
@@ -680,9 +725,9 @@ int launch(BwdParams& p, int passes, cudaStream_t s) {
   if (err == 0) err = allow(flash_attention_bwd_dkv_kernel<D>, T::DKV_SMEM, dkv_done);
   if (err != 0) return err;
   const BwdArgs& a = p.a;
-  const long long dq_blocks =
-      (long long)((a.sq + kBwdBlockRows - 1) / kBwdBlockRows) * a.hq * a.b;
-  const long long dkv_blocks = (long long)((a.sk + kBwdRows - 1) / kBwdRows) * a.hkv * a.b;
+  const long long dq_blocks = (long long)((a.sq + T::ROWS - 1) / T::ROWS) * a.hq * a.b;
+  const long long dkv_blocks =
+      (long long)((a.sk + kBwdRows - 1) / kBwdRows) * a.hkv * a.b * T::HALVES;
   if (dq_blocks >= (1ll << 31) || dkv_blocks >= (1ll << 31)) return -1;
   if (passes & kPassDq) {
     flash_attention_bwd_dq_kernel<D><<<(unsigned)dq_blocks, kBwdDqThreads, T::DQ_SMEM, s>>>(p);
@@ -702,7 +747,7 @@ extern "C" {
 // `passes`: 1 the dQ pass, 2 the dK/dV pass), on `stream`; returns
 // cudaGetLastError() (0 = launched) or -1 for arguments it does not take.
 // The arguments are those of flash_attention_bwd_launch; dtype must be 1:
-// bf16, D one of 64, 72, 80, 96, 112, 128; q, o, dout, dq
+// bf16, D one of 64, 72, 80, 96, 112, 128, 256; q, o, dout, dq
 // (B, Hq, Sq, D) at their element strides (the last 1, the others multiples
 // of 8, bases on 16 bytes); k, v, dk, dv (B, Hkv, Sk, D) contiguous; lse (B,
 // Hq, Sq) fp32 contiguous; ld (B, Hq, sq_pad) pairs of fp32, sq_pad Sq
@@ -757,6 +802,7 @@ int flash_attention_bwd_wgmma_launch(const void* q, const void* k, const void* v
     case 96: return launch<96>(p, passes, s);
     case 112: return launch<112>(p, passes, s);
     case 128: return launch<128>(p, passes, s);
+    case 256: return launch<256>(p, passes, s);
     default: return -1;
   }
 }

@@ -311,11 +311,11 @@ flash_attention_kernel.by_kv = dict.fromkeys(KV_TYPES, 0)
 
 
 BWD_ROUTES = ("wgmma", "mma_sync", "fma")
-BWD_HEAD_DIMS = (16, 32, 64, 72, 80, 96, 112, 128)   # the bf16 backward's
+BWD_HEAD_DIMS = (16, 32, 64, 72, 80, 96, 112, 128, 256)  # the bf16 backward's
 # route "wgmma" (csrc/flash_attention_bwd_wgmma.cu): these head dims, 72-112
 # in the layout of 128, faster than "mma_sync" at every one measured
 # (PERF.md); "mma_sync" (csrc/flash_attention_bwd.cu) compiles the rest
-BWD_WGMMA_HEAD_DIMS = (64, 72, 80, 96, 112, 128)
+BWD_WGMMA_HEAD_DIMS = (64, 72, 80, 96, 112, 128, 256)
 BWD_MMA_HEAD_DIMS = (16, 32)
 # kBwdBlockRows, kBwdTile, the threads and the stages of its two passes: a
 # block owns 128 query rows (dQ: two consumer warpgroups of 64) or 64 keys
@@ -327,6 +327,10 @@ BWD_DQ_THREADS = 288
 BWD_DKV_THREADS = 288
 BWD_DQ_STAGES = 3
 BWD_DKV_STAGES = 4
+# head dims past 128 (``BwdTile<D>::SPLIT``): the two warpgroups split each
+# output's columns; a dQ block owns BWD_TILE query rows, a dK/dV block 64
+# keys and half of D's columns, and both rings have BWD_SPLIT_STAGES stages
+BWD_SPLIT_STAGES = 2
 
 
 def bwd_route_of(q: torch.Tensor) -> str:
@@ -344,12 +348,16 @@ def bwd_wgmma_smem(d: int) -> tuple[int, int]:
     (1024 bytes of alignment slack, the block's Q and dO, or K and V,
     tiles, the ring of 64-row tiles, the (lse, delta) pairs, the
     mbarriers)."""
-    dp = 64 if d <= 64 else 128
-    tile64, tile128 = BWD_TILE * dp * 2, BWD_BLOCK_ROWS * dp * 2
-    dq = (1024 + 2 * tile128 + BWD_DQ_STAGES * 2 * tile64
-          + BWD_BLOCK_ROWS * 8 + (2 * BWD_DQ_STAGES + 1) * 8)
-    dkv = (1024 + 2 * tile64 + BWD_DKV_STAGES * 2 * tile64
-           + BWD_DKV_STAGES * BWD_TILE * 8 + (2 * BWD_DKV_STAGES + 1) * 8)
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
+    split = d > 128
+    rows = BWD_TILE if split else BWD_BLOCK_ROWS
+    dq_stages = BWD_SPLIT_STAGES if split else BWD_DQ_STAGES
+    dkv_stages = BWD_SPLIT_STAGES if split else BWD_DKV_STAGES
+    tile64, tile_rows = BWD_TILE * dp * 2, rows * dp * 2
+    dq = (1024 + 2 * tile_rows + dq_stages * 2 * tile64
+          + rows * 8 + (2 * dq_stages + 1) * 8)
+    dkv = (1024 + 2 * tile64 + dkv_stages * 2 * tile64
+           + dkv_stages * BWD_TILE * 8 + (2 * dkv_stages + 1) * 8)
     return dq, dkv
 
 

@@ -24,10 +24,11 @@ import pytest
 import torch
 
 from repro.configs import ARCH_IDS
+from repro.configs import get_config as jax_config
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.models import transformer as jtfm
 from repro.models.frontends import frontend_embeddings as jax_frontends
-from repro_torch.configs import get_smoke_config
+from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.models import transformer as tfm
 from repro_torch.tree import tree_items, tree_leaves
@@ -35,11 +36,16 @@ from repro_torch.tree import tree_items, tree_leaves
 B, S = 2, 12
 
 
-def _setup(arch: str, seed: int = 0):
-    jcfg = dataclasses.replace(jax_smoke_config(arch), dtype="float32",
-                               param_dtype="float32")
-    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
-                               param_dtype="float32")
+def _setup(arch: str, seed: int = 0, **narrow):
+    """The reference's smoke config of ``arch`` in fp32, or with ``narrow``
+    its full config with those fields replaced, and the port's twin."""
+    if narrow:
+        jcfg = dataclasses.replace(jax_config(arch), **narrow)
+        tcfg = dataclasses.replace(get_config(arch), **narrow)
+    else:
+        jcfg, tcfg = jax_smoke_config(arch), get_smoke_config(arch)
+    jcfg = dataclasses.replace(jcfg, dtype="float32", param_dtype="float32")
+    tcfg = dataclasses.replace(tcfg, dtype="float32", param_dtype="float32")
     jparams = jtfm.init_params(jax.random.PRNGKey(seed), jcfg)
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
                               device="cpu")
@@ -58,9 +64,13 @@ def _setup(arch: str, seed: int = 0):
     return jcfg, jparams, jbatch, tcfg, tparams, tbatch
 
 
-@pytest.mark.parametrize("arch", ARCH_IDS)
-def test_loss_and_every_gradient_match_the_reference(arch):
-    jcfg, jparams, jbatch, tcfg, tparams, tbatch = _setup(arch)
+# gemma-7b narrowed but at its head dim of 256 (G 1, GeGLU, tied and scaled
+# embedding): the smoke configs keep head dims of 16
+GEMMA_D256 = dict(num_layers=2, d_model=64, num_heads=2, num_kv_heads=2,
+                  head_dim=256, d_ff=128, vocab_size=256)
+
+
+def _check_loss_and_gradients(jcfg, jparams, jbatch, tcfg, tparams, tbatch):
     jloss, jgrads = jax.value_and_grad(
         lambda p: jtfm.loss_fn(p, jcfg, jbatch, remat=False))(jparams)
     jlogits = jtfm.forward_train(jparams, jcfg, jbatch["tokens"],
@@ -87,3 +97,12 @@ def test_loss_and_every_gradient_match_the_reference(arch):
         w = want[path].numpy()
         err = float(np.max(np.abs(g.numpy() - w)))
         assert err < 2e-4 * (float(np.max(np.abs(w))) + 1e-3), (path, err)
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_loss_and_every_gradient_match_the_reference(arch):
+    _check_loss_and_gradients(*_setup(arch))
+
+
+def test_gemma_at_head_dim_256_matches_the_reference():
+    _check_loss_and_gradients(*_setup("gemma_7b", **GEMMA_D256))

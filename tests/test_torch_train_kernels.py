@@ -112,6 +112,7 @@ ATTN = [  # b, hq, hkv, sq, sk, d, causal, window
     (1, 5, 1, 12, 12, 8, True, 4),
     (2, 8, 2, 7, 7, 16, False, 0),
     (1, 7, 1, 5, 13, 8, False, 0),      # cross-attention, Sq != Sk
+    (1, 2, 2, 37, 37, 256, True, 0),    # gemma-7b's head dim, G 1, ragged S
 ]
 
 
@@ -283,7 +284,10 @@ def test_bwd_constants_are_what_the_kernels_compile():
     assert const("kBwdDkvThreads") == fk.BWD_DKV_THREADS == 2 * 128 + 32
     assert const("kBwdDqStages") == fk.BWD_DQ_STAGES
     assert const("kBwdDkvStages") == fk.BWD_DKV_STAGES
-    assert "d <= 64 ? 64 : 128" in wg     # 72-112 in the layout of 128
+    assert const("kBwdSplitStages") == fk.BWD_SPLIT_STAGES
+    # 72-112 in the layout of 128, 256 in its own
+    assert "d <= 64 ? 64 : d <= 128 ? 128 : 256" in wg
+    assert "static constexpr bool SPLIT = D > 128;" in wg
     rs = (CSRC / "wgmma_rs.cuh").read_text()
     for d in fk.BWD_WGMMA_HEAD_DIMS:
         assert f"wgmma.mma_async.sync.aligned.m64n{d}k16.f32.bf16.bf16" in rs
@@ -331,6 +335,7 @@ def test_new_bwd_instances_fit_shared_memory():
     its ring, the weight gradients' instance."""
     budget = h100.SMEM_PER_BLOCK
     assert budget == 232448
+    assert 256 in fk.BWD_WGMMA_HEAD_DIMS
     for d in fk.BWD_WGMMA_HEAD_DIMS:
         dq, dkv = fk.bwd_wgmma_smem(d)
         assert dq <= budget and dkv <= budget, d
