@@ -32,7 +32,8 @@ exit code and no result line:
             shapes beside the bf16 kernel, and ``kv_quant`` (the int8 ring's
             quantization) bit for bit against ``quantize_kv`` and its
             scatter.
-4. parity   the smoke config in fp32 on the same seeded weights, on the CPU
+4. parity   every smoke config (all of ``ARCH_IDS``) in fp32 on the same
+            seeded weights, on the CPU
             (plain path) and on the card (kernel path), with resident
             weights (``gspmd``) and streamed ones (``elk_stream``, MoE
             configs with their experts fetched after the router):
@@ -45,9 +46,12 @@ exit code and no result line:
             and a decode pod with every request migrating (the pods of a
             streamed fleet on one ``LayerStream``): tokens, virtual times,
             summaries and migration events equal on CPU and card, resident
-            and streamed.  Then ``[emulator]``:
+            and streamed.  Then ``[emulator]``: the card's DSMEM rate
+            measured by the probe of ``chip/dsmem.py`` beside
+            ``h100_sxm()``'s ``link_bw``, and
             ``chip/emulator.check_plan_numerics`` on the card over the
-            plans of a decode matmul of ``h100_sxm()``.
+            plans of every matmul op of layer 0 of qwen3-14b's decode graph
+            on ``h100_sxm()``.
 5. serve    lock-step, resident weights: full-width qwen3-14b (bf16,
             random weights from seed 0), batch 8, prompts of 512 tokens,
             16 greedy steps through ``ServeEngine.generate``.
@@ -74,12 +78,21 @@ exit code and no result line:
             short continuous trace (4 of the requests of 6), with the
             host-to-card copy rate, the copy time of all layers alone and a
             decode step at a window of 1 beside the planner's.
-9. models   the paper's Table 2 models and the MoE family at full width,
-            random weights from seed 0, each freed before the next:
+9. models   the paper's Table 2 models, the MoE family and the other dense
+            configs at full width, random weights from seed 0 (biases
+            drawn nonzero), each freed before the next:
             dit-xl (28 layers, head dim 72), gemma2-27b (46 layers, tied
-            head of 256000) and gemma-7b (28 layers, 16 heads of 256 with
-            G 1, GeGLU 24576, tied head of 256000) resident, lock-step as in
-            5 (dit-xl: prompts of 256, cache 512); llama2-70b under
+            head of 256000), gemma-7b (28 layers, 16 heads of 256 with
+            G 1, GeGLU 24576, tied head of 256000), llama2-13b (40 layers,
+            40/40 heads of 128), opt-30b (48 layers, 56/56 heads of 128,
+            qkv biases, a plain relu MLP of 28672 with fc biases),
+            qwen1.5-32b (QWEN15_DEPTH of its 64 layers, qkv biases, untied
+            head of 152064) and h2o-danube-1.8b (24 layers, 32/8 heads of
+            80, window 4096, prompts of 4608 in a ring of 8192) resident,
+            lock-step as in 5 (dit-xl: prompts of 256, cache 512); the
+            last four also at 2 layers of the same weights, a prefill and
+            3 decode steps on the kernels and on the plain path, each
+            pass's logits within 3e-2 (relative Frobenius); llama2-70b under
             ``elk_stream`` with the planner's knobs, resident against
             streamed at 8 layers (16 until the dry run came) on the same
             weights (equal tokens);
@@ -225,6 +238,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.chip.dsmem import measure_dsmem  # noqa: E402
 from repro_torch.chip.emulator import check_plan_numerics  # noqa: E402
 from repro_torch.chip.h100 import h100_host, h100_sxm  # noqa: E402
 from repro_torch.chip.simulator import simulate_fleet_traffic  # noqa: E402
@@ -390,21 +404,46 @@ CROSSOVER_M = (8, 16, 32, 64, 128, 256)
 # layers, about 160 s of the time limit.)
 STREAM_CHECK_LAYERS, STREAM_STEPS = 8, 4
 MOE_DEPTH = 2
+# llama2-13b and opt-30b (the paper's Table 2) and qwen1.5-32b resident at
+# full width, qwen1.5-32b at QWEN15_DEPTH of its 64 layers: all 64 are 70.4
+# GB of bf16 weights, with the ring 81.1 GB of the card's 85.5, which leaves
+# no room for a prefill; h2o-danube-1.8b past its window of 4096: prompts of
+# DANUBE_PROMPT_LEN positions in a ring of DANUBE_CACHE, so that its prefill
+# is windowed and every decode step attends to the last 4096 positions of a
+# ring wider than the window
+QWEN15_DEPTH = 56
+DANUBE_PROMPT_LEN, DANUBE_CACHE = 4608, 8192
 MODEL_RUNS = (("dit_xl", 0, DIT_PROMPT_LEN, DIT_CACHE),
               ("gemma2_27b", 0, PROMPT_LEN, CACHE),
               ("gemma_7b", 0, PROMPT_LEN, CACHE),
+              ("llama2_13b", 0, PROMPT_LEN, CACHE),
+              ("opt_30b", 0, PROMPT_LEN, CACHE),
+              ("qwen1_5_32b", QWEN15_DEPTH, PROMPT_LEN, CACHE),
+              ("h2o_danube_1_8b", 0, DANUBE_PROMPT_LEN, DANUBE_CACHE),
               ("llama2_70b", STREAM_CHECK_LAYERS, PROMPT_LEN, CACHE),
               ("llama4_maverick_400b_a17b", MOE_DEPTH, PROMPT_LEN, CACHE),
               ("kimi_k2_1t_a32b", MOE_DEPTH, PROMPT_LEN, CACHE))
 TRACE_ARCH = "kimi_k2_1t_a32b"
+# the configs of MODEL_RUNS also served at PLAIN_LAYERS layers on the
+# kernels and on the plain path (``plain_check``): a prefill and PLAIN_STEPS
+# decode steps, each pass's bf16 logits within PLAIN_LOGITS_TOL (relative
+# Frobenius error) of the plain path's
+PLAIN_CHECK_ARCHS = ("llama2_13b", "opt_30b", "qwen1_5_32b",
+                     "h2o_danube_1_8b")
+PLAIN_LAYERS, PLAIN_STEPS = 2, 3
+# init_params draws every bias as zeros; the [models] runs of a config with
+# biases fill them with seeded normals x BIAS_SCALE first (``fill_biases``),
+# as the CPU parity tests do, so that a bias the kernels misplaced shows
+BIAS_SCALE = 0.1
 # the [families] phase: the four remaining families at full width and depth,
 # (arch, layers (0: all), prompt length, ring) as MODEL_RUNS; whisper's
 # prompts of 64 tokens against 1500 frames.  rwkv6-7b, the largest path of
 # the run (112.2 s at its 32 layers on an H100 80GB HBM3 at 700 W), runs at
-# RWKV_DEPTH layers since the [fleet] phase came, so that the run stays well
-# inside its time limit
+# RWKV_DEPTH layers so that the run stays well inside its time limit: 16
+# since the [fleet] phase came (78.2 s of an 850.0 s run), 8 since the four
+# configs of PLAIN_CHECK_ARCHS came
 WHISPER_PROMPT_LEN, WHISPER_CACHE = 64, 512
-RWKV_DEPTH = 16
+RWKV_DEPTH = 8
 FAMILY_RUNS = (("rwkv6_7b", RWKV_DEPTH, PROMPT_LEN, CACHE),
                ("hymba_1_5b", 0, PROMPT_LEN, SLOT_CACHE),
                ("internvl2_1b", 0, PROMPT_LEN, CACHE),
@@ -512,6 +551,13 @@ def layer_products(cfg) -> list[tuple[str, int, int, int, int, str]]:
 
 def product_dtype(name: str) -> torch.dtype:
     return torch.float32 if name in FP32_PRODUCTS else torch.bfloat16
+
+
+def mlp_bias(cfg) -> bool:
+    """Whether ``cfg``'s MLPs carry fc biases (``b_up``, ``b_down``): a
+    plain MLP of a config with ``qkv_bias``, as ``layers.mlp_params`` draws
+    them (opt-30b)."""
+    return cfg.qkv_bias and not cfg.gated_mlp
 
 
 def layer_mlps(cfg) -> list[tuple[str, int, int, str]]:
@@ -735,16 +781,19 @@ def kernels_phase(cfg) -> dict:
 
     def serving_row(label, x, w_up, w_down, kw, act, route=None,
                     timed_alone=True):
-        """Hold the kernel to its plain version at these inputs and time
-        it; with ``timed_alone`` also the plain version and the library
-        yardstick."""
+        """Hold the kernel to its plain version at these inputs (with the
+        fc biases ``kw`` carries) and time it; with ``timed_alone`` also
+        the plain version and the library yardstick."""
         nonlocal worst, cases
         m, d = x.shape
         ff, dout = w_up.shape[1], w_down.shape[1]
-        gated = "w_gate" in kw
+        gated, bias = "w_gate" in kw, "b_up" in kw
         fn = act_fn(act)
 
         def library():
+            if bias:
+                h = fn(torch.addmm(kw["b_up"], x, w_up))
+                return torch.addmm(kw["b_down"], h, w_down)
             h = torch.matmul(x, w_up)
             h = fn(torch.matmul(x, kw["w_gate"])) * h if gated else fn(h)
             return torch.matmul(h, w_down)
@@ -752,17 +801,16 @@ def kernels_phase(cfg) -> dict:
         err, over = check_mlp(x, w_up, w_down, kw, act, route)
         worst = max(worst, over)
         cases += 1
-        bound, bound_by = mlp_bound_ms(m, d, ff, dout, gated, False,
-                                       x.dtype)
+        bound, bound_by = mlp_bound_ms(m, d, ff, dout, gated, bias, x.dtype)
         iters = 5 if m >= 1024 else 20
         row = {
             "shape": label, "m": m, "d": d, "ff": ff, "act": act,
-            "gated": gated, "dtype": "bfloat16",
+            "gated": gated, "bias": bias, "dtype": "bfloat16",
             "route": route or mlp_route_of(x, w_up, w_down, kw.get("w_gate")),
             "max_abs_err": err,
             "ms": time_ms(lambda: fused_mlp_kernel(
-                x, w_up, w_down, kw.get("w_gate"), act=act, route=route),
-                iters),
+                x, w_up, w_down, kw.get("w_gate"), kw.get("b_up"),
+                kw.get("b_down"), act=act, route=route), iters),
             "bound_ms": bound, "bound_by": bound_by}
         if timed_alone:
             row["plain_ms"] = time_ms(lambda: composed_ref(
@@ -791,24 +839,26 @@ def kernels_phase(cfg) -> dict:
     # every MLP the [models] and [families] phases give the kernel, config
     # by config at full width, at the rows of its layers: a dense layer's,
     # an MoE layer's shared expert, an encoder layer's at a prefill's frames;
-    # a shape two configs share is held once
+    # with the fc biases where the config has them (opt-30b); a shape two
+    # configs share is held once
     held = set()
     for arch, depth, prompt_len, _ in RUNS:
         mcfg = model_cfg(arch, depth)
-        d = mcfg.d_model
+        d, bias = mcfg.d_model, mlp_bias(mcfg)
         for name, mff, count, where in layer_mlps(mcfg):
-            key = (d, mff, mcfg.gated_mlp, mcfg.mlp_act)
+            key = (d, mff, mcfg.gated_mlp, mcfg.mlp_act, bias)
             rows = [m for m in model_rows(arch, prompt_len)[where]
                     if count and (m, key) not in held]
             if not rows:
                 continue
             x_all, w_up, w_down, kw = mlp_inputs(
-                gen, (max(rows),), d, mff, mcfg.gated_mlp, False, dtype)
+                gen, (max(rows),), d, mff, mcfg.gated_mlp, bias, dtype)
             for m in rows:
                 held.add((m, key))
                 shapes.append(serving_row(
-                    f"{mcfg.name} {name} {d}/{mff} m={m}",
-                    x_all[:m].contiguous(), w_up, w_down, kw, mcfg.mlp_act))
+                    f"{mcfg.name} {name} {d}/{mff}{' bias' if bias else ''} "
+                    f"m={m}", x_all[:m].contiguous(), w_up, w_down, kw,
+                    mcfg.mlp_act))
             del x_all, w_up, w_down, kw
     decode = shapes[0]
     return {
@@ -1982,18 +2032,14 @@ def elk_matmul_phase(cfg) -> dict:
 # phase 4: CPU (plain path) against the card (kernel path)
 # ---------------------------------------------------------------------------
 
-PARITY_ARCHS = ("qwen3_14b", "gemma2_27b", "llama2_70b", "dit_xl",
-                "llama4_maverick_400b_a17b", "kimi_k2_1t_a32b",
-                *(arch for arch, *_ in FAMILY_RUNS))
-
-
 def parity_phase() -> None:
-    """For each smoke config in fp32, on the same seeded weights: the CPU
-    (plain path) against the card (kernel path), with resident weights
-    (``gspmd``) and streamed ones (``elk_stream``, a window of 2 of the 2
-    layers; an MoE layer's experts fetched after its router; an enc-dec
-    model resident under both, as the reference keeps it)."""
-    for arch in PARITY_ARCHS:
+    """For each smoke config in fp32 (every id of ``ARCH_IDS``), on the
+    same seeded weights: the CPU (plain path) against the card (kernel
+    path), with resident weights (``gspmd``) and streamed ones
+    (``elk_stream``, a window of 2 of the 2 layers; an MoE layer's experts
+    fetched after its router; an enc-dec model resident under both, as the
+    reference keeps it)."""
+    for arch in ARCH_IDS:
         parity_config(dataclasses.replace(
             get_smoke_config(arch), dtype="float32", param_dtype="float32"))
     # the int8 ring: quantized on the card by kv_quant, read by the fma
@@ -3112,22 +3158,36 @@ def fleet_phase(cfg, params: dict, kernel_rows: list[dict]) -> dict:
 
 
 def emulator_phase() -> None:
-    """``check_plan_numerics`` on the card over the first exec plans of one
-    decode matmul of ``h100_sxm()`` (qwen3-14b, B 8, a ring of 1024), each
-    with its first and last preload plan."""
+    """The card's DSMEM rate measured again (``chip/dsmem.py``) and printed
+    beside ``h100_sxm()``'s ``link_bw``, which holds the rate a probe
+    measured before; then ``check_plan_numerics`` on the card over every
+    matmul op of layer 0 of qwen3-14b's decode graph (B 8, a ring of
+    CACHE) on ``h100_sxm()``: up to 4 exec plans an op, each with its first
+    and last preload plan."""
     chip = h100_sxm()
+    rate = measure_dsmem()
+    say("[emulator] DSMEM " + json.dumps({
+        **rate, "h100_sxm_link_bw": chip.link_bw,
+        "measured_over_link_bw": rate["bytes_per_s_per_sm"] / chip.link_bw}))
     g = build_graph(get_config("qwen3_14b"), batch=BATCH, seq=CACHE,
                     phase="decode")
-    op = next(o for o in g.ops if o.kind == "matmul")
-    worst, plans = 0.0, 0
-    for ep in enumerate_exec_plans(op, chip)[:4]:
-        pps = enumerate_preload_plans(op, ep, chip)
-        for pp in (pps[0], pps[-1]):
-            worst = max(worst, check_plan_numerics(ep, pp))
-            plans += 1
-    say(f"[emulator] {plans} plans of {op.name} on h100_sxm inside the bound "
-        f"max|got-ref| <= 2e-2 (max|ref| + 1) on the card: worst err "
-        f"{worst:.3e}")
+    worst, by_op = 0.0, {}
+    for op in g.ops:
+        if op.kind != "matmul" or not op.name.startswith("l0."):
+            continue
+        eps = enumerate_exec_plans(op, chip)
+        if not eps:
+            fail(f"[emulator] no exec plan of {op.name} on h100_sxm")
+        by_op[op.name] = 0
+        for ep in eps[:4]:
+            pps = enumerate_preload_plans(op, ep, chip)
+            for pp in (pps[0], pps[-1]):
+                worst = max(worst, check_plan_numerics(ep, pp))
+                by_op[op.name] += 1
+    say(f"[emulator] {sum(by_op.values())} plans of the {len(by_op)} matmul "
+        f"ops of layer 0 on h100_sxm inside the bound max|got-ref| <= 2e-2 "
+        f"(max|ref| + 1) on the card: worst err {worst:.3e}; plans by op "
+        f"{json.dumps(by_op)}")
 
 
 # ---------------------------------------------------------------------------
@@ -3363,11 +3423,27 @@ def model_line(cfg, full_layers: int, param_bytes: int, run: dict,
         **extra, "sample": run["out"][0, -8:].tolist()}))
 
 
+def fill_biases(params: dict, seed: int = 2) -> list[str]:
+    """Fill every bias of ``params``' layers (the leaves named ``b_*``: the
+    q, k, v biases and the fc biases) in place with normals x BIAS_SCALE,
+    drawn from ``seed`` on their device.  Returns the names filled."""
+    gen = torch.Generator(device=params["embed"].device).manual_seed(seed)
+    names = set()
+    for path, t in tree_items(params["layers"]):
+        name = path.rsplit("/", 1)[-1]
+        if name.startswith("b_"):
+            t.copy_(torch.randn(t.shape, generator=gen, device=t.device,
+                                dtype=torch.float32).mul_(BIAS_SCALE))
+            names.add(name)
+    return sorted(names)
+
+
 def resident_model(arch: str, depth: int, prompt_len: int, cache: int,
                    kernel_rows: list[dict]):
     """Draw ``arch`` at full width (``depth`` layers, 0 = all) on the card
-    from seed 0 and serve it lock-step, resident: BATCH x ``prompt_len``,
-    STEPS steps.  Returns (cfg, params, engine, the run)."""
+    from seed 0 (its biases nonzero: ``fill_biases``) and serve it
+    lock-step, resident: BATCH x ``prompt_len``, STEPS steps.  Returns
+    (cfg, params, engine, the run)."""
     full = get_config(arch)
     cfg = dataclasses.replace(full, num_layers=depth) if depth else full
     free_card(cfg.name)
@@ -3375,6 +3451,7 @@ def resident_model(arch: str, depth: int, prompt_len: int, cache: int,
     t0 = time.perf_counter()
     params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg,
                              dev)
+    biases = fill_biases(params)
     torch.cuda.synchronize()
     draw_s = time.perf_counter() - t0
     eng = ServeEngine(cfg, params, ServeConfig(batch=BATCH,
@@ -3384,9 +3461,72 @@ def resident_model(arch: str, depth: int, prompt_len: int, cache: int,
     model_line(cfg, full.num_layers, tree_bytes(params), run,
                batch=BATCH, prompt_len=prompt_len, cache=cache, steps=STEPS,
                layer_kinds=sorted(set(tfm.layer_kinds(cfg))),
-               drawn_in_s=draw_s, mode="gspmd")
+               drawn_in_s=draw_s, mode="gspmd", biases=biases,
+               window=tfm.attn_spec(cfg).sliding_window)
     live_checks(cfg, params, run["prompts"])
     return cfg, params, eng, run
+
+
+def rel_frobenius(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """||got - ref|| / ||ref|| over every element, in fp32."""
+    ref32 = ref.float()
+    return float((got.float() - ref32).norm() / ref32.norm().clamp(min=1e-30))
+
+
+def plain_check(cfg, params: dict, prompts: torch.Tensor, ring: int) -> dict:
+    """The first PLAIN_LAYERS layers of the live weights at full width, as a
+    model of their own: a prefill of ``prompts`` and PLAIN_STEPS greedy
+    decode steps on the kernels, then the same passes under
+    ``_plain_dispatch()`` fed the kernels' tokens.  Each pass's bf16 logits
+    must lie within PLAIN_LOGITS_TOL (relative Frobenius error) of the
+    plain path's; the kernel passes must launch what ``passes_expected``
+    says, the plain ones nothing.  Returns the errors by pass."""
+    cut = dataclasses.replace(cfg, num_layers=PLAIN_LAYERS)
+    eng = ServeEngine(cut, {**params, "layers": params["layers"][
+        :PLAIN_LAYERS]}, ServeConfig(batch=BATCH, cache_capacity=ring))
+    rows = BATCH * seq_len(cut, prompts.shape[1])
+    want = passes_expected(cut, [("flash", rows, BATCH)]
+                           + [("decode", BATCH, BATCH)] * PLAIN_STEPS)
+
+    def passes(tokens: list) -> list[torch.Tensor]:
+        logits, cache = eng.prefill(prompts)
+        out = [logits]
+        for step in range(PLAIN_STEPS):
+            if len(tokens) == step:     # the kernel run picks the tokens
+                tokens.append(torch.argmax(logits[:, -1, :], dim=-1))
+            logits, cache = eng.decode(tokens[step], cache)
+            out.append(logits)
+        torch.cuda.synchronize()
+        return out
+
+    tokens: list = []
+    zero_launches()
+    kernel = passes(tokens)
+    if {**read_launches(), "routes": read_routes()} != want:
+        fail(f"{cfg.name} at {PLAIN_LAYERS} layers launched "
+             f"{read_launches()}, by route {read_routes()}, on the kernel "
+             f"path; its passes say {want}")
+    zero_launches()
+    with _plain_dispatch():
+        plain = passes(tokens)
+    if any(read_launches().values()):
+        fail(f"{cfg.name}: the plain path launched {read_launches()}")
+    errs = {}
+    for i, (k, p) in enumerate(zip(kernel, plain)):
+        if not torch.isfinite(k).all():
+            fail(f"{cfg.name} at {PLAIN_LAYERS} layers: pass {i} logits not "
+                 "finite on the kernels")
+        errs["prefill" if i == 0 else f"decode {i}"] = rel_frobenius(k, p)
+    worst = max(errs.values())
+    say(f"[models] {cfg.name} at {PLAIN_LAYERS} of {cfg.num_layers} layers, "
+        f"full width: kernels against the plain path (decode attention "
+        f"included), a prefill of {tuple(prompts.shape)} and {PLAIN_STEPS} "
+        f"decode steps: worst relative Frobenius error of the bf16 logits "
+        f"{worst:.3e} (limit {PLAIN_LOGITS_TOL}); by pass {json.dumps(errs)}")
+    if worst > PLAIN_LOGITS_TOL:
+        fail(f"{cfg.name} at {PLAIN_LAYERS} layers: the kernels' logits lie "
+             f"{worst:.3e} from the plain path's, past {PLAIN_LOGITS_TOL}")
+    return errs
 
 
 def live_checks(cfg, params: dict, prompts: torch.Tensor) -> None:
@@ -3614,12 +3754,14 @@ def moe_stream_phase(arch: str, cfg, params: dict, run: dict,
 
 
 def models_phase(kernel_rows: list[dict], profile: bool) -> None:
-    """The six configs of this slice at full width, one after another,
-    each freed before the next: dit-xl, gemma2-27b and gemma-7b resident at
-    full depth, llama2-70b resident against streamed, llama4-maverick and
-    kimi-k2 resident at
-    MOE_DEPTH layers (a dense and an MoE layer), kimi-k2 also through the
-    continuous batcher, then both streamed (``moe_stream_phase``)."""
+    """The configs of ``MODEL_RUNS`` at full width, one after another,
+    each freed before the next: dit-xl, gemma2-27b, gemma-7b, llama2-13b,
+    opt-30b and h2o-danube-1.8b resident at full depth and qwen1.5-32b at
+    QWEN15_DEPTH, the configs of PLAIN_CHECK_ARCHS then at PLAIN_LAYERS
+    against the plain path (``plain_check``); llama2-70b resident against
+    streamed, llama4-maverick and kimi-k2 resident at MOE_DEPTH layers (a
+    dense and an MoE layer), kimi-k2 also through the continuous batcher,
+    then both streamed (``moe_stream_phase``)."""
     t_phase = time.perf_counter()
     for arch, depth, prompt_len, ring in MODEL_RUNS:
         t_check = time.perf_counter()
@@ -3635,6 +3777,12 @@ def models_phase(kernel_rows: list[dict], profile: bool) -> None:
         if arch == TRACE_ARCH and profile:
             profile_moe(eng, run)
         del eng
+        if arch in PLAIN_CHECK_ARCHS:
+            t_check = time.perf_counter()
+            del run["cache"]                    # the full depth's ring
+            plain_check(cfg, params, run["prompts"], ring)
+            say(f"[models] {cfg.name} plain-path check took "
+                f"{time.perf_counter() - t_check:.1f}s")
         if arch == TRACE_ARCH:
             trace_phase(cfg, params, kernel_rows, False,
                         path=f"{cfg.name} continuous", tag="[models-trace]")
@@ -4129,6 +4277,9 @@ TRAIN_DEPTH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 6
 # mean of the others)
 GEMMA_TRAIN_DEPTH, GEMMA_TRAIN_STEPS = 4, 3
 TRAIN_GRAD_TOL = 5e-2     # relative Frobenius error of a bf16 gradient
+# relative Frobenius error of a pass's bf16 logits, the kernels against the
+# plain path (``plain_check``)
+PLAIN_LOGITS_TOL = 3e-2
 TRAIN_PARITY_TOL = 5e-4   # fp32 smoke configs, card against CPU
 TRAIN_DIR = ROOT / "build" / "train"
 
@@ -4627,15 +4778,18 @@ def train_expected(cfg, steps: int, remat: bool = True) -> dict:
 
 
 def _plain_dispatch():
-    """Every kernel op takes its plain version, on the card too: the three
+    """Every kernel op takes its plain version, on the card too: the five
     ops modules' ``dispatch`` replaced until the context ends."""
+    from repro_torch.kernels.decode_attention import ops as d_ops
     from repro_torch.kernels.elk_matmul import ops as m_ops
     from repro_torch.kernels.flash_attention import ops as f_ops
     from repro_torch.kernels.fused_mlp import ops as l_ops
+    from repro_torch.kernels.kv_quant import ops as q_ops
 
     @contextlib.contextmanager
     def ctx():
-        saved = [(mod, mod.dispatch) for mod in (m_ops, f_ops, l_ops)]
+        saved = [(mod, mod.dispatch)
+                 for mod in (m_ops, f_ops, l_ops, d_ops, q_ops)]
         for mod, _ in saved:
             mod.dispatch = (lambda x, kernel_call, ref_call, meta_call=None:
                             ref_call())
@@ -4652,7 +4806,7 @@ def train_parity() -> None:
     config in fp32: the plain path on the CPU against the kernels on the
     card, on the same weights and batch."""
     worst = {}
-    for arch in dict.fromkeys((*ARCH_IDS, *PARITY_ARCHS)):
+    for arch in ARCH_IDS:
         cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
                                   param_dtype="float32")
         cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
@@ -4797,8 +4951,7 @@ def train_full(rows: list[dict], arch: str = "qwen3_14b",
         plain = torch.autograd.grad(loss_fn(tr.params, batch), leaves)
     checked = {}
     for name, g, r in zip(names, grads, plain):
-        g32, r32 = g.float(), r.float()
-        rel = float((g32 - r32).norm() / r32.norm().clamp(min=1e-30))
+        rel = rel_frobenius(g, r)
         checked[name] = round(rel, 5)
         if not rel < TRAIN_GRAD_TOL:
             fail(f"[train] {cfg.name} full width: gradient {name} off by "

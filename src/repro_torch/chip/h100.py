@@ -27,11 +27,13 @@ kernel on ``tpu_v5e_vmem``.
 
 Every constant is a datasheet number of the H100 SXM5 80GB (NVIDIA H100
 Tensor Core GPU datasheet, and NVIDIA's Hopper architecture white paper
-for the SM's shared memory and registers); ``PERF.md`` names
-them and gives beside them the rates ``chip_smoke.py`` measured.  Fields
-of ``h100_sxm`` that no datasheet gives are marked as such, and
-``smem_plan`` reads none of them.  Units are bytes, bytes/s and FLOP/s,
-decimal as the datasheet gives them.
+for the SM's shared memory and registers), but for the fields of
+``h100_sxm`` that no datasheet gives, which are marked as such:
+``DSMEM_BYTES_PER_S`` is measured on the card by the probe of
+``chip/dsmem.py`` (``python -m repro_torch.chip.dsmem``).  ``PERF.md``
+names them and gives beside them the rates ``chip_smoke.py`` measured.
+``smem_plan`` reads none of the unpublished ones.  Units are bytes,
+bytes/s and FLOP/s, decimal as the datasheet gives them.
 """
 
 from __future__ import annotations
@@ -53,10 +55,14 @@ SMEM_PER_BLOCK = 232_448   # shared memory one block can opt in to (227 KB)
 REGISTERS_PER_SM = 65_536  # 32-bit registers of one SM
 THREADS_PER_SM = 2048      # resident threads of one SM
 
-# Fields of h100_sxm that no datasheet gives.  They only complete the
-# ChipConfig; smem_plan does not read them.
+# Fields of h100_sxm that no datasheet gives.  smem_plan does not read them;
+# the planner's cost model (core/cost_model.py) divides by link_bw.
 SMEM_BYTES_PER_S_PER_SM = 128 * 1.98e9   # 128 bytes a clock at the boost clock
-DSMEM_BYTES_PER_S = 0.0    # cluster shared memory between SMs: not published
+# cluster shared memory between SMs, one SM reading its peer's, one
+# direction: measured by chip/dsmem.py, 61706352430 B/s an SM with all 132
+# SMs reading at once (66 clusters of 2), on an NVIDIA H100 80GB HBM3, power
+# limit 700.00 W: about 31 bytes a clock, a quarter of the SM's own rate
+DSMEM_BYTES_PER_S = 61.7e9
 
 
 def h100_host(link_bw: float = PCIE_BYTES_PER_S) -> ChipConfig:
@@ -87,9 +93,12 @@ def h100_sxm() -> ChipConfig:
 
     Not datasheet numbers: ``sram_bw_per_core`` (128 bytes a clock at the
     1.98 GHz boost clock, an estimate), ``link_bw`` (the distributed
-    shared memory of a thread-block cluster, an SM reading a neighbour's;
-    no rate is published, 0 here) and the latencies (``ChipConfig``'s
-    defaults)."""
+    shared memory of a thread-block cluster, an SM reading a neighbour's:
+    no rate is published, so it is ``DSMEM_BYTES_PER_S``, measured on the
+    card by ``chip/dsmem.py``) and the latencies (``ChipConfig``'s
+    defaults).  The topology stays "all2all" over the 132 SMs, though an
+    SM reaches another's shared memory only inside its cluster (at most 16
+    SMs)."""
     return ChipConfig(
         name="h100-sxm",
         num_cores=SMS,

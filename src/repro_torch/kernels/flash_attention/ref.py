@@ -42,6 +42,13 @@ def live_mask(q_pos: torch.Tensor, k_pos: torch.Tensor, *, causal: bool,
     return ok
 
 
+# the bytes of fp32 scores one call of ``mha_pos_ref`` holds at once; past
+# them it takes the batch rows one at a time (h2o-danube-1.8b's prefill of
+# 8 x 4608 positions at 32 heads would hold 21.7 GB of them, and as much
+# again for each of the mask, the softmax and its copy)
+SCORE_BYTES_AT_ONCE = 2 ** 31
+
+
 def mha_pos_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 q_pos: torch.Tensor, k_pos: torch.Tensor, *,
                 causal: bool = True, window: int = 0,
@@ -52,10 +59,16 @@ def mha_pos_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``k_pos <= q_pos`` (causal) and ``k_pos > q_pos - window`` (window > 0).
     An int8 ring takes its scales ``kv_scales`` and is dequantized to bf16
     first, as the reference does.  fp32 logits, softmax and P.V; GQA by
-    head-group folding; a query with no attendable key gives zeros."""
+    head-group folding; a query with no attendable key gives zeros.  Scores
+    of more than SCORE_BYTES_AT_ONCE are taken one batch row at a time."""
     k, v = dequantized(k, v, kv_scales)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
+    if b > 1 and b * hq * sq * sk * 4 > SCORE_BYTES_AT_ONCE:
+        return torch.cat([mha_pos_ref(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], q_pos[i:i + 1],
+            k_pos[i:i + 1], causal=causal, window=window, scale=scale)
+            for i in range(b)])
     g = hq // hkv
     sc = scale if scale is not None else d ** -0.5
     f = acc_dtype(q.dtype)

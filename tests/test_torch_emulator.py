@@ -90,6 +90,30 @@ def test_emulator_on_the_h100_plans():
             check_plan_numerics(ep, pp, device="cpu")
 
 
+@pytest.mark.parametrize("arch", ["qwen3_14b", "h2o_danube_1_8b"])
+def test_every_layer0_matmul_plans_on_the_h100(arch):
+    """``h100_sxm``'s link rate is the measured DSMEM rate, so the planner
+    prices every matmul op of layer 0 of a decode graph (B 8, a ring of
+    1024), not only the projections (a link rate of 0 made ``kv``,
+    ``score`` and ``attnv`` divide by zero); the first and last preload
+    plans of up to 4 exec plans an op pass on the CPU, as ``chip_smoke.py``
+    checks them on the card."""
+    chip = h100_sxm()
+    assert chip.link_bw > 0
+    g = build_graph(get_config(arch), batch=8, seq=1024, phase="decode")
+    ops = [o for o in g.ops
+           if o.kind == "matmul" and o.name.startswith("l0.")]
+    assert {o.name for o in ops} >= {"l0.q", "l0.kv", "l0.score",
+                                     "l0.attnv", "l0.o"}
+    for op in ops:
+        plans = enumerate_exec_plans(op, chip)
+        assert plans, op.name
+        for ep in plans[:4]:
+            pps = enumerate_preload_plans(op, ep, chip)
+            for pp in (pps[0], pps[-1]):
+                check_plan_numerics(ep, pp, device="cpu")
+
+
 def test_emulator_default_device_is_the_card():
     """No card here: the default device raises instead of taking the CPU."""
     ep = enumerate_exec_plans(next(

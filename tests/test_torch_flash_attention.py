@@ -147,6 +147,26 @@ def test_positioned_oracle_matches_model_attention(window):
     assert not out[2].any()
 
 
+@pytest.mark.parametrize("window", [0, 24])
+def test_oracle_by_batch_rows_past_its_score_budget(window, monkeypatch):
+    """Past ``SCORE_BYTES_AT_ONCE`` of fp32 scores the oracle takes the
+    batch rows one at a time (h2o-danube-1.8b's prefill on the card): the
+    same result, per-row positions and a dead row included."""
+    from repro_torch.kernels.flash_attention import ref as fr
+
+    b, hq, hkv, t, c, d = 3, 8, 2, 12, 48, 32
+    rows = [_ring(c, 20, t), _ring(c, 70, t), _ring(c, 0, t)]
+    q_pos = torch.from_numpy(np.stack([r[0] for r in rows]))
+    tags = torch.from_numpy(np.stack([r[1] for r in rows]))
+    tags[2] = SENTINEL
+    _, (q, k, v) = _inputs(b, hq, hkv, t, c, d, "float32", 4)
+    whole = mha_pos_ref(q, k, v, q_pos, tags, window=window)
+    monkeypatch.setattr(fr, "SCORE_BYTES_AT_ONCE", hq * t * c * 4)
+    rowwise = mha_pos_ref(q, k, v, q_pos, tags, window=window)
+    torch.testing.assert_close(rowwise, whole, rtol=1e-6, atol=1e-6)
+    assert not rowwise[2].any()
+
+
 @pytest.mark.parametrize("causal", [True, False])
 def test_fully_masked_rows_give_zeros(causal):
     """A query with no attendable key gives zeros (the Pallas kernel's

@@ -62,7 +62,7 @@ MODULES = [
     "repro_torch.kernels.flash_attention.ops",
     "repro_torch.kernels.flash_attention.ref", "repro_torch.serve.stream",
     "repro_torch.core.integration", "repro_torch.core.pipeline_pod",
-    "repro_torch.chip", "repro_torch.chip.h100",
+    "repro_torch.chip", "repro_torch.chip.h100", "repro_torch.chip.dsmem",
     "repro_torch.serve.prefix", "repro_torch.chip.simulator",
     "repro_torch.kernels.elk_matmul.ops",
     "repro_torch.kernels.elk_matmul.kernel",

@@ -184,6 +184,23 @@ def test_ring_wraparound(arch, mesh11):
         np.testing.assert_array_equal(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("s0, cap, steps", [(24, 32, 12), (40, 32, 6)])
+def test_ring_wider_than_window(s0, cap, steps, mesh11):
+    """h2o-danube-1.8b's smoke config (window 16 on every layer) in a ring
+    wider than its window, the CPU twin of the card's full-width run
+    (prompts of 4608 in a ring of 8192, window 4096): the prefill is
+    windowed, every decode step attends to the last 16 positions of the
+    ring, and the ring wraps (or, at 40, the prompt is laid out ring-wise
+    by prefill)."""
+    jcfg, jeng, teng = _engines("h2o_danube_1_8b", "float32", mesh11,
+                                batch=2, capacity=cap, kv_dtype="float32")
+    assert 0 < jcfg.sliding_window < cap
+    prompts = _prompts(jcfg, 2, s0, seed=6)
+    ref = np.asarray(jeng.generate(jnp.asarray(prompts), steps=steps))
+    out = teng.generate(torch.from_numpy(prompts), steps=steps)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
 def test_prefill_ring_layout_matches_reference():
     """A prompt longer than the ring: K/V rows and slot tags land where
     the reference puts them (position p at slot p % C)."""
