@@ -240,7 +240,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.chip.dsmem import measure_dsmem  # noqa: E402
 from repro_torch.chip.emulator import check_plan_numerics  # noqa: E402
-from repro_torch.chip.h100 import h100_host, h100_sxm  # noqa: E402
+from repro_torch.chip.h100 import (XT_RESIDENT, XT_TILES,  # noqa: E402
+                                   h100_host, h100_sxm, smem_plan,
+                                   xt_schedule, xt_stages)
 from repro_torch.chip.simulator import simulate_fleet_traffic  # noqa: E402
 from repro_torch.chip.topology import fleet_spec  # noqa: E402
 from repro_torch.configs import (ARCH_IDS, get_config,  # noqa: E402
@@ -250,15 +252,19 @@ from repro_torch.core.graph import build_graph  # noqa: E402
 from repro_torch.core.partition import (  # noqa: E402
     enumerate_exec_plans, enumerate_preload_plans)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.decode_attention import \
+    kernel as decode_kernels  # noqa: E402
 from repro_torch.kernels.decode_attention.kernel import (  # noqa: E402
-    ROUTES as DECODE_ROUTES, decode_attention_kernel)
+    MMA_HEAD_DIMS as DECODE_MMA_HEAD_DIMS, ROUTES as DECODE_ROUTES,
+    decode_attention_kernel)
 from repro_torch.kernels.decode_attention.kernel import \
     plan_for as decode_plan_for  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_attn  # noqa: E402
 from repro_torch.kernels.decode_attention.ref import (  # noqa: E402
     decode_attention_ref, live_mask)
 from repro_torch.kernels.elk_matmul.kernel import (  # noqa: E402
-    ROUTES as MATMUL_ROUTES, elk_matmul_kernel, plan_for, plan_of)
+    ROUTES as MATMUL_ROUTES, elk_matmul_kernel, plan_for, plan_of,
+    xt_capacity)
 from repro_torch.kernels.elk_matmul.kernel import \
     route_for as matmul_route_for  # noqa: E402
 from repro_torch.kernels.elk_matmul.kernel import \
@@ -573,23 +579,36 @@ def layer_mlps(cfg) -> list[tuple[str, int, int, str]]:
             ("encoder mlp", cfg.d_ff, cfg.encoder_layers, "encoder")]
 
 
+# decode attention's route "mma" over an int8 ring, one instance a head dim
+# (T int8_t, eight query rows, DM the head dim)
+DECODE_INT8_MMA = tuple(f"decode_attention_kernelIaLi8ELi1ELi{d}EE"
+                        for d in DECODE_MMA_HEAD_DIMS)
 # the instances the [build] lines list one by one (registers, spills): flash
 # attention's "wgmma" instances and its backward's, the fp32 "fma" kernel's
 # serving instances (x and y as stored, one part), the realigning producer's
-# GemmCfg (its last flag, B_LDG, set), the MLP backward's fused pass and its
-# two weight gradients' GemmCfg (A_MNMAJOR and BWD set)
+# GemmCfg (its flag B_LDG set), the MLP backward's fused pass and its two
+# weight gradients' GemmCfg (A_MNMAJOR and BWD set), the persistent x^T dy
+# kernel, and decode attention's int8 "mma" instances
 WATCHED_INSTANCES = ("flash_attention_wgmma_kernel",
                      "Lb0ELb0ELb0EEEvNS_4ArgsEii", "Lb0ELb0ELb0ELb0ELb1E",
                      "flash_attention_bwd_dq_kernel",
                      "flash_attention_bwd_dkv_kernel",
-                     "fused_mlp_bwd_fused_kernel", "Lb0ELb1ELb1ELb0ELb0E")
+                     "fused_mlp_bwd_fused_kernel", "Lb0ELb1ELb1ELb0ELb0E",
+                     "gemm_xt_kernel", *DECODE_INT8_MMA)
 # of those, the ones a spill fails the run for: the backward's were measured
 # much slower when ptxas spilled them (the fused MLP pass at 128 columns 14.7
-# against 10.1 ms) and read 0, as the forward's "wgmma" instances do
+# against 10.1 ms) and read 0, as the forward's "wgmma" instances do; the
+# persistent x^T dy kernel; decode attention's int8 "mma" instances up to
+# head dim 128 (at 256 its 64 accumulators of O^T and 32 registers of Q a
+# lane, under the 112 registers two blocks an SM leave, spill 288-356
+# bytes)
 NO_SPILL_INSTANCES = ("flash_attention_wgmma_kernel",
                       "flash_attention_bwd_dq_kernel",
                       "flash_attention_bwd_dkv_kernel",
-                      "fused_mlp_bwd_fused_kernel", "Lb0ELb1ELb1ELb0ELb0E")
+                      "fused_mlp_bwd_fused_kernel", "Lb0ELb1ELb1ELb0ELb0E",
+                      "gemm_xt_kernel",
+                      *(key for key in DECODE_INT8_MMA
+                        if not key.endswith("Li256EE")))
 
 
 def ptxas_entries(log: str) -> list[tuple[str, int, int]]:
@@ -902,6 +921,28 @@ def int8_ring(k, v) -> tuple:
     return kq, vq, (ks, vs)
 
 
+def stages_ms(fn, depths=(2, 4)) -> dict:
+    """``time_ms`` of a decode attention call with route "mma" held to a
+    ring of each of ``depths`` stages, whatever ``tiling`` plans; each
+    depth's output equal to the planned one's bit for bit (the two warp
+    groups take the same tiles at any even depth: the same sums in the
+    same order)."""
+    planned = decode_kernels.tiling
+    want = fn()
+    out = {}
+    try:
+        for st in depths:
+            decode_kernels.tiling = lambda g, d, elem, route="fma", st=st: (
+                (64, st) if route == "mma" else planned(g, d, elem, route))
+            if not torch.equal(fn(), want):
+                fail(f"decode attention on a ring of {st} stages gave other "
+                     "bits")
+            out[st] = time_ms(fn, 50)
+    finally:
+        decode_kernels.tiling = planned
+    return out
+
+
 def check_attn(q, k, v, slot_pos, q_pos, window=0, dead_rows=(),
                route=None, splits=None, kv_scales=None) -> tuple[float, float]:
     """(max abs error, error over tolerance) of the kernel against
@@ -1194,6 +1235,14 @@ def attention_phase(cfg) -> dict:
             "max_abs_err": err,
             "ms": time_ms(lambda: decode_attn(q, kq, vq, tags, qp,
                                               kv_scales=sc), 50),
+            # the same call on rings of two and four stages, the plan's
+            # among them
+            "stages_ms": stages_ms(lambda: decode_attn(
+                q, kq, vq, tags, qp, kv_scales=sc)),
+            # the kernel at each split count, the planned one among them
+            "splits_ms": {sp: time_ms(lambda: decode_attention_kernel(
+                q, kq, vq, tags, qp, kv_scales=sc, splits=sp), 50)
+                for sp in (1, 2, 4, 8)},
             "bf16_ms": time_ms(lambda: decode_attn(q, k, v, tags, qp), 50),
             "fma_ms": time_ms(lambda: decode_attention_kernel(
                 q, kq, vq, tags, qp, route="fma", kv_scales=sc), 20),
@@ -1921,6 +1970,11 @@ def elk_matmul_phase(cfg) -> dict:
         x = normal(m, 1600, dtype=torch.float32)
         for n in (32, 1600):
             case(x, normal(1600, n, dtype=torch.float32, scale=1600 ** -0.5))
+    # x read transposed, route "wgmma_xt" (a weight gradient's x^T dy; the
+    # [train] phase sweeps it in full): a split short wave, a tile split
+    # over five blocks
+    for tok, width, n in ((1000, 2176, 1024), (513, 64, 136)):
+        case(normal(tok, width, dtype=bf16).t(), normal(tok, n, dtype=bf16))
     if min(reached.values()) < 1:
         fail(f"the elk_matmul sweep did not reach every route: {reached}")
     say(f"[kernels] elk_matmul: {cases} sweep cases inside their limits, each "
@@ -4226,9 +4280,19 @@ def profile_phase(eng: ServeEngine, prompts: torch.Tensor,
 # The bf16 limit is three times the largest bf16 error the sweeps measured on
 # an H100: attention 0.0068 of max|plain|, the MLP 0.0022
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-# (tokens, K, N): x^T dy at odd shapes and at shapes TMA takes
+# (tokens, K, N): x^T dy at odd shapes and at shapes TMA takes, and, on
+# route "wgmma_xt", at the edges of its schedule (chip/h100.xt_schedule):
+# fewer tiles than SMs (513, 64, 136: two tiles, each split over 5 blocks
+# by K; 2000, 640, 640: 25 tiles over clusters of 4; 512, 32, 2048: 16
+# tiles of 64 x 128 over clusters of 8, two blocks an SM), a few more tiles
+# than the blocks the card holds (1000, 2176, 1024: 136 tiles of 128 x 128
+# on 120 blocks, the last 16 split over clusters of 4, the tokens no
+# multiple of 64), a ragged m and n with whole waves and a split one
+# (4096, 1700, 2500: 280 tiles of 128 x 128, 16 over clusters of 2)
 XT_SWEEP = [(100, 60, 70), (33, 129, 257), (257, 200, 328), (513, 64, 136),
-            (512, 256, 384), (4096, 32, 200), (64, 512, 1024)]
+            (512, 256, 384), (4096, 32, 200), (64, 512, 1024),
+            (2000, 640, 640), (1000, 2176, 1024), (4096, 1700, 2500),
+            (512, 32, 2048)]
 # (M, D, FF, gated, bias, act): both routes ("fused" where TMA takes the
 # operands, ff = 257 on "fma"), ragged m, ff no multiple of the fused pass's
 # 64 or 128 columns, d and d_out past its ring of stages (640: ten 64-deep K
@@ -4593,6 +4657,56 @@ def mlp_bwd_row(gen, normal, m, d, ff, gated, bias, act) -> dict:
     return row
 
 
+def xt_plan_fields(plan, k: int) -> dict:
+    """A route "wgmma_xt" plan as its row prints it: tile, stages, blocks,
+    split tiles and clusters, and the blocks the card holds at once in
+    such clusters (``xt_capacity``) beside those the plan read
+    (``XT_RESIDENT``)."""
+    if plan.route != "wgmma_xt":
+        return {}
+    cap = xt_capacity(torch.device("cuda"), plan.bm, plan.bn, plan.splits)
+    return {"plan": {"bm": plan.bm, "bn": plan.bn, "stages": plan.stages,
+                     "blocks": plan.grid, "tiles": plan.tiles,
+                     "split_tiles": plan.tail, "clusters_of": plan.splits,
+                     "k_tiles_a_piece": plan.k_per_split},
+            "resident_blocks": cap,
+            "planned_resident_blocks":
+                XT_RESIDENT[plan.blocks_per_sm][plan.splits - 1]}
+
+
+def xt_other_plans_ms(x, dy, chosen) -> dict:
+    """Times of x^T dy under every other tile of XT_TILES and cluster size
+    the schedule takes at this shape, with bits checked against the plain
+    version as ``check_xt`` does: what the plan's model is measured by."""
+    width, k = x.shape[1], x.shape[0]
+    n, k_tiles = dy.shape[1], -(-k // 64)
+    ref = None
+    out = {}
+    for bm, bn in XT_TILES:
+        stages, per_sm = xt_stages(bm, bn)
+        tiles = -(-width // bm) * -(-n // bn)
+        for s in range(1, 9):
+            sched = xt_schedule(tiles, k_tiles, XT_RESIDENT[per_sm][s - 1],
+                                s)
+            if sched is None or (bm, bn, s) == (chosen.bm, chosen.bn,
+                                                chosen.splits):
+                continue
+            plan = dataclasses.replace(
+                smem_plan(width, n, k, x_trans=True), bm=bm, bn=bn,
+                stages=stages, blocks_per_sm=per_sm, tiles=tiles,
+                splits=sched.splits, k_per_split=sched.per,
+                grid=sched.grid, tail=sched.tail)
+            got = elk_matmul_kernel(x.t(), dy, xt_plan=plan)
+            if ref is None:
+                ref = matmul_ref(x.t(), dy).to(torch.float32)
+            if float((got.to(torch.float32) - ref).abs().max()) > 2.0 ** -6 \
+                    * float(ref.abs().max()):
+                fail(f"x^T dy under plan {bm}x{bn}/{s} disagrees")
+            out[f"{bm}x{bn}/{s}"] = time_ms(
+                lambda: elk_matmul_kernel(x.t(), dy, xt_plan=plan), 10)
+    return out
+
+
 def train_rows(cfg) -> dict:
     """The backward sweeps (bf16 on every route, and fp32), then the timed
     rows at the training shapes (B 8, S 512 = 4096 tokens): qwen3-14b's
@@ -4666,31 +4780,46 @@ def train_rows(cfg) -> dict:
         f"{json.dumps(attn_dims)}; worst err/tol and its err by type "
         f"{json.dumps(by_type)}")
 
-    # timed rows at the full-width training shapes
+    # timed rows at the full-width training shapes: the four projections'
+    # and the LM head's x^T dy, and the MLP's dw_down = h^T dy (h of d_ff)
     dt = torch.bfloat16
     m, d = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model
     out = {}
-    x = normal(m, d, dtype=dt)
     shapes = []
-    for label, n in (("q, o", cfg.num_heads * cfg.resolved_head_dim),
-                     ("k, v", cfg.num_kv_heads * cfg.resolved_head_dim),
-                     ("lm_head", cfg.vocab_size)):
+    for label, width, n in (
+            ("q, o", d, cfg.num_heads * cfg.resolved_head_dim),
+            ("k, v", d, cfg.num_kv_heads * cfg.resolved_head_dim),
+            ("lm_head", d, cfg.vocab_size),
+            ("dw_down", cfg.d_ff, d)):
+        x = normal(m, width, dtype=dt)
         dy = normal(m, n, dtype=dt)
         err, over = check_xt(x, dy)
-        bound, by = matmul_bound_ms(d, n, m, dt)
+        bound, by = matmul_bound_ms(width, n, m, dt)
         iters = 3 if n > 100000 else 10
+        plan = plan_of(x.t(), dy)
         shapes.append({
-            "shape": f"x^T dy {label} tokens={m}", "m": d, "n": n, "k": m,
-            "route": matmul_route_of(x.t(), dy), "max_abs_err": err,
+            "shape": f"x^T dy {label} tokens={m}", "m": width, "n": n,
+            "k": m, "route": plan.route, "max_abs_err": err,
             "err_over_tol": over,
             "ms": time_ms(lambda: matmul(x.t(), dy), iters),
             "plain_ms": time_ms(lambda: matmul_ref(x.t(), dy), 2, warmup=1),
             "bound_ms": bound, "bound_by": by,
-            "library_ms": time_ms(lambda: torch.matmul(x.t(), dy), iters)})
+            "library_ms": time_ms(lambda: torch.matmul(x.t(), dy), iters),
+            **xt_plan_fields(plan, m)})
+        if n < 100000:      # the plans the model did not choose, timed
+            shapes[-1]["other_plans_ms"] = xt_other_plans_ms(x, dy, plan)
         say("[train] elk_matmul_xt " + json.dumps(shapes[-1]))
-        del dy
+        del x, dy
     out["elk_matmul_xt"] = shapes
-    del x
+    # the blocks the card holds at once of each x^T dy instance in clusters
+    # of 1-8, beside chip/h100.XT_RESIDENT, which the plan reads
+    resident = {f"{bm}x{bn}": [xt_capacity(torch.device("cuda"), bm, bn, s)
+                               for s in range(1, 9)] for bm, bn in XT_TILES}
+    planned = {f"{bm}x{bn}": list(XT_RESIDENT[xt_stages(bm, bn)[1]])
+               for bm, bn in XT_TILES}
+    say(f"[train] elk_matmul_xt blocks resident in clusters of 1-8: "
+        f"{json.dumps(resident)}; the plan's XT_RESIDENT: "
+        f"{json.dumps(planned)}")
 
     dit = get_config("dit_xl")
     out["fused_mlp_bwd"] = []
@@ -4754,7 +4883,8 @@ def train_expected(cfg, steps: int, remat: bool = True) -> dict:
     fused pass and its two weight gradients dw_gate, dw_up in
     ``fused_mlp_bwd``'s launches; dw_down and the two-part dx on
     elk_matmul, x read transposed for dw_down) and attention's; the LM head
-    forward, dx and dW.  Every product of these bf16 shapes on "wgmma", the
+    forward, dx and dW.  Every product of these bf16 shapes on "wgmma" but
+    the x^T dy of the weight gradients, on "wgmma_xt"; the
     MLP forward on "two_pass", the attention kernels on "wgmma" over bf16
     K/V, the MLP backward on "fused"."""
     if cfg.moe_experts or cfg.rwkv or cfg.hybrid_parallel_ssm or \
@@ -4762,13 +4892,14 @@ def train_expected(cfg, steps: int, remat: bool = True) -> dict:
         raise ValueError("train_expected counts dense GLU decoders only")
     n, fwd = cfg.num_layers, 2 if remat else 1
     products = steps * (n * (4 * fwd + 4 + 4 + 2) + 3)
+    xt = steps * (n * (4 + 1) + 1)
     counts = {"elk_matmul": products,
-              "elk_matmul_xt": steps * (n * (4 + 1) + 1),
+              "elk_matmul_xt": xt,
               "fused_mlp": steps * n * fwd, "fused_mlp_bwd": steps * n,
               "flash_attention": steps * n * fwd,
               "flash_attention_bwd": steps * n,
               "decode_attention": 0, "kv_quant": 0}
-    routes = {"elk_matmul": {"wgmma": products},
+    routes = {"elk_matmul": {"wgmma": products - xt, "wgmma_xt": xt},
               "fused_mlp": {"two_pass": counts["fused_mlp"]},
               "flash_attention": {"wgmma": counts["flash_attention"]},
               "flash_attention kv": {"bfloat16": counts["flash_attention"]},

@@ -32,8 +32,10 @@ for the SM's shared memory and registers), but for the fields of
 ``DSMEM_BYTES_PER_S`` is measured on the card by the probe of
 ``chip/dsmem.py`` (``python -m repro_torch.chip.dsmem``).  ``PERF.md``
 names them and gives beside them the rates ``chip_smoke.py`` measured.
-``smem_plan`` reads none of the unpublished ones.  Units are bytes,
-bytes/s and FLOP/s, decimal as the datasheet gives them.
+``smem_plan`` reads none of the unpublished ones; its x^T dy plan reads
+three numbers of its own measured on the card (``XT_TILE_LOAD_BYTES_PER_S``,
+``XT_MMA_SHARE``, ``XT_RESIDENT``).  Units are bytes, bytes/s and FLOP/s,
+decimal as the datasheet gives them.
 """
 
 from __future__ import annotations
@@ -152,6 +154,37 @@ SMEM_BLOCK_RESERVE = 1024   # shared memory the system keeps for each block
 # splits of K at most: one cluster a tile, of the size every card takes
 # (kMaxSplits of the header)
 MAX_SPLITS = 8
+# route "wgmma_xt": the x^T dy of a weight gradient (x read as the transpose
+# of a stored (K, m) matrix) on the persistent instance (GemmCfg::PERSIST,
+# ELK_XT_TILES of csrc/elk_matmul.cu): its (bm, bn) tiles, and the bytes a
+# row of its epilogue tile is padded by (kEpiPad of the header)
+XT_TILES = ((64, 128), (128, 128), (128, 256))
+XT_EPI_PAD = 16
+# row tiles a group of the block order spans (kGroupM of the header): the
+# order every TMA route visits its output tiles in
+GROUP_M = 8
+# _xt_plan takes the fewest splits, then the largest tile, among the plans
+# its model puts within this share of the fastest
+XT_TIE = 0.01
+# Measured, not datasheet numbers, which _xt_plan reads; chip_smoke.py's
+# [train] phase prints what each is read from on every run (NVIDIA H100
+# 80GB HBM3 at 700 W):
+# the rate at which the SMs together load operand tiles into shared memory
+# on the x^T dy kernel: qwen3-14b's LM head row, 74.74 GB of 128 x 256
+# tiles' loads in 8.4476 ms, about 2.6 times the HBM rate: the loads come
+# from L2
+XT_TILE_LOAD_BYTES_PER_S = 8.85e12
+# the share of the tensor cores' dense peak the instance's products reach
+# where the loads keep up: the k/v row's 128 x 256 tiles without a split
+# (other_plans_ms "128x256/1"), 2 waves of 64 steps of 128 x 256 x 64 in
+# 0.09628 ms: 0.752 us a step against 0.560 at the peak
+XT_MMA_SHARE = 0.74
+# blocks of a persistent x^T dy instance resident at once in clusters of
+# 1-8 blocks, by blocks an SM (cudaOccupancyMaxActiveClusters; the
+# "[train] elk_matmul_xt blocks resident" line): the GPCs hold fewer
+# clusters of 3-8 than the 132 SMs would
+XT_RESIDENT = {1: (132, 132, 117, 120, 110, 102, 105, 120),
+               2: (264, 264, 237, 248, 235, 234, 224, 240)}
 # routes "wgmma_realign" / "splitk_realign": y loaded and realigned by the
 # producer warpgroup (GemmCfg::B_LDG), one consumer warpgroup, these widths
 # (ELK_REALIGN_TILES of csrc/elk_matmul.cu)
@@ -185,13 +218,17 @@ class SmemPlan:
     route: str = "mma_sync"   # "mma_sync", "wgmma", "splitk", their
     #                           "_realign" twins, "fma" or "fma_splitk"
     stages: int = STAGES      # the ring's depth
-    splits: int = 1           # splits of K (route "splitk"), each its blocks
+    splits: int = 1           # splits of K (route "splitk"), each its blocks;
+    #                           "wgmma_xt": the clusters of its last wave
     k_per_split: int = 0      # K tiles of one split
+    grid: int = 0             # "wgmma_xt": blocks launched (xt_schedule)
+    tail: int = 0             # "wgmma_xt": tiles split over a cluster
 
     @property
     def blocks(self) -> int:
-        """Blocks launched: output tiles x splits of K."""
-        return self.tiles * self.splits
+        """Blocks launched: output tiles x splits of K, or the persistent
+        grid of "wgmma_xt"."""
+        return self.grid or self.tiles * self.splits
 
 
 def smem_bytes(bm: int, bn: int, bk: int, *, dtype_bytes: int) -> int:
@@ -351,6 +388,155 @@ def _tma_plan(m: int, n: int, k: int, chip: ChipConfig,
     return plan(bm, bn, "wgmma", splits, per, traffic(bm, bn))
 
 
+def xt_stages(bm: int, bn: int, *, budget: int = SMEM_PER_BLOCK
+              ) -> tuple[int, int]:
+    """(stages, blocks an SM) of the persistent x^T dy instance:
+    ``xt_stages_for`` of ``csrc/hopper_gemm.cuh``, ``wg_stages``'s budget
+    less the epilogue tile (bm rows of bn bf16, each padded by
+    ``XT_EPI_PAD``); two blocks an SM at one consumer warpgroup."""
+    stage = (bm + bn) * WG_BK * 2
+    epi = bm * (bn * 2 + XT_EPI_PAD)
+    if bm == WGMMA_M:
+        s = (budget // 2 - SMEM_BLOCK_RESERVE - epi - WG_SMEM_RESERVE) // stage
+        return min(s, WG_MAX_STAGES), 2
+    return min((budget - epi - WG_SMEM_RESERVE) // stage, WG_MAX_STAGES), 1
+
+
+@dataclasses.dataclass(frozen=True)
+class XtSchedule:
+    """How the persistent x^T dy kernel deals out its tiles (``XtSched``
+    of ``csrc/hopper_gemm.cuh``): ``grid`` blocks; block b takes the tiles
+    b, b + grid, ... below ``full`` over all of K; then, with ``tail`` > 0,
+    the blocks run as clusters of ``splits`` and cluster c < tail takes
+    tile full + c, its rank r the K tiles [r per, (r + 1) per)."""
+    grid: int
+    full: int
+    tail: int
+    splits: int
+    per: int
+
+
+def xt_schedule(tiles: int, k_tiles: int, cap: int, s: int
+                ) -> Optional[XtSchedule]:
+    """The kernel's rule (``xt_schedule`` of the header), for ``cap``
+    blocks resident at once (a multiple of ``s``): ``s`` = 1 deals the
+    tiles out over min(tiles, cap) blocks; ``s`` > 1 keeps whole waves of
+    ``cap`` tiles and splits the short last wave's tiles by K over
+    clusters of ``s``, or is None where that does not fit (no short wave,
+    more of its tiles than clusters, a rank with no K tile)."""
+    if s == 1:
+        return XtSchedule(min(tiles, cap), tiles, 0, 1, k_tiles)
+    per = -(-k_tiles // s)
+    if -(-k_tiles // per) != s or cap < s:
+        return None
+    waves, tail = divmod(tiles, cap)
+    if tail == 0 or tail > cap // s:
+        return None
+    return XtSchedule(cap if waves else tail * s, waves * cap, tail, s, per)
+
+
+def xt_schedule_of(plan: SmemPlan) -> XtSchedule:
+    """The schedule of a "wgmma_xt" plan: its whole tiles are those before
+    the split ones."""
+    return XtSchedule(plan.grid, plan.tiles - plan.tail, plan.tail,
+                      plan.splits, plan.k_per_split)
+
+
+def tile_origin(tile: int, m_tiles: int, n_tiles: int,
+                group_m: int = GROUP_M) -> tuple[int, int]:
+    """(row tile, column tile) of output tile ``tile`` in the order of
+    groups of ``group_m`` row tiles (``tile_origin`` of the header)."""
+    per_group = group_m * n_tiles
+    first = tile // per_group * group_m
+    gm = min(group_m, m_tiles - first)
+    rest = tile % per_group
+    return first + rest % gm, rest // gm
+
+
+def xt_units(sched: XtSchedule, k_tiles: int
+             ) -> list[list[tuple[int, int, int]]]:
+    """The (tile, first K tile, K tiles) units of each block of ``sched``,
+    in the order the kernel's block takes them."""
+    out = []
+    for b in range(sched.grid):
+        units = [(t, 0, k_tiles) for t in range(b, sched.full, sched.grid)]
+        if sched.tail and b // sched.splits < sched.tail:
+            k0 = b % sched.splits * sched.per
+            units.append((sched.full + b // sched.splits, k0,
+                          min(sched.per, k_tiles - k0)))
+        out.append(units)
+    return out
+
+
+def xt_resident(chip: ChipConfig, per_sm: int, s: int) -> int:
+    """Blocks of a persistent x^T dy instance that ``per_sm`` of fit on an
+    SM which the card holds at once in clusters of ``s`` (1: none): the
+    H100's measured ``XT_RESIDENT`` (its GPCs, not its SM count, bound the
+    clusters), or the SMs times ``per_sm`` cut to a multiple of ``s`` on
+    any other chip."""
+    if chip.num_cores == SMS and per_sm in XT_RESIDENT:
+        return XT_RESIDENT[per_sm][s - 1]
+    return chip.num_cores * per_sm // s * s
+
+
+def _xt_plan(m: int, n: int, k: int, chip: ChipConfig
+             ) -> Optional[SmemPlan]:
+    """The plan of a bf16 x^T dy (route "wgmma_xt"), or None when no tile
+    of ``XT_TILES`` fits ``chip``'s shared memory.  Where ``_tma_plan``
+    takes any tile that gives every SM a block, this scores each (bm, bn,
+    clusters of the last wave) by a model of its time: the larger of (a)
+    the operand tiles every block loads (every tile's K tiles, (bm + bn)
+    rows of 128 bytes each) at ``XT_TILE_LOAD_BYTES_PER_S``, the rate the
+    SMs together load tiles at, and (b) when the last block finishes its
+    products at its share of the SM's tensor-core rate (``core_flops``) and
+    its stores at its share of the memory rate (``hbm_bw``), the products
+    at ``XT_MMA_SHARE`` of the peak: its whole
+    tiles, and in a split wave its piece of K and its fp32 tile's sum
+    (counted as two stores).  Clusters fit as ``xt_resident`` says.  Of the
+    plans within ``XT_TIE`` of the fastest: fewer splits, the larger tile,
+    fewer bytes.  chip_smoke.py times every other plan beside the one this
+    picks (``other_plans_ms``)."""
+    budget, sms = chip.sram_per_core, chip.num_cores
+    k_tiles = -(-k // WG_BK)
+    cands = []
+    for bm, bn in XT_TILES:
+        stages, per_sm = xt_stages(bm, bn, budget=budget)
+        if stages < 2 or not wg_acc_fits(bm, bn) \
+                or bm * bn * 4 > stages * (bm + bn) * WG_BK * 2:
+            continue
+        tiles = math.ceil(m / bm) * math.ceil(n / bn)
+        step = 2 * bm * bn * WG_BK * per_sm / (chip.core_flops
+                                                 * XT_MMA_SHARE)
+        store = bm * bn * 2 * per_sm * sms / chip.hbm_bw
+        load = tiles * k_tiles * (bm + bn) * WG_BK * 2 \
+            / XT_TILE_LOAD_BYTES_PER_S
+        traffic = (m * k * math.ceil(n / bn) + k * n * math.ceil(m / bm)
+                   + m * n) * 2
+        for s in range(1, MAX_SPLITS + 1):
+            sched = xt_schedule(tiles, k_tiles, xt_resident(chip, per_sm, s),
+                                s)
+            if sched is None:
+                continue
+            t = -(-sched.full // sched.grid) * (k_tiles * step + store)
+            if sched.tail:
+                t += sched.per * step + 2 * store
+            cands.append((max(t, load), bm, bn, stages, per_sm, tiles, sched,
+                          traffic))
+    if not cands:
+        return None
+    fastest = min(c[0] for c in cands)
+    _, bm, bn, stages, per_sm, tiles, sched, traffic = min(
+        (c for c in cands if c[0] <= fastest * (1 + XT_TIE)),
+        key=lambda c: (c[6].splits, -c[1] * c[2], c[7], c[0]))
+    return SmemPlan(bm=bm, bn=bn, bk=WG_BK,
+                    smem_bytes=stages * (bm + bn) * WG_BK * 2
+                    + bm * (bn * 2 + XT_EPI_PAD) + WG_SMEM_RESERVE,
+                    hbm_traffic=traffic, tiles=tiles, acc_bytes=bm * bn * 4,
+                    blocks_per_sm=per_sm, route="wgmma_xt", stages=stages,
+                    splits=sched.splits, k_per_split=sched.per,
+                    grid=sched.grid, tail=sched.tail)
+
+
 def _fma_plan(m: int, n: int, k: int, chip: ChipConfig
               ) -> Optional[SmemPlan]:
     """The plan of an fp32 product on the "fma" kernel, or None when no tile
@@ -412,8 +598,8 @@ def _fma_plan(m: int, n: int, k: int, chip: ChipConfig
 
 def smem_plan(m: int, n: int, k: int, *, dtype_bytes: int = 2,
               chip: Optional[ChipConfig] = None, tma: bool = True,
-              realign: bool = False, mma_sync: bool = False
-              ) -> SmemPlan:
+              realign: bool = False, mma_sync: bool = False,
+              x_trans: bool = False) -> SmemPlan:
     """Choose the route and the block plan of ``elk_matmul`` on one H100
     (``h100_sxm``).
 
@@ -428,7 +614,10 @@ def smem_plan(m: int, n: int, k: int, *, dtype_bytes: int = 2,
     in rank order).  A bf16 product whose x TMA takes and whose (K, N)
     row-major y it refuses (``realign``: hymba's untied head, rows of 32001
     elements) takes the same plan on one consumer warpgroup as
-    "wgmma_realign" / "splitk_realign".  fp32 takes ``_fma_plan`` (routes
+    "wgmma_realign" / "splitk_realign".  A bf16 x^T dy whose operands TMA
+    takes (``x_trans``: x read as the transpose of a stored (k, m) matrix)
+    takes ``_xt_plan`` (route "wgmma_xt", the persistent instance; a plan
+    of its own, the forward's unchanged).  fp32 takes ``_fma_plan`` (routes
     "fma" and "fma_splitk").  Anything else (another stride TMA does not
     take, a budget no tile of those fits, or ``mma_sync``: the plan behind
     a forced block shape) takes the route "mma_sync", (bm, bn, bk) as
@@ -467,7 +656,9 @@ def smem_plan(m: int, n: int, k: int, *, dtype_bytes: int = 2,
         raise ValueError(f"empty product: m={m}, n={n}, k={k}")
     chip = chip or h100_sxm()
     plan = None
-    if not mma_sync and dtype_bytes == 2 and (tma or realign):
+    if not mma_sync and dtype_bytes == 2 and tma and x_trans:
+        plan = _xt_plan(m, n, k, chip)
+    elif not mma_sync and dtype_bytes == 2 and (tma or realign):
         plan = _tma_plan(m, n, k, chip, realign=not tma)
     elif not mma_sync and dtype_bytes == 4:
         plan = _fma_plan(m, n, k, chip)

@@ -77,10 +77,24 @@
 //     stride, D % 16 != 0, the producer's lanes copy them), the producer's
 //     lanes copy the tiles' scales beside their tags, and each element is
 //     dequantized as the reference does, (q * scale) rounded to bf16, before
-//     it enters a product.  Route "mma": each warp dequantizes its own 16
-//     slots of K and V into bf16 rows of its own, swizzled as the bf16 tile,
-//     and its ldmatrix reads those; route "fma": in registers, as the pieces
-//     are read.  Nothing widens the ring in device memory.
+//     it enters a product.  Route "mma": the products' fragments are built
+//     in registers from the int8 tile itself, never through shared memory
+//     again: the head dim is read permuted (k_perm, v_perm below), so that
+//     a lane's elements of K for every k16 step are one run of its slot
+//     row (16-byte loads at D 128) and its elements of V^T for every m
+//     tile one run of each of its four slots' rows; Q's B fragments follow
+//     K's permutation, loaded once a block, and the carry is written back
+//     to the dims it stands for.  Each int8 becomes its exact fp32 value by
+//     a byte permute and a subtraction, not an integer conversion, and
+//     (q * scale) is rounded to bf16, as the reference dequantizes: the
+//     operands' bits are those of its dequantized ring.  No per-warp copy
+//     of the slots in bf16 crosses shared memory, and the ring keeps all
+//     of it for stages.  A tile's scales come by bulk copies beside K and
+//     V, not by the producer's lanes.  At the reference's decode_32k shape
+//     (B 8, Hkv 8, D 128, C 32768) this route takes 0.260 ms, against
+//     0.163 to read the int8 ring once and the bf16 route's 0.364
+//     (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W).  Route "fma": in registers, as the pieces are
+//     read.  Nothing widens the ring in device memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,7 +108,6 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using hg::deq;
-using hg::dequant8;
 using hg::smem_u32;
 
 // kernels/decode_attention/kernel.py repeats these, smem_bytes and maxg_for,
@@ -119,6 +132,7 @@ struct Params {
   const bf16* k_scale;       // int8 ring: (B, Hkv, C) scales; else null
   const bf16* v_scale;
   int lane_copy;             // int8 ring at D % 16 != 0: the producer's lanes copy the tiles
+  int bulk_scales;           // int8 ring, route "mma": whole tiles' scales by bulk copies
   const void* q;             // (B, Hq, D), fp32 or bf16 (q_bf16)
   const int* slot_pos;       // (C,) or (B, C)
   const int* q_pos;          // (B,) or one value (qp_stride 0); null: q_pos_value
@@ -144,13 +158,10 @@ __host__ __device__ inline size_t partial_bytes(int maxg, int d) {
 }
 
 // The region at the start of shared memory: the ring (stages x (K tile, V
-// tile), each tile row_bytes / 128 column blocks of bk rows x 128 bytes); on
-// route "mma" over an int8 ring (elem 1) then each warp's 16 dequantized
-// slots of K and V in bf16; after the loop the carries, whichever is larger.
-__host__ __device__ inline size_t region_bytes(int maxg, int d, int bk, int stages, int elem,
-                                               bool mma) {
-  size_t ring = (size_t)stages * 2 * bk * row_bytes_for(d, elem);
-  if (elem == 1 && mma) ring += (size_t)kWarps * 2 * 16 * row_bytes_for(d, 2);
+// tile), each tile row_bytes / 128 column blocks of bk rows x 128 bytes);
+// after the loop the carries, whichever is larger.
+__host__ __device__ inline size_t region_bytes(int maxg, int d, int bk, int stages, int elem) {
+  const size_t ring = (size_t)stages * 2 * bk * row_bytes_for(d, elem);
   const size_t partial = partial_bytes(maxg, d);
   return ring > partial ? ring : partial;
 }
@@ -159,13 +170,12 @@ __host__ __device__ inline size_t region_bytes(int maxg, int d, int bk, int stag
 // probabilities (kWarps x bk / kWarps slots x pad4(maxg)), the tiles' tags,
 // an int8 ring's scales (of K and V, a stage's tile each), the tile list, the
 // combine coefficients, scratch, the mbarriers.
-__host__ __device__ inline size_t smem_bytes(int maxg, int d, int bk, int stages, int elem,
-                                             bool mma) {
+__host__ __device__ inline size_t smem_bytes(int maxg, int d, int bk, int stages, int elem) {
   const size_t rest = sizeof(float) * ((size_t)maxg * d + (size_t)bk * pad4(maxg) +
                                        (size_t)stages * bk * (elem == 1 ? 3 : 1) + kMaxListed +
                                        (size_t)maxg * kCoef + 4) +
                       2 * (size_t)stages * sizeof(uint64_t);
-  return 1024 + region_bytes(maxg, d, bk, stages, elem, mma) + rest;
+  return 1024 + region_bytes(maxg, d, bk, stages, elem) + rest;
 }
 
 __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -202,6 +212,58 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Route "mma" over an int8 ring: byte i (0-3) of four int8 values, given
+// with their sign bits flipped (w ^ 0x80808080), as the exact fp32 value:
+// a byte permute puts q + 128 into the mantissa of 2^23 and one subtraction
+// takes 2^23 + 128 away, in place of an integer conversion (I2F runs at an
+// eighth of the FP32 pipe's rate).  Then (q * scale) rounded to bf16, a
+// pair at a time, as hg::deq does: the same bits.
+__device__ __forceinline__ float i8f(uint32_t wx, int i) {
+  return __fsub_rn(__uint_as_float(__byte_perm(wx, 0x4B000000u, 0x7540 + i)), 8388736.0f);
+}
+__device__ __forceinline__ uint32_t deq_pair8(float lo, float s_lo, float hi, float s_hi) {
+  return pack_bf16(__fmul_rn(lo, s_lo), __fmul_rn(hi, s_hi));
+}
+
+// The 4-byte word at byte `off` of row `row` of a swizzled tile of bk rows.
+__device__ __forceinline__ uint32_t ld_word(const unsigned char* tile, int bk, int row, int off) {
+  return *reinterpret_cast<const uint32_t*>(tile + (off >> 7) * (bk * 128) + row * 128 +
+                                            ((((off & 127) >> 4) ^ (row & 7)) << 4) + (off & 15));
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by one bulk copy whose bytes complete on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Route "mma" over an int8 ring reads the head dim permuted, so that a
+// lane's operand elements lie side by side in a slot's row and its
+// fragments are built in registers from one load of them
+// (kernels/decode_attention/kernel.py k_perm and v_perm repeat both; KS
+// k16 steps over D):
+//   K, the A operand of S^T = K Q^T: lane (gid, tig)'s elements 2 tig,
+//     2 tig + 1, 2 tig + 8, 2 tig + 9 of k16 step kk are dims 4 KS tig +
+//     4 kk + 0..3, so its 4 KS bytes of a slot row are one run; Q's B
+//     fragments (the same dims) are loaded once a block.  A common
+//     permutation of D leaves the contraction unchanged.
+//   V^T, the A operand of O^T += V^T P^T: O^T's rows gid and gid + 8 of m
+//     tile mt are dims 2 KS gid + 2 mt and + 1, so a lane's 2 KS dims over
+//     every m tile are one run of its four slots' rows; the carry is
+//     written back to the dims they stand for.
+template <int KS>
+__device__ __forceinline__ int k_perm(int tig, int kk, int j) {
+  return 4 * KS * tig + 4 * kk + j;
+}
+template <int KS>
+__device__ __forceinline__ int v_perm(int gid, int mt, int h) {
+  return 2 * KS * gid + 2 * mt + h;
+}
+
 // The offset of 16-byte piece c of row `row` in a K or V tile of bk rows
 // (128-byte column blocks, swizzled as TMA writes them), and its address.
 __device__ __forceinline__ int piece_off(int bk, int row, int c) {
@@ -228,6 +290,103 @@ __device__ __forceinline__ void copy_rows_by_lanes(unsigned char* tile, const in
   }
 }
 
+// S^T += K Q^T over an int8 ring, route "mma": this warp's 16 slots (rows
+// r0 = slot0 + gid and r0 + 8 of the tile, their scales s0 and s1) against
+// Q's B fragments qf, loaded under k_perm.  The lane's 4 KS bytes of each
+// of its two rows are one run: 16-byte loads where the run is whole
+// 16-byte pieces (D 64, 128, 256), else a word a k16 step.
+template <int KS>
+__device__ __forceinline__ void k8_scores(float (&sc)[4], const unsigned char* kt, int bk, int r0,
+                                          int tig, float s0, float s1,
+                                          const uint32_t (&qf)[KS][2]) {
+  constexpr int RUN = 4 * KS;
+#pragma unroll
+  for (int kc = 0; kc < KS; kc += 4) {
+    uint32_t w0[4], w1[4];
+    if constexpr (RUN % 16 == 0) {
+      const uint4 x0 = *reinterpret_cast<const uint4*>(piece(kt, bk, r0, (RUN * tig + 4 * kc) >> 4));
+      const uint4 x1 =
+          *reinterpret_cast<const uint4*>(piece(kt, bk, r0 + 8, (RUN * tig + 4 * kc) >> 4));
+      w0[0] = x0.x; w0[1] = x0.y; w0[2] = x0.z; w0[3] = x0.w;
+      w1[0] = x1.x; w1[1] = x1.y; w1[2] = x1.z; w1[3] = x1.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (kc + j < KS) {
+          w0[j] = ld_word(kt, bk, r0, k_perm<KS>(tig, kc + j, 0));
+          w1[j] = ld_word(kt, bk, r0 + 8, k_perm<KS>(tig, kc + j, 0));
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (kc + j < KS) {
+        // elements 2 tig, 2 tig + 1 (bytes 0, 1) and 2 tig + 8, 2 tig + 9
+        // (bytes 2, 3) of rows gid (a0, a2) and gid + 8 (a1, a3)
+        const uint32_t x0 = w0[j] ^ 0x80808080u, x1 = w1[j] ^ 0x80808080u;
+        const uint32_t a[4] = {deq_pair8(i8f(x0, 0), s0, i8f(x0, 1), s0),
+                               deq_pair8(i8f(x1, 0), s1, i8f(x1, 1), s1),
+                               deq_pair8(i8f(x0, 2), s0, i8f(x0, 3), s0),
+                               deq_pair8(i8f(x1, 2), s1, i8f(x1, 3), s1)};
+        mma16816(sc, a, qf[kc + j][0], qf[kc + j][1]);
+      }
+  }
+}
+
+// O^T += V^T P^T over an int8 ring, route "mma": lane (gid, tig)'s slots
+// 2 tig, 2 tig + 1, 2 tig + 8, 2 tig + 9 of the warp's 16 (scales vs), its
+// 2 KS dims v_perm(gid, mt, 0..1) over every m tile one run of each of the
+// four rows, read eight m tiles (16 bytes a row) at a time in the widest
+// loads the run's length allows; the bf16 slot pairs of a fragment are
+// built from the two rows' bytes.
+template <int KS>
+__device__ __forceinline__ void v8_products(float (&o)[KS][4], const unsigned char* vt, int bk,
+                                            int slot0, int gid, int tig, const float (&vs)[4],
+                                            uint32_t pb0, uint32_t pb1) {
+  constexpr int RUN = 2 * KS;
+  constexpr int W = RUN % 16 == 0 ? 16 : RUN % 8 == 0 ? 8 : RUN % 4 == 0 ? 4 : 2;
+  const int rows[4] = {slot0 + 2 * tig, slot0 + 2 * tig + 1, slot0 + 2 * tig + 8,
+                       slot0 + 2 * tig + 9};
+#pragma unroll
+  for (int mc = 0; mc < KS; mc += 8) {
+    const int off = v_perm<KS>(gid, mc, 0);  // the chunk's first byte in each row
+    uint32_t w[4][4];                        // row x word: two m tiles a word
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const unsigned char* src = piece(vt, bk, rows[r], off >> 4) + (off & 15);
+      if constexpr (W == 16) {
+        const uint4 x = *reinterpret_cast<const uint4*>(src);
+        w[r][0] = x.x; w[r][1] = x.y; w[r][2] = x.z; w[r][3] = x.w;
+      } else if constexpr (W == 8) {
+        const uint2 x = *reinterpret_cast<const uint2*>(src);
+        w[r][0] = x.x; w[r][1] = x.y;
+      } else if constexpr (W == 4) {
+#pragma unroll
+        for (int j = 0; j < RUN / 4; ++j) w[r][j] = ld_word(vt, bk, rows[r], off + 4 * j);
+      } else {
+#pragma unroll
+        for (int j = 0; j < KS; ++j) {
+          const uint32_t h = *reinterpret_cast<const uint16_t*>(
+              piece(vt, bk, rows[r], (off + 2 * j) >> 4) + ((off + 2 * j) & 15));
+          w[r][j / 2] = j % 2 ? w[r][j / 2] | h << 16 : h;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (mc + j < KS) {
+        // dims gid (byte lo) and gid + 8 (byte lo + 1) of m tile mc + j
+        const int lo = 2 * (j % 2);
+        const uint32_t x0 = w[0][j / 2] ^ 0x80808080u, x1 = w[1][j / 2] ^ 0x80808080u;
+        const uint32_t x2 = w[2][j / 2] ^ 0x80808080u, x3 = w[3][j / 2] ^ 0x80808080u;
+        const uint32_t a[4] = {deq_pair8(i8f(x0, lo), vs[0], i8f(x1, lo), vs[1]),
+                               deq_pair8(i8f(x0, lo + 1), vs[0], i8f(x1, lo + 1), vs[1]),
+                               deq_pair8(i8f(x2, lo), vs[2], i8f(x3, lo), vs[3]),
+                               deq_pair8(i8f(x2, lo + 1), vs[2], i8f(x3, lo + 1), vs[3])};
+        mma16816(o[mc + j], a, pb0, pb1);
+      }
+  }
+}
+
 // T: the ring's type (float, bf16, or int8 with its scales).  NP: element
 // pairs of every query row a lane owns for P.V on the FMA route, 64 elements
 // apart (D <= 64 NP).  DM > 0: route "mma" at head dim DM, a
@@ -246,14 +405,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int D = p.d, BK = p.bk, S = p.stages;
   const int tile_bytes = BK * row_bytes_for(D, (int)sizeof(T));  // a K or a V tile
   const int nblk = row_bytes_for(D, (int)sizeof(T)) / 128;
-  // route "mma" over an int8 ring: each warp's dequantized K and V rows
-  unsigned char* dq = ring + (size_t)S * 2 * tile_bytes;
-  float* q_s = reinterpret_cast<float*>(
-      ring + region_bytes(MAXG, D, BK, S, (int)sizeof(T), DM > 0));
+  float* q_s = reinterpret_cast<float*>(ring + region_bytes(MAXG, D, BK, S, (int)sizeof(T)));
   float* p_s = q_s + MAXG * D;
   int* tags_s = reinterpret_cast<int*>(p_s + BK * PST);
-  // an int8 ring's scales: stage s's of K at 2 s BK, of V at (2 s + 1) BK
+  // an int8 ring's scales: stage s's of K at 2 s BK, of V at (2 s + 1) BK;
+  // route "mma" keeps them in bf16 (sc16, the first half of the area), as
+  // bulk copies bring them
+  constexpr bool MMA8 = Q8 && DM > 0;
   float* sc_s = reinterpret_cast<float*>(tags_s + S * BK);
+  bf16* sc16 = reinterpret_cast<bf16*>(sc_s);
   int* list_s = reinterpret_cast<int*>(sc_s + (Q8 ? 2 * S * BK : 0));
   float* coef_s = reinterpret_cast<float*>(list_s + kMaxListed);
   int* scratch_s = reinterpret_cast<int*>(coef_s + MAXG * kCoef);
@@ -364,17 +524,22 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (warp == kWarps) {
     // producer: lane 0 issues the copies of K and V, every lane copies tags
     // (and an int8 ring's scales), those of the next tile loaded while this
-    // one waits for its stage
+    // one waits for its stage.  Route "mma" over an int8 ring: a whole
+    // tile's scales come by two bulk copies beside K and V (bulk_scales),
+    // kept in bf16: the lanes' loads of them held the kernel back, however
+    // far ahead they were issued (measured by variants without them).
     int nxt[2] = {0, 0};
     float nsc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // the next tile's K and V scales
+    auto bulk_tile = [&](int c0) { return MMA8 && p.bulk_scales && c0 + BK <= p.c; };
     auto load_tags = [&](int i) {
       const int c0 = tile_at(i) * BK;
+      const bool bulk = bulk_tile(c0);
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         const int e = lane + 32 * u;
         const bool in = e < BK && c0 + e < p.c;
         nxt[u] = in ? __ldg(sp + c0 + e) : INT_MAX;
-        if constexpr (Q8) {
+        if (Q8 && !bulk) {
           const size_t si = (size_t)bh * p.c + c0 + e;
           nsc[0][u] = in ? __bfloat162float(p.k_scale[si]) : 0.0f;
           nsc[1][u] = in ? __bfloat162float(p.v_scale[si]) : 0.0f;
@@ -390,6 +555,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (i + 1 < nk) load_tags(i + 1);
       hg::mbar_wait(&empty[s], ((i / S) & 1) ^ 1);
       const int c0 = tile_at(i) * BK;
+      const bool bulk = bulk_tile(c0);
       unsigned char* kd = ring + (size_t)s * 2 * tile_bytes;
       if (Q8 && p.lane_copy) {
         const size_t row0 = ((size_t)bh * p.c + c0) * D;
@@ -399,11 +565,16 @@ __global__ void __launch_bounds__(kThreads, 2)
                            lane);
         if (lane == 0) hg::mbar_arrive(&full[s]);  // in place of the bytes' arrival
       } else if (lane == 0) {
-        hg::mbar_expect_tx(&full[s], 2 * tile_bytes);
+        hg::mbar_expect_tx(&full[s], 2 * tile_bytes + (bulk ? 4 * BK : 0));
         for (int blk = 0; blk < nblk; ++blk) {
           const int e0 = blk * (128 / (int)sizeof(T));
           hg::tma_load_3d(kd + blk * BK * 128, &p.k_map, &full[s], e0, c0, bh);
           hg::tma_load_3d(kd + tile_bytes + blk * BK * 128, &p.v_map, &full[s], e0, c0, bh);
+        }
+        if (bulk) {
+          const size_t si = (size_t)bh * p.c + c0;
+          bulk_copy(sc16 + 2 * s * BK, p.k_scale + si, 2 * BK, &full[s]);
+          bulk_copy(sc16 + (2 * s + 1) * BK, p.v_scale + si, 2 * BK, &full[s]);
         }
       }
       // a slot past the ring has a tag that is never live
@@ -412,12 +583,19 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int e = lane + 32 * u;
         if (e < BK) {
           tags_s[s * BK + e] = cur[u];
-          if constexpr (Q8) {
+          if constexpr (MMA8) {
+            if (!bulk) {
+              sc16[2 * s * BK + e] = __float2bfloat16(csc[0][u]);
+              sc16[(2 * s + 1) * BK + e] = __float2bfloat16(csc[1][u]);
+            }
+          } else if constexpr (Q8) {
             sc_s[2 * s * BK + e] = csc[0][u];
             sc_s[(2 * s + 1) * BK + e] = csc[1][u];
           }
         }
       }
+      // the lanes' stores of scales before a later bulk copy of the stage's
+      if (MMA8 && !bulk) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
       hg::mbar_arrive(&full[s]);
     }
   } else if constexpr (DM > 0) {
@@ -429,7 +607,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     // operand as stored (ldmatrix), V^T the A operand transposed on the way
     // in (ldmatrix.trans), Q^T the B operand in registers, and P^T (rounded
     // to bf16) the B operand by an 8 x 8 transpose of the score fragments
-    // (movmatrix).  Rows past gn are zeros and are never stored.
+    // (movmatrix).  Rows past gn are zeros and are never stored.  Over an
+    // int8 ring K and V^T come from registers (k8_scores, v8_products).
     static_assert(DM % 8 == 0, "head dims of route mma are multiples of 8");
     constexpr int KS = (DM + 15) / 16;  // k16 steps over D, and m16 tiles of O^T
     const int gid = lane >> 2, tig = lane & 3;
@@ -439,10 +618,17 @@ __global__ void __launch_bounds__(kThreads, 2)
                        ((size_t)b * p.hq + (size_t)h * p.g + g0 + gid) * DM;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      qf[kk][0] = gid < gn ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 2 * tig) : 0u;
-      qf[kk][1] = gid < gn && 16 * kk + 8 < DM
-                      ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 + 2 * tig)
-                      : 0u;
+      if constexpr (Q8) {  // the dims k8_scores reads K at: k_perm
+        const int d0 = k_perm<KS>(tig, kk, 0);
+        qf[kk][0] = gid < gn && d0 < DM ? *reinterpret_cast<const uint32_t*>(qrow + d0) : 0u;
+        qf[kk][1] = gid < gn && d0 + 2 < DM ? *reinterpret_cast<const uint32_t*>(qrow + d0 + 2)
+                                            : 0u;
+      } else {
+        qf[kk][0] = gid < gn ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 2 * tig) : 0u;
+        qf[kk][1] = gid < gn && 16 * kk + 8 < DM
+                        ? *reinterpret_cast<const uint32_t*>(qrow + 16 * kk + 8 + 2 * tig)
+                        : 0u;
+      }
     }
     const float scale = p.scale * kLog2e;
     float m_run[2] = {-INFINITY, -INFINITY};  // query rows 2 tig, 2 tig + 1
@@ -460,41 +646,21 @@ __global__ void __launch_bounds__(kThreads, 2)
       const unsigned char* kt = ring + (size_t)s * 2 * tile_bytes;
       const unsigned char* vt = kt + tile_bytes;
       const int c0 = tile_at(it) * BK;
-      // the bf16 rows the products read: the tile's own, or over an int8 ring
-      // this warp's 16 slots dequantized into its rows (tiles of 16 rows)
-      const unsigned char* ka = kt;
-      const unsigned char* va = vt;
-      int abk = BK, arow = slot0;
-      if constexpr (Q8) {
-        constexpr int DQ_ROW = (DM * 2 + 127) / 128 * 128;
-        constexpr int P8 = (DM + 15) / 16;  // int8 pieces of a row the products read
-        unsigned char* kq = dq + (size_t)warp * 2 * 16 * DQ_ROW;
-        unsigned char* vq = kq + 16 * DQ_ROW;
-        const float* ksc = sc_s + 2 * s * BK + slot0;
-        const float* vsc = ksc + BK;
-#pragma unroll 2
-        for (int u = lane; u < 2 * 16 * P8; u += 32) {
-          const int which = u / (16 * P8), r = (u / P8) % 16, c = u % P8;
-          const uint4 raw = *reinterpret_cast<const uint4*>(piece(which ? vt : kt, BK, slot0 + r, c));
-          const float scl = (which ? vsc : ksc)[r];
-          unsigned char* dst = which ? vq : kq;
-          *reinterpret_cast<uint4*>(dst + piece_off(16, r, 2 * c)) = dequant8(raw.x, raw.y, scl);
-          *reinterpret_cast<uint4*>(dst + piece_off(16, r, 2 * c + 1)) = dequant8(raw.z, raw.w, scl);
-        }
-        __syncwarp();
-        ka = kq;
-        va = vq;
-        abk = 16;
-        arow = 0;
-      }
-
-      // S^T (16 slots x 8 rows): c0, c1 slot gid, c2, c3 slot gid + 8
+      // S^T (16 slots x 8 rows): c0, c1 slot gid, c2, c3 slot gid + 8; over
+      // an int8 ring the fragments are built in registers from the tile's
+      // bytes (k8_scores), else read by ldmatrix
       float sc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if constexpr (Q8) {
+        const bf16* ksc = sc16 + 2 * s * BK + slot0;
+        k8_scores<KS>(sc, kt, BK, slot0 + gid, tig, __bfloat162float(ksc[gid]),
+                      __bfloat162float(ksc[gid + 8]), qf);
+      } else {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t a[4];
-        ldmatrix_x4<false>(a, piece(ka, abk, arow + (mi & 1) * 8 + mr, 2 * kk + (mi >> 1)));
-        mma16816(sc, a, qf[kk][0], qf[kk][1]);
+        for (int kk = 0; kk < KS; ++kk) {
+          uint32_t a[4];
+          ldmatrix_x4<false>(a, piece(kt, BK, slot0 + (mi & 1) * 8 + mr, 2 * kk + (mi >> 1)));
+          mma16816(sc, a, qf[kk][0], qf[kk][1]);
+        }
       }
       const int* tg = tags_s + s * BK + slot0;
       const bool ok0 = c0 + slot0 + gid < p.c && live(tg[gid]);
@@ -530,11 +696,18 @@ __global__ void __launch_bounds__(kThreads, 2)
       // P^T as the B operand: (row gid, slots 2 tig, 2 tig + 1) and + 8
       const uint32_t pb0 = transpose8x8(pack_bf16(sc[0], sc[1]));
       const uint32_t pb1 = transpose8x8(pack_bf16(sc[2], sc[3]));
+      if constexpr (Q8) {
+        const bf16* vsc = sc16 + (2 * s + 1) * BK + slot0 + 2 * tig;
+        const float vs[4] = {__bfloat162float(vsc[0]), __bfloat162float(vsc[1]),
+                             __bfloat162float(vsc[8]), __bfloat162float(vsc[9])};
+        v8_products<KS>(o, vt, BK, slot0, gid, tig, vs, pb0, pb1);
+      } else {
 #pragma unroll
-      for (int mt = 0; mt < KS; ++mt) {
-        uint32_t a[4];  // V^T: dims 16 mt .. + 15 x the warp's 16 slots
-        ldmatrix_x4<true>(a, piece(va, abk, arow + (mi >> 1) * 8 + mr, 2 * mt + (mi & 1)));
-        mma16816(o[mt], a, pb0, pb1);
+        for (int mt = 0; mt < KS; ++mt) {
+          uint32_t a[4];  // V^T: dims 16 mt .. + 15 x the warp's 16 slots
+          ldmatrix_x4<true>(a, piece(vt, BK, slot0 + (mi >> 1) * 8 + mr, 2 * mt + (mi & 1)));
+          mma16816(o[mt], a, pb0, pb1);
+        }
       }
       __syncwarp();
       if (lane == 0) hg::mbar_arrive(&empty[s]);  // this warp is done with stage s
@@ -552,10 +725,20 @@ __global__ void __launch_bounds__(kThreads, 2)
           pml[(warp * MAXG + r) * 2] = m_run[e];
           pml[(warp * MAXG + r) * 2 + 1] = l_run[e];
         }
+        if constexpr (Q8) {  // O^T's rows stand for the dims v_perm gives
 #pragma unroll
-        for (int mt = 0; mt < KS; ++mt) {
-          pacc[(warp * MAXG + r) * DM + 16 * mt + gid] = o[mt][e];
-          if (16 * mt + 8 < DM) pacc[(warp * MAXG + r) * DM + 16 * mt + gid + 8] = o[mt][2 + e];
+          for (int mt = 0; mt < KS; ++mt) {
+            const int dd = v_perm<KS>(gid, mt, 0);
+            if (dd < DM)
+              *reinterpret_cast<float2*>(pacc + (warp * MAXG + r) * DM + dd) =
+                  make_float2(o[mt][e], o[mt][2 + e]);
+          }
+        } else {
+#pragma unroll
+          for (int mt = 0; mt < KS; ++mt) {
+            pacc[(warp * MAXG + r) * DM + 16 * mt + gid] = o[mt][e];
+            if (16 * mt + 8 < DM) pacc[(warp * MAXG + r) * DM + 16 * mt + gid + 8] = o[mt][2 + e];
+          }
         }
       }
     }
@@ -859,7 +1042,7 @@ template <typename T, int MAXG, int NP, int DM>
 int launch(const Params& p, cudaStream_t stream) {
   const int gchunks = (p.g + kMaxGroup - 1) / kMaxGroup;
   const dim3 grid(p.splits, p.hkv, p.b * gchunks);
-  const size_t smem = smem_bytes(MAXG, p.d, p.bk, p.stages, (int)sizeof(T), DM > 0);
+  const size_t smem = smem_bytes(MAXG, p.d, p.bk, p.stages, (int)sizeof(T));
   if (p.splits == 1) {
     decode_attention_kernel<T, MAXG, NP, DM><<<grid, kThreads, smem, stream>>>(p);
     return (int)cudaGetLastError();
@@ -987,6 +1170,11 @@ int decode_attention_launch(const void* q, const void* k, const void* v, const v
   Params p;
   const long long bh = (long long)b * hkv;
   p.lane_copy = elem == 1 && d % 16 != 0;
+  // a tile's scales (64 bf16 of each) by bulk copies: their rows start on
+  // 16 bytes (C a multiple of 8) and TMA brings K and V
+  p.bulk_scales = route == 1 && elem == 1 && !p.lane_copy && c % 8 == 0 &&
+                  reinterpret_cast<uintptr_t>(k_scale) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(v_scale) % 16 == 0;
   if (!p.lane_copy && (hg::tensor_map_3d(&p.k_map, k, elem, d, c, bh, bk) != 0 ||
                        hg::tensor_map_3d(&p.v_map, v, elem, d, c, bh, bk) != 0))
     return -1;

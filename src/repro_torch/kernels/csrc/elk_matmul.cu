@@ -19,7 +19,7 @@
 // 0.465 ms; at m = 4096 (a lock-step prefill) the operations, q/o 0.217 ms,
 // k/v 0.043 ms.
 //
-// Seven routes, chosen by the wrapper from dtype, m and strides before the
+// Eight routes, chosen by the wrapper from dtype, m and strides before the
 // launch (chip/h100.smem_plan says which, and its tiles); a refused launch
 // raises there, no route stands in for another.  The TMA + wgmma routes are
 // compiled here, the mma_sync and FMA kernels in elk_matmul_sync.cu (two
@@ -40,6 +40,15 @@
 //     y read in pieces of 128 bytes or more, the splits summed in rank order
 //     over the cluster's shared memory.  The LM head has 1187 tiles and
 //     takes s = 1.
+//   * "wgmma_xt" (bf16, x read transposed, the x^T dy of a weight gradient,
+//     operands TMA takes, any m): the persistent instance of the mainloop
+//     (GemmCfg::PERSIST, gemm_xt_kernel), a block an SM (two at 64 rows)
+//     walking its output tiles in the group_m order, the producer running
+//     into the next tile's stages while the consumers store the last
+//     through shared memory in 16-byte pieces; its own plan
+//     (chip/h100._xt_plan: (bm, bn) of ELK_XT_TILES and the clusters that
+//     split a short last wave by K, from a model of the tiles' loads and
+//     the last block's products).
 //   * "wgmma_realign" / "splitk_realign" (bf16, x as TMA takes it, y (K, N)
 //     row-major with a row stride or base TMA refuses: hymba's untied LM
 //     head, rows of 32001 elements, 64002 bytes; any odd N or unaligned
@@ -74,7 +83,7 @@
 // The training side's operands (kernels/elk_matmul/ops.py, an autograd
 // Function): x given as the transpose of a stored (k, m) matrix (x_trans,
 // the x^T dy of a weight gradient, contracted over the tokens) is read in
-// place on every route: "wgmma"/"splitk" load it as MN-major A tiles, the
+// place on every route: "wgmma_xt" loads it as MN-major A tiles, the
 // mma_sync kernel keeps its (bk, BM) tile and builds A fragments by
 // ldmatrix.x4.trans, the FMA kernel reads the stored tile; and a second
 // pair x2, y2 (same shapes and strides, x as stored and y transposed) is
@@ -87,7 +96,13 @@
 // 0.0110 (0.0363), the LM head 0.523 (0.658), against bounds of 0.0157,
 // 0.0032 and 0.465; a chunk of 256 q/o 0.0476 (0.151); prefill q/o 0.391
 // (1.030) against 0.217.  torch.matmul is faster still at every shape, by
-// 1.06x (the LM head) to 1.59x (PERF.md has every shape).
+// 1.06x (the LM head) to 1.59x (PERF.md has every shape).  Training's x^T
+// dy at 4096 tokens on "wgmma_xt": q/o 0.304 ms, k/v 0.079, the LM head
+// 8.31, the MLP's dw_down 0.97, against bounds of 0.217, 0.043, 6.44 and
+// 0.74; torch.matmul is 1.06-1.39x faster still.  At these shapes the
+// tiles' loads into shared memory, near 8.8 TB/s all SMs together, bound
+// the 128 x 128 tiles, and the products (at 0.74 of the peak) the 128 x
+// 256 ones (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,12 +117,8 @@ namespace {
 #define ELK_TMA_TILES(F) F(1, 64) F(1, 128) F(2, 64) F(2, 128) F(2, 256)
 
 template <int WG, int BN>
-int launch_tma(hg::GemmParams& p, bool x_trans, bool y_kmajor, bool two, int m, int n, int k,
-               int k_per_split, cudaStream_t stream) {
-  if (x_trans) {  // x^T dy of a weight gradient: dy (k, n) row-major
-    if (y_kmajor || two) return -1;
-    return hg::launch_gemm<hg::GemmCfg<WG, BN, 1, false, true>>(p, m, n, k, k_per_split, stream);
-  }
+int launch_tma(hg::GemmParams& p, bool y_kmajor, bool two, int m, int n, int k, int k_per_split,
+               cudaStream_t stream) {
   if (two) {  // the MLP's dx = dg w_gate^T + du w_up^T: y K-major
     if (!y_kmajor) return -1;
     return hg::launch_gemm<hg::GemmCfg<WG, BN, 1, true, false, false, true>>(p, m, n, k,
@@ -118,6 +129,16 @@ int launch_tma(hg::GemmParams& p, bool x_trans, bool y_kmajor, bool two, int m, 
   return hg::launch_gemm<hg::GemmCfg<WG, BN, 1, false>>(p, m, n, k, k_per_split, stream);
 }
 
+
+// the persistent x^T dy instances (GemmCfg::PERSIST, route "wgmma_xt"):
+// (consumer warpgroups, bn); chip/h100.py XT_TILES
+#define ELK_XT_TILES(F) F(1, 128) F(2, 128) F(2, 256)
+
+template <int WG, int BN>
+int launch_xt(hg::GemmParams& p, int m, int n, int k, int k_per_split, cudaStream_t stream) {
+  return hg::launch_gemm_xt<hg::GemmCfg<WG, BN, 1, false, true, false, false, false, true>>(
+      p, m, n, k, k_per_split, stream);
+}
 
 // the realigned y's instances (GemmCfg::B_LDG): one consumer warpgroup, bn
 // 64 or 128 (chip/h100.py REALIGN_TILE_N)
@@ -182,12 +203,32 @@ int elk_matmul_tma_launch(const void* x, const void* y, void* out, const void* x
     if (hg::map_a(&p.a1, x2, m, k, lda, 64 * wg, x_trans != 0) != 0) return -1;
     if (hg::map_b(&p.b1, y2, n, k, ldy, y_trans != 0, bn) != 0) return -1;
   }
-#define ELK_TMA_CASE(WG, BN)                                                         \
-  if (wg == WG && bn == BN)                                                          \
-    return launch_tma<WG, BN>(p, x_trans != 0, y_trans != 0, x2 != nullptr, m, n, k, \
-                              k_per_split, s);
+  if (x_trans) {  // x^T dy of a weight gradient: dy (k, n) row-major
+    if (y_trans || x2 != nullptr) return -1;
+#define ELK_XT_CASE(WG, BN) \
+    if (wg == WG && bn == BN) return launch_xt<WG, BN>(p, m, n, k, k_per_split, s);
+    ELK_XT_TILES(ELK_XT_CASE)
+#undef ELK_XT_CASE
+    return -1;
+  }
+#define ELK_TMA_CASE(WG, BN)                                                                \
+  if (wg == WG && bn == BN)                                                                 \
+    return launch_tma<WG, BN>(p, y_trans != 0, x2 != nullptr, m, n, k, k_per_split, s);
   ELK_TMA_TILES(ELK_TMA_CASE)
 #undef ELK_TMA_CASE
+  return -1;
+}
+
+// Blocks of the persistent x^T dy instance (wg, bn) resident at once on the
+// current device in clusters of `splits` blocks (1: no clusters), which
+// launch_gemm_xt deals the tiles out over; 0 when it cannot tell, -1 for an
+// instance it does not compile.  chip_smoke.py prints it beside the plan's.
+int elk_matmul_xt_capacity(int wg, int bn, int splits) {
+#define ELK_XT_CAP(WG, BN) \
+  if (wg == WG && bn == BN)  \
+    return hg::xt_capacity<hg::GemmCfg<WG, BN, 1, false, true, false, false, false, true>>(splits);
+  ELK_XT_TILES(ELK_XT_CAP)
+#undef ELK_XT_CAP
   return -1;
 }
 

@@ -100,11 +100,23 @@
 // Where it stands (chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W): the
 // products at m = 4096 run at 55-66 % of the tensor cores' dense peak
 // (q/o 0.391 ms against a bound of 0.217), where torch.matmul runs at
-// 75-80 %; one tile a block, so a tile's prologue and epilogue do not
-// overlap another's products.  Pairs of blocks sharing their b tiles by
-// TMA multicast were measured and were slower (PERF.md).  The products of
-// a decode step reach 29 % (k/v, 0.0110 ms) to 89 % (the LM head) of what
-// reading the weight once at the memory rate takes.
+// 75-80 %; gemm_kernel gives a block one tile, so a tile's prologue and
+// epilogue do not overlap another's products.  Pairs of blocks sharing
+// their b tiles by TMA multicast were measured and were slower (PERF.md).
+// The products of a decode step reach 29 % (k/v, 0.0110 ms) to 89 % (the
+// LM head) of what reading the weight once at the memory rate takes.
+//
+// One instance is persistent (GemmCfg::PERSIST, gemm_xt_kernel), compiled
+// for the x^T dy of a weight gradient (A_MNMAJOR) and nothing else: a block
+// an SM (two at one consumer warpgroup) walks a static list of output tiles
+// in the group_m order; the producer runs on into the next tile's stages
+// while the consumers store the last one, through a padded bf16 tile in
+// shared memory and out by 16-byte stores; and where the tiles leave a
+// short last wave (k/v of qwen3-14b: 160 tiles of 128 x 256 on 132 SMs) the
+// tiles of that wave are split over clusters of blocks by K, the pieces
+// summed in rank order over distributed shared memory (launch_gemm_xt and
+// chip/h100.xt_schedule say how).  No atomics: the same inputs give the
+// same bits on every run.
 
 #pragma once
 
@@ -138,6 +150,20 @@ constexpr int kMaxStages = 8;          // the ring never grows past this
 constexpr int stages_for(int wg, int bn, int nb) {
   const int stage = 64 * wg * kBK * 2 + nb * bn * kBK * 2;
   const int budget = wg == 1 ? kSmemBudget / 2 - 1024 : kSmemBudget;
+  const int s = (budget - kSmemReserve) / stage;
+  return s > kMaxStages ? kMaxStages : s;
+}
+
+// The persistent instance's epilogue tile: a consumer warpgroup's 64 rows
+// of bn bf16, each row padded by kEpiPad bytes so that the accumulators'
+// pairs land on distinct banks.
+constexpr int kEpiPad = 16;
+
+// Stages of the persistent instance's ring: stages_for's budget less the
+// epilogue tile.
+constexpr int xt_stages_for(int wg, int bn) {
+  const int stage = 64 * wg * kBK * 2 + bn * kBK * 2;
+  const int budget = (wg == 1 ? kSmemBudget / 2 - 1024 : kSmemBudget) - 64 * wg * (bn * 2 + kEpiPad);
   const int s = (budget - kSmemReserve) / stage;
   return s > kMaxStages ? kMaxStages : s;
 }
@@ -402,20 +428,24 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t desc_a, 
 // x^T dg and dw_up = x^T du on one x^T tile); TWO a second (a1, b1) part
 // after the first's K tiles;
 // B_LDG an MN-major b TMA refuses, loaded and realigned by the producer
-// warpgroup's threads (one consumer warpgroup, one b, one part).
+// warpgroup's threads (one consumer warpgroup, one b, one part);
+// PERSIST the persistent x^T dy kernel (gemm_xt_kernel: A_MNMAJOR, one b,
+// one part, a plain store).
 template <int WG_, int BN_, int NB_, bool B_KMAJOR_, bool A_MNMAJOR_ = false, bool BWD_ = false,
-          bool TWO_ = false, bool B_LDG_ = false>
+          bool TWO_ = false, bool B_LDG_ = false, bool PERSIST_ = false>
 struct GemmCfg {
   static constexpr int WG = WG_, BM = 64 * WG_, BN = BN_, NB = NB_;
   static constexpr bool B_KMAJOR = B_KMAJOR_, A_MNMAJOR = A_MNMAJOR_, BWD = BWD_, TWO = TWO_;
-  static constexpr bool B_LDG = B_LDG_;
+  static constexpr bool B_LDG = B_LDG_, PERSIST = PERSIST_;
   static constexpr int THREADS = 128 * (WG + 1);
   static constexpr int MIN_BLOCKS = WG == 1 ? 2 : 1;
   static constexpr int A_BYTES = BM * kBK * 2;
   static constexpr int B_BYTES = BN * kBK * 2;
   static constexpr int STAGE_BYTES = A_BYTES + NB * B_BYTES;
-  static constexpr int STAGES = stages_for(WG, BN, NB);
-  static constexpr int SMEM = STAGES * STAGE_BYTES + kSmemReserve;
+  static constexpr int STAGES = PERSIST ? xt_stages_for(WG, BN) : stages_for(WG, BN, NB);
+  static constexpr int EPI_PITCH = BN * 2 + kEpiPad;          // bytes a row of the epilogue tile
+  static constexpr int EPI_BYTES = PERSIST ? BM * EPI_PITCH : 0;
+  static constexpr int SMEM = STAGES * STAGE_BYTES + EPI_BYTES + kSmemReserve;
   static_assert(WG == 1 || WG == 2, "one or two consumer warpgroups");
   static_assert(BN == 64 || BN == 128 || BN == 256, "wgmma widths compiled here");
   static_assert(NB * BN <= (WG == 1 ? 128 : 256), "accumulators a consumer thread can hold");
@@ -424,6 +454,10 @@ struct GemmCfg {
   static_assert(!B_LDG || (WG == 1 && NB == 1 && !B_KMAJOR && !A_MNMAJOR && !TWO && !BWD),
                 "the realigned b: one consumer warpgroup, one MN-major b, one part");
   static_assert(!BWD || NB == 2, "the MLP backward's epilogue stores two outputs");
+  static_assert(!PERSIST || (A_MNMAJOR && NB == 1 && !B_KMAJOR && !BWD && !TWO && !B_LDG),
+                "the persistent instance is the x^T dy of a weight gradient");
+  static_assert(!PERSIST || BM * BN * 4 <= STAGES * STAGE_BYTES,
+                "a split tile's fp32 sums fit the ring");
 };
 
 struct EpiArgs {
@@ -795,6 +829,227 @@ __global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
   }
 }
 
+// The persistent kernel's schedule (launch_gemm_xt; chip/h100.xt_schedule
+// mirrors it): `grid` blocks.  Block b takes the output tiles b, b + grid,
+// b + 2 grid, ... below `full`, each over all of K; then, when `tail` > 0,
+// the blocks run as clusters of `splits`, and cluster c < tail takes tile
+// full + c, its rank r the K tiles [r per, (r + 1) per).  full is a whole
+// number of waves (grid tiles each), so every block takes as many whole
+// tiles as any other, and the short last wave is cut by K instead.
+struct XtSched {
+  int grid, full, tail, splits, per;
+};
+
+// Origin (m0, n0) of output tile `tile` in the group_m order gemm_kernel
+// visits.
+template <class C>
+__device__ __forceinline__ void tile_origin(const GemmParams& p, int tile, int& m0, int& n0) {
+  const int per_group = p.group_m * p.n_tiles;
+  const int first_m = (tile / per_group) * p.group_m;
+  const int gm = min(p.group_m, p.m_tiles - first_m);
+  const int in_group = tile % per_group;
+  m0 = (first_m + in_group % gm) * C::BM;
+  n0 = (in_group / gm) * C::BN;
+}
+
+// x^T dy on the mainloop of gemm_kernel, persistent (C::PERSIST): a stored
+// (K, m) x read as its MN-major transpose, dy (K, n) MN-major, out (m, n)
+// bf16, one part, no bias.  The producer thread walks the block's tiles and
+// their K steps as one sequence of stages, so it runs into the next tile's
+// stages while the consumers store the last; each consumer warpgroup stores
+// its 64 rows through its padded tile of shared memory (a named barrier
+// before it is written, since the previous tile's reads, and after) and out
+// in 16-byte pieces.  A tile split over a cluster leaves each block's fp32
+// sums in its ring (the producer has nothing left to load: a split tile is
+// a block's last), and every block adds up its share of the tile over the
+// cluster's blocks in rank order.
+template <class C>
+__global__ void __launch_bounds__(C::THREADS, C::MIN_BLOCKS)
+    gemm_xt_kernel(const __grid_constant__ GemmParams p, const XtSched q) {
+  static_assert(C::PERSIST, "the persistent instance");
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* epi = smem + C::STAGES * C::STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(epi + C::EPI_BYTES);
+  uint64_t* empty = full + C::STAGES;
+
+  const int blk = blockIdx.x;
+  const int n_full = blk < q.full ? (q.full - 1 - blk) / q.grid + 1 : 0;
+  const int rank = blk % q.splits;  // the rank in the cluster: clusters run along x
+  const bool split = q.tail > 0 && blk / q.splits < q.tail;
+  const int units = n_full + (split ? 1 : 0);
+  // unit u of this block: a whole tile, or (the last) its cluster's split tile
+  auto unit = [&](int u, int& m0, int& n0, int& kt0, int& nk) {
+    const bool last = u == n_full;
+    tile_origin<C>(p, last ? q.full + blk / q.splits : blk + u * q.grid, m0, n0);
+    kt0 = last ? rank * q.per : 0;
+    nk = last ? min(q.per, p.k_tiles - kt0) : p.k_tiles;
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll 1
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * C::WG);  // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    if constexpr (C::WG == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      int s = 0, ph = 0;
+#pragma unroll 1
+      for (int u = 0; u < units; ++u) {
+        int m0, n0, kt0, nk;
+        unit(u, m0, n0, kt0, nk);
+#pragma unroll 1
+        for (int i = 0; i < nk; ++i) {
+          mbar_wait(&empty[s], ph ^ 1);
+          unsigned char* st = smem + s * C::STAGE_BYTES;
+          mbar_expect_tx(&full[s], C::STAGE_BYTES);
+          const int k0 = (kt0 + i) * kBK;
+#pragma unroll
+          for (int c = 0; c < C::WG; ++c)
+            tma_load_2d(st + c * 64 * 128, &p.a, &full[s], m0 + 64 * c, k0);
+#pragma unroll
+          for (int c = 0; c < C::BN / 64; ++c)
+            tma_load_2d(st + C::A_BYTES + c * 64 * 128, &p.b0, &full[s], n0 + 64 * c, k0);
+          if (++s == C::STAGES) {
+            s = 0;
+            ph ^= 1;
+          }
+        }
+      }
+    }
+    if (split) {  // the two cluster barriers of the split tile's sum
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  if constexpr (C::WG == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int cw = wg - 1;  // this consumer's 64 rows of the tile
+  const int t = threadIdx.x % 128;
+  const int warp = t / 32, lane = t % 32;
+  unsigned char* etile = epi + cw * 64 * C::EPI_PITCH;
+  bf16* out = reinterpret_cast<bf16*>(p.epi.out);
+  const int ldo = p.epi.ldo;
+  const bool vec = ldo % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  float acc[C::BN / 2];
+  int s = 0, ph = 0, prev = 0;
+#pragma unroll 1
+  for (int u = 0; u < units; ++u) {
+    int m0, n0, kt0, nk;
+    unit(u, m0, n0, kt0, nk);
+#pragma unroll
+    for (int e = 0; e < C::BN / 2; ++e) acc[e] = 0.0f;
+#pragma unroll 1
+    for (int i = 0; i < nk; ++i) {
+      mbar_wait(&full[s], ph);
+      const uint32_t a_base = smem_u32(smem + s * C::STAGE_BYTES) + cw * 64 * 128;
+      const uint32_t b_base = a_base - cw * 64 * 128 + C::A_BYTES;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_tile<C::BN, 1, 1>(acc, desc_sw128(a_base + kk * 16 * 128, 64 * 128, 1024),
+                                desc_sw128(b_base + kk * 16 * 128, 64 * 128, 1024));
+      wgmma_commit();
+      fence_acc(acc);
+      wgmma_wait<1>();  // the products of the previous step have retired
+      if (i > 0 && lane == 0) mbar_arrive(&empty[prev]);
+      prev = s;
+      if (++s == C::STAGES) {
+        s = 0;
+        ph ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(&empty[prev]);  // the tile's last stage
+
+    // accumulator layout: register 4 c + 2 h + e holds row 16 warp + lane / 4
+    // + 8 h, column 8 c + 2 (lane % 4) + e of this warpgroup's 64 x BN
+    if (u < n_full) {
+      // the previous tile's reads of this warpgroup's epilogue tile are done
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+#pragma unroll
+      for (int c = 0; c < C::BN / 8; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const __nv_bfloat162 v = __floats2bfloat162_rn(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(etile + (warp * 16 + lane / 4 + 8 * h) * C::EPI_PITCH +
+                                             (8 * c + 2 * (lane % 4)) * 2) = v;
+        }
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + cw) : "memory");
+      constexpr int PIECES = C::BN / 8;  // 16-byte pieces of a row
+#pragma unroll 4
+      for (int e = t; e < 64 * PIECES; e += 128) {
+        const int r = e / PIECES, c = e % PIECES;
+        const int row = m0 + cw * 64 + r, col = n0 + 8 * c;
+        if (row >= p.m || col >= p.n) continue;
+        const uint4 v = *reinterpret_cast<const uint4*>(etile + r * C::EPI_PITCH + 16 * c);
+        bf16* dst = out + (size_t)row * ldo + col;
+        if (vec && col + 8 <= p.n) {
+          *reinterpret_cast<uint4*>(dst) = v;
+        } else {
+          const bf16* src = reinterpret_cast<const bf16*>(&v);
+          for (int j = 0; j < 8 && col + j < p.n; ++j) dst[j] = src[j];
+        }
+      }
+    } else {
+      // this block's piece of a split tile: its sums into its ring, which
+      // both warpgroups have finished reading
+      if constexpr (C::WG > 1) asm volatile("bar.sync 1, %0;\n" ::"n"(128 * C::WG) : "memory");
+      float* red = reinterpret_cast<float*>(smem);
+      const int r0 = cw * 64 + warp * 16 + lane / 4;
+#pragma unroll
+      for (int c = 0; c < C::BN / 8; ++c)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(red + (r0 + 8 * h) * C::BN + 8 * c + 2 * (lane % 4)) =
+              make_float2(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+      cluster_sync();  // every piece's sums are in its block's shared memory
+      // this block's share of the tile, 8 columns a thread at a time, each
+      // summed over the cluster's blocks in rank order
+      const int rows = min(C::BM, p.m - m0), cols = min(C::BN, p.n - n0);
+      constexpr int PIECES = C::BN / 8;
+      for (int e = rank * 128 * C::WG + (threadIdx.x - 128); e < rows * PIECES;
+           e += 128 * C::WG * q.splits) {
+        const int r = e / PIECES, c = e % PIECES;
+        if (8 * c >= cols) continue;
+        float v[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int k = 0; k < q.splits; ++k) {
+          const float4* src = reinterpret_cast<const float4*>(
+              cluster_ptr(red + r * C::BN + 8 * c, k, true));
+          const float4 lo = src[0], hi = src[1];
+          v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
+          v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+        }
+        const int row = m0 + r, col = n0 + 8 * c;
+        bf16* dst = out + (size_t)row * ldo + col;
+        if (vec && col + 8 <= p.n) {
+          uint4 w;
+          uint32_t* wp = reinterpret_cast<uint32_t*>(&w);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const __nv_bfloat162 b2 = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+            wp[j] = *reinterpret_cast<const uint32_t*>(&b2);
+          }
+          *reinterpret_cast<uint4*>(dst) = w;
+        } else {
+          for (int j = 0; j < 8 && col + j < p.n; ++j) dst[j] = __float2bfloat16(v[j]);
+        }
+      }
+      cluster_sync();  // no block leaves while another reads its shared memory
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
@@ -989,6 +1244,122 @@ int launch_gemm(GemmParams& p, int m, int n, int k, int k_per_split, cudaStream_
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, gemm_kernel<C>, p);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// The schedule of the persistent kernel over `tiles` output tiles of
+// k_tiles K tiles, with `cap` blocks resident at once (a multiple of s) and
+// clusters of s blocks for the short last wave; false when s does not fit:
+// the last wave is not short (none, or more tiles than cap / s clusters),
+// or a rank would get no K tile.  s = 1: no clusters, the tiles dealt out
+// over min(tiles, cap) blocks.  chip/h100.xt_schedule is the same rule.
+inline bool xt_schedule(long long tiles, int k_tiles, int cap, int s, XtSched& q) {
+  if (s == 1) {
+    q.grid = (int)(tiles < cap ? tiles : cap);
+    q.full = (int)tiles;
+    q.tail = 0;
+    q.splits = 1;
+    q.per = k_tiles;
+    return true;
+  }
+  const int per = (k_tiles + s - 1) / s;
+  if ((k_tiles + per - 1) / per != s || cap < s) return false;
+  const long long waves = tiles / cap, tail = tiles % cap;
+  if (tail == 0 || tail > cap / s) return false;
+  q.grid = waves > 0 ? cap : (int)tail * s;
+  q.full = (int)(waves * cap);
+  q.tail = (int)tail;
+  q.splits = s;
+  q.per = per;
+  return true;
+}
+
+// Blocks of gemm_xt_kernel<C> resident at once on the current device in
+// clusters of s (s = 1: no clusters): the SMs times the blocks an SM holds,
+// or the clusters the card can hold at once times s; once a device and s.
+// Returns 0 when it cannot tell.
+template <class C>
+int xt_capacity(int s) {
+  static int cache[64][kMaxSplits + 1];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || s < 1 || s > kMaxSplits) return 0;
+  if (dev < 64 && cache[dev][s] > 0) return cache[dev][s];
+  int sms = 0, per_sm = 0;
+  if (cudaFuncSetAttribute(gemm_xt_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           C::SMEM) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gemm_xt_kernel<C>, C::THREADS,
+                                                    C::SMEM) != cudaSuccess)
+    return 0;
+  int cap = sms * per_sm / s * s;
+  if (s > 1) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)(s * sms), 1, 1);
+    cfg.blockDim = dim3(C::THREADS, 1, 1);
+    cfg.dynamicSmemBytes = C::SMEM;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = s;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    if (cudaOccupancyMaxActiveClusters(&clusters, gemm_xt_kernel<C>, &cfg) != cudaSuccess) return 0;
+    if (clusters * s < cap) cap = clusters * s;
+  }
+  if (dev < 64) cache[dev][s] = cap;
+  return cap;
+}
+
+// Launches gemm_xt_kernel<C> for out (m, n) = x^T dy over K = k: the K
+// tiles of k_per_split give the clusters' size s = ceil(K tiles /
+// k_per_split) the plan chose for the short last wave (1: none); where s
+// does not fit the card's resident clusters, no clusters.  p.a and p.b0
+// must be set, p.epi a plain store without bias.  Returns 0, a CUDA error,
+// or -1 for what it does not take.
+template <class C>
+int launch_gemm_xt(GemmParams& p, int m, int n, int k, int k_per_split, cudaStream_t stream) {
+  if (p.epi.mode != kEpiStore || p.epi.bias != nullptr) return -1;
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.k_tiles0 = 0;
+  p.k_tiles = (k + kBK - 1) / kBK;
+  p.k_per_split = k_per_split;
+  p.m_tiles = (m + C::BM - 1) / C::BM;
+  p.n_tiles = (n + C::BN - 1) / C::BN;
+  p.group_m = kGroupM;
+  const long long tiles = (long long)p.m_tiles * p.n_tiles;
+  const int s = (p.k_tiles + k_per_split - 1) / k_per_split;
+  if (tiles >= (1ll << 31) || s < 1 || s > kMaxSplits) return -1;
+  const int cap1 = xt_capacity<C>(1);
+  if (cap1 < 1) {
+    const int err = (int)cudaGetLastError();
+    return err != 0 ? err : -1;
+  }
+  XtSched q;
+  const int cap = s > 1 ? xt_capacity<C>(s) : 0;
+  if (!(s > 1 && xt_schedule(tiles, p.k_tiles, cap, s, q)))
+    xt_schedule(tiles, p.k_tiles, cap1, 1, q);
+  p.splits = q.splits;
+  if (q.splits == 1) {
+    gemm_xt_kernel<C><<<q.grid, C::THREADS, C::SMEM, stream>>>(p, q);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)q.grid, 1, 1);
+  cfg.blockDim = dim3(C::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = q.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, gemm_xt_kernel<C>, p, q);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 

@@ -13,7 +13,9 @@ a CUDA device is an error here (``ops.decode_attn`` routes CPU tensors to
 ``ref.decode_attention_ref``).
 
 An int8 ring (``kv_scales`` = its bf16 scales) is read as it is stored and
-dequantized inside the kernel, tile by tile, on both routes.
+dequantized inside the kernel, tile by tile, on both routes; route "mma"
+builds its fragments from the int8 bytes in registers, reading the head
+dim permuted (``k_perm``, ``v_perm``).
 
 ``decode_attention_kernel.launches`` counts the launches, one per call that
 reaches the card, ``decode_attention_kernel.by_route`` the same calls by
@@ -61,23 +63,42 @@ def maxg_for(g: int) -> int:
     return 1 if c <= 1 else 4 if c <= 4 else 5 if c == 5 else 8
 
 
-def smem_bytes(maxg: int, d: int, bk: int, stages: int, elem: int,
-               mma: bool = False) -> int:
+def smem_bytes(maxg: int, d: int, bk: int, stages: int, elem: int) -> int:
     """Shared memory of a block (``smem_bytes`` of the source): the ring
-    of K and V tiles, rows padded to 128-byte blocks (an int8 ring, ``elem``
-    1, on route "mma": and each warp's 16 dequantized slots of K and V in
-    bf16), or the carries after the loop if they are larger; and the rest,
-    an int8 ring's scales among it."""
-    def row(e):
-        return -(-d * e // 128) * 128
-    ring = stages * 2 * bk * row(elem)
-    if elem == 1 and mma:
-        ring += WARPS * 2 * 16 * row(2)
+    of K and V tiles, rows padded to 128-byte blocks (``elem`` bytes an
+    element, 1 for int8), or the carries after the loop if they are
+    larger; and the rest, an int8 ring's scales among it."""
+    ring = stages * 2 * bk * (-(-d * elem // 128) * 128)
     region = max(ring, 4 * (WARPS + 1) * maxg * (d + 2))
     rest = 4 * (maxg * d + bk * (-(-maxg // 4) * 4)
                 + stages * bk * (3 if elem == 1 else 1)
                 + MAX_LISTED + maxg * COEF + 4) + 2 * stages * 8
     return 1024 + region + rest
+
+
+def k_perm(d: int) -> list[int]:
+    """The head dims route "mma" over an int8 ring reads K at (``k_perm``
+    of the source): entry 16 kk + j is the dim at position j of k16 step
+    kk of S^T = K Q^T, for lane tig = (j % 8) // 2 the dims 4 KS tig + 4 kk
+    + (j % 2 + 2 (j // 8)), so that a lane's elements of every step lie
+    side by side in the slot's row.  Q's B fragments are read at the same
+    dims.  A permutation of range(16 KS), KS = ceil(d / 16); entries past
+    d meet zeros of the query."""
+    ks = -(-d // 16)
+    return [4 * ks * ((j % 8) // 2) + 4 * kk + j % 2 + 2 * (j // 8)
+            for kk in range(ks) for j in range(16)]
+
+
+def v_perm(d: int) -> list[int]:
+    """The head dims route "mma" over an int8 ring reads V at (``v_perm``
+    of the source): entry 16 mt + r is the dim of row r of m tile mt of
+    O^T += V^T P^T, for r = gid + 8 h the dim 2 KS gid + 2 mt + h, so that
+    a lane's dims over every m tile are one run of a slot's row.  A
+    permutation of range(16 KS); rows for entries past d are not
+    stored."""
+    ks = -(-d // 16)
+    return [2 * ks * (r % 8) + 2 * mt + r // 8
+            for mt in range(ks) for r in range(16)]
 
 
 def route_of(q: torch.Tensor, k_cache: torch.Tensor) -> str:
@@ -105,7 +126,7 @@ def tiling(g: int, d: int, elem: int, route: str = "fma") -> tuple[int, int]:
                        SM_BYTES - BLOCK_RESERVE):
             for stages in range(MAX_STAGES, MIN_STAGES - 1, -2):
                 if smem_bytes(MAX_GROUP, d, TILE_SLOTS[0], stages,
-                              elem, mma=True) <= budget:
+                              elem) <= budget:
                     return TILE_SLOTS[0], stages
         raise ValueError(f"no tiling of route mma at head dim {d}")
     budget = SM_BYTES // BLOCKS_PER_SM - BLOCK_RESERVE

@@ -4,15 +4,16 @@ Counterpart of ``src/repro/kernels/elk_matmul/kernel.py`` (``elk_matmul``).
 The CUDA source says what the kernel computes and how it is cut for the
 card.  This wrapper checks device, types, shapes and strides, decides the
 route before the launch (``route_of``: "wgmma" for bf16 with m >= 64 and
-operands TMA takes, "splitk" for such products with fewer rows; their
+operands TMA takes, "splitk" for such products with fewer rows,
+"wgmma_xt" for such an x^T dy (x read transposed) at any m; their
 "_realign" twins where TMA takes x but not a (K, N) row-major y, whose
 tiles the producer loads and realigns itself; "fma" for fp32, "fma_splitk"
 where its output tiles do not cover the SMs; "mma_sync" for the rest and
 for any forced block shape) and takes its plan from ``chip/h100.smem_plan``
-(cached per shape, type and route, so a decode step's 161 products do not
-run the greedy), allocates the output with ``torch.empty``, launches on
-PyTorch's current stream without synchronising, and raises if the launch
-is refused.  It never gives way to
+(cached per shape, type, route and operand, so a decode step's 161
+products do not run the greedy), allocates the output with
+``torch.empty``, launches on PyTorch's current stream without
+synchronising, and raises if the launch is refused.  It never gives way to
 another route or to the plain version: a tensor that is not on a CUDA
 device is an error here (``ops.matmul`` routes CPU tensors to
 ``ref.matmul_ref``).
@@ -48,12 +49,13 @@ from repro_torch.kernels import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PREPARED: set = set()    # device indices whose kernel attributes are set
-ROUTES = ("wgmma", "splitk", "wgmma_realign", "splitk_realign", "fma",
-          "fma_splitk", "mma_sync")
+ROUTES = ("wgmma", "splitk", "wgmma_xt", "wgmma_realign", "splitk_realign",
+          "fma", "fma_splitk", "mma_sync")
 # the library of a route: the TMA + wgmma routes are compiled from
 # csrc/elk_matmul.cu, the others from csrc/elk_matmul_sync.cu (two nvcc
 # processes side by side)
-_TMA_ROUTES = ("wgmma", "splitk", "wgmma_realign", "splitk_realign")
+_TMA_ROUTES = ("wgmma", "splitk", "wgmma_xt", "wgmma_realign",
+               "splitk_realign")
 OPERANDS = ("x", "x_trans")
 
 
@@ -63,6 +65,8 @@ def _tma_lib() -> ctypes.CDLL:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.elk_matmul_tma_launch.argtypes = [ptr] * 5 + [i32] * 11 + [ptr]
         lib.elk_matmul_tma_launch.restype = i32
+        lib.elk_matmul_xt_capacity.argtypes = [i32] * 3
+        lib.elk_matmul_xt_capacity.restype = i32
     return lib
 
 
@@ -95,14 +99,25 @@ def _prepare(lib: ctypes.CDLL, device: torch.device) -> None:
 @functools.lru_cache(maxsize=4096)
 def plan_for(m: int, n: int, k: int, dtype: torch.dtype,
              tma: bool = True, realign: bool = False,
-             mma_sync: bool = False) -> SmemPlan:
+             mma_sync: bool = False, x_trans: bool = False) -> SmemPlan:
     """``smem_plan`` on one H100 for this product, once per shape, type and
     what the operands allow (``tma``: TMA takes both; ``realign``: TMA
     takes x, y is loaded and realigned by the producer; ``mma_sync``: the
-    plan behind a forced block shape)."""
+    plan behind a forced block shape; ``x_trans``: x read as the transpose
+    of a stored (k, m) matrix, the x^T dy of a weight gradient, whose TMA
+    plan is its own, route "wgmma_xt")."""
     return smem_plan(m, n, k, dtype_bytes=torch.empty(
         (), dtype=dtype).element_size(), tma=tma, realign=realign,
-        mma_sync=mma_sync)
+        mma_sync=mma_sync, x_trans=x_trans)
+
+
+def xt_capacity(device: torch.device, bm: int, bn: int, splits: int) -> int:
+    """Blocks of the persistent x^T dy instance (bm, bn) the card holds at
+    once in clusters of ``splits`` (1: no clusters), as the launch finds
+    it (``cudaOccupancyMaxActiveClusters``); the plan reads the H100's
+    from ``chip/h100.XT_RESIDENT``."""
+    with torch.cuda.device(device):
+        return _tma_lib().elk_matmul_xt_capacity(bm // 64, bn, splits)
 
 
 def _tma_ok(t: torch.Tensor, ld: int) -> bool:
@@ -130,7 +145,8 @@ def plan_of(x: torch.Tensor, y: torch.Tensor) -> SmemPlan:
     shape given: from dtype, shapes and strides, before any launch."""
     m, n, k, lda, ldy, y_trans = layout(x, y)
     return plan_for(m, n, k, x.dtype, tma_legal(x, y, lda, ldy),
-                    realign_legal(x, y, lda, ldy, y_trans))
+                    realign_legal(x, y, lda, ldy, y_trans),
+                    x_trans=x_trans_of(x))
 
 
 def route_of(x: torch.Tensor, y: torch.Tensor) -> str:
@@ -210,7 +226,8 @@ def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor,
                       x2: Optional[torch.Tensor] = None,
                       y2: Optional[torch.Tensor] = None, *,
                       bm: Optional[int] = None, bn: Optional[int] = None,
-                      bk: Optional[int] = None) -> torch.Tensor:
+                      bk: Optional[int] = None,
+                      xt_plan: Optional[SmemPlan] = None) -> torch.Tensor:
     """(m, k) @ (k, n) [+ x2 @ y2] -> (m, n) on the card, fp32 sum, output
     in x's type.
 
@@ -222,7 +239,10 @@ def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor,
     shape given the route and its plan come from ``plan_for`` (over the K
     of both parts).  A block shape given, or any part of it, is one of
     the mma_sync kernel's and runs it (the rest from its plan): ``bm`` in
-    ``TILE_M``, ``bn`` in ``TILE_N``, ``bk`` a multiple of 16."""
+    ``TILE_M``, ``bn`` in ``TILE_N``, ``bk`` a multiple of 16.
+    ``xt_plan``: a plan of route "wgmma_xt" for this x^T dy to launch in
+    place of ``plan_for``'s (``chip_smoke.py`` times the tiles and splits
+    the plan did not choose beside the one it did)."""
     if not x.is_cuda:
         raise ValueError(f"elk_matmul_kernel needs a CUDA tensor, got "
                          f"{x.device}")
@@ -260,7 +280,12 @@ def elk_matmul_kernel(x: torch.Tensor, y: torch.Tensor,
         x2 is None or tma_legal(x2, y2, lda, ldy))
     realign = x2 is None and realign_legal(x, y, lda, ldy, y_trans)
     plan = plan_for(m, n, parts * k, x.dtype, not forced and legal,
-                    not forced and realign, forced)
+                    not forced and realign, forced, bool(x_trans))
+    if xt_plan is not None:
+        if plan.route != "wgmma_xt" or xt_plan.route != "wgmma_xt":
+            raise ValueError(f"xt_plan takes route wgmma_xt, this product "
+                             f"is on {plan.route}")
+        plan = xt_plan
     route = plan.route
     if forced:
         bm, bn, bk = bm or plan.bm, bn or plan.bn, bk or plan.bk

@@ -14,6 +14,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.chip.h100 import SmemPlan, tile_origin, xt_schedule_of
+
 
 def matmul_ref(x: torch.Tensor, y: torch.Tensor,
                out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -41,6 +43,35 @@ def matmul_split_ref(x: torch.Tensor, y: torch.Tensor, *, bk: int,
         lo, hi = s * per * bk, min(k, (s + 1) * per * bk)
         part = matmul_ref(x[:, lo:hi], y[lo:hi], f)
         out = part if out is None else out + part
+    return out.to(x.dtype)
+
+
+def matmul_xt_split_ref(x: torch.Tensor, y: torch.Tensor,
+                        plan: SmemPlan) -> torch.Tensor:
+    """``matmul_ref`` summed as route "wgmma_xt" sums it under ``plan``
+    (``chip/h100.smem_plan(..., x_trans=True)``): every whole tile one fp32
+    sum over K; each split tile (the ``plan.tail`` tiles after the whole
+    ones, in the order of ``tile_origin``) cut by K into ``plan.splits``
+    runs of ``plan.k_per_split`` tiles of ``plan.bk``, each run's fp32
+    partial taken on its own and the partials added in rank order; output
+    in ``x``'s dtype.  The plain split-and-combine version of the kernel's
+    schedule, for the CPU tests."""
+    f = torch.float64 if x.dtype == torch.float64 else torch.float32
+    (m, k), n = x.shape, y.shape[1]
+    out = matmul_ref(x, y, f)
+    sched = xt_schedule_of(plan)
+    m_tiles, n_tiles = -(-m // plan.bm), -(-n // plan.bn)
+    span = sched.per * plan.bk
+    for c in range(sched.tail):
+        mt, nt = tile_origin(sched.full + c, m_tiles, n_tiles)
+        rows = slice(mt * plan.bm, (mt + 1) * plan.bm)
+        cols = slice(nt * plan.bn, (nt + 1) * plan.bn)
+        acc = None
+        for r in range(sched.splits):
+            part = matmul_ref(x[rows, r * span:(r + 1) * span],
+                              y[r * span:(r + 1) * span, cols], f)
+            acc = part if acc is None else acc + part
+        out[rows, cols] = acc
     return out.to(x.dtype)
 
 

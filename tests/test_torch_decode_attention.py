@@ -404,3 +404,28 @@ def test_planner_constants_are_what_the_kernel_compiles():
     for g in range(1, 9):
         assert f"F<T, {dk.maxg_for(g)}, " in src
     assert "decode_attention_combine_kernel" not in src
+    # the shared-memory layout smem_bytes mirrors: the ring of K and V
+    # tiles (no per-warp rows of dequantized int8 slots beside it) or the
+    # carries, then the rest
+    assert ("const size_t ring = (size_t)stages * 2 * bk * "
+            "row_bytes_for(d, elem);") in src
+    assert "region_bytes(int maxg, int d, int bk, int stages, int elem)" \
+        in src
+    assert "kWarps * 2 * 16" not in src and "dequant8" not in src
+    rest = re.search(r"const size_t rest = (.*?);\n", src, re.S).group(1)
+    assert " ".join(rest.split()) == (
+        "sizeof(float) * ((size_t)maxg * d + (size_t)bk * pad4(maxg) + "
+        "(size_t)stages * bk * (elem == 1 ? 3 : 1) + kMaxListed + "
+        "(size_t)maxg * kCoef + 4) + 2 * (size_t)stages * sizeof(uint64_t)")
+    for maxg, d, bk, stages, elem in ((8, 128, 64, 4, 1), (8, 128, 64, 2, 2),
+                                      (5, 72, 32, 3, 4), (8, 256, 64, 2, 1)):
+        ring = stages * 2 * bk * (-(-d * elem // 128) * 128)
+        region = max(ring, 4 * (dk.WARPS + 1) * maxg * (d + 2))
+        rest = 4 * (maxg * d + bk * (-(-maxg // 4) * 4)
+                    + stages * bk * (3 if elem == 1 else 1) + dk.MAX_LISTED
+                    + maxg * dk.COEF + 4) + 2 * stages * 8
+        assert dk.smem_bytes(maxg, d, bk, stages, elem) \
+            == 1024 + region + rest
+    # the int8 route "mma" reads the head dim as k_perm and v_perm say
+    assert "return 4 * KS * tig + 4 * kk + j;" in src
+    assert "return 2 * KS * gid + 2 * mt + h;" in src

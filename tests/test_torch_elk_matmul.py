@@ -225,6 +225,25 @@ def test_planner_constants_are_what_the_kernel_compiles():
     assert "setmaxnreg.dec.sync.aligned.u32 40" in hdr
     assert "setmaxnreg.inc.sync.aligned.u32 232" in hdr
     assert h100.WGMMA_ACC_REGS == {128: 128, 64: 64}
+    # the persistent x^T dy instances: their tiles, the epilogue tile's
+    # padding, the ring beside it (xt_stages_for), the block order's groups
+    line = re.search(r"#define ELK_XT_TILES\(F\)(.*)", _cu("elk_matmul.cu"))
+    assert {(int(a), int(b)) for a, b in
+            re.findall(r"F\((\d+), (\d+)\)", line.group(1))} \
+        == {(bm // 64, bn) for bm, bn in h100.XT_TILES}
+    assert const("kEpiPad") == h100.XT_EPI_PAD
+    assert const("kGroupM") == h100.GROUP_M
+    assert ("(wg == 1 ? kSmemBudget / 2 - 1024 : kSmemBudget) - 64 * wg * "
+            "(bn * 2 + kEpiPad)") in hdr
+    for bm, bn in h100.XT_TILES:
+        wg, stage = bm // 64, (bm + bn) * 64 * 2
+        budget = (h100.SMEM_PER_BLOCK // 2 - 1024 if wg == 1
+                  else h100.SMEM_PER_BLOCK) - bm * (bn * 2 + const("kEpiPad"))
+        header = min((budget - const("kSmemReserve")) // stage,
+                     const("kMaxStages"))
+        assert h100.xt_stages(bm, bn) == (header, 2 if wg == 1 else 1)
+    assert "hg::GemmCfg<WG, BN, 1, false, true, false, false, false, true>" \
+        in _cu("elk_matmul.cu")
 
 
 # qwen3-14b's products, bf16: (m, n) with K = 5120 -> route
@@ -447,3 +466,148 @@ def test_split_ref_matches_jax_kernel(m, n, k, bk, splits):
         float(ref.abs().max()) + 1.0)
     # one split is the plain product
     assert torch.equal(matmul_split_ref(tx, ty, bk=bk, splits=1), ref)
+
+
+# ---------------------------------------------------------------------------
+# x^T dy: route "wgmma_xt", its plan and the persistent kernel's schedule
+# ---------------------------------------------------------------------------
+
+# (tokens, m, n): qwen3-14b's weight gradients at 4096 tokens (k/v, q/o,
+# the LM head, the MLP's dw_down), gemma-7b's tied head, and the edges of
+# the schedule: fewer tiles than SMs, a few more, a ragged m and n, K no
+# multiple of 64
+XT_SHAPES = [(4096, 5120, 1024), (4096, 5120, 5120), (4096, 5120, 151936),
+             (4096, 17408, 5120), (4096, 3072, 256000), (60, 100, 70),
+             (33, 129, 257), (257, 200, 328), (513, 64, 136),
+             (512, 256, 384), (4096, 32, 200), (64, 512, 1024),
+             (1000, 2176, 1920), (4096, 1700, 2500), (512, 32, 2048),
+             (1000, 2176, 1024)]
+# the plans of the timed x^T dy rows of chip_smoke.py: (bm, bn, clusters of
+# the last wave, K tiles of a piece, blocks, tiles split)
+XT_PLANS = {(4096, 5120, 1024): (128, 128, 1, 64, 132, 0),
+            (4096, 5120, 5120): (128, 256, 2, 32, 132, 8),
+            (4096, 5120, 151936): (128, 256, 1, 64, 132, 0),
+            (4096, 17408, 5120): (128, 256, 1, 64, 132, 0),
+            (512, 32, 2048): (64, 128, 8, 1, 128, 16),
+            (1000, 2176, 1024): (128, 128, 4, 4, 120, 16)}
+
+
+@pytest.mark.parametrize("k, m, n", XT_SHAPES)
+def test_xt_plan_and_schedule_cover_every_tile_once(k, m, n):
+    """The x^T dy plan: a tile of ``XT_TILES``, its ring and epilogue tile
+    within the budget of the blocks an SM holds, at most MAX_SPLITS blocks a
+    cluster, no more blocks than the SMs hold; its schedule is
+    ``xt_schedule``'s, and the kernel's walk (``xt_units``) takes every
+    (output tile, K tile) once, every block as many whole tiles as any
+    other (one fewer where the last wave is ragged and not split), a split
+    tile a cluster's, each rank a piece of K."""
+    p = h100.smem_plan(m, n, k, x_trans=True)
+    assert p.route == "wgmma_xt" and (p.bm, p.bn) in h100.XT_TILES
+    stages, per_sm = h100.xt_stages(p.bm, p.bn)
+    assert (p.stages, p.blocks_per_sm) == (stages, per_sm) and stages >= 2
+    assert p.smem_bytes <= (h100.SMEM_PER_BLOCK // 2 - h100.SMEM_BLOCK_RESERVE
+                            if per_sm == 2 else h100.SMEM_PER_BLOCK)
+    resident = h100.xt_resident(h100.h100_sxm(), per_sm, p.splits)
+    assert 1 <= p.splits <= h100.MAX_SPLITS and p.grid <= resident
+    k_tiles = -(-k // h100.WG_BK)
+    sched = h100.xt_schedule_of(p)
+    assert sched == h100.xt_schedule(p.tiles, k_tiles, resident, p.splits)
+    units = h100.xt_units(sched, k_tiles)
+    seen = np.zeros((p.tiles, k_tiles), np.int64)
+    for blk in units:
+        for tile, k0, nk in blk:
+            assert nk >= 1 and 0 <= tile < p.tiles
+            seen[tile, k0:k0 + nk] += 1
+    assert (seen == 1).all()
+    whole = [sum(1 for t, _, _ in blk if t < sched.full) for blk in units]
+    assert max(whole) - min(whole) <= (1 if p.splits == 1 else 0)
+    for b, blk in enumerate(units):
+        pieces = [u for u in blk if u[0] >= sched.full]
+        assert len(pieces) <= 1 and (not pieces or blk[-1] == pieces[0])
+        if pieces:
+            assert pieces[0][0] == sched.full + b // p.splits
+    if (k, m, n) in XT_PLANS:
+        assert (p.bm, p.bn, p.splits, p.k_per_split, p.grid, p.tail) \
+            == XT_PLANS[(k, m, n)]
+
+
+def test_xt_schedule_rule():
+    """``xt_schedule``: one block a tile up to the resident blocks, then
+    whole waves; a split only of a short last wave (its tiles no more than
+    the clusters), every rank of a cluster a K tile."""
+    one = h100.xt_schedule(160, 64, 132, 1)
+    assert (one.grid, one.full, one.tail, one.splits) == (132, 160, 0, 1)
+    four = h100.xt_schedule(160, 64, 132, 4)
+    assert (four.grid, four.full, four.tail, four.per) == (132, 132, 28, 16)
+    assert h100.xt_schedule(160, 64, 130, 5) is None          # 30 > 26
+    assert h100.xt_schedule(264, 64, 132, 2) is None          # no short wave
+    assert h100.xt_schedule(200, 64, 132, 2) is None          # 68 > 66
+    assert h100.xt_schedule(10, 3, 132, 4) is None            # a rank idle
+    few = h100.xt_schedule(10, 64, 128, 8)
+    assert (few.grid, few.full, few.tail, few.per) == (80, 0, 10, 8)
+    # the blocks the H100 holds in clusters: whole clusters, never more
+    # than the SMs hold; any other chip: the SMs' share
+    for per_sm, row in h100.XT_RESIDENT.items():
+        for s, blocks in enumerate(row, 1):
+            assert blocks % s == 0 and blocks <= h100.SMS * per_sm
+            assert h100.xt_resident(h100.h100_sxm(), per_sm, s) == blocks
+    chip = dataclasses.replace(h100.h100_sxm(), num_cores=10)
+    assert h100.xt_resident(chip, 1, 3) == 9
+
+
+@pytest.mark.parametrize("mn", sorted(SERVING_ROUTES))
+def test_xt_plan_cached_apart_from_the_forward(mn):
+    """x read transposed takes its own plan, cached under its own key: the
+    forward's plan at the serving shapes is the one it was, and x^T dy of
+    the same (m, n, K) takes route "wgmma_xt"."""
+    m, n = mn
+    fwd = mk.plan_for(m, n, 5120, torch.bfloat16)
+    xt = mk.plan_for(m, n, 5120, torch.bfloat16, x_trans=True)
+    assert fwd.route == SERVING_ROUTES[mn] and xt.route == "wgmma_xt"
+    assert fwd == h100.smem_plan(m, n, 5120)
+    assert mk.plan_for(m, n, 5120, torch.bfloat16) is fwd
+    x = torch.empty((5120, m), dtype=torch.bfloat16)
+    dy = torch.empty((5120, n), dtype=torch.bfloat16)
+    assert mk.plan_of(x.t(), dy) == xt
+    assert mk.route_of(torch.empty((m, 5120), dtype=torch.bfloat16),
+                       torch.empty((5120, n), dtype=torch.bfloat16)) \
+        == SERVING_ROUTES[mn]
+    # fp32 and strides TMA refuses keep their routes
+    assert mk.route_of(torch.empty((5120, m)).t(), torch.empty((5120, n))) \
+        in ("fma", "fma_splitk")
+    odd = torch.empty((5120, m + 1), dtype=torch.bfloat16)[:, :m]
+    assert mk.route_of(odd.t(), dy) == "mma_sync"
+
+
+@pytest.mark.parametrize("k, m, n, cores", [
+    (300, 384, 320, 4),     # 9 tiles on 4 SMs: two waves, one tile split
+    (513, 64, 136, 4),      # 2 tiles, each split over 3 blocks (K 9 tiles)
+    (200, 260, 700, 4),     # no split: 30 tiles dealt out over 8 blocks
+    (130, 100, 70, 132),    # one tile, K split over 3 blocks, K ragged
+])
+def test_xt_split_ref_matches_jax_kernel(k, m, n, cores):
+    """The plain mirror of route "wgmma_xt"'s sums (``matmul_xt_split_ref``:
+    whole tiles one fp32 sum, split tiles' pieces added in rank order)
+    under the plan for a card of ``cores`` SMs (few SMs, so that small
+    shapes have waves and a split last one) against the JAX
+    ``elk_matmul`` of the transposed x in interpret mode and its oracle,
+    fp32, the kernel tests' bound; against ``matmul_ref`` within 1e-5 of
+    it (the same sums in another order), equal where nothing is split."""
+    from repro_torch.kernels.elk_matmul.ref import (matmul_ref,
+                                                    matmul_xt_split_ref)
+    chip = dataclasses.replace(h100.h100_sxm(), num_cores=cores)
+    plan = h100.smem_plan(m, n, k, x_trans=True, chip=chip)
+    tx, jx = _pair((k, m), "float32", 13)
+    ty, jy = _pair((k, n), "float32", 14)
+    got = matmul_xt_split_ref(tx.t(), ty, plan)
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    _check(got, jax_elk_matmul(jx.T, jy, bm=64, bn=64, bk=64,
+                               interpret=True), "float32")
+    _check(got, jax_matmul_ref(jx.T, jy), "float32")
+    ref = matmul_ref(tx.t(), ty)
+    assert float((got - ref).abs().max()) <= 1e-5 * (
+        float(ref.abs().max()) + 1.0)
+    if plan.tail == 0:
+        assert torch.equal(got, ref)
+    else:
+        assert plan.splits > 1

@@ -571,8 +571,10 @@ def test_int8_routes_and_tilings():
     """An int8 ring takes route "mma" with a bf16 query at the head dims
     of MMA_HEAD_DIMS, "fma" otherwise; flash attention "wgmma" / "mma_sync"
     with a bf16 query, "fma" with an fp32 one.  Every int8 tiling fits the
-    budget the bf16 one is held to, and the int8 ring of a tile is half
-    the bf16 one's at D 128 and 256."""
+    budget the bf16 one is held to, two blocks an SM on route "mma" at
+    every head dim (no per-warp rows of dequantized slots beside the
+    ring), and the int8 ring takes at least the bf16 one's stages: at D
+    128 four to its two."""
     def t(dtype, *shape):
         return torch.empty(shape, dtype=dtype)
     bf, f32, i8 = torch.bfloat16, torch.float32, torch.int8
@@ -591,10 +593,10 @@ def test_int8_routes_and_tilings():
     for d in dk.MMA_HEAD_DIMS:
         bk, stages = dk.tiling(5, d, 1, "mma")
         assert bk == 64 and stages in (2, 4)
-        need = dk.smem_bytes(dk.MAX_GROUP, d, bk, stages, 1, mma=True)
-        assert need <= (budget2 if d <= 128
-                        else dk.SM_BYTES - dk.BLOCK_RESERVE)
-    assert dk.tiling(5, 128, 1, "mma") == dk.tiling(5, 128, 2, "mma")
+        assert dk.smem_bytes(dk.MAX_GROUP, d, bk, stages, 1) <= budget2
+        assert stages >= dk.tiling(5, d, 2, "mma")[1]
+    assert dk.tiling(5, 128, 1, "mma") == (64, 4)
+    assert dk.tiling(5, 128, 2, "mma") == (64, 2)
 
 
 def test_int8_instances_are_in_the_sources():
@@ -621,3 +623,104 @@ def test_int8_instances_are_in_the_sources():
     kvq = (CSRC / "kv_quant.cu").read_text()
     assert "__fdiv_rn(x[i], scale)" in kvq and "rintf" in kvq
     assert "__fdiv_rn(fmaxf(amax, 1e-6f), 127.0f)" in kvq
+
+
+# ---------------------------------------------------------------------------
+# route "mma" over an int8 ring: fragments from the int8 bytes in registers
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", dk.MMA_HEAD_DIMS)
+def test_mma_int8_permutations_are_bijections(d):
+    """``k_perm`` and ``v_perm`` are permutations of the KS k16 steps'
+    16 KS dims; a lane's K elements of every step are one run of 4 KS
+    bytes of a slot row (4 bytes a step), its V^T rows over every m tile
+    one run of 2 KS bytes; every dim below d is read."""
+    ks = -(-d // 16)
+    kp, vp = dk.k_perm(d), dk.v_perm(d)
+    assert sorted(kp) == list(range(16 * ks)) == sorted(vp)
+    for tig in range(4):
+        # mma.sync m16n8k16: lane tig holds k 2 tig, 2 tig + 1 (bytes 0, 1)
+        # and 2 tig + 8, 2 tig + 9 (bytes 2, 3) of each step
+        dims = [kp[16 * kk + j] for kk in range(ks)
+                for j in (2 * tig, 2 * tig + 1, 2 * tig + 8, 2 * tig + 9)]
+        assert dims == list(range(4 * ks * tig, 4 * ks * (tig + 1)))
+    for gid in range(8):
+        dims = [vp[16 * mt + r] for mt in range(ks) for r in (gid, gid + 8)]
+        assert dims == list(range(2 * ks * gid, 2 * ks * (gid + 1)))
+
+
+def test_int8_byte_permute_is_exact():
+    """The kernel's int8 -> fp32 without an integer conversion: the byte,
+    its sign bit flipped, as the mantissa of 2^23, less 2^23 + 128, is the
+    int8's value for all 256 of them; times a bf16 scale and rounded to
+    bf16 it equals the reference's ``_dequantize_kv``."""
+    q = np.arange(-128, 128, dtype=np.int8)
+    bits = (q.view(np.uint8).astype(np.uint32) ^ 0x80) | 0x4B000000
+    exact = bits.view(np.float32) - np.float32(8388736.0)
+    assert np.array_equal(exact, q.astype(np.float32))
+    scales = jnp.asarray([[0.0078125], [0.013], [3.1e-3], [1.7]],
+                         jnp.bfloat16)
+    for row in range(scales.shape[0]):
+        sc = np.asarray(scales[row].astype(jnp.float32))
+        mine = (torch.from_numpy(exact * sc)).to(torch.bfloat16)
+        ref = jtfm._dequantize_kv(jnp.asarray(q), scales[row])
+        assert np.array_equal(mine.float().numpy(),
+                              np.asarray(ref.astype(jnp.float32)))
+
+
+def _permuted_decode(q, kq, vq, scales, slot_pos, pos, d):
+    """The int8 "mma" route's arithmetic in fp32: the ring dequantized as
+    the kernel does, S = K Q^T over the 16 KS dims read under k_perm (K's
+    bytes past d arbitrary, the query's zeros), O^T's rows under v_perm,
+    written back to the dims they stand for."""
+    ks = -(-d // 16)
+    b, hq, _ = q.shape
+    hkv, c = kq.shape[1], kq.shape[2]
+    g = hq // hkv
+    pad = 16 * ks - d
+    gen = np.random.default_rng(5)
+    junk = lambda a: torch.cat([a, torch.from_numpy(gen.integers(
+        -128, 128, a.shape[:-1] + (pad,)).astype(np.int8))], -1)
+    kd = junk(kq).float() * scales[0].float()
+    vd = junk(vq).float() * scales[1].float()
+    kd, vd = kd.to(torch.bfloat16).float(), vd.to(torch.bfloat16).float()
+    qf = torch.cat([q.float(), torch.zeros(b, hq, pad)], -1)
+    kp, vp = torch.tensor(dk.k_perm(d)), torch.tensor(dk.v_perm(d))
+    kd = kd.repeat_interleave(g, 1)[..., kp]            # (b, hq, c, 16 ks)
+    vd = vd.repeat_interleave(g, 1)[..., vp]
+    s = torch.einsum("bhcj,bhj->bhc", kd, qf[..., kp]) * d ** -0.5
+    live = (slot_pos <= pos)[None, None, :]
+    s = torch.where(live, s, torch.tensor(-torch.inf))
+    p = torch.softmax(s, -1)
+    ot = torch.einsum("bhc,bhcr->bhr", p, vd)           # rows of O^T
+    out = torch.zeros(b, hq, 16 * ks)
+    out[..., vp] = ot
+    return out[..., :d]
+
+
+@pytest.mark.parametrize("d", [64, 72, 128, 256])
+def test_mma_int8_contraction_under_permutations_equals_reference(d):
+    """A numpy/PyTorch contraction of an int8 K and V dequantized under
+    ``k_perm`` and ``v_perm`` with the query permuted as K (what route
+    "mma" computes over an int8 ring, up to the order of its sums) equals
+    ``decode_attention_ref`` over the same ring and the reference's int8
+    decode (its dequantized ring through the Pallas kernel in interpret
+    mode), fp32 within the attention tests' bound."""
+    rng = np.random.default_rng(9)
+    b, hq, hkv, c, pos = 2, 8, 2, 96, 70
+    (kq, vq), scales, _, jdeq = _int8_ring(rng, b, hkv, c, d)
+    q = torch.from_numpy(rng.standard_normal((b, hq, d)).astype(
+        np.float32)).to(torch.bfloat16)
+    slot_pos = torch.where(torch.arange(c) < pos + 1, torch.arange(c),
+                           tfm.POS_SENTINEL).to(torch.int32)
+    got = _permuted_decode(q, kq, vq, scales, slot_pos, pos, d)
+    want = decode_attention_ref(q.float(), kq, vq, slot_pos, pos,
+                                kv_scales=scales)
+    tol = ATTN_TOL * (float(want.abs().max()) + 1)
+    assert float((got - want.float()).abs().max()) <= tol
+    ref = np.asarray(pallas_decode_attention(
+        jnp.asarray(q.float().numpy()), jdeq[0].astype(jnp.float32),
+        jdeq[1].astype(jnp.float32), jnp.asarray(slot_pos.numpy()), pos,
+        bk=32, interpret=True))
+    assert np.abs(got.numpy() - ref).max() <= ATTN_TOL * (
+        np.abs(ref).max() + 1)
