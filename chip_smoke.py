@@ -29,9 +29,10 @@ exit code and no result line:
             around its crossover R.  Both attention kernels also over an
             int8 ring (dequantized in the kernel, every route, held to the
             plain versions, which dequantize first), timed at the serving
-            shapes beside the bf16 kernel, and ``kv_quant`` (the int8 ring's
-            quantization) bit for bit against ``quantize_kv`` and its
-            scatter.
+            shapes beside the bf16 kernel (flash's at both block widths
+            and every split count), and ``kv_quant`` (the int8 ring's
+            quantization, K's rope folded in) bit for bit against
+            ``apply_rope``, ``quantize_kv`` and its scatter.
 4. parity   every smoke config (all of ``ARCH_IDS``) in fp32 on the same
             seeded weights, on the CPU
             (plain path) and on the card (kernel path), with resident
@@ -69,7 +70,9 @@ exit code and no result line:
             0.15 of the bf16 ring's, no ring widened in a decode step (what
             it allocates beyond the step before stays under one layer's
             bf16 ring), the launches by route and by the K/V type the
-            attention kernels read; one ``[int8]`` line.
+            attention kernels read; one ``[int8]`` line, and before it the
+            lock-step decode step alone (``[int8-step]``: ms a step and the
+            device kernels a step, by the profiler).
 8. stream-serve  the launcher's default path: the same model and weights,
             cut to STREAM_DEPTH (20) of its 40 layers for the time limit,
             under ``elk_stream``, knobs from ``elk_serve_config`` on
@@ -209,8 +212,9 @@ streamed kimi-k2 decode step, its expert copies apart from the window's
 ``--only kernels`` runs the build and the kernel phases, ``--only models``
 the build, the parity, the ``[models]`` and the ``[families]`` phases,
 ``--only train`` the build and the ``[train]`` phase, ``--only dryrun`` the
-build and the ``[dryrun]`` phase (none prints a result line): the loops for
-working on one part.
+build and the ``[dryrun]`` phase, ``--only int8step`` the build and
+``[int8-step]`` (none prints a result line): the loops for working on one
+part.
 """
 
 from __future__ import annotations
@@ -303,7 +307,7 @@ from repro_torch.kernels.fused_mlp.ops import fused_mlp  # noqa: E402
 from repro_torch.kernels.fused_mlp.ref import (  # noqa: E402
     ACTS as MLP_ACTS, act_fn, composed_ref, fused_mlp_bwd_ref)
 from repro_torch.kernels.kv_quant.kernel import (  # noqa: E402
-    KV_TYPES, kv_quant_kernel)
+    KV_TYPES, kv_quant_kernel, _rope_tables as kv_quant_tables)
 from repro_torch.kernels.kv_quant.ref import (  # noqa: E402
     quantize_into_ref, quantize_kv)
 from repro_torch.launch import dryrun  # noqa: E402
@@ -313,7 +317,8 @@ from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import rwkv as rwkv_mod  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.frontends import frontend_embeddings  # noqa: E402
-from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.models.layers import (apply_rope, rms_norm,  # noqa: E402
+                                       rope_tables)
 from repro_torch.serve import batcher as batcher_mod  # noqa: E402
 from repro_torch.serve.batcher import (ContinuousBatcher,  # noqa: E402
                                        _chunk_len, make_trace, summarize)
@@ -1494,15 +1499,15 @@ def flash_phase(cfg, chunk: int) -> dict:
 
     # the int8 ring, dequantized in the kernel: chunks of 4-256 tokens at
     # ring offsets 0, 700 and 1900 of a ring of 2048 on every route
-    # ("wgmma" at D 64, 112, 128, 256, split as planned, unsplit and over 8,
-    # and at 112 also "mma_sync" forced; "mma_sync" at 72, where an int8 row
-    # is no stride TMA takes; "fma" with an fp32 query), windows; three
-    # rows, one of them evicted
+    # ("wgmma" at D 64, 80, 96, 112, 128, 256, split as planned, unsplit
+    # and over 8, and at 80-112 also "mma_sync" forced; "mma_sync" at 72,
+    # where an int8 row is no stride TMA takes; "fma" with an fp32 query),
+    # windows; three rows, one of them evicted
     bf16_cases, worst_bf16 = cases, dict(worst)
     worst = {"float32": (0.0, 0.0), "bfloat16": (0.0, 0.0)}
     cases = 0
     for hq, hkv, d in ((40, 8, 128), (14, 2, 64), (32, 16, 256), (16, 16, 72),
-                       (64, 8, 112)):
+                       (64, 8, 112), (8, 2, 80), (10, 2, 96)):
         for t, start, win in ((4, 0, 0), (32, 700, 0), (32, 1900, 0),
                               (256, 700, 0), (100, 1900, 300),
                               (256, 0, 1024)):
@@ -1524,6 +1529,20 @@ def flash_phase(cfg, chunk: int) -> dict:
         kq, vq, sc = int8_ring(k, v)
         case(q, kq, vq, q_pos, tags, dead=dead, kv_scales=sc)
         case(q.float(), kq, vq, q_pos, tags, dead=dead, kv_scales=sc)
+    # route "wgmma" where the scales cannot all come by bulk copies: a
+    # wrapped ring of 1000 slots (its last tile's scales by the producer's
+    # lanes), of 1001 (every tile's: rows not on 16 bytes) and scales one
+    # element into a buffer (not on 16 bytes)
+    for c, offset in ((1000, 0), (1001, 0), (1024, 1)):
+        for hq, hkv, d in ((40, 8, 128), (14, 2, 64), (32, 16, 256)):
+            q_pos, tags = chunk_positions(1, 32, c, (c + 100,))
+            q, k, v = qkv(1, hq, hkv, 32, c, d, bf16)
+            kq, vq, sc = int8_ring(k, v)
+            if offset:
+                sc = tuple(torch.cat([x.new_zeros(offset), x.flatten()])
+                           [offset:].view(x.shape) for x in sc)
+            for splits in (None, 1):
+                case(q, kq, vq, q_pos, tags, kv_scales=sc, splits=splits)
     worst_int8, int8_cases = worst, cases
     say(f"[kernels] flash_attention int8 ring: {int8_cases} sweep cases "
         f"inside tolerance (worst err/tol and its err: "
@@ -1667,6 +1686,12 @@ def flash_phase(cfg, chunk: int) -> dict:
             "bf16_bound_ms": flash_bound_ms(q, k, q_pos, k_pos, True, 0)[0],
             # no one PyTorch call attends over an int8 ring
             "library_ms": None,
+            # every split count, the plan's apart
+            "other_designs_ms": {
+                f"splits {n}": time_ms(
+                    lambda: flash_attention_kernel(
+                        q, kq, vq, q_pos, k_pos, kv_scales=sc, splits=n), 20)
+                for n in (1, 2, 4, 8) if n != splits},
             **({"mma_sync_ms": time_ms(lambda: flash_attention_kernel(
                 q, kq, vq, q_pos, k_pos, kv_scales=sc, route="mma_sync"), 20)}
                if d in PADDED_HEAD_DIMS else {}),
@@ -1716,13 +1741,20 @@ def flash_phase(cfg, chunk: int) -> dict:
 
 def kv_quant_phase(cfg) -> dict:
     """The int8 ring's quantization kernel held bit for bit to its plain
-    version (``quantize_into_ref``: ``quantize_kv`` and the scatter): the
-    serving shapes (a lock-step decode step at one position, a slot step
-    at a position a row, chunks of 32 and 256), head dims 64, 72, 112 and
-    256, fp32 new rows (the fp32 parity's), V through the strides of a
-    (B, T, Hkv, D) projection, rows whose elements fall on .5 exactly and
-    all-zero rows; each launched twice for equal bits.  The serving shapes
-    timed."""
+    version (``quantize_into_ref``: K's rope by ``apply_rope`` where the
+    tables are given, then ``quantize_kv`` and the scatter): the serving
+    shapes with the tables the serving paths pass ((1, D/2) at the lock-step
+    decode step's one position, (B, 1, D/2) at a slot step, (1, T, D/2) at
+    chunks of 32 and 256); head dims 64, 72, 80, 112, 128 and 256 in fp32
+    and bf16 at each of those three table shapes, and without a rope at 64,
+    72, 112 and 256; V through the strides of a (B, T, Hkv, D) projection;
+    rows whose elements fall on .5 exactly (position 0: the rope leaves
+    them as they are) and all-zero rows; each case launched twice for equal
+    bits.  The serving shapes timed with the rope (the serving paths' one
+    launch), without it, and as the chain the serving paths ran before the
+    rope was folded in (``apply_rope``'s launches, then the kernel); and
+    the host time of a call with and without the tables, and of the
+    tables' checks alone (``_rope_tables``)."""
     gen = torch.Generator(device="cuda").manual_seed(1357)
     hkv, d = cfg.num_kv_heads, cfg.resolved_head_dim
 
@@ -1737,8 +1769,11 @@ def kv_quant_phase(cfg) -> dict:
         v = torch.randn(b, t, h, dd, generator=gen, device="cuda")
         v = v.transpose(1, 2) if strided else v.transpose(1, 2).contiguous()
         k[0, 0, 0] = 0.0                                  # an all-zero row
-        k[-1, -1, -1, :8] = torch.tensor(                 # ties at .5
-            [0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -127.0, 3.5], device="cuda")
+        ties = torch.tensor([0.5, 1.5, 2.5, -0.5, -2.5, 126.5, -127.0, 3.5],
+                            device="cuda")                # ties at .5
+        k[-1, -1, -1, :8] = ties
+        if h > 1:
+            k[0, 1, 0, :8] = ties
         return k.to(dtype), v.to(dtype)
 
     def positions(b, t, c, at):
@@ -1749,54 +1784,85 @@ def kv_quant_phase(cfg) -> dict:
             base = torch.full((b, 1), at, device="cuda")
         return (base + torch.arange(t, device="cuda")).to(torch.int32)
 
+    def tables(pos, dd):
+        """The rope tables the serving paths build for these positions."""
+        if isinstance(pos, int):
+            pos = torch.full((1,), pos, dtype=torch.int32, device="cuda")
+        return rope_tables(pos, dd, cfg.rope_theta)
+
     cases = 0
     serving = (("lock-step decode", BATCH, 1, CACHE, PROMPT_LEN + STEPS // 2),
                ("continuous decode", SLOTS, 1, SLOT_CACHE, None),
                ("chunk T=32", 1, 32, SLOT_CACHE, 700),
                (f"chunk T={PREFILL_CHUNK}", 1, PREFILL_CHUNK, SLOT_CACHE,
                 700))
-    sweep = [(label, b, t, c, at, hkv, d, torch.bfloat16, True)
+    # (label, B, T, C, position (None: random rows), Hkv, D, type, V
+    # strided, rope)
+    sweep = [(label, b, t, c, at, hkv, d, torch.bfloat16, True, True)
              for label, b, t, c, at in serving]
+    sweep += [(f"D={dd} {str(dt).split('.')[1]} rope {shape}", b, t, c, at,
+               h, dd, dt, True, True)
+              for dd in (64, 72, 80, 112, 128, 256)
+              for dt in (torch.float32, torch.bfloat16)
+              for shape, b, t, c, at, h in (("(1, D/2)", 3, 1, 77, 0, 5),
+                                            ("(B, 1, D/2)", 4, 1, 300, None,
+                                             2),
+                                            ("(1, T, D/2)", 1, 37, 300, 0,
+                                             3))]
     sweep += [(f"D={dd} {str(dt).split('.')[1]}", b, t, c, at, h, dd, dt,
-               strided)
+               strided, False)
               for dd in (64, 72, 112, 256) for dt in (torch.float32,
                                                       torch.bfloat16)
               for b, t, c, at, h, strided in ((3, 1, 77, 100, 5, False),
                                               (2, 5, 300, None, 2, True))]
     shapes = []
-    for label, b, t, c, at, h, dd, dtype, strided in sweep:
+    for label, b, t, c, at, h, dd, dtype, strided, rope in sweep:
         k_new, v_new = new_rows(b, h, t, dd, dtype, strided)
         pos = positions(b, t, c, at)
+        sc = tables(pos, dd) if rope else (None, None)
         got, again, want = rings(b, h, c, dd), rings(b, h, c, dd), \
             rings(b, h, c, dd)
-        kv_quant_kernel(k_new, v_new, *got, pos)
-        kv_quant_kernel(k_new, v_new, *again, pos)
+        kv_quant_kernel(k_new, v_new, *got, pos, *sc)
+        kv_quant_kernel(k_new, v_new, *again, pos, *sc)
         torch.cuda.synchronize()
-        quantize_into_ref(k_new, v_new, *want, pos)
+        quantize_into_ref(k_new, v_new, *want, pos, *sc)
         for name, a, b2, w in zip(("k", "v", "k_scale", "v_scale"), got,
                                   again, want):
             if not torch.equal(a, b2):
                 fail(f"kv_quant gave other bits on a second launch: {label} "
                      f"{name}")
             if not torch.equal(a, w):
-                fail(f"kv_quant differs from quantize_kv and its scatter at "
-                     f"{label} (B {b}, Hkv {h}, T {t}, C {c}, D {dd}, "
-                     f"{dtype}): {name}, "
+                fail(f"kv_quant differs from apply_rope, quantize_kv and "
+                     f"its scatter at {label} (B {b}, Hkv {h}, T {t}, C {c}, "
+                     f"D {dd}, {dtype}, rope {rope}): {name}, "
                      f"{int((a.float() != w.float()).sum())} elements")
         cases += 1
         if (label, b, t, c, at) not in serving:
             continue
         elems = 2 * b * h * t * dd
-        nbytes = elems * k_new.element_size() + elems + 2 * b * h * t * 2
+        nbytes = (elems * k_new.element_size() + elems + 2 * b * h * t * 2
+                  + 2 * sc[0].numel() * sc[0].element_size())
         shapes.append({
             "shape": label, "b": b, "hkv": h, "t": t, "c": c, "d": dd,
-            "src": "bfloat16", "max_abs_err": 0.0,
-            "ms": time_ms(lambda: kv_quant_kernel(k_new, v_new, *got, pos),
-                          100),
-            "plain_ms": time_ms(lambda: quantize_into_ref(k_new, v_new,
-                                                          *want, pos), 20),
+            "src": "bfloat16", "rope": list(sc[0].shape), "max_abs_err": 0.0,
+            "ms": time_ms(lambda: kv_quant_kernel(k_new, v_new, *got, pos,
+                                                  *sc), 100),
+            "no_rope_ms": time_ms(lambda: kv_quant_kernel(
+                k_new, v_new, *got, pos), 100),
+            "rope_then_kernel_ms": time_ms(lambda: kv_quant_kernel(
+                apply_rope(k_new, *sc), v_new, *got, pos), 100),
+            # the host's share of a call: the wrapper with the tables, without
+            # them, and the tables' checks alone
+            "host_us": host_us(lambda: kv_quant_kernel(k_new, v_new, *got,
+                                                       pos, *sc)),
+            "no_rope_host_us": host_us(lambda: kv_quant_kernel(
+                k_new, v_new, *got, pos)),
+            "rope_checks_host_us": host_us(lambda: kv_quant_tables(
+                *sc, b, t, dd, k_new.device)),
+            "plain_ms": time_ms(lambda: quantize_into_ref(
+                k_new, v_new, *want, pos, *sc), 20),
             "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            # no one PyTorch call quantizes and scatters
+            # no one PyTorch call ropes, quantizes and scatters
             "library_ms": None,
         })
         say(f"[kernels] kv_quant {label}: " + json.dumps(shapes[-1]))
@@ -2884,6 +2950,50 @@ def last_logits(eng: ServeEngine, prompts, tokens, steps: int) -> torch.Tensor:
     return logits.float()
 
 
+def int8_step(cfg, eng: ServeEngine, groups: int = 5, steps: int = 16
+              ) -> dict:
+    """The lock-step decode step over the int8 ring (``eng`` a resident
+    engine with ``kv_dtype`` int8, B 8, a ring of 1024): after a prefill of
+    BATCH prompts of PROMPT_LEN (seed 1) and two warm-up steps, ``groups``
+    runs of ``steps`` decode steps, each timed by CUDA events (greedy tokens
+    fed back; the path is host-bound, so its ms a step is the median of the
+    runs'), then one step under ``device_split``: the device kernels a step
+    launches, the port's counted apart from PyTorch's."""
+    dev = torch.device("cuda")
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT_LEN),
+                            device=dev,
+                            generator=torch.Generator(device=dev).manual_seed(1))
+    logits, cache = eng.prefill(prompts)
+    tok = torch.argmax(logits[:, -1, :], dim=-1)
+    for _ in range(2):
+        logits, cache = eng.decode(tok, cache)
+        tok = torch.argmax(logits[:, -1, :], dim=-1)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    zero_launches()
+    runs = []
+    for _ in range(groups):
+        start.record()
+        for _ in range(steps):
+            logits, cache = eng.decode(tok, cache)
+            tok = torch.argmax(logits[:, -1, :], dim=-1)
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / steps)
+    if not torch.isfinite(logits).all():
+        fail("int8 lock-step decode: logits not finite")
+    counted = read_launches()
+    split = device_split(lambda: eng.decode(tok, cache))
+    return {"model": cfg.name, "layers": cfg.num_layers, "batch": BATCH,
+            "cache": CACHE, "prompt_len": PROMPT_LEN, "steps": groups * steps,
+            "ms_per_step": statistics.median(runs), "ms_per_step_runs": runs,
+            "launches_per_step": {k: n / (groups * steps)
+                                  for k, n in counted.items()},
+            "device_kernels_per_step": split["port_kernels"]
+            + split["other_kernels"], **split}
+
+
 def int8_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
     """Full-width qwen3-14b, resident, bf16 activations, the int8 ring
     (``ServeConfig(kv_dtype="int8")``): the lock-step run of [serve] (B 8,
@@ -2944,6 +3054,10 @@ def int8_phase(cfg, params: dict, kernel_rows: list[dict]) -> None:
                                 "generate_ms", "tokens_per_s")}
     lock["decode_tokens_per_s"] = BATCH / (run["decode_ms_per_token"] * 1e-3)
     del run
+    eng = ServeEngine(cfg, params, ServeConfig(
+        batch=BATCH, cache_capacity=CACHE, kv_dtype="int8"))
+    say("[int8-step] " + json.dumps(int8_step(cfg, eng)))
+    del eng
 
     trace = trace_phase(cfg, params, kernel_rows, False,
                         path="int8 continuous", tag="[int8-trace]",
@@ -3856,7 +3970,8 @@ def models_phase(kernel_rows: list[dict], profile: bool) -> None:
 # of its CUDA source (``hg::`` for the mainloop of ``hopper_gemm.cuh``)
 PORT_KERNEL = re.compile(r"(void )?(hg::)?\(anonymous namespace\)::"
                          r"(elk_matmul_|gemm_kernel|fused_mlp_|"
-                         r"decode_attention_kernel|flash_attention_)")
+                         r"decode_attention_kernel|flash_attention_|"
+                         r"kv_quant_)")
 # device kernels of one counted launch: fused_mlp's two passes (or its
 # partial sums and their reduction); one for every other wrapper
 DEVICE_KERNELS_PER_LAUNCH = {"fused_mlp": 2}
@@ -5320,10 +5435,11 @@ def main() -> None:
     ap.add_argument("--profile", action="store_true",
                     help="also trace decode steps, a prefill and slot steps")
     ap.add_argument("--only", choices=("kernels", "models", "train",
-                                       "dryrun"),
+                                       "dryrun", "int8step"),
                     help="run the kernel phases only, the parity, "
                     "[models] and [families] phases only, the [train] or "
-                    "the [dryrun] phase only (to iterate on one part); "
+                    "the [dryrun] phase only, or the int8 lock-step decode "
+                    "step of [int8] alone (to iterate on one part); "
                     "prints no result line")
     args = ap.parse_args()
 
@@ -5411,6 +5527,10 @@ def main() -> None:
                         kv_quant_phase(cfg)):
                 say(json.dumps({k: row[k] for k in ("name", "ms", "bound_ms",
                                                      "library_ms")}))
+        elif args.only == "int8step":
+            eng = ServeEngine(cfg, draw_params(cfg), ServeConfig(
+                batch=BATCH, cache_capacity=CACHE, kv_dtype="int8"))
+            say("[int8-step] " + json.dumps(int8_step(cfg, eng)))
         elif args.only == "models":
             parity_phase()
             rows = [{"name": name, "launches": 0}

@@ -137,9 +137,14 @@ def flash_bwd(q, k, v, *, causal: bool, window: int):
          3 * _nb(q) + _nb(k, v) + b * hq * sq * 4.0 + _nb(q, k, v))]
 
 
-def kv_quant(k_new, v_new, k_scale):
+def kv_quant(k_new, v_new, k_scale, sin=None):
     """The new K and V rows read; their int8 rows and scales written (in
-    place: no result)."""
+    place: no result); with K's rope, its tables read and three operations
+    an element of K (two products, a sum)."""
     rows = k_new.numel() // k_new.shape[-1]          # (B, Hkv, T) rows
-    return None, [("kv_quant", 0.0, _nb(k_new, v_new) + 2.0 * (
-        k_new.numel() + rows * k_scale.element_size()))]
+    flops, nbytes = 0.0, _nb(k_new, v_new) + 2.0 * (
+        k_new.numel() + rows * k_scale.element_size())
+    if sin is not None:
+        flops = 3.0 * k_new.numel()
+        nbytes += 2.0 * sin.numel() * sin.element_size()
+    return None, [("kv_quant", flops, nbytes)]

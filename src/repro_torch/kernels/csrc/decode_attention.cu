@@ -85,9 +85,10 @@
 //     tile one run of each of its four slots' rows; Q's B fragments follow
 //     K's permutation, loaded once a block, and the carry is written back
 //     to the dims it stands for.  Each int8 becomes its exact fp32 value by
-//     a byte permute and a subtraction, not an integer conversion, and
-//     (q * scale) is rounded to bf16, as the reference dequantizes: the
-//     operands' bits are those of its dequantized ring.  No per-warp copy
+//     a byte permute and a subtraction (hopper_gemm.cuh, i8f), not an
+//     integer conversion, and (q * scale) is rounded to bf16, as the
+//     reference dequantizes: the operands' bits are those of its
+//     dequantized ring.  No per-warp copy
 //     of the slots in bf16 crosses shared memory, and the ring keeps all
 //     of it for stages.  A tile's scales come by bulk copies beside K and
 //     V, not by the producer's lanes.  At the reference's decode_32k shape
@@ -107,7 +108,10 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using hg::bulk_copy;
 using hg::deq;
+using hg::deq_pair8;
+using hg::i8f;
 using hg::smem_u32;
 
 // kernels/decode_attention/kernel.py repeats these, smem_bytes and maxg_for,
@@ -212,33 +216,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Route "mma" over an int8 ring: byte i (0-3) of four int8 values, given
-// with their sign bits flipped (w ^ 0x80808080), as the exact fp32 value:
-// a byte permute puts q + 128 into the mantissa of 2^23 and one subtraction
-// takes 2^23 + 128 away, in place of an integer conversion (I2F runs at an
-// eighth of the FP32 pipe's rate).  Then (q * scale) rounded to bf16, a
-// pair at a time, as hg::deq does: the same bits.
-__device__ __forceinline__ float i8f(uint32_t wx, int i) {
-  return __fsub_rn(__uint_as_float(__byte_perm(wx, 0x4B000000u, 0x7540 + i)), 8388736.0f);
-}
-__device__ __forceinline__ uint32_t deq_pair8(float lo, float s_lo, float hi, float s_hi) {
-  return pack_bf16(__fmul_rn(lo, s_lo), __fmul_rn(hi, s_hi));
-}
-
 // The 4-byte word at byte `off` of row `row` of a swizzled tile of bk rows.
 __device__ __forceinline__ uint32_t ld_word(const unsigned char* tile, int bk, int row, int off) {
   return *reinterpret_cast<const uint32_t*>(tile + (off >> 7) * (bk * 128) + row * 128 +
                                             ((((off & 127) >> 4) ^ (row & 7)) << 4) + (off & 15));
-}
-
-// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
-// aligned, by one bulk copy whose bytes complete on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
 }
 
 // Route "mma" over an int8 ring reads the head dim permuted, so that a

@@ -83,7 +83,13 @@
 //     before the products the block dequantizes them into the bf16 tiles the
 //     route reads (the wgmma descriptors and the fragment loads unchanged),
 //     each element (q * scale) rounded to bf16 as the reference's
-//     _dequantize_kv.  Nothing widens the ring in device memory.
+//     _dequantize_kv (hg::dequant8: a byte permute and a subtraction, no
+//     integer conversion).
+//     Nothing widens the ring in device memory.  On "wgmma" a tile's scales
+//     come by two bulk copies beside its TMA boxes, and the conversion runs
+//     beside the products: one bf16 K tile and one bf16 V tile, V of tile i
+//     converted while S_i = Q K_i^T runs and K of tile i + 1 while O +=
+//     P_i V_i runs (flash_attention_wgmma.cu).
 //   * the KV loop is bounded on every route: contiguous positions give the
 //     causal and window range of tiles; with per-row positions every block
 //     scans the row's tags (sixteen loads in flight a thread) and lists the

@@ -204,17 +204,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// `bytes` (a multiple of 16) from src (16-byte aligned) into shared memory at
-// dst; they complete on `bar`.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
-          "r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 // The K-major descriptor of k16 step kk of a tile's rows starting at byte
 // `row_off` inside each column block of `block_bytes` (a tile of R rows:
 // block_bytes = R x 128).
@@ -526,9 +515,9 @@ __global__ void __launch_bounds__(kBwdDkvThreads, 1)
           tma_load_4d(st + T::TILE64 + c * kBwdTile * 128, &p.do_map, &full[s], c * 64,
                       qt * kBwdTile, h, b);
         }
-        bulk_load(ld_s + s * kBwdTile,
-                  a.ld + ((long long)b * a.hq + h) * a.sq_pad + qt * kBwdTile, kBwdTile * 8,
-                  &full[s]);
+        hg::bulk_copy(ld_s + s * kBwdTile,
+                      a.ld + ((long long)b * a.hq + h) * a.sq_pad + qt * kBwdTile, kBwdTile * 8,
+                      &full[s]);
         if (++qt == qt_last) {
           qt = qt_first;
           ++g;

@@ -30,6 +30,36 @@
 // (boxes of 128 bytes, zeros past D); at 72 bytes it cannot, and the wrapper
 // keeps an int8 ring at D 72 on route "mma_sync".
 //
+// An int8 ring (the Q8 instances).  The products see what the reference's
+// _dequantize_kv gives, bf16(q x scale) in fp32, so the int8 tiles are
+// converted into bf16 tiles in shared memory before the products read them
+// (the scales are not folded into the scores or into P: that would change
+// the values the products see).  What held the route back was the
+// conversion in series with the products (both tiles converted between two
+// barriers, the tensor cores idle meanwhile), its integer conversions (I2F
+// at an eighth of the FP32 rate) and the scales loaded by the producer's
+// lanes one at a time.  So:
+//   * one bf16 K tile and one bf16 V tile: V_i converted while S_i = Q K_i^T
+//     is in flight, K_{i+1} while O += P_i V_i is, each conversion ended by
+//     fence.proxy.async and the warpgroup's barrier before the product that
+//     reads it (two barriers a tile, as before);
+//   * the conversion by a byte permute and a subtraction (hg::dequant8, the
+//     same bits), a batch of a thread's int8 pieces and scales loaded before
+//     any is converted (a store into the bf16 tile could alias a later load,
+//     and the compiler keeps them in order: loaded one at a time, the
+//     loads' latencies added up);
+//   * a tile's 64 K and 64 V scales by two bulk copies that complete on the
+//     stage's full barrier beside the TMA boxes (the lanes copy them where
+//     the ring's rows do not start on 16 bytes, and for a last part tile);
+//   * a stage released once its V is converted (or, where the softmax masks
+//     by its tags, once it has read them), so that the ring runs ahead; S
+//     started at scale-d 0 rather than by zeroing the scores.
+// What bounds it now (clock64 phases of a probe of the loop, PERF.md): a
+// tile's conversion takes longer than the product it hides behind, on one
+// warp an SMSP, and the softmax between the products as over bf16.
+// The bf16 instances run the code they ran before: every int8 change is an
+// `if constexpr (Q8)` branch.
+//
 // Registers: the output tile is D / 2 fp32 a thread (56 at D 112, 64 at 128),
 // the scores 32; chip_smoke.py prints ptxas's counts and spills for every
 // instance ([build]).
@@ -49,9 +79,10 @@ constexpr int padded_dim(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
 // coefficients, scratch, the mbarriers.  After the loop the ring holds a
 // split's (acc, m, l) for the combine.
 // An int8 ring (Q8): the stages hold the tiles as they arrive, in boxes of 128
-// one-byte elements (a row of 64 padded to 128), then come the bf16 K and V
-// tiles the products read, dequantized from the stage in hand; the scales sit
-// beside the tags.
+// one-byte elements (a row of 64 padded to 128), then come the one bf16 K
+// tile and the one bf16 V tile the products read, each dequantized from its
+// stage while the product of the other runs; the stages' scales (bf16, as
+// stored) sit beside the tags.
 template <int D, bool Q8 = false> struct WgTile {
   static constexpr int DP = padded_dim(D);          // the layout's head dim
   static constexpr int BLOCKS = DP / 64;            // 128-byte column blocks of a bf16 row
@@ -63,7 +94,7 @@ template <int D, bool Q8 = false> struct WgTile {
   static constexpr int MIN_BLOCKS = D == 256 ? 1 : 2;  // blocks an SM holds
   static constexpr int RING = STAGES * STAGE_BYTES + (Q8 ? 2 * KV_BYTES : 0);
   static constexpr int Q_BYTES = kWgRows * DP * 2;
-  static constexpr int SMEM = 1024 + RING + Q_BYTES + STAGES * kWgBK * 4 * (Q8 ? 3 : 1) +
+  static constexpr int SMEM = 1024 + RING + Q_BYTES + STAGES * kWgBK * 4 * (Q8 ? 2 : 1) +
                               kMaxListed * 4 + kWgRows * (kMaxSplits + 1) * 4 + 16 +
                               2 * STAGES * 8;
   static_assert(D == 64 || D == 72 || D == 80 || D == 96 || D == 112 || D == 128 || D == 256,
@@ -77,6 +108,7 @@ struct WgParams {
   CUtensorMap k_map, v_map;  // (B Hkv, Sk, D), boxes of 128 bytes x kWgBK x 1
   Args a;
   int splits;                // blocks of a cluster, each a share of the live tiles
+  int bulk_scales;           // Q8: a whole tile's scales by bulk copies (rows on 16 bytes)
 };
 
 template <int D, bool Q8 = false>
@@ -91,9 +123,10 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
   unsigned char* dq_tiles = ring + W::STAGES * W::STAGE_BYTES;  // Q8: the bf16 K, V tiles
   unsigned char* q_s = ring + W::RING;
   int* tags_s = reinterpret_cast<int*>(q_s + W::Q_BYTES);
-  // Q8: stage s's K scales at 2 s kWgBK, its V scales after them
-  float* sc_s = reinterpret_cast<float*>(tags_s + W::STAGES * kWgBK);
-  int* list_s = reinterpret_cast<int*>(sc_s + (Q8 ? 2 * W::STAGES * kWgBK : 0));
+  // Q8: stage s's K scales at 2 s kWgBK, its V scales after them, each 128
+  // bytes on 16
+  bf16* sc16 = reinterpret_cast<bf16*>(tags_s + W::STAGES * kWgBK);
+  int* list_s = reinterpret_cast<int*>(sc16 + (Q8 ? 2 * W::STAGES * kWgBK : 0));
   float* coef_s = reinterpret_cast<float*>(list_s + kMaxListed);
   int* scratch_s = reinterpret_cast<int*>(coef_s + kWgRows * (kMaxSplits + 1));
   uint64_t* full = reinterpret_cast<uint64_t*>(scratch_s + 4);
@@ -144,12 +177,15 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
   const int nk = min(k_begin + per, ts.count) - k_begin;
 
   if (warp == 4) {
-    // producer: lane 0 issues the copies of K and V, every lane copies tags
-    // (and an int8 ring's scales), those of the next tile loaded while this
-    // one waits for its stage
+    // producer: lane 0 issues the copies of K and V, every lane copies tags,
+    // those of the next tile loaded while this one waits for its stage.  An
+    // int8 ring's scales: a whole tile's by two bulk copies beside K and V
+    // (bulk_tile), else (a ring whose rows do not start on 16 bytes, its
+    // last part tile) by the lanes as the tags, zeros past Sk
     int nxt[2] = {0, 0};
-    float nsc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};  // Q8: the next tile's K, V scales
+    bf16 nsc[2][2];  // Q8, a tile the lanes copy: its K, V scales
     const bool side = kp != nullptr || Q8;  // something besides the tiles to copy
+    auto bulk_tile = [&](int j0) { return p.bulk_scales != 0 && j0 + kWgBK <= a.sk; };
     auto load_tags = [&](int i) {
       const int j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
 #pragma unroll
@@ -157,9 +193,11 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
         const int j = j0 + lane + 32 * u;
         if (kp != nullptr) nxt[u] = j < a.sk ? __ldg(kp + j) : 0;
         if constexpr (Q8) {
-          const size_t si = (size_t)bh * a.sk + j;
-          nsc[0][u] = j < a.sk ? __bfloat162float(a.k_scale[si]) : 0.0f;
-          nsc[1][u] = j < a.sk ? __bfloat162float(a.v_scale[si]) : 0.0f;
+          if (!bulk_tile(j0)) {
+            const size_t si = (size_t)bh * a.sk + j;
+            nsc[0][u] = j < a.sk ? a.k_scale[si] : __float2bfloat16(0.0f);
+            nsc[1][u] = j < a.sk ? a.v_scale[si] : __float2bfloat16(0.0f);
+          }
         }
       }
     };
@@ -168,19 +206,25 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
     for (int i = 0; i < nk; ++i) {
       const int s = i % W::STAGES;
       const int cur[2] = {nxt[0], nxt[1]};
-      const float csc[2][2] = {{nsc[0][0], nsc[0][1]}, {nsc[1][0], nsc[1][1]}};
+      const bf16 csc[2][2] = {{nsc[0][0], nsc[0][1]}, {nsc[1][0], nsc[1][1]}};
       if (side && i + 1 < nk) load_tags(i + 1);
       hg::mbar_wait(&empty[s], ((i / W::STAGES) & 1) ^ 1);
       const int j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
+      const bool bulk = Q8 && bulk_tile(j0);
       if (lane == 0) {
         unsigned char* st = ring + s * W::STAGE_BYTES;
-        hg::mbar_expect_tx(&full[s], W::STAGE_BYTES);
+        hg::mbar_expect_tx(&full[s], W::STAGE_BYTES + (bulk ? 4 * kWgBK : 0));
         if constexpr (Q8) {
 #pragma unroll
           for (int c = 0; c < W::BLOCKS8; ++c) {
             hg::tma_load_3d(st + c * kWgBK * 128, &p.k_map, &full[s], c * 128, j0, bh);
             hg::tma_load_3d(st + W::IN_BYTES + c * kWgBK * 128, &p.v_map, &full[s], c * 128, j0,
                             bh);
+          }
+          if (bulk) {
+            const size_t si = (size_t)bh * a.sk + j0;
+            hg::bulk_copy(sc16 + 2 * s * kWgBK, a.k_scale + si, 2 * kWgBK, &full[s]);
+            hg::bulk_copy(sc16 + (2 * s + 1) * kWgBK, a.v_scale + si, 2 * kWgBK, &full[s]);
           }
         } else {
 #pragma unroll
@@ -196,19 +240,25 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
         tags_s[s * kWgBK + lane + 32] = cur[1];
       }
       if constexpr (Q8) {
+        if (!bulk) {
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          sc_s[2 * s * kWgBK + lane + 32 * u] = csc[0][u];
-          sc_s[(2 * s + 1) * kWgBK + lane + 32 * u] = csc[1][u];
+          for (int u = 0; u < 2; ++u) {
+            sc16[2 * s * kWgBK + lane + 32 * u] = csc[0][u];
+            sc16[(2 * s + 1) * kWgBK + lane + 32 * u] = csc[1][u];
+          }
+          // the lanes' stores before a later bulk copy into the stage
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         }
       }
       hg::mbar_arrive(&full[s]);
     }
   } else {
-    // consumers: the Q tile is on its way since the start
+    // consumers: the Q tile is on its way since the start; `sync` is the
+    // consumers' barrier
+    auto sync = [&] { asm volatile("bar.sync 1, 128;\n" ::: "memory"); };
     __pipeline_wait_prior(0);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    sync();
 
     // this thread's two rows: 16 warp + gid and + 8 of the block's 64
     const int gid = lane >> 2, tig = lane & 3;
@@ -226,46 +276,93 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
     for (int e = 0; e < D / 2; ++e) o[e] = 0.0f;
     float m_run[2] = {-INFINITY, -INFINITY};
     float l_run[2] = {0.0f, 0.0f};
-    const uint32_t q_base = smem_u32(q_s);
+    // the int8 instances add (warp / 4) 64 x 128 bytes, zero for every
+    // consumer warp, as ptxas then fits D 128's in 168 registers (the
+    // constant form spilled 8-16 bytes there)
+    const uint32_t q_base = smem_u32(q_s) + (Q8 ? (warp >> 2) * (64 * 128) : 0);
+    // Q8: the int8 K (which 0) or V (1) of stage st dequantized into its
+    // bf16 tile, swizzled as TMA writes one, 16 bytes of a row a thread at
+    // a time: the D / 16 pieces a row of the products read (S runs D / 16
+    // k16 steps, O += P V is n = D wide; the columns past D are never read)
+    auto convert = [&](int which, int st) {
+      constexpr int P8 = D / 16;
+      constexpr int N = (kWgBK * P8 + 127) / 128;  // pieces a thread
+      const unsigned char* in = ring + st * W::STAGE_BYTES + which * W::IN_BYTES;
+      const bf16* scl = sc16 + (2 * st + which) * kWgBK;
+      unsigned char* out = dq_tiles + which * W::KV_BYTES;
+      // a batch of pieces' bytes and scales before any is converted (a
+      // store into the bf16 tile could alias a later load: the compiler
+      // keeps them in order): up to four, one at D 256 (its registers: its
+      // output tile is 128 a thread)
+      constexpr int CH = D > 128 ? 1 : N < 4 ? N : 4;
+      static_assert(N % CH == 0, "whole batches of pieces");
+#pragma unroll
+      for (int i0 = 0; i0 < N; i0 += CH) {
+        uint4 raw[CH];
+        float scale[CH];
+#pragma unroll
+        for (int j = 0; j < CH; ++j) {
+          const int u = tid + 128 * (i0 + j);
+          if (kWgBK * P8 % 128 == 0 || u < kWgBK * P8) {
+            const int r = u / P8, c = u % P8;
+            raw[j] = *reinterpret_cast<const uint4*>(
+                in + (c >> 3) * (kWgBK * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+            scale[j] = __bfloat162float(scl[r]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < CH; ++j) {
+          const int u = tid + 128 * (i0 + j);
+          if (kWgBK * P8 % 128 == 0 || u < kWgBK * P8) {
+            const int r = u / P8, c = u % P8;
+            unsigned char* row = out + r * 128;
+            const int c0 = 2 * c, c1 = 2 * c + 1;  // its two bf16 pieces
+            *reinterpret_cast<uint4*>(row + (c0 >> 3) * (kWgBK * 128) +
+                                      (((c0 & 7) ^ (r & 7)) << 4)) =
+                hg::dequant8(raw[j].x, raw[j].y, scale[j]);
+            *reinterpret_cast<uint4*>(row + (c1 >> 3) * (kWgBK * 128) +
+                                      (((c1 & 7) ^ (r & 7)) << 4)) =
+                hg::dequant8(raw[j].z, raw[j].w, scale[j]);
+          }
+        }
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+    };
+    if constexpr (Q8) {
+      if (nk > 0) {  // the first tile's K
+        hg::mbar_wait(&full[0], 0);
+        convert(0, 0);
+        sync();
+      }
+    }
 
 #pragma unroll 1
     for (int i = 0; i < nk; ++i) {
       const int s = i % W::STAGES;
-      hg::mbar_wait(&full[s], (i / W::STAGES) & 1);
-      uint32_t k_base = smem_u32(ring + s * W::STAGE_BYTES);
-      uint32_t v_base = k_base + W::KV_BYTES;
+      uint32_t k_base;
       if constexpr (Q8) {
-        // the stage's int8 K and V into the bf16 tiles the products read,
-        // swizzled as TMA writes a bf16 tile, once every warp's products of
-        // the last tile are done with them
-        if (i > 0) asm volatile("bar.sync 1, 128;\n" ::: "memory");
-        const unsigned char* in = ring + s * W::STAGE_BYTES;
-        const float* scl = sc_s + 2 * s * kWgBK;  // K's, then V's
-        constexpr int P8 = DP / 16;               // 16-byte pieces of an int8 row
-#pragma unroll 2
-        for (int u = tid; u < 2 * kWgBK * P8; u += 128) {
-          const int which = u / (kWgBK * P8), r = (u / P8) % kWgBK, c = u % P8;
-          const uint4 raw = *reinterpret_cast<const uint4*>(
-              in + which * W::IN_BYTES + (c >> 3) * (kWgBK * 128) + r * 128 +
-              (((c & 7) ^ (r & 7)) << 4));
-          const float sc = scl[which * kWgBK + r];
-          unsigned char* out = dq_tiles + which * W::KV_BYTES + r * 128;
-          const int c0 = 2 * c, c1 = 2 * c + 1;  // its two bf16 pieces
-          *reinterpret_cast<uint4*>(out + (c0 >> 3) * (kWgBK * 128) + (((c0 & 7) ^ (r & 7)) << 4)) =
-              dequant8(raw.x, raw.y, sc);
-          *reinterpret_cast<uint4*>(out + (c1 >> 3) * (kWgBK * 128) + (((c1 & 7) ^ (r & 7)) << 4)) =
-              dequant8(raw.z, raw.w, sc);
-        }
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
-        asm volatile("bar.sync 1, 128;\n" ::: "memory");
         k_base = smem_u32(dq_tiles);
-        v_base = k_base + W::KV_BYTES;
+      } else {
+        hg::mbar_wait(&full[s], (i / W::STAGES) & 1);
+        k_base = smem_u32(ring + s * W::STAGE_BYTES);
+      }
+      const uint32_t v_base = k_base + W::KV_BYTES;
+      // the tile's first key and whether every key of it is live for every
+      // row (no mask); Q8 reads them before S, for the stage's release
+      int j0 = 0;
+      bool all_live = false;
+      if constexpr (Q8) {
+        j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
+        all_live = tile_full(a, ts, list_s, k_begin + i, kWgBK);
       }
 
-      // S = Q K^T: 64 rows x kWgBK keys
+      // S = Q K^T: 64 rows x kWgBK keys (Q8: the first k16 step at scale-d
+      // 0 in place of zeroing the scores)
       float sc[kWgBK / 2];
+      if constexpr (!Q8) {
 #pragma unroll
-      for (int e = 0; e < kWgBK / 2; ++e) sc[e] = 0.0f;
+        for (int e = 0; e < kWgBK / 2; ++e) sc[e] = 0.0f;
+      }
       hg::fence_acc(sc);
       hg::wgmma_fence();
 #pragma unroll
@@ -274,17 +371,39 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
             hg::desc_sw128(q_base + (kk >> 2) * (kWgRows * 128) + (kk & 3) * 32, 16, 1024);
         const uint64_t dk =
             hg::desc_sw128(k_base + (kk >> 2) * (kWgBK * 128) + (kk & 3) * 32, 16, 1024);
-        hg::wgmma_m64n64<0>(sc, dq, dk);
+        hg::wgmma_m64n64<0>(sc, dq, dk, Q8 && kk == 0 ? 0 : 1);
       }
       hg::wgmma_commit();
+      // Q8: V of this tile into the V tile while S runs (every warp's O +=
+      // P V of the last tile is done with it: the barrier that ended it);
+      // then this warp is done with stage s (its int8 K and V, scales)
+      // unless the softmax reads its tags (a tile with keys not live)
+      if constexpr (Q8) {
+        convert(1, s);
+        if (all_live) {
+          __syncwarp();
+          if (lane == 0) hg::mbar_arrive(&empty[s]);
+        }
+      }
       hg::wgmma_wait<0>();
       hg::fence_acc(sc);
 
-      const int j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
-      const bool full = tile_full(a, ts, list_s, k_begin + i, kWgBK);
+      if constexpr (!Q8) {
+        j0 = tile_index(ts, list_s, k_begin + i) * kWgBK;
+        all_live = tile_full(a, ts, list_s, k_begin + i, kWgBK);
+      }
       float alpha[2];
-      softmax_tile<kWgBK>(a, sc, j0, full, kp != nullptr ? tags_s + s * kWgBK : nullptr, qpos,
+      softmax_tile<kWgBK>(a, sc, j0, all_live, kp != nullptr ? tags_s + s * kWgBK : nullptr, qpos,
                           tig, m_run, l_run, alpha);
+      if constexpr (Q8) {
+        // the tags read; the V tile is whole for every warp, and every
+        // warp's S is done with the K tile
+        if (!all_live) {
+          __syncwarp();
+          if (lane == 0) hg::mbar_arrive(&empty[s]);
+        }
+        sync();
+      }
       if (alpha[0] != 1.0f || alpha[1] != 1.0f) {  // a row's max moved
 #pragma unroll
         for (int c = 0; c < D / 8; ++c) {
@@ -313,10 +432,24 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
         wgmma_pv<D>(o, pf[j], dv);
       }
       hg::wgmma_commit();
-      hg::wgmma_wait<0>();
-      hg::fence_acc(o);
-      __syncwarp();
-      if (lane == 0) hg::mbar_arrive(&empty[s]);  // this warp is done with stage s
+      if constexpr (Q8) {
+        // K of the next tile into the K tile while O += P V runs; then that
+        // tile is whole for every warp, and every warp's O += P V is done
+        // with the V tile
+        if (i + 1 < nk) {
+          const int s1 = (i + 1) % W::STAGES;
+          hg::mbar_wait(&full[s1], ((i + 1) / W::STAGES) & 1);
+          convert(0, s1);
+        }
+        hg::wgmma_wait<0>();
+        hg::fence_acc(o);
+        sync();
+      } else {
+        hg::wgmma_wait<0>();
+        hg::fence_acc(o);
+        __syncwarp();
+        if (lane == 0) hg::mbar_arrive(&empty[s]);  // this warp is done with stage s
+      }
     }
 
     float l_row[2];
@@ -346,7 +479,7 @@ __global__ void __launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)
     } else {
       // a split: (acc, m, l) of the 64 rows into this block's ring, which
       // every consumer warp has finished reading
-      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      sync();
       float* red = reinterpret_cast<float*>(ring);
       float* ml = red + kWgRows * D;
 #pragma unroll
@@ -444,6 +577,10 @@ int launch_wgmma(const Args& a, int splits, cudaStream_t stream) {
     return -1;
   p.a = a;
   p.splits = splits;
+  // a tile's scales (64 bf16 of each) by bulk copies: their rows start on
+  // 16 bytes (Sk a multiple of 8)
+  p.bulk_scales = Q8 && a.sk % 8 == 0 && reinterpret_cast<uintptr_t>(a.k_scale) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.v_scale) % 16 == 0;
   const long long row_tiles = ((long long)a.sq * a.g + kWgRows - 1) / kWgRows;
   if (row_tiles > 65535 || bh > 65535) return -1;
   const dim3 grid(splits, (unsigned)row_tiles, (unsigned)bh);

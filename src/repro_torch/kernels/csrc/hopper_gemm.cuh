@@ -197,23 +197,50 @@ __device__ __forceinline__ float act_grad(float v, int act) {
   return v > 0.0f ? 1.0f : 0.0f;
 }
 
-// The attention kernels' int8 KV ring: element i (0-3) of four int8 values in
-// w, dequantized as the reference's _dequantize_kv, (q * scale) in fp32
-// rounded to bf16; and eight of them (w0, then w1) as one 16-byte piece of
-// bf16, lower elements at lower addresses.
-__device__ __forceinline__ float deq(uint32_t w, int i, float scale) {
-  const float q = (float)(static_cast<int>(w << (24 - 8 * i)) >> 24);
-  return __bfloat162float(__float2bfloat16_rn(q * scale));
+// The attention kernels' int8 KV ring, dequantized as the reference's
+// _dequantize_kv: (q * scale) in fp32 rounded to bf16, every route of both
+// kernels through i8f.  i8f: byte i (0-3) of four int8 values, given with
+// their sign bits flipped (w ^ 0x80808080), as the exact fp32 value: a byte
+// permute puts q + 128 into the mantissa of 2^23 and one subtraction takes
+// 2^23 + 128 away, in place of an integer conversion (I2F runs at an eighth
+// of the FP32 pipe's rate; tests/test_torch_int8_kv.py checks all 256
+// bytes).  deq_pair8: two such values times their scales, rounded to bf16
+// and packed, the lower at the lower address.
+__device__ __forceinline__ float i8f(uint32_t wx, int i) {
+  return __fsub_rn(__uint_as_float(__byte_perm(wx, 0x4B000000u, 0x7540 + i)), 8388736.0f);
 }
 
-__device__ __forceinline__ uint32_t deq_pair(uint32_t w, int i, float scale) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(deq(w, i, scale), deq(w, i + 1, scale));
+__device__ __forceinline__ uint32_t deq_pair8(float lo, float s_lo, float hi, float s_hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(__fmul_rn(lo, s_lo), __fmul_rn(hi, s_hi));
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Element i (0-3) of the four int8 values in w, dequantized, widened back
+// to fp32 (the "fma" routes).
+__device__ __forceinline__ float deq(uint32_t w, int i, float scale) {
+  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(i8f(w ^ 0x80808080u, i), scale)));
+}
+
+// Eight int8 values (w0, then w1) with one scale, dequantized into one
+// 16-byte piece of bf16, lower elements at lower addresses.
 __device__ __forceinline__ uint4 dequant8(uint32_t w0, uint32_t w1, float scale) {
-  return make_uint4(deq_pair(w0, 0, scale), deq_pair(w0, 2, scale), deq_pair(w1, 0, scale),
-                    deq_pair(w1, 2, scale));
+  const uint32_t x0 = w0 ^ 0x80808080u, x1 = w1 ^ 0x80808080u;
+  return make_uint4(deq_pair8(i8f(x0, 0), scale, i8f(x0, 1), scale),
+                    deq_pair8(i8f(x0, 2), scale, i8f(x0, 3), scale),
+                    deq_pair8(i8f(x1, 0), scale, i8f(x1, 1), scale),
+                    deq_pair8(i8f(x1, 2), scale, i8f(x1, 3), scale));
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by one bulk copy whose bytes complete on `bar` (the int8 ring's
+// scales, beside the TMA boxes of K and V).
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"((uint32_t)__cvta_generic_to_shared(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"((uint32_t)__cvta_generic_to_shared(bar))
+      : "memory");
 }
 
 // ---------------------------------------------------------------------------

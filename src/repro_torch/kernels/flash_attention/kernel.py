@@ -18,9 +18,9 @@ tensor that is not on a CUDA device is an error here (``ops.flash_attn`` /
 
 An int8 cache (``kv_scales`` = its bf16 scales, the ring of a chunk of a
 prompt) is read as it is stored on every route and dequantized inside the
-kernel, tile by tile; the stages of route "wgmma" are the same for both
-types (``WG_STAGES``): the int8 tiles and the bf16 ones dequantized from
-them take the shared memory the bf16 stages took.
+kernel, tile by tile; route "wgmma" keeps its int8 tiles in a ring of
+``WG_STAGES`` as over bf16, beside one bf16 K and one V tile dequantized
+from them, two blocks an SM as over bf16 (D 256: one).
 
 ``flash_attention_kernel.launches`` counts the launches, one per call that
 reaches the card, ``flash_attention_kernel.by_route`` the same calls by

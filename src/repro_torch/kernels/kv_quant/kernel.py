@@ -1,7 +1,9 @@
 """Wrapper of the hand-written Hopper kernel ``csrc/kv_quant.cu``.
 
 It quantizes a layer's new K and V rows and writes them, with their bf16
-scales, into the int8 ring's slots in place: one launch for both tensors.
+scales, into the int8 ring's slots in place: one launch for both tensors,
+K's rotary embedding applied first when the rope tables are given (the int8
+serving paths pass K as the projection leaves it).
 The wrapper checks device, types, shapes, strides and positions, launches
 on PyTorch's current stream without synchronising, and raises if the launch
 is refused.  It never gives way to the plain version: a tensor that is not
@@ -33,7 +35,8 @@ def _lib() -> ctypes.CDLL:
     if lib.kv_quant_launch.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.kv_quant_launch.argtypes = (
-            [ptr] * 2 + [i64] * 6 + [ptr] * 5 + [i32] * 7 + [ptr])
+            [ptr] * 2 + [i64] * 6 + [ptr] * 5 + [i32] + [ptr] * 2 + [i64] * 2
+            + [i32] * 6 + [ptr])
         lib.kv_quant_launch.restype = i32
     return lib
 
@@ -59,16 +62,56 @@ def kv_scale_pointers(k_cache: torch.Tensor, kv_scales: Optional[tuple]
     return kv_scales[0].data_ptr(), kv_scales[1].data_ptr()
 
 
+def _rope_tables(sin: Optional[torch.Tensor], cos: Optional[torch.Tensor],
+                 b: int, t: int, d: int, device: torch.device
+                 ) -> tuple[Optional[int], Optional[int], int, int]:
+    """(sin pointer, cos pointer, batch stride, token stride) of rope tables
+    ``apply_rope`` takes for (B, Hkv, T, D) rows: fp32 (T, D/2) or
+    (B, T, D/2), a leading 1 broadcast, last dimension contiguous, one
+    shape and layout; (None, None, 0, 0) without them.  Read from shapes
+    and strides alone (no view is made: this runs at every decode step of
+    every layer)."""
+    if sin is None and cos is None:
+        return None, None, 0, 0
+    if sin is None or cos is None:
+        raise ValueError("the rope takes both sin and cos")
+    if d % 2:
+        raise ValueError(f"head dim {d}: the rope takes an even head dim")
+    for name, x in (("sin", sin), ("cos", cos)):
+        if x.dtype != torch.float32 or x.device != device:
+            raise ValueError(f"{name} is {x.dtype} on {x.device}, expected "
+                             f"float32 on {device}")
+    if (sin.shape != cos.shape or sin.stride() != cos.stride()
+            or sin.dim() not in (2, 3)):
+        raise ValueError(f"sin {tuple(sin.shape)} and cos "
+                         f"{tuple(cos.shape)} must be one (T, D/2) or "
+                         f"(B, T, D/2) layout")
+    rows = sin.shape[0] if sin.dim() == 3 else 1
+    if sin.shape[-1] != d // 2 or rows not in (1, b) or \
+            sin.shape[-2] not in (1, t):
+        raise ValueError(f"sin {tuple(sin.shape)} does not broadcast to "
+                         f"({b}, {t}, {d // 2})")
+    if sin.stride(-1) != 1:
+        raise ValueError("sin's last dimension is not contiguous")
+    return (sin.data_ptr(), cos.data_ptr(),
+            sin.stride(0) if rows > 1 else 0,
+            sin.stride(-2) if sin.shape[-2] > 1 else 0)
+
+
 def kv_quant_kernel(k_new: torch.Tensor, v_new: torch.Tensor,
                     k_cache: torch.Tensor, v_cache: torch.Tensor,
                     k_scale: torch.Tensor, v_scale: torch.Tensor,
-                    positions: Union[int, torch.Tensor]) -> None:
+                    positions: Union[int, torch.Tensor],
+                    sin: Optional[torch.Tensor] = None,
+                    cos: Optional[torch.Tensor] = None) -> None:
     """Quantize ``k_new``/``v_new`` (B, Hkv, T, D), fp32 or bf16, last
     dimension contiguous, into the int8 rings ``k_cache``/``v_cache``
     (B, Hkv, C, D) and their bf16 scales ``k_scale``/``v_scale``
     (B, Hkv, C, 1), all contiguous, at slot ``position % C``; ``positions``
     an int >= 0 for every row (T = 1) or an int32 (B, T) tensor on the
-    card.  Writes in place; returns nothing."""
+    card.  With ``sin``/``cos`` (the tables ``models.layers.apply_rope``
+    takes, fp32 on the card) K is rotated first, as ``apply_rope`` does.
+    Writes in place; returns nothing."""
     if not k_new.is_cuda:
         raise ValueError(f"kv_quant_kernel needs a CUDA tensor, got "
                          f"{k_new.device}")
@@ -116,6 +159,8 @@ def kv_quant_kernel(k_new: torch.Tensor, v_new: torch.Tensor,
             raise ValueError(f"one position {positions} for every row takes "
                              f"T = 1 and a position >= 0, got T = {t}")
         pos_ptr, pos_value = None, int(positions)
+    sin_ptr, cos_ptr, rs_b, rs_t = _rope_tables(sin, cos, b, t, d,
+                                                k_new.device)
 
     lib = _lib()
     with torch.cuda.device(k_new.device):
@@ -123,13 +168,14 @@ def kv_quant_kernel(k_new: torch.Tensor, v_new: torch.Tensor,
             k_new.data_ptr(), v_new.data_ptr(), *k_new.stride()[:3],
             *v_new.stride()[:3], k_cache.data_ptr(), v_cache.data_ptr(),
             k_scale.data_ptr(), v_scale.data_ptr(), pos_ptr, pos_value,
-            b, hkv, t, c, d, _SRC_DTYPES[k_new.dtype],
+            sin_ptr, cos_ptr, rs_b, rs_t, b, hkv, t, c, d,
+            _SRC_DTYPES[k_new.dtype],
             torch.cuda.current_stream().cuda_stream)
     kv_quant_kernel.launches += 1
     if err != 0:
         raise RuntimeError(f"kv_quant launch failed: CUDA error {err} "
                            f"(B={b}, Hkv={hkv}, T={t}, C={c}, D={d}, "
-                           f"{k_new.dtype})")
+                           f"{k_new.dtype}, rope {sin is not None})")
 
 
 kv_quant_kernel.launches = 0

@@ -7,9 +7,10 @@ elements divided by the fp32 scale, rounded half to even and clipped to
 +-127; the scale is stored rounded to bf16, and dequantization rounds each
 element to bf16.  The model, the attention kernels' plain versions and the
 CPU tests all use them.  ``quantize_into_ref`` adds the scatter into the
-ring's slots, in place, and is what the CUDA kernel ``csrc/kv_quant.cu`` is
-held to bit for bit on the card and what ``ops.quantize_into`` runs on CPU
-tensors.
+ring's slots, in place (with K's rope first where the serving paths give
+the tables: ``models.layers.apply_rope``), and is what the CUDA kernel
+``csrc/kv_quant.cu`` is held to bit for bit on the card and what
+``ops.quantize_into`` runs on CPU tensors.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+
+from repro_torch.models.layers import apply_rope
 
 # an int8 ring's scales (k_scale, v_scale), each (B, Hkv, C, 1) bf16; None
 # for a ring of another type
@@ -53,12 +56,17 @@ def dequantized(k_cache: torch.Tensor, v_cache: torch.Tensor,
 def quantize_into_ref(k_new: torch.Tensor, v_new: torch.Tensor,
                       k_cache: torch.Tensor, v_cache: torch.Tensor,
                       k_scale: torch.Tensor, v_scale: torch.Tensor,
-                      positions: Union[int, torch.Tensor]) -> None:
+                      positions: Union[int, torch.Tensor],
+                      sin: Optional[torch.Tensor] = None,
+                      cos: Optional[torch.Tensor] = None) -> None:
     """Quantize the new rows k_new, v_new (B, Hkv, T, D) and write them and
     their scales into the ring's slots, in place: caches (B, Hkv, C, D)
     int8, scales (B, Hkv, C, 1) bf16.  ``positions``: one int for every row
     (T = 1, the lock-step decode step) or (B, T); position p goes to slot
-    p % C (T <= C keeps a row's slots distinct)."""
+    p % C (T <= C keeps a row's slots distinct).  With ``sin``/``cos``,
+    ``apply_rope(k_new, sin, cos)`` is what is quantized for K."""
+    if sin is not None:
+        k_new = apply_rope(k_new, sin, cos)
     c = k_cache.shape[2]
     for new, cache, scales in ((k_new, k_cache, k_scale),
                                (v_new, v_cache, v_scale)):

@@ -51,7 +51,8 @@ What differs from the reference, by design:
 * An int8 ring is quantized as the reference quantizes it (``quantize_kv``
   of ``kernels/kv_quant``), but on the decode steps and chunks the new rows
   go into the ring through ``kv_quant.ops.quantize_into`` (one kernel a
-  layer on the card), and the attention ops read the int8 ring and its
+  layer on the card, K's rope applied inside it: the model passes K as the
+  projection leaves it, with the rope tables), and the attention ops read the int8 ring and its
   scales themselves: nothing dequantizes the ring in the model, where the
   reference dequantizes the whole ring every step before it attends.
 * There is no ``mesh`` argument: the port runs on one GPU.
@@ -411,10 +412,11 @@ def _self_attention_decode(x, p, cfg: ModelConfig, spec: AttnSpec,
     scales = _kv_scales(layer_cache)
     q, k_new, v_new = _project_qkv(x, p, cfg)          # (B,H,1,hd)
     q = apply_rope(q, ctx["sin"], ctx["cos"])
-    k_new = apply_rope(k_new, ctx["sin"], ctx["cos"])
-    if scales is not None:
-        quantize_into(k_new, v_new, k_cache, v_cache, *scales, ctx["pos"])
+    if scales is not None:   # K's rope inside the quantizing launch
+        quantize_into(k_new, v_new, k_cache, v_cache, *scales, ctx["pos"],
+                      ctx["sin"], ctx["cos"])
     else:
+        k_new = apply_rope(k_new, ctx["sin"], ctx["cos"])
         slot = ctx["pos"] % k_cache.shape[2]
         k_cache[:, :, slot:slot + 1, :] = k_new.to(k_cache.dtype)
         v_cache[:, :, slot:slot + 1, :] = v_new.to(v_cache.dtype)
@@ -444,10 +446,11 @@ def _self_attention_slots(x, p, cfg: ModelConfig, spec: AttnSpec,
     positions = ctx["positions"]
     q, k_new, v_new = _project_qkv(x, p, cfg)          # (B,H,T,hd)
     q = apply_rope(q, ctx["sin"], ctx["cos"])
-    k_new = apply_rope(k_new, ctx["sin"], ctx["cos"])
-    if scales is not None:
-        quantize_into(k_new, v_new, k_cache, v_cache, *scales, positions)
+    if scales is not None:   # K's rope inside the quantizing launch
+        quantize_into(k_new, v_new, k_cache, v_cache, *scales, positions,
+                      ctx["sin"], ctx["cos"])
     else:
+        k_new = apply_rope(k_new, ctx["sin"], ctx["cos"])
         rows = torch.arange(b, device=x.device)[:, None]   # (B,1)
         slots = (positions % k_cache.shape[2]).long()      # (B,T), distinct
         k_cache[rows, :, slots, :] = k_new.to(k_cache.dtype).transpose(1, 2)

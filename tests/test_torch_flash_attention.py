@@ -438,6 +438,7 @@ def test_planner_constants_are_what_the_kernel_compiles():
     ("route_dtype", ValueError, "does not take"),
     ("route_dim", ValueError, "does not take"),
     ("splits", ValueError, "splits 9"),
+    ("splits_0", ValueError, "splits 0"),
 ])
 def test_kernel_wrapper_rejects(breakage, error, says):
     """Checks on strides, routes and splits run before anything touches
@@ -463,6 +464,8 @@ def test_kernel_wrapper_rejects(breakage, error, says):
         kw["route"] = "mma_sync"
     elif breakage == "splits":
         kw["splits"] = 9
+    elif breakage == "splits_0":
+        kw["splits"] = 0
     with pytest.raises(error, match=says):
         flash_attention_kernel(q, k, v, **kw)
 

@@ -6,6 +6,9 @@ converted weights, inputs made from seeds through numpy:
 
 * ``quantize_kv``/``dequantize_kv`` equal the reference's ``_quantize_kv``/
   ``_dequantize_kv`` bit for bit, ties at .5 and all-zero rows among them;
+* ``quantize_into`` with the rope tables (K rotated inside the quantizing
+  launch on the card) equals the reference's ``apply_rope``, then
+  ``_quantize_kv`` and its scatter, bit for bit;
 * the cache leaves ``k``, ``v``, ``k_scale``, ``v_scale`` after ``prefill``,
   ``decode_step``, ``decode_slots`` and ``chunk_prefill`` in fp32 equal the
   reference's exactly on qwen3; on hymba, whose fp32 K and V already differ
@@ -37,6 +40,7 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.kernels.decode_attention.kernel import \
     decode_attention as pallas_decode_attention
 from repro.kernels.flash_attention.ref import mha_ref as jax_mha_ref
+from repro.models import layers as jlayers
 from repro.models import transformer as jtfm
 from repro.serve.batcher import ContinuousBatcher as JaxBatcher
 from repro.serve.batcher import make_trace as jax_make_trace
@@ -51,7 +55,8 @@ from repro_torch.kernels.decode_attention.ref import (
 from repro_torch.kernels.flash_attention import kernel as fk
 from repro_torch.kernels.flash_attention.ref import (mha_pos_ref,
                                                      mha_pos_split_ref)
-from repro_torch.kernels.kv_quant.kernel import (kv_quant_kernel,
+from repro_torch.kernels.kv_quant.kernel import (_rope_tables,
+                                                 kv_quant_kernel,
                                                  kv_scale_pointers)
 from repro_torch.kernels.kv_quant.ops import quantize_into
 from repro_torch.kernels.kv_quant.ref import dequantize_kv, quantize_kv
@@ -177,6 +182,100 @@ def test_kv_quant_kernel_refuses_the_cpu():
     with pytest.raises(ValueError, match="needs a CUDA tensor"):
         kv_quant_kernel(z, z, ring, ring, sc, sc, 0)
     assert kv_quant_kernel.launches == 0
+
+
+def _reference_scatter(ring, scales, q, s, positions):
+    """The reference's writes of quantized rows (B, H, T, D) and their
+    scales into a ring: ``dynamic_update_slice_in_dim`` at one position's
+    slot, or its ``.at[rows, :, slots, :].set`` scatter for (B, T)."""
+    c = ring.shape[2]
+    if isinstance(positions, int):
+        slot = positions % c
+        return (jax.lax.dynamic_update_slice_in_dim(ring, q, slot, axis=2),
+                jax.lax.dynamic_update_slice_in_dim(scales, s, slot, axis=2))
+    rows = jnp.arange(ring.shape[0])[:, None]
+    slots = jnp.asarray(positions) % c
+    return tuple(buf.at[rows, :, slots, :].set(
+        val.astype(buf.dtype).transpose(0, 2, 1, 3), unique_indices=True)
+        for buf, val in ((ring, q), (scales, s)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("positions", ["int", "rows"])
+def test_rope_and_quantize_equal_reference_bit_for_bit(dtype, positions):
+    """``quantize_into`` with the rope tables (its plain version: the port's
+    ``apply_rope`` on K, then ``quantize_kv`` and the scatter) against the
+    reference's ``layers.apply_rope``, ``_quantize_kv`` and its scatter on
+    the same numpy rows and tables: the same int8 ring and bf16 scales.
+    One position for every row (T 1, tables (1, D/2)) and (B, T) positions
+    (tables (B, T, D/2)); V through the strides of a (B, T, Hkv, D)
+    projection; a token whose tables are sin 0, cos 1 (position 0) carries
+    rows whose rotated elements fall on .5 exactly, another sin 1, cos 0."""
+    rng = np.random.default_rng(11)
+    b, h, c, d = 2, 3, 16, 40
+    t = 1 if positions == "int" else 4
+    k = (rng.standard_normal((b, h, t, d)) * 3).astype(np.float32)
+    v = (rng.standard_normal((b, t, h, d)) * 3).astype(np.float32)
+    ties = _tie_rows()
+    k[0, :2, 0, :8], k[0, :2, 0, d // 2:d // 2 + 8] = ties[:2], -ties[:2]
+    ang = rng.uniform(0, 200, (1 if positions == "int" else b, t, d // 2))
+    sin, cos = np.sin(ang).astype(np.float32), np.cos(ang).astype(np.float32)
+    sin[0, 0], cos[0, 0] = 0.0, 1.0
+    if positions == "rows":
+        sin[1, 1], cos[1, 1] = 1.0, 0.0
+        pos = np.asarray([[30, 31, 32, 33], [5, 6, 7, 8]], np.int32)
+        tables = (sin, cos)
+    else:
+        pos, tables = 21, (sin[0], cos[0])
+    jdt = getattr(jnp, dtype)
+    jk = jlayers.apply_rope(jnp.asarray(k, jdt), *map(jnp.asarray, tables))
+    jv = jnp.asarray(v, jdt).transpose(0, 2, 1, 3)
+    ring0 = np.full((b, h, c, d), 7, np.int8)
+    sc0 = jnp.full((b, h, c, 1), 3.0, jnp.bfloat16)
+    want = []
+    for new in (jk, jv):
+        q, s_ = jtfm._quantize_kv(new)
+        want += _reference_scatter(jnp.asarray(ring0), sc0, q, s_, pos)
+    tk = tensor_from_numpy(np.asarray(jnp.asarray(k, jdt)), "cpu")
+    tv = tensor_from_numpy(np.asarray(jnp.asarray(v, jdt)),
+                           "cpu").transpose(1, 2)
+    rings = [torch.from_numpy(ring0.copy()) for _ in range(2)]
+    scs = [torch.full((b, h, c, 1), 3.0, dtype=torch.bfloat16)
+           for _ in range(2)]
+    tpos = pos if positions == "int" else torch.from_numpy(pos)
+    quantize_into(tk, tv, rings[0], rings[1], scs[0], scs[1], tpos,
+                  *map(torch.from_numpy, tables))
+    got = [rings[0], scs[0], rings[1], scs[1]]
+    for name, g, w in zip(("k", "k_scale", "v", "v_scale"), got, want):
+        np.testing.assert_array_equal(g.float().numpy(), _np(w),
+                                      err_msg=name)
+    # the tie rows: rotated by sin 0, cos 1 they are themselves (scales 1
+    # and 2), and round half to even as quantize_kv's own tie test
+    slot = (21 if positions == "int" else 30) % c
+    assert rings[0][0, 0, slot, :8].tolist() == [0, 2, 2, 0, -2, 126, -127, 4]
+    assert rings[0][0, 1, slot, :8].tolist() == [0, 2, 2, 0, -4, 127, 0, 4]
+
+
+def test_rope_tables_of_the_kernel():
+    """The strides the kernel gets for the tables ``apply_rope`` takes:
+    (1, D/2) for every row, (T, D/2) for every batch row, (B, T, D/2) a
+    token each; the pair refused unless both are fp32 of one shape that
+    broadcasts to (B, T, D/2), and on an odd head dim."""
+    one = torch.zeros(1, 8)
+    assert _rope_tables(None, None, 2, 1, 16, one.device) == (None, None,
+                                                              0, 0)
+    assert _rope_tables(one, one, 4, 1, 16, one.device)[2:] == (0, 0)
+    per_t = torch.zeros(5, 8)
+    assert _rope_tables(per_t, per_t, 4, 5, 16, one.device)[2:] == (0, 8)
+    per_bt = torch.zeros(3, 5, 8)
+    assert _rope_tables(per_bt, per_bt, 3, 5, 16, one.device)[2:] == (40, 8)
+    for bad, match in (((one, None), "both"), ((one.double(), one), "float32"),
+                       ((one, torch.zeros(1, 1, 8)), "one"),
+                       ((per_t, per_t), "broadcast")):
+        with pytest.raises(ValueError, match=match):
+            _rope_tables(*bad, 4, 2, 16, one.device)
+    with pytest.raises(ValueError, match="even head dim"):
+        _rope_tables(one, one, 1, 1, 15, one.device)
 
 
 def test_kv_scale_pointers_check_the_pairing():
@@ -599,10 +698,29 @@ def test_int8_routes_and_tilings():
     assert dk.tiling(5, 128, 2, "mma") == (64, 2)
 
 
+def test_int8_chunk_split_plan():
+    """Route "wgmma" plans one design of WG_ROWS rows a block over an int8
+    ring as over bf16: at the serving chunks (qwen3-14b's G 5, kimi-k2's G
+    8) the blocks of a chunk of 256 cover the SMs unsplit, and a chunk of
+    32 or 64 is split among a cluster's blocks until they do."""
+    assert fk.WG_ROWS == 64
+    assert fk.plan_splits(1, 8, 256, 2048, 5) == (20, 1)
+    assert fk.plan_splits(1, 8, 256, 2048, 8) == (32, 1)
+    assert fk.plan_splits(1, 8, 32, 2048, 5) == (3, 6)
+    assert fk.plan_splits(1, 8, 32, 700, 5) == (3, 6)
+    assert fk.plan_splits(1, 8, 64, 2048, 8) == (8, 3)
+
+
 def test_int8_instances_are_in_the_sources():
     """Both attention sources compile an int8 instance of every route and
     take kv dtype 2; the decode source's mma instances are one list for
-    both cache types; the kv_quant source divides IEEE round to nearest."""
+    both cache types; every route converts int8 by the one byte-permute
+    helper of hopper_gemm.cuh (no integer conversion); flash's "wgmma"
+    instances bring a tile's scales by bulk copies and convert V while
+    S = Q K^T runs and the next K while O += P V runs, starting S at
+    scale-d 0; the kv_quant source divides IEEE round to nearest and
+    rotates K as apply_rope, each product and sum rounded on its own, in
+    instances of their own."""
     dec = (CSRC / "decode_attention.cu").read_text()
     for d in dk.MMA_HEAD_DIMS:
         assert f"case {d}: return F<KV, 8, 1, {d}>" in dec
@@ -620,9 +738,51 @@ def test_int8_instances_are_in_the_sources():
         assert f"allow_smem(flash_attention_mma_kernel<{d}, true>" in fl
     assert "launch_fma<bf16, true>" in fl
     assert re.search(r"STAGES = D == 64 \? 4 : 2;", fl)
+    # the conversion: one helper, a byte permute and a subtraction, shared
+    # by decode ("mma": i8f, deq_pair8; "fma": deq) and flash (dequant8)
+    hg = (CSRC / "hopper_gemm.cuh").read_text()
+    assert ("__fsub_rn(__uint_as_float(__byte_perm(wx, 0x4B000000u, "
+            "0x7540 + i)), 8388736.0f)") in hg
+    assert "__fmul_rn(i8f(w ^ 0x80808080u, i), scale)" in hg
+    assert "deq_pair8(i8f(x0, 0), scale, i8f(x0, 1), scale)" in hg
+    assert "static_cast<int>(w <<" not in hg
+    for src in (dec, fl):
+        assert "float i8f(" not in src and "cp.async.bulk.shared" not in src
+    assert "using hg::i8f;" in dec and "using hg::deq_pair8;" in dec
+    # flash "wgmma" over int8: scales by two bulk copies beside the TMA
+    # boxes (the lanes only where bulk_tile refuses), one bf16 K and one V
+    # tile, V converted while S runs, the next K while O += P V runs
+    wg = (CSRC / "flash_attention_wgmma.cu").read_text()
+    assert ("hg::bulk_copy(sc16 + 2 * s * kWgBK, a.k_scale + si, 2 * kWgBK, "
+            "&full[s]);") in wg
+    assert ("hg::bulk_copy(sc16 + (2 * s + 1) * kWgBK, a.v_scale + si, "
+            "2 * kWgBK, &full[s]);") in wg
+    assert "hg::dequant8(raw[j].x, raw[j].y, scale[j])" in wg
+    assert not re.search(r"\bsc_s\b", wg) and "__ldg(a.k_scale" not in wg
+    assert "hg::wgmma_m64n64<0>(sc, dq, dk, Q8 && kk == 0 ? 0 : 1);" in wg
+    assert re.search(r"hg::wgmma_commit\(\);\s*(//[^\n]*\n\s*)*"
+                     r"if constexpr \(Q8\) \{\s*convert\(1, s\);"
+                     r"[^}]*\}\s*\}\s*hg::wgmma_wait<0>\(\);", wg)
+    assert re.search(r"wgmma_pv<D>\(o, pf\[j\], dv\);\s*\}\s*"
+                     r"hg::wgmma_commit\(\);\s*if constexpr \(Q8\) \{"
+                     r"[^}]*convert\(0, s1\);\s*\}\s*"
+                     r"hg::wgmma_wait<0>\(\);", wg)
+    assert "RING = STAGES * STAGE_BYTES + (Q8 ? 2 * KV_BYTES : 0)" in wg
+    # one design for both types: a block of kWgRows rows, one consumer
+    # warpgroup and the producer warp
+    assert "__launch_bounds__(kWgThreads, WgTile<D>::MIN_BLOCKS)" in wg
+    assert "static constexpr int Q_BYTES = kWgRows * DP * 2;" in wg
     kvq = (CSRC / "kv_quant.cu").read_text()
     assert "__fdiv_rn(x[i], scale)" in kvq and "rintf" in kvq
     assert "__fdiv_rn(fmaxf(amax, 1e-6f), 127.0f)" in kvq
+    assert "__fsub_rn(__fmul_rn(v, c), __fmul_rn(other, s))" in kvq
+    assert "__fadd_rn(__fmul_rn(v, c), __fmul_rn(other, s))" in kvq
+    assert "v = __bfloat162float(__float2bfloat16_rn(v));" in kvq
+    # the rope a compile-time instance: rows without it run the loop as
+    # before it was folded in
+    for t in ("bf16", "float"):
+        for rope in ("true", "false"):
+            assert f"kv_quant_kernel<{t}, {rope}><<<" in kvq
 
 
 # ---------------------------------------------------------------------------
